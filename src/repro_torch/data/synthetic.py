@@ -1,0 +1,12 @@
+"""Synthetic token streams (numpy port of ``repro.data.synthetic``)."""
+from __future__ import annotations
+
+import numpy as np
+
+
+def synthetic_tokens(rng: np.random.Generator, batch, seq_len, vocab):
+    """Zipf-ish synthetic tokens: floor(vocab ** u), u ~ U[0, 1),
+    clipped to the vocabulary -- heavy-tailed like real text."""
+    u = rng.random((batch, seq_len), dtype=np.float32)
+    ranks = np.floor(np.float32(vocab) ** u).astype(np.int32)
+    return np.clip(ranks, 0, vocab - 1)

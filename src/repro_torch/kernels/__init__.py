@@ -1,0 +1,7 @@
+"""Hand-written CUDA kernels of the port, each beside its plain version."""
+from repro_torch.kernels.build import launch_counts, reset_launch_counts
+from repro_torch.kernels.paged_decode import (paged_flash_decode,
+                                              paged_flash_decode_ref)
+
+__all__ = ["paged_flash_decode", "paged_flash_decode_ref", "launch_counts",
+           "reset_launch_counts"]

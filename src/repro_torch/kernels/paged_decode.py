@@ -1,0 +1,151 @@
+"""Paged flash-decode: fused page-table gather + GQA online softmax.
+
+Replaces the TPU kernel ``repro/kernels/paged_decode.py::
+paged_flash_decode`` (body ``_gqa_kernel``) with a CUDA C++ kernel for
+Hopper, ``csrc/paged_decode.cu``.  Every attention call of the serving
+path goes through it: decode steps (S = 1) and chunked-prefill chunks
+(S <= prefill_chunk).
+
+Bound: memory.  A call must read each visible K/V row once, about
+``sum_b visible_tokens_b * hk * hd * 2 * sizeof(dtype)`` bytes, against
+a few FLOPs per byte.  The kernel walks only the pages that can hold a
+visible key, never materialises the slot-major gather that the plain
+version builds, and keeps scores and softmax state in shared memory.
+
+``paged_flash_decode`` takes the plain version ONLY for CPU tensors.  A
+CUDA tensor launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.build import count_launch, load_library
+
+__all__ = ["paged_flash_decode", "paged_flash_decode_ref", "visible_tokens"]
+
+ROWS_PER_BLOCK = 16        # query rows (of the g*S group rows) per block
+KEYS_PER_TILE = 64         # target keys staged per shared-memory tile
+SMEM_LIMIT = 227 * 1024    # dynamic shared memory one Hopper block may use
+
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+             + [ctypes.c_float, ctypes.c_void_p])
+
+
+def _lib():
+    lib = load_library("paged_decode")
+    if not getattr(lib, "_typed", False):
+        for fn in (lib.paged_flash_decode_f32, lib.paged_flash_decode_bf16):
+            fn.argtypes = _ARGTYPES
+            fn.restype = ctypes.c_int
+        lib.paged_flash_decode_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.paged_flash_decode_smem_bytes.restype = ctypes.c_ulonglong
+        lib.paged_flash_decode_error_string.argtypes = [ctypes.c_int]
+        lib.paged_flash_decode_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def paged_flash_decode_ref(q, k_pool, v_pool, page_table, q_positions, *,
+                           page_size, window=0):
+    """The plain version: gather the slot-major view, then attend."""
+    from repro_torch.models.attention import (PagedView, masked_attention,
+                                              paged_read)
+    view = PagedView(page_table, page_size)
+    k_full, kv_positions = paged_read(k_pool, view)
+    v_full, _ = paged_read(v_pool, view)
+    return masked_attention(q, k_full, v_full, q_positions=q_positions,
+                            kv_positions=kv_positions, window=window)
+
+
+def _check(q, k_pool, v_pool, page_table, q_positions, page_size):
+    if q.dim() != 4 or k_pool.dim() != 3:
+        raise ValueError(f"q must be (B,S,h,hd) and pools (N,hk,hd); got "
+                         f"{tuple(q.shape)}, {tuple(k_pool.shape)}")
+    B, S, h, hd = q.shape
+    N, hk, hd_k = k_pool.shape
+    if hd_k != hd or v_pool.shape != k_pool.shape:
+        raise ValueError("k_pool, v_pool and q disagree on (hk, hd)")
+    if h % hk:
+        raise ValueError(f"num_heads={h} is not a multiple of kv_heads={hk}")
+    if N % page_size:
+        raise ValueError(f"pool rows {N} not a multiple of page_size")
+    if page_table.dim() != 2 or page_table.shape[0] != B:
+        raise ValueError(f"page_table must be (B, W); got "
+                         f"{tuple(page_table.shape)}")
+    if tuple(q_positions.shape) != (B, S):
+        raise ValueError(f"q_positions must be (B, S)=({B}, {S}); got "
+                         f"{tuple(q_positions.shape)}")
+
+
+def paged_flash_decode(q, k_pool, v_pool, page_table, q_positions, *,
+                       page_size, window=0):
+    """Fused paged gather + flash attention for GQA decode.
+
+    q: (B, S, h, hd); k_pool, v_pool: (N, hk, hd) token-major pools;
+    page_table: (B, W) int32 (0 = trash page); q_positions: (B, S)
+    int32.  Returns (B, S, h, hd) in q's dtype.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel.
+    """
+    _check(q, k_pool, v_pool, page_table, q_positions, page_size)
+    if q.device.type == "cpu":
+        return paged_flash_decode_ref(q, k_pool, v_pool, page_table,
+                                      q_positions, page_size=page_size,
+                                      window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_flash_decode: unsupported device {q.device}")
+    tensors = (q, k_pool, v_pool, page_table, q_positions)
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("paged_flash_decode: all operands must share a device")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"paged_flash_decode: dtype {q.dtype} not supported "
+                        "(float32 or bfloat16)")
+    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+        raise TypeError("paged_flash_decode: pools must have q's dtype")
+    if page_table.dtype != torch.int32 or q_positions.dtype != torch.int32:
+        raise TypeError("paged_flash_decode: page_table and q_positions must "
+                        "be int32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("paged_flash_decode: operands must be contiguous")
+    B, S, h, hd = q.shape
+    hk = k_pool.shape[1]
+    if hd % 8 or any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
+        raise ValueError("paged_flash_decode: head_dim must be a multiple of "
+                         "8 and q/pools 16-byte aligned (vector loads)")
+    pages_per_tile = max(1, KEYS_PER_TILE // page_size)
+    rows = min(ROWS_PER_BLOCK, (h // hk) * S)
+    lib = _lib()
+    smem = lib.paged_flash_decode_smem_bytes(rows, pages_per_tile * page_size,
+                                             hd)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"paged_flash_decode: page_size={page_size}, "
+                         f"head_dim={hd} need {smem} B of shared memory")
+    out = torch.empty_like(q)
+    fn = (lib.paged_flash_decode_f32 if q.dtype == torch.float32
+          else lib.paged_flash_decode_bf16)
+    scale = float(np.float32(1.0 / np.sqrt(hd)))
+    rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            page_table.data_ptr(), q_positions.data_ptr(), out.data_ptr(),
+            B, S, h, hk, hd, page_table.shape[1], page_size, int(window),
+            rows, pages_per_tile, scale,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("paged_flash_decode launch failed: "
+                           + lib.paged_flash_decode_error_string(rc).decode())
+    count_launch("paged_flash_decode")
+    return out
+
+
+def visible_tokens(q_positions, page_table_width, page_size, window=0):
+    """Keys each slot must read (host numpy): the union over the slot's
+    queries of the visible positions -- what the bound counts."""
+    pos = np.asarray(q_positions)
+    T = page_table_width * page_size
+    total = 0
+    for row in pos:
+        hi = min(int(row.max()), T - 1)
+        lo = 0 if not window else max(0, int(row.min()) - window + 1)
+        total += max(0, hi - lo + 1)
+    return total

@@ -1,0 +1,120 @@
+"""Where the serving time goes: host wall vs device time per phase.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+        --arch qwen3-1.7b [--out chiprun_out/profile_serve.json]
+
+Serves the same traffic as ``chip_smoke.py``'s main-path phase (16
+requests of 64-512 prompt tokens, 64 new greedy tokens, 8 slots), then
+traces one prefill chunk and one fused decode tick with
+``torch.profiler``: host wall time, the device's busy time (sum of
+kernel times on the one stream), its idle share, kernel launches, and
+the kernels that take the most device time.  Needs the card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.configs import get_config
+from repro_torch.device import resolve_device
+from repro_torch.models import apply_model, init_model
+from repro_torch.models.attention import PagedView
+from repro_torch.serve import ContinuousScheduler
+
+
+def _device_us(evt) -> float:
+    return getattr(evt, "self_device_time_total",
+                   getattr(evt, "self_cuda_time_total", 0.0))
+
+
+def trace(fn, device):
+    """Host wall (ms) of fn() ending in a synchronize, and the kernels
+    the profiler saw on the device."""
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(device)
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if _device_us(e) > 0
+               and e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(_device_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=_device_us, reverse=True)[:8]
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "device_idle_share": max(0.0, 1.0 - busy / wall),
+            "kernel_launches": sum(e.count for e in kernels),
+            "top_kernels": [{"name": e.key[:80], "count": e.count,
+                             "device_ms": _device_us(e) / 1e3}
+                            for e in top]}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-1.7b")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default="")
+    args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
+    if dev.type != "cuda":
+        raise SystemExit("profile_serve measures the card: --device cuda")
+    cfg = get_config(args.arch)
+    slots, n_req, new, ps, chunk, K = 8, 16, 64, 16, 32, 8
+    max_len = -(-(512 + new + K) // ps) * ps
+    rng = np.random.default_rng(args.seed)
+    lens = rng.integers(64, 513, n_req)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    model = init_model(cfg, seed=args.seed, device=dev)
+
+    def scheduler():
+        return ContinuousScheduler(cfg, model, slots=slots, max_len=max_len,
+                                   page_size=ps, prefill_chunk=chunk,
+                                   decode_chunk=K)
+
+    scheduler().generate(prompts[:2], 4)                   # warm-up
+    sch = scheduler()
+    t0 = time.perf_counter()
+    sch.generate(prompts, new)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    st = sch.stats()
+    report = {"card": torch.cuda.get_device_name(0), "serve_wall_s": wall,
+              "tokens_per_s": st["tokens_out"] / wall,
+              "ttft_p50_s": float(np.median(st["ttft_s"])),
+              "prefill_dispatches": st["prefill_dispatches"],
+              "decode_dispatches": st["decode_dispatches"]}
+
+    # one decode tick with all slots busy, and one prefill chunk
+    sch = scheduler()
+    for p in prompts[:slots]:
+        sch.submit(p, new)
+    sch._admit()
+    with torch.inference_mode():
+        report["decode_tick"] = trace(sch._decode_tick, dev)
+        kv = sch.kv
+        kv.free(0)
+        kv.alloc(0, 256 + chunk)
+        view = PagedView(kv.table([0]), ps)
+        toks = torch.from_numpy(prompts[0][:chunk]).to(dev)[None]
+        pos = torch.full((1,), 256, dtype=torch.int32, device=dev)
+        report["prefill_chunk"] = trace(
+            lambda: apply_model(cfg, model, toks, cache=kv.cache,
+                                cache_pos=pos, paged=view, logits=False), dev)
+    print(json.dumps(report, indent=1))
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(report, f, indent=1)
+    return report
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,99 @@
+"""Core building blocks: norms, MLPs, embeddings, RoPE, init helpers.
+
+Port of ``repro.models.layers``.  Functions take tensors and weights
+explicitly; weights arrive already in the compute dtype (the bridge
+and ``init_model`` cast once at load, where the reference casts at
+every use -- the same values either way).  Norm scales stay fp32, as
+the reference multiplies them in fp32.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+# --------------------------------------------------------------------------
+# init helpers (fp32 masters, drawn from an explicit generator)
+# --------------------------------------------------------------------------
+
+def truncated_normal(shape, std, *, generator, device="cpu"):
+    """Normal(0, std) truncated at +-3 std, in fp32."""
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    return torch.nn.init.trunc_normal_(t, 0.0, std, -3.0 * std, 3.0 * std,
+                                       generator=generator)
+
+
+def dense_init(d_in, d_out, *, generator, device="cpu", std=None):
+    std = std if std is not None else 1.0 / np.sqrt(d_in)
+    return truncated_normal((d_in, d_out), std, generator=generator,
+                            device=device)
+
+
+# --------------------------------------------------------------------------
+# norms
+# --------------------------------------------------------------------------
+
+def rmsnorm(scale, x, eps=1e-6):
+    """fp32 inside, cast back to x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * scale).to(dt)
+
+
+# --------------------------------------------------------------------------
+# MLP (gated SwiGLU or plain 2-mat)
+# --------------------------------------------------------------------------
+
+def apply_mlp(p, x, gated=True):
+    up = x @ p["w_up"]
+    if gated:
+        h = F.silu(x @ p["w_gate"]) * up
+    else:
+        h = F.gelu(up, approximate="tanh")
+    return h @ p["w_down"]
+
+
+# --------------------------------------------------------------------------
+# embeddings
+# --------------------------------------------------------------------------
+
+def apply_embed(table, tokens):
+    """Rows of the table (already in the compute dtype)."""
+    return table[tokens]
+
+
+def apply_unembed(table_f32, x):
+    """Logits in fp32 against the fp32 table."""
+    return x.float() @ table_f32.t()
+
+
+# --------------------------------------------------------------------------
+# RoPE (split-half convention)
+# --------------------------------------------------------------------------
+
+def rope_freqs(head_dim, theta):
+    """(hd/2,) fp32 inverse frequencies, computed in numpy exactly as the
+    reference does; the model keeps them on its device once, so the
+    decode loop copies nothing from the host."""
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32)
+                            / head_dim))
+
+
+def rope_angles(positions, freqs):
+    """(cos, sin) of the rotation angles, each (B, S, 1, hd/2) fp32, for
+    (B, S) per-slot positions; freqs is ``rope_freqs(hd, theta)`` on the
+    positions' device.  Every layer of a model call rotates by the same
+    angles, so the call computes them once."""
+    ang = positions[..., :, None].float() * freqs        # (B, S, hd/2)
+    return torch.cos(ang)[..., :, None, :], torch.sin(ang)[..., :, None, :]
+
+
+def apply_rope(x, angles):
+    """Split-half rotation of x: (B, S, heads, hd) by ``rope_angles``."""
+    cos, sin = angles
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)

@@ -1,0 +1,116 @@
+"""Top-level decoder: init, paged cache, decode-mode forward, logits.
+
+Port of ``repro.models.model`` for decoder-only dense stacks in the
+decode mode the serving path uses (decode steps and chunked-prefill
+chunks, both over the paged pool).  ``apply_model`` returns
+``{"logits", "hidden"}``; the pool is updated in place.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as tfm
+from repro_torch.models.layers import (apply_embed, apply_unembed, rmsnorm,
+                                       rope_freqs, truncated_normal)
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(cfg) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+class Model(nn.Module):
+    """Decoder weights on one device.
+
+    tree: {"embed": {"table"}, "layers": [layer tree, ...],
+    "final_norm": {"scale"}, "unembed": {"table"} (untied only)} in
+    fp32 masters or any float dtype; each weight is cast once to the
+    compute dtype here.  The unembedding table is also kept in fp32 for
+    the fp32 logits (the same tensor when the compute dtype is fp32).
+    """
+
+    def __init__(self, cfg, tree, *, device):
+        super().__init__()
+        if cfg.layer_pattern() != (("attn", "mlp"),) * cfg.num_layers:
+            raise ValueError(f"{cfg.name}: the port serves dense "
+                             "attention/MLP stacks only")
+        dt = compute_dtype(cfg)
+        table = tree["embed"]["table"].to(device=device, dtype=torch.float32)
+        self.embed = tfm._frozen(table.to(dt))
+        out = table if cfg.tie_embeddings else tree["unembed"]["table"].to(
+            device=device, dtype=torch.float32)
+        self.unembed_f32 = tfm._frozen(out)
+        self.layers = nn.ModuleList(
+            tfm.Layer(_to_device(t, device), dt) for t in tree["layers"])
+        self.final_norm = tfm._frozen(
+            tree["final_norm"]["scale"].to(device=device, dtype=torch.float32))
+        self.register_buffer("rope_freqs", torch.from_numpy(
+            rope_freqs(cfg.head_dim, cfg.rope_theta)).to(device))
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def init_model(cfg, *, seed=0, device="cuda") -> Model:
+    """Random weights from a seed: truncated normal, std 1/sqrt(d_in)
+    for projections and 0.02 for the embedding, drawn in fp32 with an
+    explicit ``torch.Generator`` on ``device``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tree = {"embed": {"table": truncated_normal(
+        (cfg.vocab_size, cfg.d_model), 0.02, generator=gen, device=dev)}}
+    tree["layers"] = [tfm.init_layer(cfg, generator=gen, device=dev)
+                      for _ in range(cfg.num_layers)]
+    tree["final_norm"] = {"scale": torch.ones((cfg.d_model,), device=dev)}
+    if not cfg.tie_embeddings:
+        tree["unembed"] = {"table": truncated_normal(
+            (cfg.vocab_size, cfg.d_model), 0.02, generator=gen, device=dev)}
+    return Model(cfg, tree, device=dev)
+
+
+def init_cache(cfg, dtype, *, pool, device="cuda"):
+    """The paged serving cache: one {"k", "v"} pool per layer, each
+    ``(num_pages * page_size, hk, hd)``; pool = (num_pages, page_size)."""
+    dev = resolve_device(device)
+    return [tfm.init_layer_cache(cfg, dtype, pool=pool, device=dev)
+            for _ in range(cfg.num_layers)]
+
+
+def _logits(cfg, model: Model, x):
+    return apply_unembed(model.unembed_f32,
+                         rmsnorm(model.final_norm, x, cfg.norm_eps))
+
+
+def apply_model(cfg, model: Model, tokens, *, cache, cache_pos, paged,
+                last_only=False, logits=True):
+    """Decode-mode forward over the paged pool.
+
+    tokens: (B, S) int; cache_pos: (B,) int32 per-slot position of the
+    first token; paged: PagedView.  S is 1 for a decode step or a
+    prefill chunk's length.  ``last_only`` slices the last position
+    before the unembedding.  Returns {"logits": (B, S', V) fp32,
+    "hidden": (B, S', d)} with S' = 1 under ``last_only``; a prefill
+    chunk whose logits nobody reads passes ``logits=False`` and skips
+    the unembedding."""
+    if cache_pos.dim() != 1:
+        raise ValueError("apply_model takes per-slot cache_pos (B,)")
+    x = apply_embed(model.embed, tokens)
+    S = tokens.shape[1]
+    positions = (cache_pos[:, None]
+                 + torch.arange(S, device=tokens.device,
+                                dtype=cache_pos.dtype)[None])
+    x = tfm.apply_stack(cfg, model.layers, x, positions=positions,
+                        cache=cache, paged=paged,
+                        rope_freqs=model.rope_freqs)
+    if last_only:
+        x = x[:, -1:]
+    out = {"hidden": x}
+    if logits:
+        out["logits"] = _logits(cfg, model, x)
+    return out

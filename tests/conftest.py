@@ -33,3 +33,8 @@ def run_with_devices(code: str, n_devices: int = 8) -> str:
 def rng():
     import jax
     return jax.random.PRNGKey(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips where there is none")
