@@ -4,15 +4,22 @@
 
 Phases (each fails the run if it goes wrong):
   1. the card's name and power limit; build every CUDA kernel of the
-     serving path from ``src/repro_torch/csrc`` with nvcc for sm_90a;
-  2. each kernel against its plain PyTorch version at the main path's
+     serving paths from ``src/repro_torch/csrc`` with nvcc for sm_90a,
+     one nvcc per source, all started together;
+  2. each kernel against its plain PyTorch version at the main paths'
      full-width shapes, fp32 and bf16, with its time, the plain
-     version's, the one-call PyTorch yardstick's and the bound;
-  3. the main path: full-width qwen3-1.7b in bf16 (weights from a seed)
+     version's, the one-call PyTorch yardstick's (where there is one)
+     and the bound;
+  3. the qwen3 path: full-width qwen3-1.7b in bf16 (weights from a seed)
      serves 16 requests on 8 slots through the continuous scheduler,
-     with every attention call launched through the kernel;
-  4. parity: a 2-layer full-width variant in fp32 gives the same greedy
-     tokens on the card (kernel) as on the CPU (plain version).
+     with every attention call launched through the paged-decode kernel;
+  4. parity: a 2-layer full-width qwen3 in fp32 gives the same greedy
+     tokens on the card (kernel) as on the CPU (plain version);
+  5. the RWKV-6 path: full-width, full-depth rwkv6-1.6b in bf16 serves
+     the same traffic, with every prefill chunk of two or more tokens
+     launched through the WKV6 kernel in each of its 24 layers;
+  6. parity: a 2-layer full-width rwkv6-1.6b in fp32 gives the same
+     greedy tokens on the card (kernel) as on the CPU (plain version).
 The last lines are the kernels' JSON record, the card's name and power
 limit, and the result line.  Without a card, or outside the repository,
 it exits non-zero and prints no result.
@@ -38,6 +45,11 @@ PEAK_OPS = {torch.bfloat16: 989e12,        # dense tensor-core bf16
 # own kernel bar; bf16 to its 8-bit mantissa (the plain version also
 # rounds the probabilities to bf16 before the value product)
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# wkv6: fp32 to the reference's own WKV bar (tests/test_kernels.py; the
+# chunked form re-associates the time sums); bf16 y additionally to one
+# bf16 step (2^-7 relative), since both sides round fp32 sums taken in
+# another order to bf16
+WKV_ATOL, WKV_BF16_RTOL = 5e-4, 2 ** -7
 POISON = 1e4
 
 # the serving run of phase 3
@@ -84,26 +96,27 @@ def paged_case(rng, B, S, h, hk, hd, ps, W, lengths):
 
 
 def time_ms(fn, flush, iters=20):
-    """Mean device time of fn() over iters calls, each timed alone with
+    """Median device time of fn() over iters calls, each timed alone with
     CUDA events after the L2 cache was flushed (the serving path finds a
     layer's pool cold: 28 layers' pools exceed the 50 MB L2).  The card
-    spins for about a millisecond before the start event, so the host
-    has enqueued all of fn() by then and the events time the device's
-    work, not the host's launch overhead."""
+    spins for about 5 ms before the start event, so the host has
+    enqueued all of fn() by then and the events time the device's work,
+    not the host's launch overhead; the median drops a call whose
+    enqueue a host stall still made outlast the spin."""
     for _ in range(3):
         fn()
-    total = 0.0
+    times = []
     for _ in range(iters):
         flush.zero_()
-        torch.cuda._sleep(2_000_000)
+        torch.cuda._sleep(10_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
         end.record()
         end.synchronize()
-        total += start.elapsed_time(end)
-    return total / iters
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
 def check_paged_decode(dev, flush):
@@ -200,12 +213,189 @@ def check_paged_decode(dev, flush):
 # phase 3 / 4: the serving path
 # --------------------------------------------------------------------------
 
+def wkv_case(rng, B, T, H, K, decay):
+    """r, k, v ~ N(0, 1); log-decays -exp(N(0, 1)) as in the reference's
+    tests, or -decay * exp(0.3 N(0, 1)) to reach the -60 clip; u and a
+    nonzero carried state ~ N(0, 1)."""
+    r, k, v = (rng.standard_normal((B, T, H, K)).astype(np.float32)
+               for _ in range(3))
+    if decay:
+        wl = -decay * np.exp(0.3 * rng.standard_normal((B, T, H, K)))
+    else:
+        wl = -np.exp(rng.standard_normal((B, T, H, K)))
+    u = rng.standard_normal((H, K)).astype(np.float32)
+    s0 = rng.standard_normal((B, H, K, K)).astype(np.float32)
+    return r, k, v, wl.astype(np.float32), u, s0
+
+
+def wkv_bound(B, T, H, K, el, chunk=32):
+    """Bytes each input read once and each output written once, and the
+    fp32 operations of the chunked form on these inputs (a ragged last
+    chunk counts only its real steps)."""
+    n = B * T * H * K
+    n_bytes = 3 * n * el + n * 4 + H * K * 4 + 2 * B * H * K * K * 4 + n * el
+    C = min(chunk, T)
+    ops = 0
+    for t0 in range(0, T, C):
+        c = min(C, T - t0)
+        ops += (2 * c * K * K              # carried state: (r e^Lp) @ S
+                + c * (c + 1) * K          # scores @ v, diagonal included
+                + 2 * c * K * K + K * K    # S' = e^L S + k_sc^T v
+                + 4 * K * c * (c - 1) // 2 + 3 * c * K)  # scores, bonus
+    return n_bytes, B * H * ops
+
+
+def check_wkv6(dev, flush):
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_chunked
+
+    H, K = 32, 64                                    # rwkv6-1.6b widths
+    rng = np.random.default_rng(1)
+    cases = [
+        ("prefill chunk B=1 T=32", 1, 32, 0.0),
+        ("ragged B=2 T=80, 3 chunks", 2, 80, 0.0),
+        ("clip B=1 T=64, decay ~-2.5/step", 1, 64, 2.5),
+    ]
+    rows = []
+    for name, B, T, decay in cases:
+        host = wkv_case(rng, B, T, H, K, decay)
+        if decay:     # the clip is reached: |L_j - Lp_t| > 60 in a chunk
+            L = np.cumsum(host[3][:, :32], axis=1)
+            if not (L[:, -1] - L[:, 0] < -60).any():
+                fail(f"wkv6 {name}: decays do not reach the clip")
+        for dtype in (torch.float32, torch.bfloat16):
+            r, k, v = (torch.from_numpy(x).to(dev, dtype) for x in host[:3])
+            wl, u, s0 = (torch.from_numpy(x).to(dev) for x in host[3:])
+            y, s = wkv6(r, k, v, wl, u, s0)
+            y_want, s_want = wkv6_chunked(r, k, v, wl, u, s0)
+            torch.cuda.synchronize()
+            err = max((y.float() - y_want.float()).abs().max().item(),
+                      (s - s_want).abs().max().item())
+            rtol = WKV_BF16_RTOL if dtype == torch.bfloat16 else 0.0
+            # the largest |err| / (atol + rtol |want|): <= 1 passes
+            used = max(((got - want).abs() / (WKV_ATOL + rtol * want.abs()))
+                       .max().item() for got, want in
+                       ((y.float(), y_want.float()), (s, s_want)))
+            if used > 1.0:
+                fail(f"wkv6 {name} {dtype}: max |err| {err}, {used:.3f} of "
+                     "the tolerance")
+            ms = time_ms(lambda: wkv6(r, k, v, wl, u, s0), flush)
+            plain_ms = time_ms(lambda: wkv6_chunked(r, k, v, wl, u, s0),
+                               flush)
+            n_bytes, ops = wkv_bound(B, T, H, K, r.element_size())
+            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / PEAK_OPS[torch.float32] * 1e3
+            rows.append({
+                "case": name, "dtype": str(dtype).replace("torch.", ""),
+                "max_abs_err": err, "tol": WKV_ATOL, "rtol": rtol,
+                "tolerance_used": used,
+                "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": n_bytes, "ops": ops})
+            print(f"  wkv6 {name:34s} {rows[-1]['dtype']:8s} err {err:.2e} "
+                  f"(atol {WKV_ATOL:g}, rtol {rtol:g}: {used:.3f} of the "
+                  f"tolerance)  kernel {ms:.4f} ms  "
+                  f"plain {plain_ms:.4f} ms  bound {rows[-1]['bound_ms']:.4f}"
+                  f" ms ({rows[-1]['bound_by']}, {n_bytes / 1e6:.2f} MB)")
+    return rows
+
+
+def multi_token_chunks(lens, chunk=PREFILL_CHUNK):
+    """Prefill calls with two or more tokens (the ones that run wkv6)."""
+    return sum(1 for n in lens for s in range(0, int(n), chunk)
+               if min(chunk, int(n) - s) >= 2)
+
+
 def serve(cfg, model, prompts, new_tokens, **kw):
     from repro_torch.serve import ContinuousScheduler
     sch = ContinuousScheduler(cfg, model, slots=SLOTS, max_len=MAX_LEN,
                               page_size=PAGE_SIZE, decode_chunk=DECODE_CHUNK,
                               prefill_chunk=PREFILL_CHUNK, **kw)
     return sch, sch.generate(prompts, new_tokens)
+
+
+def serve_rwkv(dev, lens):
+    """Phases 5 and 6: full-width full-depth rwkv6-1.6b in bf16 on the
+    phase-3 traffic, then card-vs-CPU fp32 greedy parity at 2 layers.
+    Returns the wkv6 launches of the phase-5 run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import init_model
+
+    cfg = get_config("rwkv6-1.6b")
+    rng = np.random.default_rng(0)
+    rng.integers(PROMPT_MIN, PROMPT_MAX + 1, REQUESTS)   # phase 3's lengths
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    numel = sum(p.numel() for p in model.layers.parameters()) + sum(
+        t.numel() for t in (model.embed, model.unembed_f32, model.final_norm))
+    print(f"phase 5: {cfg.name} ({cfg.param_count() / 1e9:.3f} B params by "
+          f"the reference's formula, {numel / 1e9:.3f} B allocated; "
+          f"{cfg.num_layers} layers, bf16) initialised in "
+          f"{time.perf_counter() - t0:.1f} s")
+    serve(cfg, model, prompts[:2], 4)                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident_gib = torch.cuda.memory_allocated() / 2**30
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    sch, outs = serve(cfg, model, prompts, NEW_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    st = sch.stats()
+    multi = multi_token_chunks(lens)
+    launches = counts.get("wkv6", 0)
+    if launches != cfg.num_layers * multi:
+        fail(f"wkv6 launched {launches} times, expected {cfg.num_layers} x "
+             f"{multi} prefill calls of >= 2 tokens")
+    if counts.get("paged_flash_decode", 0):
+        fail("paged_flash_decode launched on the attention-free path")
+    if len(outs) != REQUESTS or any(
+            len(o) != NEW_TOKENS or o.min() < 0 or o.max() >= cfg.vocab_size
+            for o in outs):
+        fail("served outputs have the wrong length or out-of-vocab tokens")
+    for i, layer in enumerate(sch.kv.cache):
+        if not all(torch.isfinite(t).all() for t in layer.values()):
+            fail(f"layer {i}: recurrent state is not finite")
+    n_tok = sum(len(o) for o in outs)
+    ttft = sorted(st["ttft_s"])
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"phase 5: {REQUESTS} requests ({int(lens.sum())} prompt tokens) x "
+          f"{NEW_TOKENS} new tokens on {SLOTS} slots in {wall:.3f} s: "
+          f"{n_tok / wall:.1f} tokens/s, TTFT p50 "
+          f"{ttft[len(ttft) // 2] * 1e3:.1f} ms, "
+          f"{st['syncs_per_token']:.4f} host syncs/token, peak memory "
+          f"{peak_gib:.2f} GiB ({resident_gib:.2f} GiB resident at the "
+          f"start), recurrent state {st['state_bytes'] // SLOTS} "
+          f"B per slot ({st['state_bytes'] / 2**20:.1f} MiB in all); wkv6 "
+          f"launches {launches} = {cfg.num_layers} x {multi} of "
+          f"{st['prefill_dispatches']} prefill calls (the rest are one-token "
+          f"chunks: wkv6_step)")
+    del model, sch
+    torch.cuda.empty_cache()
+
+    small = cfg.with_overrides(num_layers=2, dtype="float32")
+    prompts6 = [p[:n] for p, n in zip(prompts[:4], (7, 40, 70, 33))]
+    got = {}
+    for where in ("cpu", "cuda"):
+        m = init_model(small, seed=1, device="cpu")
+        if where == "cuda":
+            m = m.to(dev)
+        reset_launch_counts()
+        got[where] = serve(small, m, prompts6, 12)[1]
+    if launch_counts().get("wkv6", 0) != 2 * multi_token_chunks(
+            [len(p) for p in prompts6]):
+        fail("phase 6: the card run did not launch wkv6 on every chunk")
+    for a, b in zip(got["cpu"], got["cuda"]):
+        if not np.array_equal(a, b):
+            fail(f"rwkv fp32 greedy tokens differ card vs CPU: {a} vs {b}")
+    print(f"phase 6: 2-layer full-width rwkv6 fp32 greedy tokens equal on "
+          f"card and CPU for {len(prompts6)} requests x 12 tokens")
+    return launches
 
 
 def main():
@@ -228,19 +418,28 @@ def main():
 
     # ---- phase 1: build ---------------------------------------------------
     t0 = time.perf_counter()
-    build.load_library("paged_decode")
-    info = build.build_info["paged_decode"]
-    regs = [ln.strip() for ln in info["ptxas"].splitlines()
-            if "registers" in ln]
-    print(f"phase 1: built csrc/paged_decode.cu in {info['seconds']:.1f} s "
-          f"(load {time.perf_counter() - t0:.1f} s); ptxas: {regs}")
+    stems = ("paged_decode", "wkv6")
+    build.load_libraries(stems)
+    print(f"phase 1: built {len(stems)} kernels in parallel in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for stem in stems:
+        info = build.build_info[stem]
+        ptxas = [ln.strip() for ln in info["ptxas"].splitlines()
+                 if "registers" in ln or "smem" in ln]
+        print(f"  csrc/{stem}.cu: nvcc {info['seconds']:.1f} s; ptxas: "
+              f"{ptxas}")
 
     # ---- phase 2: kernels vs plain versions -------------------------------
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     print("phase 2: kernels against their plain versions "
-          f"(tolerance fp32 {TOL[torch.float32]:g}, bf16 "
+          f"(paged_flash_decode tolerance fp32 {TOL[torch.float32]:g}, bf16 "
           f"{TOL[torch.bfloat16]:g}; times are device ms per call)")
     rows = check_paged_decode(dev, flush)
+    print(f"  wkv6 tolerance: atol {WKV_ATOL:g} in fp32, the reference's own "
+          "WKV bar (the chunked form re-associates the time sums); bf16 y "
+          f"also rtol {WKV_BF16_RTOL:g}, one bf16 step, since both sides "
+          "round fp32 sums taken in another order to bf16")
+    wkv_rows = check_wkv6(dev, flush)
     del flush
 
     # ---- phase 3: the main path, full width, bf16 -------------------------
@@ -258,6 +457,7 @@ def main():
     serve(cfg, model, prompts[:2], 4)                  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    resident_gib = torch.cuda.memory_allocated() / 2**30
     reset_launch_counts()
     t0 = time.perf_counter()
     sch, outs = serve(cfg, model, prompts, NEW_TOKENS)
@@ -271,6 +471,8 @@ def main():
     if launches != cfg.num_layers * model_calls:
         fail(f"paged_flash_decode launched {launches} times, expected "
              f"{cfg.num_layers} x {model_calls} model calls")
+    if counts.get("wkv6", 0):
+        fail("wkv6 launched on the attention-only path")
     if len(outs) != REQUESTS or any(
             len(o) != NEW_TOKENS or o.min() < 0 or o.max() >= cfg.vocab_size
             for o in outs):
@@ -283,7 +485,8 @@ def main():
           f"{SLOTS} slots in {wall:.3f} s: {n_tok / wall:.1f} tokens/s, "
           f"TTFT p50 {ttft[len(ttft) // 2] * 1e3:.1f} ms, "
           f"{st['syncs_per_token']:.4f} host syncs/token, peak memory "
-          f"{peak_gib:.2f} GiB, pool {st['pool_bytes'] / 2**20:.0f} MiB; "
+          f"{peak_gib:.2f} GiB ({resident_gib:.2f} GiB resident at the "
+          f"start), pool {st['pool_bytes'] / 2**20:.0f} MiB; "
           f"paged_flash_decode launches {launches} = {cfg.num_layers} x "
           f"({st['prefill_dispatches']} prefill calls + {DECODE_CHUNK} x "
           f"{st['decode_dispatches']} decode ticks)")
@@ -298,12 +501,15 @@ def main():
         m = init_model(small, seed=1, device="cpu")
         if where == "cuda":
             m = m.to(dev)
-        _, got[where] = serve(small, m, prompts4, 12)
+        got[where] = serve(small, m, prompts4, 12)[1]
     for a, b in zip(got["cpu"], got["cuda"]):
         if not np.array_equal(a, b):
             fail(f"fp32 greedy tokens differ card vs CPU: {a} vs {b}")
     print(f"phase 4: 2-layer full-width fp32 greedy tokens equal on card and "
           f"CPU for {len(prompts4)} requests x 12 tokens")
+    del m
+    torch.cuda.empty_cache()
+    wkv_launches = serve_rwkv(dev, lens)
 
     decode_bf16 = next(r for r in rows if r["case"].startswith("decode")
                        and r["dtype"] == "bfloat16")
@@ -320,8 +526,23 @@ def main():
         "library_ms": decode_bf16["library_ms"],
         "cases": rows,
     }
+    chunk_bf16 = next(r for r in wkv_rows if r["case"].startswith("prefill")
+                      and r["dtype"] == "bfloat16")
+    wkv_entry = {
+        "name": "wkv6", "route": "cuda",
+        "source": "src/repro_torch/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/rwkv6_scan.py:36",
+        "launches": wkv_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in wkv_rows
+                           if r["dtype"] == "bfloat16"),
+        "ms": chunk_bf16["ms"], "plain_ms": chunk_bf16["plain_ms"],
+        "bound_ms": chunk_bf16["bound_ms"],
+        "bound_by": chunk_bf16["bound_by"],
+        "library_ms": None,
+        "cases": wkv_rows,
+    }
     print(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [entry, wkv_entry]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

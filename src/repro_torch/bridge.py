@@ -1,11 +1,13 @@
 """Weights from the reference's parameter tree into the port, and back.
 
-The reference (``repro.models.init_model``) keeps a dense decoder's
-layers stacked: ``params["decoder"]["blocks"]["layer{j}"]`` carries a
-leading ``n_rep`` axis (one super-block of ``len(pattern)`` layers,
-repeated), after an unrolled ``params["decoder"]["prefix"]``.  Layouts
-are the same on both sides -- wq (d, h, hd), wk/wv (d, hk, hd),
-wo (h, hd, d), MLP (d_in, d_out) -- so the bridge only unstacks.
+The reference (``repro.models.init_model``) keeps a decoder's layers
+stacked: ``params["decoder"]["blocks"]["layer{j}"]`` carries a leading
+``n_rep`` axis (one super-block of ``len(pattern)`` layers, repeated),
+after an unrolled ``params["decoder"]["prefix"]``.  Layouts are the
+same on both sides -- wq (d, h, hd), wk/wv (d, hk, hd), wo (h, hd, d),
+MLP (d_in, d_out), the RWKV block's tree as in ``models.ssm`` (norm1,
+norm2 and a mixer with the nested ``ln_x: {"scale"}``, no ffn) -- so
+the bridge only unstacks.
 
 The caller turns the reference's arrays into numpy first; this module
 imports neither ``jax`` nor the reference package.
@@ -17,6 +19,9 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
+
+# mixer norms the reference nests as {"scale": t}; ``Layer`` flattens them
+NESTED_SCALES = ("q_norm", "k_norm", "ln_x")
 
 
 def _tensor(a) -> torch.Tensor:
@@ -66,11 +71,13 @@ def params_to_numpy(model: Model, cfg) -> dict:
         if t.dtype == torch.bfloat16 else t.detach().cpu().numpy()
 
     def layer_tree(layer):
-        mixer = {k: ({"scale": np_(v)} if k in ("q_norm", "k_norm")
-                     else np_(v)) for k, v in layer.mixer.items()}
-        return {"norm1": {"scale": np_(layer.norm1)}, "mixer": mixer,
-                "norm2": {"scale": np_(layer.norm2)},
-                "ffn": {k: np_(v) for k, v in layer.ffn.items()}}
+        mixer = {k: ({"scale": np_(v)} if k in NESTED_SCALES else np_(v))
+                 for k, v in layer.mixer.items()}
+        tree = {"norm1": {"scale": np_(layer.norm1)}, "mixer": mixer,
+                "norm2": {"scale": np_(layer.norm2)}}
+        if layer.ffn is not None:
+            tree["ffn"] = {k: np_(v) for k, v in layer.ffn.items()}
+        return tree
 
     trees = [layer_tree(layer) for layer in model.layers]
     n_pre, P = len(prefix), len(pattern)

@@ -172,16 +172,53 @@ class ModelConfig:
             p += (self.num_heads + 2 * self.num_kv_heads) * hd
         return p
 
+    def mamba_params(self) -> int:
+        mc = self.mamba or MambaConfig()
+        d_in = mc.expand * self.d_model
+        p = self.d_model * 2 * d_in                      # in_proj (x, z)
+        p += d_in * mc.d_conv                            # conv1d
+        p += d_in * (mc.d_state * 2 + d_in // 16)        # B, C, dt projections
+        p += d_in * mc.d_state                           # A
+        p += d_in * self.d_model                         # out_proj
+        return p
+
+    def rwkv_params(self) -> int:
+        """The reference's count, kept as it is so the two agree: it
+        leaves out ``cm_wr`` (d*d a layer) and counts the decay LoRA
+        twice, so it is not the allocated ``numel``."""
+        rc = self.rwkv or RWKVConfig()
+        d = self.d_model
+        p = 4 * d * d                                    # r, k, v, o (time-mix)
+        p += d * d                                       # gate
+        p += 2 * (d * rc.decay_lora + rc.decay_lora * d) # decay lora + u
+        p += 5 * (d * rc.mix_lora + rc.mix_lora * d)     # token-shift loras
+        p += 2 * d * self.d_ff                           # channel-mix (r,k)
+        return p
+
     @property
     def _mlp_mats(self) -> int:
         return 3 if self.mlp_gated else 2
 
+    def ffn_params(self, kind: str) -> int:
+        if kind != "mlp":
+            raise ValueError(f"ffn kind {kind!r} is not ported")
+        return self._mlp_mats * self.d_model * self.d_ff
+
+    def _mixer_params(self, kind: str) -> int:
+        return {"attn": self.attn_params(),
+                "mamba": self.mamba_params(),
+                "rwkv6": self.rwkv_params()}[kind]
+
     def param_count(self) -> int:
-        """Parameter count of a dense attention/MLP decoder."""
+        """Total parameter count by the reference's formula, walking the
+        layer pattern (an RWKV block carries its own channel mix)."""
         total = self.vocab_size * self.d_model * (1 if self.tie_embeddings
                                                   else 2)
-        per_layer = self.attn_params() + self._mlp_mats * self.d_model * self.d_ff
-        return total + self.num_layers * per_layer
+        for mixer, ffn in self.layer_pattern():
+            total += self._mixer_params(mixer)
+            if mixer != "rwkv6":
+                total += self.ffn_params(ffn)
+        return total
 
     def with_overrides(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

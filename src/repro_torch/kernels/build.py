@@ -50,26 +50,45 @@ def _nvcc() -> str:
     return path
 
 
-def load_library(stem: str) -> ctypes.CDLL:
-    """Compile ``csrc/<stem>.cu`` (once per content) and load it."""
-    if stem in _libs:
-        return _libs[stem]
+def _paths(stem: str):
     src = CSRC / f"{stem}.cu"
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"lib{stem}-{digest}.so"
-    info = {"path": str(out), "seconds": 0.0, "ptxas": "(cached build)"}
-    if not out.exists():
+    return src, BUILD_DIR / f"lib{stem}-{digest}.so"
+
+
+def load_libraries(stems) -> dict:
+    """Compile every ``csrc/<stem>.cu`` not yet built (once per content),
+    one ``nvcc`` per source, all started together; then load them."""
+    jobs = {}
+    for stem in stems:
+        src, out = _paths(stem)
+        if stem in _libs or out.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
-        info["seconds"] = time.perf_counter() - t0
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+        jobs[stem] = (proc, tmp, out, src, time.perf_counter())
+    done = {stem: (proc.communicate()[1], time.perf_counter() - t0)
+            for stem, (proc, _, _, _, t0) in jobs.items()}   # wait for all
+    for stem, (proc, tmp, out, src, _) in jobs.items():
+        err, seconds = done[stem]
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
-        info["ptxas"] = proc.stderr
+            raise RuntimeError(f"nvcc failed on {src}:\n{err}")
         os.replace(tmp, out)
-    build_info[stem] = info
-    _libs[stem] = ctypes.CDLL(str(out))
-    return _libs[stem]
+        build_info[stem] = {"path": str(out), "ptxas": err,
+                            "seconds": seconds}
+    for stem in stems:
+        if stem not in _libs:
+            out = _paths(stem)[1]
+            build_info.setdefault(stem, {"path": str(out), "seconds": 0.0,
+                                         "ptxas": "(cached build)"})
+            _libs[stem] = ctypes.CDLL(str(out))
+    return {stem: _libs[stem] for stem in stems}
+
+
+def load_library(stem: str) -> ctypes.CDLL:
+    """Compile ``csrc/<stem>.cu`` (once per content) and load it."""
+    return load_libraries([stem])[stem]

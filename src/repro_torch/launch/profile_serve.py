@@ -1,11 +1,13 @@
 """Where the serving time goes: host wall vs device time per phase.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
-        --arch qwen3-1.7b [--out chiprun_out/profile_serve.json]
+        --arch qwen3-1.7b|rwkv6-1.6b [--out profile_serve.json]
 
-Serves the same traffic as ``chip_smoke.py``'s main-path phase (16
-requests of 64-512 prompt tokens, 64 new greedy tokens, 8 slots), then
-traces one prefill chunk and one fused decode tick with
+Serves the same traffic as ``chip_smoke.py``'s serving phases (16
+requests of 64-512 prompt tokens, 64 new greedy tokens, 8 slots) with
+the full-width config of ``--arch``, then traces one prefill chunk (32
+tokens into slot 0 at position 256, its recurrent rows included) and
+one fused decode tick with
 ``torch.profiler``: host wall time, the device's busy time (sum of
 kernel times on the one stream), its idle share, kernel launches, and
 the kernels that take the most device time.  Needs the card.
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCHITECTURES, get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import apply_model, init_model
 from repro_torch.models.attention import PagedView
@@ -57,7 +59,8 @@ def trace(fn, device):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-1.7b")
+    ap.add_argument("--arch", default="qwen3-1.7b",
+                    choices=sorted(ARCHITECTURES))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="")
@@ -86,7 +89,8 @@ def main(argv=None):
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
     st = sch.stats()
-    report = {"card": torch.cuda.get_device_name(0), "serve_wall_s": wall,
+    report = {"card": torch.cuda.get_device_name(0), "arch": cfg.name,
+              "serve_wall_s": wall,
               "tokens_per_s": st["tokens_out"] / wall,
               "ttft_p50_s": float(np.median(st["ttft_s"])),
               "prefill_dispatches": st["prefill_dispatches"],
@@ -106,7 +110,7 @@ def main(argv=None):
         toks = torch.from_numpy(prompts[0][:chunk]).to(dev)[None]
         pos = torch.full((1,), 256, dtype=torch.int32, device=dev)
         report["prefill_chunk"] = trace(
-            lambda: apply_model(cfg, model, toks, cache=kv.cache,
+            lambda: apply_model(cfg, model, toks, cache=kv.slot_cache(0),
                                 cache_pos=pos, paged=view, logits=False), dev)
     print(json.dumps(report, indent=1))
     if args.out:

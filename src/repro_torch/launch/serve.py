@@ -4,9 +4,13 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
         --batch 8 --requests 16 --prompt-len 128 --new-tokens 64 --report
 
-    # the reduced config in fp32 on the CPU (plain PyTorch attention)
+    # the reduced config in fp32 on the CPU (plain PyTorch kernels)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
         --reduced --device cpu --batch 4 --prompt-len 32 --new-tokens 16
+
+    # the attention-free RWKV-6 stack, reduced, on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
+        --reduced --device cpu --batch 2 --prompt-len 40 --new-tokens 8
 
 Without --reduced the full config serves in bf16; with it, the smoke
 config in fp32.  Prompts come from ``synthetic_tokens`` seeded by
@@ -82,7 +86,8 @@ def main(argv=None):
           f"{dt:.2f}s ({n_tok/dt:.1f} tok/s incl. compile, "
           f"{st['syncs_per_token']:.3f} host syncs/token, "
           f"pool {st['pool_pages_in_use']} pages live, "
-          f"{st['pool_bytes']} pool bytes/device)")
+          f"{st['pool_bytes']} pool bytes, "
+          f"{st['state_bytes']} recurrent state bytes)")
     if args.report:
         kernel = "cuda" if device.type == "cuda" else "plain"
         print(f"report: decode_kernel={kernel} "

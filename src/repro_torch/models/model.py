@@ -1,9 +1,10 @@
 """Top-level decoder: init, paged cache, decode-mode forward, logits.
 
-Port of ``repro.models.model`` for decoder-only dense stacks in the
-decode mode the serving path uses (decode steps and chunked-prefill
-chunks, both over the paged pool).  ``apply_model`` returns
-``{"logits", "hidden"}``; the pool is updated in place.
+Port of ``repro.models.model`` for decoder-only stacks of GQA
+attention/MLP layers and RWKV-6 blocks, in the decode mode the serving
+path uses (decode steps and chunked-prefill chunks).  ``apply_model``
+returns ``{"logits", "hidden"}``; the paged pools and the per-slot
+recurrent states are updated in place.
 """
 from __future__ import annotations
 
@@ -34,9 +35,7 @@ class Model(nn.Module):
 
     def __init__(self, cfg, tree, *, device):
         super().__init__()
-        if cfg.layer_pattern() != (("attn", "mlp"),) * cfg.num_layers:
-            raise ValueError(f"{cfg.name}: the port serves dense "
-                             "attention/MLP stacks only")
+        check_ported(cfg)
         dt = compute_dtype(cfg)
         table = tree["embed"]["table"].to(device=device, dtype=torch.float32)
         self.embed = tfm._frozen(table.to(dt))
@@ -44,11 +43,30 @@ class Model(nn.Module):
             device=device, dtype=torch.float32)
         self.unembed_f32 = tfm._frozen(out)
         self.layers = nn.ModuleList(
-            tfm.Layer(_to_device(t, device), dt) for t in tree["layers"])
+            tfm.Layer(_to_device(t, device), dt, kind)
+            for t, (kind, _) in zip(tree["layers"], cfg.layer_pattern()))
         self.final_norm = tfm._frozen(
             tree["final_norm"]["scale"].to(device=device, dtype=torch.float32))
         self.register_buffer("rope_freqs", torch.from_numpy(
-            rope_freqs(cfg.head_dim, cfg.rope_theta)).to(device))
+            rope_freqs(cfg.head_dim, cfg.rope_theta)).to(device)
+            if tfm.has_attention(cfg) else None)
+
+
+def check_ported(cfg):
+    """Raise, naming the part, unless every layer of ``cfg`` is one the
+    port has: GQA attention with a dense MLP, or an RWKV-6 block."""
+    missing = []
+    if cfg.moe is not None:
+        missing.append("MoE")
+    if cfg.attention == "mla":
+        missing.append("MLA")
+    kinds = {mixer for mixer, _ in cfg.layer_pattern()}
+    missing += sorted(kinds - {"attn", "rwkv6"})
+    if cfg.is_encoder_decoder or cfg.frontend != "none":
+        missing.append("encoder-decoder / frontend")
+    if missing:
+        raise ValueError(f"{cfg.name}: {', '.join(missing)} not ported; the "
+                         "port serves GQA attention/MLP and RWKV-6 stacks")
 
 
 def _to_device(tree, device):
@@ -65,8 +83,8 @@ def init_model(cfg, *, seed=0, device="cuda") -> Model:
     gen = torch.Generator(device=dev).manual_seed(seed)
     tree = {"embed": {"table": truncated_normal(
         (cfg.vocab_size, cfg.d_model), 0.02, generator=gen, device=dev)}}
-    tree["layers"] = [tfm.init_layer(cfg, generator=gen, device=dev)
-                      for _ in range(cfg.num_layers)]
+    tree["layers"] = [tfm.init_layer(cfg, kind, generator=gen, device=dev)
+                      for kind, _ in cfg.layer_pattern()]
     tree["final_norm"] = {"scale": torch.ones((cfg.d_model,), device=dev)}
     if not cfg.tie_embeddings:
         tree["unembed"] = {"table": truncated_normal(
@@ -74,12 +92,17 @@ def init_model(cfg, *, seed=0, device="cuda") -> Model:
     return Model(cfg, tree, device=dev)
 
 
-def init_cache(cfg, dtype, *, pool, device="cuda"):
-    """The paged serving cache: one {"k", "v"} pool per layer, each
-    ``(num_pages * page_size, hk, hd)``; pool = (num_pages, page_size)."""
+def init_cache(cfg, dtype, *, pool, slots=None, device="cuda"):
+    """The serving cache, one entry per layer: an attention layer's
+    {"k", "v"} pool, each ``(num_pages * page_size, hk, hd)`` with pool
+    = (num_pages, page_size); an RWKV layer's {"state", "shift_tm",
+    "shift_cm"} with ``slots`` rows."""
     dev = resolve_device(device)
-    return [tfm.init_layer_cache(cfg, dtype, pool=pool, device=dev)
-            for _ in range(cfg.num_layers)]
+    kinds = [kind for kind, _ in cfg.layer_pattern()]
+    if slots is None and "rwkv6" in kinds:
+        raise ValueError(f"{cfg.name}: recurrent layers need slots=")
+    return [tfm.init_layer_cache(cfg, kind, dtype, pool=pool, slots=slots,
+                                 device=dev) for kind in kinds]
 
 
 def _logits(cfg, model: Model, x):
@@ -89,10 +112,12 @@ def _logits(cfg, model: Model, x):
 
 def apply_model(cfg, model: Model, tokens, *, cache, cache_pos, paged,
                 last_only=False, logits=True):
-    """Decode-mode forward over the paged pool.
+    """Decode-mode forward over the serving cache.
 
     tokens: (B, S) int; cache_pos: (B,) int32 per-slot position of the
-    first token; paged: PagedView.  S is 1 for a decode step or a
+    first token; paged: PagedView; cache: per-layer entries whose
+    recurrent rows match the B slots of this call (``PagedKVCache.
+    slot_cache`` for a one-slot prefill).  S is 1 for a decode step or a
     prefill chunk's length.  ``last_only`` slices the last position
     before the unembedding.  Returns {"logits": (B, S', V) fp32,
     "hidden": (B, S', d)} with S' = 1 under ``last_only``; a prefill
@@ -101,10 +126,11 @@ def apply_model(cfg, model: Model, tokens, *, cache, cache_pos, paged,
     if cache_pos.dim() != 1:
         raise ValueError("apply_model takes per-slot cache_pos (B,)")
     x = apply_embed(model.embed, tokens)
-    S = tokens.shape[1]
-    positions = (cache_pos[:, None]
-                 + torch.arange(S, device=tokens.device,
-                                dtype=cache_pos.dtype)[None])
+    positions = None
+    if tfm.has_attention(cfg):
+        positions = (cache_pos[:, None]
+                     + torch.arange(tokens.shape[1], device=tokens.device,
+                                    dtype=cache_pos.dtype)[None])
     x = tfm.apply_stack(cfg, model.layers, x, positions=positions,
                         cache=cache, paged=paged,
                         rope_freqs=model.rope_freqs)

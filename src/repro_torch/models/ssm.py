@@ -1,0 +1,145 @@
+"""RWKV-6 (Finch) time mix and channel mix for the serving path.
+
+Port of the RWKV half of ``repro.models.ssm`` (the Mamba half joins
+with the Jamba slice).  A layer's recurrent cache is
+``{"state": (B, H, K, K) fp32, "shift_tm": (B, d), "shift_cm": (B, d)}``
+(shifts in the compute dtype).  Where the reference returns a new
+cache, these functions update the one they are given IN PLACE
+(``copy_``): a B=1 prefill call receives row views ``t[slot:slot+1]``
+of the serving cache, so writing into them lands in the slot's rows
+with no merge step.
+
+Weights keep the reference's layouts: mu (5, d), mix_A (5, d, r),
+mix_B (5, r, d), decay_A (d, r), decay_B (r, d), u (H, K), projections
+(d_in, d_out).  ``u`` and ``w_base`` stay fp32, as the reference reads
+them in fp32; the rest arrive in the compute dtype.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.wkv6 import wkv6, wkv6_step
+from repro_torch.models.layers import dense_init, rmsnorm, truncated_normal
+
+# weights the reference reads in fp32 whatever the compute dtype
+FP32_WEIGHTS = ("u", "w_base")
+
+
+def init_rwkv6(cfg, *, generator, device="cpu"):
+    """fp32 master weights of one RWKV-6 block (time mix and channel
+    mix), as a tree in the reference's layout."""
+    rc = cfg.rwkv
+    d = cfg.d_model
+    H, K = d // rc.head_dim, rc.head_dim
+    kw = dict(generator=generator, device=device)
+    return {
+        "mu_base": truncated_normal((d,), 0.02, **kw),
+        "mu": truncated_normal((5, d), 0.02, **kw),
+        "mix_A": truncated_normal((5, d, rc.mix_lora), 0.02, **kw),
+        "mix_B": truncated_normal((5, rc.mix_lora, d), 0.02, **kw),
+        "w_base": truncated_normal((d,), 0.02, **kw) - 6.0,
+        "decay_A": truncated_normal((d, rc.decay_lora), 0.02, **kw),
+        "decay_B": truncated_normal((rc.decay_lora, d), 0.02, **kw),
+        "u": truncated_normal((H, K), 0.02, **kw),
+        "wr": dense_init(d, d, **kw),
+        "wk": dense_init(d, d, **kw),
+        "wv": dense_init(d, d, **kw),
+        "wg": dense_init(d, d, **kw),
+        "wo": dense_init(d, d, **kw),
+        "ln_x": {"scale": torch.ones((K,), device=device)},
+        "cm_mu_r": truncated_normal((d,), 0.02, **kw),
+        "cm_mu_k": truncated_normal((d,), 0.02, **kw),
+        "cm_wr": dense_init(d, d, **kw),
+        "cm_wk": dense_init(d, cfg.d_ff, **kw),
+        "cm_wv": dense_init(cfg.d_ff, d, **kw),
+    }
+
+
+def make_rwkv6_cache(cfg, batch, dtype, *, device="cpu"):
+    rc = cfg.rwkv
+    d = cfg.d_model
+    H, K = d // rc.head_dim, rc.head_dim
+    return {
+        "state": torch.zeros((batch, H, K, K), dtype=torch.float32,
+                             device=device),
+        "shift_tm": torch.zeros((batch, d), dtype=dtype, device=device),
+        "shift_cm": torch.zeros((batch, d), dtype=dtype, device=device),
+    }
+
+
+def _token_shift(x, prev):
+    """x: (B, S, d); prev: (B, d) last token of the previous segment."""
+    return torch.cat([prev[:, None, :], x[:, :-1, :]], dim=1)
+
+
+def _ddlerp(p, x, x_prev):
+    """Finch data-dependent token shift: one mix per (w, k, v, r, g)."""
+    B, S, d = x.shape
+    xx = x_prev - x
+    base = x + xx * p["mu_base"]                                   # (B,S,d)
+    n, _, r = p["mix_A"].shape
+    # einsum("bsd,ndr->bsnr") as one matmul over the flattened LoRAs
+    a = p["mix_A"].permute(1, 0, 2).reshape(d, n * r)
+    t = torch.tanh(base @ a).reshape(B * S, n, r).transpose(0, 1)  # (n,BS,r)
+    lora = torch.bmm(t, p["mix_B"]).reshape(n, B, S, d)            # nrd
+    mixed = x[None] + xx[None] * (p["mu"][:, None, None, :] + lora)
+    return tuple(mixed[i] for i in range(n))                       # (B,S,d)
+
+
+def apply_rwkv6_time_mix(cfg, p, x, *, cache=None):
+    """x: (B, S, d) -> (B, S, d), in the reference's decode mode: a
+    one-token call (S == 1) takes the one-step update ``wkv6_step``, a
+    longer one the chunked ``wkv6`` (the CUDA kernel on the card).
+    ``cache`` (or zeros when None) supplies the carried state and token
+    shift; a given cache receives the new ``state`` and ``shift_tm`` in
+    place."""
+    rc = cfg.rwkv
+    B, S, d = x.shape
+    dt = x.dtype
+    H, K = d // rc.head_dim, rc.head_dim
+    prev = (cache["shift_tm"].to(dt) if cache is not None
+            else torch.zeros((B, d), dtype=dt, device=x.device))
+    xw, xk, xv, xr, xg = _ddlerp(p, x, _token_shift(x, prev))
+
+    r = (xr @ p["wr"]).reshape(B, S, H, K)
+    k = (xk @ p["wk"]).reshape(B, S, H, K)
+    v = (xv @ p["wv"]).reshape(B, S, H, K)
+    g = F.silu(xg @ p["wg"])
+    w_log = -torch.exp(
+        p["w_base"] + (torch.tanh(xw @ p["decay_A"]) @ p["decay_B"]).float()
+    ).reshape(B, S, H, K)
+
+    state0 = (cache["state"] if cache is not None
+              else torch.zeros((B, H, K, K), dtype=torch.float32,
+                               device=x.device))
+    if S == 1:
+        y, state = wkv6_step(r[:, 0], k[:, 0], v[:, 0], w_log[:, 0],
+                             p["u"], state0)
+        y = y[:, None]
+    else:
+        y, state = wkv6(r, k, v, w_log, p["u"], state0)
+
+    y = rmsnorm(p["ln_x"], y.to(dt).reshape(B, S, H, K), cfg.norm_eps)
+    out = (y.reshape(B, S, d) * g) @ p["wo"]
+    if cache is not None:
+        cache["state"].copy_(state)
+        cache["shift_tm"].copy_(x[:, -1, :])
+    return out
+
+
+def apply_rwkv6_channel_mix(cfg, p, x, *, cache=None):
+    """x: (B, S, d) -> (B, S, d); a given cache receives ``shift_cm``
+    in place."""
+    dt = x.dtype
+    B = x.shape[0]
+    prev = (cache["shift_cm"].to(dt) if cache is not None
+            else torch.zeros((B, x.shape[-1]), dtype=dt, device=x.device))
+    xx = _token_shift(x, prev) - x
+    xk = x + xx * p["cm_mu_k"]
+    xr = x + xx * p["cm_mu_r"]
+    kk = torch.square(torch.relu(xk @ p["cm_wk"]))
+    out = torch.sigmoid(xr @ p["cm_wr"]) * (kk @ p["cm_wv"])
+    if cache is not None:
+        cache["shift_cm"].copy_(x[:, -1, :])
+    return out

@@ -1,18 +1,25 @@
-"""Paged KV cache: fixed-size pages, per-slot page tables, alloc/free.
+"""Paged KV cache: fixed-size pages, per-slot page tables, alloc/free,
+and per-slot recurrent state.
 
-Port of ``repro.serve.kvcache.PagedKVCache`` for attention-only stacks.
-Each layer's K and V live in one token-major pool ``(num_pages *
-page_size, kv_heads, head_dim)`` on the device; each serving slot owns
+Port of ``repro.serve.kvcache.PagedKVCache``.  An attention layer's K
+and V live in one token-major pool ``(num_pages * page_size, kv_heads,
+head_dim)`` on the device ("pooled" leaves); each serving slot owns
 only the pages it was allocated, and the per-slot page table maps its
 logical positions to pool rows.  Page 0 is the reserved trash page:
 never allocated, the write sink of idle slots (all-zero table rows).
+An RWKV layer's recurrent state is not paged: it keeps one row per slot
+("per-slot" leaves, O(1) in the context length), zeroed when a request
+is admitted into the slot.
 
 Allocation is host bookkeeping (a free list); the device only sees the
-table.  The model updates the pool in place, so a prefill call for one
-slot simply receives the whole pool (the reference's ``slot_cache`` /
-``merge_slot_cache`` exist to slice per-slot SSM state, which this
-attention-only path has none of).  Prefix aliasing, copy-on-write and
-page refcounts join with the prefix-cache slice.
+table.  The model updates pools and states in place.  Where the
+reference slices a B=1 cache for a one-slot prefill call
+(``slot_cache``) and writes the call's result back
+(``merge_slot_cache``), ``slot_cache`` here returns row VIEWS
+``t[slot:slot+1]`` of the per-slot leaves beside the whole pools: the
+call's in-place update lands in the slot's rows, so nothing is merged.
+Prefix aliasing, copy-on-write and page refcounts join with the
+prefix-cache slice.
 """
 from __future__ import annotations
 
@@ -51,7 +58,9 @@ class PagedKVCache:
                              "reserved trash page 0")
         self.device = resolve_device(device)
         self.cache = init_cache(cfg, dtype, pool=(self.num_pages, page_size),
-                                device=self.device)
+                                slots=slots, device=self.device)
+        # which layers hold per-slot (recurrent) leaves, not pooled ones
+        self._per_slot = [kind != "attn" for kind, _ in cfg.layer_pattern()]
         self._table = np.zeros((slots, self.table_width), np.int32)
         self._free = list(range(self.num_pages - 1, 0, -1))  # stack, no 0
         self._owned = {s: [] for s in range(slots)}
@@ -102,8 +111,32 @@ class PagedKVCache:
     def view(self, rows=None) -> PagedView:
         return PagedView(self.table(rows), self.page_size)
 
+    def reset_slot_state(self, slot: int) -> None:
+        """Zero the slot's recurrent rows on admit: the previous
+        occupant's state must not leak into a new request."""
+        for layer, per_slot in zip(self.cache, self._per_slot):
+            if per_slot:
+                for t in layer.values():
+                    t[slot].zero_()
+
+    def slot_cache(self, slot: int) -> list:
+        """The cache of a one-slot (B=1) model call: per-slot leaves as
+        row views ``t[slot:slot+1]`` (updated in place by the call),
+        pooled leaves shared whole."""
+        return [{k: t[slot:slot + 1] for k, t in layer.items()}
+                if per_slot else layer
+                for layer, per_slot in zip(self.cache, self._per_slot)]
+
     # ---- accounting ------------------------------------------------------
-    def pool_bytes(self) -> int:
-        """Resident bytes of the paged pools."""
+    def _bytes(self, per_slot: bool) -> int:
         return sum(t.numel() * t.element_size()
-                   for layer in self.cache for t in layer.values())
+                   for layer, p in zip(self.cache, self._per_slot)
+                   if p == per_slot for t in layer.values())
+
+    def pool_bytes(self) -> int:
+        """Resident bytes of the pooled (paged) leaves."""
+        return self._bytes(False)
+
+    def state_bytes(self) -> int:
+        """Resident bytes of the per-slot recurrent leaves, all slots."""
+        return self._bytes(True)

@@ -12,11 +12,16 @@ Request lifecycle::
 
     QUEUED     submit() enqueued it (priority-ordered; FIFO within a
                priority); waiting for a slot + pages + tenant quota
-    PREFILL    admitted: pages allocated, the prompt fed in
-               `prefill_chunk`-token chunks (B=1 calls that write into
-               the shared pool); the LAST chunk's call also samples the
+    PREFILL    admitted: pages allocated, the slot's recurrent state
+               zeroed, the prompt fed in `prefill_chunk`-token chunks
+               (exact, never padded: a padded lane would corrupt the
+               recurrent state, which integrates every token it sees;
+               B=1 calls that write into the shared pool and the slot's
+               state rows); the LAST chunk's call also samples the
                first token, whose read-back is prefill's one host sync
     DECODE     slot participates in the fused batched decode tick
+               (idle and done slots step on pad tokens too; their
+               recurrent state is garbage until the next admit resets it)
     RETIRED    EOS emitted (device-detected) or token budget reached
                (host-detected): pages freed, table row -> trash, the
                next queued request admits into the slot
@@ -206,6 +211,7 @@ class ContinuousScheduler:
             "prompt_tokens": self.prompt_tokens,
             "pool_pages_in_use": self.kv.pages_in_use,
             "pool_bytes": self.kv.pool_bytes(),
+            "state_bytes": self.kv.state_bytes(),
         }
 
     # ------------------------------------------------------------------
@@ -273,6 +279,7 @@ class ContinuousScheduler:
         if self.kv.pages_needed(n_tokens) > self.kv.free_pages:
             return False
         self.kv.alloc(slot, n_tokens)
+        self.kv.reset_slot_state(slot)
         self.prompt_tokens += len(req.prompt)
         self._prefill(slot, req)
         return True
@@ -282,11 +289,12 @@ class ContinuousScheduler:
         S = len(req.prompt)
         dev = self.device
         view = PagedView(self.kv.table([slot]), self.kv.page_size)
+        cache = self.kv.slot_cache(slot)
         prompt = torch.from_numpy(req.prompt).to(dev)[None]
         starts = list(range(0, S, C))
         for s in starts[:-1]:
             apply_model(self.cfg, self.model, prompt[:, s:s + C],
-                        cache=self.kv.cache,
+                        cache=cache,
                         cache_pos=torch.full((1,), s, dtype=torch.int32,
                                              device=dev),
                         paged=view, logits=False)
@@ -295,7 +303,7 @@ class ContinuousScheduler:
         # last chunk: the first-token sample rides on the same call
         s = starts[-1]
         out = apply_model(self.cfg, self.model, prompt[:, s:s + C],
-                          cache=self.kv.cache,
+                          cache=cache,
                           cache_pos=torch.full((1,), s, dtype=torch.int32,
                                                device=dev),
                           paged=view, last_only=True)

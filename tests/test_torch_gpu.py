@@ -1,6 +1,6 @@
-"""The port on the card: the CUDA paged flash-decode kernel against its
-plain PyTorch version, the launch counter, and greedy serving on the
-card against the CPU.  Marked ``gpu``; each test skips by itself where
+"""The port on the card: the CUDA paged flash-decode and WKV6 kernels
+against their plain PyTorch versions, the launch counters, and greedy
+serving (qwen3 and RWKV-6 smoke configs) on the card against the CPU.  Marked ``gpu``; each test skips by itself where
 no card is present.  Imports no jax (the card's machine has none).
 
 Run on a machine with an H100:  PYTHONPATH=src pytest -m gpu tests/test_torch_gpu.py
@@ -13,7 +13,8 @@ from torch_paged_cases import GQA_CASES, POISON, paged_case
 
 from repro_torch.configs import smoke_config
 from repro_torch.kernels import (launch_counts, paged_flash_decode,
-                                 paged_flash_decode_ref, reset_launch_counts)
+                                 paged_flash_decode_ref, reset_launch_counts,
+                                 wkv6, wkv6_chunked)
 from repro_torch.models import init_model
 from repro_torch.serve import ContinuousScheduler
 
@@ -112,5 +113,97 @@ def test_greedy_serving_on_card_matches_cpu(cuda):
         st = sch.stats()
     calls = st["prefill_dispatches"] + st["decode_dispatches"] * 4
     assert launch_counts()["paged_flash_decode"] == cfg.num_layers * calls
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        np.testing.assert_array_equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# WKV6
+# --------------------------------------------------------------------------
+
+# fp32: the reference's own WKV bar (tests/test_kernels.py).  bf16: both
+# sides round y to bf16 from fp32 sums taken in another order, so they
+# may land one bf16 step apart (2^-7 relative), beside the fp32 bar.
+WKV_ATOL = 5e-4
+WKV_BF16_RTOL = 2 ** -7
+
+WKV_CASES = [
+    # B, T, H, K, decay scale
+    (1, 32, 32, 64, 1.0),      # rwkv6-1.6b prefill chunk
+    (2, 80, 4, 64, 1.0),       # ragged, three chunks carry the state
+    (1, 64, 4, 64, 2.5),       # decays past the -60 clip
+    (2, 40, 8, 32, 1.0),       # smoke widths
+    (3, 1, 2, 32, 1.0),        # one step
+]
+
+
+def _wkv_inputs(seed, B, T, H, K, scale):
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((B, T, H, K)).astype(np.float32)
+               for _ in range(3))
+    wl = (-scale * np.exp(0.3 * rng.standard_normal((B, T, H, K)))
+          if scale != 1.0 else -np.exp(rng.standard_normal((B, T, H, K))))
+    u = rng.standard_normal((H, K)).astype(np.float32)
+    s0 = rng.standard_normal((B, H, K, K)).astype(np.float32)
+    return r, k, v, wl.astype(np.float32), u, s0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", WKV_CASES)
+def test_wkv6_kernel_matches_plain(cuda, case, dtype):
+    r, k, v, wl, u, s0 = (torch.from_numpy(x).to(cuda)
+                          for x in _wkv_inputs(sum(case[:4]), *case))
+    r, k, v = (x.to(dtype) for x in (r, k, v))
+    y, s = wkv6(r, k, v, wl, u, s0)
+    y_want, s_want = wkv6_chunked(r, k, v, wl, u, s0)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and s.dtype == torch.float32
+    rtol = WKV_BF16_RTOL if dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(y.float(), y_want.float(), atol=WKV_ATOL,
+                               rtol=rtol)
+    torch.testing.assert_close(s, s_want, atol=WKV_ATOL, rtol=rtol)
+
+
+def test_wkv6_counts_launches_and_rejects_bad_input(cuda):
+    r, k, v, wl, u, s0 = (torch.from_numpy(x).to(cuda)
+                          for x in _wkv_inputs(0, 1, 8, 2, 32, 1.0))
+    reset_launch_counts()
+    wkv6(r, k, v, wl, u, s0)
+    wkv6(r, k, v, wl, u, s0)
+    assert launch_counts()["wkv6"] == 2
+    with pytest.raises(TypeError):
+        wkv6(r, k, v, wl.double(), u, s0)
+    with pytest.raises(TypeError):
+        wkv6(r.bfloat16(), k, v, wl, u, s0)
+    strided = torch.cat([r, r], dim=-1)[..., ::2]      # r's shape, strided
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv6(strided, k, v, wl, u, s0)
+    assert launch_counts()["wkv6"] == 2
+
+
+def test_rwkv_greedy_serving_on_card_matches_cpu(cuda):
+    """The RWKV-6 smoke config in fp32: greedy tokens through the kernel
+    on the card equal the plain path on the CPU, and every prefill call
+    of two or more tokens launched the kernel once per layer (decode
+    steps and one-token chunks take the plain step)."""
+    cfg = smoke_config("rwkv6-1.6b").with_overrides(dtype="float32")
+    rng = np.random.default_rng(0)
+    lengths = (5, 40, 33)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lengths]
+    chunk = 32
+    multi = sum(1 for n in lengths for s in range(0, n, chunk)
+                if min(chunk, n - s) >= 2)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        model = init_model(cfg, seed=0, device="cpu")
+        if dev == "cuda":
+            model = model.to(cuda)
+        sch = ContinuousScheduler(cfg, model, slots=2, max_len=96,
+                                  page_size=16, decode_chunk=4,
+                                  prefill_chunk=chunk)
+        reset_launch_counts()
+        outs[dev] = sch.generate(prompts, 12)
+    assert launch_counts()["wkv6"] == cfg.num_layers * multi
+    assert launch_counts().get("paged_flash_decode", 0) == 0
     for a, b in zip(outs["cpu"], outs["cuda"]):
         np.testing.assert_array_equal(a, b)

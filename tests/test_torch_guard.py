@@ -21,7 +21,8 @@ def _imports(path):
 
 def test_port_files_exist():
     names = {p.name for p in PORT_FILES}
-    assert {"paged_decode.py", "scheduler.py", "chip_smoke.py"} <= names
+    assert {"paged_decode.py", "wkv6.py", "ssm.py", "rwkv6_1p6b.py",
+            "scheduler.py", "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
