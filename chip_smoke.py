@@ -19,7 +19,16 @@ Phases (each fails the run if it goes wrong):
      the same traffic, with every prefill chunk of two or more tokens
      launched through the WKV6 kernel in each of its 24 layers;
   6. parity: a 2-layer full-width rwkv6-1.6b in fp32 gives the same
-     greedy tokens on the card (kernel) as on the CPU (plain version).
+     greedy tokens on the card (kernel) as on the CPU (plain version);
+  7. the Jamba path: jamba-v0.1-52b at full width, its depth cut to one
+     8-layer super-block (7 Mamba layers, 1 attention layer, MoE in every
+     other layer), serves the same traffic in bf16, with every prefill
+     chunk of two or more tokens launched through the selective-scan
+     kernel in each Mamba layer and every attention call through the
+     paged-decode kernel;
+  8. parity: a 2-layer full-width Jamba in fp32 -- (Mamba, MLP) then
+     (attention, MoE) -- gives the same greedy tokens on the card
+     (kernels) as on the CPU (plain versions).
 The last lines are the kernels' JSON record, the card's name and power
 limit, and the result line.  Without a card, or outside the repository,
 it exits non-zero and prints no result.
@@ -50,6 +59,9 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # bf16 step (2^-7 relative), since both sides round fp32 sums taken in
 # another order to bf16
 WKV_ATOL, WKV_BF16_RTOL = 5e-4, 2 ** -7
+# mamba_scan: the reference's own Mamba bar (tests/test_kernels.py), and
+# one bf16 step of y in bf16, for the same reason as wkv6
+MAMBA_ATOL, MAMBA_BF16_RTOL = 5e-4, 2 ** -7
 POISON = 1e4
 
 # the serving run of phase 3
@@ -119,22 +131,26 @@ def time_ms(fn, flush, iters=20):
     return float(np.median(times))
 
 
-def check_paged_decode(dev, flush):
+def check_paged_decode(dev, flush, h=16, windowed=True, tag=""):
+    """The paged kernel at h query heads over 8 kv heads of 128 (qwen3-
+    1.7b: h=16; Jamba's attention layer: h=32)."""
     import torch.nn.functional as F
     from repro_torch.kernels.paged_decode import (
         paged_flash_decode, paged_flash_decode_ref, visible_tokens)
     from repro_torch.models.attention import PagedView, paged_read
 
-    h, hk, hd, ps = 16, 8, 128, PAGE_SIZE            # qwen3-1.7b widths
+    hk, hd, ps = 8, 128, PAGE_SIZE
     W = MAX_LEN // ps
     rng = np.random.default_rng(0)
     cases = [
         ("decode B=8 S=1, slots 1..max_len tokens", 8, 1, 0,
          np.linspace(1, W * ps, 8).astype(int)),
         ("prefill chunk B=1 S=32", 1, 32, 0, np.array([PROMPT_MAX])),
-        ("windowed chunk B=4 S=32 window=100", 4, 32, 100,
-         np.array([40, 200, 333, 560])),
     ]
+    if windowed:
+        cases.append(("windowed chunk B=4 S=32 window=100", 4, 32, 100,
+                      np.array([40, 200, 333, 560])))
+    cases = [(tag + name, *rest) for name, *rest in cases]
     rows = []
     for name, B, S, window, lengths in cases:
         host = paged_case(rng, B, S, h, hk, hd, ps, W, lengths)
@@ -300,6 +316,83 @@ def check_wkv6(dev, flush):
     return rows
 
 
+def mamba_case(rng, Bb, T, dI, dS, R=256):
+    """The reference test's distributions: dt = softplus(N(0, 1)),
+    A = -exp(N(0, 1)), the rest N(0, 1); B and C are returned inside one
+    (Bb, T, R + 2 dS) projection, as ``apply_mamba`` slices them."""
+    x = rng.standard_normal((Bb, T, dI)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((Bb, T, dI)))).astype(np.float32)
+    A = (-np.exp(rng.standard_normal((dI, dS)))).astype(np.float32)
+    proj = rng.standard_normal((Bb, T, R + 2 * dS)).astype(np.float32)
+    D = rng.standard_normal((dI,)).astype(np.float32)
+    h0 = rng.standard_normal((Bb, dI, dS)).astype(np.float32)
+    return x, dt, A, proj, D, h0
+
+
+def mamba_bound(Bb, T, dI, dS, el):
+    """Bytes each input read once and each output written once (x, dt,
+    B, C, y in the compute dtype; A, D, the state in and out in fp32),
+    and the fp32 operations of the scan: per (step, channel, state) the
+    decay product, its exponential, the two-term update and the output
+    product and sum; per (step, channel) dt * x and D * x + sum."""
+    n_bytes = (3 * Bb * T * dI * el + 2 * Bb * T * dS * el
+               + (dI * dS + dI + 2 * Bb * dI * dS) * 4)
+    ops = Bb * T * dI * (7 * dS + 3)
+    return n_bytes, ops
+
+
+def check_mamba(dev, flush):
+    from repro_torch.kernels.mamba_scan import mamba_ref, mamba_scan
+
+    dI, dS, R = 8192, 16, 256                     # jamba-v0.1-52b widths
+    rng = np.random.default_rng(2)
+    cases = [
+        ("prefill chunk B=1 T=32", 1, 32),
+        ("ragged B=2 T=75, 3 staged tiles", 2, 75),
+    ]
+    rows = []
+    for name, Bb, T in cases:
+        x, dt, A, proj, D, h0 = mamba_case(rng, Bb, T, dI, dS, R)
+        for dtype in (torch.float32, torch.bfloat16):
+            xt, dtt = (torch.from_numpy(a).to(dev, dtype) for a in (x, dt))
+            pr = torch.from_numpy(proj).to(dev, dtype)
+            Bm, Cm = pr[..., R:R + dS], pr[..., R + dS:]
+            At, Dt, ht = (torch.from_numpy(a).to(dev) for a in (A, D, h0))
+            args = (xt, dtt, At, Bm, Cm, Dt, ht)
+            y, s = mamba_scan(*args)
+            y_want, s_want = mamba_ref(*args)
+            torch.cuda.synchronize()
+            err = max((y.float() - y_want).abs().max().item(),
+                      (s - s_want).abs().max().item())
+            rtol = MAMBA_BF16_RTOL if dtype == torch.bfloat16 else 0.0
+            used = max(((y.float() - y_want).abs()
+                        / (MAMBA_ATOL + rtol * y_want.abs())).max().item(),
+                       ((s - s_want).abs() / MAMBA_ATOL).max().item())
+            if used > 1.0:
+                fail(f"mamba_scan {name} {dtype}: max |err| {err}, "
+                     f"{used:.3f} of the tolerance")
+            ms = time_ms(lambda: mamba_scan(*args), flush)
+            plain_ms = time_ms(lambda: mamba_ref(*args), flush)
+            n_bytes, ops = mamba_bound(Bb, T, dI, dS, xt.element_size())
+            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / PEAK_OPS[torch.float32] * 1e3
+            rows.append({
+                "case": name, "dtype": str(dtype).replace("torch.", ""),
+                "max_abs_err": err, "tol": MAMBA_ATOL, "rtol": rtol,
+                "tolerance_used": used,
+                "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": n_bytes, "ops": ops})
+            print(f"  mamba_scan {name:34s} {rows[-1]['dtype']:8s} err "
+                  f"{err:.2e} (atol {MAMBA_ATOL:g}, rtol {rtol:g}: "
+                  f"{used:.3f} of the tolerance)  kernel {ms:.4f} ms  "
+                  f"plain {plain_ms:.4f} ms  bound "
+                  f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}, "
+                  f"{n_bytes / 1e6:.2f} MB)")
+    return rows
+
+
 def multi_token_chunks(lens, chunk=PREFILL_CHUNK):
     """Prefill calls with two or more tokens (the ones that run wkv6)."""
     return sum(1 for n in lens for s in range(0, int(n), chunk)
@@ -398,6 +491,119 @@ def serve_rwkv(dev, lens):
     return launches
 
 
+def serve_jamba(dev, lens):
+    """Phases 7 and 8: jamba-v0.1-52b at full width cut to one 8-layer
+    super-block in bf16 on the phase-3 traffic, then card-vs-CPU fp32
+    greedy parity at 2 full-width layers.  Returns the mamba_scan and
+    paged_flash_decode launches of the phase-7 run."""
+    import copy
+
+    from repro_torch.configs import get_config, one_card_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import init_model
+
+    cfg = one_card_config("jamba-v0.1-52b")
+    kinds = [mixer for mixer, _ in cfg.layer_pattern()]
+    rng = np.random.default_rng(0)
+    rng.integers(PROMPT_MIN, PROMPT_MAX + 1, REQUESTS)   # phase 3's lengths
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"phase 7: {cfg.name} cut to {cfg.num_layers} layers, full width "
+          f"({cfg.param_count() / 1e9:.3f} B params of "
+          f"{get_config(cfg.name).param_count() / 1e9:.3f} B; "
+          f"{kinds.count('mamba')} Mamba + {kinds.count('attn')} attention "
+          f"layers, {sum(f == 'moe' for _, f in cfg.layer_pattern())} MoE "
+          f"of {cfg.moe.num_experts} experts, bf16) initialised in "
+          f"{time.perf_counter() - t0:.1f} s, peak memory during init "
+          f"{init_peak_gib:.2f} GiB, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB after")
+    serve(cfg, model, prompts[:2], 4)                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident_gib = torch.cuda.memory_allocated() / 2**30
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    sch, outs = serve(cfg, model, prompts, NEW_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    st = sch.stats()
+    multi = multi_token_chunks(lens)
+    model_calls = st["prefill_dispatches"] + DECODE_CHUNK * st[
+        "decode_dispatches"]
+    scans = counts.get("mamba_scan", 0)
+    paged = counts.get("paged_flash_decode", 0)
+    if scans != kinds.count("mamba") * multi:
+        fail(f"mamba_scan launched {scans} times, expected "
+             f"{kinds.count('mamba')} x {multi} prefill calls of >= 2 tokens")
+    if paged != kinds.count("attn") * model_calls:
+        fail(f"paged_flash_decode launched {paged} times, expected "
+             f"{kinds.count('attn')} x {model_calls} model calls")
+    if counts.get("wkv6", 0):
+        fail("wkv6 launched on the Jamba path")
+    if len(outs) != REQUESTS or any(
+            len(o) != NEW_TOKENS or o.min() < 0 or o.max() >= cfg.vocab_size
+            for o in outs):
+        fail("served outputs have the wrong length or out-of-vocab tokens")
+    for i, layer in enumerate(sch.kv.cache):
+        if not all(torch.isfinite(t).all() for t in layer.values()):
+            fail(f"layer {i}: cache is not finite")
+    n_tok = sum(len(o) for o in outs)
+    ttft = sorted(st["ttft_s"])
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"phase 7: {REQUESTS} requests ({int(lens.sum())} prompt tokens) x "
+          f"{NEW_TOKENS} new tokens on {SLOTS} slots in {wall:.3f} s: "
+          f"{n_tok / wall:.1f} tokens/s, TTFT p50 "
+          f"{ttft[len(ttft) // 2] * 1e3:.1f} ms, "
+          f"{st['syncs_per_token']:.4f} host syncs/token, peak memory "
+          f"{peak_gib:.2f} GiB ({resident_gib:.2f} GiB resident at the "
+          f"start), pool {st['pool_bytes'] / 2**20:.1f} MiB, recurrent state "
+          f"{st['state_bytes'] // SLOTS} B per slot "
+          f"({st['state_bytes'] / 2**20:.1f} MiB in all); mamba_scan "
+          f"launches {scans} = {kinds.count('mamba')} x {multi} of "
+          f"{st['prefill_dispatches']} prefill calls, paged_flash_decode "
+          f"launches {paged} = {kinds.count('attn')} x "
+          f"({st['prefill_dispatches']} prefill calls + {DECODE_CHUNK} x "
+          f"{st['decode_dispatches']} decode ticks)")
+    del model, sch
+    torch.cuda.empty_cache()
+
+    # phase 8: Jamba's smoke pattern at full width in fp32, weights drawn
+    # on the card (16 fp32 experts are 11.3 GB) and copied to the CPU
+    small = cfg.with_overrides(num_layers=2, dtype="float32",
+                               attn_layer_period=2, attn_layer_offset=1)
+    prompts8 = [p[:n] for p, n in zip(prompts[:4], (7, 40, 70, 33))]
+    t0 = time.perf_counter()
+    m_card = init_model(small, seed=1, device=dev)
+    m_cpu = copy.deepcopy(m_card.cpu())
+    m_card.to(dev)
+    print(f"phase 8: {small.layer_pattern()} at full width in fp32 "
+          f"({small.param_count() / 1e9:.2f} B params) drawn on the card and "
+          f"copied to the CPU in {time.perf_counter() - t0:.1f} s")
+    got = {}
+    for where, m in (("cpu", m_cpu), ("cuda", m_card)):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        got[where] = serve(small, m, prompts8, 12)[1]
+        print(f"  {where}: {time.perf_counter() - t0:.1f} s")
+    want = multi_token_chunks([len(p) for p in prompts8])
+    if launch_counts().get("mamba_scan", 0) != want:
+        fail("phase 8: the card run did not launch mamba_scan on every chunk")
+    for a, b in zip(got["cpu"], got["cuda"]):
+        if not np.array_equal(a, b):
+            fail(f"jamba fp32 greedy tokens differ card vs CPU: {a} vs {b}")
+    print(f"phase 8: 2-layer full-width Jamba fp32 greedy tokens equal on "
+          f"card and CPU for {len(prompts8)} requests x 12 tokens")
+    del m_card, m_cpu
+    torch.cuda.empty_cache()
+    return scans, paged
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this checks the port on a "
@@ -418,7 +624,7 @@ def main():
 
     # ---- phase 1: build ---------------------------------------------------
     t0 = time.perf_counter()
-    stems = ("paged_decode", "wkv6")
+    stems = ("paged_decode", "wkv6", "mamba_scan")
     build.load_libraries(stems)
     print(f"phase 1: built {len(stems)} kernels in parallel in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -435,11 +641,18 @@ def main():
           f"(paged_flash_decode tolerance fp32 {TOL[torch.float32]:g}, bf16 "
           f"{TOL[torch.bfloat16]:g}; times are device ms per call)")
     rows = check_paged_decode(dev, flush)
+    jamba_rows = check_paged_decode(dev, flush, h=32, windowed=False,
+                                    tag="jamba h=32: ")
     print(f"  wkv6 tolerance: atol {WKV_ATOL:g} in fp32, the reference's own "
           "WKV bar (the chunked form re-associates the time sums); bf16 y "
           f"also rtol {WKV_BF16_RTOL:g}, one bf16 step, since both sides "
           "round fp32 sums taken in another order to bf16")
     wkv_rows = check_wkv6(dev, flush)
+    print(f"  mamba_scan tolerance: atol {MAMBA_ATOL:g} in fp32, the "
+          "reference's own Mamba bar; bf16 y also rtol "
+          f"{MAMBA_BF16_RTOL:g}, one bf16 step; B and C are strided column "
+          "slices of one projection, as on the serving path")
+    mamba_rows = check_mamba(dev, flush)
     del flush
 
     # ---- phase 3: the main path, full width, bf16 -------------------------
@@ -510,6 +723,7 @@ def main():
     del m
     torch.cuda.empty_cache()
     wkv_launches = serve_rwkv(dev, lens)
+    scan_launches, jamba_paged_launches = serve_jamba(dev, lens)
 
     decode_bf16 = next(r for r in rows if r["case"].startswith("decode")
                        and r["dtype"] == "bfloat16")
@@ -517,14 +731,14 @@ def main():
         "name": "paged_flash_decode", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_decode.cu",
         "replaces": "src/repro/kernels/paged_decode.py:141",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows
+        "launches": launches, "launches_jamba": jamba_paged_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows + jamba_rows
                            if r["dtype"] == "bfloat16"),
         "ms": decode_bf16["ms"], "plain_ms": decode_bf16["plain_ms"],
         "bound_ms": decode_bf16["bound_ms"],
         "bound_by": decode_bf16["bound_by"],
         "library_ms": decode_bf16["library_ms"],
-        "cases": rows,
+        "cases": rows + jamba_rows,
     }
     chunk_bf16 = next(r for r in wkv_rows if r["case"].startswith("prefill")
                       and r["dtype"] == "bfloat16")
@@ -541,8 +755,23 @@ def main():
         "library_ms": None,
         "cases": wkv_rows,
     }
+    scan_bf16 = next(r for r in mamba_rows if r["case"].startswith("prefill")
+                     and r["dtype"] == "bfloat16")
+    mamba_entry = {
+        "name": "mamba_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/mamba_scan.cu",
+        "replaces": "src/repro/kernels/mamba_scan.py:27",
+        "launches": scan_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in mamba_rows
+                           if r["dtype"] == "bfloat16"),
+        "ms": scan_bf16["ms"], "plain_ms": scan_bf16["plain_ms"],
+        "bound_ms": scan_bf16["bound_ms"],
+        "bound_by": scan_bf16["bound_by"],
+        "library_ms": None,
+        "cases": mamba_rows,
+    }
     print(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [entry, wkv_entry]}))
+    print(json.dumps({"kernels": [entry, wkv_entry, mamba_entry]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,9 +5,13 @@ stacked: ``params["decoder"]["blocks"]["layer{j}"]`` carries a leading
 ``n_rep`` axis (one super-block of ``len(pattern)`` layers, repeated),
 after an unrolled ``params["decoder"]["prefix"]``.  Layouts are the
 same on both sides -- wq (d, h, hd), wk/wv (d, hk, hd), wo (h, hd, d),
-MLP (d_in, d_out), the RWKV block's tree as in ``models.ssm`` (norm1,
-norm2 and a mixer with the nested ``ln_x: {"scale"}``, no ffn) -- so
-the bridge only unstacks.
+MLP (d_in, d_out), the nested MoE ffn (router, ``experts`` {w_up,
+w_gate (E, d, f), w_down (E, f, d)}, optional router_bias and
+``shared`` MLP), the Mamba and RWKV mixers as in ``models.ssm`` (an
+RWKV block: norm1, norm2 and a mixer with the nested ``ln_x:
+{"scale"}``, no ffn) -- so the bridge only unstacks.  Weights the
+reference reads in fp32 (Mamba's A_log and D, the router) stay fp32
+in a bf16 model, so they round-trip exactly.
 
 The caller turns the reference's arrays into numpy first; this module
 imports neither ``jax`` nor the reference package.
@@ -76,8 +80,12 @@ def params_to_numpy(model: Model, cfg) -> dict:
         tree = {"norm1": {"scale": np_(layer.norm1)}, "mixer": mixer,
                 "norm2": {"scale": np_(layer.norm2)}}
         if layer.ffn is not None:
-            tree["ffn"] = {k: np_(v) for k, v in layer.ffn.items()}
+            tree["ffn"] = ffn_tree(layer.ffn)
         return tree
+
+    def ffn_tree(node):
+        return {k: np_(v) if isinstance(v, torch.Tensor) else ffn_tree(v)
+                for k, v in node.items()}
 
     trees = [layer_tree(layer) for layer in model.layers]
     n_pre, P = len(prefix), len(pattern)

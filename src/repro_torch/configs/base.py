@@ -200,9 +200,15 @@ class ModelConfig:
         return 3 if self.mlp_gated else 2
 
     def ffn_params(self, kind: str) -> int:
-        if kind != "mlp":
-            raise ValueError(f"ffn kind {kind!r} is not ported")
-        return self._mlp_mats * self.d_model * self.d_ff
+        """An MLP's weights, or an MoE layer's: every routed and shared
+        expert plus the router (the reference's formula)."""
+        d = self.d_model
+        if kind == "mlp":
+            return self._mlp_mats * d * self.d_ff
+        m = self.moe
+        per_exp = self._mlp_mats * d * m.d_expert
+        return (m.num_experts + m.num_shared_experts) * per_exp \
+            + d * m.num_experts
 
     def _mixer_params(self, kind: str) -> int:
         return {"attn": self.attn_params(),

@@ -1,11 +1,13 @@
 """Where the serving time goes: host wall vs device time per phase.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
-        --arch qwen3-1.7b|rwkv6-1.6b [--out profile_serve.json]
+        --arch qwen3-1.7b|rwkv6-1.6b|jamba-v0.1-52b [--out profile_serve.json]
 
 Serves the same traffic as ``chip_smoke.py``'s serving phases (16
 requests of 64-512 prompt tokens, 64 new greedy tokens, 8 slots) with
-the full-width config of ``--arch``, then traces one prefill chunk (32
+the full-width config of ``--arch`` (Jamba cut to one 8-layer
+super-block: ``configs.one_card_config``), then traces one prefill
+chunk (32
 tokens into slot 0 at position 256, its recurrent rows included) and
 one fused decode tick with
 ``torch.profiler``: host wall time, the device's busy time (sum of
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs import ARCHITECTURES, get_config
+from repro_torch.configs import ARCHITECTURES, one_card_config
 from repro_torch.device import resolve_device
 from repro_torch.models import apply_model, init_model
 from repro_torch.models.attention import PagedView
@@ -68,7 +70,7 @@ def main(argv=None):
     dev = resolve_device(args.device)
     if dev.type != "cuda":
         raise SystemExit("profile_serve measures the card: --device cuda")
-    cfg = get_config(args.arch)
+    cfg = one_card_config(args.arch)
     slots, n_req, new, ps, chunk, K = 8, 16, 64, 16, 32, 8
     max_len = -(-(512 + new + K) // ps) * ps
     rng = np.random.default_rng(args.seed)
@@ -90,6 +92,7 @@ def main(argv=None):
     wall = time.perf_counter() - t0
     st = sch.stats()
     report = {"card": torch.cuda.get_device_name(0), "arch": cfg.name,
+              "num_layers": cfg.num_layers,
               "serve_wall_s": wall,
               "tokens_per_s": st["tokens_out"] / wall,
               "ttft_p50_s": float(np.median(st["ttft_s"])),

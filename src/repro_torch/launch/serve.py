@@ -12,8 +12,13 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
         --reduced --device cpu --batch 2 --prompt-len 40 --new-tokens 8
 
-Without --reduced the full config serves in bf16; with it, the smoke
-config in fp32.  Prompts come from ``synthetic_tokens`` seeded by
+    # Jamba (Mamba + attention layers, MoE), reduced, on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \\
+        --reduced --device cpu --batch 2 --prompt-len 40 --new-tokens 8
+
+Without --reduced the full-width config serves in bf16 (Jamba cut to
+one 8-layer super-block, ``configs.one_card_config``); with it, the
+smoke config in fp32.  Prompts come from ``synthetic_tokens`` seeded by
 --seed.  The default device is the card; a machine without one raises
 unless --device cpu is given.
 """
@@ -25,7 +30,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import ARCHITECTURES, get_config, smoke_config
+from repro_torch.configs import ARCHITECTURES, one_card_config, smoke_config
 from repro_torch.data import synthetic_tokens
 from repro_torch.device import resolve_device
 from repro_torch.models import init_model
@@ -61,7 +66,7 @@ def main(argv=None):
     if args.reduced:
         cfg = smoke_config(args.arch).with_overrides(dtype="float32")
     else:
-        cfg = get_config(args.arch)
+        cfg = one_card_config(args.arch)
     sampling = SamplingConfig(temperature=args.temperature,
                               top_k=args.top_k, top_p=args.top_p)
     decode_chunk = 8

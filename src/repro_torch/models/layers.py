@@ -47,6 +47,15 @@ def rmsnorm(scale, x, eps=1e-6):
 # MLP (gated SwiGLU or plain 2-mat)
 # --------------------------------------------------------------------------
 
+def init_mlp(d_model, d_ff, *, gated=True, generator, device="cpu"):
+    kw = dict(generator=generator, device=device)
+    p = {"w_up": dense_init(d_model, d_ff, **kw),
+         "w_down": dense_init(d_ff, d_model, **kw)}
+    if gated:
+        p["w_gate"] = dense_init(d_model, d_ff, **kw)
+    return p
+
+
 def apply_mlp(p, x, gated=True):
     up = x @ p["w_up"]
     if gated:

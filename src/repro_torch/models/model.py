@@ -1,10 +1,11 @@
 """Top-level decoder: init, paged cache, decode-mode forward, logits.
 
 Port of ``repro.models.model`` for decoder-only stacks of GQA
-attention/MLP layers and RWKV-6 blocks, in the decode mode the serving
-path uses (decode steps and chunked-prefill chunks).  ``apply_model``
-returns ``{"logits", "hidden"}``; the paged pools and the per-slot
-recurrent states are updated in place.
+attention and Mamba layers (each with an MLP or MoE ffn) and RWKV-6
+blocks, in the decode mode the serving path uses (decode steps and
+chunked-prefill chunks).  ``apply_model`` returns ``{"logits",
+"hidden", "aux"}``; the paged pools and the per-slot recurrent states
+are updated in place.
 """
 from __future__ import annotations
 
@@ -26,11 +27,13 @@ def compute_dtype(cfg) -> torch.dtype:
 class Model(nn.Module):
     """Decoder weights on one device.
 
-    tree: {"embed": {"table"}, "layers": [layer tree, ...],
+    tree: {"embed": {"table"}, "layers": iterable of layer trees,
     "final_norm": {"scale"}, "unembed": {"table"} (untied only)} in
     fp32 masters or any float dtype; each weight is cast once to the
-    compute dtype here.  The unembedding table is also kept in fp32 for
-    the fp32 logits (the same tensor when the compute dtype is fp32).
+    compute dtype here.  The layers are built one at a time, so an
+    iterable that draws each tree on demand holds one layer's masters
+    at a time.  The unembedding table is also kept in fp32 for the fp32
+    logits (the same tensor when the compute dtype is fp32).
     """
 
     def __init__(self, cfg, tree, *, device):
@@ -42,9 +45,13 @@ class Model(nn.Module):
         out = table if cfg.tie_embeddings else tree["unembed"]["table"].to(
             device=device, dtype=torch.float32)
         self.unembed_f32 = tfm._frozen(out)
-        self.layers = nn.ModuleList(
-            tfm.Layer(_to_device(t, device), dt, kind)
-            for t, (kind, _) in zip(tree["layers"], cfg.layer_pattern()))
+        # no name (and no zip/enumerate tuple) may hold a layer's tree
+        # while the next one is drawn
+        trees = iter(tree["layers"])
+        self.layers = nn.ModuleList()
+        for spec in cfg.layer_pattern():
+            self.layers.append(tfm.Layer(_to_device(next(trees), device), dt,
+                                         spec))
         self.final_norm = tfm._frozen(
             tree["final_norm"]["scale"].to(device=device, dtype=torch.float32))
         self.register_buffer("rope_freqs", torch.from_numpy(
@@ -54,19 +61,21 @@ class Model(nn.Module):
 
 def check_ported(cfg):
     """Raise, naming the part, unless every layer of ``cfg`` is one the
-    port has: GQA attention with a dense MLP, or an RWKV-6 block."""
+    port has: a GQA attention or Mamba mixer with an MLP or MoE ffn, or
+    an RWKV-6 block."""
     missing = []
-    if cfg.moe is not None:
-        missing.append("MoE")
     if cfg.attention == "mla":
         missing.append("MLA")
     kinds = {mixer for mixer, _ in cfg.layer_pattern()}
-    missing += sorted(kinds - {"attn", "rwkv6"})
-    if cfg.is_encoder_decoder or cfg.frontend != "none":
-        missing.append("encoder-decoder / frontend")
+    missing += sorted(kinds - {"attn", "mamba", "rwkv6"})
+    if cfg.is_encoder_decoder:
+        missing.append("encoder-decoder")
+    if cfg.frontend != "none":
+        missing.append(f"{cfg.frontend} frontend")
     if missing:
         raise ValueError(f"{cfg.name}: {', '.join(missing)} not ported; the "
-                         "port serves GQA attention/MLP and RWKV-6 stacks")
+                         "port serves GQA attention and Mamba layers (MLP or "
+                         "MoE) and RWKV-6 stacks")
 
 
 def _to_device(tree, device):
@@ -78,14 +87,22 @@ def _to_device(tree, device):
 def init_model(cfg, *, seed=0, device="cuda") -> Model:
     """Random weights from a seed: truncated normal, std 1/sqrt(d_in)
     for projections and 0.02 for the embedding, drawn in fp32 with an
-    explicit ``torch.Generator`` on ``device``."""
+    explicit ``torch.Generator`` on ``device``.  Each layer is cast to
+    the compute dtype as it is drawn and its fp32 masters are dropped
+    before the next is drawn, so the peak is the cast model plus one
+    layer's masters (a dense prefix, e.g. DeepSeek's, takes
+    ``moe.dense_d_ff``)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    n_prefix = len(cfg.block_structure()[0])
+    dense_ff = cfg.moe.dense_d_ff if cfg.moe is not None else 0
+    layers = (tfm.init_layer(cfg, spec, generator=gen, device=dev,
+                             dense_ff=dense_ff if i < n_prefix else 0)
+              for i, spec in enumerate(cfg.layer_pattern()))
     tree = {"embed": {"table": truncated_normal(
-        (cfg.vocab_size, cfg.d_model), 0.02, generator=gen, device=dev)}}
-    tree["layers"] = [tfm.init_layer(cfg, kind, generator=gen, device=dev)
-                      for kind, _ in cfg.layer_pattern()]
-    tree["final_norm"] = {"scale": torch.ones((cfg.d_model,), device=dev)}
+        (cfg.vocab_size, cfg.d_model), 0.02, generator=gen, device=dev)},
+        "layers": layers,
+        "final_norm": {"scale": torch.ones((cfg.d_model,), device=dev)}}
     if not cfg.tie_embeddings:
         tree["unembed"] = {"table": truncated_normal(
             (cfg.vocab_size, cfg.d_model), 0.02, generator=gen, device=dev)}
@@ -95,11 +112,12 @@ def init_model(cfg, *, seed=0, device="cuda") -> Model:
 def init_cache(cfg, dtype, *, pool, slots=None, device="cuda"):
     """The serving cache, one entry per layer: an attention layer's
     {"k", "v"} pool, each ``(num_pages * page_size, hk, hd)`` with pool
-    = (num_pages, page_size); an RWKV layer's {"state", "shift_tm",
-    "shift_cm"} with ``slots`` rows."""
+    = (num_pages, page_size); a Mamba layer's {"ssm", "conv"} or an
+    RWKV layer's {"state", "shift_tm", "shift_cm"} with ``slots``
+    rows."""
     dev = resolve_device(device)
     kinds = [kind for kind, _ in cfg.layer_pattern()]
-    if slots is None and "rwkv6" in kinds:
+    if slots is None and any(kind != "attn" for kind in kinds):
         raise ValueError(f"{cfg.name}: recurrent layers need slots=")
     return [tfm.init_layer_cache(cfg, kind, dtype, pool=pool, slots=slots,
                                  device=dev) for kind in kinds]
@@ -120,9 +138,9 @@ def apply_model(cfg, model: Model, tokens, *, cache, cache_pos, paged,
     slot_cache`` for a one-slot prefill).  S is 1 for a decode step or a
     prefill chunk's length.  ``last_only`` slices the last position
     before the unembedding.  Returns {"logits": (B, S', V) fp32,
-    "hidden": (B, S', d)} with S' = 1 under ``last_only``; a prefill
-    chunk whose logits nobody reads passes ``logits=False`` and skips
-    the unembedding."""
+    "hidden": (B, S', d), "aux": the MoE load-balance loss (0 without
+    MoE)} with S' = 1 under ``last_only``; a prefill chunk whose logits
+    nobody reads passes ``logits=False`` and skips the unembedding."""
     if cache_pos.dim() != 1:
         raise ValueError("apply_model takes per-slot cache_pos (B,)")
     x = apply_embed(model.embed, tokens)
@@ -131,12 +149,12 @@ def apply_model(cfg, model: Model, tokens, *, cache, cache_pos, paged,
         positions = (cache_pos[:, None]
                      + torch.arange(tokens.shape[1], device=tokens.device,
                                     dtype=cache_pos.dtype)[None])
-    x = tfm.apply_stack(cfg, model.layers, x, positions=positions,
-                        cache=cache, paged=paged,
-                        rope_freqs=model.rope_freqs)
+    x, aux = tfm.apply_stack(cfg, model.layers, x, positions=positions,
+                             cache=cache, paged=paged,
+                             rope_freqs=model.rope_freqs)
     if last_only:
         x = x[:, -1:]
-    out = {"hidden": x}
+    out = {"hidden": x, "aux": 0.0 if aux is None else aux}
     if logits:
         out["logits"] = _logits(cfg, model, x)
     return out

@@ -7,9 +7,9 @@ head_dim)`` on the device ("pooled" leaves); each serving slot owns
 only the pages it was allocated, and the per-slot page table maps its
 logical positions to pool rows.  Page 0 is the reserved trash page:
 never allocated, the write sink of idle slots (all-zero table rows).
-An RWKV layer's recurrent state is not paged: it keeps one row per slot
-("per-slot" leaves, O(1) in the context length), zeroed when a request
-is admitted into the slot.
+A Mamba or RWKV layer's recurrent state is not paged: it keeps one row
+per slot ("per-slot" leaves, O(1) in the context length), zeroed when a
+request is admitted into the slot.
 
 Allocation is host bookkeeping (a free list); the device only sees the
 table.  The model updates pools and states in place.  Where the

@@ -1,7 +1,9 @@
-"""The port on the card: the CUDA paged flash-decode and WKV6 kernels
-against their plain PyTorch versions, the launch counters, and greedy
-serving (qwen3 and RWKV-6 smoke configs) on the card against the CPU.  Marked ``gpu``; each test skips by itself where
-no card is present.  Imports no jax (the card's machine has none).
+"""The port on the card: the CUDA paged flash-decode, WKV6 and Mamba
+selective-scan kernels against their plain PyTorch versions, the launch
+counters, and greedy serving (qwen3, RWKV-6 and Jamba smoke configs) on
+the card against the CPU.  Marked ``gpu``; each test skips by itself
+where no card is present.  Imports no jax (the card's machine has
+none).
 
 Run on a machine with an H100:  PYTHONPATH=src pytest -m gpu tests/test_torch_gpu.py
 """
@@ -12,9 +14,9 @@ import torch
 from torch_paged_cases import GQA_CASES, POISON, paged_case
 
 from repro_torch.configs import smoke_config
-from repro_torch.kernels import (launch_counts, paged_flash_decode,
-                                 paged_flash_decode_ref, reset_launch_counts,
-                                 wkv6, wkv6_chunked)
+from repro_torch.kernels import (launch_counts, mamba_ref, mamba_scan,
+                                 paged_flash_decode, paged_flash_decode_ref,
+                                 reset_launch_counts, wkv6, wkv6_chunked)
 from repro_torch.models import init_model
 from repro_torch.serve import ContinuousScheduler
 
@@ -205,5 +207,118 @@ def test_rwkv_greedy_serving_on_card_matches_cpu(cuda):
         outs[dev] = sch.generate(prompts, 12)
     assert launch_counts()["wkv6"] == cfg.num_layers * multi
     assert launch_counts().get("paged_flash_decode", 0) == 0
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        np.testing.assert_array_equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# Mamba selective scan
+# --------------------------------------------------------------------------
+
+# fp32: the reference's own Mamba bar (tests/test_kernels.py).  bf16: both
+# sides round y to bf16 from fp32 sums taken in another order, so they
+# may land one bf16 step apart (2^-7 relative), beside the fp32 bar.
+MAMBA_ATOL = 5e-4
+MAMBA_BF16_RTOL = 2 ** -7
+
+MAMBA_CASES = [
+    # Bb, T, dI, dS
+    (1, 32, 8192, 16),     # jamba-v0.1-52b prefill chunk
+    (2, 72, 256, 16),      # ragged T: three staged tiles, the last short
+    (2, 40, 512, 8),       # smoke widths
+    (3, 5, 100, 4),        # dI not a multiple of the block's channels
+    (1, 9, 96, 32),
+]
+
+
+def _mamba_inputs(seed, Bb, T, dI, dS):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((Bb, T, dI)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((Bb, T, dI)))).astype(np.float32)
+    A = (-np.exp(rng.standard_normal((dI, dS)))).astype(np.float32)
+    B = rng.standard_normal((Bb, T, dS)).astype(np.float32)
+    C = rng.standard_normal((Bb, T, dS)).astype(np.float32)
+    D = rng.standard_normal((dI,)).astype(np.float32)
+    h0 = rng.standard_normal((Bb, dI, dS)).astype(np.float32)
+    return x, dt, A, B, C, D, h0
+
+
+def _mamba_on(dev, dtype, x, dt, A, B, C, D, h0, *, strided=False):
+    """x, dt, B, C in ``dtype``; with ``strided`` B and C are column
+    slices of one projection, as ``apply_mamba`` passes them."""
+    t = lambda a, dt_=torch.float32: torch.from_numpy(a).to(dev, dt_)
+    if strided:
+        proj = torch.cat([t(B, dtype), t(B, dtype), t(C, dtype)], dim=-1)
+        dS = B.shape[-1]
+        Bt, Ct = proj[..., dS:2 * dS], proj[..., 2 * dS:]
+    else:
+        Bt, Ct = t(B, dtype), t(C, dtype)
+    return t(x, dtype), t(dt, dtype), t(A), Bt, Ct, t(D), t(h0)
+
+
+@pytest.mark.parametrize("strided", [False, True], ids=["contig", "strided"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", MAMBA_CASES)
+def test_mamba_kernel_matches_plain(cuda, case, dtype, strided):
+    args = _mamba_on(cuda, dtype, *_mamba_inputs(sum(case), *case),
+                     strided=strided)
+    y, s = mamba_scan(*args)
+    y_want, s_want = mamba_ref(*args)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and s.dtype == torch.float32
+    rtol = MAMBA_BF16_RTOL if dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(y.float(), y_want, atol=MAMBA_ATOL, rtol=rtol)
+    torch.testing.assert_close(s, s_want, atol=MAMBA_ATOL, rtol=0.0)
+
+
+def test_mamba_counts_launches_and_rejects_bad_input(cuda):
+    x, dt, A, B, C, D, h0 = _mamba_on(cuda, torch.float32,
+                                      *_mamba_inputs(0, 1, 8, 64, 16))
+    reset_launch_counts()
+    mamba_scan(x, dt, A, B, C, D, h0)
+    mamba_scan(x, dt, A, B, C, D, h0)
+    assert launch_counts()["mamba_scan"] == 2
+    with pytest.raises(TypeError):
+        mamba_scan(x, dt, A.double(), B, C, D, h0)
+    with pytest.raises(TypeError):
+        mamba_scan(x.bfloat16(), dt, A, B, C, D, h0)
+    strided = torch.cat([x, x], dim=-1)[..., ::2]     # x's shape, strided
+    with pytest.raises(ValueError, match="contiguous"):
+        mamba_scan(strided, dt, A, B, C, D, h0)
+    with pytest.raises(ValueError, match="d_state"):
+        mamba_scan(x, dt, A[:, :2].contiguous(), B[..., :2], C[..., :2], D,
+                   h0[..., :2].contiguous())
+    assert launch_counts()["mamba_scan"] == 2
+
+
+def test_jamba_greedy_serving_on_card_matches_cpu(cuda):
+    """The Jamba smoke config in fp32 (Mamba + MLP, attention + MoE):
+    greedy tokens through the kernels on the card equal the plain path
+    on the CPU; every prefill call of two or more tokens launched the
+    scan kernel once per Mamba layer, every model call the paged kernel
+    once per attention layer."""
+    cfg = smoke_config("jamba-v0.1-52b").with_overrides(dtype="float32")
+    rng = np.random.default_rng(0)
+    lengths = (5, 40, 33)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lengths]
+    chunk = 32
+    multi = sum(1 for n in lengths for s in range(0, n, chunk)
+                if min(chunk, n - s) >= 2)
+    kinds = [mixer for mixer, _ in cfg.layer_pattern()]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        model = init_model(cfg, seed=0, device="cpu")
+        if dev == "cuda":
+            model = model.to(cuda)
+        sch = ContinuousScheduler(cfg, model, slots=2, max_len=96,
+                                  page_size=16, decode_chunk=4,
+                                  prefill_chunk=chunk)
+        reset_launch_counts()
+        outs[dev] = sch.generate(prompts, 12)
+        st = sch.stats()
+    calls = st["prefill_dispatches"] + st["decode_dispatches"] * 4
+    assert launch_counts()["mamba_scan"] == kinds.count("mamba") * multi
+    assert launch_counts()["paged_flash_decode"] == kinds.count("attn") * calls
+    assert launch_counts().get("wkv6", 0) == 0
     for a, b in zip(outs["cpu"], outs["cuda"]):
         np.testing.assert_array_equal(a, b)

@@ -209,15 +209,12 @@ def test_bf16_model_keeps_fp32_where_the_reference_reads_fp32():
 
 
 @pytest.mark.parametrize("overrides,part", [
-    (dict(moe="moe"), "MoE"),
+    (dict(is_encoder_decoder=True, encoder_layers=2), "encoder-decoder"),
     (dict(attention="mla"), "MLA"),
-    (dict(attn_layer_period=2, ssm_kind="mamba"), "mamba"),
+    (dict(frontend="vision", num_frontend_tokens=16), "vision frontend"),
 ])
 def test_unported_stacks_are_refused_by_name(overrides, part):
-    from repro_torch.configs import MoEConfig
     from repro_torch.models.model import check_ported
-    if overrides.get("moe"):
-        overrides = dict(moe=MoEConfig(num_experts=4, top_k=2))
     cfg = get_config("qwen3-1.7b").with_overrides(**overrides)
     with pytest.raises(ValueError, match=part):
         check_ported(cfg)
