@@ -28,7 +28,15 @@ Phases (each fails the run if it goes wrong):
      paged-decode kernel;
   8. parity: a 2-layer full-width Jamba in fp32 -- (Mamba, MLP) then
      (attention, MoE) -- gives the same greedy tokens on the card
-     (kernels) as on the CPU (plain versions).
+     (kernels) as on the CPU (plain versions);
+  9. the DeepSeek-V3 path: deepseek-v3-671b at full width, its depth cut
+     to its first 4 layers (3 dense layers, 1 MoE layer of 256 experts),
+     serves the same traffic in bf16, with every MLA layer of every
+     model call launched through the absorbed-MLA paged-decode kernel;
+ 10. parity: a 2-layer full-width DeepSeek-V3 in fp32 -- (MLA, dense
+     MLP) then (MLA, MoE), the routed experts cut 256 -> 16 for this
+     phase only -- gives the same greedy tokens on the card (kernel) as
+     on the CPU (plain version).
 The last lines are the kernels' JSON record, the card's name and power
 limit, and the result line.  Without a card, or outside the repository,
 it exits non-zero and prints no result.
@@ -63,6 +71,9 @@ WKV_ATOL, WKV_BF16_RTOL = 5e-4, 2 ** -7
 # one bf16 step of y in bf16, for the same reason as wkv6
 MAMBA_ATOL, MAMBA_BF16_RTOL = 5e-4, 2 ** -7
 POISON = 1e4
+# the init peak the DeepSeek-V3 phase must stay under: the resident
+# model plus one 15 GB fp32 expert tensor being drawn
+DEEPSEEK_INIT_PEAK_GIB = 48.0
 
 # the serving run of phase 3
 SLOTS, REQUESTS, NEW_TOKENS = 8, 16, 64
@@ -222,6 +233,145 @@ def check_paged_decode(dev, flush, h=16, windowed=True, tag=""):
                   f"plain {plain_ms:.4f} ms  sdpa-on-slab {library_ms:.4f} ms"
                   f"  bound {rows[-1]['bound_ms']:.4f} ms "
                   f"({rows[-1]['bound_by']})")
+    return rows
+
+
+def mla_case(rng, B, S, h, r, rope, ps, W, lengths):
+    """q_lat, q_rope, poisoned token-major latent and rope-key pools,
+    table and positions; slot b has lengths[b] tokens written and its S
+    queries at the last S of them."""
+    n_pages = W * B + 2
+    ckv = np.full((n_pages * ps, r), POISON, np.float32)
+    krope = np.full((n_pages * ps, rope), POISON, np.float32)
+    table = np.zeros((B, W), np.int32)
+    nxt = 1
+    for b in range(B):
+        for w in range(-(-int(lengths[b]) // ps)):
+            table[b, w] = nxt
+            n = min(ps, int(lengths[b]) - w * ps)
+            ckv[nxt * ps:nxt * ps + n] = rng.standard_normal((n, r))
+            krope[nxt * ps:nxt * ps + n] = rng.standard_normal((n, rope))
+            nxt += 1
+    q_lat = rng.standard_normal((B, S, h, r)).astype(np.float32)
+    q_rope = rng.standard_normal((B, S, h, rope)).astype(np.float32)
+    pos = np.stack([np.arange(L - S, L) for L in lengths]).astype(np.int32)
+    return q_lat, q_rope, ckv, krope, table, pos
+
+
+def sdpa_backend(*args, **kw):
+    """The backend PyTorch's dispatcher picks for these SDPA inputs."""
+    from torch.nn.attention import SDPBackend
+    try:
+        choice = torch._fused_sdp_choice(*args, **kw)
+    except (AttributeError, RuntimeError) as e:
+        return f"not determined ({type(e).__name__})"
+    for backend in SDPBackend.__members__.values():
+        if backend.value == choice:
+            return backend.name
+    return str(choice)
+
+
+def check_paged_decode_mla(dev, flush):
+    """The absorbed-MLA kernel at deepseek-v3-671b's widths: 128 query
+    heads over one latent of 512 and a rope key of 64, page 16."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_decode import (
+        paged_flash_decode_mla, paged_flash_decode_mla_ref, visible_tokens)
+    from repro_torch.models.attention import PagedView, paged_read
+
+    h, r, rope, ps = 128, 512, 64, PAGE_SIZE
+    W = MAX_LEN // ps
+    scale = float(np.float32(1 / np.sqrt(128 + 64)))     # 1/sqrt(nope+rope)
+    rng = np.random.default_rng(3)
+    cases = [
+        ("decode B=8 S=1, slots ~512 tokens", 8, 1, 0,
+         rng.integers(480, 545, 8)),
+        ("prefill chunk B=1 S=32, 544 tokens", 1, 32, 0, np.array([544])),
+        ("ragged windowed chunk B=4 S=32 window=100", 4, 32, 100,
+         np.array([40, 200, 333, 560])),
+    ]
+    rows = []
+    for name, B, S, window, lengths in cases:
+        host = mla_case(rng, B, S, h, r, rope, ps, W, lengths)
+        poisoned = [torch.from_numpy(x == POISON).to(dev) for x in host[2:4]]
+        for dtype in (torch.float32, torch.bfloat16):
+            ins = [torch.from_numpy(x).to(dev, dtype) for x in host[:4]]
+            table, pos = (torch.from_numpy(x).to(dev) for x in host[4:])
+            args = (*ins, table, pos)
+            kw = dict(page_size=ps, scale=scale, window=window)
+            got = paged_flash_decode_mla(*args, **kw)
+            want = paged_flash_decode_mla_ref(*args, **kw)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            tol = TOL[dtype]
+            if not torch.allclose(got.float(), want.float(), atol=tol,
+                                  rtol=tol):
+                fail(f"paged_flash_decode_mla {name} {dtype}: max |err| "
+                     f"{err}")
+            # poisoned trash page / unwritten storage: 1e4 -> 1e8 must not
+            # change one bit of the output
+            big = [torch.where(m, 1e8, x.float()).to(dtype)
+                   for m, x in zip(poisoned, ins[2:4])]
+            again = paged_flash_decode_mla(*ins[:2], *big, table, pos, **kw)
+            if not torch.equal(got, again):
+                fail(f"paged_flash_decode_mla {name} {dtype}: trash leaked")
+            # the one-call yardstick: SDPA on the pre-gathered slab, q =
+            # [q_lat | q_rope], k = [ckv | krope] (576 wide), v = ckv
+            view = PagedView(table, ps)
+            ckv_c, kv_pos = paged_read(ins[2], view)
+            kr_c, _ = paged_read(ins[3], view)
+            mask = kv_pos[None, None, :] <= pos[:, :, None]
+            if window:
+                mask &= kv_pos[None, None, :] > pos[:, :, None] - window
+            qt = torch.cat(ins[:2], -1).transpose(1, 2).contiguous()
+            kt = torch.cat([ckv_c, kr_c], -1)[:, None].contiguous()
+            vt = ckv_c[:, None].contiguous()
+            sdpa_kw = dict(attn_mask=mask[:, None], scale=scale,
+                           enable_gqa=True)
+            sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                          **sdpa_kw)
+            sdpa_err = (sdpa().transpose(1, 2).float()
+                        - want.float()).abs().max().item()
+            backend = sdpa_backend(qt, kt, vt, mask[:, None], 0.0, False,
+                                   scale=scale, enable_gqa=True)
+            ms = time_ms(lambda: paged_flash_decode_mla(*args, **kw), flush)
+            plain_ms = time_ms(lambda: paged_flash_decode_mla_ref(*args, **kw),
+                               flush)
+            library_ms = time_ms(sdpa, flush)
+            # bound: each visible latent and rope row read once, q read and
+            # out written once; 2 (2 r + rope) operations per visible
+            # (query row, key)
+            n_vis = visible_tokens(host[5], W, ps, window)
+            el = ins[0].element_size()
+            n_bytes = (n_vis * (r + rope) * el
+                       + (2 * ins[0].numel() + ins[1].numel()) * el
+                       + table.numel() * 4 + pos.numel() * 4)
+            kv_pos_np = np.arange(W * ps)
+            vis_pairs = 0
+            for b in range(B):
+                for s_ in range(S):
+                    p = host[5][b, s_]
+                    m = kv_pos_np <= p
+                    if window:
+                        m &= kv_pos_np > p - window
+                    vis_pairs += int(m.sum())
+            ops = 2 * (2 * r + rope) * h * vis_pairs
+            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / PEAK_OPS[dtype] * 1e3
+            rows.append({
+                "case": name, "dtype": str(dtype).replace("torch.", ""),
+                "max_abs_err": err, "tol": tol, "ms": ms,
+                "plain_ms": plain_ms, "library_ms": library_ms,
+                "sdpa_backend": backend, "sdpa_max_abs_err": sdpa_err,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": n_bytes, "ops": ops})
+            print(f"  paged_flash_decode_mla {name:42s} "
+                  f"{rows[-1]['dtype']:8s} err {err:.2e} (tol {tol:g})  kernel {ms:.4f} ms  plain "
+                  f"{plain_ms:.4f} ms  sdpa-on-slab {library_ms:.4f} ms "
+                  f"({backend}, err {sdpa_err:.1e})  bound "
+                  f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}: "
+                  f"{n_bytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP)")
     return rows
 
 
@@ -604,6 +754,130 @@ def serve_jamba(dev, lens):
     return scans, paged
 
 
+def serve_deepseek(dev, lens):
+    """Phases 9 and 10: deepseek-v3-671b at full width cut to its first 4
+    layers in bf16 on the phase-3 traffic, then card-vs-CPU fp32 greedy
+    parity at 2 full-width layers with 16 routed experts.  Returns the
+    paged_flash_decode_mla launches of the phase-9 run."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config, one_card_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import init_model
+
+    cfg = one_card_config("deepseek-v3-671b")
+    pattern = cfg.layer_pattern()
+    rng = np.random.default_rng(0)
+    rng.integers(PROMPT_MIN, PROMPT_MAX + 1, REQUESTS)   # phase 3's lengths
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    numel = sum(p.numel() for p in model.parameters())
+    print(f"phase 9: {cfg.name} cut to {cfg.num_layers} layers, full width "
+          f"({sum(f == 'mlp' for _, f in pattern)} dense of d_ff "
+          f"{cfg.moe.dense_d_ff} + {sum(f == 'moe' for _, f in pattern)} MoE "
+          f"of {cfg.moe.num_experts} experts top-{cfg.moe.top_k} + "
+          f"{cfg.moe.num_shared_experts} shared; MLA q_lora "
+          f"{cfg.mla.q_lora_rank}, kv_lora {cfg.mla.kv_lora_rank}, rope "
+          f"{cfg.mla.qk_rope_head_dim}; bf16): {cfg.param_count() / 1e9:.3f} "
+          f"B params by the reference's formula (of "
+          f"{get_config(cfg.name).param_count() / 1e9:.1f} B; it counts the "
+          f"dense MLPs at d_ff {cfg.d_ff}), {numel / 1e9:.3f} B allocated; "
+          f"initialised in {time.perf_counter() - t0:.1f} s, peak memory "
+          f"during init {init_peak_gib:.2f} GiB, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB after")
+    if init_peak_gib > DEEPSEEK_INIT_PEAK_GIB:
+        fail(f"deepseek init peak {init_peak_gib:.2f} GiB exceeds "
+             f"{DEEPSEEK_INIT_PEAK_GIB} GiB")
+    serve(cfg, model, prompts[:2], 4)                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident_gib = torch.cuda.memory_allocated() / 2**30
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    sch, outs = serve(cfg, model, prompts, NEW_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    st = sch.stats()
+    model_calls = st["prefill_dispatches"] + DECODE_CHUNK * st[
+        "decode_dispatches"]
+    mla = counts.get("paged_flash_decode_mla", 0)
+    if mla != cfg.num_layers * model_calls:
+        fail(f"paged_flash_decode_mla launched {mla} times, expected "
+             f"{cfg.num_layers} x {model_calls} model calls")
+    for other in ("paged_flash_decode", "wkv6", "mamba_scan"):
+        if counts.get(other, 0):
+            fail(f"{other} launched on the DeepSeek path")
+    if len(outs) != REQUESTS or any(
+            len(o) != NEW_TOKENS or o.min() < 0 or o.max() >= cfg.vocab_size
+            for o in outs):
+        fail("served outputs have the wrong length or out-of-vocab tokens")
+    for i, layer in enumerate(sch.kv.cache):
+        if not all(torch.isfinite(t).all() for t in layer.values()):
+            fail(f"layer {i}: latent pool is not finite")
+    n_tok = sum(len(o) for o in outs)
+    ttft = sorted(st["ttft_s"])
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"phase 9: {REQUESTS} requests ({int(lens.sum())} prompt tokens) x "
+          f"{NEW_TOKENS} new tokens on {SLOTS} slots in {wall:.3f} s: "
+          f"{n_tok / wall:.1f} tokens/s, TTFT p50 "
+          f"{ttft[len(ttft) // 2] * 1e3:.1f} ms, "
+          f"{st['syncs_per_token']:.4f} host syncs/token, peak memory "
+          f"{peak_gib:.2f} GiB ({resident_gib:.2f} GiB resident at the "
+          f"start), pool {st['pool_bytes']} B "
+          f"({st['pool_bytes'] / 2**20:.1f} MiB); paged_flash_decode_mla "
+          f"launches {mla} = {cfg.num_layers} x ({st['prefill_dispatches']} "
+          f"prefill calls + {DECODE_CHUNK} x {st['decode_dispatches']} "
+          f"decode ticks)")
+    del model, sch
+    torch.cuda.empty_cache()
+
+    # phase 10: two full-width layers in fp32, the routed experts cut to
+    # 16 (256 fp32 experts are 45 GB of host memory for one layer); drawn
+    # on the card and copied to the CPU
+    small = cfg.with_overrides(
+        num_layers=2, dtype="float32",
+        moe=dataclasses.replace(cfg.moe, num_experts=16,
+                                first_dense_layers=1))
+    prompts10 = [p[:n] for p, n in zip(prompts[:4], (7, 40, 70, 33))]
+    t0 = time.perf_counter()
+    m_card = init_model(small, seed=1, device=dev)
+    m_cpu = copy.deepcopy(m_card.cpu())
+    m_card.to(dev)
+    numel = sum(p.numel() for p in m_card.parameters())
+    print(f"phase 10: {small.layer_pattern()} at full width in fp32, routed "
+          f"experts cut 256 -> {small.moe.num_experts} for this phase only "
+          f"(top-{small.moe.top_k}, {small.moe.num_shared_experts} shared, "
+          f"d_expert {small.moe.d_expert}; {numel / 1e9:.2f} B params "
+          f"allocated) drawn on the card and copied to the CPU in "
+          f"{time.perf_counter() - t0:.1f} s")
+    got = {}
+    for where, m in (("cpu", m_cpu), ("cuda", m_card)):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        sch, got[where] = serve(small, m, prompts10, 12)
+        print(f"  {where}: {time.perf_counter() - t0:.1f} s")
+    st = sch.stats()
+    calls = st["prefill_dispatches"] + DECODE_CHUNK * st["decode_dispatches"]
+    if launch_counts().get("paged_flash_decode_mla", 0) != 2 * calls:
+        fail("phase 10: the card run did not launch paged_flash_decode_mla "
+             "in every MLA layer of every model call")
+    for a, b in zip(got["cpu"], got["cuda"]):
+        if not np.array_equal(a, b):
+            fail(f"deepseek fp32 greedy tokens differ card vs CPU: {a} vs {b}")
+    print(f"phase 10: 2-layer full-width DeepSeek-V3 fp32 greedy tokens equal "
+          f"on card and CPU for {len(prompts10)} requests x 12 tokens")
+    del m_card, m_cpu, sch
+    torch.cuda.empty_cache()
+    return mla
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this checks the port on a "
@@ -624,7 +898,7 @@ def main():
 
     # ---- phase 1: build ---------------------------------------------------
     t0 = time.perf_counter()
-    stems = ("paged_decode", "wkv6", "mamba_scan")
+    stems = ("paged_decode", "paged_decode_mla", "wkv6", "mamba_scan")
     build.load_libraries(stems)
     print(f"phase 1: built {len(stems)} kernels in parallel in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -653,6 +927,11 @@ def main():
           f"{MAMBA_BF16_RTOL:g}, one bf16 step; B and C are strided column "
           "slices of one projection, as on the serving path")
     mamba_rows = check_mamba(dev, flush)
+    print(f"  paged_flash_decode_mla tolerance: fp32 {TOL[torch.float32]:g}, "
+          f"bf16 {TOL[torch.bfloat16]:g} (as paged_flash_decode); the trash "
+          "page and unwritten rows hold 1e4, then 1e8, and the output must "
+          "not change one bit")
+    mla_rows = check_paged_decode_mla(dev, flush)
     del flush
 
     # ---- phase 3: the main path, full width, bf16 -------------------------
@@ -724,6 +1003,7 @@ def main():
     torch.cuda.empty_cache()
     wkv_launches = serve_rwkv(dev, lens)
     scan_launches, jamba_paged_launches = serve_jamba(dev, lens)
+    mla_launches = serve_deepseek(dev, lens)
 
     decode_bf16 = next(r for r in rows if r["case"].startswith("decode")
                        and r["dtype"] == "bfloat16")
@@ -770,8 +1050,25 @@ def main():
         "library_ms": None,
         "cases": mamba_rows,
     }
+    mla_bf16 = next(r for r in mla_rows if r["case"].startswith("decode")
+                    and r["dtype"] == "bfloat16")
+    mla_entry = {
+        "name": "paged_flash_decode_mla", "route": "cuda",
+        "source": "src/repro_torch/csrc/paged_decode_mla.cu",
+        "replaces": "src/repro/kernels/paged_decode.py:240",
+        "launches": mla_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in mla_rows
+                           if r["dtype"] == "bfloat16"),
+        "ms": mla_bf16["ms"], "plain_ms": mla_bf16["plain_ms"],
+        "bound_ms": mla_bf16["bound_ms"],
+        "bound_by": mla_bf16["bound_by"],
+        "library_ms": mla_bf16["library_ms"],
+        "sdpa_backend": mla_bf16["sdpa_backend"],
+        "cases": mla_rows,
+    }
     print(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [entry, wkv_entry, mamba_entry]}))
+    print(json.dumps({"kernels": [entry, wkv_entry, mamba_entry,
+                                  mla_entry]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,6 +5,7 @@ stacked: ``params["decoder"]["blocks"]["layer{j}"]`` carries a leading
 ``n_rep`` axis (one super-block of ``len(pattern)`` layers, repeated),
 after an unrolled ``params["decoder"]["prefix"]``.  Layouts are the
 same on both sides -- wq (d, h, hd), wk/wv (d, hk, hd), wo (h, hd, d),
+MLA's w_dq/w_uq/w_dkv/w_uk/w_uv/wo with nested q_norm and kv_norm,
 MLP (d_in, d_out), the nested MoE ffn (router, ``experts`` {w_up,
 w_gate (E, d, f), w_down (E, f, d)}, optional router_bias and
 ``shared`` MLP), the Mamba and RWKV mixers as in ``models.ssm`` (an
@@ -25,7 +26,12 @@ from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
 
 # mixer norms the reference nests as {"scale": t}; ``Layer`` flattens them
-NESTED_SCALES = ("q_norm", "k_norm", "ln_x")
+NESTED_SCALES = ("q_norm", "k_norm", "kv_norm", "ln_x")
+# top-level keys of the reference's tree the port serves from
+SERVED_KEYS = ("embed", "decoder", "final_norm", "unembed")
+# ... and those it leaves out by name: the multi-token-prediction head is
+# read only by speculative decoding (``model.py::mtp_draft``), not ported
+DROPPED_KEYS = ("mtp",)
 
 
 def _tensor(a) -> torch.Tensor:
@@ -55,7 +61,13 @@ def layer_trees(cfg, decoder):
 
 def params_from_jax(tree, cfg, *, device="cuda") -> Model:
     """The reference's params (a tree of numpy arrays) as the port's
-    ``Model`` on ``device``, each weight cast once to ``cfg.dtype``."""
+    ``Model`` on ``device``, each weight cast once to ``cfg.dtype``.
+    ``DROPPED_KEYS`` are left out; any other key the port does not
+    serve raises rather than being dropped silently."""
+    unknown = sorted(set(tree) - set(SERVED_KEYS) - set(DROPPED_KEYS))
+    if unknown:
+        raise ValueError(f"params_from_jax: the port does not serve the "
+                         f"reference's {unknown}")
     dev = resolve_device(device)
     port = {"embed": _map(_tensor, tree["embed"]),
             "layers": [_map(_tensor, t)

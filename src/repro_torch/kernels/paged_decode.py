@@ -1,19 +1,25 @@
-"""Paged flash-decode: fused page-table gather + GQA online softmax.
+"""Paged flash-decode: fused page-table gather + online softmax, for
+GQA and for DeepSeek's absorbed MLA.
 
-Replaces the TPU kernel ``repro/kernels/paged_decode.py::
-paged_flash_decode`` (body ``_gqa_kernel``) with a CUDA C++ kernel for
-Hopper, ``csrc/paged_decode.cu``.  Every attention call of the serving
-path goes through it: decode steps (S = 1) and chunked-prefill chunks
-(S <= prefill_chunk).
+``paged_flash_decode`` replaces the TPU kernel ``repro/kernels/
+paged_decode.py::paged_flash_decode`` (body ``_gqa_kernel``) with a
+CUDA C++ kernel for Hopper, ``csrc/paged_decode.cu``;
+``paged_flash_decode_mla`` replaces ``paged_flash_decode_mla`` (body
+``_mla_kernel``) with ``csrc/paged_decode_mla.cu``.  Every attention
+call of the serving path goes through one of them: decode steps (S = 1)
+and chunked-prefill chunks (S <= prefill_chunk).
 
-Bound: memory.  A call must read each visible K/V row once, about
+Bound.  GQA: memory.  A call must read each visible K/V row once, about
 ``sum_b visible_tokens_b * hk * hd * 2 * sizeof(dtype)`` bytes, against
-a few FLOPs per byte.  The kernel walks only the pages that can hold a
-visible key, never materialises the slot-major gather that the plain
-version builds, and keeps scores and softmax state in shared memory.
+a few FLOPs per byte.  Absorbed MLA: operations.  All h query heads
+read the same latent rows (r + rope values a token), and each (query
+row, visible key) pair costs 2 (2 r + rope) FLOPs.  Both kernels walk
+only the pages that can hold a visible key, never materialise the
+slot-major gather that the plain versions build, and keep scores and
+softmax state on chip.
 
-``paged_flash_decode`` takes the plain version ONLY for CPU tensors.  A
-CUDA tensor launches the kernel or raises.
+The wrappers take the plain version ONLY for CPU tensors.  A CUDA
+tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -24,7 +30,9 @@ import torch
 
 from repro_torch.kernels.build import count_launch, load_library
 
-__all__ = ["paged_flash_decode", "paged_flash_decode_ref", "visible_tokens"]
+__all__ = ["paged_flash_decode", "paged_flash_decode_ref",
+           "paged_flash_decode_mla", "paged_flash_decode_mla_ref",
+           "visible_tokens"]
 
 ROWS_PER_BLOCK = 16        # query rows (of the g*S group rows) per block
 KEYS_PER_TILE = 64         # target keys staged per shared-memory tile
@@ -44,6 +52,26 @@ def _lib():
         lib.paged_flash_decode_smem_bytes.restype = ctypes.c_ulonglong
         lib.paged_flash_decode_error_string.argtypes = [ctypes.c_int]
         lib.paged_flash_decode_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+_MLA_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                 + [ctypes.c_float, ctypes.c_void_p])
+MLA_MAX_R, MLA_MAX_ROPE = 512, 64   # widths the MLA kernel's lanes cover
+
+
+def _mla_lib():
+    lib = load_library("paged_decode_mla")
+    if not getattr(lib, "_typed", False):
+        for fn in (lib.paged_flash_decode_mla_f32,
+                   lib.paged_flash_decode_mla_bf16):
+            fn.argtypes = _MLA_ARGTYPES
+            fn.restype = ctypes.c_int
+        lib.paged_flash_decode_mla_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.paged_flash_decode_mla_smem_bytes.restype = ctypes.c_ulonglong
+        lib.paged_flash_decode_mla_error_string.argtypes = [ctypes.c_int]
+        lib.paged_flash_decode_mla_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
 
@@ -135,6 +163,124 @@ def paged_flash_decode(q, k_pool, v_pool, page_table, q_positions, *,
         raise RuntimeError("paged_flash_decode launch failed: "
                            + lib.paged_flash_decode_error_string(rc).decode())
     count_launch("paged_flash_decode")
+    return out
+
+
+def paged_flash_decode_mla_ref(q_lat, q_rope, ckv_pool, krope_pool,
+                               page_table, q_positions, *, page_size, scale,
+                               window=0):
+    """The plain version, the reference's XLA formula (``apply_mla``'s
+    paged branch): gather the slot-major latent and rope keys, fp32
+    scores, mask, softmax, probabilities cast to q_lat's dtype, value
+    product on the latent."""
+    from repro_torch.models.attention import NEG_INF, PagedView, paged_read
+    view = PagedView(page_table, page_size)
+    dt = q_lat.dtype
+    ckv_c, kv_positions = paged_read(ckv_pool, view)
+    krope_c, _ = paged_read(krope_pool, view)
+    ckv_c, krope_c = ckv_c.to(dt), krope_c.to(dt)
+    scores = (torch.einsum("bshr,btr->bhst", q_lat.float(), ckv_c.float())
+              + torch.einsum("bshk,btk->bhst", q_rope.float(),
+                             krope_c.float()))
+    scores = scores * scale
+    mask = kv_positions[None, None, :] <= q_positions[:, :, None]
+    if window:
+        mask &= kv_positions[None, None, :] > q_positions[:, :, None] - window
+    scores = torch.where(mask[:, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhst,btr->bshr", probs.to(dt), ckv_c)
+
+
+def _check_mla(q_lat, q_rope, ckv_pool, krope_pool, page_table, q_positions,
+               page_size):
+    if q_lat.dim() != 4 or q_rope.dim() != 4 or ckv_pool.dim() != 2 \
+            or krope_pool.dim() != 2:
+        raise ValueError(f"q_lat, q_rope must be (B,S,h,r), (B,S,h,rope) and "
+                         f"the pools (N,r), (N,rope); got "
+                         f"{tuple(q_lat.shape)}, {tuple(q_rope.shape)}, "
+                         f"{tuple(ckv_pool.shape)}, {tuple(krope_pool.shape)}")
+    B, S, h, r = q_lat.shape
+    rope = q_rope.shape[-1]
+    N = ckv_pool.shape[0]
+    if tuple(q_rope.shape[:3]) != (B, S, h):
+        raise ValueError("q_lat and q_rope disagree on (B, S, h)")
+    if ckv_pool.shape[1] != r:
+        raise ValueError(f"ckv_pool width {ckv_pool.shape[1]} != latent {r}")
+    if tuple(krope_pool.shape) != (N, rope):
+        raise ValueError(f"krope_pool must be ({N}, {rope}); got "
+                         f"{tuple(krope_pool.shape)}")
+    if N % page_size:
+        raise ValueError(f"pool rows {N} not a multiple of page_size")
+    if page_table.dim() != 2 or page_table.shape[0] != B:
+        raise ValueError(f"page_table must be (B, W); got "
+                         f"{tuple(page_table.shape)}")
+    if tuple(q_positions.shape) != (B, S):
+        raise ValueError(f"q_positions must be (B, S)=({B}, {S}); got "
+                         f"{tuple(q_positions.shape)}")
+
+
+def paged_flash_decode_mla(q_lat, q_rope, ckv_pool, krope_pool, page_table,
+                           q_positions, *, page_size, scale, window=0):
+    """Absorbed-MLA paged decode: attend in the latent space against the
+    compressed pool (one kv "head" shared by all h query heads; V is the
+    latent itself).
+
+    q_lat: (B, S, h, r), q_nope projected through w_uk; q_rope: (B, S,
+    h, rope); ckv_pool: (N, r); krope_pool: (N, rope); page_table: (B,
+    W) int32 (0 = trash page); q_positions: (B, S) int32; scale: the
+    caller's, 1/sqrt(nope + rope).  Returns the latent output (B, S, h,
+    r) in q_lat's dtype.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel.
+    """
+    _check_mla(q_lat, q_rope, ckv_pool, krope_pool, page_table, q_positions,
+               page_size)
+    if q_lat.device.type == "cpu":
+        return paged_flash_decode_mla_ref(
+            q_lat, q_rope, ckv_pool, krope_pool, page_table, q_positions,
+            page_size=page_size, scale=scale, window=window)
+    if q_lat.device.type != "cuda":
+        raise ValueError(f"paged_flash_decode_mla: unsupported device "
+                         f"{q_lat.device}")
+    tensors = (q_lat, q_rope, ckv_pool, krope_pool, page_table, q_positions)
+    if any(t.device != q_lat.device for t in tensors):
+        raise ValueError("paged_flash_decode_mla: all operands must share a "
+                         "device")
+    if q_lat.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"paged_flash_decode_mla: dtype {q_lat.dtype} not "
+                        "supported (float32 or bfloat16)")
+    if any(t.dtype != q_lat.dtype for t in tensors[1:4]):
+        raise TypeError("paged_flash_decode_mla: q_rope and the pools must "
+                        "have q_lat's dtype")
+    if page_table.dtype != torch.int32 or q_positions.dtype != torch.int32:
+        raise TypeError("paged_flash_decode_mla: page_table and q_positions "
+                        "must be int32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("paged_flash_decode_mla: operands must be contiguous")
+    B, S, h, r = q_lat.shape
+    rope = q_rope.shape[-1]
+    if (r % 8 or r > MLA_MAX_R or rope % 8 or rope > MLA_MAX_ROPE
+            or any(t.data_ptr() % 16 for t in tensors[:4])):
+        raise ValueError(f"paged_flash_decode_mla: latent width {r} and rope "
+                         f"width {rope} must be multiples of 8, at most "
+                         f"{MLA_MAX_R} and {MLA_MAX_ROPE}, and q/pools "
+                         "16-byte aligned (vector loads)")
+    lib = _mla_lib()
+    smem = lib.paged_flash_decode_mla_smem_bytes(r, rope,
+                                                 q_lat.element_size())
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"paged_flash_decode_mla: r={r}, rope={rope} need "
+                         f"{smem} B of shared memory")
+    out = torch.empty_like(q_lat)
+    fn = (lib.paged_flash_decode_mla_f32 if q_lat.dtype == torch.float32
+          else lib.paged_flash_decode_mla_bf16)
+    rc = fn(*(t.data_ptr() for t in tensors), out.data_ptr(),
+            B, S, h, r, rope, page_table.shape[1], page_size, int(window),
+            float(scale), torch.cuda.current_stream(q_lat.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            "paged_flash_decode_mla launch failed: "
+            + lib.paged_flash_decode_mla_error_string(rc).decode())
+    count_launch("paged_flash_decode_mla")
     return out
 
 

@@ -1,15 +1,16 @@
 """Where the serving time goes: host wall vs device time per phase.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
-        --arch qwen3-1.7b|rwkv6-1.6b|jamba-v0.1-52b [--out profile_serve.json]
+        --arch qwen3-1.7b|rwkv6-1.6b|jamba-v0.1-52b|deepseek-v3-671b \\
+        [--out profile_serve.json]
 
 Serves the same traffic as ``chip_smoke.py``'s serving phases (16
 requests of 64-512 prompt tokens, 64 new greedy tokens, 8 slots) with
 the full-width config of ``--arch`` (Jamba cut to one 8-layer
-super-block: ``configs.one_card_config``), then traces one prefill
-chunk (32
-tokens into slot 0 at position 256, its recurrent rows included) and
-one fused decode tick with
+super-block, DeepSeek-V3 to its first 4 layers:
+``configs.one_card_config``), then traces one prefill chunk (32 tokens
+into slot 0 at position 256, its recurrent rows included) and one
+fused decode tick with
 ``torch.profiler``: host wall time, the device's busy time (sum of
 kernel times on the one stream), its idle share, kernel launches, and
 the kernels that take the most device time.  Needs the card.

@@ -16,9 +16,15 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \\
         --reduced --device cpu --batch 2 --prompt-len 40 --new-tokens 8
 
+    # DeepSeek-V3 (MLA, sigmoid-router MoE of 256 experts), full width,
+    # cut to its first 4 layers, on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek-v3-671b --batch 8 --requests 16 --report
+
 Without --reduced the full-width config serves in bf16 (Jamba cut to
-one 8-layer super-block, ``configs.one_card_config``); with it, the
-smoke config in fp32.  Prompts come from ``synthetic_tokens`` seeded by
+one 8-layer super-block, DeepSeek-V3 to its 3 dense layers and first
+MoE layer: ``configs.one_card_config``); with it, the smoke config in
+fp32.  Prompts come from ``synthetic_tokens`` seeded by
 --seed.  The default device is the card; a machine without one raises
 unless --device cpu is given.
 """

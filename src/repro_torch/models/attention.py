@@ -1,15 +1,20 @@
-"""Attention for the paged serving path (GQA with qk-norm and RoPE).
+"""Attention for the paged serving path: GQA (qk-norm, RoPE) and MLA.
 
-Port of the paged branch of ``repro.models.attention``: K/V live in a
+Port of the paged branches of ``repro.models.attention``: K/V live in a
 shared token-major page pool ``(num_pages * page_size, kv_heads,
 head_dim)`` with no batch axis, and a per-slot page table
 (``PagedView``) maps each slot's logical positions to physical pool
-rows.  ``repro_torch.serve.kvcache`` owns allocation; this module owns
-the read and write paths.  Page 0 is the trash page: never allocated,
-the write sink of idle slots and out-of-range positions.
+rows.  DeepSeek-V3's multi-head latent attention (MLA) pools its
+compressed latent instead: ``{"ckv": (N, kv_lora), "krope": (N,
+rope)}``, read by the absorbed decode (queries projected into the
+latent, which is also the value).  ``repro_torch.serve.kvcache`` owns
+allocation; this module owns the read and write paths.  Page 0 is the
+trash page: never allocated, the write sink of idle slots and
+out-of-range positions.
 
-The slab cache, cross-attention, ``chunked_attention`` and MLA are not
-ported here; they join with the slices that need them.
+The slab cache, cross-attention, ``chunked_attention`` and MLA's slab
+and train branches are not ported here; they join with the slices that
+need them.
 """
 from __future__ import annotations
 
@@ -18,7 +23,8 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.paged_decode import paged_flash_decode
+from repro_torch.kernels.paged_decode import (paged_flash_decode,
+                                              paged_flash_decode_mla)
 from repro_torch.models.layers import apply_rope, dense_init, rmsnorm
 
 NEG_INF = -1e30
@@ -129,25 +135,26 @@ def _padded_heads(cfg):
     return hp, mask
 
 
-def init_attention(cfg, *, generator, device="cpu"):
-    """fp32 master weights in the reference's layout: wq (d, h, hd),
-    wk/wv (d, hk, hd), wo (h, hd, d), qk-norm scales (hd,)."""
+def init_attention(cfg, *, generator, device="cpu", dtype):
+    """Weights in the reference's layout, projections cast to ``dtype``
+    as drawn: wq (d, h, hd), wk/wv (d, hk, hd), wo (h, hd, d), qk-norm
+    scales (hd,) in fp32."""
     d, hk, hd = cfg.d_model, cfg.num_kv_heads, cfg.head_dim
     h, mask = _padded_heads(cfg)
-    kw = dict(generator=generator, device=device)
+    kw = dict(generator=generator, device=device, dtype=dtype)
     wq = dense_init(d, h * hd, **kw).reshape(d, h, hd)
     wk = dense_init(d, hk * hd, **kw).reshape(d, hk, hd)
     wv = dense_init(d, hk * hd, **kw).reshape(d, hk, hd)
     wo = dense_init(h * hd, d, **kw).reshape(h, hd, d)
     if mask is not None:
-        m = torch.from_numpy(mask).to(device)
+        m = torch.from_numpy(mask).to(device, dtype)
         wq = wq * m[None, :, None]
         wo = wo * m[:, None, None]
     p = {"wq": wq, "wk": wk, "wv": wv, "wo": wo}
     if cfg.qkv_bias:
-        p["bq"] = torch.zeros((h, hd), device=device)
-        p["bk"] = torch.zeros((hk, hd), device=device)
-        p["bv"] = torch.zeros((hk, hd), device=device)
+        p["bq"] = torch.zeros((h, hd), device=device, dtype=dtype)
+        p["bk"] = torch.zeros((hk, hd), device=device, dtype=dtype)
+        p["bv"] = torch.zeros((hk, hd), device=device, dtype=dtype)
     if cfg.qk_norm:
         p["q_norm"] = {"scale": torch.ones((hd,), device=device)}
         p["k_norm"] = {"scale": torch.ones((hd,), device=device)}
@@ -200,3 +207,96 @@ def apply_attention(cfg, p, x, *, positions, cache, paged: PagedView,
         out = out * torch.from_numpy(head_mask).to(out)[None, None, :, None]
     B, S, h, hd = out.shape
     return out.reshape(B, S, h * hd) @ p["wo"].reshape(h * hd, -1)
+
+
+# --------------------------------------------------------------------------
+# MLA (DeepSeek-V3 multi-head latent attention), paged absorbed decode
+# --------------------------------------------------------------------------
+
+def init_mla(cfg, *, generator, device="cpu", dtype):
+    """Weights in the reference's layout, projections cast to ``dtype``
+    as drawn: w_dq (d, q_lora), q_norm (q_lora,), w_uq (q_lora, H,
+    nope + rope), w_dkv (d, kv_lora + rope), kv_norm (kv_lora,), w_uk
+    (kv_lora, H, nope), w_uv (kv_lora, H, v), wo (H, v, d)."""
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.num_heads
+    qk_hd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    kw = dict(generator=generator, device=device, dtype=dtype)
+    ones = lambda n: {"scale": torch.ones((n,), device=device)}
+    return {
+        "w_dq": dense_init(d, m.q_lora_rank, **kw),
+        "q_norm": ones(m.q_lora_rank),
+        "w_uq": dense_init(m.q_lora_rank, H * qk_hd, **kw).reshape(
+            m.q_lora_rank, H, qk_hd),
+        "w_dkv": dense_init(d, m.kv_lora_rank + m.qk_rope_head_dim, **kw),
+        "kv_norm": ones(m.kv_lora_rank),
+        "w_uk": dense_init(m.kv_lora_rank, H * m.qk_nope_head_dim,
+                           **kw).reshape(m.kv_lora_rank, H,
+                                         m.qk_nope_head_dim),
+        "w_uv": dense_init(m.kv_lora_rank, H * m.v_head_dim, **kw).reshape(
+            m.kv_lora_rank, H, m.v_head_dim),
+        "wo": dense_init(H * m.v_head_dim, d, **kw).reshape(
+            H, m.v_head_dim, d),
+    }
+
+
+def make_mla_cache(cfg, dtype, *, pool, device="cpu"):
+    """One MLA layer's paged pool: token-major latent ``ckv`` (N,
+    kv_lora) and the shared rope key ``krope`` (N, rope)."""
+    num_pages, page_size = pool
+    n = num_pages * page_size
+    m = cfg.mla
+    return {"ckv": torch.zeros((n, m.kv_lora_rank), dtype=dtype,
+                               device=device),
+            "krope": torch.zeros((n, m.qk_rope_head_dim), dtype=dtype,
+                                 device=device)}
+
+
+def _mla_qkv(cfg, p, x, rope):
+    """(q_nope, q_rope, ckv, krope) of x: (B, S, d); q_nope (B, S, H,
+    nope), q_rope (B, S, H, rope) and krope (B, S, rope) rotated by
+    ``rope`` (the angles of ``rope_freqs(rope_dim)``), ckv (B, S,
+    kv_lora) normalised."""
+    m = cfg.mla
+    ql = rmsnorm(p["q_norm"], x @ p["w_dq"], cfg.norm_eps)
+    q = _proj(ql, p["w_uq"])
+    q_nope = q[..., :m.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], rope)
+    dkv = x @ p["w_dkv"]
+    ckv = rmsnorm(p["kv_norm"], dkv[..., :m.kv_lora_rank], cfg.norm_eps)
+    # one rope key shared by every head: rotated as a single head
+    krope = apply_rope(dkv[..., m.kv_lora_rank:][:, :, None, :],
+                       rope)[:, :, 0, :]
+    return q_nope, q_rope, ckv, krope
+
+
+def mla_scale(cfg) -> float:
+    """The score scale, 1/sqrt(nope + rope) (not 1/sqrt(head_dim)), as
+    the fp32 number the reference multiplies by."""
+    m = cfg.mla
+    return float(np.float32(1.0 / np.sqrt(m.qk_nope_head_dim
+                                          + m.qk_rope_head_dim)))
+
+
+def apply_mla(cfg, p, x, *, positions, cache, paged: PagedView, write_idx,
+              rope):
+    """Decode-mode paged MLA (decode steps and prefill chunks), absorbed.
+
+    x: (B, S, d); positions: (B, S) per-slot; cache: {"ckv", "krope"}
+    pools, updated in place at ``write_idx``; rope: the angles of
+    ``rope_freqs(qk_rope_head_dim)``.  As in the reference: append the
+    latent and rope key, project q_nope into the latent through w_uk,
+    attend in the latent space (scores q_lat . ckv + q_rope . krope, V
+    = the latent itself), then w_uv and wo."""
+    q_nope, q_rope, ckv, krope = _mla_qkv(cfg, p, x, rope)
+    ckv_pool = _paged_append(cache["ckv"], write_idx, ckv)
+    krope_pool = _paged_append(cache["krope"], write_idx, krope)
+    q_lat = torch.einsum("bshn,rhn->bshr", q_nope, p["w_uk"])
+    out_lat = paged_flash_decode_mla(
+        q_lat.contiguous(), q_rope.contiguous(), ckv_pool.to(x.dtype),
+        krope_pool.to(x.dtype), paged.page_table, positions,
+        page_size=paged.page_size, scale=mla_scale(cfg),
+        window=cfg.swa_window)
+    out = torch.einsum("bshr,rhv->bshv", out_lat, p["w_uv"])
+    B, S, H, v = out.shape
+    return out.reshape(B, S, H * v) @ p["wo"].reshape(H * v, -1)

@@ -14,20 +14,25 @@ import torch.nn.functional as F
 
 
 # --------------------------------------------------------------------------
-# init helpers (fp32 masters, drawn from an explicit generator)
+# init helpers (fp32 draws from an explicit generator, cast as drawn)
 # --------------------------------------------------------------------------
 
-def truncated_normal(shape, std, *, generator, device="cpu"):
-    """Normal(0, std) truncated at +-3 std, in fp32."""
+def truncated_normal(shape, std, *, generator, device="cpu",
+                     dtype=torch.float32):
+    """Normal(0, std) truncated at +-3 std, drawn in fp32 and cast to
+    ``dtype`` at once, so a bf16 model never holds more than the one
+    fp32 master being drawn (the values are those of casting later)."""
     t = torch.empty(shape, dtype=torch.float32, device=device)
-    return torch.nn.init.trunc_normal_(t, 0.0, std, -3.0 * std, 3.0 * std,
-                                       generator=generator)
+    torch.nn.init.trunc_normal_(t, 0.0, std, -3.0 * std, 3.0 * std,
+                                generator=generator)
+    return t.to(dtype)
 
 
-def dense_init(d_in, d_out, *, generator, device="cpu", std=None):
+def dense_init(d_in, d_out, *, generator, device="cpu", std=None,
+               dtype=torch.float32):
     std = std if std is not None else 1.0 / np.sqrt(d_in)
     return truncated_normal((d_in, d_out), std, generator=generator,
-                            device=device)
+                            device=device, dtype=dtype)
 
 
 # --------------------------------------------------------------------------
@@ -47,8 +52,8 @@ def rmsnorm(scale, x, eps=1e-6):
 # MLP (gated SwiGLU or plain 2-mat)
 # --------------------------------------------------------------------------
 
-def init_mlp(d_model, d_ff, *, gated=True, generator, device="cpu"):
-    kw = dict(generator=generator, device=device)
+def init_mlp(d_model, d_ff, *, gated=True, generator, device="cpu", dtype):
+    kw = dict(generator=generator, device=device, dtype=dtype)
     p = {"w_up": dense_init(d_model, d_ff, **kw),
          "w_down": dense_init(d_ff, d_model, **kw)}
     if gated:

@@ -1,6 +1,6 @@
 """Top-level decoder: init, paged cache, decode-mode forward, logits.
 
-Port of ``repro.models.model`` for decoder-only stacks of GQA
+Port of ``repro.models.model`` for decoder-only stacks of GQA or MLA
 attention and Mamba layers (each with an MLP or MoE ffn) and RWKV-6
 blocks, in the decode mode the serving path uses (decode steps and
 chunked-prefill chunks).  ``apply_model`` returns ``{"logits",
@@ -29,22 +29,25 @@ class Model(nn.Module):
 
     tree: {"embed": {"table"}, "layers": iterable of layer trees,
     "final_norm": {"scale"}, "unembed": {"table"} (untied only)} in
-    fp32 masters or any float dtype; each weight is cast once to the
-    compute dtype here.  The layers are built one at a time, so an
-    iterable that draws each tree on demand holds one layer's masters
-    at a time.  The unembedding table is also kept in fp32 for the fp32
-    logits (the same tensor when the compute dtype is fp32).
+    fp32 masters or already in the dtype each weight keeps; each weight
+    is cast once to the compute dtype here (a no-op for one already
+    cast).  The layers are built one at a time, so an iterable that
+    draws each tree on demand holds one layer's weights at a time.  The
+    unembedding table is kept in fp32 for the fp32 logits (the same
+    tensor as the embedding when it is tied and the compute dtype is
+    fp32; an untied embedding may arrive in the compute dtype).
     """
 
     def __init__(self, cfg, tree, *, device):
         super().__init__()
         check_ported(cfg)
         dt = compute_dtype(cfg)
-        table = tree["embed"]["table"].to(device=device, dtype=torch.float32)
+        table = tree["embed"]["table"].to(device=device)
         self.embed = tfm._frozen(table.to(dt))
-        out = table if cfg.tie_embeddings else tree["unembed"]["table"].to(
-            device=device, dtype=torch.float32)
-        self.unembed_f32 = tfm._frozen(out)
+        out = table if cfg.tie_embeddings else tree["unembed"]["table"]
+        self.unembed_f32 = tfm._frozen(out.to(device=device,
+                                              dtype=torch.float32))
+        del table, out
         # no name (and no zip/enumerate tuple) may hold a layer's tree
         # while the next one is drawn
         trees = iter(tree["layers"])
@@ -55,17 +58,23 @@ class Model(nn.Module):
         self.final_norm = tfm._frozen(
             tree["final_norm"]["scale"].to(device=device, dtype=torch.float32))
         self.register_buffer("rope_freqs", torch.from_numpy(
-            rope_freqs(cfg.head_dim, cfg.rope_theta)).to(device)
+            rope_freqs(rope_dim(cfg), cfg.rope_theta)).to(device)
             if tfm.has_attention(cfg) else None)
+
+
+def rope_dim(cfg) -> int:
+    """The width RoPE rotates: the head width, or MLA's decoupled rope
+    part (``qk_rope_head_dim``).  ``rope_freqs(64)`` is not a prefix of
+    ``rope_freqs(128)``, so MLA needs its own frequencies."""
+    return cfg.mla.qk_rope_head_dim if cfg.attention == "mla" \
+        else cfg.head_dim
 
 
 def check_ported(cfg):
     """Raise, naming the part, unless every layer of ``cfg`` is one the
-    port has: a GQA attention or Mamba mixer with an MLP or MoE ffn, or
-    an RWKV-6 block."""
+    port has: a GQA or MLA attention or Mamba mixer with an MLP or MoE
+    ffn, or an RWKV-6 block."""
     missing = []
-    if cfg.attention == "mla":
-        missing.append("MLA")
     kinds = {mixer for mixer, _ in cfg.layer_pattern()}
     missing += sorted(kinds - {"attn", "mamba", "rwkv6"})
     if cfg.is_encoder_decoder:
@@ -74,8 +83,8 @@ def check_ported(cfg):
         missing.append(f"{cfg.frontend} frontend")
     if missing:
         raise ValueError(f"{cfg.name}: {', '.join(missing)} not ported; the "
-                         "port serves GQA attention and Mamba layers (MLP or "
-                         "MoE) and RWKV-6 stacks")
+                         "port serves GQA or MLA attention and Mamba layers "
+                         "(MLP or MoE) and RWKV-6 stacks")
 
 
 def _to_device(tree, device):
@@ -87,20 +96,27 @@ def _to_device(tree, device):
 def init_model(cfg, *, seed=0, device="cuda") -> Model:
     """Random weights from a seed: truncated normal, std 1/sqrt(d_in)
     for projections and 0.02 for the embedding, drawn in fp32 with an
-    explicit ``torch.Generator`` on ``device``.  Each layer is cast to
-    the compute dtype as it is drawn and its fp32 masters are dropped
-    before the next is drawn, so the peak is the cast model plus one
-    layer's masters (a dense prefix, e.g. DeepSeek's, takes
-    ``moe.dense_d_ff``)."""
+    explicit ``torch.Generator`` on ``device``, in the order embedding,
+    unembedding, layers.  Each weight is cast to the dtype it keeps as
+    soon as it is drawn (the untied embedding too), so the peak is the
+    cast model plus the one fp32 tensor being drawn: at DeepSeek-V3's
+    4-layer cut, one (256, 7168, 2048) expert tensor of 15 GB, where
+    casting layer by layer held a whole MoE layer's 45 GB of masters.
+    Layers are drawn one at a time as ``Model`` builds them (a dense
+    prefix, e.g. DeepSeek's, takes ``moe.dense_d_ff``)."""
     dev = resolve_device(device)
+    dt = compute_dtype(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
     n_prefix = len(cfg.block_structure()[0])
     dense_ff = cfg.moe.dense_d_ff if cfg.moe is not None else 0
     layers = (tfm.init_layer(cfg, spec, generator=gen, device=dev,
-                             dense_ff=dense_ff if i < n_prefix else 0)
+                             dense_ff=dense_ff if i < n_prefix else 0,
+                             dtype=dt)
               for i, spec in enumerate(cfg.layer_pattern()))
+    # a tied table is also the fp32 unembedding: it stays fp32
     tree = {"embed": {"table": truncated_normal(
-        (cfg.vocab_size, cfg.d_model), 0.02, generator=gen, device=dev)},
+        (cfg.vocab_size, cfg.d_model), 0.02, generator=gen, device=dev,
+        dtype=torch.float32 if cfg.tie_embeddings else dt)},
         "layers": layers,
         "final_norm": {"scale": torch.ones((cfg.d_model,), device=dev)}}
     if not cfg.tie_embeddings:
@@ -112,9 +128,10 @@ def init_model(cfg, *, seed=0, device="cuda") -> Model:
 def init_cache(cfg, dtype, *, pool, slots=None, device="cuda"):
     """The serving cache, one entry per layer: an attention layer's
     {"k", "v"} pool, each ``(num_pages * page_size, hk, hd)`` with pool
-    = (num_pages, page_size); a Mamba layer's {"ssm", "conv"} or an
-    RWKV layer's {"state", "shift_tm", "shift_cm"} with ``slots``
-    rows."""
+    = (num_pages, page_size) (an MLA layer's {"ckv", "krope"} latent
+    pool, ``(num_pages * page_size, kv_lora | rope)``); a Mamba layer's
+    {"ssm", "conv"} or an RWKV layer's {"state", "shift_tm",
+    "shift_cm"} with ``slots`` rows."""
     dev = resolve_device(device)
     kinds = [kind for kind, _ in cfg.layer_pattern()]
     if slots is None and any(kind != "attn" for kind in kinds):

@@ -29,15 +29,17 @@ from repro_torch.models.layers import apply_mlp, init_mlp, truncated_normal
 FP32_WEIGHTS = ("router", "router_bias")
 
 
-def init_moe(cfg, *, generator, device="cpu"):
-    """fp32 master weights of one MoE layer in the reference's layout:
-    router (d, E), experts {w_up, w_gate (E, d, f), w_down (E, f, d)},
-    optional router_bias (E,) and shared MLP.  Each expert matrix is
-    drawn in its (E, d_in, d_out) layout with std 1/sqrt(d_in)."""
+def init_moe(cfg, *, generator, device="cpu", dtype):
+    """Weights of one MoE layer in the reference's layout: router (d, E),
+    experts {w_up, w_gate (E, d, f), w_down (E, f, d)}, optional
+    router_bias (E,) and shared MLP.  Each expert matrix is drawn in its
+    (E, d_in, d_out) layout with std 1/sqrt(d_in), in fp32, and cast to
+    ``dtype`` as it is drawn; the router stays fp32."""
     m = cfg.moe
     d, E, f = cfg.d_model, m.num_experts, m.d_expert
-    kw = dict(generator=generator, device=device)
-    p = {"router": truncated_normal((d, E), 0.02, **kw)}
+    kw = dict(generator=generator, device=device, dtype=dtype)
+    p = {"router": truncated_normal((d, E), 0.02, generator=generator,
+                                    device=device)}
     if m.router_type == "sigmoid":
         p["router_bias"] = torch.zeros((E,), device=device)
     experts = {"w_up": truncated_normal((E, d, f), 1 / np.sqrt(d), **kw),

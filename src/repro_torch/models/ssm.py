@@ -30,22 +30,24 @@ from repro_torch.models.layers import dense_init, rmsnorm, truncated_normal
 FP32_WEIGHTS = ("u", "w_base", "A_log", "D")
 
 
-def init_rwkv6(cfg, *, generator, device="cpu"):
-    """fp32 master weights of one RWKV-6 block (time mix and channel
-    mix), as a tree in the reference's layout."""
+def init_rwkv6(cfg, *, generator, device="cpu", dtype):
+    """Weights of one RWKV-6 block (time mix and channel mix), as a tree
+    in the reference's layout: drawn in fp32, each cast to ``dtype`` as
+    it is drawn except ``FP32_WEIGHTS``."""
     rc = cfg.rwkv
     d = cfg.d_model
     H, K = d // rc.head_dim, rc.head_dim
-    kw = dict(generator=generator, device=device)
+    f32 = dict(generator=generator, device=device)
+    kw = dict(f32, dtype=dtype)
     return {
         "mu_base": truncated_normal((d,), 0.02, **kw),
         "mu": truncated_normal((5, d), 0.02, **kw),
         "mix_A": truncated_normal((5, d, rc.mix_lora), 0.02, **kw),
         "mix_B": truncated_normal((5, rc.mix_lora, d), 0.02, **kw),
-        "w_base": truncated_normal((d,), 0.02, **kw) - 6.0,
+        "w_base": truncated_normal((d,), 0.02, **f32) - 6.0,
         "decay_A": truncated_normal((d, rc.decay_lora), 0.02, **kw),
         "decay_B": truncated_normal((rc.decay_lora, d), 0.02, **kw),
-        "u": truncated_normal((H, K), 0.02, **kw),
+        "u": truncated_normal((H, K), 0.02, **f32),
         "wr": dense_init(d, d, **kw),
         "wk": dense_init(d, d, **kw),
         "wv": dense_init(d, d, **kw),
@@ -153,16 +155,18 @@ def apply_rwkv6_channel_mix(cfg, p, x, *, cache=None):
 # Mamba-1 (selective scan)
 # ==========================================================================
 
-def init_mamba(cfg, *, generator, device="cpu"):
-    """fp32 master weights of one Mamba mixer, as a tree in the
-    reference's layout (split x / z input projections)."""
+def init_mamba(cfg, *, generator, device="cpu", dtype):
+    """Weights of one Mamba mixer, as a tree in the reference's layout
+    (split x / z input projections): the projections drawn in fp32 and
+    cast to ``dtype`` as drawn; the dt bias, A_log and D computed in
+    fp32 (the layer casts the small dt bias)."""
     mc = cfg.mamba
     d = cfg.d_model
     dI = mc.expand * d
     dt_rank = max(1, d // 16)
-    kw = dict(generator=generator, device=device)
+    kw = dict(generator=generator, device=device, dtype=dtype)
     # dt bias initialised so softplus(dt_bias) spans [1e-3, 1e-1]
-    u = torch.rand((dI,), **kw)
+    u = torch.rand((dI,), generator=generator, device=device)
     dt_init = torch.exp(u * (np.log(0.1) - np.log(1e-3)) + np.log(1e-3))
     dt_bias = dt_init + torch.log1p(-torch.exp(-dt_init))  # inverse softplus
     return {

@@ -1,21 +1,23 @@
 """Decoder stack: attention, Mamba and RWKV-6 layers as ``nn.Module``s.
 
-Port of ``repro.models.transformer`` for GQA attention and Mamba
+Port of ``repro.models.transformer`` for GQA or MLA attention and Mamba
 mixers with an MLP or MoE ffn, and RWKV-6 blocks.  The reference scans
 one stacked super-block (a leading ``n_rep`` axis on every leaf); here
 the layers are an ``nn.ModuleList`` and the stack is a Python loop that
 takes each layer's (mixer, ffn) kinds from ``cfg.layer_pattern()``.
 An attention layer's paged KV pool is its own ``{"k", "v"}`` pair of
-``(N, hk, hd)`` tensors; a Mamba or RWKV layer's cache is its per-slot
+``(N, hk, hd)`` tensors (MLA: ``{"ckv": (N, kv_lora), "krope": (N,
+rope)}``); a Mamba or RWKV layer's cache is its per-slot
 recurrent state (``ssm.make_mamba_cache``, ``ssm.make_rwkv6_cache``).
 All are updated in place.
 
 Weights keep the reference's layouts (wq (d, h, hd), wk/wv (d, hk, hd),
-wo (h, hd, d), MLP (d_in, d_out), MoE experts (E, d_in, d_out), Mamba
-and RWKV as in ``models.ssm``) and are cast ONCE to the compute dtype
-when the module is built -- the reference casts at every use to the
-same values.  Norm scales and the weights it reads in fp32
-(``ssm.FP32_WEIGHTS``, ``moe.FP32_WEIGHTS``) stay fp32.
+wo (h, hd, d), MLA as in ``attention.init_mla``, MLP (d_in, d_out), MoE
+experts (E, d_in, d_out), Mamba and RWKV as in ``models.ssm``) and are
+cast ONCE to the compute dtype: as they are drawn (``init_layer``), or
+when the module is built from a reference tree -- the reference casts
+at every use to the same values.  Norm scales and the weights it reads
+in fp32 (``ssm.FP32_WEIGHTS``, ``moe.FP32_WEIGHTS``) stay fp32.
 """
 from __future__ import annotations
 
@@ -56,23 +58,28 @@ class ParamTree(nn.Module):
         return [(k, self[k]) for k in self._names]
 
 
-def init_layer(cfg, spec, *, generator, device="cpu", dense_ff=0):
-    """fp32 master weights of one layer of kinds ``spec`` = (mixer,
-    ffn): an "attn" or "mamba" mixer with an "mlp" (of width
-    ``dense_ff`` when given, else ``d_ff``) or "moe" ffn, or an "rwkv6"
-    block, whose channel mix lives in its mixer; as a tree in the
-    reference's layout."""
+def init_layer(cfg, spec, *, generator, device="cpu", dense_ff=0, dtype):
+    """Weights of one layer of kinds ``spec`` = (mixer, ffn): an "attn"
+    (GQA, or MLA when ``cfg.attention == "mla"``) or "mamba" mixer with
+    an "mlp" (of width ``dense_ff`` when given, else ``d_ff``) or "moe"
+    ffn, or an "rwkv6" block, whose channel mix lives in its mixer; as a
+    tree in the reference's layout.  Drawn in fp32, each weight cast to
+    ``dtype`` as it is drawn (norm scales and the weights read in fp32
+    stay fp32), so a bf16 draw never holds two fp32 masters at once."""
     mixer, ffn = spec
     d = cfg.d_model
-    kw = dict(generator=generator, device=device)
+    kw = dict(generator=generator, device=device, dtype=dtype)
     ones = lambda: {"scale": torch.ones((d,), device=device)}
     if mixer == "rwkv6":
         return {"norm1": ones(), "mixer": ssm_lib.init_rwkv6(cfg, **kw),
                 "norm2": ones()}
-    p = {"norm1": ones(),
-         "mixer": (ssm_lib.init_mamba(cfg, **kw) if mixer == "mamba"
-                   else attn_lib.init_attention(cfg, **kw)),
-         "norm2": ones()}
+    if mixer == "mamba":
+        mix = ssm_lib.init_mamba(cfg, **kw)
+    elif cfg.attention == "mla":
+        mix = attn_lib.init_mla(cfg, **kw)
+    else:
+        mix = attn_lib.init_attention(cfg, **kw)
+    p = {"norm1": ones(), "mixer": mix, "norm2": ones()}
     p["ffn"] = (moe_lib.init_moe(cfg, **kw) if ffn == "moe" else
                 init_mlp(d, dense_ff or cfg.d_ff, gated=cfg.mlp_gated, **kw))
     return p
@@ -107,6 +114,8 @@ def init_layer_cache(cfg, kind, dtype, *, pool, slots, device="cpu"):
         return ssm_lib.make_rwkv6_cache(cfg, slots, dtype, device=device)
     if kind == "mamba":
         return ssm_lib.make_mamba_cache(cfg, slots, dtype, device=device)
+    if cfg.attention == "mla":
+        return attn_lib.make_mla_cache(cfg, dtype, pool=pool, device=device)
     return attn_lib.make_cache(cfg, dtype, pool=pool, device=device)
 
 
@@ -124,6 +133,10 @@ def apply_layer(cfg, layer: Layer, x, *, positions, cache, paged,
                                                    cache=cache), None
     if layer.kind == "mamba":
         x = x + ssm_lib.apply_mamba(cfg, layer.mixer, h, cache=cache)
+    elif cfg.attention == "mla":
+        x = x + attn_lib.apply_mla(cfg, layer.mixer, h, positions=positions,
+                                   cache=cache, paged=paged,
+                                   write_idx=write_idx, rope=rope)
     else:
         x = x + attn_lib.apply_attention(cfg, layer.mixer, h,
                                          positions=positions, cache=cache,

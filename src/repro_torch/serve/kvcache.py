@@ -3,7 +3,8 @@ and per-slot recurrent state.
 
 Port of ``repro.serve.kvcache.PagedKVCache``.  An attention layer's K
 and V live in one token-major pool ``(num_pages * page_size, kv_heads,
-head_dim)`` on the device ("pooled" leaves); each serving slot owns
+head_dim)`` on the device (an MLA layer's latent and rope key in
+``(num_pages * page_size, kv_lora | rope)``: "pooled" leaves); each serving slot owns
 only the pages it was allocated, and the per-slot page table maps its
 logical positions to pool rows.  Page 0 is the reserved trash page:
 never allocated, the write sink of idle slots (all-zero table rows).

@@ -1,7 +1,7 @@
-"""The port on the card: the CUDA paged flash-decode, WKV6 and Mamba
-selective-scan kernels against their plain PyTorch versions, the launch
-counters, and greedy serving (qwen3, RWKV-6 and Jamba smoke configs) on
-the card against the CPU.  Marked ``gpu``; each test skips by itself
+"""The port on the card: the CUDA paged flash-decode (GQA and absorbed
+MLA), WKV6 and Mamba selective-scan kernels against their plain PyTorch
+versions, the launch counters, and greedy serving (qwen3, RWKV-6, Jamba
+and DeepSeek-V3 smoke configs) on the card against the CPU.  Marked ``gpu``; each test skips by itself
 where no card is present.  Imports no jax (the card's machine has
 none).
 
@@ -11,11 +11,14 @@ import numpy as np
 import pytest
 import torch
 
-from torch_paged_cases import GQA_CASES, POISON, paged_case
+from torch_paged_cases import (GQA_CASES, MLA_CASES, POISON, mla_case,
+                               paged_case)
 
 from repro_torch.configs import smoke_config
 from repro_torch.kernels import (launch_counts, mamba_ref, mamba_scan,
-                                 paged_flash_decode, paged_flash_decode_ref,
+                                 paged_flash_decode, paged_flash_decode_mla,
+                                 paged_flash_decode_mla_ref,
+                                 paged_flash_decode_ref,
                                  reset_launch_counts, wkv6, wkv6_chunked)
 from repro_torch.models import init_model
 from repro_torch.serve import ContinuousScheduler
@@ -320,5 +323,115 @@ def test_jamba_greedy_serving_on_card_matches_cpu(cuda):
     assert launch_counts()["mamba_scan"] == kinds.count("mamba") * multi
     assert launch_counts()["paged_flash_decode"] == kinds.count("attn") * calls
     assert launch_counts().get("wkv6", 0) == 0
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        np.testing.assert_array_equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# absorbed-MLA paged decode (DeepSeek-V3)
+# --------------------------------------------------------------------------
+
+MLA_FULL_WIDTH_CASES = [
+    # B, S, h, r, rope, page_size, W, window  (deepseek-v3-671b widths)
+    (8, 1, 128, 512, 64, 16, 37, 0),      # decode over 8 slots
+    (1, 32, 128, 512, 64, 16, 37, 0),     # prefill chunk
+    (4, 32, 128, 512, 64, 16, 37, 100),   # ragged, windowed chunk
+]
+MLA_SCALE = float(np.float32(1 / np.sqrt(192)))   # 1/sqrt(nope + rope)
+
+
+def _mla_on(dev, dtype, q_lat, q_rope, ckv, krope, table, pos):
+    return tuple(torch.from_numpy(x).to(dev, dtype)
+                 for x in (q_lat, q_rope, ckv, krope)) + (
+        torch.from_numpy(table).to(dev), torch.from_numpy(pos).to(dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", MLA_CASES + MLA_FULL_WIDTH_CASES)
+def test_mla_kernel_matches_plain(cuda, case, dtype):
+    B, S, h, r, rope, ps, W, window = case
+    lengths = None
+    if (B, S, h) == (8, 1, 128):   # slots of 1 token .. max_len
+        lengths = np.linspace(1, W * ps, B).astype(int)
+    elif (B, S, h) == (4, 32, 128):
+        lengths = [40, 200, 333, 560]
+    args = _mla_on(cuda, dtype, *mla_case(sum(case), B, S, h, r, rope, ps, W,
+                                          lengths=lengths))
+    scale = MLA_SCALE if h == 128 else 0.125
+    got = paged_flash_decode_mla(*args, page_size=ps, scale=scale,
+                                 window=window)
+    want = paged_flash_decode_mla_ref(*args, page_size=ps, scale=scale,
+                                      window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mla_kernel_trash_poison_never_leaks(cuda, dtype):
+    """The trash page, unreferenced pages and unwritten page tails flooded
+    with 1e8 give the bitwise same output as zero-filled storage."""
+    q_lat, q_rope, ckv, krope, table, pos = mla_case(
+        5, 3, 4, 128, 512, 64, 16, 6, lengths=[7, 50, 96])
+    outs = []
+    for fill in (0.0, 1e8):
+        c, k = (np.where(x == POISON, fill, x).astype(np.float32)
+                for x in (ckv, krope))
+        outs.append(paged_flash_decode_mla(
+            *_mla_on(cuda, dtype, q_lat, q_rope, c, k, table, pos),
+            page_size=16, scale=MLA_SCALE))
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_mla_kernel_counts_launches_and_rejects_bad_input(cuda):
+    args = _mla_on(cuda, torch.float32, *mla_case(1, 2, 1, 4, 32, 16, 16, 4))
+    reset_launch_counts()
+    paged_flash_decode_mla(*args, page_size=16, scale=0.1)
+    paged_flash_decode_mla(*args, page_size=16, scale=0.1)
+    assert launch_counts()["paged_flash_decode_mla"] == 2
+    q_lat, q_rope, ckv, krope, table, pos = args
+    with pytest.raises(TypeError):
+        paged_flash_decode_mla(q_lat, q_rope, ckv.half(), krope, table, pos,
+                               page_size=16, scale=0.1)
+    with pytest.raises(TypeError):
+        paged_flash_decode_mla(q_lat, q_rope, ckv, krope, table.long(), pos,
+                               page_size=16, scale=0.1)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        paged_flash_decode_mla(q_lat[..., :28].contiguous(), q_rope,
+                               ckv[:, :28].contiguous(), krope, table, pos,
+                               page_size=16, scale=0.1)
+    strided = torch.cat([q_lat, q_lat], dim=-1)[..., ::2]   # q_lat's shape
+    with pytest.raises(ValueError, match="contiguous"):
+        paged_flash_decode_mla(strided, q_rope, ckv, krope, table, pos,
+                               page_size=16, scale=0.1)
+    assert launch_counts()["paged_flash_decode_mla"] == 2
+
+
+def test_deepseek_greedy_serving_on_card_matches_cpu(cuda):
+    """The DeepSeek-V3 smoke config deepened to 4 layers (MLA + dense
+    MLP, then three MLA + sigmoid MoE) in fp32: greedy tokens through the
+    MLA kernel on the card equal the plain path on the CPU, and every
+    model call launched the kernel once per layer and no other kernel."""
+    cfg = smoke_config("deepseek-v3-671b").with_overrides(num_layers=4,
+                                                          dtype="float32")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 40, 33)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        model = init_model(cfg, seed=0, device="cpu")
+        if dev == "cuda":
+            model = model.to(cuda)
+        sch = ContinuousScheduler(cfg, model, slots=2, max_len=96,
+                                  page_size=16, decode_chunk=4,
+                                  prefill_chunk=32)
+        reset_launch_counts()
+        outs[dev] = sch.generate(prompts, 12)
+        st = sch.stats()
+    calls = st["prefill_dispatches"] + st["decode_dispatches"] * 4
+    counts = launch_counts()
+    assert counts["paged_flash_decode_mla"] == cfg.num_layers * calls
+    for name in ("paged_flash_decode", "wkv6", "mamba_scan"):
+        assert counts.get(name, 0) == 0, name
     for a, b in zip(outs["cpu"], outs["cuda"]):
         np.testing.assert_array_equal(a, b)

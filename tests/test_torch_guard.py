@@ -22,10 +22,11 @@ def _imports(path):
 def test_port_files_exist():
     names = {p.name for p in PORT_FILES}
     assert {"paged_decode.py", "wkv6.py", "mamba_scan.py", "ssm.py",
-            "moe.py", "rwkv6_1p6b.py", "jamba_v0p1_52b.py", "scheduler.py",
-            "chip_smoke.py"} <= names
+            "moe.py", "rwkv6_1p6b.py", "jamba_v0p1_52b.py",
+            "deepseek_v3_671b.py", "scheduler.py", "chip_smoke.py"} <= names
     assert {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob(
-        "*.cu")} >= {"paged_decode.cu", "wkv6.cu", "mamba_scan.cu"}
+        "*.cu")} >= {"paged_decode.cu", "paged_decode_mla.cu", "wkv6.cu",
+                     "mamba_scan.cu"}
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

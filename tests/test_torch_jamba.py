@@ -242,3 +242,48 @@ def test_init_model_holds_one_layers_fp32_masters_at_a_time(monkeypatch):
     assert alive_at_draw == [0] * cfg.num_layers
     assert all(r() is None for r in drawn)
     assert m.layers[1].ffn["experts"]["w_up"].dtype == torch.bfloat16
+
+
+CAST_ARCHS = ["qwen3-1.7b", "rwkv6-1.6b", ARCH, "deepseek-v3-671b"]
+
+
+@pytest.mark.parametrize("arch", CAST_ARCHS)
+def test_init_model_casts_each_weight_as_it_is_drawn(monkeypatch, arch):
+    """Every weight is drawn in fp32 and cast at once: when any weight is
+    drawn, the fp32 draws still alive are only weights the bf16 model
+    keeps in fp32 (the unembedding, the router, RWKV's u and w_base), so
+    the peak is the cast model plus the one fp32 tensor being drawn (at
+    DeepSeek-V3's 4-layer cut, one 15 GB expert tensor, not a 45 GB MoE
+    layer and a 3.7 GB fp32 embedding)."""
+    cfg = smoke_config(arch)
+    assert cfg.dtype == "bfloat16"
+    real = torch.nn.init.trunc_normal_
+    draws, live_at_draw = [], []
+
+    def spy(t, *a, **kw):
+        live_at_draw.append(sum(n for r, n in draws if r() is not None))
+        draws.append((weakref.ref(t), t.numel() * t.element_size()))
+        return real(t, *a, **kw)
+
+    monkeypatch.setattr(torch.nn.init, "trunc_normal_", spy)
+    m = init_model(cfg, seed=0, device="cpu")
+    kept_fp32 = sum(p.numel() * 4 for p in m.parameters()
+                    if p.dtype == torch.float32)
+    assert len(draws) > 3 * cfg.num_layers
+    assert max(live_at_draw) <= kept_fp32
+    assert m.embed.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("arch", CAST_ARCHS)
+def test_seeded_weights_are_the_fp32_masters_cast(arch):
+    """Casting as drawn changes no weight: the bf16 model from a seed is
+    the fp32 model from the same seed, cast (the draws keep their
+    order), so seeded weights and greedy tokens stay as they were."""
+    cfg = smoke_config(arch)
+    m16 = init_model(cfg, seed=0, device="cpu")
+    m32 = init_model(cfg.with_overrides(dtype="float32"), seed=0,
+                     device="cpu")
+    p16, p32 = dict(m16.named_parameters()), dict(m32.named_parameters())
+    assert p16.keys() == p32.keys()
+    for name, p in p16.items():
+        assert torch.equal(p, p32[name].to(p.dtype)), name

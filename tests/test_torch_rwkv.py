@@ -210,7 +210,7 @@ def test_bf16_model_keeps_fp32_where_the_reference_reads_fp32():
 
 @pytest.mark.parametrize("overrides,part", [
     (dict(is_encoder_decoder=True, encoder_layers=2), "encoder-decoder"),
-    (dict(attention="mla"), "MLA"),
+    (dict(frontend="audio"), "audio frontend"),
     (dict(frontend="vision", num_frontend_tokens=16), "vision frontend"),
 ])
 def test_unported_stacks_are_refused_by_name(overrides, part):
@@ -219,3 +219,4 @@ def test_unported_stacks_are_refused_by_name(overrides, part):
     with pytest.raises(ValueError, match=part):
         check_ported(cfg)
     check_ported(get_config(ARCH))
+    check_ported(get_config("deepseek-v3-671b"))       # MLA is ported
