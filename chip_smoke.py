@@ -36,6 +36,14 @@ Phases (each fails the run if it goes wrong):
  10. parity: a 2-layer full-width DeepSeek-V3 in fp32 -- (MLA, dense
      MLP) then (MLA, MoE), the routed experts cut 256 -> 16 for this
      phase only -- gives the same greedy tokens on the card (kernel) as
+     on the CPU (plain version);
+ 11. the lockstep slab path: full-width, full-depth qwen3-1.7b in bf16
+     serves 8 requests of 512 prompt tokens (64 greedy new tokens each)
+     through ``ServeEngine``, with every attention call -- the
+     whole-prompt prefill and each decode step, in every layer --
+     launched through the flash-attention kernel;
+ 12. parity: a 2-layer full-width qwen3-1.7b in fp32 gives the same
+     greedy tokens through the lockstep engine on the card (kernel) as
      on the CPU (plain version).
 The last lines are the kernels' JSON record, the card's name and power
 limit, and the result line.  Without a card, or outside the repository,
@@ -80,6 +88,17 @@ SLOTS, REQUESTS, NEW_TOKENS = 8, 16, 64
 PROMPT_MIN, PROMPT_MAX = 64, 512
 PAGE_SIZE, DECODE_CHUNK, PREFILL_CHUNK = 16, 8, 32
 MAX_LEN = -(-(PROMPT_MAX + NEW_TOKENS + DECODE_CHUNK) // PAGE_SIZE) * PAGE_SIZE
+# the lockstep slab run of phase 11: 8 requests of 512 prompt tokens
+LEGACY_BATCH, LEGACY_PROMPT, LEGACY_MAX_LEN = 8, 512, 592
+# the reference's FLASH_CASES (tests/test_kernels.py)
+FLASH_CASES = [
+    # B, S, T, h, hk, hd, causal, window
+    (2, 128, 128, 4, 2, 64, True, 0),
+    (1, 96, 160, 4, 4, 64, True, 0),       # right-aligned decode-style
+    (2, 128, 128, 8, 2, 128, True, 48),    # sliding window
+    (1, 64, 64, 2, 1, 64, False, 0),       # bidirectional, MQA
+    (1, 33, 70, 2, 2, 64, True, 0),        # ragged (padding paths)
+]
 
 
 def fail(msg):
@@ -371,6 +390,119 @@ def check_paged_decode_mla(dev, flush):
                   f"{plain_ms:.4f} ms  sdpa-on-slab {library_ms:.4f} ms "
                   f"({backend}, err {sdpa_err:.1e})  bound "
                   f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}: "
+                  f"{n_bytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP)")
+    return rows
+
+
+def flash_bound(B, S, T, h, hk, hd, causal, window, el):
+    """Bytes (q, k, v read once, out written once) and operations (4 hd
+    per visible (query head row, key) pair) of one flash call."""
+    n_bytes = (2 * B * S * h * hd + 2 * B * T * hk * hd) * el
+    qpos = np.arange(S)[:, None] + (T - S)
+    kpos = np.arange(T)[None, :]
+    vis = np.ones((S, T), bool)
+    if causal:
+        vis &= kpos <= qpos
+    if window:
+        vis &= kpos > qpos - window
+    return n_bytes, 4 * hd * h * B * int(vis.sum())
+
+
+def check_flash_attention(dev, flush):
+    """The flash kernel against its plain version: the reference's own
+    FLASH_CASES, a strided slab slice with a poisoned tail, and the two
+    full-width shapes of the slab path (timed beside SDPA)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+
+    rng = np.random.default_rng(4)
+    hk, hd = 8, 128                                     # qwen3-1.7b widths
+
+    def normal(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    def compare(name, q, k, v, causal=True, window=0):
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        want = flash_attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = TOL[q.dtype]
+        if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+            fail(f"flash_attention {name} {q.dtype}: max |err| {err}")
+        return got, err
+
+    rows = []
+    for case in FLASH_CASES:
+        B, S, T, h, hk_, hd_, causal, window = case
+        host = (normal(B, S, h, hd_), normal(B, T, hk_, hd_),
+                normal(B, T, hk_, hd_))
+        for dtype in (torch.float32, torch.bfloat16):
+            name = f"FLASH_CASES {case}"
+            _, err = compare(name, *(x.to(dtype) for x in host), causal,
+                             window)
+            rows.append({"case": name, "dtype": str(dtype)[6:],
+                         "max_abs_err": err, "tol": TOL[dtype]})
+            print(f"  flash_attention {name:44s} {rows[-1]['dtype']:8s} "
+                  f"err {err:.2e} (tol {TOL[dtype]:g})")
+    full = [
+        # name, B, S, T (valid keys), slab length, causal
+        (f"prefill B={LEGACY_BATCH} S=T={LEGACY_PROMPT}", LEGACY_BATCH,
+         LEGACY_PROMPT, LEGACY_PROMPT, LEGACY_PROMPT),
+        (f"decode B={LEGACY_BATCH} S=1 T={LEGACY_PROMPT + NEW_TOKENS} (slab "
+         "slice)", LEGACY_BATCH, 1, LEGACY_PROMPT + NEW_TOKENS,
+         LEGACY_MAX_LEN),
+        ("strided chunk B=3 S=7 T=300 (slab slice)", 3, 7, 300,
+         LEGACY_MAX_LEN),
+    ]
+    for name, B, S, T, L, in full:
+        host = (normal(B, S, 16, hd), normal(B, L, hk, hd),
+                normal(B, L, hk, hd))
+        for dtype in (torch.float32, torch.bfloat16):
+            q, kc, vc = (x.to(dtype) for x in host)
+            for t in (kc, vc):
+                t[:, T:] = POISON                     # the unwritten tail
+            k, v = kc[:, :T], vc[:, :T]
+            got, err = compare(name, q, k, v)
+            for t in (kc, vc):
+                t[:, T:] = 1e8
+            if not torch.equal(flash_attention(q, k, v), got):
+                fail(f"flash_attention {name} {dtype}: the slab's tail "
+                     "leaked")
+            row = {"case": name, "dtype": str(dtype)[6:], "max_abs_err": err,
+                   "tol": TOL[dtype]}
+            rows.append(row)
+            if name.startswith("strided"):
+                print(f"  flash_attention {name:44s} {row['dtype']:8s} err "
+                      f"{err:.2e} (tol {TOL[dtype]:g}); poisoned tail "
+                      "changes no bit")
+                continue
+            # the one-call yardstick: SDPA in (B, h, S, hd) layout, GQA;
+            # is_causal is exact at S == T, a decode step needs no mask
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            causal = S == T
+            sdpa = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+            backend = sdpa_backend(qt, kt, vt, None, 0.0, causal,
+                                   enable_gqa=True)
+            row["ms"] = time_ms(lambda: flash_attention(q, k, v), flush)
+            row["plain_ms"] = time_ms(lambda: flash_attention_ref(q, k, v),
+                                      flush)
+            row["library_ms"] = time_ms(sdpa, flush)
+            row["sdpa_backend"] = backend
+            n_bytes, ops = flash_bound(B, S, T, 16, hk, hd, True, 0,
+                                       q.element_size())
+            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / PEAK_OPS[dtype] * 1e3
+            row.update(bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       bytes=n_bytes, ops=ops)
+            print(f"  flash_attention {name:44s} {row['dtype']:8s} err "
+                  f"{err:.2e} (tol {TOL[dtype]:g})  kernel {row['ms']:.4f} ms"
+                  f"  plain {row['plain_ms']:.4f} ms  sdpa "
+                  f"{row['library_ms']:.4f} ms ({backend})  bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
                   f"{n_bytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP)")
     return rows
 
@@ -878,6 +1010,110 @@ def serve_deepseek(dev, lens):
     return mla
 
 
+def serve_legacy(dev):
+    """Phases 11 and 12: full-width, full-depth qwen3-1.7b in bf16
+    through the lockstep slab engine, then card-vs-CPU fp32 greedy
+    parity at 2 full-width layers.  Returns the flash_attention launches
+    of the phase-11 run."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_tokens
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import init_model
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config("qwen3-1.7b")
+    prompts = synthetic_tokens(np.random.default_rng(0), LEGACY_BATCH,
+                               LEGACY_PROMPT, cfg.vocab_size)
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"phase 11: {cfg.name} ({cfg.num_layers} layers, d {cfg.d_model}, "
+          f"{cfg.num_heads} q / {cfg.num_kv_heads} kv heads x "
+          f"{cfg.head_dim}, vocab {cfg.vocab_size}, bf16) initialised in "
+          f"{time.perf_counter() - t0:.1f} s")
+    ServeEngine(cfg, model, batch_size=LEGACY_BATCH,
+                max_len=LEGACY_MAX_LEN).generate(prompts[:2, :64], 4)
+    torch.cuda.synchronize()
+    model_gib = torch.cuda.memory_allocated() / 2**30
+    eng = ServeEngine(cfg, model, batch_size=LEGACY_BATCH,
+                      max_len=LEGACY_MAX_LEN)
+    cache_bytes = sum(t.numel() * t.element_size() for layer in eng.cache
+                      for t in layer.values())
+    resident_gib = torch.cuda.memory_allocated() / 2**30
+    # the batch's time to first token: a prefill and its sample
+    t0 = time.perf_counter()
+    eng.generate(prompts, 1).cpu()
+    ttft = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    dispatches0, syncs0 = eng.dispatches, eng.host_syncs
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, NEW_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    out = out.cpu().numpy()
+    launches = counts.get("flash_attention", 0)
+    if launches != cfg.num_layers * NEW_TOKENS:
+        fail(f"flash_attention launched {launches} times, expected "
+             f"{cfg.num_layers} x {NEW_TOKENS} (one prefill and "
+             f"{NEW_TOKENS - 1} decode calls)")
+    for other in ("paged_flash_decode", "paged_flash_decode_mla", "wkv6",
+                  "mamba_scan"):
+        if counts.get(other, 0):
+            fail(f"{other} launched on the lockstep slab path")
+    if out.shape != (LEGACY_BATCH, NEW_TOKENS) or out.min() < 0 \
+            or out.max() >= cfg.vocab_size:
+        fail(f"slab outputs have shape {out.shape} or out-of-vocab tokens")
+    for i, layer in enumerate(eng.cache):
+        if not all(torch.isfinite(t[:, :LEGACY_PROMPT + NEW_TOKENS - 1]).all()
+                   for t in layer.values()):
+            fail(f"layer {i}: slab cache is not finite")
+    n_tok = out.size
+    syncs = eng.host_syncs - syncs0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"phase 11: {LEGACY_BATCH} requests x {LEGACY_PROMPT} prompt tokens "
+          f"x {NEW_TOKENS} new tokens through ServeEngine(batch_size="
+          f"{LEGACY_BATCH}, max_len={LEGACY_MAX_LEN}) in {wall:.3f} s: "
+          f"{n_tok / wall:.1f} tokens/s, prefill wall (the batch's TTFT) "
+          f"{ttft * 1e3:.1f} ms, {syncs / n_tok:.4f} host syncs/token "
+          f"({eng.dispatches - dispatches0} dispatches); memory: model "
+          f"{model_gib:.2f} GiB, resident {resident_gib:.2f} GiB with the "
+          f"slab cache of {cache_bytes} B ({cache_bytes / 2**20:.1f} MiB), "
+          f"peak {peak_gib:.2f} GiB; flash_attention launches {launches} = "
+          f"{cfg.num_layers} x (1 prefill + {NEW_TOKENS - 1} decode calls), "
+          f"paged_flash_decode 0")
+    del model, eng
+    torch.cuda.empty_cache()
+
+    # phase 12: two full-width layers in fp32, card vs CPU
+    small = cfg.with_overrides(num_layers=2, dtype="float32")
+    prompts12, new12 = prompts[:2, :64], 16
+    m = init_model(small, seed=1, device="cpu")
+    got = {}
+    for where in ("cpu", "cuda"):
+        if where == "cuda":
+            m = m.to(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        got[where] = ServeEngine(small, m, batch_size=2,
+                                 max_len=64 + new12).generate(
+                                     prompts12, new12).cpu().numpy()
+        print(f"  {where}: {time.perf_counter() - t0:.1f} s")
+    if launch_counts().get("flash_attention", 0) != 2 * new12:
+        fail("phase 12: the card run did not launch flash_attention in "
+             "every layer of every model call")
+    if not np.array_equal(got["cpu"], got["cuda"]):
+        fail(f"lockstep fp32 greedy tokens differ card vs CPU: "
+             f"{got['cpu']} vs {got['cuda']}")
+    print(f"phase 12: 2-layer full-width qwen3 fp32 greedy tokens through "
+          f"the lockstep engine equal on card and CPU for 2 requests x "
+          f"{new12} tokens")
+    del m
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this checks the port on a "
@@ -898,7 +1134,8 @@ def main():
 
     # ---- phase 1: build ---------------------------------------------------
     t0 = time.perf_counter()
-    stems = ("paged_decode", "paged_decode_mla", "wkv6", "mamba_scan")
+    stems = ("paged_decode", "paged_decode_mla", "wkv6", "mamba_scan",
+             "flash_attention")
     build.load_libraries(stems)
     print(f"phase 1: built {len(stems)} kernels in parallel in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -932,6 +1169,12 @@ def main():
           "page and unwritten rows hold 1e4, then 1e8, and the output must "
           "not change one bit")
     mla_rows = check_paged_decode_mla(dev, flush)
+    print(f"  flash_attention tolerance: fp32 {TOL[torch.float32]:g}, bf16 "
+          f"{TOL[torch.bfloat16]:g} (the plain version rounds the "
+          "probabilities to bf16, the kernel does not); a slab slice's "
+          "tail holds 1e4, then 1e8, and the output must not change one "
+          "bit")
+    flash_rows = check_flash_attention(dev, flush)
     del flush
 
     # ---- phase 3: the main path, full width, bf16 -------------------------
@@ -1004,6 +1247,7 @@ def main():
     wkv_launches = serve_rwkv(dev, lens)
     scan_launches, jamba_paged_launches = serve_jamba(dev, lens)
     mla_launches = serve_deepseek(dev, lens)
+    flash_launches = serve_legacy(dev)
 
     decode_bf16 = next(r for r in rows if r["case"].startswith("decode")
                        and r["dtype"] == "bfloat16")
@@ -1066,9 +1310,28 @@ def main():
         "sdpa_backend": mla_bf16["sdpa_backend"],
         "cases": mla_rows,
     }
+    timed = {r["case"].split()[0]: r for r in flash_rows
+             if "ms" in r and r["dtype"] == "bfloat16"}
+    flash_entry = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:33",
+        "launches": flash_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in flash_rows
+                           if r["dtype"] == "bfloat16"),
+        "ms": timed["decode"]["ms"], "plain_ms": timed["decode"]["plain_ms"],
+        "bound_ms": timed["decode"]["bound_ms"],
+        "bound_by": timed["decode"]["bound_by"],
+        "library_ms": timed["decode"]["library_ms"],
+        "sdpa_backend": timed["decode"]["sdpa_backend"],
+        "prefill": {key: timed["prefill"][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "sdpa_backend")},
+        "cases": flash_rows,
+    }
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [entry, wkv_entry, mamba_entry,
-                                  mla_entry]}))
+                                  mla_entry, flash_entry]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,173 @@
+"""Flash attention: causal, sliding-window or bidirectional GQA with
+right-aligned queries.
+
+``flash_attention`` replaces the TPU kernel ``repro/kernels/
+flash_attention.py::flash_attention_pallas`` (body ``_flash_kernel``)
+with a CUDA C++ kernel for Hopper, ``csrc/flash_attention.cu``.  Every
+self-attention call of the lockstep slab engine goes through it: the
+whole-prompt prefill (S == T) and each decode step (S = 1 against the
+valid prefix of the slab cache, a strided view that is not copied).
+
+Bound.  Memory, at the slab path's shapes: a call must read q, k and v
+once and write the output once, ``(2 B S h + 2 B T hk) hd sizeof``
+bytes, against 4 hd operations per visible (query row, key) pair.  At
+qwen3-1.7b's prefill (B 8, S = T = 512, 16 q / 8 kv heads of 128,
+bf16) that is 50.3 MB (15.0 us at 3.35 TB/s) against 8.6 GFLOP (8.7 us
+on the bf16 tensor cores); a decode step at T = 576 reads 18.9 MB.
+
+Design.  One block per (b, kv head, tile of 64 query rows; 16 when the
+call has fewer than 64 rows a kv head, as a decode step has), the rows
+taken position-major across the g = h / hk heads of the group, so the
+group shares every K/V tile.  Tiles of 64 keys are staged in shared
+memory as fp32 and the block walks only those some row of it can see
+(the TPU kernel's ``pl.when(visible)`` skip).  Each thread keeps a
+register tile of scores, its rows' (m, l) and its output columns; both
+products are fp32 FMAs (tensor cores, asynchronous staging and
+split-KV at decode are later work).
+
+The wrapper takes the plain version ONLY for CPU tensors.  A CUDA
+tensor launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.build import count_launch, load_library
+
+__all__ = ["flash_attention", "flash_attention_ref", "KERNEL_HEAD_DIMS"]
+
+NEG_INF = -1e30
+KERNEL_HEAD_DIMS = (64, 128)   # head widths the kernel is built for
+SMALL_ROWS = 64                # below this many rows a kv head: 16-row blocks
+SMEM_LIMIT = 227 * 1024        # dynamic shared memory one Hopper block may use
+
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+             + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 3
+             + [ctypes.c_float, ctypes.c_void_p])
+
+
+def _lib():
+    lib = load_library("flash_attention")
+    if not getattr(lib, "_typed", False):
+        for fn in (lib.flash_attention_f32, lib.flash_attention_bf16):
+            fn.argtypes = _ARGTYPES
+            fn.restype = ctypes.c_int
+        lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 2
+        lib.flash_attention_smem_bytes.restype = ctypes.c_ulonglong
+        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0):
+    """The plain version, the reference's oracle ``kernels/ref.py::
+    attention_ref``: kv heads repeated over their group, one masked fp32
+    softmax over right-aligned queries (query i at position i + T - S),
+    the probabilities cast to v's dtype for the value product.  A row
+    with no visible key gets the uniform mean over all T keys, as
+    there."""
+    B, S, h, hd = q.shape
+    T, hk = k.shape[1], k.shape[2]
+    if h != hk:
+        k = torch.repeat_interleave(k, h // hk, dim=2)
+        v = torch.repeat_interleave(v, h // hk, dim=2)
+    s = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) / np.sqrt(hd)
+    qpos = torch.arange(S, device=q.device)[:, None] + (T - S)
+    kpos = torch.arange(T, device=q.device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    s = torch.where(mask[None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhst,bthd->bshd", p.to(v.dtype), v)
+
+
+def _check(q, k, v, causal):
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"q must be (B,S,h,hd) and k, v (B,T,hk,hd); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}")
+    B, S, h, hd = q.shape
+    T, hk = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != hd:
+        raise ValueError(f"k {tuple(k.shape)} does not match q {tuple(q.shape)}")
+    if tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"v {tuple(v.shape)} must have k's shape "
+                         f"{tuple(k.shape)} (the value width is q's)")
+    if h % hk:
+        raise ValueError(f"num_heads={h} is not a multiple of kv_heads={hk}")
+    if S < 1 or T < 1:
+        raise ValueError(f"flash_attention needs S >= 1 and T >= 1; got "
+                         f"S={S}, T={T}")
+    if causal and S > T:
+        # right-aligned causal queries 0 .. S-T-1 would see no key; the
+        # reference's two oracles disagree on such rows
+        raise ValueError(f"causal flash_attention with S={S} > T={T}: the "
+                         f"first {S - T} queries see no key")
+
+
+def flash_attention(q, k, v, *, causal=True, window=0):
+    """q: (B, S, h, hd); k, v: (B, T, hk, hd) with h % hk == 0 ->
+    (B, S, h, hd) in q's dtype.  Query i sits at position i + T - S;
+    key t is visible to it iff t <= i + T - S (when ``causal``) and
+    t > i + T - S - window (when ``window`` > 0).  Scores and softmax in
+    fp32, scale 1/sqrt(hd).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    which reads k and v through their batch and sequence strides (a
+    slice of a larger cache is not copied).  Raises on a causal call
+    with S > T, whose first rows would see no key."""
+    _check(q, k, v, causal)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash_attention: all operands must share a device")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash_attention: dtype {q.dtype} not supported "
+                        "(float32 or bfloat16)")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash_attention: k and v must have q's dtype")
+    B, S, h, hd = q.shape
+    T, hk = k.shape[1], k.shape[2]
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {hd} not built "
+                         f"(kernel head widths {KERNEL_HEAD_DIMS})")
+    if not q.is_contiguous():
+        raise ValueError("flash_attention: q must be contiguous")
+    vec = 16 // q.element_size()
+    for name, t in (("k", k), ("v", v)):
+        if t.stride(3) != 1 or t.stride(2) != hd:
+            raise ValueError(f"flash_attention: {name} must have unit dim "
+                             f"stride and head stride hd; got strides "
+                             f"{t.stride()}")
+        if t.stride(0) % vec or t.stride(1) % vec or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name}'s rows must be "
+                             "16-byte aligned (vector loads)")
+    if q.data_ptr() % 16:
+        raise ValueError("flash_attention: q must be 16-byte aligned")
+    rpt = 4 if (h // hk) * S >= SMALL_ROWS else 1
+    lib = _lib()
+    smem = lib.flash_attention_smem_bytes(hd, rpt)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"flash_attention: head_dim={hd} needs {smem} B of "
+                         "shared memory")
+    out = torch.empty_like(q)
+    fn = (lib.flash_attention_f32 if q.dtype == torch.float32
+          else lib.flash_attention_bf16)
+    scale = float(np.float32(1.0 / np.sqrt(hd)))
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, S, T, h, hk, hd, k.stride(0), k.stride(1), v.stride(0),
+            v.stride(1), int(bool(causal)), int(window), rpt, scale,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("flash_attention launch failed: "
+                           + lib.flash_attention_error_string(rc).decode())
+    count_launch("flash_attention")
+    return out

@@ -2,7 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
         --arch qwen3-1.7b|rwkv6-1.6b|jamba-v0.1-52b|deepseek-v3-671b \\
-        [--out profile_serve.json]
+        [--engine continuous|legacy] [--out profile_serve.json]
 
 Serves the same traffic as ``chip_smoke.py``'s serving phases (16
 requests of 64-512 prompt tokens, 64 new greedy tokens, 8 slots) with
@@ -13,7 +13,12 @@ into slot 0 at position 256, its recurrent rows included) and one
 fused decode tick with
 ``torch.profiler``: host wall time, the device's busy time (sum of
 kernel times on the one stream), its idle share, kernel launches, and
-the kernels that take the most device time.  Needs the card.
+the kernels that take the most device time.  With ``--engine legacy``
+(qwen3-1.7b: GQA with an MLP) it serves ``chip_smoke.py``'s phase-11
+traffic instead -- 8 requests of 512 prompt tokens, 64 new greedy
+tokens, through the lockstep ``ServeEngine`` -- and traces one slab
+prefill of the 8 x 512 prompts and one slab decode step at position
+512.  Needs the card.
 """
 from __future__ import annotations
 
@@ -27,10 +32,11 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import ARCHITECTURES, one_card_config
+from repro_torch.data import synthetic_tokens
 from repro_torch.device import resolve_device
 from repro_torch.models import apply_model, init_model
 from repro_torch.models.attention import PagedView
-from repro_torch.serve import ContinuousScheduler
+from repro_torch.serve import ContinuousScheduler, ServeEngine
 
 
 def _device_us(evt) -> float:
@@ -60,10 +66,43 @@ def trace(fn, device):
                             for e in top]}
 
 
+def profile_legacy(cfg, model, dev, seed):
+    """The lockstep slab engine on phase 11's traffic, then one traced
+    slab prefill and one traced slab decode step."""
+    batch, prompt_len, new = 8, 512, 64
+    max_len = prompt_len + new + 16
+    prompts = torch.from_numpy(synthetic_tokens(
+        np.random.default_rng(seed), batch, prompt_len, cfg.vocab_size))
+    ServeEngine(cfg, model, batch_size=batch,
+                max_len=max_len).generate(prompts[:2, :64], 4)  # warm-up
+    eng = ServeEngine(cfg, model, batch_size=batch, max_len=max_len)
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, new)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    report = {"card": torch.cuda.get_device_name(0), "arch": cfg.name,
+              "engine": "legacy", "num_layers": cfg.num_layers,
+              "serve_wall_s": wall, "tokens_per_s": out.numel() / wall,
+              "dispatches": eng.dispatches, "host_syncs": eng.host_syncs}
+    toks = prompts.to(dev)
+    last = toks[:, -1:]
+    with torch.inference_mode():
+        report["slab_prefill"] = trace(
+            lambda: apply_model(cfg, model, toks, cache=eng.cache,
+                                cache_pos=0, mode="prefill",
+                                last_only=True), dev)
+        report["slab_decode_step"] = trace(
+            lambda: apply_model(cfg, model, last, cache=eng.cache,
+                                cache_pos=prompt_len, mode="decode"), dev)
+    return report
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-1.7b",
                     choices=sorted(ARCHITECTURES))
+    ap.add_argument("--engine", default="continuous",
+                    choices=["continuous", "legacy"])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="")
@@ -72,6 +111,10 @@ def main(argv=None):
     if dev.type != "cuda":
         raise SystemExit("profile_serve measures the card: --device cuda")
     cfg = one_card_config(args.arch)
+    if args.engine == "legacy":
+        report = profile_legacy(cfg, init_model(cfg, seed=args.seed,
+                                                device=dev), dev, args.seed)
+        return _emit(report, args.out)
     slots, n_req, new, ps, chunk, K = 8, 16, 64, 16, 32, 8
     max_len = -(-(512 + new + K) // ps) * ps
     rng = np.random.default_rng(args.seed)
@@ -116,10 +159,14 @@ def main(argv=None):
         report["prefill_chunk"] = trace(
             lambda: apply_model(cfg, model, toks, cache=kv.slot_cache(0),
                                 cache_pos=pos, paged=view, logits=False), dev)
+    return _emit(report, args.out)
+
+
+def _emit(report, out):
     print(json.dumps(report, indent=1))
-    if args.out:
-        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-        with open(args.out, "w") as f:
+    if out:
+        os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+        with open(out, "w") as f:
             json.dump(report, f, indent=1)
     return report
 

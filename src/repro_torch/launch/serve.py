@@ -1,4 +1,5 @@
-"""Serving launcher for the port: continuous batching on the card.
+"""Serving launcher for the port: continuous batching (or the lockstep
+slab engine, ``--engine legacy``) on the card.
 
     # full-width qwen3-1.7b in bf16 on the card, random weights from a seed
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
@@ -15,6 +16,12 @@
     # Jamba (Mamba + attention layers, MoE), reduced, on the CPU
     PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \\
         --reduced --device cpu --batch 2 --prompt-len 40 --new-tokens 8
+
+    # the lockstep slab engine (whole-prompt prefill, then one decode
+    # step per token, every attention call through the flash kernel)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
+        --reduced --device cpu --engine legacy --batch 2 --prompt-len 40 \\
+        --new-tokens 12
 
     # DeepSeek-V3 (MLA, sigmoid-router MoE of 256 experts), full width,
     # cut to its first 4 layers, on the card
@@ -47,6 +54,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=sorted(ARCHITECTURES))
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--engine", default="continuous",
+                    choices=["continuous", "legacy"],
+                    help="continuous batching over the paged pool, or the "
+                         "lockstep slab engine (GQA stacks with an MLP)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--batch", type=int, default=4,
                     help="serving slots (decode batch width)")
@@ -69,6 +80,13 @@ def main(argv=None):
     if not args.requests:
         args.requests = args.batch
 
+    if args.engine == "legacy" and args.requests > args.batch:
+        raise SystemExit(
+            f"--requests {args.requests} > --batch {args.batch}: the "
+            "legacy lockstep engine has no queue (all slots start and "
+            "retire together); use the continuous engine or raise "
+            "--batch")
+
     if args.reduced:
         cfg = smoke_config(args.arch).with_overrides(dtype="float32")
     else:
@@ -78,15 +96,31 @@ def main(argv=None):
     decode_chunk = 8
     max_len = -(-(args.prompt_len + args.new_tokens + decode_chunk)
                 // args.page_size) * args.page_size
+    engine_kw = {}
+    if args.engine == "continuous":
+        engine_kw = dict(page_size=args.page_size, decode_chunk=decode_chunk)
     model = init_model(cfg, seed=args.seed, device=device)
-    eng = make_engine(cfg, model, batch_size=args.batch, max_len=max_len,
-                      eos_id=args.eos_id, sampling=sampling, seed=args.seed,
-                      device=device, page_size=args.page_size,
-                      decode_chunk=decode_chunk)
+    eng = make_engine(cfg, model, engine=args.engine, batch_size=args.batch,
+                      max_len=max_len, eos_id=args.eos_id, sampling=sampling,
+                      seed=args.seed, device=device, **engine_kw)
     n_req = args.requests
     prompts = synthetic_tokens(np.random.default_rng(args.seed), n_req,
                                args.prompt_len, cfg.vocab_size)
     t0 = time.time()
+    if args.engine == "legacy":
+        outs = eng.generate(prompts, args.new_tokens).cpu().tolist()
+        dt = time.time() - t0
+        n_tok = sum(len(o) for o in outs)
+        print(f"{n_req} seqs x {args.new_tokens} tokens in {dt:.2f}s "
+              f"({n_tok/dt:.1f} tok/s incl. compile)")
+        if args.report:
+            # the lockstep slab has no phase split: one prefill
+            # dispatch, then a blocking round-trip per token
+            spt = eng.host_syncs / max(1, n_tok)
+            print(f"report: legacy {eng.dispatches} dispatches / "
+                  f"{eng.host_syncs} host syncs ({spt:.3f} syncs/token)")
+        print(outs)
+        return outs
     outs = [o.tolist() for o in eng.generate(list(prompts), args.new_tokens)]
     if device.type == "cuda":
         torch.cuda.synchronize(device)

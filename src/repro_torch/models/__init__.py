@@ -1,5 +1,5 @@
-from repro_torch.models.model import (Model, apply_model, compute_dtype,
-                                      init_cache, init_model)
+from repro_torch.models.model import (Model, apply_model, check_slab_ported,
+                                      compute_dtype, init_cache, init_model)
 
-__all__ = ["Model", "apply_model", "compute_dtype", "init_cache",
-           "init_model"]
+__all__ = ["Model", "apply_model", "check_slab_ported", "compute_dtype",
+           "init_cache", "init_model"]

@@ -1,20 +1,24 @@
-"""Attention for the paged serving path: GQA (qk-norm, RoPE) and MLA.
+"""Attention for the serving paths: GQA (qk-norm, RoPE) and MLA.
 
-Port of the paged branches of ``repro.models.attention``: K/V live in a
-shared token-major page pool ``(num_pages * page_size, kv_heads,
-head_dim)`` with no batch axis, and a per-slot page table
-(``PagedView``) maps each slot's logical positions to physical pool
-rows.  DeepSeek-V3's multi-head latent attention (MLA) pools its
-compressed latent instead: ``{"ckv": (N, kv_lora), "krope": (N,
-rope)}``, read by the absorbed decode (queries projected into the
-latent, which is also the value).  ``repro_torch.serve.kvcache`` owns
-allocation; this module owns the read and write paths.  Page 0 is the
-trash page: never allocated, the write sink of idle slots and
-out-of-range positions.
+Port of ``repro.models.attention``.  Two cache forms:
+- the paged pool of the continuous engine: K/V in a shared token-major
+  page pool ``(num_pages * page_size, kv_heads, head_dim)`` with no
+  batch axis, and a per-slot page table (``PagedView``) mapping each
+  slot's logical positions to physical pool rows.  DeepSeek-V3's
+  multi-head latent attention (MLA) pools its compressed latent
+  instead: ``{"ckv": (N, kv_lora), "krope": (N, rope)}``, read by the
+  absorbed decode (queries projected into the latent, which is also
+  the value).  ``repro_torch.serve.kvcache`` owns allocation; this
+  module owns the read and write paths.  Page 0 is the trash page:
+  never allocated, the write sink of idle slots and out-of-range
+  positions.
+- the slab cache of the lockstep engine (GQA only): k and v of
+  ``(B, max_len, kv_heads, head_dim)``, all slots at the same depth (a
+  scalar ``cache_pos``).  Its attention is ``chunked_attention``, which
+  on the card runs the flash-attention kernel.
 
-The slab cache, cross-attention, ``chunked_attention`` and MLA's slab
-and train branches are not ported here; they join with the slices that
-need them.
+Cross-attention and MLA's slab and train branches are not ported here;
+they join with the slices that need them.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_decode import (paged_flash_decode,
                                               paged_flash_decode_mla)
 from repro_torch.models.layers import apply_rope, dense_init, rmsnorm
@@ -65,6 +70,96 @@ def masked_attention(q, k, v, *, q_positions, kv_positions, window=0):
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqt,btkd->bkgqd", p.to(v.dtype), v)
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, h, v.shape[-1])
+
+
+# --------------------------------------------------------------------------
+# chunked softmax attention core (slab prefill and slab decode)
+# --------------------------------------------------------------------------
+
+def _positions(pos, device):
+    return (torch.arange(pos.start, pos.stop, pos.step, device=device)
+            if isinstance(pos, range) else torch.as_tensor(pos, device=device))
+
+
+def chunked_attention(q, k, v, *, q_positions, kv_positions, causal=True,
+                      window=0, kv_valid_len=None, chunk=1024):
+    """q: (B, S, h, hd); k, v: (B, T, hk, hd).  Returns (B, S, h, hd_v).
+
+    q_positions: (S,) global positions of the queries; kv_positions:
+    (T,) of the keys (tensors or ``range``s).  kv_valid_len: keys at
+    positions >= it are masked (the unwritten tail of a decode cache).
+
+    CPU tensors run the reference's loop: queries in chunks of
+    ``chunk`` (padded to a multiple of it with position -1), fp32
+    scores, one masked softmax over all T keys per chunk, the
+    probabilities cast to v's dtype for the value product.
+
+    CUDA tensors run the flash-attention kernel, for the one form the
+    slab path gives: ``kv_positions = range(T)`` and ``q_positions =
+    range(off, off + S)`` with ``off + S == kv_valid_len`` (or ``== T``
+    without one), given as ``range``s and an int.  The keys are sliced
+    to the valid length (a strided view, not a copy) and the queries are
+    then right-aligned against them, which is the kernel's masking.  Any
+    other form raises (positions on the card cannot be checked without
+    a host sync in every layer).  ``chunk`` is the CPU loop's; the
+    kernel tiles itself."""
+    if q.device.type == "cuda":
+        return _flash_slab(q, k, v, q_positions=q_positions,
+                           kv_positions=kv_positions, causal=causal,
+                           window=window, kv_valid_len=kv_valid_len)
+    B, S, h, hd = q.shape
+    T, hk = k.shape[1], k.shape[2]
+    g = h // hk
+    scale = 1.0 / np.sqrt(hd)
+    qpos_all = _positions(q_positions, q.device)
+    kv_pos = _positions(kv_positions, q.device)
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad))
+        qpos_all = torch.cat([qpos_all, qpos_all.new_full((pad,), -1)])
+    nc = q.shape[1] // chunk
+    qg = q.reshape(B, nc, chunk, hk, g, hd).permute(1, 0, 3, 4, 2, 5)
+    kf = k.float()
+    outs = []
+    for c in range(nc):
+        qpos = qpos_all[c * chunk:(c + 1) * chunk]
+        s = torch.einsum("bkgqd,btkd->bkgqt", qg[c].float(), kf) * scale
+        m = torch.ones((chunk, T), dtype=torch.bool, device=q.device)
+        if causal:
+            m &= kv_pos[None, :] <= qpos[:, None]
+        if window:
+            m &= kv_pos[None, :] > qpos[:, None] - window
+        if kv_valid_len is not None:
+            m &= kv_pos[None, :] < kv_valid_len
+        m &= qpos[:, None] >= 0                          # query padding
+        s = torch.where(m[None, None, None], s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        outs.append(torch.einsum("bkgqt,btkd->bkgqd", p.to(v.dtype), v))
+    out = torch.stack(outs)                          # (nc, B, hk, g, Cq, hd_v)
+    out = out.permute(1, 0, 4, 2, 3, 5).reshape(B, nc * chunk, h,
+                                                v.shape[-1])
+    return out[:, :S]
+
+
+def _flash_slab(q, k, v, *, q_positions, kv_positions, causal, window,
+                kv_valid_len):
+    """``chunked_attention`` on the card: the slab form, checked on the
+    host, as one flash-attention call on the valid keys."""
+    S, T = q.shape[1], k.shape[1]
+    valid = T if kv_valid_len is None else kv_valid_len
+    if not (isinstance(q_positions, range) and isinstance(kv_positions, range)
+            and isinstance(valid, int) and kv_positions == range(T)
+            and 0 < valid <= T and q_positions == range(valid - S, valid)):
+        raise ValueError(
+            "chunked_attention on the card takes the slab form only: "
+            "kv_positions == range(T) and q_positions == range(off, off + "
+            "S) with off + S == kv_valid_len (or T), as ranges and an int; "
+            f"got q_positions={q_positions!r}, kv_positions="
+            f"{kv_positions!r}, kv_valid_len={kv_valid_len!r} (S={S}, "
+            f"T={T})")
+    return flash_attention(q, k[:, :valid], v[:, :valid], causal=causal,
+                           window=window)
 
 
 # --------------------------------------------------------------------------
@@ -161,11 +256,16 @@ def init_attention(cfg, *, generator, device="cpu", dtype):
     return p
 
 
-def make_cache(cfg, dtype, *, pool, device="cpu"):
-    """One layer's paged pool: token-major k and v, (N, hk, hd)."""
-    num_pages, page_size = pool
-    n = num_pages * page_size
-    shape = (n, cfg.num_kv_heads, cfg.head_dim)
+def make_cache(cfg, dtype, *, pool=None, batch=None, max_len=None,
+               device="cpu"):
+    """One layer's KV cache: with ``pool`` = (num_pages, page_size) the
+    paged pool, token-major k and v of (N, hk, hd); without it the slab,
+    k and v of (batch, max_len, hk, hd)."""
+    if pool is not None:
+        num_pages, page_size = pool
+        shape = (num_pages * page_size, cfg.num_kv_heads, cfg.head_dim)
+    else:
+        shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -176,14 +276,9 @@ def _proj(x, w):
     return (x @ w.reshape(d, nh * hd)).unflatten(-1, (nh, hd))
 
 
-def apply_attention(cfg, p, x, *, positions, cache, paged: PagedView,
-                    write_idx, rope):
-    """Decode-mode paged self-attention (decode steps and prefill chunks).
-
-    x: (B, S, d); positions: (B, S) per-slot; cache: {"k", "v"} pools,
-    updated in place at ``write_idx`` (``paged_write_indices``); rope:
-    ``rope_angles(positions, ...)``.  Order as in the reference: qk-norm
-    on q and k, RoPE, append, attention, wo."""
+def _qkv(cfg, p, x, rope):
+    """q (B, S, h, hd), k and v (B, S, hk, hd) of x: projections, bias,
+    qk-norm, then RoPE on q and k by ``rope`` (``rope_angles``)."""
     q = _proj(x, p["wq"])
     k = _proj(x, p["wk"])
     v = _proj(x, p["wv"])
@@ -194,14 +289,52 @@ def apply_attention(cfg, p, x, *, positions, cache, paged: PagedView,
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
-    k = apply_rope(k, rope)
-    q = apply_rope(q, rope)
-    k_pool = _paged_append(cache["k"], write_idx, k)
-    v_pool = _paged_append(cache["v"], write_idx, v)
-    out = paged_flash_decode(q, k_pool.to(x.dtype), v_pool.to(x.dtype),
-                             paged.page_table, positions,
-                             page_size=paged.page_size,
-                             window=cfg.swa_window)
+    return apply_rope(q, rope), apply_rope(k, rope), v
+
+
+def apply_attention(cfg, p, x, *, positions, cache, rope, paged=None,
+                    write_idx=None, mode="decode", cache_pos=0):
+    """Self-attention over the serving cache.  Order as in the
+    reference: qk-norm on q and k, RoPE, cache write, attention, the
+    padded-head mask, wo.
+
+    Paged (``paged`` given; decode steps and prefill chunks): x (B, S,
+    d), positions (B, S) per slot; cache {"k", "v"} pools, updated in
+    place at ``write_idx`` (``paged_write_indices``); attention through
+    ``paged_flash_decode``.
+
+    Slab (``paged`` None): cache {"k", "v"} of (B, max_len, hk, hd),
+    updated in place.  ``mode="prefill"`` writes the S new keys at 0 and
+    attends over them; ``mode="decode"`` writes them at the scalar
+    ``cache_pos`` and attends over the cache's first cache_pos + S keys.
+    Both through ``chunked_attention`` (the flash kernel on the card).
+    rope: ``rope_angles`` of the call's positions."""
+    q, k, v = _qkv(cfg, p, x, rope)
+    if paged is not None:
+        k_pool = _paged_append(cache["k"], write_idx, k)
+        v_pool = _paged_append(cache["v"], write_idx, v)
+        out = paged_flash_decode(q, k_pool.to(x.dtype), v_pool.to(x.dtype),
+                                 paged.page_table, positions,
+                                 page_size=paged.page_size,
+                                 window=cfg.swa_window)
+    else:
+        S, max_len = x.shape[1], cache["k"].shape[1]
+        start = 0 if mode == "prefill" else int(cache_pos)
+        if start + S > max_len:
+            raise ValueError(f"slab attention: {S} keys at {start} overrun "
+                             f"a {max_len}-long cache")
+        cache["k"][:, start:start + S] = k
+        cache["v"][:, start:start + S] = v
+        if mode == "prefill":
+            out = chunked_attention(q, k, v, q_positions=range(S),
+                                    kv_positions=range(S),
+                                    window=cfg.swa_window)
+        else:
+            out = chunked_attention(
+                q, cache["k"].to(x.dtype), cache["v"].to(x.dtype),
+                q_positions=range(start, start + S),
+                kv_positions=range(max_len), window=cfg.swa_window,
+                kv_valid_len=start + S)
     _, head_mask = _padded_heads(cfg)
     if head_mask is not None:
         out = out * torch.from_numpy(head_mask).to(out)[None, None, :, None]

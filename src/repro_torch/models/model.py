@@ -1,11 +1,13 @@
-"""Top-level decoder: init, paged cache, decode-mode forward, logits.
+"""Top-level decoder: init, serving caches, forward, logits.
 
 Port of ``repro.models.model`` for decoder-only stacks of GQA or MLA
 attention and Mamba layers (each with an MLP or MoE ffn) and RWKV-6
-blocks, in the decode mode the serving path uses (decode steps and
-chunked-prefill chunks).  ``apply_model`` returns ``{"logits",
-"hidden", "aux"}``; the paged pools and the per-slot recurrent states
-are updated in place.
+blocks, in the modes the serving paths use: the continuous engine's
+paged decode mode (decode steps and chunked-prefill chunks), and the
+lockstep engine's slab ``prefill`` and ``decode`` (GQA stacks with an
+MLP only, ``check_slab_ported``).  ``apply_model`` returns ``{"logits",
+"hidden", "aux"}``; the caches and the per-slot recurrent states are
+updated in place.
 """
 from __future__ import annotations
 
@@ -87,6 +89,24 @@ def check_ported(cfg):
                          "(MLP or MoE) and RWKV-6 stacks")
 
 
+def check_slab_ported(cfg):
+    """Raise, naming the part, unless the slab (lockstep) path of
+    ``cfg`` is ported: GQA attention layers with an MLP."""
+    pattern = cfg.layer_pattern()
+    missing = []
+    if cfg.attention == "mla":
+        missing.append("MLA attention")
+    names = {"mamba": "Mamba", "rwkv6": "RWKV-6"}
+    missing += [f"{names.get(k, k)} layers"
+                for k in sorted({m for m, _ in pattern} - {"attn"})]
+    if any(f == "moe" for _, f in pattern):
+        missing.append("MoE ffn")
+    if missing:
+        raise ValueError(f"{cfg.name}: the slab path of {', '.join(missing)} "
+                         "is not ported; the lockstep slab engine serves GQA "
+                         "attention with an MLP (use engine='continuous')")
+
+
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
@@ -125,15 +145,25 @@ def init_model(cfg, *, seed=0, device="cuda") -> Model:
     return Model(cfg, tree, device=dev)
 
 
-def init_cache(cfg, dtype, *, pool, slots=None, device="cuda"):
-    """The serving cache, one entry per layer: an attention layer's
-    {"k", "v"} pool, each ``(num_pages * page_size, hk, hd)`` with pool
-    = (num_pages, page_size) (an MLA layer's {"ckv", "krope"} latent
-    pool, ``(num_pages * page_size, kv_lora | rope)``); a Mamba layer's
-    {"ssm", "conv"} or an RWKV layer's {"state", "shift_tm",
-    "shift_cm"} with ``slots`` rows."""
+def init_cache(cfg, dtype, *, pool=None, slots=None, batch=None,
+               max_len=None, device="cuda"):
+    """The serving cache, one entry per layer.  With pool =
+    (num_pages, page_size), the continuous engine's: an attention
+    layer's {"k", "v"} pool, each ``(num_pages * page_size, hk, hd)``
+    (an MLA layer's {"ckv", "krope"} latent pool, ``(num_pages *
+    page_size, kv_lora | rope)``); a Mamba layer's {"ssm", "conv"} or an
+    RWKV layer's {"state", "shift_tm", "shift_cm"} with ``slots`` rows.
+    Without a pool, the lockstep engine's slab: {"k", "v"} of (batch,
+    max_len, hk, hd) per layer (GQA stacks only)."""
     dev = resolve_device(device)
     kinds = [kind for kind, _ in cfg.layer_pattern()]
+    if pool is None:
+        check_slab_ported(cfg)
+        if batch is None or max_len is None:
+            raise ValueError("the slab cache needs batch= and max_len=")
+        return [tfm.init_layer_cache(cfg, kind, dtype, batch=batch,
+                                     max_len=max_len, device=dev)
+                for kind in kinds]
     if slots is None and any(kind != "attn" for kind in kinds):
         raise ValueError(f"{cfg.name}: recurrent layers need slots=")
     return [tfm.init_layer_cache(cfg, kind, dtype, pool=pool, slots=slots,
@@ -145,30 +175,50 @@ def _logits(cfg, model: Model, x):
                          rmsnorm(model.final_norm, x, cfg.norm_eps))
 
 
-def apply_model(cfg, model: Model, tokens, *, cache, cache_pos, paged,
-                last_only=False, logits=True):
-    """Decode-mode forward over the serving cache.
+def apply_model(cfg, model: Model, tokens, *, cache, cache_pos, paged=None,
+                mode="decode", last_only=False, logits=True):
+    """Forward over a serving cache.
 
-    tokens: (B, S) int; cache_pos: (B,) int32 per-slot position of the
-    first token; paged: PagedView; cache: per-layer entries whose
-    recurrent rows match the B slots of this call (``PagedKVCache.
-    slot_cache`` for a one-slot prefill).  S is 1 for a decode step or a
-    prefill chunk's length.  ``last_only`` slices the last position
-    before the unembedding.  Returns {"logits": (B, S', V) fp32,
-    "hidden": (B, S', d), "aux": the MoE load-balance loss (0 without
-    MoE)} with S' = 1 under ``last_only``; a prefill chunk whose logits
-    nobody reads passes ``logits=False`` and skips the unembedding."""
-    if cache_pos.dim() != 1:
-        raise ValueError("apply_model takes per-slot cache_pos (B,)")
+    tokens: (B, S) int.  Paged (``paged``: a PagedView): cache_pos (B,)
+    int32, the per-slot position of the first token; cache: per-layer
+    entries whose recurrent rows match the B slots of this call
+    (``PagedKVCache.slot_cache`` for a one-slot prefill); S is 1 for a
+    decode step or a prefill chunk's length.  Slab (``paged`` None, GQA
+    stacks): cache from ``init_cache(..., batch=, max_len=)`` (or rows
+    of it); ``mode="prefill"`` with cache_pos 0 fills positions 0..S-1,
+    ``mode="decode"`` with an int cache_pos appends at cache_pos for
+    every slot.  ``last_only`` slices the last position before the
+    unembedding.  Returns {"logits": (B, S', V) fp32, "hidden": (B, S',
+    d), "aux": the MoE load-balance loss (0 without MoE)} with S' = 1
+    under ``last_only``; a call whose logits nobody reads passes
+    ``logits=False`` and skips the unembedding."""
+    S = tokens.shape[1]
+    if paged is not None:
+        if mode != "decode" or not isinstance(cache_pos, torch.Tensor) \
+                or cache_pos.dim() != 1:
+            raise ValueError("the paged cache is decode-mode with per-slot "
+                             "cache_pos (B,)")
+    else:
+        check_slab_ported(cfg)
+        if mode not in ("prefill", "decode"):
+            raise ValueError(f"slab mode {mode!r}: 'prefill' or 'decode'")
+        cache_pos = int(cache_pos)
+        if mode == "prefill" and cache_pos != 0:
+            raise ValueError("a slab prefill fills the cache from 0")
     x = apply_embed(model.embed, tokens)
     positions = None
     if tfm.has_attention(cfg):
-        positions = (cache_pos[:, None]
-                     + torch.arange(tokens.shape[1], device=tokens.device,
-                                    dtype=cache_pos.dtype)[None])
+        if paged is not None:
+            positions = (cache_pos[:, None]
+                         + torch.arange(S, device=tokens.device,
+                                        dtype=cache_pos.dtype)[None])
+        else:
+            positions = torch.arange(cache_pos, cache_pos + S,
+                                     device=tokens.device)[None]
     x, aux = tfm.apply_stack(cfg, model.layers, x, positions=positions,
                              cache=cache, paged=paged,
-                             rope_freqs=model.rope_freqs)
+                             rope_freqs=model.rope_freqs, mode=mode,
+                             cache_pos=cache_pos)
     if last_only:
         x = x[:, -1:]
     out = {"hidden": x, "aux": 0.0 if aux is None else aux}

@@ -7,9 +7,10 @@ the layers are an ``nn.ModuleList`` and the stack is a Python loop that
 takes each layer's (mixer, ffn) kinds from ``cfg.layer_pattern()``.
 An attention layer's paged KV pool is its own ``{"k", "v"}`` pair of
 ``(N, hk, hd)`` tensors (MLA: ``{"ckv": (N, kv_lora), "krope": (N,
-rope)}``); a Mamba or RWKV layer's cache is its per-slot
-recurrent state (``ssm.make_mamba_cache``, ``ssm.make_rwkv6_cache``).
-All are updated in place.
+rope)}``), or for the lockstep slab path a ``{"k", "v"}`` pair of
+``(B, max_len, hk, hd)`` (GQA only); a Mamba or RWKV layer's cache is
+its per-slot recurrent state (``ssm.make_mamba_cache``,
+``ssm.make_rwkv6_cache``).  All are updated in place.
 
 Weights keep the reference's layouts (wq (d, h, hd), wk/wv (d, hk, hd),
 wo (h, hd, d), MLA as in ``attention.init_mla``, MLP (d_in, d_out), MoE
@@ -106,10 +107,14 @@ class Layer(nn.Module):
         self.ffn = ParamTree(tree["ffn"], cast) if "ffn" in tree else None
 
 
-def init_layer_cache(cfg, kind, dtype, *, pool, slots, device="cpu"):
-    """An attention layer's paged pool (token-major, no batch axis), or
-    a Mamba or RWKV layer's recurrent state with one row per serving
-    slot."""
+def init_layer_cache(cfg, kind, dtype, *, pool=None, slots=None, batch=None,
+                     max_len=None, device="cpu"):
+    """An attention layer's paged pool (token-major, no batch axis; or,
+    with ``pool`` None, its (batch, max_len) slab), or a Mamba or RWKV
+    layer's recurrent state with one row per serving slot."""
+    if pool is None:
+        return attn_lib.make_cache(cfg, dtype, batch=batch, max_len=max_len,
+                                   device=device)
     if kind == "rwkv6":
         return ssm_lib.make_rwkv6_cache(cfg, slots, dtype, device=device)
     if kind == "mamba":
@@ -120,10 +125,12 @@ def init_layer_cache(cfg, kind, dtype, *, pool, slots, device="cpu"):
 
 
 def apply_layer(cfg, layer: Layer, x, *, positions, cache, paged,
-                write_idx, rope):
+                write_idx, rope, mode="decode", cache_pos=0):
     """Pre-norm residual block: attention or Mamba then an MLP or MoE,
     or RWKV time mix then channel mix.  Returns (x, aux), aux being the
-    MoE load-balance loss or None."""
+    MoE load-balance loss or None.  ``paged`` None is the slab path
+    (GQA attention only): ``mode`` and the scalar ``cache_pos`` say
+    where the new keys go."""
     h = rmsnorm(layer.norm1, x, cfg.norm_eps)
     if layer.kind == "rwkv6":
         x = x + ssm_lib.apply_rwkv6_time_mix(cfg, layer.mixer, h,
@@ -141,7 +148,8 @@ def apply_layer(cfg, layer: Layer, x, *, positions, cache, paged,
         x = x + attn_lib.apply_attention(cfg, layer.mixer, h,
                                          positions=positions, cache=cache,
                                          paged=paged, write_idx=write_idx,
-                                         rope=rope)
+                                         rope=rope, mode=mode,
+                                         cache_pos=cache_pos)
     h = rmsnorm(layer.norm2, x, cfg.norm_eps)
     if layer.ffn_kind == "moe":
         h, aux = moe_lib.apply_moe(cfg, layer.ffn, h)
@@ -153,19 +161,23 @@ def has_attention(cfg) -> bool:
     return any(mixer == "attn" for mixer, _ in cfg.layer_pattern())
 
 
-def apply_stack(cfg, layers, x, *, positions, cache, paged, rope_freqs):
+def apply_stack(cfg, layers, x, *, positions, cache, paged, rope_freqs,
+                mode="decode", cache_pos=0):
     """The layers in order; returns (x, the summed MoE aux loss or
     None).  What every attention layer derives alike from the positions
-    -- pool write rows and RoPE angles -- is computed once, and only
-    when the stack has an attention layer."""
+    -- pool write rows (paged) and RoPE angles -- is computed once, and
+    only when the stack has an attention layer.  ``paged`` None is the
+    slab path: positions (1, S), shared by every slot."""
     write_idx = rope = None
     if has_attention(cfg):
-        write_idx = attn_lib.paged_write_indices(paged, positions)
+        if paged is not None:
+            write_idx = attn_lib.paged_write_indices(paged, positions)
         rope = rope_angles(positions, rope_freqs)
     aux = None
     for layer, c in zip(layers, cache):
         x, a = apply_layer(cfg, layer, x, positions=positions, cache=c,
-                           paged=paged, write_idx=write_idx, rope=rope)
+                           paged=paged, write_idx=write_idx, rope=rope,
+                           mode=mode, cache_pos=cache_pos)
         if a is not None:
             aux = a if aux is None else aux + a
     return x, aux

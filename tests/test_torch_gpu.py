@@ -1,7 +1,8 @@
 """The port on the card: the CUDA paged flash-decode (GQA and absorbed
-MLA), WKV6 and Mamba selective-scan kernels against their plain PyTorch
-versions, the launch counters, and greedy serving (qwen3, RWKV-6, Jamba
-and DeepSeek-V3 smoke configs) on the card against the CPU.  Marked ``gpu``; each test skips by itself
+MLA), WKV6, Mamba selective-scan and flash-attention kernels against
+their plain PyTorch versions, the launch counters, and greedy serving
+(qwen3, RWKV-6, Jamba and DeepSeek-V3 smoke configs; qwen3 also through
+the lockstep slab engine) on the card against the CPU.  Marked ``gpu``; each test skips by itself
 where no card is present.  Imports no jax (the card's machine has
 none).
 
@@ -15,13 +16,14 @@ from torch_paged_cases import (GQA_CASES, MLA_CASES, POISON, mla_case,
                                paged_case)
 
 from repro_torch.configs import smoke_config
-from repro_torch.kernels import (launch_counts, mamba_ref, mamba_scan,
+from repro_torch.kernels import (flash_attention, flash_attention_ref,
+                                 launch_counts, mamba_ref, mamba_scan,
                                  paged_flash_decode, paged_flash_decode_mla,
                                  paged_flash_decode_mla_ref,
                                  paged_flash_decode_ref,
                                  reset_launch_counts, wkv6, wkv6_chunked)
 from repro_torch.models import init_model
-from repro_torch.serve import ContinuousScheduler
+from repro_torch.serve import ContinuousScheduler, ServeEngine
 
 pytestmark = pytest.mark.gpu
 
@@ -435,3 +437,103 @@ def test_deepseek_greedy_serving_on_card_matches_cpu(cuda):
         assert counts.get(name, 0) == 0, name
     for a, b in zip(outs["cpu"], outs["cuda"]):
         np.testing.assert_array_equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# flash attention (the lockstep slab engine)
+# --------------------------------------------------------------------------
+
+# the reference's FLASH_CASES (tests/test_kernels.py, which imports jax)
+FLASH_CASES = [
+    # B, S, T, h, hk, hd, causal, window
+    (2, 128, 128, 4, 2, 64, True, 0),
+    (1, 96, 160, 4, 4, 64, True, 0),       # right-aligned decode-style
+    (2, 128, 128, 8, 2, 128, True, 48),    # sliding window
+    (1, 64, 64, 2, 1, 64, False, 0),       # bidirectional, MQA
+    (1, 33, 70, 2, 2, 64, True, 0),        # ragged (padding paths)
+    (8, 1, 576, 16, 8, 128, True, 0),      # qwen3-1.7b slab decode step
+]
+
+
+def _flash_inputs(dev, dtype, seed, B, S, T, h, hk, hd):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dev, dtype)
+        for shape in ((B, S, h, hd), (B, T, hk, hd), (B, T, hk, hd)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, case, dtype):
+    B, S, T, h, hk, hd, causal, window = case
+    q, k, v = _flash_inputs(cuda, dtype, sum(case), B, S, T, h, hk, hd)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 7, 70], ids=["decode", "chunk", "prefill"])
+def test_flash_kernel_on_strided_slab_slice(cuda, dtype, S):
+    """k[:, :valid] of a (B, max_len, hk, hd) slab, as the slab path
+    passes it: read through its strides (no copy), and the cache's tail
+    past the valid length -- poisoned with 1e4, then 1e8 -- changes no
+    bit of the output."""
+    B, max_len, valid, h, hk, hd = 3, 100, 70, 16, 8, 128
+    q, k, v = _flash_inputs(cuda, dtype, S, B, S, max_len, h, hk, hd)
+    for t in (k, v):
+        t[:, valid:] = 1e4
+    ks, vs = k[:, :valid], v[:, :valid]
+    assert not ks.is_contiguous()
+    got = flash_attention(q, ks, vs)
+    want = flash_attention_ref(q, ks.contiguous(), vs.contiguous())
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    for t in (k, v):
+        t[:, valid:] = 1e8
+    assert torch.equal(flash_attention(q, ks, vs), got)
+
+
+def test_flash_counts_launches_and_rejects_bad_input(cuda):
+    q, k, v = _flash_inputs(cuda, torch.float32, 0, 2, 4, 9, 4, 2, 64)
+    reset_launch_counts()
+    flash_attention(q, k, v)
+    flash_attention(q, k, v, causal=False, window=3)
+    assert launch_counts()["flash_attention"] == 2
+    with pytest.raises(ValueError, match="see no key"):
+        flash_attention(q, k[:, :3], v[:, :3])
+    with pytest.raises(TypeError):
+        flash_attention(q, k.half(), v.half())
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                        v[..., :32].contiguous())
+    with pytest.raises(ValueError, match="stride"):
+        flash_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2),
+                        v)
+    assert launch_counts()["flash_attention"] == 2
+
+
+def test_legacy_greedy_serving_on_card_matches_cpu(cuda):
+    """The smoke config in fp32 through the lockstep slab engine: greedy
+    tokens through the flash kernel on the card equal the plain path on
+    the CPU, and every attention call launched the kernel (one prefill
+    and NEW - 1 decode calls in each layer)."""
+    cfg = smoke_config("qwen3-1.7b").with_overrides(dtype="float32")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 24))
+    new = 12
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        model = init_model(cfg, seed=0, device="cpu")
+        if dev == "cuda":
+            model = model.to(cuda)
+        reset_launch_counts()
+        outs[dev] = ServeEngine(cfg, model, batch_size=2,
+                                max_len=48).generate(prompts, new).cpu()
+    counts = launch_counts()
+    assert counts["flash_attention"] == cfg.num_layers * new
+    assert counts.get("paged_flash_decode", 0) == 0
+    np.testing.assert_array_equal(outs["cpu"].numpy(), outs["cuda"].numpy())

@@ -23,10 +23,11 @@ def test_port_files_exist():
     names = {p.name for p in PORT_FILES}
     assert {"paged_decode.py", "wkv6.py", "mamba_scan.py", "ssm.py",
             "moe.py", "rwkv6_1p6b.py", "jamba_v0p1_52b.py",
-            "deepseek_v3_671b.py", "scheduler.py", "chip_smoke.py"} <= names
+            "deepseek_v3_671b.py", "scheduler.py", "flash_attention.py",
+            "engine.py", "chip_smoke.py"} <= names
     assert {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob(
         "*.cu")} >= {"paged_decode.cu", "paged_decode_mla.cu", "wkv6.cu",
-                     "mamba_scan.cu"}
+                     "mamba_scan.cu", "flash_attention.cu"}
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

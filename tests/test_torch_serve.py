@@ -162,5 +162,9 @@ def test_make_engine_loads_reference_tree_and_rejects_legacy(ref):
                       page_size=8)
     assert isinstance(eng, ContinuousScheduler)
     assert len(eng.generate(prompts[:1], 3)[0]) == 3
+    # the lockstep slab engine is ported now: it refuses the continuous
+    # engine's keywords, and unknown engine names raise
+    with pytest.raises(TypeError):
+        make_engine(cfg, tree, engine="legacy", device="cpu", page_size=8)
     with pytest.raises(ValueError):
-        make_engine(cfg, tree, engine="legacy", device="cpu")
+        make_engine(cfg, tree, engine="paged", device="cpu")
