@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels-only [--max-splits N]   (phases 1-2)
 
 Phases (each fails the run if it goes wrong):
   1. the card's name and power limit; build every CUDA kernel of the
@@ -165,24 +166,31 @@ def check_paged_decode(dev, flush, h=16, windowed=True, tag=""):
     """The paged kernel at h query heads over 8 kv heads of 128 (qwen3-
     1.7b: h=16; Jamba's attention layer: h=32)."""
     import torch.nn.functional as F
+    from repro_torch.kernels import gqa_split
     from repro_torch.kernels.paged_decode import (
         paged_flash_decode, paged_flash_decode_ref, visible_tokens)
     from repro_torch.models.attention import PagedView, paged_read
 
-    hk, hd, ps = 8, 128, PAGE_SIZE
+    hk, ps = 8, PAGE_SIZE
     W = MAX_LEN // ps
     rng = np.random.default_rng(0)
     cases = [
         ("decode B=8 S=1, slots 1..max_len tokens", 8, 1, 0,
-         np.linspace(1, W * ps, 8).astype(int)),
-        ("prefill chunk B=1 S=32", 1, 32, 0, np.array([PROMPT_MAX])),
+         np.linspace(1, W * ps, 8).astype(int), 128),
+        ("prefill chunk B=1 S=32", 1, 32, 0, np.array([PROMPT_MAX]), 128),
     ]
     if windowed:
-        cases.append(("windowed chunk B=4 S=32 window=100", 4, 32, 100,
-                      np.array([40, 200, 333, 560])))
+        # every key of the windowed chunk's early splits is masked; the
+        # narrower heads run the other builds of the bf16 kernel
+        cases += [("windowed chunk B=4 S=32 window=100", 4, 32, 100,
+                   np.array([40, 200, 333, 560]), 128),
+                  ("decode B=8 S=1 hd=64", 8, 1, 0,
+                   np.linspace(1, W * ps, 8).astype(int), 64),
+                  ("prefill chunk B=1 S=32 hd=32", 1, 32, 0,
+                   np.array([PROMPT_MAX]), 32)]
     cases = [(tag + name, *rest) for name, *rest in cases]
     rows = []
-    for name, B, S, window, lengths in cases:
+    for name, B, S, window, lengths, hd in cases:
         host = paged_case(rng, B, S, h, hk, hd, ps, W, lengths)
         poisoned = [torch.from_numpy(x == POISON).to(dev) for x in host[1:3]]
         for dtype in (torch.float32, torch.bfloat16):
@@ -242,12 +250,15 @@ def check_paged_decode(dev, flush, h=16, windowed=True, tag=""):
             t_ops = ops / PEAK_OPS[dtype] * 1e3
             rows.append({
                 "case": name, "dtype": str(dtype).replace("torch.", ""),
+                "splits": (gqa_split.plan(B * hk, h // hk * S, W * ps)[1]
+                           if dtype == torch.bfloat16 else 1),
                 "max_abs_err": err, "tol": tol, "ms": ms,
                 "plain_ms": plain_ms, "library_ms": library_ms,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bytes": n_bytes, "ops": ops})
             print(f"  paged_flash_decode {name:40s} {rows[-1]['dtype']:8s} "
+                  f"splits {rows[-1]['splits']}  "
                   f"err {err:.2e} (tol {tol:g})  kernel {ms:.4f} ms  "
                   f"plain {plain_ms:.4f} ms  sdpa-on-slab {library_ms:.4f} ms"
                   f"  bound {rows[-1]['bound_ms']:.4f} ms "
@@ -413,6 +424,7 @@ def check_flash_attention(dev, flush):
     FLASH_CASES, a strided slab slice with a poisoned tail, and the two
     full-width shapes of the slab path (timed beside SDPA)."""
     import torch.nn.functional as F
+    from repro_torch.kernels import gqa_split
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref)
 
@@ -422,6 +434,12 @@ def check_flash_attention(dev, flush):
     def normal(*shape):
         return torch.from_numpy(
             rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    def splits(q, k):
+        B, S, h = q.shape[:3]
+        T, hk = k.shape[1:3]
+        return (gqa_split.plan(B * hk, h // hk * S, T)[1]
+                if q.dtype == torch.bfloat16 else 1)
 
     def compare(name, q, k, v, causal=True, window=0):
         got = flash_attention(q, k, v, causal=causal, window=window)
@@ -440,12 +458,14 @@ def check_flash_attention(dev, flush):
                 normal(B, T, hk_, hd_))
         for dtype in (torch.float32, torch.bfloat16):
             name = f"FLASH_CASES {case}"
-            _, err = compare(name, *(x.to(dtype) for x in host), causal,
-                             window)
+            q, k, v = (x.to(dtype) for x in host)
+            _, err = compare(name, q, k, v, causal, window)
             rows.append({"case": name, "dtype": str(dtype)[6:],
-                         "max_abs_err": err, "tol": TOL[dtype]})
+                         "splits": splits(q, k), "max_abs_err": err,
+                         "tol": TOL[dtype]})
             print(f"  flash_attention {name:44s} {rows[-1]['dtype']:8s} "
-                  f"err {err:.2e} (tol {TOL[dtype]:g})")
+                  f"splits {rows[-1]['splits']}  err {err:.2e} "
+                  f"(tol {TOL[dtype]:g})")
     full = [
         # name, B, S, T (valid keys), slab length, causal
         (f"prefill B={LEGACY_BATCH} S=T={LEGACY_PROMPT}", LEGACY_BATCH,
@@ -470,11 +490,13 @@ def check_flash_attention(dev, flush):
             if not torch.equal(flash_attention(q, k, v), got):
                 fail(f"flash_attention {name} {dtype}: the slab's tail "
                      "leaked")
-            row = {"case": name, "dtype": str(dtype)[6:], "max_abs_err": err,
+            row = {"case": name, "dtype": str(dtype)[6:],
+                   "splits": splits(q, k), "max_abs_err": err,
                    "tol": TOL[dtype]}
             rows.append(row)
             if name.startswith("strided"):
-                print(f"  flash_attention {name:44s} {row['dtype']:8s} err "
+                print(f"  flash_attention {name:44s} {row['dtype']:8s} "
+                      f"splits {row['splits']}  err "
                       f"{err:.2e} (tol {TOL[dtype]:g}); poisoned tail "
                       "changes no bit")
                 continue
@@ -498,8 +520,9 @@ def check_flash_attention(dev, flush):
             row.update(bound_ms=max(t_bytes, t_ops),
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
                        bytes=n_bytes, ops=ops)
-            print(f"  flash_attention {name:44s} {row['dtype']:8s} err "
-                  f"{err:.2e} (tol {TOL[dtype]:g})  kernel {row['ms']:.4f} ms"
+            print(f"  flash_attention {name:44s} {row['dtype']:8s} splits "
+                  f"{row['splits']}  err {err:.2e} (tol {TOL[dtype]:g})  "
+                  f"kernel {row['ms']:.4f} ms"
                   f"  plain {row['plain_ms']:.4f} ms  sdpa "
                   f"{row['library_ms']:.4f} ms ({backend})  bound "
                   f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
@@ -1115,6 +1138,15 @@ def serve_legacy(dev):
 
 
 def main():
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="run phases 1-2 only (build, kernels vs plain "
+                         "versions, timings) and print no result line")
+    ap.add_argument("--max-splits", type=int, default=None,
+                    help="cap the bf16 GQA kernels' split-KV count (1: no "
+                         "split), to time the split's share of phase 2")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this checks the port on a "
              "CUDA card")
@@ -1122,7 +1154,8 @@ def main():
         fail(f"no src/repro_torch beside {__file__}: run it from a checkout")
     sys.path.insert(0, SRC)
     from repro_torch.configs import get_config
-    from repro_torch.kernels import build, launch_counts, reset_launch_counts
+    from repro_torch.kernels import (build, gqa_split, launch_counts,
+                                     reset_launch_counts)
     from repro_torch.models import init_model
 
     dev = torch.device("cuda")
@@ -1147,6 +1180,8 @@ def main():
               f"{ptxas}")
 
     # ---- phase 2: kernels vs plain versions -------------------------------
+    if args.max_splits is not None:
+        gqa_split.MAX_SPLITS = args.max_splits
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     print("phase 2: kernels against their plain versions "
           f"(paged_flash_decode tolerance fp32 {TOL[torch.float32]:g}, bf16 "
@@ -1170,12 +1205,20 @@ def main():
           "not change one bit")
     mla_rows = check_paged_decode_mla(dev, flush)
     print(f"  flash_attention tolerance: fp32 {TOL[torch.float32]:g}, bf16 "
-          f"{TOL[torch.bfloat16]:g} (the plain version rounds the "
-          "probabilities to bf16, the kernel does not); a slab slice's "
-          "tail holds 1e4, then 1e8, and the output must not change one "
-          "bit")
+          f"{TOL[torch.bfloat16]:g} (both round the probabilities to bf16, "
+          "the plain version after normalising, the kernel before); a slab "
+          "slice's tail holds 1e4, then 1e8, and the output must not change "
+          "one bit")
     flash_rows = check_flash_attention(dev, flush)
     del flush
+    if args.kernels_only:
+        print(json.dumps({"phase2": {
+            "max_splits": gqa_split.MAX_SPLITS,
+            "paged_flash_decode": rows + jamba_rows, "wkv6": wkv_rows,
+            "mamba_scan": mamba_rows, "paged_flash_decode_mla": mla_rows,
+            "flash_attention": flash_rows}}))
+        print(card_line())
+        return
 
     # ---- phase 3: the main path, full width, bf16 -------------------------
     cfg = get_config("qwen3-1.7b")
@@ -1249,8 +1292,10 @@ def main():
     mla_launches = serve_deepseek(dev, lens)
     flash_launches = serve_legacy(dev)
 
-    decode_bf16 = next(r for r in rows if r["case"].startswith("decode")
-                       and r["dtype"] == "bfloat16")
+    decode_bf16, chunk_bf16 = (
+        next(r for r in rows if r["case"] == case and r["dtype"] == "bfloat16")
+        for case in ("decode B=8 S=1, slots 1..max_len tokens",
+                     "prefill chunk B=1 S=32"))
     entry = {
         "name": "paged_flash_decode", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_decode.cu",
@@ -1262,10 +1307,12 @@ def main():
         "bound_ms": decode_bf16["bound_ms"],
         "bound_by": decode_bf16["bound_by"],
         "library_ms": decode_bf16["library_ms"],
+        "chunk": {key: chunk_bf16[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "cases": rows + jamba_rows,
     }
-    chunk_bf16 = next(r for r in wkv_rows if r["case"].startswith("prefill")
-                      and r["dtype"] == "bfloat16")
+    wkv_bf16 = next(r for r in wkv_rows if r["case"].startswith("prefill")
+                    and r["dtype"] == "bfloat16")
     wkv_entry = {
         "name": "wkv6", "route": "cuda",
         "source": "src/repro_torch/csrc/wkv6.cu",
@@ -1273,9 +1320,9 @@ def main():
         "launches": wkv_launches,
         "max_abs_err": max(r["max_abs_err"] for r in wkv_rows
                            if r["dtype"] == "bfloat16"),
-        "ms": chunk_bf16["ms"], "plain_ms": chunk_bf16["plain_ms"],
-        "bound_ms": chunk_bf16["bound_ms"],
-        "bound_by": chunk_bf16["bound_by"],
+        "ms": wkv_bf16["ms"], "plain_ms": wkv_bf16["plain_ms"],
+        "bound_ms": wkv_bf16["bound_ms"],
+        "bound_by": wkv_bf16["bound_by"],
         "library_ms": None,
         "cases": wkv_rows,
     }

@@ -15,33 +15,34 @@
 // (when causal) and t > pos - window (when window > 0).  Query head i reads KV
 // head i / (h / hk).  Scores are scaled by `scale` (1/sqrt(hd)) after the dot.
 //
-// Design: one block of 256 threads per (b, kv head, tile of RT query rows).
-// A tile's rows are (position, group member) pairs taken position-major across
-// the g = h / hk heads of the group, so the g heads share every K/V tile and a
-// causal tile spans as few positions as possible.  The block walks only the key
-// tiles of 64 some row of it can see (the counterpart of the TPU kernel's
-// pl.when(visible) skip), staging each tile in shared memory as fp32: K
-// transposed (d-major), V row-major.  Thread (ty, tx) of the 16 x 16 grid owns
-// RPT rows (ty * RPT + i) for the whole walk: it computes their scores against
-// keys tx * 4 .. tx * 4 + 3 as an RPT x 4 register tile (one 16-byte load of K
-// and RPT values of q per step of hd), reduces the rows' max and sum over the
-// 16 lanes of its half-warp with shuffles, and keeps the rows' (m, l) and
-// output columns {c * 64 + tx * 4 + e} in registers.  The probabilities pass
-// through shared memory (over the K tile, which is dead by then) to the value
-// product.  RPT is 4 (64 rows a block) for prefill and 1 (16 rows) for
-// decode-sized calls, where g * S is a few rows; a warp whose rows are all
-// padding, or see no key of a tile, skips that tile's arithmetic.
+// bf16 (the path serving runs): the shared tensor-core core of
+// gqa_attention.cuh with SlabPolicy below -- key row t of slot b at
+// k + b * k_bs + t * k_ss, query row positions right-aligned.  The wrapper's
+// plan: a slab prefill runs 512 blocks of one warpgroup (128 rows, wgmma
+// products, 64-key cp.async tiles); a decode step runs one-warp blocks
+// (16 rows, mma.sync) with the keys split over a thread-block cluster.  Masks
+// only on the diagonal and window-edge tiles.  Bound: memory at the slab
+// path's shapes (q, k, v read once, out written once); a long prefill comes
+// near the tensor cores' bound.
 //
-// Bound: at the slab path's shapes, memory (each of q, k, v read once, out
-// written once).  Both products here are fp32 FMAs, not tensor cores: this
-// first version is simple and right; tensor-core products (mma.sync / wgmma),
-// cp.async or TMA staging and split-KV at decode are later work.
+// fp32: the first version's FMA kernel below, unchanged, and never TF32: the
+// card-vs-CPU greedy parity of the fp32 serving runs (2e-5 bar) rests on it.
+// One block of 256 threads per (b, kv head, tile of RT query rows), rows taken
+// position-major across the g = h / hk heads of the group; key tiles of 64
+// staged in shared memory as fp32 (K transposed, V row-major), walking only the
+// tiles some row can see; thread (ty, tx) of the 16 x 16 grid owns RPT rows and
+// keeps an RPT x 4 score tile, the rows' (m, l) and output columns in
+// registers; the probabilities pass through shared memory to the value
+// product.  RPT is 4 (64 rows a block) for prefill and 1 (16 rows) for
+// decode-sized calls.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+
+#include "gqa_attention.cuh"
 
 namespace {
 
@@ -54,21 +55,7 @@ __device__ __forceinline__ void load_vec(const float* src, float* dst) {
   dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
 }
 
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* src, float* dst) {
-  const uint4 v = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h2[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
-}
-
 __device__ __forceinline__ void store_out(float* dst, float x) { *dst = x; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* dst, float x) {
-  *dst = __float2bfloat16(x);
-}
 
 // max / sum over the 16 lanes of a half-warp (one ty)
 __device__ __forceinline__ float half_warp_max(float x) {
@@ -340,6 +327,55 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
   return (int)cudaErrorInvalidValue;
 }
 
+// bf16: where the core finds key row t (a strided slab) and the query rows'
+// positions (right-aligned: row r of the tile is query (r0 + r) / g)
+template <int HD>
+struct SlabPolicy {
+  static constexpr int kHD = HD;
+  static constexpr bool kPrepare = false;
+  const gqa::bf16* k;
+  const gqa::bf16* v;
+  long long k_bs, k_ss, v_bs, v_ss;
+  int Tk, causal, window;
+  int off, g, r0, nr;                    // set by begin()
+
+  __device__ void begin(int b, int kvh, int r0_, int nr_, int g_, int S, unsigned char*) {
+    k += b * k_bs + kvh * HD;
+    v += b * v_bs + kvh * HD;
+    off = Tk - S;
+    g = g_;
+    r0 = r0_;
+    nr = nr_;
+  }
+  __device__ int qpos(int r) const { return (r0 + r) / g + off; }
+  __device__ void key_range(int& lo, int& hi) const {
+    const int q_lo = r0 / g + off, q_hi = (r0 + nr - 1) / g + off;
+    hi = causal ? min(Tk - 1, q_hi) : Tk - 1;
+    lo = window > 0 ? max(0, q_lo - window + 1) : 0;
+  }
+  __device__ int key_limit() const { return Tk; }
+  __device__ void prepare(int, int, int) {}
+  __device__ const gqa::bf16* k_row(int, int kpos) const { return k + kpos * k_ss; }
+  __device__ const gqa::bf16* v_row(int, int kpos) const { return v + kpos * v_ss; }
+};
+
+template <int HD>
+int launch_bf16_hd(const void* q, const void* k, const void* v, void* out, int B,
+                   int S, int Tk, int h, int hk, long long k_bs, long long k_ss,
+                   long long v_bs, long long v_ss, int causal, int window, int warps,
+                   int splits, float scale, cudaStream_t stream) {
+  SlabPolicy<HD> pol{};
+  pol.k = static_cast<const gqa::bf16*>(k);
+  pol.v = static_cast<const gqa::bf16*>(v);
+  pol.k_bs = k_bs; pol.k_ss = k_ss; pol.v_bs = v_bs; pol.v_ss = v_ss;
+  pol.Tk = Tk; pol.causal = causal; pol.window = window;
+  if (warps == 4)
+    return gqa::launch<4>(pol, q, out, B, S, h, hk, splits, scale, 0, stream);
+  if (warps == 1)
+    return gqa::launch<1>(pol, q, out, B, S, h, hk, splits, scale, 0, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -355,13 +391,25 @@ int flash_attention_f32(const void* q, const void* k, const void* v, void* out, 
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* out, int B,
                          int S, int Tk, int h, int hk, int hd, long long k_bs,
                          long long k_ss, long long v_bs, long long v_ss, int causal,
-                         int window, int rows_per_thread, float scale, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, out, B, S, Tk, h, hk, hd, k_bs, k_ss, v_bs,
-                               v_ss, causal, window, rows_per_thread, scale, stream);
+                         int window, int warps, int splits, float scale, void* stream) {
+  if (B <= 0 || S <= 0 || Tk <= 0 || hk <= 0 || h % hk)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FLASH_ARGS q, k, v, out, B, S, Tk, h, hk, k_bs, k_ss, v_bs, v_ss, causal, \
+                   window, warps, splits, scale, st
+  if (hd == 64) return launch_bf16_hd<64>(FLASH_ARGS);
+  if (hd == 128) return launch_bf16_hd<128>(FLASH_ARGS);
+#undef FLASH_ARGS
+  return (int)cudaErrorInvalidValue;
 }
 
 unsigned long long flash_attention_smem_bytes(int hd, int rows_per_thread) {
   return (unsigned long long)smem_bytes(hd, 16 * rows_per_thread);
+}
+
+unsigned long long flash_attention_bf16_smem_bytes(int hd, int warps) {
+  return (unsigned long long)(warps == 4 ? gqa::core_smem_bytes<4>(hd)
+                                         : gqa::core_smem_bytes<1>(hd));
 }
 
 const char* flash_attention_error_string(int code) {

@@ -12,22 +12,26 @@
 //   pos    (B, S)          int32     logical position of each query
 //   out    (B, S, h, hd)   T
 // Key t is visible to query (b, s) iff t <= pos[b, s] (and t > pos[b, s] - window
-// when window > 0).  Query head i reads KV head i / (h / hk).
+// when window > 0).  Query head i reads KV head i / (h / hk).  Masked keys
+// contribute exactly 0, so pages the mask kills -- the trash page, unallocated
+// blocks, the unwritten tail of the last page -- never reach the output, and
+// rows with no visible key output 0.
 //
-// Design: one block per (slot, kv head, tile of up to `rows_per_block` query
-// rows); the g*S query rows of a kv-head group share every K/V tile.  The
-// block reads its table row and positions itself, walks only the pages that
-// intersect [min_pos - window, max_pos] in tiles of `pages_per_tile` pages,
-// stages each tile's K and V in shared memory as fp32, and carries the rows'
-// (m, l, acc) online-softmax state in shared memory.  Masked keys contribute
-// exactly 0 (their score is -inf), so pages the mask kills -- the trash page,
-// unallocated blocks, the unwritten tail of the last page -- never reach the
-// output, and rows with no visible key output 0.
+// bf16 (the path serving runs): the shared tensor-core core of
+// gqa_attention.cuh with PagedPolicy below -- the block loads its table row
+// and its rows' positions into shared memory once, walks only the keys in
+// [min_pos - window + 1, max_pos], and looks each staged key row's page up
+// once.  The wrapper's plan: decode steps and prefill chunks run one-warp
+// blocks (16 rows, mma.sync, a ring of 32-key cp.async tiles) with the keys
+// split over a thread-block cluster of up to 8 blocks, so 8 slots fill the
+// 132 SMs.  Bound: memory, sum_b visible_tokens_b * hk * hd * 2 * 2 bytes
+// plus q and out.
 //
-// Bound: memory.  A call must read each visible K/V row once:
-// sum_b visible_tokens_b * hk * hd * 2 * sizeof(T) bytes, plus q and out.
-// This first version keeps the design simple (no split-KV, no tensor cores);
-// at decode (B * hk = 64 blocks for 8 slots) it leaves most of the 132 SMs idle.
+// fp32: the first version's kernel below, unchanged, and never TF32: the
+// card-vs-CPU greedy parity of the fp32 serving runs (2e-5 bar) rests on it.
+// One block per (slot, kv head, tile of up to `rows_per_block` query rows)
+// walks the visible pages in tiles of `pages_per_tile` pages, stages K and V in
+// shared memory as fp32, and carries the rows' (m, l, acc) in shared memory.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -35,6 +39,8 @@
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+
+#include "gqa_attention.cuh"
 
 namespace {
 
@@ -46,21 +52,7 @@ __device__ __forceinline__ void load_vec(const float* src, float* dst) {
   dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
 }
 
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* src, float* dst) {
-  const uint4 v = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h2[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
-}
-
 __device__ __forceinline__ void store_out(float* dst, float x) { *dst = x; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* dst, float x) {
-  *dst = __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -248,6 +240,78 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
   return (int)cudaGetLastError();
 }
 
+// bf16: where the core finds key row t (through the slot's page table) and
+// the query rows' positions (an int32 array: row r of the tile is query
+// (r0 + r) / g)
+template <int HD>
+struct PagedPolicy {
+  static constexpr int kHD = HD;
+  static constexpr bool kPrepare = true;
+  static constexpr int causal = 1;
+  const gqa::bf16* k;
+  const gqa::bf16* v;
+  const int* table;
+  const int* pos;
+  int W, ps, hk, window;
+  int kvh, min_pos, max_pos;             // set by begin()
+  long long* row_s;                      // [kMaxRowSlots] element offsets of key rows
+  int* tab_s;                            // [W] the slot's table row
+  int* qp_s;                             // [rows] the tile rows' positions
+
+  static size_t extra_bytes(int W, int rows) {
+    return gqa::kMaxRowSlots * sizeof(long long) + ((size_t)W + rows) * sizeof(int);
+  }
+  __device__ void begin(int b, int kvh_, int r0, int nr, int g, int S, unsigned char* extra) {
+    kvh = kvh_;
+    row_s = reinterpret_cast<long long*>(extra);
+    tab_s = reinterpret_cast<int*>(row_s + gqa::kMaxRowSlots);
+    qp_s = tab_s + W;
+    for (int i = threadIdx.x; i < W; i += blockDim.x) tab_s[i] = table[(size_t)b * W + i];
+    for (int r = threadIdx.x; r < nr; r += blockDim.x) qp_s[r] = pos[(size_t)b * S + (r0 + r) / g];
+    __syncthreads();
+    min_pos = INT_MAX;
+    max_pos = -1;
+    for (int r = 0; r < nr; ++r) {
+      min_pos = min(min_pos, qp_s[r]);
+      max_pos = max(max_pos, qp_s[r]);
+    }
+  }
+  __device__ int qpos(int r) const { return qp_s[r]; }
+  __device__ void key_range(int& lo, int& hi) const {
+    hi = max_pos < 0 ? -1 : min(max_pos, W * ps - 1);
+    lo = window > 0 ? max(0, min_pos - window + 1) : 0;
+  }
+  __device__ int key_limit() const { return W * ps; }
+  __device__ void prepare(int t0, int slot, int n) {   // each key's page looked up once
+    for (int t = threadIdx.x; t < n; t += blockDim.x) {
+      const int kpos = t0 + t;
+      if (kpos < W * ps)
+        row_s[slot + t] = ((long long)tab_s[kpos / ps] * ps + kpos % ps) * hk * HD + kvh * HD;
+    }
+  }
+  __device__ const gqa::bf16* k_row(int slot, int) const { return k + row_s[slot]; }
+  __device__ const gqa::bf16* v_row(int slot, int) const { return v + row_s[slot]; }
+};
+
+template <int HD>
+int launch_bf16_hd(const void* q, const void* k_pool, const void* v_pool,
+                   const void* table, const void* qpos, void* out, int B, int S, int h,
+                   int hk, int W, int ps, int window, int warps, int splits, float scale,
+                   cudaStream_t stream) {
+  PagedPolicy<HD> pol{};
+  pol.k = static_cast<const gqa::bf16*>(k_pool);
+  pol.v = static_cast<const gqa::bf16*>(v_pool);
+  pol.table = static_cast<const int*>(table);
+  pol.pos = static_cast<const int*>(qpos);
+  pol.W = W; pol.ps = ps; pol.hk = hk; pol.window = window;
+  const size_t extra = PagedPolicy<HD>::extra_bytes(W, warps == 4 ? gqa::rows_per_block<4>() : gqa::rows_per_block<1>());
+  if (warps == 4)
+    return gqa::launch<4>(pol, q, out, B, S, h, hk, splits, scale, extra, stream);
+  if (warps == 1)
+    return gqa::launch<1>(pol, q, out, B, S, h, hk, splits, scale, extra, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -264,16 +328,27 @@ int paged_flash_decode_f32(const void* q, const void* k_pool, const void* v_pool
 int paged_flash_decode_bf16(const void* q, const void* k_pool, const void* v_pool,
                             const void* table, const void* qpos, void* out, int B,
                             int S, int h, int hk, int hd, int W, int ps, int window,
-                            int rows_per_block, int pages_per_tile, float scale,
-                            void* stream) {
-  return launch<__nv_bfloat16>(q, k_pool, v_pool, table, qpos, out, B, S, h, hk, hd,
-                               W, ps, window, rows_per_block, pages_per_tile, scale,
-                               stream);
+                            int warps, int splits, float scale, void* stream) {
+  if (B <= 0 || S <= 0 || hk <= 0 || h % hk || ps <= 0 || W <= 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PAGED_ARGS q, k_pool, v_pool, table, qpos, out, B, S, h, hk, W, ps, window, \
+                   warps, splits, scale, st
+  if (hd == 32) return launch_bf16_hd<32>(PAGED_ARGS);
+  if (hd == 64) return launch_bf16_hd<64>(PAGED_ARGS);
+  if (hd == 128) return launch_bf16_hd<128>(PAGED_ARGS);
+#undef PAGED_ARGS
+  return (int)cudaErrorInvalidValue;
 }
 
 unsigned long long paged_flash_decode_smem_bytes(int rows_per_block, int keys_per_tile,
                                                  int hd) {
   return (unsigned long long)smem_bytes(rows_per_block, keys_per_tile, hd);
+}
+
+unsigned long long paged_flash_decode_bf16_smem_bytes(int hd, int warps, int W) {
+  const size_t core = warps == 4 ? gqa::core_smem_bytes<4>(hd) : gqa::core_smem_bytes<1>(hd);
+  return (unsigned long long)(core + PagedPolicy<128>::extra_bytes(W, warps == 4 ? gqa::rows_per_block<4>() : gqa::rows_per_block<1>()));
 }
 
 const char* paged_flash_decode_error_string(int code) {

@@ -2,8 +2,8 @@
 
 Each ``csrc/*.cu`` file has a plain C interface.  At first use it is
 compiled with ``nvcc`` for ``sm_90a`` into the repository's ``build/``
-directory (named by a hash of the source and flags, so an edited source
-rebuilds) and loaded with ``ctypes``.  Nothing is built at import time:
+directory (named by a hash of the source, every ``csrc/*.cuh`` header
+and the flags, so an edited source or header rebuilds) and loaded with ``ctypes``.  Nothing is built at import time:
 the CPU-only test machine imports every module and has no ``nvcc``.
 """
 from __future__ import annotations
@@ -52,9 +52,11 @@ def _nvcc() -> str:
 
 def _paths(stem: str):
     src = CSRC / f"{stem}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return src, BUILD_DIR / f"lib{stem}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # whatever the source includes
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return src, BUILD_DIR / f"lib{stem}-{h.hexdigest()[:12]}.so"
 
 
 def load_libraries(stems) -> dict:

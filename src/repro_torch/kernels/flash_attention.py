@@ -15,15 +15,22 @@ qwen3-1.7b's prefill (B 8, S = T = 512, 16 q / 8 kv heads of 128,
 bf16) that is 50.3 MB (15.0 us at 3.35 TB/s) against 8.6 GFLOP (8.7 us
 on the bf16 tensor cores); a decode step at T = 576 reads 18.9 MB.
 
-Design.  One block per (b, kv head, tile of 64 query rows; 16 when the
-call has fewer than 64 rows a kv head, as a decode step has), the rows
-taken position-major across the g = h / hk heads of the group, so the
-group shares every K/V tile.  Tiles of 64 keys are staged in shared
-memory as fp32 and the block walks only those some row of it can see
-(the TPU kernel's ``pl.when(visible)`` skip).  Each thread keeps a
-register tile of scores, its rows' (m, l) and its output columns; both
-products are fp32 FMAs (tensor cores, asynchronous staging and
-split-KV at decode are later work).
+Design (bf16, the path serving runs).  The shared core of
+``csrc/gqa_attention.cuh``, planned by ``kernels/gqa_split.py``.  A
+slab prefill runs 512 blocks of one warpgroup and 128 query rows, both
+products as warpgroup MMAs (``wgmma``) on 64-key K/V tiles staged by
+``cp.async``.  A decode step runs one-warp blocks of 16 rows
+(``mma.sync`` m16n8k16) and splits the keys over a thread-block cluster
+of up to 8 blocks, which combine their partial softmax states in a
+fixed order.  Scores and softmax in fp32; the probabilities pass to the
+value product in registers, rounded to bf16.  Masks are applied only to
+the diagonal and window-edge tiles.  Query rows are taken position-
+major across the g = h / hk heads of a group, so the group shares
+every K/V tile.
+
+fp32 keeps the first version's FMA kernel (16 or 64 rows a block, fp32
+tiles in shared memory), and never TF32: the card-vs-CPU greedy parity
+of the fp32 serving runs rests on it.
 
 The wrapper takes the plain version ONLY for CPU tensors.  A CUDA
 tensor launches the kernel or raises.
@@ -35,6 +42,7 @@ import ctypes
 import numpy as np
 import torch
 
+from repro_torch.kernels import gqa_split
 from repro_torch.kernels.build import count_launch, load_library
 
 __all__ = ["flash_attention", "flash_attention_ref", "KERNEL_HEAD_DIMS"]
@@ -47,16 +55,21 @@ SMEM_LIMIT = 227 * 1024        # dynamic shared memory one Hopper block may use
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 3
              + [ctypes.c_float, ctypes.c_void_p])
+# bf16: (warps, splits) in place of rows_per_thread
+_BF16_ARGTYPES = _ARGTYPES[:16] + [ctypes.c_int] * 2 + _ARGTYPES[17:]
 
 
 def _lib():
     lib = load_library("flash_attention")
     if not getattr(lib, "_typed", False):
-        for fn in (lib.flash_attention_f32, lib.flash_attention_bf16):
-            fn.argtypes = _ARGTYPES
+        for fn, types in ((lib.flash_attention_f32, _ARGTYPES),
+                          (lib.flash_attention_bf16, _BF16_ARGTYPES)):
+            fn.argtypes = types
             fn.restype = ctypes.c_int
-        lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 2
-        lib.flash_attention_smem_bytes.restype = ctypes.c_ulonglong
+        for fn in (lib.flash_attention_smem_bytes,
+                   lib.flash_attention_bf16_smem_bytes):
+            fn.argtypes = [ctypes.c_int] * 2
+            fn.restype = ctypes.c_ulonglong
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -152,19 +165,23 @@ def flash_attention(q, k, v, *, causal=True, window=0):
                              "16-byte aligned (vector loads)")
     if q.data_ptr() % 16:
         raise ValueError("flash_attention: q must be 16-byte aligned")
-    rpt = 4 if (h // hk) * S >= SMALL_ROWS else 1
     lib = _lib()
-    smem = lib.flash_attention_smem_bytes(hd, rpt)
+    if q.dtype == torch.float32:
+        fn = lib.flash_attention_f32
+        layout = (4 if (h // hk) * S >= SMALL_ROWS else 1,)   # rows a thread
+        smem = lib.flash_attention_smem_bytes(hd, *layout)
+    else:
+        fn = lib.flash_attention_bf16
+        layout = gqa_split.plan(B * hk, (h // hk) * S, T)     # warps, splits
+        smem = lib.flash_attention_bf16_smem_bytes(hd, layout[0])
     if smem > SMEM_LIMIT:
         raise ValueError(f"flash_attention: head_dim={hd} needs {smem} B of "
                          "shared memory")
     out = torch.empty_like(q)
-    fn = (lib.flash_attention_f32 if q.dtype == torch.float32
-          else lib.flash_attention_bf16)
     scale = float(np.float32(1.0 / np.sqrt(hd)))
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, S, T, h, hk, hd, k.stride(0), k.stride(1), v.stride(0),
-            v.stride(1), int(bool(causal)), int(window), rpt, scale,
+            v.stride(1), int(bool(causal)), int(window), *layout, scale,
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("flash_attention launch failed: "

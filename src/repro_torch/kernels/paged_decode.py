@@ -18,6 +18,19 @@ only the pages that can hold a visible key, never materialise the
 slot-major gather that the plain versions build, and keep scores and
 softmax state on chip.
 
+GQA design, bf16 (the path serving runs): the shared core of
+``csrc/gqa_attention.cuh``, as ``flash_attention``'s bf16 path uses it,
+with the block's table row and query positions in shared memory and
+each staged key row's page looked up once.  Decode steps and prefill
+chunks, whose grids are small (8 slots x 8 kv heads), run one-warp
+blocks of 16 rows (``mma.sync`` m16n8k16 on 32-key tiles staged by a
+ring of ``cp.async`` copies) and split the keys over a thread-block
+cluster of up to 8 blocks that combine their partial softmax states in
+a fixed order (``kernels/gqa_split.py``); a call with rows enough to
+fill the card takes the warpgroup (``wgmma``) blocks.  fp32 keeps the
+first version's FMA kernel, never TF32: the card-vs-CPU greedy parity
+of the fp32 serving runs rests on it.
+
 The wrappers take the plain version ONLY for CPU tensors.  A CUDA
 tensor launches the kernel or raises.
 """
@@ -28,18 +41,22 @@ import ctypes
 import numpy as np
 import torch
 
+from repro_torch.kernels import gqa_split
 from repro_torch.kernels.build import count_launch, load_library
 
 __all__ = ["paged_flash_decode", "paged_flash_decode_ref",
            "paged_flash_decode_mla", "paged_flash_decode_mla_ref",
            "visible_tokens"]
 
-ROWS_PER_BLOCK = 16        # query rows (of the g*S group rows) per block
-KEYS_PER_TILE = 64         # target keys staged per shared-memory tile
+ROWS_PER_BLOCK = 16        # fp32: query rows (of the g*S group rows) per block
+KEYS_PER_TILE = 64         # fp32: target keys staged per shared-memory tile
+BF16_HEAD_DIMS = (32, 64, 128)   # head widths the bf16 kernel is built for
 SMEM_LIMIT = 227 * 1024    # dynamic shared memory one Hopper block may use
 
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
              + [ctypes.c_float, ctypes.c_void_p])
+# the bf16 entry takes (warps, splits) where fp32 takes (rows_per_block,
+# pages_per_tile): the same types
 
 
 def _lib():
@@ -48,8 +65,10 @@ def _lib():
         for fn in (lib.paged_flash_decode_f32, lib.paged_flash_decode_bf16):
             fn.argtypes = _ARGTYPES
             fn.restype = ctypes.c_int
-        lib.paged_flash_decode_smem_bytes.argtypes = [ctypes.c_int] * 3
-        lib.paged_flash_decode_smem_bytes.restype = ctypes.c_ulonglong
+        for fn in (lib.paged_flash_decode_smem_bytes,
+                   lib.paged_flash_decode_bf16_smem_bytes):
+            fn.argtypes = [ctypes.c_int] * 3
+            fn.restype = ctypes.c_ulonglong
         lib.paged_flash_decode_error_string.argtypes = [ctypes.c_int]
         lib.paged_flash_decode_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -142,22 +161,30 @@ def paged_flash_decode(q, k_pool, v_pool, page_table, q_positions, *,
     if hd % 8 or any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
         raise ValueError("paged_flash_decode: head_dim must be a multiple of "
                          "8 and q/pools 16-byte aligned (vector loads)")
-    pages_per_tile = max(1, KEYS_PER_TILE // page_size)
-    rows = min(ROWS_PER_BLOCK, (h // hk) * S)
+    W = page_table.shape[1]
     lib = _lib()
-    smem = lib.paged_flash_decode_smem_bytes(rows, pages_per_tile * page_size,
-                                             hd)
+    if q.dtype == torch.float32:
+        fn = lib.paged_flash_decode_f32
+        pages_per_tile = max(1, KEYS_PER_TILE // page_size)
+        layout = (min(ROWS_PER_BLOCK, (h // hk) * S), pages_per_tile)
+        smem = lib.paged_flash_decode_smem_bytes(
+            layout[0], pages_per_tile * page_size, hd)
+    else:
+        if hd not in BF16_HEAD_DIMS:
+            raise ValueError(f"paged_flash_decode: head_dim {hd} not built "
+                             f"for bf16 (head widths {BF16_HEAD_DIMS})")
+        fn = lib.paged_flash_decode_bf16
+        layout = gqa_split.plan(B * hk, (h // hk) * S, W * page_size)
+        smem = lib.paged_flash_decode_bf16_smem_bytes(hd, layout[0], W)
     if smem > SMEM_LIMIT:
         raise ValueError(f"paged_flash_decode: page_size={page_size}, "
-                         f"head_dim={hd} need {smem} B of shared memory")
+                         f"head_dim={hd}, table width {W} need {smem} B of "
+                         "shared memory")
     out = torch.empty_like(q)
-    fn = (lib.paged_flash_decode_f32 if q.dtype == torch.float32
-          else lib.paged_flash_decode_bf16)
     scale = float(np.float32(1.0 / np.sqrt(hd)))
     rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             page_table.data_ptr(), q_positions.data_ptr(), out.data_ptr(),
-            B, S, h, hk, hd, page_table.shape[1], page_size, int(window),
-            rows, pages_per_tile, scale,
+            B, S, h, hk, hd, W, page_size, int(window), *layout, scale,
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("paged_flash_decode launch failed: "

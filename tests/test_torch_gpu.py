@@ -29,7 +29,8 @@ pytestmark = pytest.mark.gpu
 
 # fp32: the reference's own kernel bar (tests/test_paged_decode.py).
 # bf16: 8-bit mantissa (eps 7.8e-3); the plain version also rounds the
-# probabilities to bf16 before the value product, the kernel does not.
+# normalised probabilities to bf16 before the value product, the kernels
+# keep them in fp32 or (the GQA kernels) round them before normalising.
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 FULL_WIDTH_CASES = [
@@ -37,6 +38,15 @@ FULL_WIDTH_CASES = [
     (8, 1, 16, 8, 128, 16, 37, 0),     # decode over 8 slots
     (1, 32, 16, 8, 128, 16, 37, 0),    # prefill chunk
     (4, 32, 16, 8, 128, 16, 37, 100),  # windowed chunk: masked pages first
+    # bf16 splits the keys of all of these over a cluster (up to 8 blocks)
+    (8, 1, 32, 8, 128, 16, 37, 0),     # Jamba's g = 4, decode
+    (1, 32, 32, 8, 128, 16, 37, 0),    # Jamba's g = 4, prefill chunk
+    (8, 1, 16, 8, 64, 16, 37, 0),      # hd 64, decode
+    (2, 32, 8, 2, 32, 8, 40, 50),      # hd 32, pages of 8, windowed chunk
+    # rows enough to fill the card: bf16 takes the warpgroup (wgmma) blocks
+    (8, 128, 32, 8, 128, 16, 16, 0),
+    (8, 128, 32, 8, 64, 16, 16, 40),   # hd 64, windowed
+    (8, 128, 32, 8, 32, 8, 24, 0),     # hd 32, pages of 8
 ]
 
 
@@ -71,20 +81,39 @@ def test_kernel_matches_plain(cuda, case, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
-def test_kernel_trash_poison_never_leaks(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_trash_poison_never_leaks(cuda, dtype):
     """Poisoned trash/unwritten storage gives the bitwise same output as
-    zero-filled storage: visibility alone isolates it."""
+    zero-filled storage: visibility alone isolates it (bf16: through the
+    split-KV combine too)."""
     case = (2, 3, 4, 2, 32, 8, 4)
     q, k, v, table, pos = paged_case(5, *case)
     clean_k, clean_v = (np.where(x == POISON, 0.0, x).astype(np.float32)
                         for x in (k, v))
     big_k, big_v = (np.where(x == POISON, 1e8, x).astype(np.float32)
                     for x in (k, v))
-    a = paged_flash_decode(*_on(cuda, torch.float32, q, clean_k, clean_v, table,
+    a = paged_flash_decode(*_on(cuda, dtype, q, clean_k, clean_v, table,
                                 pos), page_size=8)
-    b = paged_flash_decode(*_on(cuda, torch.float32, q, big_k, big_v, table,
+    b = paged_flash_decode(*_on(cuda, dtype, q, big_k, big_v, table,
                                 pos), page_size=8)
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", FULL_WIDTH_CASES[:2])
+def test_kernel_split_combine_is_deterministic(cuda, case):
+    """bf16 splits are combined in a fixed order: repeated calls give the
+    bitwise same output, whatever order the cluster's blocks finish in;
+    a padded query (position -1) outputs exactly 0."""
+    B, S, h, hk, hd, ps, W, window = case
+    q, k, v, table, pos = _on(cuda, torch.bfloat16, *paged_case(
+        3, B, S, h, hk, hd, ps, W, lengths=np.linspace(W * ps, S, B)
+        .astype(int)))
+    pos[0, 0] = -1
+    first = paged_flash_decode(q, k, v, table, pos, page_size=ps)
+    for _ in range(20):
+        assert torch.equal(paged_flash_decode(q, k, v, table, pos,
+                                              page_size=ps), first)
+    assert not first[0, 0].any()
 
 
 def test_kernel_counts_launches_and_rejects_bad_input(cuda):
@@ -452,6 +481,13 @@ FLASH_CASES = [
     (1, 64, 64, 2, 1, 64, False, 0),       # bidirectional, MQA
     (1, 33, 70, 2, 2, 64, True, 0),        # ragged (padding paths)
     (8, 1, 576, 16, 8, 128, True, 0),      # qwen3-1.7b slab decode step
+    (8, 512, 512, 16, 8, 128, True, 0),    # qwen3-1.7b slab prefill (bf16:
+                                           # 64-row blocks, no split)
+    (8, 1, 576, 16, 8, 64, True, 0),       # hd 64 decode step (8 splits)
+    (4, 32, 300, 16, 8, 128, True, 100),   # windowed chunk (early splits
+                                           # see no key)
+    (8, 512, 512, 16, 8, 64, True, 0),     # hd 64 prefill (bf16: wgmma)
+    (4, 256, 256, 32, 8, 128, True, 100),  # windowed prefill (bf16: wgmma)
 ]
 
 
