@@ -305,6 +305,7 @@ def check_paged_decode_mla(dev, flush):
     """The absorbed-MLA kernel at deepseek-v3-671b's widths: 128 query
     heads over one latent of 512 and a rope key of 64, page 16."""
     import torch.nn.functional as F
+    from repro_torch.kernels import mla_split
     from repro_torch.kernels.paged_decode import (
         paged_flash_decode_mla, paged_flash_decode_mla_ref, visible_tokens)
     from repro_torch.models.attention import PagedView, paged_read
@@ -388,8 +389,17 @@ def check_paged_decode_mla(dev, flush):
             ops = 2 * (2 * r + rope) * h * vis_pairs
             t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
             t_ops = ops / PEAK_OPS[dtype] * 1e3
+            # bf16: two-warpgroup wgmma blocks of 64 rows, keys split over
+            # a cluster; fp32: the first version's FMA kernel
+            if dtype == torch.bfloat16:
+                warps, splits = mla_split.plan(B, h * S, W * ps)
+                n_blocks = mla_split.blocks(B, h * S, splits)
+            else:
+                rt = 16 if B * -(-h * S // 16) >= 132 else 8
+                warps, splits, n_blocks = 8, 1, B * -(-h * S // rt)
             rows.append({
                 "case": name, "dtype": str(dtype).replace("torch.", ""),
+                "warps": warps, "splits": splits, "blocks": n_blocks,
                 "max_abs_err": err, "tol": tol, "ms": ms,
                 "plain_ms": plain_ms, "library_ms": library_ms,
                 "sdpa_backend": backend, "sdpa_max_abs_err": sdpa_err,
@@ -397,7 +407,9 @@ def check_paged_decode_mla(dev, flush):
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bytes": n_bytes, "ops": ops})
             print(f"  paged_flash_decode_mla {name:42s} "
-                  f"{rows[-1]['dtype']:8s} err {err:.2e} (tol {tol:g})  kernel {ms:.4f} ms  plain "
+                  f"{rows[-1]['dtype']:8s} warps {warps} splits {splits} "
+                  f"blocks {n_blocks}  "
+                  f"err {err:.2e} (tol {tol:g})  kernel {ms:.4f} ms  plain "
                   f"{plain_ms:.4f} ms  sdpa-on-slab {library_ms:.4f} ms "
                   f"({backend}, err {sdpa_err:.1e})  bound "
                   f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}: "
@@ -1144,8 +1156,9 @@ def main():
                     help="run phases 1-2 only (build, kernels vs plain "
                          "versions, timings) and print no result line")
     ap.add_argument("--max-splits", type=int, default=None,
-                    help="cap the bf16 GQA kernels' split-KV count (1: no "
-                         "split), to time the split's share of phase 2")
+                    help="cap the bf16 attention kernels' split-KV count "
+                         "(GQA and MLA; 1: no split), to time the split's "
+                         "share of phase 2")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this checks the port on a "
@@ -1155,7 +1168,7 @@ def main():
     sys.path.insert(0, SRC)
     from repro_torch.configs import get_config
     from repro_torch.kernels import (build, gqa_split, launch_counts,
-                                     reset_launch_counts)
+                                     mla_split, reset_launch_counts)
     from repro_torch.models import init_model
 
     dev = torch.device("cuda")
@@ -1181,7 +1194,7 @@ def main():
 
     # ---- phase 2: kernels vs plain versions -------------------------------
     if args.max_splits is not None:
-        gqa_split.MAX_SPLITS = args.max_splits
+        gqa_split.MAX_SPLITS = mla_split.MAX_SPLITS = args.max_splits
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     print("phase 2: kernels against their plain versions "
           f"(paged_flash_decode tolerance fp32 {TOL[torch.float32]:g}, bf16 "
@@ -1214,6 +1227,7 @@ def main():
     if args.kernels_only:
         print(json.dumps({"phase2": {
             "max_splits": gqa_split.MAX_SPLITS,
+            "mla_max_splits": mla_split.MAX_SPLITS,
             "paged_flash_decode": rows + jamba_rows, "wkv6": wkv_rows,
             "mamba_scan": mamba_rows, "paged_flash_decode_mla": mla_rows,
             "flash_attention": flash_rows}}))
@@ -1341,8 +1355,9 @@ def main():
         "library_ms": None,
         "cases": mamba_rows,
     }
-    mla_bf16 = next(r for r in mla_rows if r["case"].startswith("decode")
-                    and r["dtype"] == "bfloat16")
+    mla_bf16, mla_chunk = (
+        next(r for r in mla_rows if r["case"].startswith(case)
+             and r["dtype"] == "bfloat16") for case in ("decode", "prefill"))
     mla_entry = {
         "name": "paged_flash_decode_mla", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_decode_mla.cu",
@@ -1355,6 +1370,9 @@ def main():
         "bound_by": mla_bf16["bound_by"],
         "library_ms": mla_bf16["library_ms"],
         "sdpa_backend": mla_bf16["sdpa_backend"],
+        "chunk": {key: mla_chunk[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "sdpa_backend", "splits", "blocks")},
         "cases": mla_rows,
     }
     timed = {r["case"].split()[0]: r for r in flash_rows

@@ -1,10 +1,10 @@
-// Absorbed-MLA paged flash-decode on Hopper (sm_90a), fp32 and bf16.
+// Absorbed-MLA paged flash-decode on Hopper (sm_90a), bf16 and fp32.
 //
 // Replaces the TPU kernel repro/kernels/paged_decode.py::paged_flash_decode_mla
 // (body _mla_kernel).  DeepSeek-V3's multi-head latent attention caches one
 // compressed latent per token instead of per-head K/V, and the decode attends
 // in that latent space: every query head reads the same latent rows.  The
-// kernel fuses the page-table gather into an fp32 online softmax, so the
+// kernels fuse the page-table gather into an fp32 online softmax, so the
 // slot-major gather of the pool never exists in device memory.
 //
 // Contract (the same as the plain PyTorch version, paged_read followed by the
@@ -17,39 +17,66 @@
 //   pos     (B, S)          int32   logical position of each query
 //   out     (B, S, h, r)    T       softmax(scale (q_lat.ckv + q_rope.krope)) @ ckv
 // Key t is visible to query (b, s) iff t <= pos[b, s] (and t > pos[b, s] - window
-// when window > 0).  The value is the latent ckv itself.
+// when window > 0).  The value is the latent ckv itself.  Masked keys
+// contribute exactly 0, so pages the mask kills -- the trash page, unallocated
+// blocks, the unwritten tail of the last page -- never reach the output, and a
+// row with no visible key outputs 0.
 //
-// Design: the TPU kernel holds all h*S query rows of a slot in one grid step's
-// scratch (rows x r fp32: 8 MiB at a 32-token chunk of 128 heads), far beyond a
-// block's 227 KB of shared memory.  Here the rows are laid out head-major (row
-// i = head * S + s, its position pos[b, i % S]) and cut into tiles of ROWS:
-// one block per (slot, row tile), a grid of B x ceil(h*S / ROWS), with ROWS
-// 16, or 8 where 16 would leave SMs idle (decode: 8 slots x 128 heads).  A block
-// stages its q rows as fp32, reads its table row and positions itself, and
-// walks only the keys in [min_pos - window + 1, max_pos] of its rows in tiles
-// of kKeys latent rows (plus their rope rows).  The tiles are copied into
-// shared memory in the input type with cp.async, double-buffered: the next
-// tile's copy is in flight while the block computes on this one, so the page
-// walk's load latency hides behind the products.  For a tile, each warp
-// scores kKeysPerWarp keys against every row (lanes split the r + rope dot; a
-// transposing shuffle sum closes the four keys' dots in 6 shuffles), one warp
-// per row updates the row's (m, l) online-softmax state, and each thread owns
-// two latent columns of the ROWS x r accumulator in registers for the value
-// product.  Masked scores are -inf, so they leave (m, l, acc) untouched:
-// pages the mask kills -- the trash page, unallocated blocks, the unwritten
-// tail of the last page -- never reach the output, and a row with no visible
-// key outputs 0.
+// Bound: operations at a prefill chunk, bytes at a decode step.  A call reads
+// each visible latent row once (r + rope values a token) but does 2 (2 r +
+// rope) flops per (query row, visible key): at 128 heads every latent row
+// serves 128 query rows, a dense product of M = 128 S rows, K = r + rope and
+// N = r -- the tensor cores' work, not the CUDA cores'.
 //
-// Bound: operations.  A call reads each visible latent row once (r + rope
-// values a token) but does 2 (2 r + rope) flops per (query row, visible key):
-// at 128 heads that is far above the card's bytes-to-flops balance.  This first
-// version runs both products as fp32 FMAs on the CUDA cores (no tensor cores),
-// so it sits well above the tensor-core bound; at decode all blocks of a slot
-// re-read the slot's pages, which L2 serves.  Shared memory: the q rows (36 KB
-// at r 512, rope 64, 16 rows) and two key tiles (72 KB in bf16, 144 KB in
-// fp32); with at most 128 registers a thread, two bf16 blocks share an SM, so
-// a 32-token chunk's 256 blocks run in one wave.
+// bf16 (the path serving runs), the wgmma_bf16 kernel below; its plan is
+// kernels/mla_split.py.  The design follows the shape of DeepSeek's FlashMLA:
+//  * A block is two warpgroups (256 threads) owning 64 query rows of one slot,
+//    taken position-major (row = s * h + head): at 128 heads all 64 rows sit at
+//    one position, so they share one key range and only the last key tile
+//    needs a mask.  Rows past the call's h * S are zero and never written.
+//  * Shared memory holds the block's q tile [q_lat | q_rope] (64 x 576 bf16)
+//    and a ring of two key tiles of 64 latent + rope rows, all in the wgmma
+//    128-byte-swizzled K-major layout (sm90.cuh swz): columns of 64-value
+//    atoms, the rope in an atom column of its own after 2 NV latent columns, so
+//    the value product's descriptor covers exactly latent columns.  A key tile
+//    is copied with cp.async, 16 bytes a thread, its page looked up once a key.
+//    The q tile and the first key tile are copied by all threads; each later
+//    tile by warpgroup 1 alone, into the other stage, while warpgroup 0
+//    computes the scores of this one (a cp.async issue stalls while earlier
+//    copies drain, so the score product never issues copies).
+//  * Scores: warpgroup 0 runs S = [q_lat | q_rope] [ckv | krope]^T as wgmma
+//    m64n64k16 from shared memory (36 k-steps at r 512, rope 64; a width that
+//    is no multiple of 16 is zero-padded in shared memory), then the fp32
+//    online softmax in exp2 with the scale folded in; masked scores are -inf
+//    and the running max is floored at kNegInf.  It rounds P to bf16 and
+//    writes it (8 KB) and each row's rescale factor to shared memory.
+//  * Value product: each warpgroup rescales its accumulator and runs P V with
+//    wgmma m64 x NV x 16 -- P from registers (warpgroup 0) or ldmatrix
+//    (warpgroup 1), V the latent columns of the same staged tile through the
+//    MN-major descriptor, so nothing is copied twice.  Warpgroup w owns output
+//    columns [w NV, (w + 1) NV): at r 512, 256 each, 128 fp32 registers a
+//    thread.
+//  * Output: without a split, the normalised tile goes through shared memory
+//    and out in whole 16-byte chunks of each row.
+//  * Split-KV: the block's visible key tiles are cut into gridDim.x parts, one
+//    a block of a thread-block cluster (kernels/mla_split.py chooses how many:
+//    about one block an SM).  Each writes its partial (m, l, unnormalised
+//    64 x r acc) into its freed key ring; after cluster.sync() rank k
+//    combines rows [k nr / n, (k + 1) nr / n) from all ranks' partials through
+//    distributed shared memory: first each row's split weights, then 8
+//    columns a thread, in split order 0, 1, ..., so the output depends on the
+//    data alone.  A split that sees no key has l = 0 and m = kNegInf and
+//    contributes exactly 0.
+//
+// fp32: the first version's kernel (fma_f32 below), unchanged, and never TF32:
+// the card-vs-CPU greedy parity of the fp32 serving runs (2e-5 bar) rests on
+// it.  Rows are laid out head-major (row i = head * S + s) and cut into tiles
+// of 16 (or 8 where 16 would leave SMs idle), one block per (slot, row tile);
+// the block stages its q rows as fp32 and walks only the keys in [min_pos -
+// window + 1, max_pos] of its rows in double-buffered cp.async tiles of 32
+// latent + rope rows, both products as fp32 FMAs on the CUDA cores.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <climits>
@@ -57,7 +84,11 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "sm90.cuh"
+
 namespace {
+
+namespace fma_f32 {
 
 constexpr float kNegInf = -1e30f;   // running-max floor: exp(m_prev - m_new) stays finite
 constexpr int kThreads = 256;       // 8 warps
@@ -72,37 +103,16 @@ __device__ __forceinline__ void load_vec(const float* src, float* dst) {
   dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
 }
 
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* src, float* dst) {
-  const uint4 v = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h2[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
-}
-
 // four consecutive values of a staged row, as fp32 (8 or 16 bytes aligned)
 __device__ __forceinline__ void load4(const float* src, float* dst) {
   load_vec(src, dst);
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* src, float* dst) {
-  const uint2 v = *reinterpret_cast<const uint2*>(src);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-  dst[0] = a.x; dst[1] = a.y; dst[2] = b.x; dst[3] = b.y;
 }
 
 __device__ __forceinline__ float2 load2(const float* src) {
   return *reinterpret_cast<const float2*>(src);
 }
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* src) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(src));
-}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 __device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
   const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
@@ -117,9 +127,6 @@ __device__ __forceinline__ void cp_async_wait_prev() {   // all but the newest g
 
 __device__ __forceinline__ void store2(float* dst, float a, float b) {
   *reinterpret_cast<float2*>(dst) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -465,6 +472,444 @@ int launch(const void* q_lat, const void* q_rope, const void* ckv,
                          r, rope, W, ps, window, scale, stream);
 }
 
+}  // namespace fma_f32
+
+namespace wgmma_bf16 {
+
+using namespace sm90;
+namespace cg = cooperative_groups;
+
+constexpr int kRows = 64;        // query rows a block: one wgmma m-tile
+constexpr int kKeys = 64;        // keys a staged tile
+constexpr int kThreads = 256;    // two warpgroups
+constexpr int kMaxSplits = 8;    // the portable cluster size
+constexpr int kMaxRope = 64;     // the rope keys' one atom column
+constexpr float kNegInf = -1e30f;   // running-max floor: exp2(m - m_new) stays finite
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Tiles of 64 rows (q rows or keys): NV / 32 latent atom columns (the 2 NV
+// output columns of the two warpgroups), then one rope atom column; each atom
+// column is 64 rows of 128 bytes.
+template <int NV>
+struct Tile {
+  static_assert(NV == 64 || NV == 128 || NV == 256, "wgmma N of 64, 128 or 256");
+  static constexpr int kLatAtoms = NV / 32;
+  static constexpr int kBytes = (kLatAtoms + 1) * kKeys * 128;
+  static constexpr int kLda = 2 * NV + 4;   // fp32 row stride of a split's partial acc
+  static_assert(kRows * kLda * 4 <= 2 * kBytes, "a split's partial fits the key ring");
+};
+
+// the q tile, two key tiles, P (64 x 64 bf16), per-row alpha, m, l; from a
+// 1024-aligned start (hence the 1024 spare bytes)
+template <int NV>
+constexpr size_t smem_bytes() {
+  return 1024 + 3 * (size_t)Tile<NV>::kBytes + kRows * kKeys * 2 + 3 * kRows * sizeof(float);
+}
+
+// Copy one 64-row tile row: the latent's 16-byte chunks u, u + 8, ... (chunks
+// at or past r zero-filled) and rope chunk u (zero-filled past rope), or only
+// zeros when !ok.
+template <int NV>
+__device__ __forceinline__ void copy_row(uint32_t tile, int row, int u, const bf16* lat,
+                                         const bf16* rp, bool ok, int r, int rope,
+                                         const bf16* any) {
+  constexpr int LA = Tile<NV>::kLatAtoms;
+#pragma unroll
+  for (int a = 0; a < LA; ++a) {
+    const int c = a * 8 + u;
+    const bool live = ok && c * 8 < r;
+    cp_async16(tile + swz<64, kKeys>(row, c), live ? lat + c * 8 : any, live);
+  }
+  const bool live = ok && u * 8 < rope;
+  cp_async16(tile + swz<64, kKeys>(row, LA * 8 + u), live ? rp + u * 8 : any, live);
+}
+
+template <int NV>
+__global__ void __launch_bounds__(kThreads, 1)
+mla_kernel(const bf16* __restrict__ q_lat, const bf16* __restrict__ q_rope,
+           const bf16* __restrict__ ckv, const bf16* __restrict__ krope,
+           const int* __restrict__ table, const int* __restrict__ qpos,
+           bf16* __restrict__ out, int S, int h, int r, int rope, int W, int ps,
+           int window, float scale_log2) {
+  constexpr int LA = Tile<NV>::kLatAtoms;
+  constexpr int TILE = Tile<NV>::kBytes;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* q_s = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* kv_s = q_s + TILE;                  // [2][TILE]
+  unsigned char* p_s = kv_s + 2 * TILE;              // 64 x 64 bf16, one atom column
+  float* a_s = reinterpret_cast<float*>(p_s + kRows * kKeys * 2);
+  float* m_s = a_s + kRows;
+  float* l_s = m_s + kRows;
+
+  const int split = blockIdx.x, n_splits = gridDim.x;
+  const int b = blockIdx.y;
+  // row tiles last first: under the causal mask they see the most keys
+  const int r0 = (gridDim.z - 1 - blockIdx.z) * kRows;
+  const int nr = min(kRows, h * S - r0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2;
+  const int wrow = (warp & 3) * 16;                  // the warp's rows of the m-tile
+  const size_t row0 = (size_t)b * S * h + r0;        // flat (slot, position, head) row of tile row 0
+
+  // the positions of the block's rows: tile row i is query position (r0 + i) / h
+  int p_lo = INT_MAX, p_hi = INT_MIN;
+  for (int s = r0 / h + lane; s <= (r0 + nr - 1) / h; s += 32) {
+    const int p = qpos[b * S + s];
+    p_lo = min(p_lo, p);
+    p_hi = max(p_hi, p);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    p_lo = min(p_lo, __shfl_xor_sync(0xffffffffu, p_lo, o));
+    p_hi = max(p_hi, __shfl_xor_sync(0xffffffffu, p_hi, o));
+  }
+  // keys some row can see: [lo, hi]; this split's share of their tiles
+  const int limit = W * ps;
+  const int hi = p_hi < 0 ? -1 : min(p_hi, limit - 1);
+  const int lo = window > 0 ? max(0, p_lo - window + 1) : 0;
+  int t_first = 0, t_end = 0;
+  if (hi >= lo) {
+    const int tl = lo / kKeys, n = hi / kKeys - tl + 1;
+    t_first = tl + split * n / n_splits;
+    t_end = tl + (split + 1) * n / n_splits;
+  }
+
+  // copies: a thread moves chunk u (of each atom) of every (threads / 8)-th
+  // row from `row`; the q tile and the first key tile, by all threads, are
+  // commit group 0.  Later key tiles are copied by warpgroup 1 alone, while
+  // warpgroup 0 computes scores: a thread's cp.async issue stalls until
+  // earlier copies drain, and the score product must not wait on it.
+  const int u = tid & 7;
+#pragma unroll
+  for (int i = tid >> 3; i < kRows; i += kThreads / 8) {
+    const bool ok = i < nr;
+    const size_t row = ok ? row0 + i : 0;
+    copy_row<NV>(smem_addr(q_s), i, u, q_lat + row * r, q_rope + row * rope, ok, r, rope, q_lat);
+  }
+  auto stage = [&](int tile, int st, int row, int threads) {
+    const uint32_t dst = smem_addr(kv_s + st * TILE);
+    for (int i = row; i < kKeys; i += threads / 8) {
+      const int kp = tile * kKeys + i;
+      const bool ok = kp >= lo && kp <= hi;
+      const size_t tok = ok ? (size_t)table[(size_t)b * W + kp / ps] * ps + kp % ps : 0;
+      copy_row<NV>(dst, i, u, ckv + tok * r, krope + tok * rope, ok, r, rope, ckv);
+    }
+  };
+  if (t_first < t_end) stage(t_first, 0, tid >> 3, kThreads);
+  cp_async_commit();
+
+  // warpgroup 0's rows lane / 4 and lane / 4 + 8 of its warp: their positions
+  int qp[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = wrow + (lane >> 2) + 8 * i;
+    qp[i] = row < nr ? qpos[b * S + (r0 + row) / h] : -1;
+  }
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[NV / 8][4];
+#pragma unroll
+  for (int n = 0; n < NV / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const bool pv = wg * NV < r;                       // this warpgroup owns latent columns
+  const int kl = (r + 15) / 16, kr = (rope + 15) / 16;   // k-steps of the score product
+  const uint32_t q_addr = smem_addr(q_s), p_addr = smem_addr(p_s);
+
+  for (int tile = t_first; tile < t_end; ++tile) {
+    const int st = (tile - t_first) & 1;
+    cp_async_wait<0>();                              // this tile (and q) have landed
+    fence_proxy_async();                             // ... visible to wgmma
+    __syncthreads();                                 // ... for every thread; both
+                                                     // warpgroups are done with the
+                                                     // last tile, its stage and P
+    const uint32_t ks = smem_addr(kv_s + st * TILE);
+    const int t0 = tile * kKeys;
+    uint32_t a[kKeys / 16][4];                       // P, the A operand of P V
+    if (wg == 1) {                                   // the next tile into the other stage
+      if (tile + 1 < t_end) stage(tile + 1, st ^ 1, (tid - kThreads / 2) >> 3, kThreads / 2);
+      cp_async_commit();
+    } else {
+      float s[kKeys / 8][4];
+      wgmma_fence();
+      for (int kc = 0; kc < kl; ++kc)
+        wgmma_ss_n64(s, desc_k_major<64, kRows>(q_addr, kc, 0),
+                     desc_k_major<64, kKeys>(ks, kc, 0), kc);
+      for (int kc = 4 * LA; kc < 4 * LA + kr; ++kc)
+        wgmma_ss_n64(s, desc_k_major<64, kRows>(q_addr, kc, 0),
+                     desc_k_major<64, kKeys>(ks, kc, 0), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      // scale into the exp2 domain; mask only a tile some row sees in part
+      const bool full = t0 + kKeys - 1 <= p_lo && t0 + kKeys <= limit &&
+                        (window <= 0 || t0 > p_hi - window);
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int n = 0; n < kKeys / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[n][e] * scale_log2;
+          if (!full) {
+            const int kp = t0 + n * 8 + (lane & 3) * 2 + (e & 1);
+            const int q = qp[e >> 1];
+            const bool vis = kp <= q && kp < limit && (window <= 0 || kp > q - window);
+            x = vis ? x : -INFINITY;
+          }
+          s[n][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      }
+      float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m_new = fmaxf(m[i], quad_max(mx[i]));
+        alpha[i] = fast_exp2(m[i] - m_new);
+        m[i] = m_new;
+      }
+#pragma unroll
+      for (int n = 0; n < kKeys / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = fast_exp2(s[n][e] - m[e >> 1]);  // masked: exp2(-inf) = 0
+          sum[e >> 1] += s[n][e];
+        }
+      }
+      // P in bf16: in registers for this warpgroup's product, in shared
+      // memory for warpgroup 1's, with the rows' rescale factors
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        l[i] = l[i] * alpha[i] + sum[i];
+        const int row = wrow + (lane >> 2) + 8 * i;
+#pragma unroll
+        for (int n = 0; n < kKeys / 8; ++n)
+          *reinterpret_cast<uint32_t*>(p_s + swz<64, kRows>(row, n) + (lane & 3) * 4) =
+              pack_bf16(s[n][2 * i], s[n][2 * i + 1]);
+        if ((lane & 3) == 0) a_s[row] = alpha[i];
+      }
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk) {
+        a[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+        a[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+        a[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        a[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      }
+#pragma unroll
+      for (int n = 0; n < NV / 8; ++n) {
+        acc[n][0] *= alpha[0]; acc[n][1] *= alpha[0];
+        acc[n][2] *= alpha[1]; acc[n][3] *= alpha[1];
+      }
+    }
+    __syncthreads();                                 // P and alpha are written
+    if (wg == 1 && pv) {
+      const float al0 = a_s[wrow + (lane >> 2)], al1 = a_s[wrow + (lane >> 2) + 8];
+#pragma unroll
+      for (int n = 0; n < NV / 8; ++n) {
+        acc[n][0] *= al0; acc[n][1] *= al0;
+        acc[n][2] *= al1; acc[n][3] *= al1;
+      }
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk)
+        ldmatrix_x4(a[kk], p_addr + swz<64, kRows>(wrow + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                                   kk * 2 + (lane >> 4)));
+    }
+    if (pv) {
+      // O += P V: V is this warpgroup's latent atoms of the staged key tile
+      const uint32_t vs = ks + wg * (NV / 64) * kKeys * 128;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk) wgmma_rs<NV>(acc, a[kk], desc_mn_major<64, kKeys>(vs, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+    }
+  }
+  cp_async_wait<0>();
+  if (wg == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] = quad_sum(l[i]);
+      if ((lane & 3) == 0) {
+        m_s[wrow + (lane >> 2) + 8 * i] = m[i];
+        l_s[wrow + (lane >> 2) + 8 * i] = l[i];
+      }
+    }
+  }
+  __syncthreads();                                   // m, l written; the key ring is free
+
+  const int col0 = wg * NV + (lane & 3) * 2;         // this thread's first column
+  if (n_splits == 1) {
+    // the output tile through shared memory (the key ring is free), then
+    // whole 16-byte chunks of each valid row
+    unsigned char* o_s = kv_s;
+    if (pv) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = wrow + (lane >> 2) + 8 * i;
+        const float inv = l_s[row] > 0.f ? 1.f / l_s[row] : 0.f;
+#pragma unroll
+        for (int n = 0; n < NV / 8; ++n)
+          *reinterpret_cast<uint32_t*>(o_s + swz<64, kRows>(row, wg * NV / 8 + n) + (lane & 3) * 4) =
+              pack_bf16(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+      }
+    }
+    __syncthreads();
+    const int cpr = r / 8;                           // 16-byte chunks a row
+    for (int x = tid; x < nr * cpr; x += kThreads) {
+      const int row = x / cpr, c = x % cpr;
+      *reinterpret_cast<uint4*>(out + (row0 + row) * r + c * 8) =
+          *reinterpret_cast<const uint4*>(o_s + swz<64, kRows>(row, c));
+    }
+    return;
+  }
+
+  // split-KV: this block's partial acc into its key ring; after cluster.sync()
+  // rank `split` combines rows [split nr / n, (split + 1) nr / n) from every
+  // rank's partial through distributed shared memory
+  constexpr int LDA = Tile<NV>::kLda;
+  float* acc_s = reinterpret_cast<float*>(kv_s);     // [kRows][LDA]
+  if (pv) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = wrow + (lane >> 2) + 8 * i;
+#pragma unroll
+      for (int n = 0; n < NV / 8; ++n)
+        *reinterpret_cast<float2*>(acc_s + row * LDA + col0 + n * 8) =
+            make_float2(acc[n][2 * i], acc[n][2 * i + 1]);
+    }
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int row_lo = split * nr / n_splits, n_rows = (split + 1) * nr / n_splits - row_lo;
+  // each of these rows' split weights exp2(m_sp - max m) / l (0 for a row
+  // no split saw a key of), in the free P buffer
+  float* w_s = reinterpret_cast<float*>(p_s);        // [kRows][kMaxSplits]
+  if (tid < n_rows) {
+    const int row = row_lo + tid;
+    float ms[kMaxSplits], ls[kMaxSplits];
+#pragma unroll
+    for (int sp = 0; sp < kMaxSplits; ++sp) {
+      if (sp < n_splits) {
+        ms[sp] = *cluster.map_shared_rank(m_s + row, sp);
+        ls[sp] = *cluster.map_shared_rank(l_s + row, sp);
+      }
+    }
+    float mm = kNegInf;
+#pragma unroll
+    for (int sp = 0; sp < kMaxSplits; ++sp)
+      if (sp < n_splits) mm = fmaxf(mm, ms[sp]);
+    float ll = 0.f;
+#pragma unroll
+    for (int sp = 0; sp < kMaxSplits; ++sp) {
+      if (sp < n_splits) {
+        ms[sp] = fast_exp2(ms[sp] - mm);
+        ll = fmaf(ls[sp], ms[sp], ll);                // in split order
+      }
+    }
+    const float inv = ll > 0.f ? 1.f / ll : 0.f;
+#pragma unroll
+    for (int sp = 0; sp < kMaxSplits; ++sp)
+      if (sp < n_splits) w_s[tid * kMaxSplits + sp] = ms[sp] * inv;
+  }
+  __syncthreads();
+  // the rows' outputs, 8 columns a thread: every rank's loads issued before
+  // any is used (distributed shared memory is far); the sums in split order
+  const int cpr = r / 8;
+  for (int x = tid; x < n_rows * cpr; x += kThreads) {
+    const int i = x / cpr, c = (x % cpr) * 8, row = row_lo + i;
+    float4 as[kMaxSplits][2];
+#pragma unroll
+    for (int sp = 0; sp < kMaxSplits; ++sp) {
+      if (sp < n_splits) {
+        const float4* src = reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(acc_s + row * LDA + c, sp));
+        as[sp][0] = src[0];
+        as[sp][1] = src[1];
+      }
+    }
+    float o[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int sp = 0; sp < kMaxSplits; ++sp) {
+      if (sp < n_splits) {
+        const float w = w_s[i * kMaxSplits + sp];
+        o[0] = fmaf(as[sp][0].x, w, o[0]); o[1] = fmaf(as[sp][0].y, w, o[1]);
+        o[2] = fmaf(as[sp][0].z, w, o[2]); o[3] = fmaf(as[sp][0].w, w, o[3]);
+        o[4] = fmaf(as[sp][1].x, w, o[4]); o[5] = fmaf(as[sp][1].y, w, o[5]);
+        o[6] = fmaf(as[sp][1].z, w, o[6]); o[7] = fmaf(as[sp][1].w, w, o[7]);
+      }
+    }
+    *reinterpret_cast<uint4*>(out + (row0 + row) * r + c) =
+        make_uint4(pack_bf16(o[0], o[1]), pack_bf16(o[2], o[3]), pack_bf16(o[4], o[5]),
+                   pack_bf16(o[6], o[7]));
+  }
+  cluster.sync();                                    // peers are done reading this block
+}
+
+// Launch one call: grid (splits, B, row tiles), a cluster of `splits` blocks
+// along x when splits > 1.  Returns a cudaError_t as int.
+template <int NV>
+int launch_nv(const void* q_lat, const void* q_rope, const void* ckv, const void* krope,
+              const void* table, const void* qpos, void* out, int B, int S, int h, int r,
+              int rope, int W, int ps, int window, int splits, float scale,
+              cudaStream_t stream) {
+  const int row_tiles = (h * S + kRows - 1) / kRows;
+  if (row_tiles > 65535 || B > 65535) return (int)cudaErrorInvalidConfiguration;
+  const size_t smem = smem_bytes<NV>();
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        mla_kernel<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, B, row_tiles);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, mla_kernel<NV>, static_cast<const bf16*>(q_lat), static_cast<const bf16*>(q_rope),
+      static_cast<const bf16*>(ckv), static_cast<const bf16*>(krope),
+      static_cast<const int*>(table), static_cast<const int*>(qpos), static_cast<bf16*>(out),
+      S, h, r, rope, W, ps, window, scale * kLog2e);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// the warpgroups' output columns NV: the least of 64, 128, 256 with 2 NV >= r
+inline int nv_for(int r) { return r <= 128 ? 64 : r <= 256 ? 128 : 256; }
+
+int launch(const void* q_lat, const void* q_rope, const void* ckv, const void* krope,
+           const void* table, const void* qpos, void* out, int B, int S, int h, int r,
+           int rope, int W, int ps, int window, int splits, float scale, void* stream) {
+  if (B <= 0 || S <= 0 || h <= 0 || W <= 0 || ps <= 0 || r <= 0 || r > 512 || r % 8 ||
+      rope <= 0 || rope > kMaxRope || rope % 8 || splits < 1 || splits > kMaxSplits)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define MLA_ARGS q_lat, q_rope, ckv, krope, table, qpos, out, B, S, h, r, rope, W, ps, \
+                 window, splits, scale, st
+  switch (nv_for(r)) {
+    case 64: return launch_nv<64>(MLA_ARGS);
+    case 128: return launch_nv<128>(MLA_ARGS);
+    default: return launch_nv<256>(MLA_ARGS);
+  }
+#undef MLA_ARGS
+}
+
+size_t smem(int r) {
+  switch (nv_for(r)) {
+    case 64: return smem_bytes<64>();
+    case 128: return smem_bytes<128>();
+    default: return smem_bytes<256>();
+  }
+}
+
+}  // namespace wgmma_bf16
+
 }  // namespace
 
 extern "C" {
@@ -474,23 +919,23 @@ int paged_flash_decode_mla_f32(const void* q_lat, const void* q_rope,
                                const void* table, const void* qpos, void* out,
                                int B, int S, int h, int r, int rope, int W, int ps,
                                int window, float scale, void* stream) {
-  return launch<float>(q_lat, q_rope, ckv, krope, table, qpos, out, B, S, h, r,
-                       rope, W, ps, window, scale, stream);
+  return fma_f32::launch<float>(q_lat, q_rope, ckv, krope, table, qpos, out, B, S, h,
+                                r, rope, W, ps, window, scale, stream);
 }
 
 int paged_flash_decode_mla_bf16(const void* q_lat, const void* q_rope,
                                 const void* ckv, const void* krope,
                                 const void* table, const void* qpos, void* out,
                                 int B, int S, int h, int r, int rope, int W, int ps,
-                                int window, float scale, void* stream) {
-  return launch<__nv_bfloat16>(q_lat, q_rope, ckv, krope, table, qpos, out, B, S,
-                               h, r, rope, W, ps, window, scale, stream);
+                                int window, int splits, float scale, void* stream) {
+  return wgmma_bf16::launch(q_lat, q_rope, ckv, krope, table, qpos, out, B, S, h, r,
+                            rope, W, ps, window, splits, scale, stream);
 }
 
 unsigned long long paged_flash_decode_mla_smem_bytes(int r, int rope, int elem_bytes) {
   return (unsigned long long)(elem_bytes == 4
-                                  ? smem_bytes<float>(kMaxRows, r, rope)
-                                  : smem_bytes<__nv_bfloat16>(kMaxRows, r, rope));
+                                  ? fma_f32::smem_bytes<float>(fma_f32::kMaxRows, r, rope)
+                                  : wgmma_bf16::smem(r));
 }
 
 const char* paged_flash_decode_mla_error_string(int code) {

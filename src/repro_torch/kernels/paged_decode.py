@@ -18,6 +18,14 @@ only the pages that can hold a visible key, never materialise the
 slot-major gather that the plain versions build, and keep scores and
 softmax state on chip.
 
+MLA design, bf16 (the path serving runs): blocks of two warpgroups
+own 64 position-major query rows of a slot and run both products on the
+tensor cores (``wgmma``), the scores from a shared-memory q tile and a
+ring of two 64-key latent + rope tiles, the value product on the latent
+columns of the same staged tile; the keys split over a thread-block
+cluster of up to 8 blocks, combined in split order
+(``kernels/mla_split.py``).
+
 GQA design, bf16 (the path serving runs): the shared core of
 ``csrc/gqa_attention.cuh``, as ``flash_attention``'s bf16 path uses it,
 with the block's table row and query positions in shared memory and
@@ -28,8 +36,8 @@ ring of ``cp.async`` copies) and split the keys over a thread-block
 cluster of up to 8 blocks that combine their partial softmax states in
 a fixed order (``kernels/gqa_split.py``); a call with rows enough to
 fill the card takes the warpgroup (``wgmma``) blocks.  fp32 keeps the
-first version's FMA kernel, never TF32: the card-vs-CPU greedy parity
-of the fp32 serving runs rests on it.
+first version's FMA kernels (GQA and MLA), never TF32: the card-vs-CPU
+greedy parity of the fp32 serving runs rests on them.
 
 The wrappers take the plain version ONLY for CPU tensors.  A CUDA
 tensor launches the kernel or raises.
@@ -41,7 +49,7 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.kernels import gqa_split
+from repro_torch.kernels import gqa_split, mla_split
 from repro_torch.kernels.build import count_launch, load_library
 
 __all__ = ["paged_flash_decode", "paged_flash_decode_ref",
@@ -77,15 +85,19 @@ def _lib():
 
 _MLA_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                  + [ctypes.c_float, ctypes.c_void_p])
-MLA_MAX_R, MLA_MAX_ROPE = 512, 64   # widths the MLA kernel's lanes cover
+# the bf16 entry also takes the split count, after the window
+_MLA_BF16_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+                      + [ctypes.c_float, ctypes.c_void_p])
+MLA_MAX_R, MLA_MAX_ROPE = 512, 64   # widths the MLA kernels are built for
 
 
 def _mla_lib():
     lib = load_library("paged_decode_mla")
     if not getattr(lib, "_typed", False):
+        lib.paged_flash_decode_mla_f32.argtypes = _MLA_ARGTYPES
+        lib.paged_flash_decode_mla_bf16.argtypes = _MLA_BF16_ARGTYPES
         for fn in (lib.paged_flash_decode_mla_f32,
                    lib.paged_flash_decode_mla_bf16):
-            fn.argtypes = _MLA_ARGTYPES
             fn.restype = ctypes.c_int
         lib.paged_flash_decode_mla_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.paged_flash_decode_mla_smem_bytes.restype = ctypes.c_ulonglong
@@ -298,10 +310,14 @@ def paged_flash_decode_mla(q_lat, q_rope, ckv_pool, krope_pool, page_table,
         raise ValueError(f"paged_flash_decode_mla: r={r}, rope={rope} need "
                          f"{smem} B of shared memory")
     out = torch.empty_like(q_lat)
-    fn = (lib.paged_flash_decode_mla_f32 if q_lat.dtype == torch.float32
-          else lib.paged_flash_decode_mla_bf16)
+    W = page_table.shape[1]
+    if q_lat.dtype == torch.float32:
+        fn, layout = lib.paged_flash_decode_mla_f32, ()
+    else:
+        fn = lib.paged_flash_decode_mla_bf16
+        layout = mla_split.plan(B, h * S, W * page_size)[1:]     # splits
     rc = fn(*(t.data_ptr() for t in tensors), out.data_ptr(),
-            B, S, h, r, rope, page_table.shape[1], page_size, int(window),
+            B, S, h, r, rope, W, page_size, int(window), *layout,
             float(scale), torch.cuda.current_stream(q_lat.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(

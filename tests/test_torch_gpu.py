@@ -365,10 +365,29 @@ def test_jamba_greedy_serving_on_card_matches_cpu(cuda):
 MLA_FULL_WIDTH_CASES = [
     # B, S, h, r, rope, page_size, W, window  (deepseek-v3-671b widths)
     (8, 1, 128, 512, 64, 16, 37, 0),      # decode over 8 slots
-    (1, 32, 128, 512, 64, 16, 37, 0),     # prefill chunk
+    (1, 32, 128, 512, 64, 16, 37, 0),     # prefill chunk at 544 tokens
     (4, 32, 128, 512, 64, 16, 37, 100),   # ragged, windowed chunk
 ]
+# the small widths (the other builds of the bf16 kernel) over slots long
+# enough that the plan splits their keys over a cluster
+MLA_LONG_SMALL_CASES = [
+    (2, 1, 4, 32, 16, 16, 32, 0),         # r 32 / rope 16: 8 splits
+    (2, 3, 2, 64, 8, 8, 40, 24),          # r 64 / rope 8, windowed
+]
 MLA_SCALE = float(np.float32(1 / np.sqrt(192)))   # 1/sqrt(nope + rope)
+
+
+def _mla_lengths(case):
+    B, S, h, _, _, ps, W, _ = case
+    if (B, S, h) == (8, 1, 128):   # slots of 1 token .. max_len
+        return np.linspace(1, W * ps, B).astype(int)
+    if (B, S, h) == (1, 32, 128):
+        return [544]
+    if (B, S, h) == (4, 32, 128):
+        return [40, 200, 333, 560]
+    if case in MLA_LONG_SMALL_CASES:
+        return np.linspace(W * ps // 2, W * ps, B).astype(int)
+    return None
 
 
 def _mla_on(dev, dtype, q_lat, q_rope, ckv, krope, table, pos):
@@ -378,16 +397,12 @@ def _mla_on(dev, dtype, q_lat, q_rope, ckv, krope, table, pos):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", MLA_CASES + MLA_FULL_WIDTH_CASES)
+@pytest.mark.parametrize("case", MLA_CASES + MLA_FULL_WIDTH_CASES
+                         + MLA_LONG_SMALL_CASES)
 def test_mla_kernel_matches_plain(cuda, case, dtype):
     B, S, h, r, rope, ps, W, window = case
-    lengths = None
-    if (B, S, h) == (8, 1, 128):   # slots of 1 token .. max_len
-        lengths = np.linspace(1, W * ps, B).astype(int)
-    elif (B, S, h) == (4, 32, 128):
-        lengths = [40, 200, 333, 560]
     args = _mla_on(cuda, dtype, *mla_case(sum(case), B, S, h, r, rope, ps, W,
-                                          lengths=lengths))
+                                          lengths=_mla_lengths(case)))
     scale = MLA_SCALE if h == 128 else 0.125
     got = paged_flash_decode_mla(*args, page_size=ps, scale=scale,
                                  window=window)
@@ -413,6 +428,47 @@ def test_mla_kernel_trash_poison_never_leaks(cuda, dtype):
             *_mla_on(cuda, dtype, q_lat, q_rope, c, k, table, pos),
             page_size=16, scale=MLA_SCALE))
     assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("case", MLA_FULL_WIDTH_CASES + MLA_LONG_SMALL_CASES)
+def test_mla_split_off_matches_split(cuda, case, monkeypatch):
+    """bf16: the split-KV run (a cluster of up to 8 blocks a row tile,
+    combined in split order) agrees with the unsplit run (one block walks
+    every key tile), both within the bf16 tolerance of the plain version."""
+    from repro_torch.kernels import mla_split
+    B, S, h, r, rope, ps, W, window = case
+    args = _mla_on(cuda, torch.bfloat16, *mla_case(
+        sum(case), B, S, h, r, rope, ps, W, lengths=_mla_lengths(case)))
+    scale = MLA_SCALE if h == 128 else 0.125
+    kw = dict(page_size=ps, scale=scale, window=window)
+    if case != MLA_FULL_WIDTH_CASES[2]:       # 256 row-tile blocks: no split
+        assert mla_split.plan(B, h * S, W * ps)[1] > 1
+    split = paged_flash_decode_mla(*args, **kw)
+    monkeypatch.setattr(mla_split, "MAX_SPLITS", 1)
+    whole = paged_flash_decode_mla(*args, **kw)
+    want = paged_flash_decode_mla_ref(*args, **kw)
+    torch.cuda.synchronize()
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(split.float(), whole.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(whole.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("case", MLA_FULL_WIDTH_CASES[:2])
+def test_mla_split_combine_is_deterministic(cuda, case):
+    """bf16 splits are combined in a fixed order: 20 calls give the
+    bitwise same output, whatever order the cluster's blocks finish in;
+    a query at position -1 sees no key and outputs exactly 0."""
+    B, S, h, r, rope, ps, W, window = case
+    q_lat, q_rope, ckv, krope, table, pos = _mla_on(
+        cuda, torch.bfloat16, *mla_case(3, B, S, h, r, rope, ps, W,
+                                        lengths=_mla_lengths(case)))
+    pos[0, 0] = -1
+    call = lambda: paged_flash_decode_mla(q_lat, q_rope, ckv, krope, table,
+                                          pos, page_size=ps, scale=MLA_SCALE)
+    first = call()
+    for _ in range(20):
+        assert torch.equal(call(), first)
+    assert not first[0, 0].any()
 
 
 def test_mla_kernel_counts_launches_and_rejects_bad_input(cuda):
