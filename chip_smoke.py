@@ -54,6 +54,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -587,6 +588,7 @@ def check_wkv6(dev, flush):
         ("prefill chunk B=1 T=32", 1, 32, 0.0),
         ("ragged B=2 T=80, 3 chunks", 2, 80, 0.0),
         ("clip B=1 T=64, decay ~-2.5/step", 1, 64, 2.5),
+        ("prompt tail B=1 T=17", 1, 17, 0.0),
     ]
     rows = []
     for name, B, T, decay in cases:
@@ -666,6 +668,7 @@ def check_mamba(dev, flush):
     cases = [
         ("prefill chunk B=1 T=32", 1, 32),
         ("ragged B=2 T=75, 3 staged tiles", 2, 75),
+        ("prompt tail B=1 T=17", 1, 17),
     ]
     rows = []
     for name, Bb, T in cases:
@@ -1188,7 +1191,8 @@ def main():
     for stem in stems:
         info = build.build_info[stem]
         ptxas = [ln.strip() for ln in info["ptxas"].splitlines()
-                 if "registers" in ln or "smem" in ln]
+                 if "registers" in ln or "smem" in ln
+                 or re.search(r"[1-9]\d* bytes spill", ln)]
         print(f"  csrc/{stem}.cu: nvcc {info['seconds']:.1f} s; ptxas: "
               f"{ptxas}")
 

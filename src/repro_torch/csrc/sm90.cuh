@@ -1,8 +1,9 @@
-// PTX building blocks of the port's bf16 tensor-core kernels on Hopper
-// (sm_90a), shared by csrc/gqa_attention.cuh (the two GQA kernels) and
-// csrc/paged_decode_mla.cu (absorbed MLA): the 128-byte-swizzled tile
-// layout and its wgmma descriptors, cp.async, ldmatrix, mma.sync, wgmma
-// (m64 x N x 16, bf16 in, fp32 out) and a few warp reductions.
+// PTX building blocks of the port's tensor-core kernels on Hopper (sm_90a),
+// shared by csrc/gqa_attention.cuh (the two GQA kernels),
+// csrc/paged_decode_mla.cu (absorbed MLA) and csrc/wkv6.cu (RWKV-6): the
+// 128-byte-swizzled tile layout and its wgmma descriptors, cp.async,
+// ldmatrix, mma.sync (bf16 m16n8k16, tf32 m16n8k8), wgmma (m64 x N x 16,
+// bf16 in, fp32 out) and a few warp reductions.
 
 #pragma once
 
@@ -59,6 +60,24 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// fp32 rounded to tf32 (nearest, ties away): the value with its low 13
+// mantissa bits zero, as mma's tf32 operand
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// d += a (16 x 8, row-major) * b (8 x 8, column-major), tf32 in, fp32 out
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

@@ -24,6 +24,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: dict = {}          # source stem -> ctypes.CDLL
 build_info: dict = {}     # source stem -> {"seconds", "ptxas", "path"}
+_probed: set = set()      # source stems built with -DSCAN_PROBE
 
 # launches of each kernel, one per wrapper call that launched it
 _launches: dict = {}
@@ -42,6 +43,19 @@ def reset_launch_counts() -> None:
         _launches[name] = 0
 
 
+def set_probe(stem: str, on: bool) -> None:
+    """From its next load on, build ``csrc/<stem>.cu`` with
+    ``-DSCAN_PROBE`` (clock stamps between its phases,
+    ``csrc/scan_probe.cuh``) or, with ``on`` false, as shipped."""
+    (_probed.add if on else _probed.discard)(stem)
+    _libs.pop(stem, None)
+    build_info.pop(stem, None)
+
+
+def _flags(stem: str) -> list:
+    return NVCC_FLAGS + (["-DSCAN_PROBE"] if stem in _probed else [])
+
+
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
@@ -55,7 +69,7 @@ def _paths(stem: str):
     h = hashlib.sha256(src.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):   # whatever the source includes
         h.update(header.name.encode() + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(stem)).encode())
     return src, BUILD_DIR / f"lib{stem}-{h.hexdigest()[:12]}.so"
 
 
@@ -64,12 +78,14 @@ def load_libraries(stems) -> dict:
     one ``nvcc`` per source, all started together; then load them."""
     jobs = {}
     for stem in stems:
+        if stem in _libs:              # loaded: no hashing on a launch's path
+            continue
         src, out = _paths(stem)
-        if stem in _libs or out.exists():
+        if out.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        proc = subprocess.Popen([_nvcc(), *_flags(stem), "-o", str(tmp), str(src)],
                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                 text=True)
         jobs[stem] = (proc, tmp, out, src, time.perf_counter())
@@ -92,5 +108,8 @@ def load_libraries(stems) -> dict:
 
 
 def load_library(stem: str) -> ctypes.CDLL:
-    """Compile ``csrc/<stem>.cu`` (once per content) and load it."""
-    return load_libraries([stem])[stem]
+    """Compile ``csrc/<stem>.cu`` (once per content) and load it.  Every
+    wrapper call asks for its library, so a loaded one is returned
+    before anything else is done."""
+    lib = _libs.get(stem)
+    return lib if lib is not None else load_libraries([stem])[stem]

@@ -12,8 +12,10 @@ which the reference also leaves to plain array code.
 Bound: memory.  A call reads x, dt, B, C (compute dtype), A, D and the
 state (fp32) once and writes y and the final state once -- about
 3.18 MB for a 32-token prefill chunk of Jamba (dI 8192, dS 16) in
-bf16.  The kernel keeps each (channel, state) entry of h in a register
-of its own thread for the whole segment; see the source's note.
+bf16.  Each thread of the kernel keeps several state entries of one
+channel in registers for the whole segment, sums y over them before
+its few shuffles, and runs each 32-step tile in unrolled groups with
+the next tile's cp.async copies in flight; see the source's note.
 
 ``mamba_scan`` takes the plain version ONLY for CPU tensors.  A CUDA
 tensor launches the kernel or raises.

@@ -12,9 +12,11 @@ RWKV-6 stack goes through it, in every layer; a one-token step takes
 Bound: memory.  A call reads r, k, v (compute dtype), w_log and the
 state (fp32) once and writes y and the final state once -- about
 1.84 MB for a 32-token prefill chunk at 32 heads of 64 in bf16.  The
-kernel keeps each (b, h) state column tile in shared memory across the
-chunks of the call and never materialises the (C, C, K) pairwise-decay
-tensor of the chunked form; see the source's note.
+K / 16 blocks of a head form a thread-block cluster, each owning 16
+key channels and their state rows; the pairwise decay factors at a
+16-row sub-chunk boundary, so the chunk's products run on the tensor
+cores with split operands (bf16 hi + lo, or 3xTF32 for fp32); see the
+source's note.
 
 ``wkv6`` takes the plain version ONLY for CPU tensors.  A CUDA tensor
 launches the kernel or raises.
@@ -31,10 +33,10 @@ __all__ = ["wkv6", "wkv6_chunked", "wkv6_ref", "wkv6_step"]
 
 EXP_CLIP = -60.0
 CHUNK = 32                 # time steps per chunk (the reference's default)
-V_TILE = 16                # state columns per block (the V split)
-SMEM_LIMIT = 227 * 1024    # dynamic shared memory one Hopper block may use
+MAX_CHUNK = 32             # the kernel's chunk tile: two 16-row sub-chunks
+HEAD_SIZES = tuple(range(16, 129, 16))   # K: clusters of 1 to 8 ranks of 16
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def _lib():
@@ -43,8 +45,6 @@ def _lib():
         for fn in (lib.wkv6_f32, lib.wkv6_bf16):
             fn.argtypes = _ARGTYPES
             fn.restype = ctypes.c_int
-        lib.wkv6_smem_bytes.argtypes = [ctypes.c_int] * 3
-        lib.wkv6_smem_bytes.restype = ctypes.c_ulonglong
         lib.wkv6_error_string.argtypes = [ctypes.c_int]
         lib.wkv6_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -157,7 +157,10 @@ def wkv6(r, k, v, w_log, u, state, *, chunk=CHUNK):
     K) fp32 log-decays (<= 0); u: (H, K) fp32; state: (B, H, K, K) fp32.
     Returns y (B, T, H, K) in r's dtype and the final state (B, H, K, K)
     fp32; the inputs are not modified.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    version; CUDA tensors launch the kernel, whose chunk tile holds at
+    most 32 steps: a longer ``chunk`` runs as chunks of 32, which the
+    plain version's longer chunk matches but for its clip (at most
+    e^-60 |r k| a term)."""
     _check(r, k, v, w_log, u, state)
     if r.device.type == "cpu":
         return wkv6_chunked(r, k, v, w_log, u, state, chunk=chunk)
@@ -176,21 +179,22 @@ def wkv6(r, k, v, w_log, u, state, *, chunk=CHUNK):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("wkv6: operands must be contiguous")
     B, T, H, K = r.shape
-    if K % V_TILE or any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"wkv6: head size must be a multiple of {V_TILE} "
-                         "and operands 16-byte aligned (vector loads)")
-    chunk = min(chunk, T)
+    if K not in HEAD_SIZES or any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"wkv6: head size must be a multiple of 16 up to "
+                         f"{HEAD_SIZES[-1]} and operands 16-byte aligned "
+                         "(vector loads)")
+    if chunk < 1:
+        raise ValueError(f"wkv6: chunk must be >= 1; got {chunk}")
+    chunk = min(chunk, T, MAX_CHUNK)
+    if B * H > 65535:
+        raise ValueError(f"wkv6: B * H = {B * H} > 65535 (the grid's y)")
     lib = _lib()
-    smem = lib.wkv6_smem_bytes(chunk, K, V_TILE)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"wkv6: chunk={chunk}, head size {K} need {smem} B "
-                         "of shared memory")
     y = torch.empty_like(r)
     s_out = torch.empty_like(state)
     fn = lib.wkv6_f32 if r.dtype == torch.float32 else lib.wkv6_bf16
     rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w_log.data_ptr(),
             u.data_ptr(), state.data_ptr(), y.data_ptr(), s_out.data_ptr(),
-            B, T, H, K, chunk, V_TILE,
+            B, T, H, K, chunk,
             torch.cuda.current_stream(r.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("wkv6 launch failed: "

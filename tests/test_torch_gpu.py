@@ -22,6 +22,7 @@ from repro_torch.kernels import (flash_attention, flash_attention_ref,
                                  paged_flash_decode_mla_ref,
                                  paged_flash_decode_ref,
                                  reset_launch_counts, wkv6, wkv6_chunked)
+from repro_torch.kernels.wkv6 import HEAD_SIZES
 from repro_torch.models import init_model
 from repro_torch.serve import ContinuousScheduler, ServeEngine
 
@@ -170,6 +171,12 @@ WKV_CASES = [
     (1, 64, 4, 64, 2.5),       # decays past the -60 clip
     (2, 40, 8, 32, 1.0),       # smoke widths
     (3, 1, 2, 32, 1.0),        # one step
+] + [
+    # every other head size the kernel is built for, a cluster of K / 16
+    # ranks (one at K 16: no cross-rank sum; eight at K 128), at one
+    # chunk and at three that carry the state
+    (B, T, 4, K, 1.0) for K in HEAD_SIZES if K != 64
+    for B, T in ((1, 32), (2, 80))
 ]
 
 
@@ -200,6 +207,53 @@ def test_wkv6_kernel_matches_plain(cuda, case, dtype):
     torch.testing.assert_close(s, s_want, atol=WKV_ATOL, rtol=rtol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", range(1, 33))
+def test_wkv6_kernel_matches_plain_every_prompt_tail(cuda, T, dtype):
+    """rwkv6-1.6b widths (H 32, K 64) at every length a prefill chunk or
+    a prompt's ragged tail can have: the kernel's tile is 32 rows, its
+    sub-chunks 16, so each T pads a different part of them."""
+    _wkv6_matches_plain(cuda, 100 + T, (1, T, 32, 64, 1.0), dtype)
+
+
+def _wkv6_matches_plain(cuda, seed, case, dtype, chunk=32):
+    r, k, v, wl, u, s0 = (torch.from_numpy(x).to(cuda)
+                          for x in _wkv_inputs(seed, *case))
+    r, k, v = (x.to(dtype) for x in (r, k, v))
+    y, s = wkv6(r, k, v, wl, u, s0, chunk=chunk)
+    y_want, s_want = wkv6_chunked(r, k, v, wl, u, s0, chunk=chunk)
+    torch.cuda.synchronize()
+    rtol = WKV_BF16_RTOL if dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(y.float(), y_want.float(), atol=WKV_ATOL,
+                               rtol=rtol)
+    torch.testing.assert_close(s, s_want, atol=WKV_ATOL, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(2, 80, 4, 64, 1.0), (1, 64, 4, 64, 2.5)])
+@pytest.mark.parametrize("chunk", [8, 16, 20, 64])
+def test_wkv6_kernel_matches_plain_other_chunks(cuda, chunk, case, dtype):
+    """A chunk shorter than the kernel's 32-row tile pads rows of it in
+    every chunk (at 8 and 16, a whole sub-chunk); a longer one runs as
+    chunks of 32, which the plain version's chunk of 64 matches but for
+    its clip, here reached (decay ~-2.5 a step)."""
+    _wkv6_matches_plain(cuda, chunk + case[1], case, dtype, chunk=chunk)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(1, 32, 32, 64, 1.0), (2, 80, 4, 64, 1.0)])
+def test_wkv6_cluster_sum_is_deterministic(cuda, case, dtype):
+    """The ranks' partial outputs are summed in rank order: 20 calls give
+    the same bits."""
+    r, k, v, wl, u, s0 = (torch.from_numpy(x).to(cuda)
+                          for x in _wkv_inputs(7, *case))
+    r, k, v = (x.to(dtype) for x in (r, k, v))
+    y0, s0_out = wkv6(r, k, v, wl, u, s0)
+    for _ in range(19):
+        y, s = wkv6(r, k, v, wl, u, s0)
+        assert torch.equal(y, y0) and torch.equal(s, s0_out)
+
+
 def test_wkv6_counts_launches_and_rejects_bad_input(cuda):
     r, k, v, wl, u, s0 = (torch.from_numpy(x).to(cuda)
                           for x in _wkv_inputs(0, 1, 8, 2, 32, 1.0))
@@ -215,6 +269,18 @@ def test_wkv6_counts_launches_and_rejects_bad_input(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         wkv6(strided, k, v, wl, u, s0)
     assert launch_counts()["wkv6"] == 2
+
+
+@pytest.mark.parametrize("K", [8, 40, 144])
+def test_wkv6_rejects_head_sizes_it_is_not_built_for(cuda, K):
+    """Head sizes off the 16-channel ranks, or past a cluster of 8,
+    raise before any launch."""
+    args = [torch.from_numpy(x).to(cuda)
+            for x in _wkv_inputs(0, 1, 4, 2, K, 1.0)]
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="head size"):
+        wkv6(*args)
+    assert launch_counts().get("wkv6", 0) == 0
 
 
 def test_rwkv_greedy_serving_on_card_matches_cpu(cuda):
@@ -300,6 +366,24 @@ def test_mamba_kernel_matches_plain(cuda, case, dtype, strided):
     y_want, s_want = mamba_ref(*args)
     torch.cuda.synchronize()
     assert y.dtype == dtype and s.dtype == torch.float32
+    rtol = MAMBA_BF16_RTOL if dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(y.float(), y_want, atol=MAMBA_ATOL, rtol=rtol)
+    torch.testing.assert_close(s, s_want, atol=MAMBA_ATOL, rtol=0.0)
+
+
+@pytest.mark.parametrize("strided", [False, True], ids=["contig", "strided"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [1, 31, 32, 33, 75])
+@pytest.mark.parametrize("dS", [4, 8, 16, 32])
+def test_mamba_kernel_matches_plain_every_state_size(cuda, dS, T, dtype,
+                                                     strided):
+    """Each d_state the kernel is built for, one-step to three-tile calls,
+    at a dI (8176) whose last block of 32 channels is half full."""
+    args = _mamba_on(cuda, dtype, *_mamba_inputs(dS + T, 1, T, 8176, dS),
+                     strided=strided)
+    y, s = mamba_scan(*args)
+    y_want, s_want = mamba_ref(*args)
+    torch.cuda.synchronize()
     rtol = MAMBA_BF16_RTOL if dtype == torch.bfloat16 else 0.0
     torch.testing.assert_close(y.float(), y_want, atol=MAMBA_ATOL, rtol=rtol)
     torch.testing.assert_close(s, s_want, atol=MAMBA_ATOL, rtol=0.0)

@@ -147,3 +147,19 @@ def test_wrapper_refuses_other_devices_and_bad_shapes():
         mamba_scan(x, dt, A, B, C, D, h0[:, :, :4])
     with pytest.raises(ValueError, match="dt"):
         mamba_scan(x, dt[:, :2], A, B, C, D, h0)
+
+
+def test_probe_build_is_its_own_library():
+    """The clock-stamp probe (``-DSCAN_PROBE``) builds under another
+    name than the shipped kernel, and switching it off returns to the
+    shipped build."""
+    from repro_torch.kernels import build
+    shipped = build._paths("mamba_scan")[1]
+    assert "-DSCAN_PROBE" not in build._flags("mamba_scan")
+    build.set_probe("mamba_scan", True)
+    try:
+        assert "-DSCAN_PROBE" in build._flags("mamba_scan")
+        assert build._paths("mamba_scan")[1] != shipped
+    finally:
+        build.set_probe("mamba_scan", False)
+    assert build._paths("mamba_scan")[1] == shipped
