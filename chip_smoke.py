@@ -10,7 +10,8 @@ Phases (each fails the run if it goes wrong):
   2. each kernel against its plain PyTorch version at the main paths'
      full-width shapes, fp32 and bf16, with its time, the plain
      version's, the one-call PyTorch yardstick's (where there is one)
-     and the bound;
+     and the bound; the flash kernel also at the training shape (B 1,
+     S = T = 4096), forward and the gradients of its autograd Function;
   3. the qwen3 path: full-width qwen3-1.7b in bf16 (weights from a seed)
      serves 16 requests on 8 slots through the continuous scheduler,
      with every attention call launched through the paged-decode kernel;
@@ -45,7 +46,14 @@ Phases (each fails the run if it goes wrong):
      launched through the flash-attention kernel;
  12. parity: a 2-layer full-width qwen3-1.7b in fp32 gives the same
      greedy tokens through the lockstep engine on the card (kernel) as
-     on the CPU (plain version).
+     on the CPU (plain version);
+ 13. the training path: full-width, full-depth qwen3-1.7b, bf16 compute
+     on fp32 masters, AdamW, takes 1 + 5 steps on one batch of 2 x 4096
+     tokens in 2 microbatches with per-layer remat, every attention
+     forward (and its recompute) launched through the flash kernel;
+ 14. parity: a 2-layer full-width qwen3-1.7b in fp32 takes 3 AdamW steps
+     on the card (kernel forward) and on the CPU (plain version) with
+     agreeing losses and params.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and the result line.  Without a card, or outside the repository,
 it exits non-zero and prints no result.
@@ -92,6 +100,19 @@ PAGE_SIZE, DECODE_CHUNK, PREFILL_CHUNK = 16, 8, 32
 MAX_LEN = -(-(PROMPT_MAX + NEW_TOKENS + DECODE_CHUNK) // PAGE_SIZE) * PAGE_SIZE
 # the lockstep slab run of phase 11: 8 requests of 512 prompt tokens
 LEGACY_BATCH, LEGACY_PROMPT, LEGACY_MAX_LEN = 8, 512, 592
+# the training run of phases 13-14: qwen3-1.7b on 2 x 4096 tokens (the
+# reference's train_4k length, repro/configs/base.py:315) in 2 microbatches
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_TIMED = 2, 4096, 2, 5
+TRAIN_LR = 3e-4
+# the flash backward (plain, q-chunked) against autograd of the plain
+# forward, as max |err| / max |grad| over dq, dk, dv: fp32 re-associates
+# sums over 4096 rows; bf16 rounds each chunk's products to bf16 where
+# the unchunked version rounds once
+TRAIN_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# phase 14 (card vs CPU, fp32): step 1 runs on equal weights; later
+# steps follow AdamW, whose g / (|g| + eps) moves an entry whose
+# gradient is near eps = 1e-8 by up to lr a step on rounding alone
+TRAIN_LOSS_RTOL_FIRST, TRAIN_LOSS_RTOL_LATER = 1e-5, 1e-4
 # the reference's FLASH_CASES (tests/test_kernels.py)
 FLASH_CASES = [
     # B, S, T, h, hk, hd, causal, window
@@ -540,6 +561,109 @@ def check_flash_attention(dev, flush):
                   f"{row['library_ms']:.4f} ms ({backend})  bound "
                   f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
                   f"{n_bytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP)")
+    return rows
+
+
+def flash_bwd_bound(B, S, T, h, hk, hd, causal, el):
+    """Bytes (q, k, v and the output gradient read once; dq, dk, dv
+    written once) and operations of the attention backward: 10 hd per
+    visible (query head row, key) pair -- the scores recomputed, then
+    the four products dV = P^T dO, dP = dO V^T, dQ = dS K, dK = dS^T Q."""
+    n_bytes = (4 * B * S * h * hd + 4 * B * T * hk * hd) * el
+    _, fwd_ops = flash_bound(B, S, T, h, hk, hd, causal, 0, el)
+    return n_bytes, fwd_ops // 4 * 10
+
+
+def check_flash_train(dev, flush):
+    """The flash kernel at the training shape (B 1, S = T = TRAIN_SEQ,
+    qwen3's 16 q / 8 kv heads of 128, causal): the forward against the
+    plain version, and the gradients of ``FlashAttention`` (the kernel's
+    forward, the plain q-chunked backward) against autograd of the plain
+    version; times beside cuDNN SDPA's forward and forward + backward
+    and beside the bounds."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd_ref, flash_attention_ref)
+
+    B, S, h, hk, hd = 1, TRAIN_SEQ, 16, 8, 128
+    rng = np.random.default_rng(13)
+    host = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            for shape in ((B, S, h, hd), (B, S, hk, hd), (B, S, hk, hd),
+                          (B, S, h, hd))]
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, dout = (x.to(dev, dtype) for x in host)
+        got = flash_attention(q, k, v)
+        want = flash_attention_ref(q, k, v)
+        err = (got.float() - want.float()).abs().max().item()
+        if not torch.allclose(got.float(), want.float(), atol=TOL[dtype],
+                              rtol=TOL[dtype]):
+            fail(f"flash_attention train shape {dtype}: max |err| {err}")
+        del got, want
+        # the Function's gradients against autograd of the plain version
+        reset_launch_counts()
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        flash_attention(*leaves).backward(dout)
+        if launch_counts().get("flash_attention", 0) != 1:
+            fail("the autograd Function did not launch the kernel once")
+        ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        flash_attention_ref(*ref_leaves).backward(dout)
+        grad_err = 0.0
+        for name, a, b in zip("qkv", leaves, ref_leaves):
+            rel = ((a.grad.float() - b.grad.float()).abs().max()
+                   / b.grad.float().abs().max()).item()
+            grad_err = max(grad_err, rel)
+            if not rel <= TRAIN_GRAD_TOL[dtype]:
+                fail(f"flash_attention backward d{name} {dtype}: max |err| "
+                     f"/ max |grad| {rel:.2e} > {TRAIN_GRAD_TOL[dtype]:g}")
+        del leaves, ref_leaves
+        torch.cuda.synchronize()
+        row = {"case": f"train B={B} S=T={S} causal", "dtype": str(dtype)[6:],
+               "max_abs_err": err, "tol": TOL[dtype],
+               "grad_rel_err": grad_err,
+               "grad_tol": TRAIN_GRAD_TOL[dtype]}
+        print(f"  flash_attention {row['case']:44s} {row['dtype']:8s} err "
+              f"{err:.2e} (tol {TOL[dtype]:g}); dq, dk, dv max |err| / "
+              f"max |grad| {grad_err:.2e} (tol "
+              f"{TRAIN_GRAD_TOL[dtype]:g})")
+        if dtype == torch.float32:
+            rows.append(row)
+            continue
+        qt, kt, vt, dot = (x.transpose(1, 2).contiguous()
+                           for x in (q, k, v, dout))
+        sdpa = lambda *a: F.scaled_dot_product_attention(
+            *a, is_causal=True, enable_gqa=True)
+        grads = [t.clone().requires_grad_() for t in (qt, kt, vt)]
+        row["ms"] = time_ms(lambda: flash_attention(q, k, v), flush)
+        row["plain_ms"] = time_ms(lambda: flash_attention_ref(q, k, v), flush)
+        row["bwd_plain_ms"] = time_ms(
+            lambda: flash_attention_bwd_ref(q, k, v, dout, causal=True),
+            flush, iters=5)
+        row["library_ms"] = time_ms(lambda: sdpa(qt, kt, vt), flush)
+        row["library_fwd_bwd_ms"] = time_ms(
+            lambda: torch.autograd.grad(sdpa(*grads), grads, dot), flush)
+        row["sdpa_backend"] = sdpa_backend(qt, kt, vt, None, 0.0, True,
+                                           enable_gqa=True)
+        for key, (n_bytes, ops) in (
+                ("", flash_bound(B, S, S, h, hk, hd, True, 0, 2)),
+                ("bwd_", flash_bwd_bound(B, S, S, h, hk, hd, True, 2))):
+            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / PEAK_OPS[dtype] * 1e3
+            row.update({f"{key}bound_ms": max(t_bytes, t_ops),
+                        f"{key}bound_by": "bytes" if t_bytes >= t_ops
+                        else "operations",
+                        f"{key}bytes": n_bytes, f"{key}ops": ops})
+        del grads
+        rows.append(row)
+        print(f"  flash_attention {row['case']:44s} bfloat16 forward: kernel "
+              f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  sdpa "
+              f"{row['library_ms']:.4f} ms ({row['sdpa_backend']})  bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}); backward: plain "
+              f"{row['bwd_plain_ms']:.4f} ms  sdpa forward + backward "
+              f"{row['library_fwd_bwd_ms']:.4f} ms  bound "
+              f"{row['bwd_bound_ms']:.4f} ms ({row['bwd_bound_by']}: "
+              f"{row['bwd_ops'] / 1e9:.1f} GFLOP)")
     return rows
 
 
@@ -1152,6 +1276,119 @@ def serve_legacy(dev):
     return launches
 
 
+def train_qwen(dev):
+    """Phases 13 and 14: full-width, full-depth qwen3-1.7b trained in
+    bf16 on fp32 masters (AdamW), then card-vs-CPU fp32 training at 2
+    full-width layers.  Returns the flash_attention launches of the
+    phase-13 run and its numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import init_model
+    from repro_torch.train import (TrainConfig, TrainState, init_train_state,
+                                   make_train_step, trainable)
+
+    cfg = get_config("qwen3-1.7b")
+    tc = TrainConfig(optimizer="adamw", lr=TRAIN_LR, microbatches=TRAIN_MICRO,
+                     remat=True)
+    batch = make_batch(cfg, np.random.default_rng(0), TRAIN_BATCH, TRAIN_SEQ)
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, tc, seed=0, device=dev)
+    step, _ = make_train_step(cfg, tc)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in trainable(state.params).values())
+    print(f"phase 13: {cfg.name} ({n_params / 1e9:.3f} B fp32 masters, "
+          f"{cfg.num_layers} layers, bf16 compute) and AdamW state "
+          f"initialised in {time.perf_counter() - t0:.1f} s, resident "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, walls = [], []
+    for i in range(1 + TRAIN_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))           # synchronises
+        walls.append(time.perf_counter() - t0)
+    counts = launch_counts()
+    launches = counts.get("flash_attention", 0)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    want = (1 + TRAIN_TIMED) * TRAIN_MICRO * cfg.num_layers * 2
+    if launches != want:
+        fail(f"phase 13: flash_attention launched {launches} times, expected "
+             f"{want} = {1 + TRAIN_TIMED} steps x {TRAIN_MICRO} microbatches x "
+             f"{cfg.num_layers} layers x 2 (forward + remat recompute)")
+    for other in ("paged_flash_decode", "paged_flash_decode_mla", "wkv6",
+                  "mamba_scan"):
+        if counts.get(other, 0):
+            fail(f"{other} launched on the training path")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"phase 13: losses {losses} are not finite and falling")
+    wall = float(np.median(walls[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mfu = 6 * n_params * tokens / wall / PEAK_OPS[torch.bfloat16]
+    out = {"step_ms": wall * 1e3, "tokens_per_s": tokens / wall,
+           "peak_gib": peak_gib, "mfu": mfu, "losses": losses,
+           "step_walls_ms": [w * 1e3 for w in walls]}
+    print(f"phase 13: {1 + TRAIN_TIMED} AdamW steps (lr {TRAIN_LR:g}) on one "
+          f"batch of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in {TRAIN_MICRO} "
+          f"microbatches, remat per layer: losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; flash_attention "
+          f"launches {launches} = {1 + TRAIN_TIMED} x {TRAIN_MICRO} x "
+          f"{cfg.num_layers} x 2 (forward + recompute)")
+    print(f"phase 13: step wall median {wall * 1e3:.1f} ms (first, untimed "
+          f"{walls[0] * 1e3:.1f} ms)")
+    print(f"phase 13: {tokens / wall:.1f} tokens/s")
+    print(f"phase 13: peak memory {peak_gib:.2f} GiB")
+    print(f"phase 13: mfu {mfu:.4f} (6 N tokens a step, N = {n_params}, "
+          f"over {PEAK_OPS[torch.bfloat16] / 1e12:.0f} TFLOP/s bf16 dense)")
+    del state, step
+    torch.cuda.empty_cache()
+
+    # phase 14: two full-width layers in fp32, card vs CPU
+    small = cfg.with_overrides(num_layers=2, dtype="float32")
+    tc = TrainConfig(optimizer="adamw", lr=TRAIN_LR)
+    batch = make_batch(small, np.random.default_rng(14), 2, 256)
+    got = {}
+    for where in ("cpu", "cuda"):
+        # drawn on the CPU from one seed, then moved: the same masters
+        model = init_model(small, seed=1, device="cpu", train=True).to(
+            dev if where == "cuda" else "cpu")
+        step, opt = make_train_step(small, tc)
+        state = TrainState(model, opt.init(trainable(model)), 0)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(3):
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+        got[where] = (losses, {k: p.detach().cpu() for k, p in
+                               trainable(model).items()})
+        print(f"  {where}: 3 steps in {time.perf_counter() - t0:.1f} s, "
+              f"losses {losses}")
+    if launch_counts().get("flash_attention", 0) != 3 * 2 * 2:
+        fail("phase 14: the card run did not launch flash_attention in every "
+             "layer (3 steps x 2 layers x 2, with the remat recompute)")
+    (cpu_l, cpu_p), (card_l, card_p) = got["cpu"], got["cuda"]
+    rel = [abs(a - b) / abs(a) for a, b in zip(cpu_l, card_l)]
+    gap = max((cpu_p[k] - card_p[k]).abs().max().item() for k in cpu_p)
+    if not rel[0] <= TRAIN_LOSS_RTOL_FIRST:
+        fail(f"phase 14: step 1's loss differs card vs CPU by {rel[0]:.2e} "
+             f"relative > {TRAIN_LOSS_RTOL_FIRST:g}")
+    if not max(rel[1:]) <= TRAIN_LOSS_RTOL_LATER or not gap <= 3 * TRAIN_LR:
+        fail(f"phase 14: later losses differ by {max(rel[1:]):.2e} relative "
+             f"(> {TRAIN_LOSS_RTOL_LATER:g}?) or a param by {gap:.2e} "
+             f"(> 3 lr = {3 * TRAIN_LR:g}?)")
+    print(f"phase 14: 2-layer full-width qwen3 fp32, 3 AdamW steps on 2 x 256 "
+          f"tokens, card vs CPU: step-1 loss {rel[0]:.2e} relative (tol "
+          f"{TRAIN_LOSS_RTOL_FIRST:g}), steps 2-3 {max(rel[1:]):.2e} (tol "
+          f"{TRAIN_LOSS_RTOL_LATER:g}), largest param gap {gap:.2e} (tol "
+          f"3 lr = {3 * TRAIN_LR:g}); flash_attention in every layer")
+    del got, state, step, model
+    torch.cuda.empty_cache()
+    return launches, out
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1227,6 +1464,13 @@ def main():
           "slice's tail holds 1e4, then 1e8, and the output must not change "
           "one bit")
     flash_rows = check_flash_attention(dev, flush)
+    print(f"  flash_attention at the training shape: forward tolerance as "
+          f"above; gradients max |err| / max |grad| fp32 "
+          f"{TRAIN_GRAD_TOL[torch.float32]:g}, bf16 "
+          f"{TRAIN_GRAD_TOL[torch.bfloat16]:g} (the backward is plain "
+          "PyTorch recomputing 1024-row q-chunks; fp32 re-associates sums "
+          "over 4096 rows, bf16 rounds each chunk's products)")
+    train_rows = check_flash_train(dev, flush)
     del flush
     if args.kernels_only:
         print(json.dumps({"phase2": {
@@ -1234,7 +1478,7 @@ def main():
             "mla_max_splits": mla_split.MAX_SPLITS,
             "paged_flash_decode": rows + jamba_rows, "wkv6": wkv_rows,
             "mamba_scan": mamba_rows, "paged_flash_decode_mla": mla_rows,
-            "flash_attention": flash_rows}}))
+            "flash_attention": flash_rows + train_rows}}))
         print(card_line())
         return
 
@@ -1309,6 +1553,7 @@ def main():
     scan_launches, jamba_paged_launches = serve_jamba(dev, lens)
     mla_launches = serve_deepseek(dev, lens)
     flash_launches = serve_legacy(dev)
+    train_launches, train_out = train_qwen(dev)
 
     decode_bf16, chunk_bf16 = (
         next(r for r in rows if r["case"] == case and r["dtype"] == "bfloat16")
@@ -1381,12 +1626,13 @@ def main():
     }
     timed = {r["case"].split()[0]: r for r in flash_rows
              if "ms" in r and r["dtype"] == "bfloat16"}
+    train_bf16 = next(r for r in train_rows if r["dtype"] == "bfloat16")
     flash_entry = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:33",
         "launches": flash_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in flash_rows
+        "max_abs_err": max(r["max_abs_err"] for r in flash_rows + train_rows
                            if r["dtype"] == "bfloat16"),
         "ms": timed["decode"]["ms"], "plain_ms": timed["decode"]["plain_ms"],
         "bound_ms": timed["decode"]["bound_ms"],
@@ -1396,7 +1642,13 @@ def main():
         "prefill": {key: timed["prefill"][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "sdpa_backend")},
-        "cases": flash_rows,
+        "launches_train": train_launches,
+        "train": {**{key: train_bf16[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "sdpa_backend", "bwd_plain_ms", "library_fwd_bwd_ms",
+            "bwd_bound_ms", "bwd_bound_by", "grad_rel_err")},
+            "step": train_out},
+        "cases": flash_rows + train_rows,
     }
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [entry, wkv_entry, mamba_entry,

@@ -1,8 +1,10 @@
-"""PyTorch/CUDA port of the ``repro`` serving path.
+"""PyTorch/CUDA port of the ``repro`` serving path and its one-device
+training step.
 
 The JAX package ``repro`` is the reference; this package mirrors its
-module names (``configs``, ``models``, ``kernels``, ``serve``, ``data``,
-``launch``) so each module's counterpart is easy to find.  It imports
+module names (``configs``, ``models``, ``kernels``, ``serve``, ``train``,
+``optim``, ``data``, ``launch``) so each module's counterpart is easy to
+find.  It imports
 ``torch`` and numpy only -- never ``jax`` and nothing of ``repro``.
 
 Entry points run on the CUDA card unless the caller passes

@@ -59,11 +59,12 @@ def layer_trees(cfg, decoder):
     return layers
 
 
-def params_from_jax(tree, cfg, *, device="cuda") -> Model:
+def params_from_jax(tree, cfg, *, device="cuda", train=False) -> Model:
     """The reference's params (a tree of numpy arrays) as the port's
-    ``Model`` on ``device``, each weight cast once to ``cfg.dtype``.
-    ``DROPPED_KEYS`` are left out; any other key the port does not
-    serve raises rather than being dropped silently."""
+    ``Model`` on ``device``, each weight cast once to ``cfg.dtype``; or,
+    with ``train``, a training ``Model`` of trainable fp32 masters, one
+    per leaf of the tree.  ``DROPPED_KEYS`` are left out; any other key
+    the port does not serve raises rather than being dropped silently."""
     unknown = sorted(set(tree) - set(SERVED_KEYS) - set(DROPPED_KEYS))
     if unknown:
         raise ValueError(f"params_from_jax: the port does not serve the "
@@ -75,13 +76,14 @@ def params_from_jax(tree, cfg, *, device="cuda") -> Model:
             "final_norm": _map(_tensor, tree["final_norm"])}
     if "unembed" in tree:
         port["unembed"] = _map(_tensor, tree["unembed"])
-    return Model(cfg, port, device=dev)
+    return Model(cfg, port, device=dev, train=train)
 
 
 def params_to_numpy(model: Model, cfg) -> dict:
     """The inverse of ``params_from_jax``: the reference's tree layout
     (layers restacked on ``n_rep``) as numpy arrays of the port's
-    weights -- bitwise the input when the compute dtype is fp32."""
+    weights -- bitwise the input when the compute dtype is fp32 or the
+    model holds fp32 masters (``train``)."""
     prefix, pattern, n_rep = cfg.block_structure()
     np_ = lambda t: t.detach().float().cpu().numpy() \
         if t.dtype == torch.bfloat16 else t.detach().cpu().numpy()

@@ -1,3 +1,3 @@
-from repro_torch.data.synthetic import synthetic_tokens
+from repro_torch.data.synthetic import make_batch, synthetic_tokens
 
-__all__ = ["synthetic_tokens"]
+__all__ = ["make_batch", "synthetic_tokens"]

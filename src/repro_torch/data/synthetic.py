@@ -1,4 +1,5 @@
-"""Synthetic token streams (numpy port of ``repro.data.synthetic``)."""
+"""Synthetic token streams and batches (numpy port of
+``repro.data.synthetic`` and of ``repro.launch.train.make_batch``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -10,3 +11,10 @@ def synthetic_tokens(rng: np.random.Generator, batch, seq_len, vocab):
     u = rng.random((batch, seq_len), dtype=np.float32)
     ranks = np.floor(np.float32(vocab) ** u).astype(np.int32)
     return np.clip(ranks, 0, vocab - 1)
+
+
+def make_batch(cfg, rng: np.random.Generator, batch, seq):
+    """A decoder-only training batch ``{"tokens": (batch, seq) int32}``
+    drawn from ``rng``.  The reference's encoder-decoder and vision
+    batches wait with those frontends (``models.check_ported``)."""
+    return {"tokens": synthetic_tokens(rng, batch, seq, cfg.vocab_size)}

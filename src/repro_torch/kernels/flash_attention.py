@@ -45,7 +45,8 @@ import torch
 from repro_torch.kernels import gqa_split
 from repro_torch.kernels.build import count_launch, load_library
 
-__all__ = ["flash_attention", "flash_attention_ref", "KERNEL_HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_attention_ref", "flash_attention_bwd_ref",
+           "KERNEL_HEAD_DIMS"]
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (64, 128)   # head widths the kernel is built for
@@ -76,20 +77,17 @@ def _lib():
     return lib
 
 
-def flash_attention_ref(q, k, v, *, causal=True, window=0):
-    """The plain version, the reference's oracle ``kernels/ref.py::
-    attention_ref``: kv heads repeated over their group, one masked fp32
-    softmax over right-aligned queries (query i at position i + T - S),
-    the probabilities cast to v's dtype for the value product.  A row
-    with no visible key gets the uniform mean over all T keys, as
-    there."""
-    B, S, h, hd = q.shape
+def _attend(q, k, v, q_pos0, causal, window):
+    """Rows of q at positions q_pos0, q_pos0 + 1, ... against all T keys:
+    kv heads repeated over their group, one masked fp32 softmax, the
+    probabilities cast to v's dtype for the value product."""
+    S, h, hd = q.shape[1:]
     T, hk = k.shape[1], k.shape[2]
     if h != hk:
         k = torch.repeat_interleave(k, h // hk, dim=2)
         v = torch.repeat_interleave(v, h // hk, dim=2)
     s = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) / np.sqrt(hd)
-    qpos = torch.arange(S, device=q.device)[:, None] + (T - S)
+    qpos = torch.arange(S, device=q.device)[:, None] + q_pos0
     kpos = torch.arange(T, device=q.device)[None, :]
     mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
     if causal:
@@ -99,6 +97,49 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0):
     s = torch.where(mask[None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhst,bthd->bshd", p.to(v.dtype), v)
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0):
+    """The plain version, the reference's oracle ``kernels/ref.py::
+    attention_ref``: kv heads repeated over their group, one masked fp32
+    softmax over right-aligned queries (query i at position i + T - S),
+    the probabilities cast to v's dtype for the value product.  A row
+    with no visible key gets the uniform mean over all T keys, as
+    there."""
+    return _attend(q, k, v, k.shape[1] - q.shape[1], causal, window)
+
+
+def flash_attention_bwd_ref(q, k, v, dout, *, causal=True, window=0,
+                            chunk=1024):
+    """(dq, dk, dv) of ``flash_attention_ref`` for the output gradient
+    ``dout``, in q's, k's and v's dtypes.
+
+    The reference trains by differentiating its ``chunked_attention``
+    loop with each q-chunk checkpointed (``models/attention.py:106``),
+    and this is that gradient: for each ``chunk`` rows of q it recomputes
+    the chunk's masked fp32 softmax against all T keys (right-aligned, as
+    ``flash_attention_ref``; the probabilities cast to v's dtype) and
+    takes the chunk's dq and its share of dk and dv by
+    ``torch.autograd.grad``; dk and dv are summed over the chunks in
+    fp32.  A chunk's (B, h, chunk, T) fp32 scores are the largest
+    temporary.  Plain PyTorch on any device: the backward of the
+    kernel's ``autograd.Function``, which no TPU kernel had."""
+    S, T = q.shape[1], k.shape[1]
+    q, k, v, dout = (t.detach() for t in (q, k, v, dout))
+    dq = torch.empty_like(q)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    with torch.enable_grad():
+        kg, vg = k.requires_grad_(), v.requires_grad_()
+        for c0 in range(0, S, chunk):
+            qc = q[:, c0:c0 + chunk].requires_grad_()
+            out = _attend(qc, kg, vg, c0 + T - S, causal, window)
+            gq, gk, gv = torch.autograd.grad(out, (qc, kg, vg),
+                                             dout[:, c0:c0 + chunk])
+            dq[:, c0:c0 + chunk] = gq
+            dk += gk
+            dv += gv
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check(q, k, v, causal):
@@ -131,13 +172,43 @@ def flash_attention(q, k, v, *, causal=True, window=0):
     t > i + T - S - window (when ``window`` > 0).  Scores and softmax in
     fp32, scale 1/sqrt(hd).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel,
-    which reads k and v through their batch and sequence strides (a
-    slice of a larger cache is not copied).  Raises on a causal call
-    with S > T, whose first rows would see no key."""
+    CPU tensors take the plain version (its autograd is the gradient's
+    oracle); CUDA tensors launch the kernel, which reads k and v through
+    their batch and sequence strides (a slice of a larger cache is not
+    copied).  When grad mode is on and an input requires grad, the
+    launch goes through ``FlashAttention``, whose backward is
+    ``flash_attention_bwd_ref``.  Raises on a causal call with S > T,
+    whose first rows would see no key."""
     _check(q, k, v, causal)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, window)
+    return _launch(q, k, v, causal, window)
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernel's forward with a gradient: the forward launches
+    ``csrc/flash_attention.cu`` and saves q, k and v; the backward is the
+    plain ``flash_attention_bwd_ref``, which recomputes each q-chunk's
+    softmax (the gradient of the reference's checkpointed loop)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return _launch(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_ref(
+            q, k, v, dout, causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def _launch(q, k, v, causal, window):
+    """One launch of the kernel on CUDA tensors, checked."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if k.device != q.device or v.device != q.device:

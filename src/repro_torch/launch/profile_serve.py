@@ -44,9 +44,12 @@ def _device_us(evt) -> float:
                    getattr(evt, "self_cuda_time_total", 0.0))
 
 
-def trace(fn, device):
+def trace(fn, device, top=8, by_kind=()):
     """Host wall (ms) of fn() ending in a synchronize, and the kernels
-    the profiler saw on the device."""
+    the profiler saw on the device: the ``top`` that took the most
+    device time and, with ``by_kind`` = ((kind, name substrings), ...),
+    the device ms of each kind (the first that matches; "other" for the
+    rest)."""
     torch.cuda.synchronize(device)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -57,13 +60,21 @@ def trace(fn, device):
     kernels = [e for e in prof.key_averages() if _device_us(e) > 0
                and e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(_device_us(e) for e in kernels) / 1e3
-    top = sorted(kernels, key=_device_us, reverse=True)[:8]
-    return {"wall_ms": wall, "device_busy_ms": busy,
-            "device_idle_share": max(0.0, 1.0 - busy / wall),
-            "kernel_launches": sum(e.count for e in kernels),
-            "top_kernels": [{"name": e.key[:80], "count": e.count,
-                             "device_ms": _device_us(e) / 1e3}
-                            for e in top]}
+    out = {"wall_ms": wall, "device_busy_ms": busy,
+           "device_idle_share": max(0.0, 1.0 - busy / wall),
+           "kernel_launches": sum(e.count for e in kernels),
+           "top_kernels": [{"name": e.key[:80], "count": e.count,
+                            "device_ms": _device_us(e) / 1e3}
+                           for e in sorted(kernels, key=_device_us,
+                                           reverse=True)[:top]]}
+    if by_kind:
+        kinds = {kind: 0.0 for kind, _ in by_kind} | {"other": 0.0}
+        for e in kernels:
+            kind = next((kind for kind, subs in by_kind
+                         if any(s in e.key for s in subs)), "other")
+            kinds[kind] += _device_us(e) / 1e3
+        out["device_ms_by_kind"] = kinds
+    return out
 
 
 def profile_legacy(cfg, model, dev, seed):

@@ -1,4 +1,5 @@
-"""Attention for the serving paths: GQA (qk-norm, RoPE) and MLA.
+"""Attention for the serving and training paths: GQA (qk-norm, RoPE)
+and MLA (serving only).
 
 Port of ``repro.models.attention``.  Two cache forms:
 - the paged pool of the continuous engine: K/V in a shared token-major
@@ -17,8 +18,10 @@ Port of ``repro.models.attention``.  Two cache forms:
   scalar ``cache_pos``).  Its attention is ``chunked_attention``, which
   on the card runs the flash-attention kernel.
 
-Cross-attention and MLA's slab and train branches are not ported here;
-they join with the slices that need them.
+GQA's train branch has no cache: the queries attend causally over their
+own keys through ``chunked_attention``.  Cross-attention and MLA's slab
+and train branches are not ported here; they join with the slices that
+need them.
 """
 from __future__ import annotations
 
@@ -278,14 +281,16 @@ def _proj(x, w):
 
 def _qkv(cfg, p, x, rope):
     """q (B, S, h, hd), k and v (B, S, hk, hd) of x: projections, bias,
-    qk-norm, then RoPE on q and k by ``rope`` (``rope_angles``)."""
-    q = _proj(x, p["wq"])
-    k = _proj(x, p["wk"])
-    v = _proj(x, p["wv"])
+    qk-norm, then RoPE on q and k by ``rope`` (``rope_angles``).  Each
+    weight is cast to x's dtype at use (a no-op for a serving model)."""
+    dt = x.dtype
+    q = _proj(x, p["wq"].to(dt))
+    k = _proj(x, p["wk"].to(dt))
+    v = _proj(x, p["wv"].to(dt))
     if "bq" in p:
-        q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
@@ -294,9 +299,14 @@ def _qkv(cfg, p, x, rope):
 
 def apply_attention(cfg, p, x, *, positions, cache, rope, paged=None,
                     write_idx=None, mode="decode", cache_pos=0):
-    """Self-attention over the serving cache.  Order as in the
-    reference: qk-norm on q and k, RoPE, cache write, attention, the
-    padded-head mask, wo.
+    """Self-attention over the serving cache, or without one in training.
+    Order as in the reference: qk-norm on q and k, RoPE, cache write,
+    attention, the padded-head mask, wo.
+
+    Train (``mode="train"``, no cache, ``paged`` None): x (B, S, d) at
+    positions 0..S-1, causal attention of the S queries over their own
+    S keys through ``chunked_attention`` (the flash kernel on the card,
+    differentiable).
 
     Paged (``paged`` given; decode steps and prefill chunks): x (B, S,
     d), positions (B, S) per slot; cache {"k", "v"} pools, updated in
@@ -310,7 +320,11 @@ def apply_attention(cfg, p, x, *, positions, cache, rope, paged=None,
     Both through ``chunked_attention`` (the flash kernel on the card).
     rope: ``rope_angles`` of the call's positions."""
     q, k, v = _qkv(cfg, p, x, rope)
-    if paged is not None:
+    if mode == "train":
+        S = x.shape[1]
+        out = chunked_attention(q, k, v, q_positions=range(S),
+                                kv_positions=range(S), window=cfg.swa_window)
+    elif paged is not None:
         k_pool = _paged_append(cache["k"], write_idx, k)
         v_pool = _paged_append(cache["v"], write_idx, v)
         out = paged_flash_decode(q, k_pool.to(x.dtype), v_pool.to(x.dtype),
@@ -339,7 +353,8 @@ def apply_attention(cfg, p, x, *, positions, cache, rope, paged=None,
     if head_mask is not None:
         out = out * torch.from_numpy(head_mask).to(out)[None, None, :, None]
     B, S, h, hd = out.shape
-    return out.reshape(B, S, h * hd) @ p["wo"].reshape(h * hd, -1)
+    return out.reshape(B, S, h * hd) @ p["wo"].to(out.dtype).reshape(h * hd,
+                                                                      -1)
 
 
 # --------------------------------------------------------------------------

@@ -1,10 +1,12 @@
 """Core building blocks: norms, MLPs, embeddings, RoPE, init helpers.
 
 Port of ``repro.models.layers``.  Functions take tensors and weights
-explicitly; weights arrive already in the compute dtype (the bridge
-and ``init_model`` cast once at load, where the reference casts at
-every use -- the same values either way).  Norm scales stay fp32, as
-the reference multiplies them in fp32.
+explicitly and cast each weight to the compute dtype at use, as the
+reference's ``.astype(dt)`` does: a training model's fp32 masters are
+cast on every call (and their gradients flow back through the cast),
+while a serving model's weights, cast once at load, pass through
+``Tensor.to`` untouched (no copy, no launch).  Norm scales stay fp32,
+as the reference multiplies them in fp32.
 """
 from __future__ import annotations
 
@@ -62,26 +64,29 @@ def init_mlp(d_model, d_ff, *, gated=True, generator, device="cpu", dtype):
 
 
 def apply_mlp(p, x, gated=True):
-    up = x @ p["w_up"]
+    dt = x.dtype
+    up = x @ p["w_up"].to(dt)
     if gated:
-        h = F.silu(x @ p["w_gate"]) * up
+        h = F.silu(x @ p["w_gate"].to(dt)) * up
     else:
         h = F.gelu(up, approximate="tanh")
-    return h @ p["w_down"]
+    return h @ p["w_down"].to(dt)
 
 
 # --------------------------------------------------------------------------
 # embeddings
 # --------------------------------------------------------------------------
 
-def apply_embed(table, tokens):
-    """Rows of the table (already in the compute dtype)."""
-    return table[tokens]
+def apply_embed(table, tokens, dtype):
+    """Rows of the table in ``dtype``: gathered, then cast -- the values
+    of the reference's cast-then-gather, without casting the whole
+    table."""
+    return table[tokens].to(dtype)
 
 
-def apply_unembed(table_f32, x):
-    """Logits in fp32 against the fp32 table."""
-    return x.float() @ table_f32.t()
+def apply_unembed(table, x):
+    """Logits in fp32 against the table in fp32."""
+    return x.float() @ table.float().t()
 
 
 # --------------------------------------------------------------------------

@@ -5,7 +5,9 @@ attention and Mamba layers (each with an MLP or MoE ffn) and RWKV-6
 blocks, in the modes the serving paths use: the continuous engine's
 paged decode mode (decode steps and chunked-prefill chunks), and the
 lockstep engine's slab ``prefill`` and ``decode`` (GQA stacks with an
-MLP only, ``check_slab_ported``).  ``apply_model`` returns ``{"logits",
+MLP only, ``check_slab_ported``); and in the training mode ``"train"``
+(GQA stacks with an MLP, ``check_train_ported``), on a ``Model`` of
+trainable fp32 masters.  ``apply_model`` returns ``{"logits",
 "hidden", "aux"}``; the caches and the per-slot recurrent states are
 updated in place.
 """
@@ -38,17 +40,32 @@ class Model(nn.Module):
     unembedding table is kept in fp32 for the fp32 logits (the same
     tensor as the embedding when it is tied and the compute dtype is
     fp32; an untied embedding may arrive in the compute dtype).
+
+    ``train=True`` builds a model for training instead: every weight a
+    trainable fp32 master (``requires_grad``), one per reference leaf,
+    cast to the compute dtype at each use.  A tied table is ONE master,
+    registered as both ``embed`` and ``unembed_f32`` (so
+    ``named_parameters`` lists it once): the embedding reads it cast to
+    the compute dtype, the unembedding in fp32, and its gradient sums
+    both uses.
     """
 
-    def __init__(self, cfg, tree, *, device):
+    def __init__(self, cfg, tree, *, device, train=False):
         super().__init__()
         check_ported(cfg)
+        if train:
+            check_train_ported(cfg)
         dt = compute_dtype(cfg)
         table = tree["embed"]["table"].to(device=device)
-        self.embed = tfm._frozen(table.to(dt))
         out = table if cfg.tie_embeddings else tree["unembed"]["table"]
-        self.unembed_f32 = tfm._frozen(out.to(device=device,
-                                              dtype=torch.float32))
+        if train:
+            self.embed = tfm._master(table)
+            self.unembed_f32 = (self.embed if cfg.tie_embeddings
+                                else tfm._master(out.to(device)))
+        else:
+            self.embed = tfm._frozen(table.to(dt))
+            self.unembed_f32 = tfm._frozen(out.to(device=device,
+                                                  dtype=torch.float32))
         del table, out
         # no name (and no zip/enumerate tuple) may hold a layer's tree
         # while the next one is drawn
@@ -56,8 +73,8 @@ class Model(nn.Module):
         self.layers = nn.ModuleList()
         for spec in cfg.layer_pattern():
             self.layers.append(tfm.Layer(_to_device(next(trees), device), dt,
-                                         spec))
-        self.final_norm = tfm._frozen(
+                                         spec, train=train))
+        self.final_norm = (tfm._master if train else tfm._frozen)(
             tree["final_norm"]["scale"].to(device=device, dtype=torch.float32))
         self.register_buffer("rope_freqs", torch.from_numpy(
             rope_freqs(rope_dim(cfg), cfg.rope_theta)).to(device)
@@ -89,9 +106,9 @@ def check_ported(cfg):
                          "(MLP or MoE) and RWKV-6 stacks")
 
 
-def check_slab_ported(cfg):
-    """Raise, naming the part, unless the slab (lockstep) path of
-    ``cfg`` is ported: GQA attention layers with an MLP."""
+def _not_gqa_mlp(cfg) -> list:
+    """The parts of ``cfg`` other than GQA attention layers with an MLP,
+    by name (the whole-sequence branches the port has only for those)."""
     pattern = cfg.layer_pattern()
     missing = []
     if cfg.attention == "mla":
@@ -101,10 +118,30 @@ def check_slab_ported(cfg):
                 for k in sorted({m for m, _ in pattern} - {"attn"})]
     if any(f == "moe" for _, f in pattern):
         missing.append("MoE ffn")
+    return missing
+
+
+def check_slab_ported(cfg):
+    """Raise, naming the part, unless the slab (lockstep) path of
+    ``cfg`` is ported: GQA attention layers with an MLP."""
+    missing = _not_gqa_mlp(cfg)
     if missing:
         raise ValueError(f"{cfg.name}: the slab path of {', '.join(missing)} "
                          "is not ported; the lockstep slab engine serves GQA "
                          "attention with an MLP (use engine='continuous')")
+
+
+def check_train_ported(cfg):
+    """Raise, naming the part, unless training ``cfg`` is ported: GQA
+    attention layers with an MLP and no multi-token-prediction head.
+    MLA, Mamba, RWKV-6 and MoE wait for their whole-sequence train
+    branches (ROADMAP A.5), MTP for its head (A.8)."""
+    missing = _not_gqa_mlp(cfg)
+    if cfg.mtp_depth > 0:
+        missing.append("the MTP head")
+    if missing:
+        raise ValueError(f"{cfg.name}: training {', '.join(missing)} is not "
+                         "ported; the port trains GQA attention with an MLP")
 
 
 def _to_device(tree, device):
@@ -113,7 +150,7 @@ def _to_device(tree, device):
     return tree.to(device)
 
 
-def init_model(cfg, *, seed=0, device="cuda") -> Model:
+def init_model(cfg, *, seed=0, device="cuda", train=False) -> Model:
     """Random weights from a seed: truncated normal, std 1/sqrt(d_in)
     for projections and 0.02 for the embedding, drawn in fp32 with an
     explicit ``torch.Generator`` on ``device``, in the order embedding,
@@ -123,9 +160,11 @@ def init_model(cfg, *, seed=0, device="cuda") -> Model:
     4-layer cut, one (256, 7168, 2048) expert tensor of 15 GB, where
     casting layer by layer held a whole MoE layer's 45 GB of masters.
     Layers are drawn one at a time as ``Model`` builds them (a dense
-    prefix, e.g. DeepSeek's, takes ``moe.dense_d_ff``)."""
+    prefix, e.g. DeepSeek's, takes ``moe.dense_d_ff``).  ``train``
+    keeps the fp32 draws as trainable masters (``Model``); their values
+    cast to the compute dtype are the serving model's weights."""
     dev = resolve_device(device)
-    dt = compute_dtype(cfg)
+    dt = torch.float32 if train else compute_dtype(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
     n_prefix = len(cfg.block_structure()[0])
     dense_ff = cfg.moe.dense_d_ff if cfg.moe is not None else 0
@@ -142,7 +181,7 @@ def init_model(cfg, *, seed=0, device="cuda") -> Model:
     if not cfg.tie_embeddings:
         tree["unembed"] = {"table": truncated_normal(
             (cfg.vocab_size, cfg.d_model), 0.02, generator=gen, device=dev)}
-    return Model(cfg, tree, device=dev)
+    return Model(cfg, tree, device=dev, train=train)
 
 
 def init_cache(cfg, dtype, *, pool=None, slots=None, batch=None,
@@ -175,9 +214,16 @@ def _logits(cfg, model: Model, x):
                          rmsnorm(model.final_norm, x, cfg.norm_eps))
 
 
-def apply_model(cfg, model: Model, tokens, *, cache, cache_pos, paged=None,
-                mode="decode", last_only=False, logits=True):
-    """Forward over a serving cache.
+def apply_model(cfg, model: Model, tokens, *, cache=None, cache_pos=None,
+                paged=None, mode="decode", last_only=False, logits=True,
+                remat=False):
+    """Forward over a serving cache, or the training forward.
+
+    Train (``mode="train"``, no cache): tokens (B, S) at positions
+    0..S-1, causal attention through ``chunked_attention`` (the flash
+    kernel on the card); ``remat`` checkpoints each layer
+    (``tfm.apply_stack``).  GQA stacks with an MLP only
+    (``check_train_ported``).
 
     tokens: (B, S) int.  Paged (``paged``: a PagedView): cache_pos (B,)
     int32, the per-slot position of the first token; cache: per-layer
@@ -193,7 +239,13 @@ def apply_model(cfg, model: Model, tokens, *, cache, cache_pos, paged=None,
     under ``last_only``; a call whose logits nobody reads passes
     ``logits=False`` and skips the unembedding."""
     S = tokens.shape[1]
-    if paged is not None:
+    if mode == "train":
+        check_train_ported(cfg)
+        if cache is not None or paged is not None:
+            raise ValueError("train mode takes no cache")
+    elif cache is None:
+        raise ValueError(f"mode {mode!r} reads a serving cache; pass cache=")
+    elif paged is not None:
         if mode != "decode" or not isinstance(cache_pos, torch.Tensor) \
                 or cache_pos.dim() != 1:
             raise ValueError("the paged cache is decode-mode with per-slot "
@@ -205,10 +257,12 @@ def apply_model(cfg, model: Model, tokens, *, cache, cache_pos, paged=None,
         cache_pos = int(cache_pos)
         if mode == "prefill" and cache_pos != 0:
             raise ValueError("a slab prefill fills the cache from 0")
-    x = apply_embed(model.embed, tokens)
+    x = apply_embed(model.embed, tokens, compute_dtype(cfg))
     positions = None
     if tfm.has_attention(cfg):
-        if paged is not None:
+        if mode == "train":
+            positions = torch.arange(S, device=tokens.device)[None]
+        elif paged is not None:
             positions = (cache_pos[:, None]
                          + torch.arange(S, device=tokens.device,
                                         dtype=cache_pos.dtype)[None])
@@ -218,7 +272,7 @@ def apply_model(cfg, model: Model, tokens, *, cache, cache_pos, paged=None,
     x, aux = tfm.apply_stack(cfg, model.layers, x, positions=positions,
                              cache=cache, paged=paged,
                              rope_freqs=model.rope_freqs, mode=mode,
-                             cache_pos=cache_pos)
+                             cache_pos=cache_pos, remat=remat)
     if last_only:
         x = x[:, -1:]
     out = {"hidden": x, "aux": 0.0 if aux is None else aux}

@@ -10,20 +10,26 @@ An attention layer's paged KV pool is its own ``{"k", "v"}`` pair of
 rope)}``), or for the lockstep slab path a ``{"k", "v"}`` pair of
 ``(B, max_len, hk, hd)`` (GQA only); a Mamba or RWKV layer's cache is
 its per-slot recurrent state (``ssm.make_mamba_cache``,
-``ssm.make_rwkv6_cache``).  All are updated in place.
+``ssm.make_rwkv6_cache``).  All are updated in place.  The training
+forward (``mode="train"``, GQA with an MLP) has no cache.
 
 Weights keep the reference's layouts (wq (d, h, hd), wk/wv (d, hk, hd),
 wo (h, hd, d), MLA as in ``attention.init_mla``, MLP (d_in, d_out), MoE
 experts (E, d_in, d_out), Mamba and RWKV as in ``models.ssm``) and are
-cast ONCE to the compute dtype: as they are drawn (``init_layer``), or
-when the module is built from a reference tree -- the reference casts
-at every use to the same values.  Norm scales and the weights it reads
-in fp32 (``ssm.FP32_WEIGHTS``, ``moe.FP32_WEIGHTS``) stay fp32.
+cast ONCE to the compute dtype in a serving model: as they are drawn
+(``init_layer``), or when the module is built from a reference tree --
+the reference casts at every use to the same values.  Norm scales and
+the weights it reads in fp32 (``ssm.FP32_WEIGHTS``,
+``moe.FP32_WEIGHTS``) stay fp32.  A training model keeps every weight
+as a trainable fp32 master and casts it at use.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
@@ -35,19 +41,25 @@ def _frozen(t):
     return nn.Parameter(t, requires_grad=False)
 
 
-class ParamTree(nn.Module):
-    """A nested dict of frozen tensors (an ffn tree: an MLP, or an MoE
-    layer's router, ``experts`` and ``shared``) as a module that reads
-    like the dict: ``p["experts"]["w_up"]``, ``"w_gate" in p``."""
+def _master(t):
+    """A trainable fp32 master weight."""
+    return nn.Parameter(t.float(), requires_grad=True)
 
-    def __init__(self, tree, cast):
+
+class ParamTree(nn.Module):
+    """A nested dict of parameters (an ffn tree: an MLP, or an MoE
+    layer's router, ``experts`` and ``shared``) as a module that reads
+    like the dict: ``p["experts"]["w_up"]``, ``"w_gate" in p``.  Each
+    leaf is ``param(name, tensor)``."""
+
+    def __init__(self, tree, param):
         super().__init__()
         self._names = list(tree)
         for k, v in tree.items():
             if isinstance(v, dict):
-                self.add_module(k, ParamTree(v, cast))
+                self.add_module(k, ParamTree(v, param))
             else:
-                self.register_parameter(k, _frozen(cast(k, v)))
+                self.register_parameter(k, param(k, v))
 
     def __getitem__(self, k):
         return getattr(self, k)
@@ -90,21 +102,29 @@ class Layer(nn.Module):
     """One decoder layer of kinds ``spec`` = (mixer, ffn) built from a
     reference-layout tree.  Nested mixer norm scales ({"q_norm":
     {"scale": t}}, {"ln_x": ...}) are flattened to their name; the ffn
-    keeps its nesting (``ParamTree``).  An RWKV block has no ``ffn``."""
+    keeps its nesting (``ParamTree``).  An RWKV block has no ``ffn``.
 
-    def __init__(self, tree, dtype, spec):
+    Serving (``train`` False): frozen weights, each cast once to
+    ``dtype`` (norm scales and ``FP32_WEIGHTS`` in fp32).  Training:
+    every weight a trainable fp32 master, cast to the compute dtype at
+    use."""
+
+    def __init__(self, tree, dtype, spec, *, train=False):
         super().__init__()
         self.kind, self.ffn_kind = spec
-        self.norm1 = _frozen(tree["norm1"]["scale"].float())
-        self.norm2 = _frozen(tree["norm2"]["scale"].float())
+        if train:
+            param = lambda k, v: _master(v)
+        else:
+            param = lambda k, v: _frozen(
+                v.float() if k in ssm_lib.FP32_WEIGHTS + moe_lib.FP32_WEIGHTS
+                else v.to(dtype))
+        scale = lambda t: (_master if train else _frozen)(t.float())
+        self.norm1 = scale(tree["norm1"]["scale"])
+        self.norm2 = scale(tree["norm2"]["scale"])
         self.mixer = nn.ParameterDict({
-            k: _frozen(v["scale"].float() if isinstance(v, dict)
-                       else v.float() if k in ssm_lib.FP32_WEIGHTS
-                       else v.to(dtype))
+            k: scale(v["scale"]) if isinstance(v, dict) else param(k, v)
             for k, v in tree["mixer"].items()})
-        cast = lambda k, v: (v.float() if k in moe_lib.FP32_WEIGHTS
-                             else v.to(dtype))
-        self.ffn = ParamTree(tree["ffn"], cast) if "ffn" in tree else None
+        self.ffn = ParamTree(tree["ffn"], param) if "ffn" in tree else None
 
 
 def init_layer_cache(cfg, kind, dtype, *, pool=None, slots=None, batch=None,
@@ -130,7 +150,8 @@ def apply_layer(cfg, layer: Layer, x, *, positions, cache, paged,
     or RWKV time mix then channel mix.  Returns (x, aux), aux being the
     MoE load-balance loss or None.  ``paged`` None is the slab path
     (GQA attention only): ``mode`` and the scalar ``cache_pos`` say
-    where the new keys go."""
+    where the new keys go, and ``mode="train"`` (cache None) is the
+    training forward."""
     h = rmsnorm(layer.norm1, x, cfg.norm_eps)
     if layer.kind == "rwkv6":
         x = x + ssm_lib.apply_rwkv6_time_mix(cfg, layer.mixer, h,
@@ -162,22 +183,28 @@ def has_attention(cfg) -> bool:
 
 
 def apply_stack(cfg, layers, x, *, positions, cache, paged, rope_freqs,
-                mode="decode", cache_pos=0):
+                mode="decode", cache_pos=0, remat=False):
     """The layers in order; returns (x, the summed MoE aux loss or
     None).  What every attention layer derives alike from the positions
     -- pool write rows (paged) and RoPE angles -- is computed once, and
     only when the stack has an attention layer.  ``paged`` None is the
-    slab path: positions (1, S), shared by every slot."""
+    slab path, and ``mode="train"`` (cache None) the training forward:
+    positions (1, S), shared by every slot.  ``remat`` runs each layer
+    under ``torch.utils.checkpoint`` (per-layer rematerialisation, as
+    the reference's ``jax.checkpoint`` of one layer): its activations
+    are recomputed in the backward instead of kept."""
     write_idx = rope = None
     if has_attention(cfg):
         if paged is not None:
             write_idx = attn_lib.paged_write_indices(paged, positions)
         rope = rope_angles(positions, rope_freqs)
     aux = None
-    for layer, c in zip(layers, cache):
-        x, a = apply_layer(cfg, layer, x, positions=positions, cache=c,
-                           paged=paged, write_idx=write_idx, rope=rope,
-                           mode=mode, cache_pos=cache_pos)
+    for layer, c in zip(layers, [None] * len(layers) if cache is None
+                         else cache):
+        fn = functools.partial(apply_layer, cfg, layer, positions=positions,
+                               cache=c, paged=paged, write_idx=write_idx,
+                               rope=rope, mode=mode, cache_pos=cache_pos)
+        x, a = (checkpoint(fn, x, use_reentrant=False) if remat else fn(x))
         if a is not None:
             aux = a if aux is None else aux + a
     return x, aux

@@ -713,3 +713,100 @@ def test_legacy_greedy_serving_on_card_matches_cpu(cuda):
     assert counts["flash_attention"] == cfg.num_layers * new
     assert counts.get("paged_flash_decode", 0) == 0
     np.testing.assert_array_equal(outs["cpu"].numpy(), outs["cuda"].numpy())
+
+
+# --------------------------------------------------------------------------
+# training: the flash kernel's autograd Function and the train step
+# --------------------------------------------------------------------------
+
+TRAIN_FLASH_CASES = [
+    # B, S (= T), h, hk, hd, window
+    (2, 256, 16, 8, 128, 0),     # qwen3-1.7b's heads, causal
+    (1, 300, 4, 2, 64, 48),      # the smoke config's heads, windowed, ragged
+]
+# dq, dk, dv against autograd of the plain version, as max |err| /
+# max |grad|: the backward is plain PyTorch on both sides, q-chunked in
+# the Function; bf16 rounds each chunk's products once more
+TRAIN_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", TRAIN_FLASH_CASES)
+def test_flash_function_gradients_match_plain(cuda, case, dtype):
+    B, S, h, hk, hd, window = case
+    q, k, v = _flash_inputs(cuda, dtype, sum(case), B, S, S, h, hk, hd)
+    dout = torch.randn_like(q)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    reset_launch_counts()
+    out = flash_attention(*leaves, window=window)
+    assert out.grad_fn is not None and "FlashAttention" in out.grad_fn.name()
+    out.backward(dout)
+    assert launch_counts()["flash_attention"] == 1
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = flash_attention_ref(*ref_leaves, window=window)
+    want.backward(dout)
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.detach().float(), want.detach().float(),
+                               atol=tol, rtol=tol)
+    for name, a, b in zip("qkv", leaves, ref_leaves):
+        assert a.grad.dtype == dtype
+        rel = ((a.grad.float() - b.grad.float()).abs().max()
+               / b.grad.float().abs().max()).item()
+        assert rel <= TRAIN_GRAD_TOL[dtype], (name, rel)
+
+
+def _train(cfg, model, tc, batches):
+    from repro_torch.train import TrainState, make_train_step, trainable
+    step, opt = make_train_step(cfg, tc)
+    state = TrainState(model, opt.init(trainable(model)), 0)
+    losses = []
+    for batch in batches:
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+    return losses, {k: p.detach().cpu() for k, p in trainable(model).items()}
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """The smoke config in fp32, 3 AdamW steps from the same masters:
+    the first loss (equal weights) within 1e-5 relative; later losses
+    within 1e-4 and every param within 3 lr, since AdamW's g / (|g| +
+    eps) moves an entry whose gradient is near eps by up to lr a step
+    on rounding alone; every layer launched the kernel (and its remat
+    recompute)."""
+    from repro_torch.train import TrainConfig
+    cfg = smoke_config("qwen3-1.7b").with_overrides(dtype="float32")
+    tc = TrainConfig(lr=3e-4, grad_clip=1.0)
+    rng = np.random.default_rng(0)
+    batches = [{"tokens": rng.integers(0, cfg.vocab_size, (4, 64))}
+               for _ in range(3)]
+    got = {}
+    for dev in ("cpu", "cuda"):
+        model = init_model(cfg, seed=0, device="cpu", train=True).to(dev)
+        reset_launch_counts()
+        got[dev] = _train(cfg, model, tc, batches)
+    assert launch_counts()["flash_attention"] == 3 * cfg.num_layers * 2
+    (cl, cp), (gl, gp) = got["cpu"], got["cuda"]
+    rel = [abs(a - b) / abs(a) for a, b in zip(cl, gl)]
+    assert rel[0] <= 1e-5 and max(rel) <= 1e-4, rel
+    assert max((cp[k] - gp[k]).abs().max().item() for k in cp) <= 3 * 3e-4
+
+
+@pytest.mark.parametrize("remat,micro", [(True, 1), (False, 1), (True, 2)],
+                         ids=["remat", "no-remat", "remat-2-micro"])
+def test_train_step_launch_counts(cuda, remat, micro):
+    """One bf16 step launches the kernel once a layer a microbatch, twice
+    under remat (the recompute), and nothing else."""
+    from repro_torch.train import TrainConfig
+    cfg = smoke_config("qwen3-1.7b")
+    model = init_model(cfg, seed=0, device=cuda, train=True)
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 128))
+    reset_launch_counts()
+    losses, _ = _train(cfg, model,
+                       TrainConfig(remat=remat, microbatches=micro),
+                       [{"tokens": tokens}])
+    counts = launch_counts()
+    assert np.isfinite(losses[0])
+    assert counts["flash_attention"] == micro * cfg.num_layers * (
+        2 if remat else 1)
+    assert sum(counts.values()) == counts["flash_attention"]

@@ -57,7 +57,8 @@ def test_embed_and_fp32_unembed():
     r = _rng(3)
     table = (r.standard_normal((50, 16)) * 0.02).astype(np.float32)
     tokens = r.integers(0, 50, (2, 7))
-    _close(tl.apply_embed(torch.from_numpy(table), torch.from_numpy(tokens)),
+    _close(tl.apply_embed(torch.from_numpy(table), torch.from_numpy(tokens),
+                          torch.float32),
            jl.apply_embed({"table": jnp.asarray(table)}, jnp.asarray(tokens),
                           jnp.float32))
     x = r.standard_normal((2, 7, 16)).astype(np.float32)
