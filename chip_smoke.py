@@ -53,7 +53,18 @@ Phases (each fails the run if it goes wrong):
      forward (and its recompute) launched through the flash kernel;
  14. parity: a 2-layer full-width qwen3-1.7b in fp32 takes 3 AdamW steps
      on the card (kernel forward) and on the CPU (plain version) with
-     agreeing losses and params.
+     agreeing losses and params;
+ 15. the paper's claim: MNIST-DNN and CIFAR10-CNN at Table-1 width take
+     5 SGD steps on the card equal to the CPU's (fp32, TF32 off; the
+     CNN held to 1e-5 after its first step, to 1e-4 after the fifth);
+     the MNIST-DNN launcher under torchrun, 2 gloo ranks sharing the
+     card, equals the card's sequential run for flat and bucketed, and
+     4 ranks (pod 2 x data 2) for hierarchical; weight averaging every
+     2 steps leaves the ranks bitwise equal after steps 2 and 4;
+ 16. full-width qwen3-1.7b through ``Trainer(model_cfg=...)`` over a
+     world of one NCCL rank, dp=flat then dp=bucketed, 3 steps on phase
+     13's batch: the losses equal phase 13's first 3 bit for bit, with
+     exactly 3 x 2 x 28 x 2 = 336 flash_attention launches a run.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and the result line.  Without a card, or outside the repository,
 it exits non-zero and prints no result.
@@ -113,6 +124,19 @@ TRAIN_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # steps follow AdamW, whose g / (|g| + eps) moves an entry whose
 # gradient is near eps = 1e-8 by up to lr a step on rounding alone
 TRAIN_LOSS_RTOL_FIRST, TRAIN_LOSS_RTOL_LATER = 1e-5, 1e-4
+# phase 15: the Table-1 nets, fp32 with TF32 off, card vs CPU and
+# data-parallel vs sequential (5 steps; the reference's DP bar is 1e-6 on
+# the CPU, and the card's fp32 products re-associate the sums)
+PAPER_STEPS, PAPER_BATCH, PAPER_SAMPLES, PAPER_TOL = 5, 256, 4096, 1e-5
+# ... the CNNs held to PAPER_TOL after their first step (equal weights)
+# and to this after 5: max-pool routes each gradient to its window's
+# argmax, and at lr 0.1 CIFAR10-CNN's loss rises (2.43 -> 7.88), so a
+# near-tie that two fp32 summation orders decide apart moves whole
+# entries and the steps grow it; two calls on the same inputs read
+# 1.35e-5 and 5.3e-6
+CNN_LATER_TOL = 1e-4
+# phase 16: full-width qwen3-1.7b through the Trainer, phase 13's batch
+DP_STEPS = 3
 # the reference's FLASH_CASES (tests/test_kernels.py)
 FLASH_CASES = [
     # B, S, T, h, hk, hd, causal, window
@@ -1389,6 +1413,215 @@ def train_qwen(dev):
     return launches, out
 
 
+# --------------------------------------------------------------------------
+# phases 15 / 16: the paper's synchronous data parallelism
+# --------------------------------------------------------------------------
+
+def run_ranks(args, n, timeout=300):
+    """``python -m torch.distributed.run --standalone --nproc-per-node n``
+    of ``args`` (a module and its flags), in its own session, killed
+    with every rank it started if it outlasts ``timeout``.  Fails the
+    run if it fails; returns the wall seconds."""
+    import signal
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(n), "-m", *args]
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"{' '.join(args)} over {n} ranks outlasted {timeout} s")
+    if proc.returncode:
+        print(out[-6000:])
+        fail(f"{' '.join(args)} over {n} ranks exited {proc.returncode}")
+    for line in out.splitlines():
+        if line.startswith(("trainer:", "epoch", "mesh:")):
+            print(f"    {line}")
+    return time.perf_counter() - t0
+
+
+def load_dump(d, step, rank):
+    with np.load(os.path.join(d, f"step{step}_rank{rank}.npz")) as f:
+        return {k: f[k] for k in f.files}
+
+
+def max_gap(a, b):
+    return max(float(np.abs(a[k] - b[k]).max()) for k in a)
+
+
+def paper_dp(dev):
+    """Phase 15: the paper's claim on the card.  The Table-1 nets'
+    sequential step equals the CPU's; MNIST-DNN data-parallel over gloo
+    ranks sharing the card equals the card's sequential run; weight
+    averaging leaves the ranks bitwise equal at its sync points."""
+    import shutil
+    import tempfile
+    from repro_torch import optim
+    from repro_torch.api import Trainer
+    from repro_torch.configs.paper_nets import CIFAR10_CNN, MNIST_DNN
+    from repro_torch.data import make_dataset
+    from repro_torch.launch import mnist_dnn_dp
+    from repro_torch.models import apply_paper_net, init_paper_net
+    from repro_torch.train import cross_entropy
+
+    out = {}
+    for net in (MNIST_DNN, CIFAR10_CNN):
+        ds = make_dataset(net.dataset, n=PAPER_BATCH, as_images=True)
+        x = ds.x.reshape(PAPER_BATCH, -1) if net.kind == "dnn" else ds.x
+        batch = {"x": x, "y": ds.y}
+        got = {}
+        for where in ("cpu", "cuda"):
+            model = init_paper_net(net, seed=0, device="cpu")
+            trainer = Trainer.create(
+                loss_fn=lambda m, b, net=net: cross_entropy(
+                    apply_paper_net(net, m, b["x"]), b["y"]),
+                params=model, optimizer=optim.sgd(0.1), device=where)
+            losses, params = [], []
+            for _ in range(PAPER_STEPS):
+                losses.append(float(trainer.step(batch)["loss"]))
+                params.append(trainer.params)
+            got[where] = (losses, params)
+        first, last = (max_gap(got["cpu"][1][i], got["cuda"][1][i])
+                       for i in (0, -1))
+        tol = PAPER_TOL if net.kind == "dnn" else CNN_LATER_TOL
+        if not (first <= PAPER_TOL and last <= tol):
+            fail(f"phase 15: {net.name} card vs CPU params differ by "
+                 f"{first:.2e} after one SGD step (tol {PAPER_TOL:g}) and "
+                 f"{last:.2e} after {PAPER_STEPS} (tol {tol:g})")
+        out[f"{net.name}_card_vs_cpu"] = {"step1": first, "last": last}
+        print(f"phase 15: {net.name} (Table-1 width, fp32, TF32 off), "
+              f"{PAPER_STEPS} SGD(0.1) steps on {PAPER_BATCH} samples, "
+              f"card vs CPU: largest param gap {first:.2e} after step 1 "
+              f"(tol {PAPER_TOL:g}), {last:.2e} after step {PAPER_STEPS} "
+              f"(tol {tol:g}); losses {got['cuda'][0]}")
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="dp_", dir=os.path.join(ROOT, "build"))
+    data = ["--samples", str(PAPER_SAMPLES), "--epochs", "1"]
+    common = [*data, "--steps", str(PAPER_STEPS), "--backend", "gloo"]
+    seq = os.path.join(root, "seq")
+    mnist_dnn_dp.main([*data, "--steps", str(PAPER_STEPS), "--sequential",
+                       "--device", "cuda", "--dump", seq])
+    want = load_dump(seq, PAPER_STEPS, 0)
+    for strategy in ("flat", "bucketed"):
+        d = os.path.join(root, strategy)
+        wall = run_ranks(["repro_torch.launch.mnist_dnn_dp", *common,
+                          "--strategy", strategy, "--dump", d], 2)
+        gaps = [max_gap(want, load_dump(d, PAPER_STEPS, r)) for r in (0, 1)]
+        if not max(gaps) <= PAPER_TOL:
+            fail(f"phase 15: {strategy} over 2 gloo ranks differs from the "
+                 f"sequential run by {max(gaps):.2e} > {PAPER_TOL:g}")
+        out[f"mnist_dp2_{strategy}_vs_sequential"] = max(gaps)
+        print(f"phase 15: MNIST-DNN, 2 gloo ranks on one card, {strategy}: "
+              f"{PAPER_STEPS} momentum steps equal the card's sequential "
+              f"run within {max(gaps):.2e} (tol {PAPER_TOL:g}); torchrun "
+              f"wall {wall:.1f} s")
+    d = os.path.join(root, "weights")
+    run_ranks(["repro_torch.launch.mnist_dnn_dp", *data, "--steps", "4",
+               "--backend", "gloo", "--sync", "weights", "--sync-period",
+               "2", "--dump", d], 2)
+    equal = [max_gap(load_dump(d, s, 0), load_dump(d, s, 1)) == 0.0
+             for s in (1, 2, 3, 4)]
+    if equal != [False, True, False, True]:
+        fail(f"phase 15: weight averaging every 2 steps left the ranks "
+             f"equal after steps 1-4 as {equal}, want [False, True, False, "
+             "True]")
+    print("phase 15: MNIST-DNN, 2 gloo ranks, sync=weights every 2 steps: "
+          "ranks bitwise equal after steps 2 and 4, different after 1 and 3")
+    # gloo's reduce-scatter and all-gather take the card's tensors
+    d = os.path.join(root, "hier")
+    wall = run_ranks(["repro_torch.launch.mnist_dnn_dp", *common,
+                      "--strategy", "hierarchical", "--pods", "2",
+                      "--dump", d], 4)
+    gaps = [max_gap(want, load_dump(d, PAPER_STEPS, r)) for r in range(4)]
+    if not max(gaps) <= PAPER_TOL:
+        fail(f"phase 15: hierarchical over 2 x 2 gloo ranks differs from "
+             f"the sequential run by {max(gaps):.2e} > {PAPER_TOL:g}")
+    out["mnist_dp4_hierarchical_vs_sequential"] = max(gaps)
+    print(f"phase 15: MNIST-DNN, 4 gloo ranks (pod 2 x data 2) on one card, "
+          f"hierarchical: equal to the sequential run within "
+          f"{max(gaps):.2e} (tol {PAPER_TOL:g}); torchrun wall {wall:.1f} s")
+    shutil.rmtree(root)
+    return out
+
+
+def dp_qwen(dev, phase13_losses):
+    """Phase 16: full-width qwen3-1.7b through ``Trainer(model_cfg=...)``
+    over a world of one NCCL rank, dp=flat then dp=bucketed, on phase
+    13's batch.  Returns the flash launches and numbers of each run."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.api import Trainer
+    from repro_torch.configs import get_config
+    from repro_torch.core import DPConfig
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_dp_mesh
+    from repro_torch.train import TrainConfig
+
+    cfg = get_config("qwen3-1.7b")
+    batch = make_batch(cfg, np.random.default_rng(0), TRAIN_BATCH, TRAIN_SEQ)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    mesh = make_dp_mesh(1)
+    want = (DP_STEPS * TRAIN_MICRO * cfg.num_layers * 2)
+    out = {}
+    for strategy in ("flat", "bucketed"):
+        torch.cuda.empty_cache()
+        trainer = Trainer.create(
+            cfg, optimizer="adamw", lr=TRAIN_LR,
+            dp=DPConfig(strategy=strategy, microbatches=TRAIN_MICRO),
+            mesh=mesh, train_cfg=TrainConfig(remat=True), seed=0,
+            device=dev)
+        desc = trainer.describe()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        losses, walls = [], []
+        for _ in range(DP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(trainer.step(batch)["loss"]))
+            walls.append(time.perf_counter() - t0)
+        launches = launch_counts().get("flash_attention", 0)
+        sync = trainer.sync_ms()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if launches != want:
+            fail(f"phase 16 ({strategy}): flash_attention launched "
+                 f"{launches} times, expected {want} = {DP_STEPS} x "
+                 f"{TRAIN_MICRO} x {cfg.num_layers} x 2")
+        if losses != phase13_losses[:DP_STEPS]:
+            fail(f"phase 16 ({strategy}): losses {losses} are not phase "
+                 f"13's first {DP_STEPS}, {phase13_losses[:DP_STEPS]}, bit "
+                 "for bit")
+        out[strategy] = {"launches": launches, "losses": losses,
+                         "step_walls_ms": [w * 1e3 for w in walls],
+                         "grad_sync_ms": sync, "peak_gib": peak,
+                         "allreduce_bytes_per_sync":
+                             desc["allreduce_bytes_per_sync"]}
+        print(f"phase 16: {cfg.name} full width through Trainer(model_cfg), "
+              f"dp={strategy} over one NCCL rank, {DP_STEPS} AdamW steps on "
+              f"phase 13's batch: losses {losses} == phase 13's bit for "
+              f"bit; flash_attention launches {launches}")
+        print(f"phase 16 ({strategy}): step walls "
+              f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms; grad_sync "
+              f"{', '.join(f'{m:.2f}' for m in sync)} ms (CUDA events); "
+              f"{desc['allreduce_bytes_per_sync'] / 2**30:.3f} GiB handed to "
+              f"the collectives a step; peak memory {peak:.2f} GiB")
+        del trainer
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1554,6 +1787,8 @@ def main():
     mla_launches = serve_deepseek(dev, lens)
     flash_launches = serve_legacy(dev)
     train_launches, train_out = train_qwen(dev)
+    paper_out = paper_dp(dev)
+    dp_out = dp_qwen(dev, train_out["losses"])
 
     decode_bf16, chunk_bf16 = (
         next(r for r in rows if r["case"] == case and r["dtype"] == "bfloat16")
@@ -1643,6 +1878,8 @@ def main():
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "sdpa_backend")},
         "launches_train": train_launches,
+        "launches_dp_train": {k: v["launches"] for k, v in dp_out.items()},
+        "dp_train": dp_out, "paper_dp": paper_out,
         "train": {**{key: train_bf16[key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "sdpa_backend", "bwd_plain_ms", "library_fwd_bwd_ms",

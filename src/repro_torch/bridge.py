@@ -14,6 +14,9 @@ RWKV block: norm1, norm2 and a mixer with the nested ``ln_x:
 reference reads in fp32 (Mamba's A_log and D, the router) stay fp32
 in a bf16 model, so they round-trip exactly.
 
+``paper_net_from_jax`` / ``paper_net_to_numpy`` do the same for the
+paper's Table-1 networks, whose trees are plain lists of ``{"w", "b"}``.
+
 The caller turns the reference's arrays into numpy first; this module
 imports neither ``jax`` nor the reference package.
 """
@@ -23,7 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, PaperNet
 
 # mixer norms the reference nests as {"scale": t}; ``Layer`` flattens them
 NESTED_SCALES = ("q_norm", "k_norm", "kv_norm", "ln_x")
@@ -116,6 +119,29 @@ def params_to_numpy(model: Model, cfg) -> dict:
     if not cfg.tie_embeddings:
         out["unembed"] = {"table": np_(model.unembed_f32)}
     return out
+
+
+def paper_net_from_jax(tree, net, *, device="cuda") -> PaperNet:
+    """The reference's Table-1 params (``{"layers": [{"w", "b"}, ...]}``
+    or ``{"conv": [...], "fc": [...]}`` of numpy arrays) as the port's
+    ``PaperNet`` of fp32 weights on ``device``.  The layouts are the
+    same on both sides (dense (d_in, d_out), conv HWIO)."""
+    want = {"layers"} if net.kind == "dnn" else {"conv", "fc"}
+    if set(tree) != want:
+        raise ValueError(f"paper_net_from_jax: {net.name} has "
+                         f"{sorted(want)}, got {sorted(tree)}")
+    return PaperNet({k: [_map(_tensor, l) for l in tree[k]]
+                     for k in sorted(want)}, device=resolve_device(device))
+
+
+def paper_net_to_numpy(model: PaperNet, net) -> dict:
+    """The inverse of ``paper_net_from_jax``: the reference's tree of
+    numpy arrays, bitwise the port's weights (copies: a later step does
+    not change them)."""
+    groups = ("layers",) if net.kind == "dnn" else ("conv", "fc")
+    return {g: [{"w": l.w.detach().to("cpu", copy=True).numpy(),
+                 "b": l.b.detach().to("cpu", copy=True).numpy()}
+                for l in getattr(model, g)] for g in groups}
 
 
 def _stack(trees):

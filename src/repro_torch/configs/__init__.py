@@ -8,9 +8,11 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.configs.base import (
-    MLAConfig, MambaConfig, ModelConfig, MoEConfig, RWKVConfig)
+    MLAConfig, MambaConfig, ModelConfig, MoEConfig, PaperNetConfig,
+    RWKVConfig)
 from repro_torch.configs import (deepseek_v3_671b, jamba_v0p1_52b,
                                  qwen3_1p7b, rwkv6_1p6b)
+from repro_torch.configs.paper_nets import PAPER_NETS
 
 ARCHITECTURES = {m.CONFIG.name: m.CONFIG
                  for m in (qwen3_1p7b, rwkv6_1p6b, jamba_v0p1_52b,
@@ -76,5 +78,5 @@ def smoke_config(arch: str) -> ModelConfig:
 
 
 __all__ = ["ModelConfig", "MoEConfig", "MambaConfig", "RWKVConfig",
-           "MLAConfig", "ARCHITECTURES", "ONE_CARD_LAYERS", "get_config",
-           "one_card_config", "smoke_config"]
+           "MLAConfig", "PaperNetConfig", "PAPER_NETS", "ARCHITECTURES",
+           "ONE_CARD_LAYERS", "get_config", "one_card_config", "smoke_config"]

@@ -228,3 +228,22 @@ class ModelConfig:
 
     def with_overrides(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+# --------------------------------------------------------------------------
+# Paper Table-1 networks
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PaperNetConfig:
+    """A network from Table 1 of Vishnu et al. 2016."""
+    name: str
+    kind: str                        # dnn | cnn
+    layer_sizes: Tuple[int, ...] = ()        # dnn: in-hidden...-out
+    # cnn fields (paper: 5x5 conv, stride 1, relu, 2x2 maxpool, sigmoid fc)
+    image_hw: Tuple[int, int] = (0, 0)
+    image_channels: int = 0
+    conv_channels: Tuple[int, ...] = ()
+    fc_size: int = 0
+    num_classes: int = 0
+    dataset: str = ""

@@ -9,17 +9,21 @@ MLP only, ``check_slab_ported``); and in the training mode ``"train"``
 (GQA stacks with an MLP, ``check_train_ported``), on a ``Model`` of
 trainable fp32 masters.  ``apply_model`` returns ``{"logits",
 "hidden", "aux"}``; the caches and the per-slot recurrent states are
-updated in place.
+updated in place.  The paper's Table-1 networks (``PaperNet``,
+``init_paper_net``, ``apply_paper_net``) close the module, as in the
+reference.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import (apply_embed, apply_unembed, rmsnorm,
-                                       rope_freqs, truncated_normal)
+from repro_torch.models.layers import (apply_embed, apply_unembed,
+                                       dense_init, rmsnorm, rope_freqs,
+                                       truncated_normal)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -279,3 +283,90 @@ def apply_model(cfg, model: Model, tokens, *, cache=None, cache_pos=None,
     if logits:
         out["logits"] = _logits(cfg, model, x)
     return out
+
+
+# ==========================================================================
+# Paper Table-1 networks
+# ==========================================================================
+
+class _Affine(nn.Module):
+    """One layer's weight ``w`` and bias ``b`` (the reference's leaves)."""
+
+    def __init__(self, w, b):
+        super().__init__()
+        self.w = nn.Parameter(w)
+        self.b = nn.Parameter(b)
+
+
+class PaperNet(nn.Module):
+    """A Table-1 network's fp32 weights, named after the reference's
+    leaves: a DNN's ``layers.{i}.w`` (d_in, d_out) and ``.b``; a CNN's
+    ``conv.{i}.w`` (5, 5, c_in, c_out) HWIO and ``.b``, then
+    ``fc.{i}.w`` / ``.b``.  ``tree`` is ``{"layers": [{"w", "b"}, ...]}``
+    or ``{"conv": [...], "fc": [...]}`` of tensors."""
+
+    def __init__(self, tree, *, device):
+        super().__init__()
+        for group, layers in tree.items():
+            self.add_module(group, nn.ModuleList(
+                _Affine(l["w"].to(device, torch.float32),
+                        l["b"].to(device, torch.float32)) for l in layers))
+
+
+def init_paper_net(net, *, seed=0, device="cuda") -> PaperNet:
+    """Random weights from a seed, drawn in order from one
+    ``torch.Generator`` on ``device``: truncated normal at +-3 sigma,
+    sigma = 1/sqrt(d_in) for dense layers and sqrt(2 / (25 c_in)) for
+    the 5x5 convs, zero biases (the reference's ``init_paper_net``; its
+    JAX random stream is not reproduced, so the values differ)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def affine(w):
+        return {"w": w, "b": torch.zeros(w.shape[-1], device=dev)}
+
+    if net.kind == "dnn":
+        sizes = net.layer_sizes
+        return PaperNet({"layers": [
+            affine(dense_init(din, dout, generator=gen, device=dev))
+            for din, dout in zip(sizes[:-1], sizes[1:])]}, device=dev)
+    cin = net.image_channels
+    h, w = net.image_hw
+    conv = []
+    for cout in net.conv_channels:
+        conv.append(affine(truncated_normal(
+            (5, 5, cin, cout), (2.0 / (25 * cin)) ** 0.5, generator=gen,
+            device=dev)))
+        cin = cout
+        h, w = h // 2, w // 2        # 2x2 max-pool after each conv
+    fc = [affine(dense_init(h * w * cin, net.fc_size, generator=gen,
+                            device=dev)),
+          affine(dense_init(net.fc_size, net.num_classes, generator=gen,
+                            device=dev))]
+    return PaperNet({"conv": conv, "fc": fc}, device=dev)
+
+
+def apply_paper_net(net, model: PaperNet, x):
+    """Logits of a Table-1 network.  x: (B, features) for a DNN, (B, H,
+    W, C) -- NHWC, as in the reference -- for a CNN.  The convs are
+    ``F.conv2d`` on NCHW with the HWIO weights permuted to OIHW:
+    ``padding="same"`` is XLA's SAME for a 5x5 window at stride 1, and
+    ``max_pool2d(2)`` its VALID 2x2 pool.  The features are flattened in
+    NHWC order, as the reference flattens them, so the first FC weight
+    lines up row for row.  On a card, fp32 convs need
+    ``torch.backends.cudnn.allow_tf32 = False`` (its default is True)."""
+    if net.kind == "dnn":
+        h = x
+        for i, layer in enumerate(model.layers):
+            h = h @ layer.w + layer.b
+            if i < len(model.layers) - 1:
+                h = torch.sigmoid(h)
+        return h
+    h = x.permute(0, 3, 1, 2)
+    for layer in model.conv:
+        h = F.conv2d(h, layer.w.permute(3, 2, 0, 1), layer.b,
+                     padding="same")
+        h = F.max_pool2d(torch.relu(h), 2)
+    h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
+    h = torch.sigmoid(h @ model.fc[0].w + model.fc[0].b)
+    return h @ model.fc[1].w + model.fc[1].b

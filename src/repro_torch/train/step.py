@@ -14,9 +14,10 @@ masters.  Features, as in the reference:
     train=True)``) with compute in ``cfg.dtype``;
   * global-norm gradient clipping and the cosine lr schedule.
 
-One device only: the mesh, the sharded state and the gradient
-all-reduce join with the data-parallel slice (ROADMAP A.2), pure-bf16
-masters and the MTP term with the configs that need them.
+One device; ``accumulate_grads`` is shared with the data-parallel step
+(``core.data_parallel``), which averages the gradients it leaves in
+``.grad`` over the ranks.  Pure-bf16 masters and the MTP term wait
+with the configs that need them.
 """
 from __future__ import annotations
 
@@ -63,7 +64,7 @@ def trainable(model) -> dict:
     return {k: p for k, p in model.named_parameters() if p.requires_grad}
 
 
-def _global_norm(grads):
+def global_norm(grads):
     return torch.sqrt(sum(g.float().square().sum() for g in grads.values()))
 
 
@@ -71,7 +72,7 @@ def clip_by_global_norm(grads, max_norm):
     """Scale every (fp32) gradient by min(1, max_norm / global norm), IN
     PLACE (the step's own gradient buffers; a copy would cost another
     set of fp32 gradients).  Returns (grads, norm)."""
-    norm = _global_norm(grads)
+    norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for g in grads.values():
         g.mul_(scale)
@@ -115,39 +116,49 @@ def make_train_step(cfg, tc: TrainConfig):
     def step(state: TrainState, batch):
         model = state.params
         params = trainable(model)
-        if not params:
-            raise ValueError("the model has no trainable masters; build it "
-                             "with train=True")
-        dev = next(iter(params.values())).device
-        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-        for p in params.values():       # each step starts from no gradient
-            p.grad = None
-        if n == 1:
-            loss, metrics = loss_fn(model, batch)
-            loss.backward()
-            metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
-                       for k, v in metrics.items()}
-        else:
-            micro = _split_micro(batch, n)
-            loss = torch.zeros((), dtype=torch.float32, device=dev)
-            for i in range(n):
-                l, _ = loss_fn(model, {k: v[i] for k, v in micro.items()})
-                l.backward()
-                loss = loss + l.detach()
-            inv = 1.0 / n
-            for p in params.values():
-                p.grad.mul_(inv)
-            loss = loss * inv
-            metrics = {}
+        loss, metrics = accumulate_grads(loss_fn, model, params, batch, n)
         grads = {k: p.grad for k, p in params.items()}
         if tc.grad_clip > 0:
             grads, gnorm = clip_by_global_norm(grads, tc.grad_clip)
             metrics["grad_norm"] = gnorm
         optimizer.update(grads, state.opt_state, params)
         return (TrainState(model, state.opt_state, state.step + 1),
-                {"loss": loss.detach(), **metrics})
+                {"loss": loss, **metrics})
 
     return step, optimizer
+
+
+def accumulate_grads(loss_fn, model, params, batch, n):
+    """The loss of ``batch`` and its fp32 gradient, left in the masters'
+    ``.grad``: one forward and backward, or -- with ``n`` microbatches
+    -- a loop of them accumulating in ``.grad``, the loss and the
+    gradients then scaled by ``1 / n`` (the reference's ``lax.scan``).
+    ``loss_fn(model, batch)`` returns ``(loss, metrics)``; the metrics
+    of a single pass are returned detached, none for microbatches.
+    ``batch`` (numpy or tensors) is moved to the masters' device."""
+    if not params:
+        raise ValueError("the model has no trainable masters; build it "
+                         "with train=True")
+    dev = next(iter(params.values())).device
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    for p in params.values():           # each step starts from no gradient
+        p.grad = None
+    if n == 1:
+        loss, metrics = loss_fn(model, batch)
+        loss.backward()
+        return loss.detach(), {
+            k: v.detach() if isinstance(v, torch.Tensor) else v
+            for k, v in metrics.items()}
+    micro = _split_micro(batch, n)
+    loss = torch.zeros((), dtype=torch.float32, device=dev)
+    for i in range(n):
+        l, _ = loss_fn(model, {k: v[i] for k, v in micro.items()})
+        l.backward()
+        loss = loss + l.detach()
+    inv = 1.0 / n
+    for p in params.values():
+        p.grad.mul_(inv)
+    return loss * inv, {}
 
 
 def init_train_state(cfg, tc: TrainConfig, *, seed=0, device="cuda"):

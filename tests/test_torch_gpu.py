@@ -2,7 +2,9 @@
 MLA), WKV6, Mamba selective-scan and flash-attention kernels against
 their plain PyTorch versions, the launch counters, and greedy serving
 (qwen3, RWKV-6, Jamba and DeepSeek-V3 smoke configs; qwen3 also through
-the lockstep slab engine) on the card against the CPU.  Marked ``gpu``; each test skips by itself
+the lockstep slab engine) on the card against the CPU; the training
+step, and its data-parallel ``Trainer`` over a world of one NCCL rank;
+the Table-1 nets on the card against the CPU.  Marked ``gpu``; each test skips by itself
 where no card is present.  Imports no jax (the card's machine has
 none).
 
@@ -810,3 +812,106 @@ def test_train_step_launch_counts(cuda, remat, micro):
     assert counts["flash_attention"] == micro * cfg.num_layers * (
         2 if remat else 1)
     assert sum(counts.values()) == counts["flash_attention"]
+
+
+# --------------------------------------------------------------------------
+# the paper's data parallelism on the card
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A world of one NCCL rank (the card's machine has one card) and its
+    ("data",) mesh; the group is torn down after the test."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_dp_mesh
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        yield make_dp_mesh(1)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("strategy", ["flat", "bucketed"])
+def test_trainer_over_one_nccl_rank_equals_train_step(cuda, nccl_mesh,
+                                                      strategy):
+    """A 2-layer full-width qwen3-1.7b in bf16 on fp32 masters, 3 AdamW
+    steps in 2 microbatches with remat: averaging over one rank is
+    exact, so the Trainer's losses and masters equal ``make_train_step``'s
+    bit for bit."""
+    from repro_torch.api import Trainer
+    from repro_torch.configs import get_config
+    from repro_torch.core import DPConfig
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step, trainable)
+    cfg = get_config("qwen3-1.7b").with_overrides(num_layers=2)
+    tc = TrainConfig(optimizer="adamw", lr=3e-4, microbatches=2, remat=True)
+    rng = np.random.default_rng(2)
+    batches = [{"tokens": rng.integers(0, cfg.vocab_size, (2, 512))
+                .astype(np.int32)} for _ in range(3)]
+    state = init_train_state(cfg, tc, seed=0, device=cuda)
+    step, _ = make_train_step(cfg, tc)
+    want = []
+    for b in batches:
+        state, m = step(state, b)
+        want.append(float(m["loss"]))
+    trainer = Trainer.create(cfg, optimizer="adamw", lr=3e-4,
+                             dp=DPConfig(strategy=strategy, microbatches=2),
+                             mesh=nccl_mesh, train_cfg=TrainConfig(remat=True),
+                             seed=0, device=cuda)
+    reset_launch_counts()
+    got = [float(trainer.step(b)["loss"]) for b in batches]
+    assert got == want
+    assert launch_counts()["flash_attention"] == 3 * 2 * cfg.num_layers * 2
+    assert len(trainer.sync_ms()) == 3
+    ref = trainable(state.params)
+    for k, p in trainable(trainer.state.params).items():
+        assert torch.equal(p, ref[k]), k
+
+
+@pytest.mark.parametrize("name", ["adult-dnn", "acoustic-dnn", "mnist-dnn",
+                                  "mnist-cnn", "cifar10-dnn", "cifar10-cnn",
+                                  "higgs-dnn"])
+def test_paper_nets_on_card_match_cpu(cuda, name, monkeypatch):
+    """A Table-1 net in fp32 with TF32 off (cuDNN's default is on): on
+    equal weights the card's logits equal the CPU's within 1e-5; over 5
+    SGD(0.1) steps a DNN's masters stay within 1e-5 after each step, a
+    CNN's within 1e-4.  A CNN's gradient is not continuous in the
+    rounding: ReLU's mask and max-pool's argmax can fall apart where a
+    conv output sits at a near-tie that the card's and the CPU's fp32
+    summation orders decide differently, and each such flip moves a
+    whole gradient entry (mnist-cnn read 1.08e-5 after its first step on
+    an H100)."""
+    from repro_torch import optim
+    from repro_torch.api import Trainer
+    from repro_torch.configs import PAPER_NETS
+    from repro_torch.data import make_dataset
+    from repro_torch.models import apply_paper_net, init_paper_net
+    from repro_torch.train import cross_entropy
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    net = PAPER_NETS[name]
+    ds = make_dataset(net.dataset, n=128, as_images=net.kind == "cnn")
+    batch = {"x": ds.x, "y": ds.y}
+    got, logits = {}, {}
+    for dev in ("cpu", cuda):
+        model = init_paper_net(net, seed=0, device="cpu").to(dev)
+        with torch.no_grad():
+            logits[str(dev)] = apply_paper_net(
+                net, model, torch.from_numpy(ds.x).to(dev)).cpu().numpy()
+        t = Trainer.create(
+            loss_fn=lambda m, b: cross_entropy(
+                apply_paper_net(net, m, b["x"]), b["y"]),
+            params=model, optimizer=optim.sgd(0.1), device=dev)
+        got[str(dev)] = []
+        for _ in range(5):
+            t.step(batch)
+            got[str(dev)].append(t.params)
+    assert np.abs(logits["cpu"] - logits[str(cuda)]).max() <= 1e-5
+    gaps = [max(np.abs(a[k] - b[k]).max() for k in a)
+            for a, b in zip(got["cpu"], got[str(cuda)])]
+    assert max(gaps) <= (1e-5 if net.kind == "dnn" else 1e-4), gaps

@@ -25,7 +25,9 @@ def test_port_files_exist():
             "moe.py", "rwkv6_1p6b.py", "jamba_v0p1_52b.py",
             "deepseek_v3_671b.py", "scheduler.py", "flash_attention.py",
             "engine.py", "chip_smoke.py", "loss.py", "step.py", "train.py",
-            "profile_train.py"} <= names
+            "profile_train.py", "paper_nets.py", "pipeline.py",
+            "collectives.py", "strategy.py", "data_parallel.py", "api.py",
+            "mesh.py", "mnist_dnn_dp.py"} <= names
     assert {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob(
         "*.cu")} >= {"paged_decode.cu", "paged_decode_mla.cu", "wkv6.cu",
                      "mamba_scan.cu", "flash_attention.cu"}
