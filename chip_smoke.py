@@ -64,7 +64,17 @@ Phases (each fails the run if it goes wrong):
  16. full-width qwen3-1.7b through ``Trainer(model_cfg=...)`` over a
      world of one NCCL rank, dp=flat then dp=bucketed, 3 steps on phase
      13's batch: the losses equal phase 13's first 3 bit for bit, with
-     exactly 3 x 2 x 28 x 2 = 336 flash_attention launches a run.
+     exactly 3 x 2 x 28 x 2 = 336 flash_attention launches a run;
+ 17. checkpoints: phase 16's bucketed trainer (full-width, full-depth
+     qwen3-1.7b after 3 steps) saves asynchronously with its data cursor
+     (20.6 GB of fp32 masters, m and v) and takes step 4 while the
+     writer publishes; a fresh trainer restores the checkpoint to
+     masters, m and v equal to a host copy taken at the save, bit for
+     bit; it serves phase 3's traffic, and so does
+     ``make_engine_from_checkpoint``, with bitwise-equal greedy tokens
+     and exactly 28 x 282 = 7896 paged_flash_decode launches each; then
+     its step gives step 4's loss bit for bit (112 flash_attention
+     launches).  The checkpoint is deleted at the phase's end.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and the result line.  Without a card, or outside the repository,
 it exits non-zero and prints no result.
@@ -109,6 +119,8 @@ SLOTS, REQUESTS, NEW_TOKENS = 8, 16, 64
 PROMPT_MIN, PROMPT_MAX = 64, 512
 PAGE_SIZE, DECODE_CHUNK, PREFILL_CHUNK = 16, 8, 32
 MAX_LEN = -(-(PROMPT_MAX + NEW_TOKENS + DECODE_CHUNK) // PAGE_SIZE) * PAGE_SIZE
+SERVE_KW = dict(batch_size=SLOTS, max_len=MAX_LEN, page_size=PAGE_SIZE,
+                decode_chunk=DECODE_CHUNK, prefill_chunk=PREFILL_CHUNK)
 # the lockstep slab run of phase 11: 8 requests of 512 prompt tokens
 LEGACY_BATCH, LEGACY_PROMPT, LEGACY_MAX_LEN = 8, 512, 592
 # the training run of phases 13-14: qwen3-1.7b on 2 x 4096 tokens (the
@@ -137,6 +149,8 @@ PAPER_STEPS, PAPER_BATCH, PAPER_SAMPLES, PAPER_TOL = 5, 256, 4096, 1e-5
 CNN_LATER_TOL = 1e-4
 # phase 16: full-width qwen3-1.7b through the Trainer, phase 13's batch
 DP_STEPS = 3
+# phase 17: where the checkpoint goes (gitignored; deleted at the end)
+CKPT_DIR = os.path.join(ROOT, "build", "ckpt_phase17")
 # the reference's FLASH_CASES (tests/test_kernels.py)
 FLASH_CASES = [
     # B, S, T, h, hk, hd, causal, window
@@ -1309,8 +1323,8 @@ def train_qwen(dev):
     from repro_torch.data import make_batch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import init_model
-    from repro_torch.train import (TrainConfig, TrainState, init_train_state,
-                                   make_train_step, trainable)
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step, start_state, trainable)
 
     cfg = get_config("qwen3-1.7b")
     tc = TrainConfig(optimizer="adamw", lr=TRAIN_LR, microbatches=TRAIN_MICRO,
@@ -1379,7 +1393,7 @@ def train_qwen(dev):
         model = init_model(small, seed=1, device="cpu", train=True).to(
             dev if where == "cuda" else "cpu")
         step, opt = make_train_step(small, tc)
-        state = TrainState(model, opt.init(trainable(model)), 0)
+        state = start_state(model, opt)
         reset_launch_counts()
         t0 = time.perf_counter()
         losses = []
@@ -1550,10 +1564,11 @@ def paper_dp(dev):
     return out
 
 
-def dp_qwen(dev, phase13_losses):
+def dp_qwen(dev, phase13_losses, prompts, serve_launches):
     """Phase 16: full-width qwen3-1.7b through ``Trainer(model_cfg=...)``
     over a world of one NCCL rank, dp=flat then dp=bucketed, on phase
-    13's batch.  Returns the flash launches and numbers of each run."""
+    13's batch; then phase 17 on the bucketed trainer.  Returns the
+    flash launches and numbers of each run, and phase 17's numbers."""
     import socket
     import torch.distributed as dist
     from repro_torch.api import Trainer
@@ -1574,13 +1589,17 @@ def dp_qwen(dev, phase13_losses):
     mesh = make_dp_mesh(1)
     want = (DP_STEPS * TRAIN_MICRO * cfg.num_layers * 2)
     out = {}
-    for strategy in ("flat", "bucketed"):
-        torch.cuda.empty_cache()
-        trainer = Trainer.create(
+
+    def create(strategy):
+        return Trainer.create(
             cfg, optimizer="adamw", lr=TRAIN_LR,
             dp=DPConfig(strategy=strategy, microbatches=TRAIN_MICRO),
             mesh=mesh, train_cfg=TrainConfig(remat=True), seed=0,
             device=dev)
+
+    for strategy in ("flat", "bucketed"):
+        torch.cuda.empty_cache()
+        trainer = create(strategy)
         desc = trainer.describe()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1616,9 +1635,165 @@ def dp_qwen(dev, phase13_losses):
               f"{', '.join(f'{m:.2f}' for m in sync)} ms (CUDA events); "
               f"{desc['allreduce_bytes_per_sync'] / 2**30:.3f} GiB handed to "
               f"the collectives a step; peak memory {peak:.2f} GiB")
-        del trainer
+        if strategy == "flat":
+            del trainer
+    ckpt_out = checkpoint_qwen(dev, trainer, lambda: create("bucketed"),
+                               cfg, batch, prompts, serve_launches)
     dist.destroy_process_group()
     torch.cuda.empty_cache()
+    return out, ckpt_out
+
+
+def machine_room(path):
+    """(free disk GB under ``path``, available host memory GB), printing
+    ``df -h`` and ``free -g`` of the card's machine."""
+    import shutil
+    for cmd in (["df", "-h", path], ["free", "-g"]):
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        for line in res.stdout.strip().splitlines():
+            print(f"    {line}")
+    with open("/proc/meminfo") as f:
+        avail = next(int(ln.split()[1]) for ln in f
+                     if ln.startswith("MemAvailable")) * 1024
+    return shutil.disk_usage(path).free / 1e9, avail / 1e9
+
+
+def checkpoint_qwen(dev, trainer, create, cfg, batch, prompts,
+                    serve_launches):
+    """Phase 17 on phase 16's bucketed trainer after its 3 steps: save
+    asynchronously, step while the writer publishes, restore into a
+    fresh trainer, hold the restored state to a host copy taken at the
+    save, serve from the trainer and from the checkpoint, then step.
+    Returns the phase's numbers."""
+    import gc
+    import shutil
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import data_cursor
+    from repro_torch.serve import make_engine_from_checkpoint
+    from repro_torch.train import trainable
+
+    def state_of(t):
+        masters = trainable(t.state.params)
+        return {"params": masters, "m": t.state.opt_state["m"],
+                "v": t.state.opt_state["v"]}
+
+    at = trainer.state.step
+    n_bytes = 3 * 4 * sum(p.numel()
+                          for p in trainable(trainer.state.params).values())
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    os.makedirs(CKPT_DIR)
+    disk_gb, mem_gb = machine_room(CKPT_DIR)
+    # host memory holds the copy below beside the snapshot, then beside
+    # the eager restore's read
+    if disk_gb < 1.2 * n_bytes / 1e9 or mem_gb < 2.2 * n_bytes / 1e9:
+        fail(f"phase 17: {disk_gb:.1f} GB of disk and {mem_gb:.1f} GB of "
+             f"host memory free; the {n_bytes / 1e9:.1f} GB checkpoint "
+             "needs 1.2x and 2.2x that: cut the depth")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        saved = {kind: {k: t.detach().to("cpu", copy=True)
+                        for k, t in leaves.items()}
+                 for kind, leaves in state_of(trainer).items()}
+        t0 = time.perf_counter()
+        rec = trainer.save_async(CKPT_DIR, extra=data_cursor(0, at))
+        returned = time.perf_counter()
+        reset_launch_counts()
+        loss4 = float(trainer.step(batch)["loss"])
+        step4_wall = time.perf_counter() - returned
+        step4_flash = launch_counts().get("flash_attention", 0)
+        stats = trainer.finish_saves()
+        published = time.perf_counter() - t0
+        trainer.state = None     # free its masters, moments and gradients
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        fresh = create()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored_at = fresh.restore(CKPT_DIR)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if restored_at != at or fresh.state.step != at or \
+                fresh.state.opt_state["step"] != at:
+            fail(f"phase 17: restored step {restored_at} / "
+                 f"{fresh.state.step}, saved at {at}")
+        for kind, leaves in state_of(fresh).items():
+            for k, t in leaves.items():
+                if not torch.equal(t, saved[kind][k].to(t.device)):
+                    fail(f"phase 17: restored {kind} {k} differs from the "
+                         "host copy taken at the save")
+        del saved
+        gc.collect()
+
+        outs, launches, serve_s = {}, {}, {}
+        for src in ("trainer", "checkpoint"):
+            t0 = time.perf_counter()
+            eng = (fresh.serve(**SERVE_KW) if src == "trainer" else
+                   make_engine_from_checkpoint(CKPT_DIR, cfg, device=dev,
+                                               **SERVE_KW))
+            torch.cuda.synchronize()
+            serve_s[src] = time.perf_counter() - t0
+            reset_launch_counts()
+            outs[src] = eng.generate(prompts, NEW_TOKENS)
+            st = eng.stats()
+            launches[src] = launch_counts().get("paged_flash_decode", 0)
+            calls = st["prefill_dispatches"] + DECODE_CHUNK * st[
+                "decode_dispatches"]
+            if launches[src] != cfg.num_layers * calls or \
+                    launches[src] != serve_launches:
+                fail(f"phase 17 ({src}): paged_flash_decode launched "
+                     f"{launches[src]} times, expected {cfg.num_layers} x "
+                     f"{calls} model calls = phase 3's {serve_launches}")
+            del eng
+            torch.cuda.empty_cache()
+        if len(outs["trainer"]) != len(outs["checkpoint"]) or any(
+                not np.array_equal(a, b)
+                for a, b in zip(outs["trainer"], outs["checkpoint"])):
+            fail("phase 17: Trainer.serve() and "
+                 "make_engine_from_checkpoint gave different greedy tokens")
+        if len(outs["trainer"]) != len(prompts) or any(
+                len(o) != NEW_TOKENS or o.min() < 0
+                or o.max() >= cfg.vocab_size for o in outs["trainer"]):
+            fail("phase 17: served outputs have the wrong length or "
+                 "out-of-vocab tokens")
+
+        reset_launch_counts()
+        loss4_again = float(fresh.step(batch)["loss"])
+        flash = launch_counts().get("flash_attention", 0)
+        if loss4_again != loss4:
+            fail(f"phase 17: the step after the restore gave loss "
+                 f"{loss4_again!r}, the uninterrupted step 4 {loss4!r}")
+        want_flash = TRAIN_MICRO * cfg.num_layers * 2
+        if flash != want_flash or step4_flash != want_flash:
+            fail(f"phase 17: flash_attention launched {step4_flash} and "
+                 f"{flash} times a step, expected {want_flash}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del fresh
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"step": at, "bytes": rec["bytes"],
+           "bytes_published": stats["bytes_published"],
+           "save_async_blocking_s": rec["blocking_s"],
+           "write_s": stats["last_write_s"],
+           "write_gb_per_s": rec["bytes"] / 1e9 / stats["last_write_s"],
+           "save_to_publish_s": published, "step4_wall_s": step4_wall,
+           "restore_s": restore_s, "trainer_serve_build_s":
+               serve_s["trainer"], "serve_restore_s": serve_s["checkpoint"],
+           "loss4": loss4, "paged_flash_decode_launches": launches,
+           "flash_attention_launches_a_step": flash,
+           "peak_device_gib": peak, "requests": len(prompts)}
+    print(f"phase 17: {cfg.name} full width and depth, step {at} saved "
+          f"asynchronously ({rec['bytes'] / 1e9:.3f} GB of fp32 masters, m "
+          f"and v) while step 4 ran (loss {loss4!r}); restored masters, m "
+          f"and v == the host copy taken at the save, bit for bit; the "
+          f"step after the restore gave {loss4!r} bit for bit; "
+          f"Trainer.serve() == make_engine_from_checkpoint greedy tokens "
+          f"for {len(prompts)} requests x {NEW_TOKENS}, paged_flash_decode "
+          f"launches {launches['trainer']} and {launches['checkpoint']}")
+    print(f"phase 17: {json.dumps(out)}")
     return out
 
 
@@ -1788,7 +1963,7 @@ def main():
     flash_launches = serve_legacy(dev)
     train_launches, train_out = train_qwen(dev)
     paper_out = paper_dp(dev)
-    dp_out = dp_qwen(dev, train_out["losses"])
+    dp_out, ckpt_out = dp_qwen(dev, train_out["losses"], prompts, launches)
 
     decode_bf16, chunk_bf16 = (
         next(r for r in rows if r["case"] == case and r["dtype"] == "bfloat16")
@@ -1799,6 +1974,7 @@ def main():
         "source": "src/repro_torch/csrc/paged_decode.cu",
         "replaces": "src/repro/kernels/paged_decode.py:141",
         "launches": launches, "launches_jamba": jamba_paged_launches,
+        "launches_from_checkpoint": ckpt_out["paged_flash_decode_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows + jamba_rows
                            if r["dtype"] == "bfloat16"),
         "ms": decode_bf16["ms"], "plain_ms": decode_bf16["plain_ms"],
@@ -1879,7 +2055,7 @@ def main():
             "sdpa_backend")},
         "launches_train": train_launches,
         "launches_dp_train": {k: v["launches"] for k, v in dp_out.items()},
-        "dp_train": dp_out, "paper_dp": paper_out,
+        "dp_train": dp_out, "paper_dp": paper_out, "checkpoint": ckpt_out,
         "train": {**{key: train_bf16[key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "sdpa_backend", "bwd_plain_ms", "library_fwd_bwd_ms",

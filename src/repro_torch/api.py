@@ -8,6 +8,11 @@ an API (port of ``repro.api`` on ``torch.distributed``).
                              mesh=mesh)       # on every rank
     for batch in batches:
         metrics = trainer.step(batch)
+    trainer.save(ckpt_dir)            # the reference's format, atomic
+    ...
+    trainer = Trainer.create(...same...)
+    trainer.restore(ckpt_dir)         # any replicated world size
+    engine = trainer.serve()          # cast once from the fp32 masters
     print(trainer.describe())
 
 ``create`` takes either a ``model_cfg`` (a ``repro_torch.configs``
@@ -19,21 +24,29 @@ same object, so A/B-ing distributed against sequential is one
 argument.  With a mesh (a ``DeviceMesh`` of dims ``("data",)`` or
 ``("pod", "data")`` spanning every rank), every rank runs ``create``
 and ``step``; ``create`` broadcasts rank 0's initial masters, so every
-replica starts equal.  Checkpoints (``save``, ``restore``) and
-``serve`` wait for ROADMAP A.3.
+replica starts equal.  Checkpoints (``repro_torch.checkpoint``) are
+the reference's: a checkpoint either package writes restores in the
+other.  On a mesh, rank 0 writes and every rank restores.
 """
 from __future__ import annotations
 
 import dataclasses
+import pathlib
 from typing import Any, Callable, Optional
 
+import torch.distributed as dist
+
 from repro_torch import optim as optim_lib
+from repro_torch.checkpoint import (restore_train_state,
+                                    save_sharded_checkpoint)
+from repro_torch.checkpoint.store import is_writer
 from repro_torch.core.collectives import (broadcast_from_rank0,
                                           dp_world_size, wire_bytes)
 from repro_torch.core.data_parallel import (DPConfig, SyncTimer,
                                             make_dp_train_step,
                                             make_sequential_step)
 from repro_torch.core.strategy import get_strategy
+from repro_torch.core.train_state import replicated_layout
 from repro_torch.device import resolve_device
 from repro_torch.train.step import TrainState, trainable
 
@@ -56,6 +69,7 @@ class Trainer:
     model_cfg: Any = None           # set when created from a ModelConfig
     timer: Optional[SyncTimer] = None
     _step_fn: Callable = dataclasses.field(repr=False, default=None)
+    _async_ckpt: Any = dataclasses.field(repr=False, default=None)
 
     # ---- construction ----------------------------------------------------
     @classmethod
@@ -105,13 +119,16 @@ class Trainer:
         timer = None
         if mesh is None:
             step_fn = make_sequential_step(loss_fn, optimizer)
+            layout = replicated_layout(masters)
         else:
             timer = SyncTimer()
             step_fn = make_dp_train_step(loss_fn, optimizer, mesh, dp,
                                          timer=timer)
             broadcast_from_rank0([p.detach() for p in masters.values()],
                                  mesh)
-        state = TrainState(params, optimizer.init(masters), 0)
+            layout = replicated_layout(masters, mesh,
+                                       get_strategy(dp.strategy).name)
+        state = TrainState(params, optimizer.init(masters), 0, layout)
         return cls(state=state, optimizer=optimizer, loss_fn=loss_fn,
                    dp=dp, mesh=mesh, model_cfg=model_cfg, timer=timer,
                    _step_fn=step_fn)
@@ -135,18 +152,94 @@ class Trainer:
         return {k: p.detach().to("cpu", copy=True).numpy()
                 for k, p in trainable(self.state.params).items()}
 
-    # ---- checkpointing and serving: ROADMAP A.3 --------------------------
-    def save(self, *args, **kw):
-        raise NotImplementedError("Trainer.save: checkpoints wait for "
-                                  "ROADMAP A.3")
+    # ---- checkpointing ---------------------------------------------------
+    def save(self, ckpt_dir, *, keep_last: Optional[int] = None,
+             extra: Optional[dict] = None) -> str:
+        """Write the checkpoint synchronously (the reference's sharded
+        format; on a mesh rank 0 writes, and every rank returns after
+        the publish); returns the published step path.  ``keep_last``
+        prunes older published steps; ``extra`` rides in ``meta.json``
+        (e.g. the data cursor)."""
+        return save_sharded_checkpoint(ckpt_dir, self.state.step,
+                                       self.state, keep_last=keep_last,
+                                       extra=extra)
 
-    def restore(self, *args, **kw):
-        raise NotImplementedError("Trainer.restore: checkpoints wait for "
-                                  "ROADMAP A.3")
+    def save_async(self, ckpt_dir, *, keep_last: Optional[int] = None,
+                   extra: Optional[dict] = None) -> Optional[dict]:
+        """Asynchronous save: block only for the device->host copy,
+        publish in the background (``repro_torch.elastic.
+        AsyncCheckpointer``, created on first use and cached on this
+        trainer -- a different ``ckpt_dir`` rebuilds it).  Returns the
+        save receipt ``{"step", "blocking_s", "bytes"}``; on a mesh, only
+        rank 0 saves, and the other ranks get None.  Call
+        :meth:`finish_saves` before a planned shutdown so the final step
+        is durable."""
+        if not is_writer(self.state):
+            return None
+        from repro_torch.elastic import AsyncCheckpointer
+        ck = self._async_ckpt
+        if ck is None or ck.ckpt_dir != pathlib.Path(ckpt_dir):
+            if ck is not None:
+                ck.close()
+            ck = AsyncCheckpointer(ckpt_dir, keep_last=keep_last)
+            self._async_ckpt = ck
+        return ck.save(self.state, extra=extra)
 
-    def serve(self, *args, **kw):
-        raise NotImplementedError("Trainer.serve: serving a trainer's "
-                                  "params waits for ROADMAP A.3")
+    def finish_saves(self, timeout: Optional[float] = None):
+        """Drain the async checkpointer (publish barrier; on a mesh every
+        rank leaves after rank 0's publish); returns its telemetry
+        ``stats()`` dict, or None where :meth:`save_async` saved nothing.
+        Re-raises any background writer error."""
+        try:
+            if self._async_ckpt is None:
+                return None
+            self._async_ckpt.wait(timeout)
+            return self._async_ckpt.stats()
+        finally:
+            if self.mesh is not None:
+                dist.barrier()
+
+    def restore(self, ckpt_dir, step: Optional[int] = None) -> int:
+        """Restore into this trainer's state (the masters and moments in
+        place), picking the store by what is ON DISK
+        (``restore_train_state``): a ``.shards`` directory -- of any
+        replicated world size and strategy -- or a legacy ``.npz``.
+        Returns the restored step."""
+        self.state, at = restore_train_state(ckpt_dir, self.state, step)
+        return at
+
+    def restore_elastic(self, ckpt_dir, step: Optional[int] = None):
+        """Elastic resume: restore the newest *published* step that is
+        actually readable, falling back past torn/corrupt steps
+        (``repro_torch.elastic.resume_elastic``) -- this trainer may run
+        another world size or strategy than the one that saved.  Returns
+        ``(step, skipped)`` where ``skipped`` lists ``(step, reason)``
+        for abandoned steps."""
+        from repro_torch.elastic import resume_elastic
+        self.state, at, skipped = resume_elastic(ckpt_dir, self.state,
+                                                 step=step)
+        return at, skipped
+
+    # ---- serving ---------------------------------------------------------
+    def serve(self, *, engine: str = "continuous", **engine_kw):
+        """Serve THIS trainer's current parameters -- the in-memory half
+        of the train-and-serve loop (``serve.make_engine_from_checkpoint``
+        is the on-disk half).  The serving model is cast once from the
+        fp32 masters (``bridge.serving_model``, copies on the masters'
+        device), so its tokens equal those of a model cast from the same
+        masters' checkpoint; ``engine`` and ``engine_kw`` go to
+        ``serve.make_engine``.  Requires the trainer to have been
+        created from a ``model_cfg``."""
+        if self.model_cfg is None:
+            raise ValueError(
+                "Trainer.serve needs a model architecture; create the "
+                "trainer with Trainer.create(model_cfg=...) (a custom "
+                "loss_fn has no serving forward pass)")
+        from repro_torch.bridge import serving_model
+        from repro_torch.serve import make_engine
+        model = serving_model(self.state.params)
+        return make_engine(self.model_cfg, model, engine=engine,
+                           device=model.embed.device, **engine_kw)
 
     # ---- introspection ---------------------------------------------------
     def describe(self) -> dict:

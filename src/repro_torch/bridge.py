@@ -17,6 +17,14 @@ in a bf16 model, so they round-trip exactly.
 ``paper_net_from_jax`` / ``paper_net_to_numpy`` do the same for the
 paper's Table-1 networks, whose trees are plain lists of ``{"w", "b"}``.
 
+``named_to_numpy`` / ``named_sources`` + ``copy_sources`` map a dict of
+the port's named tensors -- a training model's fp32 masters, or an
+optimizer moment keyed alike -- to and from the reference's pytree
+paths (the checkpoint store's keys, e.g. ``decoder/blocks/layer0/
+mixer/wq`` stacked on ``n_rep``, or ``layers/0/w`` for a Table-1 net).
+``serving_model`` casts a training model's masters into a serving
+``Model``.
+
 The caller turns the reference's arrays into numpy first; this module
 imports neither ``jax`` nor the reference package.
 """
@@ -73,13 +81,30 @@ def params_from_jax(tree, cfg, *, device="cuda", train=False) -> Model:
         raise ValueError(f"params_from_jax: the port does not serve the "
                          f"reference's {unknown}")
     dev = resolve_device(device)
+    # a generator: Model draws one layer's tensors at a time
     port = {"embed": _map(_tensor, tree["embed"]),
-            "layers": [_map(_tensor, t)
-                       for t in layer_trees(cfg, tree["decoder"])],
+            "layers": (_map(_tensor, t)
+                       for t in layer_trees(cfg, tree["decoder"])),
             "final_norm": _map(_tensor, tree["final_norm"])}
     if "unembed" in tree:
         port["unembed"] = _map(_tensor, tree["unembed"])
     return Model(cfg, port, device=dev, train=train)
+
+
+def _layer_tree(layer, leaf) -> dict:
+    """A ``Layer``'s weights in the reference's per-layer layout (mixer
+    norms nested as {"scale"}), each through ``leaf``."""
+    def ffn_tree(node):
+        return {k: leaf(v) if isinstance(v, torch.Tensor) else ffn_tree(v)
+                for k, v in node.items()}
+
+    mixer = {k: ({"scale": leaf(v)} if k in NESTED_SCALES else leaf(v))
+             for k, v in layer.mixer.items()}
+    tree = {"norm1": {"scale": leaf(layer.norm1)}, "mixer": mixer,
+            "norm2": {"scale": leaf(layer.norm2)}}
+    if layer.ffn is not None:
+        tree["ffn"] = ffn_tree(layer.ffn)
+    return tree
 
 
 def params_to_numpy(model: Model, cfg) -> dict:
@@ -90,21 +115,7 @@ def params_to_numpy(model: Model, cfg) -> dict:
     prefix, pattern, n_rep = cfg.block_structure()
     np_ = lambda t: t.detach().float().cpu().numpy() \
         if t.dtype == torch.bfloat16 else t.detach().cpu().numpy()
-
-    def layer_tree(layer):
-        mixer = {k: ({"scale": np_(v)} if k in NESTED_SCALES else np_(v))
-                 for k, v in layer.mixer.items()}
-        tree = {"norm1": {"scale": np_(layer.norm1)}, "mixer": mixer,
-                "norm2": {"scale": np_(layer.norm2)}}
-        if layer.ffn is not None:
-            tree["ffn"] = ffn_tree(layer.ffn)
-        return tree
-
-    def ffn_tree(node):
-        return {k: np_(v) if isinstance(v, torch.Tensor) else ffn_tree(v)
-                for k, v in node.items()}
-
-    trees = [layer_tree(layer) for layer in model.layers]
+    trees = [_layer_tree(layer, np_) for layer in model.layers]
     n_pre, P = len(prefix), len(pattern)
     blocks = {}
     for j in range(P):
@@ -149,3 +160,115 @@ def _stack(trees):
     if isinstance(first, dict):
         return {k: _stack([t[k] for t in trees]) for k in first}
     return np.stack(trees)
+
+
+# --------------------------------------------------------------------------
+# {port name: tensor} <-> {reference path: array} (checkpoint keys)
+# --------------------------------------------------------------------------
+
+_TOP_KEYS = {"embed": "embed/table", "unembed_f32": "unembed/table",
+             "final_norm": "final_norm/scale"}
+
+
+def reference_key(model, name) -> tuple:
+    """(reference path, n_rep index or None) of the port's trainable
+    parameter ``name`` of ``model``.  A decoder ``Model``: the embedding
+    (a tied table is the one master ``embed``), the final norm, and
+    ``layers.{i}.*`` -- an unrolled prefix layer, or repetition ``rep``
+    of super-block layer ``j``, whose leaf is stacked on ``n_rep``.  Any
+    other module (a Table-1 ``PaperNet``: ``layers.0.w`` ->
+    ``layers/0/w``): its dotted name with slashes, unstacked."""
+    if not isinstance(model, Model):
+        return name.replace(".", "/"), None
+    if name in _TOP_KEYS:
+        return _TOP_KEYS[name], None
+    layers, i, *rest = name.split(".")
+    if layers != "layers":
+        raise ValueError(f"no reference path for the port's {name!r}")
+    if rest[0] in ("norm1", "norm2") or (rest[0] == "mixer"
+                                         and rest[1] in NESTED_SCALES):
+        rest.append("scale")
+    prefix, pattern, _ = model.cfg.block_structure()
+    i = int(i)
+    if i < len(prefix):
+        return "/".join(["decoder", "prefix", f"layer{i}", *rest]), None
+    rep, j = divmod(i - len(prefix), len(pattern))
+    return "/".join(["decoder", "blocks", f"layer{j}", *rest]), rep
+
+
+def reference_groups(model, names) -> dict:
+    """{reference path: (port names, stacked)}: one name for an
+    unstacked leaf, the ``n_rep`` names in repetition order for a leaf
+    stacked on ``n_rep``."""
+    groups = {}
+    for name in names:
+        path, rep = reference_key(model, name)
+        members, _ = groups.setdefault(path, ([], rep is not None))
+        members.append((rep or 0, name))
+    return {path: ([n for _, n in sorted(members)], stacked)
+            for path, (members, stacked) in groups.items()}
+
+
+def host_copy(ts, stacked=False) -> np.ndarray:
+    """A fresh host array of the tensor ``ts[0]`` -- or, ``stacked``, of
+    the equal-shaped tensors ``ts`` stacked on a new leading axis --
+    copied straight from the device into it; bf16 as fp32.  Always a
+    copy, on the CPU too: a master's ``numpy()`` would alias it, and
+    the next in-place step would change the copy."""
+    dt = torch.float32 if ts[0].dtype == torch.bfloat16 else ts[0].dtype
+    host = torch.empty(((len(ts),) if stacked else ())
+                       + tuple(ts[0].shape), dtype=dt)
+    for dst, t in zip(host if stacked else [host], ts):
+        dst.copy_(t.detach())
+    return host.numpy()
+
+
+def named_to_numpy(model, named) -> dict:
+    """Host copies (``host_copy``) of ``named`` ({port name: tensor} --
+    ``model``'s masters, or an optimizer moment keyed alike) as
+    {reference path: numpy array}, stacked on ``n_rep`` where the
+    reference stacks."""
+    return {path: host_copy([named[n] for n in names], stacked)
+            for path, (names, stacked)
+            in reference_groups(model, named).items()}
+
+
+def named_sources(model, named, get) -> list:
+    """[(tensors, array)]: ``get(reference path)`` for every group of
+    ``named`` (as in ``named_to_numpy``), each checked against its
+    tensors' shape (with ``n_rep`` in front where stacked) and given a
+    leading axis of one where unstacked.  Writes nothing, so a missing
+    key or a wrong shape raises before any tensor changes."""
+    out = []
+    for path, (names, stacked) in reference_groups(model, named).items():
+        ts = [named[n] for n in names]
+        want = ((len(ts),) if stacked else ()) + tuple(ts[0].shape)
+        a = np.asarray(get(path))
+        if a.shape != want:
+            raise ValueError(f"{path}: checkpoint shape {a.shape} != "
+                             f"{want}")
+        out.append((ts, a if stacked else a[None]))
+    return out
+
+
+@torch.no_grad()
+def copy_sources(sources):
+    """Copy each array of ``named_sources`` into its tensors in place,
+    unstacking ``n_rep``."""
+    for ts, a in sources:
+        for t, s in zip(ts, torch.from_numpy(a)):
+            t.copy_(s)
+
+
+def serving_model(model: Model) -> Model:
+    """A serving ``Model`` on ``model``'s device, each weight cast once
+    from the training model's fp32 masters to the dtype it keeps -- the
+    same weights ``params_from_jax`` builds from those masters' values.
+    The weights are copies: later steps do not reach them."""
+    clone = lambda t: t.detach().clone()                     # noqa: E731
+    tree = {"embed": {"table": clone(model.embed)},
+            "layers": (_layer_tree(layer, clone) for layer in model.layers),
+            "final_norm": {"scale": clone(model.final_norm)}}
+    if not model.cfg.tie_embeddings:
+        tree["unembed"] = {"table": clone(model.unembed_f32)}
+    return Model(model.cfg, tree, device=model.embed.device)

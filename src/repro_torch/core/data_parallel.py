@@ -154,7 +154,7 @@ def make_dp_train_step(loss_fn: Callable, optimizer, mesh,
                 strategy.weight_sync([p.detach() for p in params.values()],
                                      mesh, dp)
         allreduce_flat([loss], mesh)
-        return (TrainState(model, state.opt_state, state.step + 1),
+        return (state._replace(step=state.step + 1),
                 {"loss": loss, "grad_norm_local": gnorm_local,
                  "grad_norm": gnorm})
 
@@ -178,7 +178,7 @@ def make_sequential_step(loss_fn: Callable, optimizer):
         loss, _ = accumulate_grads(pair_loss, model, params, batch, 1)
         optimizer.update({k: p.grad for k, p in params.items()},
                          state.opt_state, params)
-        return (TrainState(model, state.opt_state, state.step + 1),
+        return (state._replace(step=state.step + 1),
                 {"loss": loss})
 
     return step

@@ -22,10 +22,13 @@ scattered from rank 0, the weights of ``init_paper_net`` (seed 0) --
 broadcast from rank 0 by the ``Trainer`` -- and momentum 0.2 / 0.9.
 Rank 0 prints ``describe()``, each epoch's loss and the accuracy on the
 first 1024 samples.  ``--dump DIR`` makes every rank write its params
-after each step (``DIR/step{s}_rank{r}.npz``).  The default device is
-the card; without one it raises unless --device cpu is given.
-Checkpoints (the reference's --ckpt and restart demo) wait for ROADMAP
-A.3.
+after each step (``DIR/step{s}_rank{r}.npz``).  ``--ckpt DIR`` saves
+after each epoch (rank 0 writes, in the reference's format) and ends
+with the reference's restart demo -- the paper's ULFM story, reload and
+continue: a fresh trainer restores the last step and rank 0 prints
+``restart: restored step N OK (max|Δ|=...)`` against the live masters.
+The default device is the card; without one it raises unless --device
+cpu is given.
 """
 from __future__ import annotations
 
@@ -46,7 +49,7 @@ from repro_torch.data import ShardedLoader, make_dataset
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import BACKENDS, init_from_env
 from repro_torch.models import apply_paper_net, init_paper_net
-from repro_torch.train import cross_entropy
+from repro_torch.train import cross_entropy, trainable
 
 
 def loss_fn(model, batch):
@@ -76,6 +79,9 @@ def main(argv=None):
     ap.add_argument("--dump", default="",
                     help="directory: each rank writes its params there "
                          "after each step")
+    ap.add_argument("--ckpt", default="",
+                    help="checkpoint directory: save after each epoch, "
+                         "then restore into a fresh trainer")
     args = ap.parse_args(argv)
 
     if args.sequential:
@@ -96,10 +102,14 @@ def main(argv=None):
                            device=dev)
     dp = DPConfig(sync=args.sync, sync_period=args.sync_period,
                   strategy=args.strategy)
-    trainer = Trainer.create(loss_fn=loss_fn,
-                             params=init_paper_net(net, seed=0, device=dev),
-                             optimizer=optim.momentum(0.2, 0.9), dp=dp,
-                             mesh=mesh, device=dev)
+
+    def create():
+        return Trainer.create(loss_fn=loss_fn,
+                              params=init_paper_net(net, seed=0, device=dev),
+                              optimizer=optim.momentum(0.2, 0.9), dp=dp,
+                              mesh=mesh, device=dev)
+
+    trainer = create()
     say("trainer:", json.dumps(trainer.describe(), sort_keys=True))
 
     steps = 0
@@ -125,8 +135,19 @@ def main(argv=None):
             f"({time.perf_counter() - t0:.1f}s"
             + (f", sync {np.median(sync):.3f} ms median" if sync else "")
             + ")", flush=True)
+        if args.ckpt:
+            trainer.save(args.ckpt)
         if steps == args.steps:
             break
+    if args.ckpt:
+        # restart demo (the paper's ULFM story: reload + continue) -- a
+        # fresh trainer restores every master and moment
+        fresh = create()
+        at = fresh.restore(args.ckpt)
+        live = trainable(trainer.state.params)
+        err = max(float((p.detach() - live[k].detach()).abs().max())
+                  for k, p in trainable(fresh.state.params).items())
+        say(f"restart: restored step {at} OK (max|Δ|={err:.1e})")
     if mesh is not None:
         dist.destroy_process_group()
 

@@ -23,6 +23,10 @@ slab engine, ``--engine legacy``) on the card.
         --reduced --device cpu --engine legacy --batch 2 --prompt-len 40 \\
         --new-tokens 12
 
+    # serve what launch/train.py checkpointed (the reduced config, CPU)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
+        --reduced --device cpu --restore /tmp/ck
+
     # DeepSeek-V3 (MLA, sigmoid-router MoE of 256 experts), full width,
     # cut to its first 4 layers, on the card
     PYTHONPATH=src python -m repro_torch.launch.serve \\
@@ -31,9 +35,11 @@ slab engine, ``--engine legacy``) on the card.
 Without --reduced the full-width config serves in bf16 (Jamba cut to
 one 8-layer super-block, DeepSeek-V3 to its 3 dense layers and first
 MoE layer: ``configs.one_card_config``); with it, the smoke config in
-fp32.  Prompts come from ``synthetic_tokens`` seeded by
---seed.  The default device is the card; a machine without one raises
-unless --device cpu is given.
+fp32.  The weights are drawn from --seed, or with --restore read from
+a checkpoint either package's training wrote (the sharded store or the
+legacy npz; --step, default the latest).  Prompts come from
+``synthetic_tokens`` seeded by --seed.  The default device is the card;
+a machine without one raises unless --device cpu is given.
 """
 from __future__ import annotations
 
@@ -47,7 +53,8 @@ from repro_torch.configs import ARCHITECTURES, one_card_config, smoke_config
 from repro_torch.data import synthetic_tokens
 from repro_torch.device import resolve_device
 from repro_torch.models import init_model
-from repro_torch.serve import SamplingConfig, make_engine
+from repro_torch.serve import (SamplingConfig, make_engine,
+                               make_engine_from_checkpoint)
 
 
 def main(argv=None):
@@ -75,6 +82,12 @@ def main(argv=None):
     ap.add_argument("--eos-id", type=int, default=None)
     ap.add_argument("--report", action="store_true",
                     help="print per-phase dispatch and host-sync counters")
+    ap.add_argument("--restore", default="",
+                    help="serve the params of this checkpoint dir "
+                         "(written by launch/train.py of either package) "
+                         "instead of random weights")
+    ap.add_argument("--step", type=int, default=None,
+                    help="checkpoint step (default: latest)")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     if not args.requests:
@@ -99,10 +112,17 @@ def main(argv=None):
     engine_kw = {}
     if args.engine == "continuous":
         engine_kw = dict(page_size=args.page_size, decode_chunk=decode_chunk)
-    model = init_model(cfg, seed=args.seed, device=device)
-    eng = make_engine(cfg, model, engine=args.engine, batch_size=args.batch,
-                      max_len=max_len, eos_id=args.eos_id, sampling=sampling,
-                      seed=args.seed, device=device, **engine_kw)
+    engine_kw.update(engine=args.engine, batch_size=args.batch,
+                     max_len=max_len, eos_id=args.eos_id, sampling=sampling,
+                     seed=args.seed, device=device)
+    if args.restore:
+        eng = make_engine_from_checkpoint(args.restore, cfg, step=args.step,
+                                          **engine_kw)
+        print(f"serving checkpoint step {eng.restored_step} from "
+              f"{args.restore}")
+    else:
+        eng = make_engine(cfg, init_model(cfg, seed=args.seed,
+                                          device=device), **engine_kw)
     n_req = args.requests
     prompts = synthetic_tokens(np.random.default_rng(args.seed), n_req,
                                args.prompt_len, cfg.vocab_size)

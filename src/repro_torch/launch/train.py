@@ -16,20 +16,40 @@
         --reduced --device cpu --backend gloo --dp-strategy bucketed \\
         --steps 3 --batch 4 --seq 64
 
+    # checkpoint every 2 steps, hard-kill at step 4, then resume: the
+    # rerun restores step 4 and its data cursor and takes steps 4 and 5
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
+        --reduced --device cpu --steps 6 --batch 4 --seq 64 \\
+        --ckpt /tmp/ck --ckpt-every 2 --fault-step 4
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
+        --reduced --device cpu --steps 2 --batch 4 --seq 64 --ckpt /tmp/ck \\
+        --ckpt-every 2
+
 Port of ``repro.launch.train``.  Without --reduced the full config
 trains in its compute dtype (bf16) on fp32 masters; with it, the smoke
 config in fp32.  The weights are drawn from seed 0; the batch of step
-i is ``make_batch`` of a generator seeded by (--data-seed, i).  Each
+i is ``make_batch`` of a generator seeded by (--data-seed, i), so the
+data cursor a checkpoint records is ``(data_seed, next_step)``.  Each
 step prints its loss; the end prints tokens/s over the steps after the
 first and the peak device memory.  The default device is the card; a
 machine without one raises unless --device cpu is given.
+
+``--ckpt DIR`` resumes from DIR's latest step when there is one (and
+then runs --steps more), and saves every --ckpt-every steps with the
+data cursor in ``meta.json``: as in the reference, --reduced runs (and
+every --dp-strategy run) through the sharded store, synchronously or
+with ``--ckpt-async`` from a background writer, and the full config as
+the legacy npz of ``(params, opt_state)``.  ``--fault-step N`` (or
+``REPRO_FAULT_STEP``) hard-kills the run at step boundary N with exit
+code 113.
 
 ``--dp-strategy`` (which, as in the reference, requires --reduced)
 trains through ``api.Trainer`` over every rank torchrun starts, with
 ``--backend`` nccl (one rank a card) or gloo (the CPU, or ranks
 sharing one card): rank 0 prints ``describe()``, the losses (averaged
-over the ranks) and the time in the gradient sync.  Checkpoints and
-fault injection join with ROADMAP A.3 and A.9.
+over the ranks) and the time in the gradient sync.  A resume there is
+elastic: another world size or strategy restores the newest readable
+published step.
 """
 from __future__ import annotations
 
@@ -41,13 +61,41 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.checkpoint import (checkpoint_meta, latest_step,
+                                    restore_train_state, save_checkpoint,
+                                    save_sharded_checkpoint, state_tree)
 from repro_torch.configs import ARCHITECTURES, get_config, smoke_config
 from repro_torch.core import DPConfig, available_strategies
 from repro_torch.data import make_batch
 from repro_torch.device import resolve_device
+from repro_torch.elastic import FaultInjector, FaultPlan
 from repro_torch.launch.mesh import BACKENDS, init_from_env
 from repro_torch.models import check_train_ported
 from repro_torch.train import TrainConfig, init_train_state, make_train_step
+
+
+def step_batch(cfg, seed, step, batch, seq):
+    """The batch of global step ``step`` -- a pure function of ``(seed,
+    step)``, so a resumed run regenerates the stream the killed run
+    would have seen."""
+    return make_batch(cfg, np.random.default_rng([seed, step]), batch, seq)
+
+
+def data_cursor(seed, next_step):
+    """The ``extra=`` payload saved with every checkpoint: enough to
+    restart the synthetic stream without replaying or skipping."""
+    return {"data_cursor": {"data_seed": int(seed),
+                            "next_step": int(next_step)}}
+
+
+def restore_cursor(ckpt_dir, at, default_seed):
+    """Read the saved data cursor (absent in a legacy npz: fall back to
+    the CLI seed at the restored step)."""
+    try:
+        cur = checkpoint_meta(ckpt_dir, at).get("extra", {})["data_cursor"]
+        return int(cur["data_seed"]), int(cur["next_step"])
+    except (FileNotFoundError, KeyError):
+        return default_seed, at
 
 
 def main(argv=None):
@@ -71,6 +119,22 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--data-seed", type=int, default=0,
                     help="seed of the per-step synthetic batch stream")
+    ap.add_argument("--ckpt", default="",
+                    help="checkpoint directory: resume from its latest "
+                         "step, save every --ckpt-every steps")
+    ap.add_argument("--ckpt-every", type=int, default=50,
+                    help="checkpoint every N steps")
+    ap.add_argument("--ckpt-async", action="store_true",
+                    help="publish checkpoints from a background writer "
+                         "(repro_torch.elastic.AsyncCheckpointer): the "
+                         "step loop blocks only for the device->host copy")
+    ap.add_argument("--ckpt-keep-last", type=int, default=0,
+                    help="retain only the newest N published steps "
+                         "(0: keep all)")
+    ap.add_argument("--fault-step", type=int, default=-1,
+                    help="fault injection: hard-kill (os._exit) the run "
+                         "at this step boundary; REPRO_FAULT_STEP "
+                         "overrides")
     ap.add_argument("--dp-strategy", default="",
                     choices=["", *available_strategies()],
                     help="reduced mode: train data-parallel over the "
@@ -102,25 +166,43 @@ def main(argv=None):
     tc = TrainConfig(optimizer=args.optimizer, lr=args.lr,
                      microbatches=args.microbatches, remat=not args.no_remat,
                      grad_clip=args.grad_clip, schedule=args.schedule)
+    if args.ckpt_async and not args.reduced:
+        ap.error("--ckpt-async requires --reduced (the full config saves "
+                 "the legacy npz, as in the reference)")
     if args.dp_strategy:
         return run_dp(args, cfg, tc)
     dev = resolve_device(args.device)
     state = init_train_state(cfg, tc, seed=0, device=dev)
     step, _ = make_train_step(cfg, tc)
+    start, data_seed = 0, args.data_seed
+    if args.ckpt and latest_step(args.ckpt) is not None:
+        # restore_train_state picks the store by what is ON DISK
+        state, start = restore_train_state(args.ckpt, state)
+        data_seed, start = restore_cursor(args.ckpt, start, data_seed)
+        print(f"resumed from step {start}", flush=True)
+    injector = _make_injector(args)
+    save = _make_saver(args)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     t_after_first = None
-    for i in range(args.steps):
-        batch = make_batch(cfg, np.random.default_rng([args.data_seed, i]),
-                           args.batch, args.seq)
-        state, metrics = step(state, batch)
-        print(f"step {i:4d}  loss {float(metrics['loss']):.4f}", flush=True)
-        if i == 0:
+    losses = []
+    for i in range(start, start + args.steps):
+        state, metrics = step(state, step_batch(cfg, data_seed, i,
+                                                args.batch, args.seq))
+        losses.append(float(metrics["loss"]))
+        print(f"step {i:4d}  loss {losses[-1]:.4f}", flush=True)
+        if i == start:
             t_after_first = time.perf_counter()
+        if args.ckpt and (i + 1) % args.ckpt_every == 0:
+            save(state, i + 1, extra=data_cursor(data_seed, i + 1))
+        if injector is not None:
+            injector.after_step(i + 1)
+    _finish_saves(save)
     if args.steps > 1:
         wall = time.perf_counter() - t_after_first   # float(loss) synced
         tokens = (args.steps - 1) * args.batch * args.seq
-        print(f"{tokens / wall:.1f} tokens/s over steps 1..{args.steps - 1} "
+        print(f"{tokens / wall:.1f} tokens/s over steps {start + 1}.."
+              f"{start + args.steps - 1} "
               f"({wall:.3f} s, {dev.type})")
     if dev.type == "cuda":
         print(f"peak device memory: "
@@ -128,6 +210,59 @@ def main(argv=None):
               f"({torch.cuda.get_device_name(dev)})")
     else:
         print("peak device memory: not measured (cpu)")
+    return losses
+
+
+def _make_injector(args):
+    """The environment wins (the subprocess tests set it); --fault-step
+    is the CLI spelling of the same plan."""
+    injector = FaultInjector.from_env()
+    if injector is None and args.fault_step >= 0:
+        injector = FaultInjector(FaultPlan(args.fault_step))
+    return injector
+
+
+def _make_saver(args):
+    """The one-device checkpoint callable ``save(state, step, extra=)``:
+    the sharded store for --reduced (synchronous, or the
+    AsyncCheckpointer with --ckpt-async), the legacy npz of ``(params,
+    opt_state)`` for the full config."""
+    keep_last = args.ckpt_keep_last or None
+    if not args.reduced:
+        def legacy(state, at, *, extra):
+            tree = state_tree(state)
+            save_checkpoint(args.ckpt, at, (tree["params"],
+                                            tree["opt_state"]))
+        return legacy
+    if not args.ckpt_async:
+        def sync(state, at, *, extra):
+            save_sharded_checkpoint(args.ckpt, at, state,
+                                    keep_last=keep_last, extra=extra)
+        return sync
+    from repro_torch.elastic import AsyncCheckpointer
+    ck = AsyncCheckpointer(args.ckpt, keep_last=keep_last)
+
+    def async_save(state, at, *, extra):
+        rec = ck.save(state, at, extra=extra)
+        print(f"ckpt async step {at}: blocked {rec['blocking_s']*1e3:.1f}ms "
+              f"({rec['bytes']/2**20:.1f} MiB)", flush=True)
+
+    async_save.checkpointer = ck
+    return async_save
+
+
+def _print_ckpt_stats(s, say=print):
+    say(f"ckpt stats: published {s['published']}/{s['saves']} "
+        f"(dropped {s['dropped']}), blocked {s['total_blocking_s']:.3f}s, "
+        f"wrote {s['total_write_s']:.3f}s", flush=True)
+
+
+def _finish_saves(save):
+    ck = getattr(save, "checkpointer", None)
+    if ck is not None:
+        ck.wait()
+        _print_ckpt_stats(ck.stats())
+        ck.close()
 
 
 def run_dp(args, cfg, tc):
@@ -144,17 +279,45 @@ def run_dp(args, cfg, tc):
                              mesh=mesh, train_cfg=tc, seed=0, device=dev)
     say("trainer:", json.dumps(trainer.describe(), sort_keys=True),
         flush=True)
-    for i in range(args.steps):
+    start, data_seed = 0, args.data_seed
+    if args.ckpt and latest_step(args.ckpt) is not None:
+        # elastic resume: any world size or strategy, falling back past
+        # torn steps to the newest readable published one
+        start, skipped = trainer.restore_elastic(args.ckpt)
+        data_seed, start = restore_cursor(args.ckpt, start, data_seed)
+        for s, reason in skipped:
+            say(f"skipped corrupt step {s}: {reason}", flush=True)
+        say(f"resumed from step {start}", flush=True)
+    injector = _make_injector(args)
+    keep_last = args.ckpt_keep_last or None
+    losses = []
+    for i in range(start, start + args.steps):
         # every rank draws the batch; only rank 0's is read (and scattered)
-        batch = make_batch(cfg, np.random.default_rng([args.data_seed, i]),
-                           args.batch, args.seq)
-        metrics = trainer.step(batch)
-        say(f"step {i:4d}  loss {float(metrics['loss']):.4f}", flush=True)
+        metrics = trainer.step(step_batch(cfg, data_seed, i, args.batch,
+                                          args.seq))
+        losses.append(float(metrics["loss"]))
+        say(f"step {i:4d}  loss {losses[-1]:.4f}", flush=True)
+        if args.ckpt and (i + 1) % args.ckpt_every == 0:
+            cur = data_cursor(data_seed, i + 1)
+            if args.ckpt_async:
+                rec = trainer.save_async(args.ckpt, keep_last=keep_last,
+                                         extra=cur)
+                if rec is not None:
+                    say(f"ckpt async step {i + 1}: blocked "
+                        f"{rec['blocking_s']*1e3:.1f}ms", flush=True)
+            else:
+                trainer.save(args.ckpt, keep_last=keep_last, extra=cur)
+        if injector is not None:
+            injector.after_step(i + 1)
+    stats = trainer.finish_saves()
+    if stats is not None:
+        _print_ckpt_stats(stats, say)
     sync = trainer.sync_ms()
     if sync:
         say(f"sync: median {np.median(sync):.3f} ms over {len(sync)} syncs "
             f"({dev.type})")
     dist.destroy_process_group()
+    return losses
 
 
 if __name__ == "__main__":

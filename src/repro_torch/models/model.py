@@ -59,6 +59,7 @@ class Model(nn.Module):
         check_ported(cfg)
         if train:
             check_train_ported(cfg)
+        self.cfg = cfg
         dt = compute_dtype(cfg)
         table = tree["embed"]["table"].to(device=device)
         out = table if cfg.tie_embeddings else tree["unembed"]["table"]

@@ -1,5 +1,5 @@
 """Serving: slab prefill / decode steps, the lockstep ``ServeEngine``, and
-the constructor surface ``make_engine``.
+the constructor surface ``make_engine`` / ``make_engine_from_checkpoint``.
 
 Port of ``repro.serve.engine``.  ``ServeEngine`` is the host-side
 lockstep loop over a slab KV cache of (batch, max_len) per layer: one
@@ -156,3 +156,21 @@ def make_engine(cfg, params, *, engine="continuous", batch_size=4,
     return ContinuousScheduler(cfg, model, slots=batch_size, max_len=max_len,
                                eos_id=eos_id, sampling=sampling,
                                seed=seed, **kw)
+
+
+def make_engine_from_checkpoint(ckpt_dir, cfg, *, step=None, device="cuda",
+                                **engine_kw):
+    """Close the train-and-serve loop: serve the params of a checkpoint
+    written by either package's training stack -- sharded (a replicated
+    layout of any world size) or the legacy npz -- restored read-only
+    on the host (``checkpoint.restore_serve_params``: the ``params/``
+    members only, no optimizer state) and cast once to the serving
+    dtypes on ``device`` (the card by default).  The engine's
+    ``restored_step`` is the step served.  ``engine_kw`` go to
+    :func:`make_engine`."""
+    from repro_torch.checkpoint import restore_serve_params
+    dev = resolve_device(device)
+    tree, at = restore_serve_params(ckpt_dir, cfg, step)
+    eng = make_engine(cfg, tree, device=dev, **engine_kw)
+    eng.restored_step = at
+    return eng

@@ -50,13 +50,13 @@ class TrainConfig:
 class TrainState(NamedTuple):
     """The train-step contract: ``step(state, batch) -> (state,
     metrics)``.  ``params`` is the ``Model`` holding the fp32 masters,
-    ``opt_state`` the optimizer's dict, ``step`` a host int.  The
-    reference's ``Layout`` (``core/train_state.py``), which describes
-    how a data-parallel strategy shards the state, joins with the ZeRO
-    strategies (ROADMAP A.4)."""
+    ``opt_state`` the optimizer's dict, ``step`` a host int, ``layout``
+    the ``core.train_state.Layout`` the checkpoint store records
+    (``start_state`` builds the one of a state without a mesh)."""
     params: Any
     opt_state: Any
     step: int
+    layout: Any
 
 
 def trainable(model) -> dict:
@@ -122,7 +122,7 @@ def make_train_step(cfg, tc: TrainConfig):
             grads, gnorm = clip_by_global_norm(grads, tc.grad_clip)
             metrics["grad_norm"] = gnorm
         optimizer.update(grads, state.opt_state, params)
-        return (TrainState(model, state.opt_state, state.step + 1),
+        return (state._replace(step=state.step + 1),
                 {"loss": loss, **metrics})
 
     return step, optimizer
@@ -161,10 +161,19 @@ def accumulate_grads(loss_fn, model, params, batch, n):
     return loss * inv, {}
 
 
+def start_state(model, optimizer) -> TrainState:
+    """``model``'s ``TrainState`` at step 0 without a mesh: the
+    optimizer's zero state of its masters and the replicated layout."""
+    from repro_torch.core.train_state import replicated_layout
+    masters = trainable(model)
+    return TrainState(model, optimizer.init(masters), 0,
+                      replicated_layout(masters))
+
+
 def init_train_state(cfg, tc: TrainConfig, *, seed=0, device="cuda"):
     """A ``TrainState`` at step 0: a training ``Model`` of fp32 masters
     drawn from ``seed`` on ``device`` (``models.init_model(...,
     train=True)``) and the optimizer's zero state."""
     optimizer = optim_lib.get_optimizer(tc.optimizer, tc.lr)
-    model = init_model(cfg, seed=seed, device=device, train=True)
-    return TrainState(model, optimizer.init(trainable(model)), 0)
+    return start_state(init_model(cfg, seed=seed, device=device,
+                                  train=True), optimizer)

@@ -226,7 +226,7 @@ from repro_torch.api import Trainer
 from repro_torch.configs import smoke_config
 from repro_torch.core import DPConfig
 from repro_torch.launch.mesh import make_dp_mesh
-from repro_torch.train import (TrainConfig, TrainState, make_train_step,
+from repro_torch.train import (TrainConfig, make_train_step, start_state,
                                trainable)
 from repro_torch.models import init_model
 
@@ -246,7 +246,7 @@ if RANK == 0:
     tc = TrainConfig(optimizer="adamw", lr={lr})
     step, opt = make_train_step(cfg, tc)
     model = init_model(cfg, seed=0, device="cpu", train=True)
-    state = TrainState(model, opt.init(trainable(model)), 0)
+    state = start_state(model, opt)
     losses, min_grad = [], None
     for b in batches:
         state, m = step(state, b)
@@ -314,13 +314,27 @@ def test_bad_sync_refused(dp, match):
         make_dp_train_step(_loss, optim.sgd(0.1), None, dp)
 
 
-def test_trainer_checkpoints_and_serve_wait_for_a3():
+def test_trainer_checkpoints_and_serve_wait_for_a3(tmp_path):
+    """ROADMAP A.3 has landed: ``save`` and ``restore`` round-trip a
+    loss_fn trainer's masters and moments, and ``serve`` still refuses
+    it by name (a custom loss has no serving forward pass)."""
     from repro_torch.models import init_paper_net
     t = Trainer.create(loss_fn=_loss, params=init_paper_net(
-        MNIST_DNN, device="cpu"), optimizer="sgd", device="cpu")
-    for call in (t.save, t.restore, t.serve):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.3"):
-            call("somewhere")
+        MNIST_DNN, device="cpu"), optimizer="momentum", device="cpu")
+    rng = np.random.default_rng(0)
+    t.step({"x": rng.standard_normal((16, 784), dtype=np.float32),
+            "y": rng.integers(0, 10, 16).astype(np.int32)})
+    assert t.save(tmp_path).endswith("step_0000000001.shards")
+    fresh = Trainer.create(loss_fn=_loss, params=init_paper_net(
+        MNIST_DNN, seed=1, device="cpu"), optimizer="momentum",
+        device="cpu")
+    assert fresh.restore(tmp_path) == 1
+    for k, v in t.params.items():
+        assert np.array_equal(fresh.params[k], v), k
+        assert torch.equal(fresh.state.opt_state["m"][k],
+                           t.state.opt_state["m"][k]), k
+    with pytest.raises(ValueError, match="model_cfg"):
+        t.serve()
     with pytest.raises(ValueError, match="model_cfg"):
         Trainer.create(loss_fn=_loss, device="cpu")
 

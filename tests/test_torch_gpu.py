@@ -4,9 +4,10 @@ their plain PyTorch versions, the launch counters, and greedy serving
 (qwen3, RWKV-6, Jamba and DeepSeek-V3 smoke configs; qwen3 also through
 the lockstep slab engine) on the card against the CPU; the training
 step, and its data-parallel ``Trainer`` over a world of one NCCL rank;
-the Table-1 nets on the card against the CPU.  Marked ``gpu``; each test skips by itself
-where no card is present.  Imports no jax (the card's machine has
-none).
+the Table-1 nets on the card against the CPU; checkpoints saved on the
+card and restored on the CPU, and back.  Marked ``gpu``; each test
+skips by itself where no card is present.  Imports no jax (the card's
+machine has none).
 
 Run on a machine with an H100:  PYTHONPATH=src pytest -m gpu tests/test_torch_gpu.py
 """
@@ -759,9 +760,9 @@ def test_flash_function_gradients_match_plain(cuda, case, dtype):
 
 
 def _train(cfg, model, tc, batches):
-    from repro_torch.train import TrainState, make_train_step, trainable
+    from repro_torch.train import make_train_step, start_state, trainable
     step, opt = make_train_step(cfg, tc)
-    state = TrainState(model, opt.init(trainable(model)), 0)
+    state = start_state(model, opt)
     losses = []
     for batch in batches:
         state, metrics = step(state, batch)
@@ -915,3 +916,33 @@ def test_paper_nets_on_card_match_cpu(cuda, name, monkeypatch):
     gaps = [max(np.abs(a[k] - b[k]).max() for k in a)
             for a, b in zip(got["cpu"], got[str(cuda)])]
     assert max(gaps) <= (1e-5 if net.kind == "dnn" else 1e-4), gaps
+
+
+def test_checkpoint_moves_between_card_and_cpu(cuda, tmp_path):
+    """A checkpoint records no device: a smoke-config trainer's state
+    saved on the card restores on the CPU to equal masters and moments,
+    and one saved on the CPU restores on the card."""
+    from repro_torch.api import Trainer
+    from repro_torch.train import trainable
+    cfg = smoke_config("qwen3-1.7b").with_overrides(dtype="float32")
+    batch = {"tokens": np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32)}
+
+    def state(t):
+        return {"params": trainable(t.state.params),
+                **{k: v for k, v in t.state.opt_state.items()
+                   if k != "step"}}
+
+    for src, dst in (("cuda", "cpu"), ("cpu", "cuda")):
+        saver = Trainer.create(cfg, optimizer="adamw", device=src)
+        for _ in range(2):
+            saver.step(batch)
+        saver.save(tmp_path / src)
+        loader = Trainer.create(cfg, optimizer="adamw", seed=1, device=dst)
+        assert loader.restore(tmp_path / src) == 2
+        assert loader.state.opt_state["step"] == 2
+        want = state(saver)
+        for kind, leaves in state(loader).items():
+            for k, t in leaves.items():
+                assert t.device.type == dst
+                assert torch.equal(t.cpu(), want[kind][k].cpu()), (kind, k)

@@ -27,7 +27,8 @@ def test_port_files_exist():
             "engine.py", "chip_smoke.py", "loss.py", "step.py", "train.py",
             "profile_train.py", "paper_nets.py", "pipeline.py",
             "collectives.py", "strategy.py", "data_parallel.py", "api.py",
-            "mesh.py", "mnist_dnn_dp.py"} <= names
+            "mesh.py", "mnist_dnn_dp.py", "store.py", "train_state.py",
+            "async_ckpt.py", "faults.py", "resize.py"} <= names
     assert {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob(
         "*.cu")} >= {"paged_decode.cu", "paged_decode_mla.cu", "wkv6.cu",
                      "mamba_scan.cu", "flash_attention.cu"}
@@ -46,12 +47,13 @@ def _no_card():
         pytest.skip("a card is present: the default device is usable")
 
 
-def test_entry_points_default_to_the_card(capsys):
+def test_entry_points_default_to_the_card(capsys, tmp_path):
     _no_card()
+    from repro_torch.api import Trainer
     from repro_torch.configs import smoke_config
     from repro_torch.launch import serve
     from repro_torch.models import init_model
-    from repro_torch.serve import make_engine
+    from repro_torch.serve import make_engine, make_engine_from_checkpoint
 
     cfg = smoke_config("qwen3-1.7b")
     with pytest.raises(RuntimeError, match="cuda"):
@@ -68,3 +70,12 @@ def test_entry_points_default_to_the_card(capsys):
                        "3", "--report"])
     assert [len(o) for o in outs] == [3, 3]
     assert "report: decode_kernel=plain" in capsys.readouterr().out
+    # a checkpoint records no device: serving one asks for the card
+    Trainer.create(cfg, optimizer="adamw", device="cpu").save(tmp_path)
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_engine_from_checkpoint(tmp_path, cfg, max_len=64)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--arch", "qwen3-1.7b", "--reduced", "--restore",
+                    str(tmp_path)])
+    assert make_engine_from_checkpoint(tmp_path, cfg, max_len=64,
+                                       device="cpu").restored_step == 0

@@ -28,9 +28,9 @@ from repro_torch.kernels.flash_attention import flash_attention_bwd_ref
 from repro_torch.launch import train as launch_train
 from repro_torch.models import apply_model, check_train_ported
 from repro_torch.models import init_model
-from repro_torch.train import (IGNORE, TrainConfig, TrainState,
-                               cross_entropy, lm_loss, make_labels,
-                               make_train_step, trainable)
+from repro_torch.train import (IGNORE, TrainConfig, cross_entropy, lm_loss,
+                               make_labels, make_train_step, start_state,
+                               trainable)
 
 torch.set_num_threads(2)
 
@@ -197,7 +197,7 @@ def test_five_adamw_steps_match_reference(ref, case):
     jstate = jax_init_state(jopt, params)
     step, opt = make_train_step(cfg, TrainConfig(**kw))
     model = params_from_jax(np_params, cfg, device="cpu", train=True)
-    state = TrainState(model, opt.init(trainable(model)), 0)
+    state = start_state(model, opt)
     rng = np.random.default_rng(3)
     min_grad = None
     for i in range(STEPS):
@@ -234,7 +234,7 @@ def test_remat_on_and_off_train_alike(ref):
     for remat in (False, True):
         step, opt = make_train_step(cfg, TrainConfig(remat=remat))
         model = params_from_jax(np_params, cfg, device="cpu", train=True)
-        state = TrainState(model, opt.init(trainable(model)), 0)
+        state = start_state(model, opt)
         losses = []
         for _ in range(2):
             state, m = step(state, {"tokens": tokens})
@@ -275,9 +275,9 @@ def test_serving_model_stays_frozen_and_cast(ref):
     assert not any(p.requires_grad for p in model.parameters())
     assert model.layers[0].mixer["wq"].dtype == torch.bfloat16
     assert not trainable(model)
-    step, _ = make_train_step(cfg, TrainConfig())
+    step, opt = make_train_step(cfg, TrainConfig())
     with pytest.raises(ValueError, match="train=True"):
-        step(TrainState(model, {}, 0), {"tokens": np.zeros((2, 8), np.int32)})
+        step(start_state(model, opt), {"tokens": np.zeros((2, 8), np.int32)})
 
 
 def test_bridge_round_trips_the_masters(ref):

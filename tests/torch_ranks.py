@@ -50,18 +50,21 @@ def _kill(procs):
         p.wait()
 
 
-def run_ranks(code, world, tmp_path, *, timeout=120):
+def run_ranks(code, world, tmp_path, *, timeout=120, expect_rc=0, env=None):
     """Run PRELUDE + ``code`` + EPILOGUE as ranks 0..world-1 and return
     each rank's result: the JSON object its code printed on the last
     line of its standard output (``None`` for a rank that printed
     none).  Raises AssertionError, with the ranks' output, if any rank
-    fails or the ranks outlast ``timeout`` seconds."""
+    exits with another code than ``expect_rc`` or the ranks outlast
+    ``timeout`` seconds.  Ranks expected to die (``expect_rc`` not 0)
+    return their whole standard output instead.  ``env`` adds to the
+    ranks' environment."""
     run = tmp_path / f"ranks-{uuid.uuid4().hex[:8]}"
     run.mkdir()
     src = PRELUDE + textwrap.dedent(code) + EPILOGUE
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                OMP_NUM_THREADS="1", WORLD_SIZE=str(world),
-               INIT_METHOD=f"file://{run / 'store'}")
+               INIT_METHOD=f"file://{run / 'store'}", **(env or {}))
     procs, logs = [], []
     try:
         for r in range(world):
@@ -81,15 +84,17 @@ def run_ranks(code, world, tmp_path, *, timeout=120):
                 raise AssertionError(
                     f"{world} ranks outlasted {timeout} s (a mismatched "
                     f"collective?):\n{_report(logs)}") from None
-        if any(p.returncode for p in procs):
+        if any(p.returncode != expect_rc for p in procs):
             raise AssertionError(
-                f"rank exit codes {[p.returncode for p in procs]}:\n"
-                f"{_report(logs)}")
+                f"rank exit codes {[p.returncode for p in procs]}, expected "
+                f"{expect_rc}:\n{_report(logs)}")
         results = []
         for out, _ in logs:
             out.seek(0)
-            lines = out.read().strip().splitlines()
-            results.append(json.loads(lines[-1]) if lines else None)
+            text = out.read()
+            lines = text.strip().splitlines()
+            results.append(text if expect_rc else
+                           json.loads(lines[-1]) if lines else None)
         return results
     finally:
         _kill(procs)
