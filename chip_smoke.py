@@ -75,6 +75,25 @@ Phases (each fails the run if it goes wrong):
      and exactly 28 x 282 = 7896 paged_flash_decode launches each; then
      its step gives step 4's loss bit for bit (112 flash_attention
      launches).  The checkpoint is deleted at the phase's end.
+ 18. the ZeRO ladder.  (a) full-width, full-depth qwen3-1.7b through
+     ``Trainer(model_cfg=...)`` over phase 16's world of one NCCL rank,
+     dp = zero1, zero2, zero3 and zero1 with overlap=True, 3 steps each
+     on phase 13's batch: exactly 112 flash_attention launches a step,
+     zero1's losses phase 16's flat losses bit for bit (one rank's
+     reduce-scatter is a copy and AdamW is elementwise), zero2's and
+     zero3's within 1e-5, peak under 80 GB; the reduce-scatter and
+     all-gather ms (SyncTimer) and the memory between steps printed.
+     (b) 2 gloo ranks sharing the card (torchrun of this script), full
+     width at depth 4 (reduced: num_layers 28 -> 4), each rank 1 x 4096
+     tokens of phase 13's batch, dp = flat, zero1, zero2, zero3, 3 steps
+     each: the losses within 1e-5 of flat's, zero3's memory between
+     steps at most 0.55 x flat's, zero1's moments 1/2; zero3 saves at
+     step 3 with save_async (every rank its own worker file) and takes
+     step 4; a one-rank bucketed trainer restores that checkpoint, its
+     step 4 gives zero3's step-4 loss within 1e-5, and Trainer.serve()
+     of both serves phase 3's traffic at depth 4 with equal greedy
+     tokens and 4 x 282 paged_flash_decode launches each.  The
+     checkpoint is deleted at the phase's end.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and the result line.  Without a card, or outside the repository,
 it exits non-zero and prints no result.
@@ -151,6 +170,13 @@ CNN_LATER_TOL = 1e-4
 DP_STEPS = 3
 # phase 17: where the checkpoint goes (gitignored; deleted at the end)
 CKPT_DIR = os.path.join(ROOT, "build", "ckpt_phase17")
+# phase 18: the ZeRO runs; (b)'s depth, its ranks' files and checkpoint
+ZERO_STRATEGIES = (("zero1", False), ("zero2", False), ("zero3", False),
+                   ("zero1", True))
+ZERO_LAYERS, ZERO_RANKS = 4, 2
+ZERO_LOSS_TOL = 1e-5          # the reference's fp32 training bar
+ZERO3_MEM_RATIO = 0.55        # zero3's bytes between steps / flat's
+ZERO_DIR = os.path.join(ROOT, "build", "zero_phase18")
 # the reference's FLASH_CASES (tests/test_kernels.py)
 FLASH_CASES = [
     # B, S, T, h, hk, hd, causal, window
@@ -1431,14 +1457,15 @@ def train_qwen(dev):
 # phases 15 / 16: the paper's synchronous data parallelism
 # --------------------------------------------------------------------------
 
-def run_ranks(args, n, timeout=300):
+def run_ranks(args, n, timeout=300, module=True):
     """``python -m torch.distributed.run --standalone --nproc-per-node n``
-    of ``args`` (a module and its flags), in its own session, killed
-    with every rank it started if it outlasts ``timeout``.  Fails the
-    run if it fails; returns the wall seconds."""
+    of ``args`` (a module and its flags, or with ``module=False`` a
+    script and its flags), in its own session, killed with every rank
+    it started if it outlasts ``timeout``.  Fails the run if it fails;
+    returns the wall seconds."""
     import signal
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", str(n), "-m", *args]
+           "--nproc-per-node", str(n), *(["-m"] if module else []), *args]
     env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
@@ -1454,7 +1481,7 @@ def run_ranks(args, n, timeout=300):
         print(out[-6000:])
         fail(f"{' '.join(args)} over {n} ranks exited {proc.returncode}")
     for line in out.splitlines():
-        if line.startswith(("trainer:", "epoch", "mesh:")):
+        if line.startswith(("trainer:", "epoch", "mesh:", "phase 18")):
             print(f"    {line}")
     return time.perf_counter() - t0
 
@@ -1639,9 +1666,274 @@ def dp_qwen(dev, phase13_losses, prompts, serve_launches):
             del trainer
     ckpt_out = checkpoint_qwen(dev, trainer, lambda: create("bucketed"),
                                cfg, batch, prompts, serve_launches)
+    del trainer
+    zero_out = {"nccl": zero_qwen(dev, cfg, batch, mesh,
+                                  out["flat"]["losses"])}
+    zero_out["gloo"] = zero_gloo(dev, cfg, batch, mesh, prompts,
+                                 serve_launches // cfg.num_layers)
     dist.destroy_process_group()
     torch.cuda.empty_cache()
-    return out, ckpt_out
+    return out, ckpt_out, zero_out
+
+
+# --------------------------------------------------------------------------
+# phase 18: the ZeRO ladder
+# --------------------------------------------------------------------------
+
+def _steps(trainer, batch, n, dev):
+    """``n`` steps: losses, walls (s), the memory allocated after each
+    (bytes, the card synchronised), flash launches a step, and the
+    SyncTimer spans by label."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    losses, walls, between, flash = [], [], [], []
+    for _ in range(n):
+        torch.cuda.synchronize(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        losses.append(float(trainer.step(batch)["loss"]))
+        torch.cuda.synchronize(dev)
+        walls.append(time.perf_counter() - t0)
+        flash.append(launch_counts().get("flash_attention", 0))
+        between.append(torch.cuda.memory_allocated(dev))
+    return losses, walls, between, flash, trainer.sync_ms_by_label()
+
+
+def zero_qwen(dev, cfg, batch, mesh, flat_losses):
+    """Phase 18a: full-width, full-depth qwen3-1.7b under each ZeRO
+    strategy over the world of one NCCL rank, on phase 13's batch."""
+    import gc
+    from repro_torch.api import Trainer
+    from repro_torch.core import DPConfig
+    from repro_torch.train import TrainConfig
+    want_flash = TRAIN_MICRO * cfg.num_layers * 2
+    out = {}
+    for strategy, overlap in ZERO_STRATEGIES:
+        name = strategy + ("+overlap" if overlap else "")
+        gc.collect()
+        torch.cuda.empty_cache()
+        trainer = Trainer.create(
+            cfg, optimizer="adamw", lr=TRAIN_LR,
+            dp=DPConfig(strategy=strategy, microbatches=TRAIN_MICRO,
+                        overlap=overlap),
+            mesh=mesh, train_cfg=TrainConfig(remat=True), seed=0,
+            device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, walls, between, flash, spans = _steps(trainer, batch,
+                                                      DP_STEPS, dev)
+        peak = torch.cuda.max_memory_allocated()
+        desc = trainer.describe()
+        del trainer
+        if any(f != want_flash for f in flash):
+            fail(f"phase 18a ({name}): flash_attention launched {flash} "
+                 f"times a step, expected {want_flash} = {TRAIN_MICRO} x "
+                 f"{cfg.num_layers} x 2")
+        if strategy == "zero1" and losses != flat_losses:
+            fail(f"phase 18a ({name}): losses {losses} are not phase 16's "
+                 f"flat losses {flat_losses} bit for bit")
+        gap = max(abs(a - b) for a, b in zip(losses, flat_losses))
+        if gap > ZERO_LOSS_TOL:
+            fail(f"phase 18a ({name}): losses {losses} differ from phase "
+                 f"16's flat losses {flat_losses} by {gap:.2e}")
+        if peak >= 80e9:
+            fail(f"phase 18a ({name}): peak {peak / 1e9:.1f} GB")
+        rs, ag = spans.get("reduce_scatter", []), spans.get("all_gather", [])
+        out[name] = {"losses": losses, "loss_gap_to_flat": gap,
+                     "flash_launches_a_step": flash,
+                     "step_walls_ms": [w * 1e3 for w in walls],
+                     "reduce_scatter_ms": rs, "all_gather_ms": ag,
+                     "peak_bytes": peak, "between_steps_bytes": between,
+                     "memory_entry": desc["memory_per_device_bytes"]}
+        print(f"phase 18a ({name}): {cfg.name} full width and depth over "
+              f"one NCCL rank, {DP_STEPS} AdamW steps on phase 13's batch: "
+              f"losses {losses} ({'bitwise' if gap == 0 else f'{gap:.1e}'} "
+              f"to phase 16's flat); flash_attention {flash} a step; step "
+              f"walls {', '.join(f'{w * 1e3:.1f}' for w in walls)} ms; "
+              f"reduce_scatter {', '.join(f'{m:.2f}' for m in rs)} ms, "
+              f"all_gather {', '.join(f'{m:.2f}' for m in ag)} ms (CUDA "
+              f"events); peak {peak / 2**30:.2f} GiB, between steps "
+              f"{between[-1] / 2**30:.2f} GiB")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def zero_gloo(dev, cfg, batch, mesh, prompts, model_calls):
+    """Phase 18b: torchrun of this script over 2 gloo ranks sharing the
+    card (``zero_rank``), then, here, a one-rank bucketed trainer that
+    restores the ranks' zero3 checkpoint, takes step 4 and serves."""
+    import gc
+    import shutil
+    from repro_torch.api import Trainer
+    from repro_torch.core import DPConfig
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.train import TrainConfig
+    small = cfg.with_overrides(num_layers=ZERO_LAYERS)
+    shutil.rmtree(ZERO_DIR, ignore_errors=True)
+    os.makedirs(ZERO_DIR)
+    np.savez(os.path.join(ZERO_DIR, "prompts.npz"),
+             *[np.asarray(p) for p in prompts])
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        wall = run_ranks([os.path.abspath(__file__), "--zero-rank",
+                          ZERO_DIR], ZERO_RANKS, timeout=600, module=False)
+        with open(os.path.join(ZERO_DIR, "ranks.json")) as f:
+            ranks = json.load(f)
+        with np.load(os.path.join(ZERO_DIR, "tokens.npz")) as f:
+            rank_tokens = [f[k] for k in sorted(f.files,
+                                                key=lambda k: int(k[4:]))]
+        trainer = Trainer.create(
+            small, optimizer="adamw", lr=TRAIN_LR,
+            dp=DPConfig(strategy="bucketed", microbatches=TRAIN_MICRO),
+            mesh=mesh, train_cfg=TrainConfig(remat=True), seed=1,
+            device=dev)
+        t0 = time.perf_counter()
+        at = trainer.restore(os.path.join(ZERO_DIR, "ckpt"))
+        restore_s = time.perf_counter() - t0
+        loss4 = float(trainer.step(batch)["loss"])
+        eng = trainer.serve(**SERVE_KW)
+        reset_launch_counts()
+        toks = eng.generate(prompts, NEW_TOKENS)
+        paged = launch_counts().get("paged_flash_decode", 0)
+        del eng, trainer
+    finally:
+        shutil.rmtree(ZERO_DIR, ignore_errors=True)
+    z3 = ranks["zero3"]
+    if at != DP_STEPS or abs(loss4 - z3["loss4"]) > ZERO_LOSS_TOL:
+        fail(f"phase 18b: the bucketed trainer restored step {at}, its step "
+             f"4 gave loss {loss4!r}, zero3's own {z3['loss4']!r}")
+    want = ZERO_LAYERS * model_calls
+    if paged != want or z3["paged_launches"] != want:
+        fail(f"phase 18b: paged_flash_decode launched {paged} (restored "
+             f"trainer) and {z3['paged_launches']} (zero3 ranks) times, "
+             f"expected {ZERO_LAYERS} x {model_calls} model calls")
+    if len(toks) != len(rank_tokens) or any(
+            not np.array_equal(a, b) for a, b in zip(toks, rank_tokens)):
+        fail("phase 18b: Trainer.serve() of the zero3 ranks and of the "
+             "restored bucketed trainer gave different greedy tokens")
+    ranks["restored"] = {"step": at, "loss4": loss4, "restore_s": restore_s,
+                         "paged_launches": paged}
+    ranks["torchrun_wall_s"] = wall
+    print(f"phase 18b: the zero3 checkpoint (2 ranks) restored into a "
+          f"one-rank bucketed trainer in {restore_s:.1f} s; its step 4 gave "
+          f"{loss4!r}, zero3's own {z3['loss4']!r}; Trainer.serve() of both "
+          f"gave equal greedy tokens for {len(prompts)} requests x "
+          f"{NEW_TOKENS}, paged_flash_decode launches {paged} and "
+          f"{z3['paged_launches']}; torchrun {wall:.1f} s")
+    print(f"phase 18b: {json.dumps(ranks)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ranks
+
+
+def zero_rank(outdir):
+    """One of phase 18b's gloo ranks (run by torchrun): full-width qwen3
+    at depth 4 under flat, zero1, zero2 and zero3, 3 steps each on this
+    rank's 1 x 4096 tokens of phase 13's batch; zero3 saves, steps and
+    serves.  Rank 0 writes the numbers."""
+    import gc
+    sys.path.insert(0, SRC)
+    import torch.distributed as dist
+    from repro_torch.api import Trainer
+    from repro_torch.configs import get_config
+    from repro_torch.core import DPConfig
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import init_from_env
+    from repro_torch.train import TrainConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh, dev = init_from_env("gloo", "cuda")
+    rank = dist.get_rank()
+    full = get_config("qwen3-1.7b")
+    cfg = full.with_overrides(num_layers=ZERO_LAYERS)
+    batch = make_batch(cfg, np.random.default_rng(0), TRAIN_BATCH, TRAIN_SEQ)
+    with np.load(os.path.join(outdir, "prompts.npz")) as f:
+        prompts = [f[k] for k in sorted(f.files, key=lambda k: int(k[4:]))]
+    want_flash = cfg.num_layers * 2
+    res = {}
+    for strategy in ("flat", "zero1", "zero2", "zero3"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        trainer = Trainer.create(
+            cfg, optimizer="adamw", lr=TRAIN_LR,
+            dp=DPConfig(strategy=strategy), mesh=mesh,
+            train_cfg=TrainConfig(remat=True), seed=0, device=dev)
+        n_params = trainer.describe()["params"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, walls, between, flash, spans = _steps(trainer, batch,
+                                                      DP_STEPS, dev)
+        if any(f != want_flash for f in flash):
+            raise SystemExit(f"rank {rank} ({strategy}): flash launched "
+                             f"{flash} times a step, expected {want_flash}")
+        st = trainer.state
+        r = {"losses": losses, "step_walls_ms": [w * 1e3 for w in walls],
+             "spans_ms": spans, "between_steps_bytes": between,
+             "peak_bytes": torch.cuda.max_memory_allocated(),
+             "params": n_params}
+        if st.layout.sharded:
+            r["moment_elems"] = st.opt_state["m"]["flat"].numel()
+            r["shard_len"] = st.layout.shard_len
+        if strategy == "zero3":
+            ck = os.path.join(outdir, "ckpt")
+            t0 = time.perf_counter()
+            rec = trainer.save_async(ck)
+            r["save_blocking_s"] = time.perf_counter() - t0
+            r["save_bytes_this_rank"] = rec["bytes"]
+            r["loss4"] = float(trainer.step(batch)["loss"])
+            stats = trainer.finish_saves()
+            r["write_s"] = stats["last_write_s"]
+            eng = trainer.serve(**SERVE_KW)
+            if rank == 0:
+                reset_launch_counts()
+                toks = eng.generate(prompts, NEW_TOKENS)
+                r["paged_launches"] = launch_counts().get(
+                    "paged_flash_decode", 0)
+                np.savez(os.path.join(outdir, "tokens.npz"), *toks)
+            del eng
+            dist.barrier()
+        res[strategy] = r
+        del trainer, st
+    if rank == 0:
+        flat = res["flat"]
+        for name, r in res.items():
+            r["loss_gap_to_flat"] = max(abs(a - b) for a, b in
+                                        zip(r["losses"], flat["losses"]))
+            r["between_ratio_to_flat"] = (r["between_steps_bytes"][-1]
+                                          / flat["between_steps_bytes"][-1])
+        bad = [n for n, r in res.items()
+               if r["loss_gap_to_flat"] > ZERO_LOSS_TOL]
+        if bad:
+            raise SystemExit(f"phase 18b: {bad} losses differ from flat's "
+                             f"by more than {ZERO_LOSS_TOL:g}")
+        if res["zero3"]["between_ratio_to_flat"] > ZERO3_MEM_RATIO:
+            raise SystemExit(f"phase 18b: zero3 holds "
+                             f"{res['zero3']['between_ratio_to_flat']:.3f} "
+                             f"of flat's bytes between steps")
+        for name in ("zero1", "zero2", "zero3"):
+            if res[name]["moment_elems"] * ZERO_RANKS < res[name]["params"]:
+                raise SystemExit(f"phase 18b: {name}'s moments are not 1/2")
+        print(f"phase 18b: {cfg.name} full width, reduced: num_layers "
+              f"{full.num_layers} -> {ZERO_LAYERS} "
+              f"({res['flat']['params'] / 1e9:.3f} B params by "
+              f"Trainer.describe), {ZERO_RANKS} gloo ranks on one card, "
+              f"1 x {TRAIN_SEQ} tokens a rank, {DP_STEPS} AdamW steps:",
+              flush=True)
+        for name, r in res.items():
+            print(f"phase 18b ({name}): losses {r['losses']} (gap to flat "
+                  f"{r['loss_gap_to_flat']:.1e}); step walls "
+                  f"{', '.join(f'{w:.0f}' for w in r['step_walls_ms'])} ms; "
+                  f"between steps {r['between_steps_bytes'][-1] / 2**30:.2f} "
+                  f"GiB a rank ({r['between_ratio_to_flat']:.3f} x flat's, "
+                  f"{r['between_steps_bytes'][-1] / r['params']:.2f} B a "
+                  f"param); peak {r['peak_bytes'] / 2**30:.2f} GiB",
+                  flush=True)
+        with open(os.path.join(outdir, "ranks.json"), "w") as f:
+            json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
 
 
 def machine_room(path):
@@ -1963,7 +2255,8 @@ def main():
     flash_launches = serve_legacy(dev)
     train_launches, train_out = train_qwen(dev)
     paper_out = paper_dp(dev)
-    dp_out, ckpt_out = dp_qwen(dev, train_out["losses"], prompts, launches)
+    dp_out, ckpt_out, zero_out = dp_qwen(dev, train_out["losses"], prompts,
+                                         launches)
 
     decode_bf16, chunk_bf16 = (
         next(r for r in rows if r["case"] == case and r["dtype"] == "bfloat16")
@@ -2055,7 +2348,10 @@ def main():
             "sdpa_backend")},
         "launches_train": train_launches,
         "launches_dp_train": {k: v["launches"] for k, v in dp_out.items()},
+        "launches_zero_a_step": {k: v["flash_launches_a_step"]
+                                 for k, v in zero_out["nccl"].items()},
         "dp_train": dp_out, "paper_dp": paper_out, "checkpoint": ckpt_out,
+        "zero": zero_out,
         "train": {**{key: train_bf16[key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "sdpa_backend", "bwd_plain_ms", "library_fwd_bwd_ms",
@@ -2073,4 +2369,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--zero-rank"]:
+        zero_rank(sys.argv[2])
+    else:
+        main()

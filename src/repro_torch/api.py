@@ -15,6 +15,12 @@ an API (port of ``repro.api`` on ``torch.distributed``).
     engine = trainer.serve()          # cast once from the fp32 masters
     print(trainer.describe())
 
+Every strategy the registry holds runs here: the replicated ones and the
+ZeRO ladder (``DPConfig(strategy="zero1" | "zero2" | "zero3" |
+"zero1_hier" | "zero3_hier", overlap=...)``), whose state each rank
+holds 1/p of; a ZeRO state's checkpoint is written by every rank (its
+own shards) and restores into any layout and world size.
+
 ``create`` takes either a ``model_cfg`` (a ``repro_torch.configs``
 architecture: the loss is ``train.step.make_loss_fn`` and the params
 come from ``init_model(..., train=True)``) or an explicit ``loss_fn``
@@ -26,7 +32,10 @@ argument.  With a mesh (a ``DeviceMesh`` of dims ``("data",)`` or
 and ``step``; ``create`` broadcasts rank 0's initial masters, so every
 replica starts equal.  Checkpoints (``repro_torch.checkpoint``) are
 the reference's: a checkpoint either package writes restores in the
-other.  On a mesh, rank 0 writes and every rank restores.
+other.  On a mesh, every rank calls ``save`` / ``save_async`` /
+``restore`` (rank 0 writes a replicated state alone; each rank writes
+its own shards of a sharded one), and for a zero3 state ``params`` and
+``serve`` too: they gather the params, a collective.
 """
 from __future__ import annotations
 
@@ -46,9 +55,9 @@ from repro_torch.core.data_parallel import (DPConfig, SyncTimer,
                                             make_dp_train_step,
                                             make_sequential_step)
 from repro_torch.core.strategy import get_strategy
-from repro_torch.core.train_state import replicated_layout
+from repro_torch.core.train_state import host_params, init_train_state
 from repro_torch.device import resolve_device
-from repro_torch.train.step import TrainState, trainable
+from repro_torch.train.step import trainable
 
 
 def _resolve_optimizer(optimizer, lr):
@@ -61,7 +70,7 @@ def _resolve_optimizer(optimizer, lr):
 class Trainer:
     """A bound (step_fn, state) pair -- see module docstring.  Build
     with :meth:`create`; ``state`` is the live ``TrainState``."""
-    state: TrainState
+    state: Any                      # train.step.TrainState
     optimizer: Any
     loss_fn: Callable
     dp: DPConfig
@@ -115,20 +124,18 @@ class Trainer:
             raise ValueError(
                 "Trainer.create needs model_cfg, or loss_fn + params")
         params = params.to(dev)
-        masters = trainable(params)
         timer = None
         if mesh is None:
             step_fn = make_sequential_step(loss_fn, optimizer)
-            layout = replicated_layout(masters)
         else:
             timer = SyncTimer()
             step_fn = make_dp_train_step(loss_fn, optimizer, mesh, dp,
                                          timer=timer)
-            broadcast_from_rank0([p.detach() for p in masters.values()],
-                                 mesh)
-            layout = replicated_layout(masters, mesh,
-                                       get_strategy(dp.strategy).name)
-        state = TrainState(params, optimizer.init(masters), 0, layout)
+            broadcast_from_rank0(
+                [p.detach() for p in trainable(params).values()], mesh)
+        # a sharded strategy takes the masters over: views of its flat
+        # vector, the moments over this rank's shard only
+        state = init_train_state(optimizer, params, mesh, dp)
         return cls(state=state, optimizer=optimizer, loss_fn=loss_fn,
                    dp=dp, mesh=mesh, model_cfg=model_cfg, timer=timer,
                    _step_fn=step_fn)
@@ -141,16 +148,23 @@ class Trainer:
         return metrics
 
     def sync_ms(self) -> list:
-        """ms of each sync since the last call (CUDA events on a card,
-        the host clock on the CPU); [] for the sequential step."""
+        """ms of each collective since the last call (CUDA events on a
+        card, the host clock on the CPU); [] for the sequential step."""
         return self.timer.ms() if self.timer is not None else []
+
+    def sync_ms_by_label(self) -> dict:
+        """The same, grouped by label (``"grad_sync"``, and a sharded
+        strategy's ``"reduce_scatter"`` / ``"all_gather"``)."""
+        return self.timer.by_label() if self.timer is not None else {}
 
     @property
     def params(self) -> dict:
-        """Host copy of the masters, ``{name: numpy array}`` (a copy on
-        the CPU too: the masters are updated in place by later steps)."""
-        return {k: p.detach().to("cpu", copy=True).numpy()
-                for k, p in trainable(self.state.params).items()}
+        """Host copy of the full masters, ``{name: numpy array}`` -- always
+        a copy (on the CPU too: the masters are updated in place by later
+        steps).  A zero3 state's shards are gathered and reassembled on
+        the host (``core.host_params``; a collective: every rank reads
+        it)."""
+        return host_params(self.state, self.mesh)
 
     # ---- checkpointing ---------------------------------------------------
     def save(self, ckpt_dir, *, keep_last: Optional[int] = None,
@@ -171,10 +185,11 @@ class Trainer:
         AsyncCheckpointer``, created on first use and cached on this
         trainer -- a different ``ckpt_dir`` rebuilds it).  Returns the
         save receipt ``{"step", "blocking_s", "bytes"}``; on a mesh, only
-        rank 0 saves, and the other ranks get None.  Call
+        rank 0 saves a replicated state, and the other ranks get None,
+        while every rank saves its own shards of a sharded one.  Call
         :meth:`finish_saves` before a planned shutdown so the final step
         is durable."""
-        if not is_writer(self.state):
+        if not (is_writer(self.state) or self.state.layout.sharded):
             return None
         from repro_torch.elastic import AsyncCheckpointer
         ck = self._async_ckpt
@@ -203,7 +218,7 @@ class Trainer:
         """Restore into this trainer's state (the masters and moments in
         place), picking the store by what is ON DISK
         (``restore_train_state``): a ``.shards`` directory -- of any
-        replicated world size and strategy -- or a legacy ``.npz``.
+        layout, world size and strategy -- or a legacy ``.npz``.
         Returns the restored step."""
         self.state, at = restore_train_state(ckpt_dir, self.state, step)
         return at
@@ -237,15 +252,25 @@ class Trainer:
                 "loss_fn has no serving forward pass)")
         from repro_torch.bridge import serving_model
         from repro_torch.serve import make_engine
-        model = serving_model(self.state.params)
+        flat = self.state.flat
+        if self.state.layout.params_flat:      # zero3: gather, cast, free
+            get_strategy(self.dp.strategy).gather_params(
+                self.state, self.mesh, self.dp)
+        try:
+            model = serving_model(self.state.params)
+        finally:
+            if self.state.layout.params_flat:
+                flat.free()
         return make_engine(self.model_cfg, model, engine=engine,
                            device=model.embed.device, **engine_kw)
 
     # ---- introspection ---------------------------------------------------
     def describe(self) -> dict:
-        """What this trainer physically runs: strategy, sync mode, world
-        size, parameter count, per-device persistent memory, and the
-        bytes one rank hands its collectives in one sync."""
+        """What this trainer physically runs: strategy, sync mode, layout
+        kind, world size, parameter count, per-rank persistent memory
+        (the strategy's ``memory_entry``: params, grads and optimizer
+        state, each 1/p where the strategy shards it), and the bytes one
+        rank hands its collectives in one sync."""
         strategy = get_strategy(self.dp.strategy)
         masters = list(trainable(self.state.params).values())
         n_params = sum(p.numel() for p in masters)
@@ -253,6 +278,7 @@ class Trainer:
         mem = strategy.memory_entry(n_params, self.optimizer.state_factor,
                                     world)
         d = {"strategy": strategy.name, "sync": self.dp.sync,
+             "layout": self.state.layout.kind,
              "world_size": world, "params": int(n_params),
              "memory_per_device_bytes": {k: float(v)
                                          for k, v in mem.items()}}

@@ -196,6 +196,13 @@ def reference_key(model, name) -> tuple:
     return "/".join(["decoder", "blocks", f"layer{j}", *rest]), rep
 
 
+def reference_order(path: str) -> tuple:
+    """Sort key of a reference path in the reference's flatten order
+    (``tree_leaves``): dict keys sorted, list indices by number."""
+    return tuple((0, int(c), "") if c.isdigit() else (1, 0, c)
+                 for c in path.split("/"))
+
+
 def reference_groups(model, names) -> dict:
     """{reference path: (port names, stacked)}: one name for an
     unstacked leaf, the ``n_rep`` names in repetition order for a leaf
@@ -207,6 +214,27 @@ def reference_groups(model, names) -> dict:
         members.append((rep or 0, name))
     return {path: ([n for _, n in sorted(members)], stacked)
             for path, (members, stacked) in groups.items()}
+
+
+def reference_shapes(cfg) -> dict:
+    """{reference path: shape} of ``cfg``'s trainable params (a stacked
+    leaf with ``n_rep`` in front), in the reference's flatten order --
+    what a flat master vector of ``cfg`` unflattens into.  Read from a
+    training model of one repetition and an 8-row table, drawn on the
+    CPU (a full-width layer is held for the call)."""
+    from repro_torch.models.model import init_model
+    prefix, pattern, n_rep = cfg.block_structure()
+    small = cfg.with_overrides(num_layers=len(prefix) + len(pattern),
+                               vocab_size=8)
+    model = init_model(small, device="cpu", train=True)
+    masters = dict(model.named_parameters())
+    shapes = {}
+    for path, (names, stacked) in reference_groups(model, masters).items():
+        shp = tuple(masters[names[0]].shape)
+        if path in ("embed/table", "unembed/table"):
+            shp = (cfg.vocab_size,) + shp[1:]
+        shapes[path] = ((n_rep,) + shp) if stacked else shp
+    return {k: shapes[k] for k in sorted(shapes, key=reference_order)}
 
 
 def host_copy(ts, stacked=False) -> np.ndarray:

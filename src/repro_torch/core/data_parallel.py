@@ -14,12 +14,22 @@ Synchronisation modes:
 * ``sync="none"``    -- fully independent ranks (the divergence
   baseline).
 
-Ranks are processes, one model copy each; a step runs on every rank of
-the mesh at once.  The gradient strategy is resolved through the
-``repro_torch.core.strategy`` registry.  A plain (global) batch is
-scattered from rank 0 (``data.pipeline.rank0_scatter``, the paper's
-MPI_Scatter); a batch ``rank0_scatter`` already returned is taken as it
-is.  The per-rank forward and backward, with its microbatch loop, is
+Ranks are processes; a step runs on every rank of the mesh at once.
+The gradient strategy is resolved through the
+``repro_torch.core.strategy`` registry: ``flat`` / ``bucketed`` /
+``hierarchical`` keep a model copy and its optimizer state on every
+rank, as the paper does; the ZeRO ladder (``zero1`` / ``zero2`` /
+``zero3``, and ``zero1_hier`` / ``zero3_hier`` over a pod x data mesh)
+shards the optimizer state, then the gradients, then the params 1/p a
+rank, and its step is the strategy's own (``grad_sync`` then
+``step_transform``); its metrics are the averaged loss and the norm of
+the averaged gradient, taken over the shards.  ``overlap=True`` runs
+the collectives bucket by bucket through ``repro_torch.core.overlap``
+(zero2 with microbatches: each microbatch's reduce-scatter behind the
+next one's backward), ``"serial"`` the same buckets one after another.
+A plain (global) batch is scattered from rank 0
+(``data.pipeline.rank0_scatter``, the paper's MPI_Scatter); a batch
+``rank0_scatter`` already returned is taken as it is.  The per-rank forward and backward, with its microbatch loop, is
 ``train.step.accumulate_grads``, shared with the one-device step; the
 all-reduce then works in place on the masters' ``.grad`` (a tied table
 is one master, so it is reduced once).
@@ -32,10 +42,13 @@ import time
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 
 import repro_torch.data.pipeline as pipeline    # imports core.collectives
-from repro_torch.core.collectives import allreduce_flat, check_dp_mesh
+from repro_torch.core.collectives import (_dp_group, allreduce_flat,
+                                          check_dp_mesh)
 from repro_torch.core.strategy import get_strategy
+from repro_torch.core.train_state import check_layout
 from repro_torch.train.step import (TrainState, accumulate_grads,
                                     global_norm, trainable)
 
@@ -48,15 +61,21 @@ class DPConfig:
 
     sync          -- "grads" | "weights" | "none" (divergence baseline).
     strategy      -- registry name of the gradient-sync strategy
-                     ("flat" | "bucketed" | "hierarchical"; see
+                     ("flat" | "bucketed" | "hierarchical" | "zero1" |
+                     "zero2" | "zero3" | "zero1_hier" | "zero3_hier"; see
                      ``repro_torch.core.strategy.available_strategies()``).
     sync_period   -- weights mode: steps between weight averages.
-    compress      -- "none" | "bf16" (wire compression).
-    bucket_bytes  -- bucketed: target fused-bucket size.
+    compress      -- "none" | "bf16" (wire compression; the sharded
+                     strategies reduce / gather in bf16 but keep the
+                     fp32 master shard).
+    bucket_bytes  -- bucketed / overlap: target bucket size.
     microbatches  -- gradient-accumulation factor; the per-rank batch is
                      split into this many sequential microbatches.
-    overlap       -- False only: the bucket-level overlap scheduler
-                     waits for ROADMAP A.4.
+    overlap       -- False (one collective per phase), True (the
+                     bucket-level double-buffered scheduler of
+                     ``core.overlap``; a sharded state's shards are then
+                     bucket-major, except zero2's with microbatches), or
+                     "serial" (the same buckets, one after another).
     """
     sync: str = "grads"
     sync_period: int = 1
@@ -68,35 +87,47 @@ class DPConfig:
 
 
 class SyncTimer:
-    """Times each step's gradient (or weight) sync: CUDA events around
-    it on a card, the host clock on the CPU.  ``ms()`` waits for the
-    card and returns the times recorded since its last call."""
+    """Times each step's collectives: CUDA events around each on a card,
+    the host clock on the CPU.  A span has a label: ``"grad_sync"``
+    (a replicated strategy's all-reduce, or a weight average),
+    ``"reduce_scatter"`` and ``"all_gather"`` (a sharded strategy's
+    halves).  ``ms()`` waits for the card and returns the times recorded
+    since the last read, in order; ``by_label()`` the same, grouped."""
 
     def __init__(self):
         self._spans = []
 
     @contextlib.contextmanager
-    def span(self, device):
+    def span(self, device, label="grad_sync"):
         if device.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             yield
             end.record()
-            self._spans.append((start, end))
+            self._spans.append((label, (start, end)))
         else:
             t0 = time.perf_counter()
             yield
-            self._spans.append((time.perf_counter() - t0) * 1e3)
+            self._spans.append((label, (time.perf_counter() - t0) * 1e3))
 
-    def ms(self) -> list:
+    def _read(self) -> list:
         out = []
-        for s in self._spans:
+        for label, s in self._spans:
             if isinstance(s, tuple):
                 s[1].synchronize()
                 s = s[0].elapsed_time(s[1])
-            out.append(s)
+            out.append((label, s))
         self._spans = []
+        return out
+
+    def ms(self) -> list:
+        return [s for _, s in self._read()]
+
+    def by_label(self) -> dict:
+        out = {}
+        for label, s in self._read():
+            out.setdefault(label, []).append(s)
         return out
 
 
@@ -110,16 +141,16 @@ def make_dp_train_step(loss_fn: Callable, optimizer, mesh,
 
     loss_fn(model, batch) -> scalar loss (the rank's mean).  Returns
     ``step(state, batch) -> (state, metrics)`` on a
-    ``train.step.TrainState`` whose ``params`` is the rank's model
-    (its trainable masters are updated in place).  The metrics are the
-    loss averaged over the ranks, the norm of the rank's own gradient
-    (``grad_norm_local``) and of the averaged one (``grad_norm``; the
-    local one when the gradients are not synced).  ``timer`` (a
-    ``SyncTimer``) times each sync."""
-    if dp.overlap is not False:
-        raise ValueError(f"overlap={dp.overlap!r}: the bucket-level overlap "
-                         "scheduler waits for ROADMAP A.4; use "
-                         "overlap=False")
+    ``train.step.TrainState`` built for ``dp`` (``init_train_state``;
+    the state's masters and moments are updated in place).  The metrics
+    are the loss averaged over the ranks and the norm of the averaged
+    gradient (``grad_norm``; a replicated strategy adds the norm of the
+    rank's own, ``grad_norm_local``, and without gradient sync
+    ``grad_norm`` is that).  ``timer`` (a ``SyncTimer``) times each
+    collective."""
+    if dp.overlap not in (False, True, "serial"):
+        raise ValueError(f"overlap must be False, True or 'serial', "
+                         f"got {dp.overlap!r}")
     if dp.sync not in SYNC_MODES:
         raise ValueError(f"sync must be one of {SYNC_MODES}, got "
                          f"{dp.sync!r}")
@@ -128,18 +159,34 @@ def make_dp_train_step(loss_fn: Callable, optimizer, mesh,
     strategy = get_strategy(dp.strategy)
     strategy.validate(dp, mesh)
     check_dp_mesh(mesh)
+    expected_kind = strategy.state_kind(dp)
     pair_loss = _scalar_loss(loss_fn)
 
-    def timed(dev):
-        return timer.span(dev) if timer is not None \
+    def timed(dev, label="grad_sync"):
+        return timer.span(dev, label) if timer is not None \
             else contextlib.nullcontext()
 
+    def sharded_step(state, batch, dev):
+        def span(label):
+            return timed(dev, label)
+        loss, gshard = strategy.grad_sync(pair_loss, state, batch, mesh, dp,
+                                          span)
+        strategy.step_transform(optimizer, gshard, state, mesh, dp, span)
+        sq = gshard.float().square().sum()
+        allreduce_flat([loss], mesh)
+        dist.all_reduce(sq, group=_dp_group(mesh))   # a sum over shards
+        return (state._replace(step=state.step + 1),
+                {"loss": loss, "grad_norm": sq.sqrt()})
+
     def step(state: TrainState, batch):
+        check_layout(getattr(state, "layout", None), expected_kind, dp, mesh)
         model = state.params
         params = trainable(model)
         dev = next(iter(params.values())).device
         if not isinstance(batch, pipeline.Scattered):
             batch = pipeline.rank0_scatter(mesh, batch, device=dev)
+        if state.layout.sharded:
+            return sharded_step(state, batch, dev)
         loss, _ = accumulate_grads(pair_loss, model, params, batch,
                                    dp.microbatches)
         grads = {k: p.grad for k, p in params.items()}

@@ -1,5 +1,4 @@
-"""Elastic fault-tolerant training (port of ``repro.elastic`` for the
-replicated layouts).
+"""Elastic fault-tolerant training (port of ``repro.elastic``).
 
 The source paper assumes a fixed set of MPI ranks for the whole run;
 at scale preemption is routine and checkpoint I/O cannot sit on the
@@ -12,12 +11,11 @@ step path.  This package turns the checkpoint store
 * :class:`FaultInjector` / :class:`FaultPlan` -- deterministic
   preemption: kill the process hard at a chosen step;
 * :func:`resume_elastic` -- resume the latest *published* step into a
-  state of another world size or strategy, falling back past corrupt
-  steps.
+  state of another world size, strategy or layout (replicated or any
+  ZeRO kind: the store reshards), falling back past corrupt steps.
 
-The port's strategies keep replicated states, so a resize changes the
-world size and the strategy, not the sharding; resuming into a ZeRO
-layout waits for ROADMAP A.4.
+A sharded state's async save runs on every rank, each writing its own
+shards; rank 0 publishes once every rank's file is complete.
 """
 from repro_torch.elastic.async_ckpt import AsyncCheckpointer
 from repro_torch.elastic.faults import (FAULT_EXIT_CODE, FaultInjector,

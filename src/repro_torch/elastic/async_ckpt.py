@@ -22,13 +22,18 @@ before the next optimizer step overwrites them in place -- so
      behind, the *oldest* queued snapshot is dropped so the newest
      always publishes -- last-publish-wins.  A preempted run therefore
      resumes from the last *published* step, which may trail the last
-     *requested* step; ``stats()["steps_behind"]`` is that gap.
+     *requested* step; ``stats()["steps_behind"]`` is that gap.  A
+     sharded state's save is written by every rank (each its own
+     worker file), and ranks that dropped different snapshots would
+     leave steps no rank can publish, so there ``save`` waits for room
+     in the queue instead of dropping (the wait counts as blocking).
 
 ``wait()`` is the clean-shutdown barrier (drain the queue, re-raise any
 writer error); ``close()`` stops the daemon.  Telemetry: per-save
 blocking seconds (the device->host copy -- the only step-path cost),
 per-write publish seconds, bytes, drop/publish counts.  On a mesh,
-only the writing rank (rank 0) holds a checkpointer (``api.Trainer``).
+only the writing rank (rank 0) holds a checkpointer for a replicated
+state, every rank for a sharded one (``api.Trainer``).
 """
 from __future__ import annotations
 
@@ -95,12 +100,18 @@ class AsyncCheckpointer:
         at = int(state.step) if step is None else int(step)
         t0 = time.monotonic()
         snap = snapshot_train_state(state, at, extra=extra)
-        blocking_s = time.monotonic() - t0
         with self._cond:
             while len(self._pending) >= self.max_in_flight:
+                if snap.per_worker:        # sharded: wait, never drop
+                    if self._error is not None:
+                        break
+                    self._cond.wait()
+                    continue
                 victim = self._pending.popleft()   # last-publish-wins
                 self._dropped += 1
                 del victim
+            self._check_error()
+            blocking_s = time.monotonic() - t0
             self._pending.append(snap)
             self._saves += 1
             self._last_requested_step = at
@@ -192,6 +203,7 @@ class AsyncCheckpointer:
                     return                  # closed + drained
                 snap = self._pending.popleft()
                 self._writing = True
+                self._cond.notify_all()     # a waiting save has room now
             try:
                 t0 = time.monotonic()
                 self._writer(self.ckpt_dir, snap,

@@ -1,12 +1,11 @@
-"""Elastic resize: resume a killed run at another world size (port of
-``repro.elastic.resize`` for the replicated layouts).
+"""Elastic resize: resume a killed run under another mesh, strategy or
+layout (port of ``repro.elastic.resize``).
 
 Losing a node changes the world size; waiting for it to come back
-wastes the rest.  The port's strategies keep the state replicated, and
-the store restores a replicated checkpoint of any world size and
-strategy by key, so an elastic resume is just: build a fresh trainer
-for the NEW topology, then restore the newest *published* step into
-its state.
+wastes the rest.  The store reshards on restore (replicated, zero1,
+zero2, zero3 and the hier kinds, contiguous or bucket-major, any shard
+count), so an elastic resume is just: build a fresh trainer for the NEW
+topology, then restore the newest *published* step into its state.
 
 :func:`resume_elastic` adds the survival policy on top of the plain
 restore: it walks ``published_steps`` newest-first and, when a step's
@@ -30,8 +29,8 @@ from repro_torch.checkpoint.store import (
 
 def resume_elastic(ckpt_dir, template, *, step: Optional[int] = None):
     """Restore the newest usable published step into ``template`` (a
-    ``TrainState`` of any world size and strategy; its masters and
-    moments are overwritten in place).  Returns ``(state, step,
+    ``TrainState`` of any world size, strategy and layout; its masters,
+    shards and moments are overwritten in place).  Returns ``(state, step,
     skipped)`` where ``skipped`` is a list of ``(step, reason)`` for
     every newer published step that had to be abandoned as corrupt.
 

@@ -13,6 +13,11 @@ batch, per-step gradient averaging (or periodic weight averaging).
         --nproc-per-node 2 -m repro_torch.launch.mnist_dnn_dp \\
         --backend gloo --strategy bucketed
 
+    # ZeRO-3: the optimizer state, gradients and params 1/p a rank
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 4 -m repro_torch.launch.mnist_dnn_dp \
+        --device cpu --backend gloo --strategy zero3
+
     # the one-process sequential reference (no torchrun)
     PYTHONPATH=src python -m repro_torch.launch.mnist_dnn_dp --sequential
 
@@ -44,7 +49,7 @@ import torch.distributed as dist
 from repro_torch import optim
 from repro_torch.api import Trainer
 from repro_torch.configs.paper_nets import MNIST_DNN
-from repro_torch.core import DPConfig, available_strategies
+from repro_torch.core import DPConfig, available_strategies, get_strategy
 from repro_torch.data import ShardedLoader, make_dataset
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import BACKENDS, init_from_env
@@ -55,6 +60,20 @@ from repro_torch.train import cross_entropy, trainable
 def loss_fn(model, batch):
     return cross_entropy(apply_paper_net(MNIST_DNN, model, batch["x"]),
                          batch["y"])
+
+
+def eval_model(trainer, dev):
+    """The trainer's model with its full params: itself, or -- where the
+    params are sharded (zero3) -- a copy loaded from ``trainer.params``
+    (a gather every rank takes part in)."""
+    if not trainer.state.layout.params_flat:
+        return trainer.state.params
+    model = init_paper_net(MNIST_DNN, device=dev)
+    full = trainer.params
+    with torch.no_grad():
+        for k, p in trainable(model).items():
+            p.copy_(torch.from_numpy(full[k]))
+    return model
 
 
 def main(argv=None):
@@ -83,6 +102,9 @@ def main(argv=None):
                     help="checkpoint directory: save after each epoch, "
                          "then restore into a fresh trainer")
     args = ap.parse_args(argv)
+    if args.sync != "grads" and get_strategy(args.strategy).sharded:
+        ap.error(f"--strategy {args.strategy} shards the optimizer state "
+                 "and needs --sync grads")
 
     if args.sequential:
         mesh, dev, rank = None, resolve_device(args.device), 0
@@ -127,7 +149,7 @@ def main(argv=None):
             if steps == args.steps:
                 break
         with torch.no_grad():
-            logits = apply_paper_net(net, trainer.state.params,
+            logits = apply_paper_net(net, eval_model(trainer, dev),
                                      torch.from_numpy(ds.x[:1024]).to(dev))
         acc = float((logits.argmax(-1).cpu().numpy() == ds.y[:1024]).mean())
         sync = trainer.sync_ms()
@@ -144,9 +166,9 @@ def main(argv=None):
         # fresh trainer restores every master and moment
         fresh = create()
         at = fresh.restore(args.ckpt)
-        live = trainable(trainer.state.params)
-        err = max(float((p.detach() - live[k].detach()).abs().max())
-                  for k, p in trainable(fresh.state.params).items())
+        live = trainer.params
+        err = max(float(np.abs(p - live[k]).max())
+                  for k, p in fresh.params.items())
         say(f"restart: restored step {at} OK (max|Δ|={err:.1e})")
     if mesh is not None:
         dist.destroy_process_group()

@@ -16,6 +16,13 @@
         --reduced --device cpu --backend gloo --dp-strategy bucketed \\
         --steps 3 --batch 4 --seq 64
 
+    # the same over four ranks with the optimizer state, gradients and
+    # params sharded (ZeRO-3), the collectives bucket-pipelined
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 4 -m repro_torch.launch.train --arch qwen3-1.7b \
+        --reduced --device cpu --backend gloo --dp-strategy zero3 \
+        --overlap on --bucket-bytes 65536 --steps 3 --batch 4 --seq 64
+
     # checkpoint every 2 steps, hard-kill at step 4, then resume: the
     # rerun restores step 4 and its data cursor and takes steps 4 and 5
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
@@ -47,9 +54,12 @@ code 113.
 trains through ``api.Trainer`` over every rank torchrun starts, with
 ``--backend`` nccl (one rank a card) or gloo (the CPU, or ranks
 sharing one card): rank 0 prints ``describe()``, the losses (averaged
-over the ranks) and the time in the gradient sync.  A resume there is
-elastic: another world size or strategy restores the newest readable
-published step.
+over the ranks) and the time in the collectives.  The strategy is any
+registered one, the ZeRO ladder included (``zero1`` / ``zero2`` /
+``zero3``, and ``zero1_hier`` / ``zero3_hier`` with --pods > 1);
+``--overlap on|serial`` runs its collectives bucket by bucket
+(``--bucket-bytes``).  A resume there is elastic: another world size,
+strategy or layout restores the newest readable published step.
 """
 from __future__ import annotations
 
@@ -65,7 +75,7 @@ from repro_torch.checkpoint import (checkpoint_meta, latest_step,
                                     restore_train_state, save_checkpoint,
                                     save_sharded_checkpoint, state_tree)
 from repro_torch.configs import ARCHITECTURES, get_config, smoke_config
-from repro_torch.core import DPConfig, available_strategies
+from repro_torch.core import DPConfig, available_strategies, get_strategy
 from repro_torch.data import make_batch
 from repro_torch.device import resolve_device
 from repro_torch.elastic import FaultInjector, FaultPlan
@@ -96,6 +106,9 @@ def restore_cursor(ckpt_dir, at, default_seed):
         return int(cur["data_seed"]), int(cur["next_step"])
     except (FileNotFoundError, KeyError):
         return default_seed, at
+
+
+OVERLAP_MODES = {"off": False, "on": True, "serial": "serial"}
 
 
 def main(argv=None):
@@ -146,9 +159,19 @@ def main(argv=None):
     ap.add_argument("--pods", type=int, default=1,
                     help=">1 builds a (pod, data) mesh")
     ap.add_argument("--bucket-bytes", type=int, default=64 * 2 ** 20,
-                    help="target bucket size of the bucketed strategy")
+                    help="target bucket size of the bucketed strategy and "
+                         "of the overlap scheduler")
+    ap.add_argument("--overlap", default="off",
+                    choices=sorted(OVERLAP_MODES),
+                    help="run the collectives bucket by bucket, the next "
+                         "bucket issued before the last one is finished "
+                         "(on), or one after another (serial)")
     ap.add_argument("--backend", default="nccl", choices=BACKENDS)
     args = ap.parse_args(argv)
+    if args.dp_strategy and args.sync != "grads" and \
+            get_strategy(args.dp_strategy).sharded:
+        ap.error(f"--dp-strategy {args.dp_strategy} shards the optimizer "
+                 "state and needs --sync grads")
     if args.dp_strategy and not args.reduced:
         ap.error("--dp-strategy requires --reduced (as in the reference: "
                  "the full config trains on the one-device step)")
@@ -274,7 +297,8 @@ def run_dp(args, cfg, tc):
     dp = DPConfig(sync=args.sync, sync_period=args.sync_period,
                   strategy=args.dp_strategy, compress=args.compress,
                   bucket_bytes=args.bucket_bytes,
-                  microbatches=args.microbatches)
+                  microbatches=args.microbatches,
+                  overlap=OVERLAP_MODES[args.overlap])
     trainer = Trainer.create(cfg, optimizer=tc.optimizer, lr=tc.lr, dp=dp,
                              mesh=mesh, train_cfg=tc, seed=0, device=dev)
     say("trainer:", json.dumps(trainer.describe(), sort_keys=True),
@@ -312,9 +336,9 @@ def run_dp(args, cfg, tc):
     stats = trainer.finish_saves()
     if stats is not None:
         _print_ckpt_stats(stats, say)
-    sync = trainer.sync_ms()
-    if sync:
-        say(f"sync: median {np.median(sync):.3f} ms over {len(sync)} syncs "
+    for label, ms in trainer.sync_ms_by_label().items():
+        name = "sync" if label == "grad_sync" else label
+        say(f"{name}: median {np.median(ms):.3f} ms over {len(ms)} calls "
             f"({dev.type})")
     dist.destroy_process_group()
     return losses

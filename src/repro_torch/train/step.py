@@ -52,11 +52,14 @@ class TrainState(NamedTuple):
     metrics)``.  ``params`` is the ``Model`` holding the fp32 masters,
     ``opt_state`` the optimizer's dict, ``step`` a host int, ``layout``
     the ``core.train_state.Layout`` the checkpoint store records
-    (``start_state`` builds the one of a state without a mesh)."""
+    (``start_state`` builds the one of a state without a mesh), and
+    ``flat`` a sharded state's ``core.flat.FlatMasters`` (None for a
+    replicated one)."""
     params: Any
     opt_state: Any
     step: int
     layout: Any
+    flat: Any = None
 
 
 def trainable(model) -> dict:

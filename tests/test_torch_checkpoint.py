@@ -15,7 +15,8 @@ restores in the other.
   same npz members, in the same order.
 * Restore and one step equal the uninterrupted step bit for bit.
 * Twins of the reference's store claims (``tests/test_checkpoint.py``),
-  refusals by name, and the launchers' checkpoint flags.
+  a reference zero1 checkpoint restored into the port, refusals by
+  name, and the launchers' checkpoint flags.
 
 The smoke config runs in fp32, as ``tests/test_torch_train.py`` runs it.
 """
@@ -435,27 +436,46 @@ def test_torn_member_names_the_file(tmp_path, cfgs):
 # refusals
 # --------------------------------------------------------------------------
 
-def test_zero_layouts_refused_naming_a4(tmp_path):
-    """A ZeRO checkpoint of the reference (zero1 on a 1-device mesh)
-    and a ZeRO layout record are refused by name."""
+def test_reference_zero1_checkpoint_restores_into_port(tmp_path):
+    """A ZeRO checkpoint of the reference (zero1 on a 1-device mesh, its
+    moments one flat ``opt_state/m/flat`` leaf) restores into the port's
+    sequential trainer through the cross-layout branch: masters and
+    moments equal the reference's bitwise; the ZeRO layout records
+    round-trip."""
     from repro.compat import auto_axis_types, make_mesh
     from repro.configs.paper_nets import MNIST_DNN as JAX_MNIST_DNN
     from repro.core import DPConfig as JaxDPConfig
     from repro.models import init_paper_net as jax_init_net
     mesh = make_mesh((1,), ("data",), axis_types=auto_axis_types(1))
     jt = JaxTrainer.create(
-        loss_fn=lambda p, b: jnp.mean(p["layers"][0]["w"]),
+        loss_fn=lambda p, b: jnp.mean(p["layers"][0]["w"] ** 2),
         params=jax_init_net(JAX_MNIST_DNN, jax.random.PRNGKey(0)),
         optimizer="adam", dp=JaxDPConfig(strategy="zero1"), mesh=mesh)
+    jt.step({"x": jnp.zeros((8, 784)), "y": jnp.zeros((8,), jnp.int32)})
     jt.save(tmp_path)
     t = _paper_trainer(steps=0)
-    with pytest.raises(ValueError, match="A.4"):
-        t.restore(tmp_path)
+    assert t.restore(tmp_path) == 1
+    want = {f"layers.{i}.{k}": np.asarray(v)
+            for i, layer in enumerate(jt.state.params["layers"])
+            for k, v in layer.items()}
+    assert t.state.opt_state["step"] == 1
+    for name in ("m", "v"):
+        flat = np.asarray(jt.state.opt_state[name]["flat"])
+        got = np.concatenate([t.state.opt_state[name][k].numpy().ravel()
+                              for k in sorted(want, key=_ref_order)])
+        np.testing.assert_array_equal(got, flat[:got.size])
+    for k, v in want.items():
+        np.testing.assert_array_equal(t.params[k], v, err_msg=k)
     for kind in ("zero1", "zero2", "zero3", "zero1_hier", "zero3_hier"):
-        with pytest.raises(ValueError, match="ROADMAP A.4"):
-            Layout.from_json({"kind": kind, "axes": ["data"],
-                              "num_shards": 2, "total": 8,
-                              "padded_total": 8})
+        d = {"kind": kind, "axes": ["data"], "num_shards": 2, "total": 7,
+             "padded_total": 8, "bucket_bytes": None, "strategy": kind}
+        assert Layout.from_json(d).to_json() == d
+        assert Layout.from_json(d).shard_len == 4
+
+
+def _ref_order(name):
+    """A Table-1 master's place in the reference's flatten order."""
+    return bridge.reference_order(name.replace(".", "/"))
 
 
 def test_loss_fn_trainer_serve_refused():

@@ -2,8 +2,10 @@
 ``bucketed`` (with a bucket size that forces several buckets and
 padding) and ``hierarchical``, on the reference's single- and
 multi-pod meshes (8,) and (2, 4), against the numpy mean; the replicas
-left bitwise equal; ``compress="bf16"``; ``rank0_scatter``'s rows and
-its refusal of an uneven batch; and the strategy registry's refusals.
+left bitwise equal; ``compress="bf16"``; the ``zero1`` reduce-scatter /
+all-gather round trip; ``rank0_scatter``'s rows and its refusal of an
+uneven batch; and the strategy registry, which holds the reference's
+eight strategies.
 Each mesh shape runs once, in a module-scoped fixture whose ranks run
 every case and return JSON."""
 import numpy as np
@@ -46,7 +48,8 @@ want = [np.mean([a[i] for a in all_in], axis=0, dtype=np.float64)
         for i in range(len(shapes))]
 out = {{"err": {{}}, "sha": {{}}}}
 for name, kw in [("flat", {{}}), ("bucketed", {{"bucket_bytes": {bucket}}}),
-                 ("hierarchical", {{}}), ("bf16", {{"compress": "bf16"}})]:
+                 ("hierarchical", {{}}), ("zero1", {{}}),
+                 ("bf16", {{"compress": "bf16"}})]:
     strategy = "flat" if name == "bf16" else name
     ts = [torch.from_numpy(a.copy()) for a in all_in[RANK]]
     ret = allreduce_mean(ts, mesh, strategy=strategy, **kw)
@@ -84,13 +87,13 @@ def ranks(request, tmp_path_factory):
                             tmp_path_factory.mktemp("collectives"))
 
 
-@pytest.mark.parametrize("strategy", STRATEGIES)
+@pytest.mark.parametrize("strategy", STRATEGIES + ["zero1"])
 def test_allreduce_equals_numpy_mean(ranks, strategy):
     _, results = ranks
     assert max(r["err"][strategy] for r in results) <= TOL
 
 
-@pytest.mark.parametrize("strategy", STRATEGIES + ["bf16"])
+@pytest.mark.parametrize("strategy", STRATEGIES + ["zero1", "bf16"])
 def test_replicas_end_bitwise_equal(ranks, strategy):
     _, results = ranks
     assert len({r["sha"][strategy] for r in results}) == 1
@@ -154,17 +157,21 @@ def test_wire_bytes_counts_dtype_and_padding():
 
 @pytest.mark.parametrize("name", ["zero1", "zero2", "zero3", "zero1_hier",
                                   "zero3_hier"])
-def test_zero_strategies_refused_by_name(name):
-    with pytest.raises(ValueError, match="ROADMAP A.4"):
-        get_strategy(name)
-    assert name not in available_strategies()
+def test_zero_strategies_registered(name):
+    s = get_strategy(name)
+    assert name in available_strategies()
+    assert (s.name, s.kind, s.sharded) == (name, name, True)
+    assert s.params_sharded == name.startswith("zero3")
 
 
-def test_allreduce_zero1_branch_refused():
-    with pytest.raises(ValueError, match="ROADMAP A.4"):
-        allreduce_mean([torch.zeros(2)], None, strategy="zero1")
+def test_allreduce_zero1_round_trip_guards():
+    """The zero1 branch runs (``ranks`` holds it to the numpy mean); an
+    empty list passes through, an unknown wire dtype raises."""
+    assert allreduce_mean([], None, strategy="zero1") == []
     with pytest.raises(ValueError, match="compress"):
         allreduce_mean([torch.zeros(2)], None, compress="fp8")
+    with pytest.raises(ValueError, match="unknown allreduce strategy"):
+        allreduce_mean([torch.zeros(2)], None, strategy="zero2")
 
 
 def test_registry_lists_and_guards():

@@ -12,7 +12,10 @@
 * Reduced qwen3-1.7b through ``Trainer(model_cfg=...)`` at p = 2 with 2
   microbatches equals the one-device ``make_train_step`` over 5 AdamW
   steps.
-* Refusals by name, and both launchers under torchrun.
+* The ZeRO ladder at p = 2 (the hier pair on 2 pods) and the overlap
+  modes equal the one-device step over 5 AdamW steps on reduced qwen3.
+* Refusals by name, and both launchers under torchrun (MNIST-DNN under
+  ``zero3`` on 4 ranks too).
 """
 import os
 import signal
@@ -290,19 +293,103 @@ def _loss(m, b):
     return cross_entropy(apply_paper_net(MNIST_DNN, m, b["x"]), b["y"])
 
 
+# --------------------------------------------------------------------------
+# the ZeRO ladder and the overlap scheduler on reduced qwen3 at p = 2
+# --------------------------------------------------------------------------
+
+ZERO_QWEN_CODE = """
+from repro_torch.api import Trainer
+from repro_torch.configs import smoke_config
+from repro_torch.core import DPConfig
+from repro_torch.launch.mesh import make_dp_mesh
+from repro_torch.train import (TrainConfig, make_train_step, start_state,
+                               trainable)
+from repro_torch.models import init_model
+
+cfg = smoke_config("qwen3-1.7b").with_overrides(dtype="float32")
+meshes = {{1: make_dp_mesh(1), 2: make_dp_mesh(2)}}
+rng = np.random.default_rng(5)
+batches = [{{"tokens": rng.integers(0, cfg.vocab_size, (8, 32))
+             .astype(np.int32)}} for _ in range({steps})]
+ref, min_grad = None, None
+if RANK == 0:
+    step, opt = make_train_step(cfg, TrainConfig(optimizer="adamw",
+                                                 lr={lr}))
+    model = init_model(cfg, seed=0, device="cpu", train=True)
+    state = start_state(model, opt)
+    ref_losses = []
+    for b in batches:
+        state, m = step(state, b)
+        ref_losses.append(float(m["loss"]))
+        g = {{k: p.grad.abs() for k, p in trainable(model).items()}}
+        min_grad = g if min_grad is None else {{
+            k: torch.minimum(min_grad[k], v) for k, v in g.items()}}
+    ref = {{k: p.detach().numpy() for k, p in trainable(model).items()}}
+out = {{}}
+for name, pods, strategy, overlap in {cases}:
+    t = Trainer.create(cfg, optimizer="adamw", lr={lr},
+                       dp=DPConfig(strategy=strategy, microbatches=2,
+                                   overlap=overlap, bucket_bytes=1 << 16),
+                       mesh=meshes[pods], train_cfg=TrainConfig(remat=False),
+                       seed=RANK, device="cpu")
+    losses = [float(t.step(b)["loss"]) for b in batches]
+    got = t.params
+    if RANK:
+        continue
+    well, ill, n_ill = 0.0, 0.0, 0
+    for k, w in ref.items():
+        gap = np.abs(got[k] - w)
+        mask = (min_grad[k] >= {ill}).numpy()
+        well = max(well, float(gap[mask].max(initial=0)))
+        ill = max(ill, float(gap.max()))
+        n_ill += int((~mask).sum())
+    out[name] = {{"loss_gap": max(abs(a - b)
+                                 for a, b in zip(losses, ref_losses)),
+                 "well": well, "ill": ill, "n_ill": n_ill,
+                 "n": sum(w.size for w in ref.values()),
+                 "layout": t.state.layout.kind}}
+print(json.dumps(out))
+"""
+
+ZERO_CASES = [("zero1", 1, "zero1", False), ("zero2", 1, "zero2", False),
+              ("zero3", 1, "zero3", False),
+              ("zero1_hier", 2, "zero1_hier", False),
+              ("zero3_hier", 2, "zero3_hier", False),
+              ("overlap_True", 1, "zero2", True),
+              ("overlap_serial", 1, "zero3", "serial")]
+
+
+@pytest.fixture(scope="module")
+def zero_qwen(tmp_path_factory):
+    code = ZERO_QWEN_CODE.format(steps=STEPS, lr=LR, ill=ILL,
+                                 cases=ZERO_CASES)
+    return run_ranks(code, 2, tmp_path_factory.mktemp("zero_qwen"),
+                     timeout=300)[0]
+
+
+def _like_one_device(r):
+    assert r["loss_gap"] <= ADAM_TOL
+    assert r["well"] <= ADAM_TOL
+    assert r["ill"] <= STEPS * LR
+    assert r["n_ill"] < 1e-2 * r["n"]
+
+
 @pytest.mark.parametrize("name", ["zero1", "zero2", "zero3", "zero1_hier",
                                   "zero3_hier"])
-def test_zero_strategies_refused_by_name(name):
-    with pytest.raises(ValueError, match="ROADMAP A.4"):
-        make_dp_train_step(_loss, optim.sgd(0.1), None,
-                           DPConfig(strategy=name))
+def test_zero_strategies_step_like_one_device(zero_qwen, name):
+    """Reduced qwen3 through ``Trainer(model_cfg=...)`` at p = 2 with 2
+    microbatches: each ZeRO strategy (the hier pair on a 2-pod mesh)
+    equals the one-device step over 5 AdamW steps."""
+    _like_one_device(zero_qwen[name])
+    assert zero_qwen[name]["layout"] == name
 
 
 @pytest.mark.parametrize("overlap", [True, "serial"])
-def test_overlap_refused_by_name(overlap):
-    with pytest.raises(ValueError, match="ROADMAP A.4"):
-        make_dp_train_step(_loss, optim.sgd(0.1), None,
-                           DPConfig(overlap=overlap))
+def test_overlap_modes_step_like_one_device(zero_qwen, overlap):
+    """``overlap=True`` (zero2: each microbatch's reduce-scatter behind
+    the next backward) and ``"serial"`` (zero3's bucket-major gathers
+    and reduce-scatters one after another) step alike."""
+    _like_one_device(zero_qwen[f"overlap_{overlap}"])
 
 
 @pytest.mark.parametrize("dp,match", [
@@ -381,12 +468,18 @@ def test_dp_strategy_requires_reduced(capsys):
 
 
 def test_launchers_refuse_zero_strategies(capsys):
+    """The launchers take every registered strategy, and refuse a ZeRO
+    one with weight averaging: its optimizer state is sharded."""
     with pytest.raises(SystemExit):
         launch_train.main(["--arch", "qwen3-1.7b", "--reduced",
-                           "--dp-strategy", "zero1", "--device", "cpu"])
+                           "--dp-strategy", "zero1", "--sync", "weights",
+                           "--device", "cpu"])
     with pytest.raises(SystemExit):
-        mnist_dnn_dp.main(["--strategy", "zero1", "--device", "cpu"])
-    assert "invalid choice: 'zero1'" in capsys.readouterr().err
+        mnist_dnn_dp.main(["--strategy", "zero3", "--sync", "weights",
+                           "--device", "cpu"])
+    err = capsys.readouterr().err
+    assert "--dp-strategy zero1 shards the optimizer state" in err
+    assert "--strategy zero3 shards the optimizer state" in err
 
 
 # --------------------------------------------------------------------------
@@ -416,7 +509,7 @@ def _dump(d, step, rank):
         return {k: f[k] for k in f.files}
 
 
-@pytest.mark.parametrize("strategy", ["flat", "hierarchical"])
+@pytest.mark.parametrize("strategy", ["flat", "hierarchical", "zero3"])
 def test_mnist_launcher_under_torchrun_equals_sequential(strategy, tmp_path,
                                                          capsys):
     data = ["--samples", "1024", "--epochs", "1", "--steps", "4",
@@ -425,7 +518,7 @@ def test_mnist_launcher_under_torchrun_equals_sequential(strategy, tmp_path,
                        str(tmp_path / "seq")])
     assert "sequential reference" in capsys.readouterr().out
     pods = ["--pods", "2"] if strategy == "hierarchical" else []
-    n = 4 if pods else 2
+    n = 2 if strategy == "flat" else 4
     out = _torchrun(["repro_torch.launch.mnist_dnn_dp", *data, "--backend",
                      "gloo", "--strategy", strategy, *pods, "--dump",
                      str(tmp_path / "dp")], n=n)

@@ -13,10 +13,16 @@
 * the elastic resize -- 2 gloo ranks of MNIST-DNN under ``flat`` with
   Adam and a lagging async writer are hard-killed at step 6; 4 ranks
   under ``bucketed`` resume from the last published step (< 6) and their
-  losses match an unkilled 4-rank run within 1e-5.
+  losses match an unkilled 4-rank run within 1e-5;
+* the reference's acceptance run (``tests/test_elastic.py:369``) at a
+  size the suite can hold: 2 x 2 ranks under ``zero1_hier`` (bucket-
+  major, every rank's async writer lagging) killed at step 6, resumed
+  as 2 ranks under ``zero3`` from what was published.
 
-The ZeRO-hier twins (``test_elastic.py:387``, ``:439``, ``:455``) wait
-for ROADMAP A.4, the checkpoint overhead model (``:426``) for A.10.
+The zero3_hier cross-layout twin (``test_elastic.py:387``) and the hier
+pair in the registry (``:455``) are in ``tests/test_torch_zero_checkpoint
+.py`` and ``tests/test_torch_zero.py``; the perf model's claims
+(``:426``, ``:439``) wait for ROADMAP A.10.
 """
 import os
 import subprocess
@@ -339,6 +345,74 @@ def test_kill_two_flat_ranks_resume_four_bucketed(tmp_path):
     assert pub and pub[-1] < 6, pub    # the writer genuinely lagged
     res = run_ranks(RESUME_RUN, 4, tmp_path, env=env)
     assert all(r == res[0] for r in res)
+    r = res[0]
+    assert r["pub"] == pub and r["at"] == pub[-1] and not r["skipped"]
+    assert sorted(map(int, r["resumed"])) == list(range(pub[-1], 10))
+    for i, loss in r["resumed"].items():
+        assert abs(loss - r["reference"][i]) <= RESIZE_TOL, i
+    assert r["gap"] <= RESIZE_TOL
+
+
+ZERO_KILL_RUN = COMMON + """
+from repro_torch.checkpoint.store import write_state_snapshot
+from repro_torch.elastic import AsyncCheckpointer, FaultInjector, FaultPlan
+
+mesh = make_dp_mesh(2)
+
+def lagging_writer(d, snap, *, keep_last=None):
+    time.sleep(0.3)                   # every rank's writer lags
+    return write_state_snapshot(d, snap, keep_last=keep_last)
+
+t = trainer(DPConfig(strategy="zero1_hier", overlap=True,
+                     bucket_bytes=1 << 16))
+inj = FaultInjector(FaultPlan(6))
+ck = AsyncCheckpointer(ckpt, writer=lagging_writer)   # on every rank
+for i in range(10):
+    m = t.step(batch_of(i))
+    time.sleep(0.15)
+    print("KLOSS", i, repr(float(m["loss"])), flush=True)
+    ck.save(t.state, i + 1)           # each rank its own worker file
+    inj.after_step(i + 1)
+print("UNREACHABLE")
+"""
+
+ZERO_RESUME_RUN = COMMON + """
+from repro_torch.checkpoint import published_steps
+
+dp = DPConfig(strategy="zero3")
+pub = published_steps(ckpt)
+t = trainer(dp)
+at, skipped = t.restore_elastic(ckpt)
+resumed = {i: float(t.step(batch_of(i))["loss"]) for i in range(at, 10)}
+ref = trainer(dp)
+reference = {i: float(ref.step(batch_of(i))["loss"]) for i in range(10)}
+got, want = t.params, ref.params
+gap = max(float(np.abs(p - want[k]).max()) for k, p in got.items())
+print(json.dumps({"pub": pub, "at": at, "skipped": skipped, "gap": gap,
+                  "resumed": resumed, "reference": reference}))
+"""
+
+
+def test_kill_zero1_hier_resume_as_zero3(tmp_path):
+    """The reference's 2 x 16 zero1_hier -> 1 x 8 zero3 acceptance run
+    (``tests/test_elastic.py:369``) needs 32 ranks; here 2 pods x 2 ranks
+    under zero1_hier (bucket-major shards, every rank writing its own
+    worker file through a lagging async writer) are hard-killed at step
+    6, and 2 ranks under zero3 resume from the last step rank 0
+    published (< 6): the losses to step 10 and the params match an
+    unkilled 2-rank zero3 run within 1e-5."""
+    env = {"ELASTIC_CKPT": str(tmp_path / "elastic")}
+    outs = run_ranks(ZERO_KILL_RUN, 4, tmp_path, expect_rc=FAULT_EXIT_CODE,
+                     env=env)
+    for out in outs:
+        assert "FAULT: killing at step 6" in out and "UNREACHABLE" not in out
+    pub = published_steps(tmp_path / "elastic")
+    assert pub and pub[-1] < 6, pub
+    meta = checkpoint_meta(tmp_path / "elastic", pub[-1])
+    assert meta["layout"]["kind"] == "zero1_hier"
+    assert meta["layout"]["bucket_bytes"] == 1 << 16
+    res = run_ranks(ZERO_RESUME_RUN, 2, tmp_path, env=env)
+    assert res[0] == res[1]
     r = res[0]
     assert r["pub"] == pub and r["at"] == pub[-1] and not r["skipped"]
     assert sorted(map(int, r["resumed"])) == list(range(pub[-1], 10))

@@ -28,7 +28,8 @@ def test_port_files_exist():
             "profile_train.py", "paper_nets.py", "pipeline.py",
             "collectives.py", "strategy.py", "data_parallel.py", "api.py",
             "mesh.py", "mnist_dnn_dp.py", "store.py", "train_state.py",
-            "async_ckpt.py", "faults.py", "resize.py"} <= names
+            "async_ckpt.py", "faults.py", "resize.py", "overlap.py",
+            "flat.py"} <= names
     assert {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob(
         "*.cu")} >= {"paged_decode.cu", "paged_decode_mla.cu", "wkv6.cu",
                      "mamba_scan.cu", "flash_attention.cu"}
