@@ -11,7 +11,11 @@ Phases (each fails the run if it goes wrong):
      full-width shapes, fp32 and bf16, with its time, the plain
      version's, the one-call PyTorch yardstick's (where there is one)
      and the bound; the flash kernel also at the training shape (B 1,
-     S = T = 4096), forward and the gradients of its autograd Function;
+     S = T = 4096), forward and the gradients of its autograd Function,
+     and at MLA's widths (q, k 192, v 128; 128 heads) at the slab
+     prefill and training shapes, forward and gradients; the gradients
+     of the WKV6 and MambaScan Functions at the training shapes (B 1,
+     T 4096, 32 heads of 64; Bb 1, T 2048, dI 8192, dS 16);
   3. the qwen3 path: full-width qwen3-1.7b in bf16 (weights from a seed)
      serves 16 requests on 8 slots through the continuous scheduler,
      with every attention call launched through the paged-decode kernel;
@@ -94,6 +98,24 @@ Phases (each fails the run if it goes wrong):
      of both serves phase 3's traffic at depth 4 with equal greedy
      tokens and 4 x 282 paged_flash_decode launches each.  The
      checkpoint is deleted at the phase's end.
+ 19. the lockstep slab path of the other three models, bf16, phase 11's
+     traffic: rwkv6-1.6b (nothing cut) with exactly 24 wkv6 launches
+     (one whole-prompt scan a layer), jamba-v0.1-52b at its 8-layer cut
+     with 7 mamba_scan and 64 flash_attention launches, deepseek-v3-671b
+     at its 4-layer cut with 4 flash_attention launches at (192, 128)
+     (its slab decode is plain ops); then each at 2 full-width layers in
+     fp32 gives the same greedy tokens on the card as on the CPU
+     (DeepSeek's routed experts cut 256 -> 16 there);
+ 20. training full-width, full-depth rwkv6-1.6b on phase 13's batch, 1 +
+     5 AdamW steps, bf16 on fp32 masters, remat: exactly 576 wkv6
+     launches (the WKV6 Function: kernel forward, plain backward); then
+     2 fp32 layers card vs CPU (phase 14's form);
+ 21. training Jamba cut to 2 layers (3.742 B; SGD, 1 x 2048 tokens, 1 +
+     3 steps, 16 mamba_scan launches) and DeepSeek-V3 cut to 1 layer
+     (MLA + dense MLP, no MTP head; AdamW, phase 13's batch, 1 + 3
+     steps, 16 flash_attention launches at (192, 128)); then each at 2
+     fp32 layers card vs CPU, SGD, the routed experts cut (Jamba 16 ->
+     4, DeepSeek 256 -> 16).
 The last lines are the kernels' JSON record, the card's name and power
 limit, and the result line.  Without a card, or outside the repository,
 it exits non-zero and prints no result.
@@ -177,6 +199,9 @@ ZERO_LAYERS, ZERO_RANKS = 4, 2
 ZERO_LOSS_TOL = 1e-5          # the reference's fp32 training bar
 ZERO3_MEM_RATIO = 0.55        # zero3's bytes between steps / flat's
 ZERO_DIR = os.path.join(ROOT, "build", "zero_phase18")
+# phases 20-21: Jamba (cut to 2 layers) trains on 1 x 2048 tokens; Jamba
+# and DeepSeek-V3 (cut to 1 layer) take 1 + 3 steps
+JAMBA_TRAIN_SEQ, ARCH_TRAIN_STEPS = 2048, 3
 # the reference's FLASH_CASES (tests/test_kernels.py)
 FLASH_CASES = [
     # B, S, T, h, hk, hd, causal, window
@@ -898,6 +923,234 @@ def check_mamba(dev, flush):
                   f"plain {plain_ms:.4f} ms  bound "
                   f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}, "
                   f"{n_bytes / 1e6:.2f} MB)")
+    return rows
+
+
+# --------------------------------------------------------------------------
+# phase 2, the whole-sequence branches: MLA's widths in the flash
+# kernel, and the gradients of the two scan kernels' autograd Functions
+# --------------------------------------------------------------------------
+
+def mla_flash_bound(B, S, T, h, dqk, dv, el, backward=False):
+    """Bytes (q, k, v read once, out written once; the backward also
+    reads the output gradient and writes dq, dk, dv) and operations of
+    a causal call at q/k width dqk and v width dv, h = hk: 2 (dqk + dv)
+    per visible (head row, key) pair forward; the backward recomputes
+    the scores and runs four products, 2 (3 dqk + 2 dv)."""
+    qkv = B * S * h * dqk + B * T * h * (dqk + dv)
+    n_bytes = (2 * qkv + 2 * B * S * h * dv if backward
+               else qkv + B * S * h * dv) * el
+    vis = B * h * (S * (S + 1) // 2 + S * (T - S))
+    return n_bytes, 2 * (3 * dqk + 2 * dv if backward else dqk + dv) * vis
+
+
+def bound_of(n_bytes, ops, dtype):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes, "ops": ops}
+
+
+def check_flash_mla(dev, flush):
+    """The flash kernel at MLA's widths (DeepSeek-V3: q and k 192 = nope
+    128 + rope 64, v 128, h = hk = 128), causal: the slab prefill (B 8,
+    S = T = 512) and the training forward (B 1, S = T = 4096) against
+    the plain version, fp32 and bf16, and at the training shape the
+    gradients of ``FlashAttention`` against autograd of the plain
+    version (heads are independent at h = hk: the plain version runs 32
+    at a time, to bound its fp32 scores).  bf16 times beside SDPA with
+    E != Ev and the bounds."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd_ref, flash_attention_ref)
+
+    h, dqk, dv, group = 128, 192, 128, 32
+    rng = np.random.default_rng(23)
+    rows = []
+    for name, B, S in ((f"mla prefill B={LEGACY_BATCH} S=T={LEGACY_PROMPT}",
+                        LEGACY_BATCH, LEGACY_PROMPT),
+                       (f"mla train B=1 S=T={TRAIN_SEQ}", 1, TRAIN_SEQ)):
+        train = B == 1
+        host = [torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)) for shape in ((B, S, h, dqk), (B, S, h, dqk),
+                                       (B, S, h, dv), (B, S, h, dv))]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, dout = (x.to(dev, dtype) for x in host)
+            got = flash_attention(q, k, v)
+            err = 0.0
+            for g in range(0, h, group):
+                sl = slice(g, g + group)
+                want = flash_attention_ref(q[:, :, sl], k[:, :, sl],
+                                           v[:, :, sl])
+                part = got[:, :, sl].float()
+                err = max(err, (part - want.float()).abs().max().item())
+                if not torch.allclose(part, want.float(), atol=TOL[dtype],
+                                      rtol=TOL[dtype]):
+                    fail(f"flash_attention {name} {dtype}: max |err| {err}")
+                del want
+            del got
+            row = {"case": name, "dtype": str(dtype)[6:], "widths": [dqk, dv],
+                   "max_abs_err": err, "tol": TOL[dtype]}
+            msg = ""
+            if train:
+                reset_launch_counts()
+                leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+                flash_attention(*leaves).backward(dout)
+                if launch_counts().get("flash_attention", 0) != 1:
+                    fail("the autograd Function did not launch the kernel "
+                         "once at MLA's widths")
+                ref_grads = [torch.empty_like(t) for t in (q, k, v)]
+                for g in range(0, h, group):
+                    sl = slice(g, g + group)
+                    part = [t[:, :, sl].clone().requires_grad_()
+                            for t in (q, k, v)]
+                    flash_attention_ref(*part).backward(dout[:, :, sl])
+                    for ref_grad, t in zip(ref_grads, part):
+                        ref_grad[:, :, sl] = t.grad
+                    del part
+                gerr = 0.0
+                for i, (leaf, ref_grad) in enumerate(zip(leaves, ref_grads)):
+                    rel = ((leaf.grad.float() - ref_grad.float()).abs().max()
+                           / ref_grad.float().abs().max()).item()
+                    gerr = max(gerr, rel)
+                    if not rel <= TRAIN_GRAD_TOL[dtype]:
+                        fail(f"flash_attention {name} backward d{'qkv'[i]} "
+                             f"{dtype}: max |err| / max |grad| {rel:.2e}")
+                del leaves, ref_grads
+                row.update(grad_rel_err=gerr, grad_tol=TRAIN_GRAD_TOL[dtype])
+                msg = (f"; dq, dk, dv max |err| / max |grad| {gerr:.2e} (tol "
+                       f"{TRAIN_GRAD_TOL[dtype]:g})")
+            torch.cuda.synchronize()
+            if dtype == torch.bfloat16:
+                qt, kt, vt, dot = (x.transpose(1, 2).contiguous()
+                                   for x in (q, k, v, dout))
+                sdpa = lambda *a: F.scaled_dot_product_attention(
+                    *a, is_causal=True)
+                row["ms"] = time_ms(lambda: flash_attention(q, k, v), flush)
+                row["plain_ms"] = time_ms(
+                    lambda: flash_attention_ref(q, k, v), flush,
+                    iters=5 if train else 20)
+                row["library_ms"] = time_ms(lambda: sdpa(qt, kt, vt), flush)
+                row["sdpa_backend"] = sdpa_backend(qt, kt, vt, None, 0.0,
+                                                   True)
+                row.update(bound_of(*mla_flash_bound(B, S, S, h, dqk, dv, 2),
+                                    dtype))
+                msg += (f"  kernel {row['ms']:.4f} ms  plain "
+                        f"{row['plain_ms']:.4f} ms  sdpa "
+                        f"{row['library_ms']:.4f} ms ({row['sdpa_backend']})"
+                        f"  bound {row['bound_ms']:.4f} ms "
+                        f"({row['bound_by']}: {row['ops'] / 1e9:.1f} GFLOP)")
+                if train:
+                    grads = [t.clone().requires_grad_() for t in (qt, kt, vt)]
+                    row["bwd_plain_ms"] = time_ms(
+                        lambda: flash_attention_bwd_ref(q, k, v, dout),
+                        flush, iters=5)
+                    row["library_fwd_bwd_ms"] = time_ms(
+                        lambda: torch.autograd.grad(sdpa(*grads), grads,
+                                                    dot), flush)
+                    b = bound_of(*mla_flash_bound(B, S, S, h, dqk, dv, 2,
+                                                  backward=True), dtype)
+                    row.update({f"bwd_{key}": val for key, val in b.items()})
+                    msg += (f"; backward: plain {row['bwd_plain_ms']:.4f} ms"
+                            f"  sdpa forward + backward "
+                            f"{row['library_fwd_bwd_ms']:.4f} ms  bound "
+                            f"{row['bwd_bound_ms']:.4f} ms")
+                    del grads
+                del qt, kt, vt, dot
+            rows.append(row)
+            print(f"  flash_attention {name:30s} (192, 128) {row['dtype']:8s} "
+                  f"err {err:.2e} (tol {TOL[dtype]:g}){msg}")
+            del q, k, v, dout
+            torch.cuda.empty_cache()
+    return rows
+
+
+def check_scan_grads(dev, flush):
+    """The gradients of ``WKV6`` and ``MambaScan`` (the kernel's forward,
+    the plain chunk-recomputing backward) at the training shapes --
+    rwkv6-1.6b's B 1, T 4096, H 32, K 64 and Jamba's Bb 1, T 2048, dI
+    8192, dS 16 -- against autograd of the plain chunked forms, with a
+    cotangent on y and on the final state; times of the kernel forward,
+    the plain forward and the plain backward beside the forward's
+    bound."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.mamba_scan import (mamba_chunked,
+                                                mamba_chunked_bwd, mamba_scan)
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_chunked, wkv6_chunked_bwd
+
+    rng = np.random.default_rng(29)
+    B, T, H, K = 1, TRAIN_SEQ, 32, 64
+    w_host = [torch.from_numpy(x) for x in wkv_case(rng, B, T, H, K, 0.0)]
+    w_cot = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+             for s in ((B, T, H, K), (B, H, K, K))]
+    Bb, Tm, dI, dS, R = 1, JAMBA_TRAIN_SEQ, 8192, 16, 256
+    x, dt, A, proj, D, h0 = (torch.from_numpy(a) for a in
+                             mamba_case(rng, Bb, Tm, dI, dS, R))
+    m_cot = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+             for s in ((Bb, Tm, dI), (Bb, dI, dS))]
+    scans = {
+        "wkv6": (f"train B={B} T={T} H={H} K={K}", wkv6, wkv6_chunked,
+                 wkv6_chunked_bwd, lambda dtype: [
+                     t.to(dev, dtype if i < 3 else torch.float32)
+                     for i, t in enumerate(w_host)], w_cot,
+                 lambda el: wkv_bound(B, T, H, K, el)),
+        "mamba_scan": (f"train Bb={Bb} T={Tm} dI={dI} dS={dS}", mamba_scan,
+                       mamba_chunked, mamba_chunked_bwd, lambda dtype: [
+                           x.to(dev, dtype), dt.to(dev, dtype), A.to(dev),
+                           *(t.to(dev, dtype) for t in (
+                               proj[..., R:R + dS], proj[..., R + dS:])),
+                           D.to(dev), h0.to(dev)], m_cot,
+                       lambda el: mamba_bound(Bb, Tm, dI, dS, el)),
+    }
+    rows = {}
+    for kname, (case, fn, plain, bwd, inputs, cot, bound) in scans.items():
+        rows[kname] = []
+        for dtype in (torch.float32, torch.bfloat16):
+            args = inputs(dtype)
+            dy, ds = (c.to(dev) for c in cot)
+            reset_launch_counts()
+            leaves = [a.clone().requires_grad_() for a in args]
+            y, s = fn(*leaves)
+            ((y.float() * dy).sum() + (s * ds).sum()).backward()
+            if launch_counts().get(kname, 0) != 1:
+                fail(f"{kname}: the autograd Function did not launch the "
+                     "kernel once")
+            ref_leaves = [a.clone().requires_grad_() for a in args]
+            y_ref, s_ref = plain(*ref_leaves)
+            ((y_ref.float() * dy).sum() + (s_ref * ds).sum()).backward()
+            gerr = 0.0
+            for i, (a, b) in enumerate(zip(leaves, ref_leaves)):
+                rel = ((a.grad.float() - b.grad.float()).abs().max()
+                       / b.grad.float().abs().max()).item()
+                gerr = max(gerr, rel)
+                if not rel <= TRAIN_GRAD_TOL[dtype]:
+                    fail(f"{kname} backward, input {i}, {dtype}: max |err| / "
+                         f"max |grad| {rel:.2e} > {TRAIN_GRAD_TOL[dtype]:g}")
+            del leaves, ref_leaves, y, s, y_ref, s_ref
+            torch.cuda.synchronize()
+            row = {"case": case, "dtype": str(dtype)[6:],
+                   "grad_rel_err": gerr, "grad_tol": TRAIN_GRAD_TOL[dtype]}
+            if dtype == torch.bfloat16:
+                row["ms"] = time_ms(lambda: fn(*args), flush)
+                row["plain_ms"] = time_ms(lambda: plain(*args), flush,
+                                          iters=5)
+                row["bwd_plain_ms"] = time_ms(
+                    lambda: bwd(*args, dy, ds), flush, iters=5)
+                row["library_ms"] = None
+                row.update(bound_of(*bound(2), torch.float32))
+            rows[kname].append(row)
+            timing = (f"  kernel {row['ms']:.4f} ms  plain forward "
+                      f"{row['plain_ms']:.4f} ms  plain backward "
+                      f"{row['bwd_plain_ms']:.4f} ms  forward bound "
+                      f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
+                      if "ms" in row else "")
+            print(f"  {kname} {case:34s} {row['dtype']:8s} gradients max "
+                  f"|err| / max |grad| {gerr:.2e} (tol "
+                  f"{TRAIN_GRAD_TOL[dtype]:g}){timing}")
+            del args
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -1827,6 +2080,330 @@ def zero_gloo(dev, cfg, batch, mesh, prompts, model_calls):
     return ranks
 
 
+# --------------------------------------------------------------------------
+# phases 19-21: the whole-sequence branches of the other architectures
+# --------------------------------------------------------------------------
+
+def _cut_moe(cfg, experts):
+    """``cfg`` with its routed experts cut to ``experts`` (a card-vs-CPU
+    parity run only: fp32 experts are 45 GB a DeepSeek-V3 layer, 11.3 GB
+    a Jamba one, in host memory)."""
+    import dataclasses
+    return cfg.with_overrides(moe=dataclasses.replace(
+        cfg.moe, num_experts=experts,
+        first_dense_layers=min(cfg.moe.first_dense_layers, 1)))
+
+
+def _slab_parity(dev, name, small, prompts, new, cut=""):
+    """Card vs CPU fp32 greedy tokens through ``ServeEngine``: weights
+    drawn on the card, copied to the CPU.  Returns the card run's
+    launches."""
+    import copy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import init_model
+    from repro_torch.serve import ServeEngine
+
+    m_card = init_model(small, seed=1, device=dev)
+    m_cpu = copy.deepcopy(m_card.cpu())
+    m_card.to(dev)
+    got = {}
+    for where, m in (("cpu", m_cpu), ("cuda", m_card)):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        got[where] = ServeEngine(small, m, batch_size=len(prompts),
+                                 max_len=prompts.shape[1] + new).generate(
+                                     prompts, new).cpu().numpy()
+        print(f"  {where}: {time.perf_counter() - t0:.1f} s")
+    counts = launch_counts()
+    if not np.array_equal(got["cpu"], got["cuda"]):
+        fail(f"phase 19 ({name}): lockstep fp32 greedy tokens differ card vs "
+             f"CPU: {got['cpu']} vs {got['cuda']}")
+    print(f"phase 19: 2-layer full-width {name} fp32 {small.layer_pattern()}"
+          f"{cut}: greedy tokens through the lockstep engine equal on card "
+          f"and CPU for {len(prompts)} requests x {new} tokens; card launches "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    del m_card, m_cpu
+    torch.cuda.empty_cache()
+    return counts
+
+
+def serve_slab_archs(dev):
+    """Phase 19: rwkv6-1.6b (nothing cut), jamba-v0.1-52b and
+    deepseek-v3-671b (their one-card cuts) in bf16 through the lockstep
+    slab engine on phase 11's traffic, every whole-prompt scan and every
+    flash call launched through its kernel; then card-vs-CPU fp32 greedy
+    parity of each at 2 full-width layers.  Returns each model's
+    launches and numbers."""
+    from repro_torch.configs import one_card_config
+    from repro_torch.data import synthetic_tokens
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import init_model
+    from repro_torch.serve import ServeEngine
+
+    out = {}
+    for arch in ("rwkv6-1.6b", "jamba-v0.1-52b", "deepseek-v3-671b"):
+        cfg = one_card_config(arch)
+        kinds = [m for m, _ in cfg.layer_pattern()]
+        want = {"wkv6": kinds.count("rwkv6"),
+                "mamba_scan": kinds.count("mamba"),
+                # MLA's slab decode is plain ops: its prefill only
+                "flash_attention": kinds.count("attn") * (
+                    1 if cfg.attention == "mla" else NEW_TOKENS)}
+        prompts = synthetic_tokens(np.random.default_rng(0), LEGACY_BATCH,
+                                   LEGACY_PROMPT, cfg.vocab_size)
+        t0 = time.perf_counter()
+        model = init_model(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        ServeEngine(cfg, model, batch_size=LEGACY_BATCH,
+                    max_len=LEGACY_MAX_LEN).generate(prompts[:2, :64], 4)
+        torch.cuda.synchronize()
+        eng = ServeEngine(cfg, model, batch_size=LEGACY_BATCH,
+                          max_len=LEGACY_MAX_LEN)
+        resident_gib = torch.cuda.memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        eng.generate(prompts, 1).cpu()                 # the batch's TTFT
+        ttft = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        dispatches0, syncs0 = eng.dispatches, eng.host_syncs
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        toks = eng.generate(prompts, NEW_TOKENS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        toks = toks.cpu().numpy()
+        got = {k: counts.get(k, 0) for k in want}
+        if got != want:
+            fail(f"phase 19 ({arch}): launches {got}, expected {want}")
+        for other in ("paged_flash_decode", "paged_flash_decode_mla"):
+            if counts.get(other, 0):
+                fail(f"phase 19 ({arch}): {other} launched on the slab path")
+        if toks.shape != (LEGACY_BATCH, NEW_TOKENS) or toks.min() < 0 \
+                or toks.max() >= cfg.vocab_size:
+            fail(f"phase 19 ({arch}): outputs of shape {toks.shape} or "
+                 "out-of-vocab tokens")
+        for i, layer in enumerate(eng.cache):
+            if not all(torch.isfinite(t).all() for t in layer.values()):
+                fail(f"phase 19 ({arch}): layer {i}'s slab cache is not "
+                     "finite")
+        n_tok = toks.size
+        res = {"layers": cfg.num_layers, "init_s": init_s,
+               "prefill_wall_ms": ttft * 1e3, "tokens_per_s": n_tok / wall,
+               "wall_s": wall, "host_syncs_per_token":
+                   (eng.host_syncs - syncs0) / n_tok,
+               "dispatches": eng.dispatches - dispatches0,
+               "resident_gib": resident_gib,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "launches": got}
+        out[arch] = res
+        print(f"phase 19: {arch} ({cfg.num_layers} layers, full width, bf16, "
+              f"initialised in {init_s:.1f} s), {LEGACY_BATCH} requests x "
+              f"{LEGACY_PROMPT} prompt tokens x {NEW_TOKENS} new through "
+              f"ServeEngine: prefill wall (the batch's TTFT) "
+              f"{ttft * 1e3:.1f} ms, {n_tok / wall:.1f} tokens/s, "
+              f"{res['host_syncs_per_token']:.4f} host syncs/token "
+              f"({res['dispatches']} dispatches), resident "
+              f"{resident_gib:.2f} GiB, peak {res['peak_gib']:.2f} GiB; "
+              f"launches {got}")
+        del model, eng
+        torch.cuda.empty_cache()
+
+        small = cfg.with_overrides(num_layers=2, dtype="float32")
+        cut = ""
+        if arch == "jamba-v0.1-52b":       # phase 8's (mamba, attention)
+            small = small.with_overrides(attn_layer_period=2,
+                                         attn_layer_offset=1)
+        if arch == "deepseek-v3-671b":
+            small = _cut_moe(small, 16)
+            cut = (f", reduced: routed experts {cfg.moe.num_experts} -> 16 "
+                   "(this check only)")
+        counts = _slab_parity(dev, arch, small, prompts[:2, :64], 8, cut)
+        kinds = [m for m, _ in small.layer_pattern()]
+        if counts.get("wkv6", 0) != kinds.count("rwkv6") or \
+                counts.get("mamba_scan", 0) != kinds.count("mamba") or \
+                counts.get("flash_attention", 0) != kinds.count("attn") * (
+                    1 if small.attention == "mla" else 8):
+            fail(f"phase 19 ({arch}): the fp32 card run did not launch "
+                 "every kernel of its path")
+        res["parity_launches"] = {k: v for k, v in counts.items() if v}
+    return out
+
+
+def _train_run(dev, cfg, tc, batch, steps, tag):
+    """1 + ``steps`` steps of ``cfg`` from seed 0 on one batch, bf16
+    compute on fp32 masters: the launches (exactly one forward and one
+    remat recompute a layer a microbatch of each layer's kernel), losses,
+    walls, peak."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.train import init_train_state, make_train_step, trainable
+
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, tc, seed=0, device=dev)
+    step, _ = make_train_step(cfg, tc)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in trainable(state.params).values())
+    print(f"{tag}: {cfg.name} {cfg.layer_pattern()} ({n_params / 1e9:.3f} B "
+          f"fp32 masters, bf16 compute, {tc.optimizer}) initialised in "
+          f"{time.perf_counter() - t0:.1f} s, resident "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    kinds = [m for m, _ in cfg.layer_pattern()]
+    launches_want = {
+        kernel: (1 + steps) * tc.microbatches * kinds.count(kind) * 2
+        for kernel, kind in (("wkv6", "rwkv6"), ("mamba_scan", "mamba"),
+                             ("flash_attention", "attn"))}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, walls = [], []
+    for _ in range(1 + steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))           # synchronises
+        walls.append(time.perf_counter() - t0)
+    counts = launch_counts()
+    got = {k: counts.get(k, 0) for k in launches_want}
+    if got != launches_want:
+        fail(f"{tag} ({cfg.name}): launches {got}, expected {launches_want}")
+    for other in ("paged_flash_decode", "paged_flash_decode_mla"):
+        if counts.get(other, 0):
+            fail(f"{tag}: {other} launched on the training path")
+    if not all(np.isfinite(losses)):
+        fail(f"{tag} ({cfg.name}): losses {losses} are not finite")
+    wall = float(np.median(walls[1:]))
+    tokens = int(np.prod(batch["tokens"].shape))
+    res = {"params": n_params, "optimizer": tc.optimizer,
+           "step_ms": wall * 1e3, "tokens_per_s": tokens / wall,
+           "mfu": 6 * n_params * tokens / wall / PEAK_OPS[torch.bfloat16],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "losses": losses, "step_walls_ms": [w * 1e3 for w in walls],
+           "launches": got}
+    print(f"{tag}: {1 + steps} steps on {tuple(batch['tokens'].shape)} "
+          f"tokens ({tc.microbatches} microbatches, remat per layer): losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; step wall median "
+          f"{res['step_ms']:.1f} ms (first {walls[0] * 1e3:.1f} ms), "
+          f"{res['tokens_per_s']:.1f} tokens/s, mfu {res['mfu']:.4f}, peak "
+          f"{res['peak_gib']:.2f} GiB; launches {got}")
+    del state, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def _train_parity(dev, tag, small, tc, batch, cut=""):
+    """Card vs CPU fp32: 3 steps from the same masters (drawn on the
+    card, copied to the CPU).  Step 1's loss to TRAIN_LOSS_RTOL_FIRST,
+    the later ones to TRAIN_LOSS_RTOL_LATER (phase 14's bars).  Under
+    AdamW each param to 2 x 3 lr: a step moves an entry by at most lr
+    (|m_hat| / sqrt(v_hat) <= 1 for the first steps at beta1^2 < beta2),
+    so two runs from equal masters lie at most 6 lr apart, and an entry
+    whose gradient is within the two devices' rounding of zero can use
+    all of it (rwkv6's ln_x magnifies such rounding, PERF.md §6)."""
+    import copy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import init_model
+    from repro_torch.train import make_train_step, start_state, trainable
+
+    m_card = init_model(small, seed=1, device=dev, train=True)
+    m_cpu = copy.deepcopy(m_card.cpu())
+    m_card.to(dev)
+    got = {}
+    for where, model in (("cpu", m_cpu), ("cuda", m_card)):
+        step, opt = make_train_step(small, tc)
+        state = start_state(model, opt)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(3):
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+        got[where] = (losses, {k: p.detach().cpu() for k, p in
+                               trainable(model).items()})
+        print(f"  {where}: 3 steps in {time.perf_counter() - t0:.1f} s, "
+              f"losses {losses}")
+        del state, step
+    counts = {k: v for k, v in launch_counts().items() if v}
+    kinds = [m for m, _ in small.layer_pattern()]
+    for kernel, kind in (("wkv6", "rwkv6"), ("mamba_scan", "mamba"),
+                         ("flash_attention", "attn")):
+        if counts.get(kernel, 0) != 3 * tc.microbatches * kinds.count(
+                kind) * (2 if tc.remat else 1):
+            fail(f"{tag}: the card run launched {kernel} "
+                 f"{counts.get(kernel, 0)} times, not in every {kind} layer")
+    (cpu_l, cpu_p), (card_l, card_p) = got["cpu"], got["cuda"]
+    rel = [abs(a - b) / abs(a) for a, b in zip(cpu_l, card_l)]
+    gap = max((cpu_p[k] - card_p[k]).abs().max().item() for k in cpu_p)
+    lr = tc.lr
+    if not rel[0] <= TRAIN_LOSS_RTOL_FIRST or \
+            not max(rel[1:]) <= TRAIN_LOSS_RTOL_LATER:
+        fail(f"{tag}: card vs CPU losses differ by {rel} relative")
+    if tc.optimizer != "sgd" and not gap <= 2 * 3 * lr:
+        fail(f"{tag}: a param differs card vs CPU by {gap:.2e} > 6 lr")
+    print(f"{tag}: 2-layer full-width {small.name} fp32 "
+          f"{small.layer_pattern()}{cut}, 3 {tc.optimizer} steps (lr "
+          f"{lr:g}) on {tuple(batch['tokens'].shape)} tokens, card vs CPU: "
+          f"step-1 loss {rel[0]:.2e} relative (tol "
+          f"{TRAIN_LOSS_RTOL_FIRST:g}), steps 2-3 {max(rel[1:]):.2e} (tol "
+          f"{TRAIN_LOSS_RTOL_LATER:g}), largest param gap {gap:.2e}; card "
+          f"launches {json.dumps(counts)}")
+    del m_card, m_cpu, got
+    torch.cuda.empty_cache()
+    return {"loss_rel": rel, "param_gap": gap, "launches": counts}
+
+
+def train_archs(dev):
+    """Phases 20 and 21: full-width training of rwkv6-1.6b (full depth,
+    AdamW, phase 13's batch), Jamba cut to 2 layers (SGD, 1 x 2048
+    tokens) and DeepSeek-V3 cut to 1 layer (MLA + dense MLP, no MTP
+    head; AdamW, phase 13's batch), each with its exact launches; then
+    card-vs-CPU fp32 parity at 2 layers.  Returns the numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.train import TrainConfig
+
+    out = {}
+    adamw = TrainConfig(optimizer="adamw", lr=TRAIN_LR,
+                        microbatches=TRAIN_MICRO, remat=True)
+    cfg = get_config("rwkv6-1.6b")
+    batch = make_batch(cfg, np.random.default_rng(0), TRAIN_BATCH, TRAIN_SEQ)
+    out["rwkv6-1.6b"] = _train_run(dev, cfg, adamw, batch, TRAIN_TIMED,
+                                   "phase 20")
+    small = cfg.with_overrides(num_layers=2, dtype="float32")
+    out["rwkv6-1.6b"]["parity"] = _train_parity(
+        dev, "phase 20", small, TrainConfig(optimizer="adamw", lr=TRAIN_LR),
+        make_batch(small, np.random.default_rng(14), 2, 256))
+
+    sgd = TrainConfig(optimizer="sgd", lr=1e-2, remat=True)
+    full = get_config("jamba-v0.1-52b")
+    cfg = full.with_overrides(num_layers=2)
+    batch = make_batch(cfg, np.random.default_rng(0), 1, JAMBA_TRAIN_SEQ)
+    res = _train_run(dev, cfg, sgd, batch, ARCH_TRAIN_STEPS, "phase 21")
+    res["reduced"] = f"num_layers {full.num_layers} -> 2"
+    out["jamba-v0.1-52b"] = res
+    small = _cut_moe(cfg.with_overrides(
+        dtype="float32", attn_layer_period=2, attn_layer_offset=1), 4)
+    res["parity"] = _train_parity(
+        dev, "phase 21", small, sgd,
+        make_batch(small, np.random.default_rng(21), 1, 128),
+        f", reduced: routed experts {full.moe.num_experts} -> 4 (this check "
+        "only)")
+
+    full = get_config("deepseek-v3-671b")
+    cfg = full.with_overrides(num_layers=1, mtp_depth=0)
+    batch = make_batch(cfg, np.random.default_rng(0), TRAIN_BATCH, TRAIN_SEQ)
+    res = _train_run(dev, cfg, adamw, batch, ARCH_TRAIN_STEPS, "phase 21")
+    res["reduced"] = (f"num_layers {full.num_layers} -> 1, mtp_depth "
+                      f"{full.mtp_depth} -> 0")
+    out["deepseek-v3-671b"] = res
+    small = _cut_moe(full.with_overrides(num_layers=2, mtp_depth=0,
+                                         dtype="float32"), 16)
+    res["parity"] = _train_parity(
+        dev, "phase 21", small, sgd,
+        make_batch(small, np.random.default_rng(21), 1, 128),
+        f", reduced: routed experts {full.moe.num_experts} -> 16 (this "
+        "check only)")
+    return out
+
+
 def zero_rank(outdir):
     """One of phase 18b's gloo ranks (run by torchrun): full-width qwen3
     at depth 4 under flat, zero1, zero2 and zero3, 3 steps each on this
@@ -2171,14 +2748,24 @@ def main():
           "PyTorch recomputing 1024-row q-chunks; fp32 re-associates sums "
           "over 4096 rows, bf16 rounds each chunk's products)")
     train_rows = check_flash_train(dev, flush)
+    print(f"  flash_attention at MLA's widths (q, k 192, v 128; DeepSeek-V3's "
+          f"train and prefill branch): tolerances as above")
+    flash_mla_rows = check_flash_mla(dev, flush)
+    print(f"  WKV6 and MambaScan gradients (kernel forward, plain backward) "
+          f"against autograd of the plain chunked forms: max |err| / max "
+          f"|grad| fp32 {TRAIN_GRAD_TOL[torch.float32]:g}, bf16 "
+          f"{TRAIN_GRAD_TOL[torch.bfloat16]:g}")
+    scan_grad_rows = check_scan_grads(dev, flush)
     del flush
     if args.kernels_only:
         print(json.dumps({"phase2": {
             "max_splits": gqa_split.MAX_SPLITS,
             "mla_max_splits": mla_split.MAX_SPLITS,
-            "paged_flash_decode": rows + jamba_rows, "wkv6": wkv_rows,
-            "mamba_scan": mamba_rows, "paged_flash_decode_mla": mla_rows,
-            "flash_attention": flash_rows + train_rows}}))
+            "paged_flash_decode": rows + jamba_rows,
+            "wkv6": wkv_rows + scan_grad_rows["wkv6"],
+            "mamba_scan": mamba_rows + scan_grad_rows["mamba_scan"],
+            "paged_flash_decode_mla": mla_rows,
+            "flash_attention": flash_rows + train_rows + flash_mla_rows}}))
         print(card_line())
         return
 
@@ -2257,6 +2844,8 @@ def main():
     paper_out = paper_dp(dev)
     dp_out, ckpt_out, zero_out = dp_qwen(dev, train_out["losses"], prompts,
                                          launches)
+    slab_out = serve_slab_archs(dev)
+    arch_train_out = train_archs(dev)
 
     decode_bf16, chunk_bf16 = (
         next(r for r in rows if r["case"] == case and r["dtype"] == "bfloat16")
@@ -2291,7 +2880,10 @@ def main():
         "bound_ms": wkv_bf16["bound_ms"],
         "bound_by": wkv_bf16["bound_by"],
         "library_ms": None,
-        "cases": wkv_rows,
+        "launches_slab": slab_out["rwkv6-1.6b"]["launches"]["wkv6"],
+        "launches_train": arch_train_out["rwkv6-1.6b"]["launches"]["wkv6"],
+        "train": scan_grad_rows["wkv6"][-1],
+        "cases": wkv_rows + scan_grad_rows["wkv6"],
     }
     scan_bf16 = next(r for r in mamba_rows if r["case"].startswith("prefill")
                      and r["dtype"] == "bfloat16")
@@ -2306,7 +2898,11 @@ def main():
         "bound_ms": scan_bf16["bound_ms"],
         "bound_by": scan_bf16["bound_by"],
         "library_ms": None,
-        "cases": mamba_rows,
+        "launches_slab": slab_out["jamba-v0.1-52b"]["launches"]["mamba_scan"],
+        "launches_train": arch_train_out["jamba-v0.1-52b"]["launches"][
+            "mamba_scan"],
+        "train": scan_grad_rows["mamba_scan"][-1],
+        "cases": mamba_rows + scan_grad_rows["mamba_scan"],
     }
     mla_bf16, mla_chunk = (
         next(r for r in mla_rows if r["case"].startswith(case)
@@ -2352,12 +2948,20 @@ def main():
                                  for k, v in zero_out["nccl"].items()},
         "dp_train": dp_out, "paper_dp": paper_out, "checkpoint": ckpt_out,
         "zero": zero_out,
+        "mla": {row["case"].split()[1]: {key: row[key] for key in row
+                                         if key != "case"}
+                for row in flash_mla_rows if row["dtype"] == "bfloat16"},
+        "launches_slab_archs": {a: r["launches"]["flash_attention"]
+                                for a, r in slab_out.items()},
+        "launches_arch_train": {a: r["launches"]["flash_attention"]
+                                for a, r in arch_train_out.items()},
+        "slab_archs": slab_out, "arch_train": arch_train_out,
         "train": {**{key: train_bf16[key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "sdpa_backend", "bwd_plain_ms", "library_fwd_bwd_ms",
             "bwd_bound_ms", "bwd_bound_by", "grad_rel_err")},
             "step": train_out},
-        "cases": flash_rows + train_rows,
+        "cases": flash_rows + train_rows + flash_mla_rows,
     }
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [entry, wkv_entry, mamba_entry,

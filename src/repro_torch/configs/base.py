@@ -136,12 +136,16 @@ class ModelConfig:
     def block_structure(self):
         """Split layers into (unrolled prefix, repeating super-block,
         n_repeats) -- the reference stacks its parameters this way, so
-        the bridge uses it to unstack them."""
+        the bridge uses it to unstack them.  A stack no deeper than its
+        dense prefix (DeepSeek-V3 cut to 1 layer) is all prefix, with no
+        super-block."""
         pat = self.layer_pattern()
         prefix_len = 0
         if self.moe is not None and self.moe.first_dense_layers:
             prefix_len = self.moe.first_dense_layers
         body = pat[prefix_len:]
+        if not body:
+            return pat, (), 0
         period = len(body)
         for cand in range(1, len(body) + 1):
             if len(body) % cand:

@@ -6,14 +6,18 @@
 //
 // Contract (the same as the plain PyTorch version, flash_attention_ref):
 //   q    (B, S, h, hd)   T   contiguous
-//   k, v (B, T, hk, hd)  T   batch and sequence strides as given (the slab
+//   k    (B, T, hk, hd)  T   batch and sequence strides as given (the slab
 //                            path passes k[:, :valid] of a (B, max_len, hk, hd)
 //                            cache: nothing is copied), head stride hd, unit
 //                            dim stride
-//   out  (B, S, h, hd)   T   contiguous
+//   v    (B, T, hk, hdv) T   as k, head stride hdv
+//   out  (B, S, h, hdv)  T   contiguous
+// (hd, hdv) is (64, 64), (128, 128) or MLA's (192, 128): nope 128 + rope 64
+// for q and k, 128 for v (its train and prefill branch).
 // Query s sits at position s + T - S.  Key t is visible to it iff t <= pos
 // (when causal) and t > pos - window (when window > 0).  Query head i reads KV
-// head i / (h / hk).  Scores are scaled by `scale` (1/sqrt(hd)) after the dot.
+// head i / (h / hk).  Scores are scaled by `scale` (1/sqrt(hd), q's width)
+// after the dot.
 //
 // bf16 (the path serving runs): the shared tensor-core core of
 // gqa_attention.cuh with SlabPolicy below -- key row t of slot b at
@@ -25,7 +29,7 @@
 // path's shapes (q, k, v read once, out written once); a long prefill comes
 // near the tensor cores' bound.
 //
-// fp32: the first version's FMA kernel below, unchanged, and never TF32: the
+// fp32: the first version's FMA kernel below, and never TF32: the
 // card-vs-CPU greedy parity of the fp32 serving runs (2e-5 bar) rests on it.
 // One block of 256 threads per (b, kv head, tile of RT query rows), rows taken
 // position-major across the g = h / hk heads of the group; key tiles of 64
@@ -70,26 +74,29 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
-size_t smem_bytes(int hd, int rt) {
+size_t smem_bytes(int hd, int hdv, int rt) {
   // q (hd x rt, transposed) + K tile (hd x 64, transposed; later the
-  // probabilities, rt x 64) + V tile (64 x hd)
-  return ((size_t)hd * rt + 2 * (size_t)hd * kKT) * sizeof(float);
+  // probabilities, rt x 64) + V tile (64 x hdv)
+  return ((size_t)hd * rt + (size_t)hd * kKT + (size_t)kKT * hdv) * sizeof(float);
 }
 
-template <typename T, int HD, int RPT>
+// HD: q's and K's width; HDV: V's and the output's
+template <typename T, int HD, int HDV, int RPT>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out, int S, int Tk,
                  int h, int hk, long long k_bs, long long k_ss, long long v_bs,
                  long long v_ss, int causal, int window, float scale) {
   constexpr int RT = 16 * RPT;       // query rows a block
-  constexpr int NC = HD / 64;        // 4-wide column groups a thread
+  constexpr int NC = HDV / 64;       // 4-wide output column groups a thread
   constexpr int kVec = 16 / sizeof(T);
-  constexpr int VPR = HD / kVec;     // 16-byte vectors a row
+  constexpr int VPR = HD / kVec;     // 16-byte vectors a q or K row
+  constexpr int VPRV = HDV / kVec;   // ... a V row
+  static_assert(RT <= HD, "the probabilities fit the K tile");
   extern __shared__ float smem[];
   float* q_s = smem;                 // [HD][RT]
   float* k_s = q_s + HD * RT;        // [HD][kKT]; then p [RT][kKT]
-  float* v_s = k_s + HD * kKT;       // [kKT][HD]
+  float* v_s = k_s + HD * kKT;       // [kKT][HDV]
   float* p_s = k_s;
 
   const int b = blockIdx.x / hk;
@@ -166,12 +173,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < kVec; ++e) k_s[(d0 + e) * kKT + t] = tmp[e];
     }
     // V row-major: consecutive threads on consecutive 16-byte slices of a row
-    for (int c = tid; c < kKT * VPR; c += kThreads) {
-      const int t = c / VPR, d0 = (c % VPR) * kVec;
+    for (int c = tid; c < kKT * VPRV; c += kThreads) {
+      const int t = c / VPRV, d0 = (c % VPRV) * kVec;
       const int kp = t0 + t;
-      float* dst = v_s + t * HD + d0;
+      float* dst = v_s + t * HDV + d0;
       if (kp < Tk) {
-        load_vec(v + (size_t)b * v_bs + (size_t)kp * v_ss + (size_t)kvh * HD + d0, dst);
+        load_vec(v + (size_t)b * v_bs + (size_t)kp * v_ss + (size_t)kvh * HDV + d0, dst);
       } else {
 #pragma unroll
         for (int e = 0; e < kVec; ++e) dst[e] = 0.f;
@@ -256,7 +263,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
           for (int c = 0; c < NC; ++c) {
             const float4 vv =
-                *reinterpret_cast<const float4*>(v_s + (t + tt) * HD + c * 64 + tx * 4);
+                *reinterpret_cast<const float4*>(v_s + (t + tt) * HDV + c * 64 + tx * 4);
 #pragma unroll
             for (int i = 0; i < RPT; ++i) {
               const float p = tt == 0 ? pr[i].x : tt == 1 ? pr[i].y
@@ -277,7 +284,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (!valid[i]) continue;
     const int row = r0 + ty * RPT + i, s = row / g, head = kvh * g + row % g;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-    T* o = out + (((size_t)b * S + s) * h + head) * HD;
+    T* o = out + (((size_t)b * S + s) * h + head) * HDV;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
 #pragma unroll
@@ -286,15 +293,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD, int RPT>
+template <typename T, int HD, int HDV, int RPT>
 int launch_one(const void* q, const void* k, const void* v, void* out, int B, int S,
                int Tk, int h, int hk, long long k_bs, long long k_ss, long long v_bs,
                long long v_ss, int causal, int window, float scale,
                cudaStream_t stream) {
-  const size_t smem = smem_bytes(HD, 16 * RPT);
+  const size_t smem = smem_bytes(HD, HDV, 16 * RPT);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, HD, RPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_kernel<T, HD, HDV, RPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
@@ -302,7 +309,7 @@ int launch_one(const void* q, const void* k, const void* v, void* out, int B, in
   const int rt = 16 * RPT;
   const dim3 grid(B * hk, (rows + rt - 1) / rt);
   if (grid.y > 65535) return (int)cudaErrorInvalidConfiguration;
-  flash_fwd_kernel<T, HD, RPT><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, HD, HDV, RPT><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), S, Tk, h, hk, k_bs, k_ss, v_bs, v_ss, causal, window,
       scale);
@@ -311,7 +318,7 @@ int launch_one(const void* q, const void* k, const void* v, void* out, int B, in
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
-           int Tk, int h, int hk, int hd, long long k_bs, long long k_ss,
+           int Tk, int h, int hk, int hd, int hdv, long long k_bs, long long k_ss,
            long long v_bs, long long v_ss, int causal, int window,
            int rows_per_thread, float scale, void* stream_ptr) {
   if (B <= 0 || S <= 0 || Tk <= 0 || hk <= 0 || h % hk)
@@ -319,19 +326,26 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
 #define FLASH_ARGS q, k, v, out, B, S, Tk, h, hk, k_bs, k_ss, v_bs, v_ss, causal, \
                    window, scale, stream
-  if (hd == 64 && rows_per_thread == 4) return launch_one<T, 64, 4>(FLASH_ARGS);
-  if (hd == 64 && rows_per_thread == 1) return launch_one<T, 64, 1>(FLASH_ARGS);
-  if (hd == 128 && rows_per_thread == 4) return launch_one<T, 128, 4>(FLASH_ARGS);
-  if (hd == 128 && rows_per_thread == 1) return launch_one<T, 128, 1>(FLASH_ARGS);
+  if (hd == 64 && hdv == 64 && rows_per_thread == 4) return launch_one<T, 64, 64, 4>(FLASH_ARGS);
+  if (hd == 64 && hdv == 64 && rows_per_thread == 1) return launch_one<T, 64, 64, 1>(FLASH_ARGS);
+  if (hd == 128 && hdv == 128 && rows_per_thread == 4)
+    return launch_one<T, 128, 128, 4>(FLASH_ARGS);
+  if (hd == 128 && hdv == 128 && rows_per_thread == 1)
+    return launch_one<T, 128, 128, 1>(FLASH_ARGS);
+  if (hd == 192 && hdv == 128 && rows_per_thread == 4)
+    return launch_one<T, 192, 128, 4>(FLASH_ARGS);
+  if (hd == 192 && hdv == 128 && rows_per_thread == 1)
+    return launch_one<T, 192, 128, 1>(FLASH_ARGS);
 #undef FLASH_ARGS
   return (int)cudaErrorInvalidValue;
 }
 
 // bf16: where the core finds key row t (a strided slab) and the query rows'
 // positions (right-aligned: row r of the tile is query (r0 + r) / g)
-template <int HD>
+template <int HD, int HDV>
 struct SlabPolicy {
   static constexpr int kHD = HD;
+  static constexpr int kHDV = HDV;
   static constexpr bool kPrepare = false;
   const gqa::bf16* k;
   const gqa::bf16* v;
@@ -341,7 +355,7 @@ struct SlabPolicy {
 
   __device__ void begin(int b, int kvh, int r0_, int nr_, int g_, int S, unsigned char*) {
     k += b * k_bs + kvh * HD;
-    v += b * v_bs + kvh * HD;
+    v += b * v_bs + kvh * HDV;
     off = Tk - S;
     g = g_;
     r0 = r0_;
@@ -359,12 +373,12 @@ struct SlabPolicy {
   __device__ const gqa::bf16* v_row(int, int kpos) const { return v + kpos * v_ss; }
 };
 
-template <int HD>
+template <int HD, int HDV>
 int launch_bf16_hd(const void* q, const void* k, const void* v, void* out, int B,
                    int S, int Tk, int h, int hk, long long k_bs, long long k_ss,
                    long long v_bs, long long v_ss, int causal, int window, int warps,
                    int splits, float scale, cudaStream_t stream) {
-  SlabPolicy<HD> pol{};
+  SlabPolicy<HD, HDV> pol{};
   pol.k = static_cast<const gqa::bf16*>(k);
   pol.v = static_cast<const gqa::bf16*>(v);
   pol.k_bs = k_bs; pol.k_ss = k_ss; pol.v_bs = v_bs; pol.v_ss = v_ss;
@@ -381,15 +395,15 @@ int launch_bf16_hd(const void* q, const void* k, const void* v, void* out, int B
 extern "C" {
 
 int flash_attention_f32(const void* q, const void* k, const void* v, void* out, int B,
-                        int S, int Tk, int h, int hk, int hd, long long k_bs,
+                        int S, int Tk, int h, int hk, int hd, int hdv, long long k_bs,
                         long long k_ss, long long v_bs, long long v_ss, int causal,
                         int window, int rows_per_thread, float scale, void* stream) {
-  return launch<float>(q, k, v, out, B, S, Tk, h, hk, hd, k_bs, k_ss, v_bs, v_ss,
+  return launch<float>(q, k, v, out, B, S, Tk, h, hk, hd, hdv, k_bs, k_ss, v_bs, v_ss,
                        causal, window, rows_per_thread, scale, stream);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* out, int B,
-                         int S, int Tk, int h, int hk, int hd, long long k_bs,
+                         int S, int Tk, int h, int hk, int hd, int hdv, long long k_bs,
                          long long k_ss, long long v_bs, long long v_ss, int causal,
                          int window, int warps, int splits, float scale, void* stream) {
   if (B <= 0 || S <= 0 || Tk <= 0 || hk <= 0 || h % hk)
@@ -397,19 +411,20 @@ int flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FLASH_ARGS q, k, v, out, B, S, Tk, h, hk, k_bs, k_ss, v_bs, v_ss, causal, \
                    window, warps, splits, scale, st
-  if (hd == 64) return launch_bf16_hd<64>(FLASH_ARGS);
-  if (hd == 128) return launch_bf16_hd<128>(FLASH_ARGS);
+  if (hd == 64 && hdv == 64) return launch_bf16_hd<64, 64>(FLASH_ARGS);
+  if (hd == 128 && hdv == 128) return launch_bf16_hd<128, 128>(FLASH_ARGS);
+  if (hd == 192 && hdv == 128) return launch_bf16_hd<192, 128>(FLASH_ARGS);
 #undef FLASH_ARGS
   return (int)cudaErrorInvalidValue;
 }
 
-unsigned long long flash_attention_smem_bytes(int hd, int rows_per_thread) {
-  return (unsigned long long)smem_bytes(hd, 16 * rows_per_thread);
+unsigned long long flash_attention_smem_bytes(int hd, int hdv, int rows_per_thread) {
+  return (unsigned long long)smem_bytes(hd, hdv, 16 * rows_per_thread);
 }
 
-unsigned long long flash_attention_bf16_smem_bytes(int hd, int warps) {
-  return (unsigned long long)(warps == 4 ? gqa::core_smem_bytes<4>(hd)
-                                         : gqa::core_smem_bytes<1>(hd));
+unsigned long long flash_attention_bf16_smem_bytes(int hd, int hdv, int warps) {
+  return (unsigned long long)(warps == 4 ? gqa::core_smem_bytes<4>(hd, hdv)
+                                         : gqa::core_smem_bytes<1>(hd, hdv));
 }
 
 const char* flash_attention_error_string(int code) {

@@ -6,7 +6,9 @@
 // common.
 //
 // Function.  GQA attention of the g * S query rows of one kv-head group
-// against bf16 K/V rows of width HD: fp32 scores scaled by 1/sqrt(HD),
+// against bf16 K rows of width HDK (q's width) and V rows of width HDV (the
+// output's; HDV == HDK but for MLA's train and prefill branch, 192 / 128):
+// fp32 scores scaled by the caller's scale (1/sqrt(HDK)),
 // masked by causality (key <= query position), an optional sliding window
 // (key > position - window) and a key limit, and an fp32 online softmax.
 // The probabilities are rounded to bf16 for the value product, as the plain
@@ -67,6 +69,7 @@
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 #include "sm90.cuh"
 
@@ -96,15 +99,24 @@ __host__ __device__ constexpr int rows_per_block() { return 16 * NW * Config<NW>
 
 // Shared memory of one block: the q tile, the ring of K/V stages, then the
 // policy's own, from a 1024-aligned start (hence the 1024 spare bytes).  The
-// split combine reuses the K/V stages for the partials.
+// split combine reuses the K/V stages for the partials.  hdv 0: V as wide as
+// K.
 template <int NW>
-__host__ __device__ constexpr size_t core_smem_bytes(int hd) {
+__host__ __device__ constexpr size_t core_smem_bytes(int hd, int hdv = 0) {
   return 1024 + (size_t)rows_per_block<NW>() * hd * 2 +
-         (size_t)Config<NW>::kStages * 2 * Config<NW>::kKeyTile * hd * 2;
+         (size_t)Config<NW>::kStages * Config<NW>::kKeyTile * (hd + (hdv ? hdv : hd)) * 2;
 }
 
+// V's width: the policy's kHDV where it has one, else kHD
+template <class P, class = void>
+struct ValueWidth { static constexpr int value = P::kHD; };
+template <class P>
+struct ValueWidth<P, std::void_t<decltype(P::kHDV)>> { static constexpr int value = P::kHDV; };
+
 // The policy P provides (per block, after begin()):
-//   kHD, kPrepare         head width; whether prepare() must precede staging
+//   kHD, kPrepare         q's and K's width; whether prepare() must precede
+//                         staging
+//   kHDV (optional)       V's and the output's width (default kHD)
 //   causal, window        the mask's options
 //   begin(b, kvh, r0, nr, g, S, extra)   per-block set-up (all threads call it)
 //   qpos(r)               position of tile row r < nr
@@ -119,22 +131,25 @@ template <int NW, class P>
 __global__ void __launch_bounds__(NW * 32)
 attention_kernel(P pol, const bf16* __restrict__ q, bf16* __restrict__ out, int S,
                  int h, int hk, float scale_log2) {
-  constexpr int HD = P::kHD;
+  constexpr int HD = P::kHD;                  // q and K
+  constexpr int HDV = ValueWidth<P>::value;   // V and the output
   constexpr bool WG = NW == 4;                // one warpgroup: wgmma products
   constexpr int MT = Config<NW>::kMTiles;     // 16-row m-tiles a warp
   constexpr int RT = rows_per_block<NW>();    // query rows a block
   constexpr int NT = 32 * NW;
-  constexpr int CH = HD / 8;                  // 16-byte chunks a row
+  constexpr int CH = HD / 8;                  // 16-byte chunks a q or K row
+  constexpr int CHV = HDV / 8;                // ... a V or output row
   constexpr int KT = Config<NW>::kKeyTile;
   constexpr int STAGES = Config<NW>::kStages;
-  constexpr int TILE = KT * HD * 2;           // bytes of one K (or V) tile
+  constexpr int TILE_K = KT * HD * 2;         // bytes of one K tile
+  constexpr int TILE = TILE_K + KT * HDV * 2; // ... of one stage, K then V
   static_assert(STAGES * KT <= kMaxRowSlots, "row slots");
   static_assert((NW == 1 && MT == 1) || (NW == 4 && KT == 64),
                 "a warp, or a warpgroup on 64-key tiles");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* q_s = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  unsigned char* kv_s = q_s + RT * HD * 2;    // [stage][K, V][KT][HD]
-  unsigned char* extra = kv_s + STAGES * 2 * TILE;
+  unsigned char* kv_s = q_s + RT * HD * 2;    // [stage][K [KT][HD], V [KT][HDV]]
+  unsigned char* extra = kv_s + STAGES * TILE;
 
   const int split = blockIdx.x, n_splits = gridDim.x;
   const int g = h / hk;
@@ -146,16 +161,14 @@ attention_kernel(P pol, const bf16* __restrict__ q, bf16* __restrict__ out, int 
   P p = pol;
   p.begin(b, kvh, r0, nr, g, S, extra);
 
-  // 16-byte chunks of tile rows: thread tid copies chunk tid % CH of rows
-  // tid / CH, tid / CH + RSTEP, ...
-  constexpr int RSTEP = NT / CH;
-  static_assert(NT % CH == 0, "whole rows a pass");
-  const int ch = tid % CH, t_first_row = tid / CH;
+  // 16-byte chunks of tile rows: thread tid copies chunks tid, tid + NT, ...
+  // of the tile's rows * CH chunks (chunk i: row i / CH, column i % CH)
 
   // the q tile: row r is (position (r0 + r) / g, head kvh * g + (r0 + r) % g)
   const bf16* q_b = q + (size_t)b * S * h * HD;
 #pragma unroll
-  for (int r = t_first_row; r < RT; r += RSTEP) {
+  for (int i = tid; i < RT * CH; i += NT) {
+    const int r = i / CH, ch = i % CH;
     const int row = r0 + r;
     const bool ok = r < nr;
     const bf16* src = ok ? q_b + ((size_t)(row / g) * h + kvh * g + row % g) * HD + ch * 8 : q;
@@ -177,14 +190,20 @@ attention_kernel(P pol, const bf16* __restrict__ q, bf16* __restrict__ out, int 
       p.prepare(t0, st * KT, KT);
       __syncthreads();
     }
-    const uint32_t ks = smem_addr(kv_s + st * 2 * TILE), vs = ks + TILE;
+    const uint32_t ks = smem_addr(kv_s + st * TILE), vs = ks + TILE_K;
 #pragma unroll
-    for (int t = t_first_row; t < KT; t += RSTEP) {
+    for (int i = tid; i < KT * CH; i += NT) {
+      const int t = i / CH, ch = i % CH;
       const int kpos = t0 + t;
       const bool ok = kpos >= k_lo && kpos <= k_hi;
-      const uint32_t off = swz<HD, KT>(t, ch);
-      cp_async16(ks + off, ok ? p.k_row(st * KT + t, kpos) + ch * 8 : q, ok);
-      cp_async16(vs + off, ok ? p.v_row(st * KT + t, kpos) + ch * 8 : q, ok);
+      cp_async16(ks + swz<HD, KT>(t, ch), ok ? p.k_row(st * KT + t, kpos) + ch * 8 : q, ok);
+    }
+#pragma unroll
+    for (int i = tid; i < KT * CHV; i += NT) {
+      const int t = i / CHV, ch = i % CHV;
+      const int kpos = t0 + t;
+      const bool ok = kpos >= k_lo && kpos <= k_hi;
+      cp_async16(vs + swz<HDV, KT>(t, ch), ok ? p.v_row(st * KT + t, kpos) + ch * 8 : q, ok);
     }
   };
 
@@ -230,13 +249,13 @@ attention_kernel(P pol, const bf16* __restrict__ q, bf16* __restrict__ out, int 
   const bool rows_live = w_lo <= w_hi;
   const int limit = p.key_limit();
 
-  float m[MT][2], l[MT][2], acc[MT][HD / 8][4];
+  float m[MT][2], l[MT][2], acc[MT][HDV / 8][4];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
     m[mt][0] = m[mt][1] = kNegInf;
     l[mt][0] = l[mt][1] = 0.f;
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
+    for (int n = 0; n < HDV / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.f;
   }
@@ -264,8 +283,8 @@ attention_kernel(P pol, const bf16* __restrict__ q, bf16* __restrict__ out, int 
     const bool full = m_lo > m_hi ||          // a warp of padding rows only
                       (t0 + KT <= limit && (!p.causal || t0 + KT - 1 <= m_lo) &&
                        (p.window <= 0 || t0 > m_hi - p.window));
-    const unsigned char* ks = kv_s + st * 2 * TILE;
-    const unsigned char* vs = ks + TILE;
+    const unsigned char* ks = kv_s + st * TILE;
+    const unsigned char* vs = ks + TILE_K;
     float s[MT][KT / 8][4];
     // scale into the exp2 domain, mask the partly visible tiles only, and
     // update m-tile mt's online softmax; s[mt] becomes the probabilities
@@ -306,7 +325,7 @@ attention_kernel(P pol, const bf16* __restrict__ q, bf16* __restrict__ out, int 
 #pragma unroll
       for (int i = 0; i < 2; ++i) l[mt][i] = l[mt][i] * alpha[i] + sum[i];
 #pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
+      for (int n = 0; n < HDV / 8; ++n) {
         acc[mt][n][0] *= alpha[0]; acc[mt][n][1] *= alpha[0];
         acc[mt][n][2] *= alpha[1]; acc[mt][n][3] *= alpha[1];
       }
@@ -341,7 +360,7 @@ attention_kernel(P pol, const bf16* __restrict__ q, bf16* __restrict__ out, int 
         for (int kk = 0; kk < KT / 16; ++kk) {
           uint32_t a[4];
           p_frag(mt, kk, a);
-          wgmma_rs<HD>(acc[mt], a, desc_mn_major<HD, KT>(smem_addr(vs), kk));
+          wgmma_rs<HDV>(acc[mt], a, desc_mn_major<HDV, KT>(smem_addr(vs), kk));
         }
         wgmma_commit();
       }
@@ -373,10 +392,10 @@ attention_kernel(P pol, const bf16* __restrict__ q, bf16* __restrict__ out, int 
         uint32_t a[4];
         p_frag(0, kk, a);
 #pragma unroll
-        for (int dp = 0; dp < HD / 16; ++dp) {
+        for (int dp = 0; dp < HDV / 16; ++dp) {
           uint32_t bf[4];
           const int key = kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
-          ldmatrix_x4_trans(bf, smem_addr(vs + swz<HD, KT>(key, dp * 2 + (lane >> 4))));
+          ldmatrix_x4_trans(bf, smem_addr(vs + swz<HDV, KT>(key, dp * 2 + (lane >> 4))));
           mma_bf16(acc[0][2 * dp], a, bf[0], bf[1]);
           mma_bf16(acc[0][2 * dp + 1], a, bf[2], bf[3]);
         }
@@ -394,8 +413,8 @@ attention_kernel(P pol, const bf16* __restrict__ q, bf16* __restrict__ out, int 
   if constexpr (NW == 1) {                    // split-KV runs on one-warp blocks
     if (n_splits > 1) {
       // split-KV: partials to this block's shared memory, combined across the cluster
-      constexpr int LDA = HD + 4;               // fp32 partial-acc row stride
-      static_assert((2 + LDA) * RT * 4 <= STAGES * 2 * TILE, "partials fit the stages");
+      constexpr int LDA = HDV + 4;              // fp32 partial-acc row stride
+      static_assert((2 + LDA) * RT * 4 <= STAGES * TILE, "partials fit the stages");
       float* m_s = reinterpret_cast<float*>(kv_s);
       float* l_s = m_s + RT;
       float* acc_s = l_s + RT;                  // [RT][LDA]
@@ -409,7 +428,7 @@ attention_kernel(P pol, const bf16* __restrict__ q, bf16* __restrict__ out, int 
             l_s[r] = l[mt][i];
           }
 #pragma unroll
-          for (int n = 0; n < HD / 8; ++n)
+          for (int n = 0; n < HDV / 8; ++n)
             *reinterpret_cast<float2*>(acc_s + r * LDA + n * 8 + col) =
                 make_float2(acc[mt][n][2 * i], acc[mt][n][2 * i + 1]);
         }
@@ -417,7 +436,7 @@ attention_kernel(P pol, const bf16* __restrict__ q, bf16* __restrict__ out, int 
       cg::cluster_group cluster = cg::this_cluster();
       cluster.sync();
       // this rank's slice of the valid rows' outputs, in units of 4 columns
-      constexpr int UPR = HD / 4;
+      constexpr int UPR = HDV / 4;
       const int units = nr * UPR;
       for (int u = split * units / n_splits + tid; u < (split + 1) * units / n_splits; u += NT) {
         const int r = u / UPR, c = (u % UPR) * 4;
@@ -451,7 +470,7 @@ attention_kernel(P pol, const bf16* __restrict__ q, bf16* __restrict__ out, int 
         }
         const float inv = ll > 0.f ? 1.f / ll : 0.f;
         const int row = r0 + r;
-        bf16* dst = out + (((size_t)b * S + row / g) * h + kvh * g + row % g) * HD + c;
+        bf16* dst = out + (((size_t)b * S + row / g) * h + kvh * g + row % g) * HDV + c;
         *reinterpret_cast<uint2*>(dst) =
             make_uint2(pack_bf16(o.x * inv, o.y * inv), pack_bf16(o.z * inv, o.w * inv));
       }
@@ -462,6 +481,7 @@ attention_kernel(P pol, const bf16* __restrict__ q, bf16* __restrict__ out, int 
   // the output tile through shared memory (the K/V stages are free), then
   // whole 16-byte chunks of each valid row
   unsigned char* o_s = kv_s;
+  static_assert(RT * HDV * 2 <= STAGES * TILE, "the output tile fits the stages");
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
@@ -469,18 +489,19 @@ attention_kernel(P pol, const bf16* __restrict__ q, bf16* __restrict__ out, int 
       const int r = tile_row(mt) + (lane >> 2) + 8 * i;
       const float inv = l[mt][i] > 0.f ? 1.f / l[mt][i] : 0.f;
 #pragma unroll
-      for (int n = 0; n < HD / 8; ++n)
-        *reinterpret_cast<uint32_t*>(o_s + swz<HD, RT>(r, n) + col * 2) =
+      for (int n = 0; n < HDV / 8; ++n)
+        *reinterpret_cast<uint32_t*>(o_s + swz<HDV, RT>(r, n) + col * 2) =
             pack_bf16(acc[mt][n][2 * i] * inv, acc[mt][n][2 * i + 1] * inv);
     }
   }
   __syncthreads();
 #pragma unroll
-  for (int r = t_first_row; r < RT; r += RSTEP) {
+  for (int i = tid; i < RT * CHV; i += NT) {
+    const int r = i / CHV, ch = i % CHV;
     if (r >= nr) break;
     const int row = r0 + r;
-    *reinterpret_cast<uint4*>(out + (((size_t)b * S + row / g) * h + kvh * g + row % g) * HD +
-                              ch * 8) = *reinterpret_cast<const uint4*>(o_s + swz<HD, RT>(r, ch));
+    *reinterpret_cast<uint4*>(out + (((size_t)b * S + row / g) * h + kvh * g + row % g) * HDV +
+                              ch * 8) = *reinterpret_cast<const uint4*>(o_s + swz<HDV, RT>(r, ch));
   }
 }
 
@@ -495,7 +516,7 @@ int launch(const P& pol, const void* q, void* out, int B, int S, int h, int hk,
     return (int)cudaErrorInvalidValue;
   const int row_tiles = ((h / hk) * S + RT - 1) / RT;
   if (row_tiles > 65535 || B * hk > 65535) return (int)cudaErrorInvalidConfiguration;
-  const size_t smem = core_smem_bytes<NW>(P::kHD) + extra_smem;
+  const size_t smem = core_smem_bytes<NW>(P::kHD, ValueWidth<P>::value) + extra_smem;
   static size_t smem_set = 48 * 1024;
   if (smem > smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(

@@ -21,7 +21,7 @@ using bf16 = __nv_bfloat16;
 // XORed with (r / 2) % 4 -- the 64-byte swizzle.  Tiles start 1024-aligned.
 template <int HD, int ROWS>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
-  static_assert(HD == 32 || HD == 64 || HD == 128, "HD 32, 64 or 128");
+  static_assert(HD == 32 || HD % 64 == 0, "HD 32 or a multiple of 64");
   if constexpr (HD == 32) return (uint32_t)(r * 64 + ((c ^ ((r >> 1) & 3)) << 4));
   return (uint32_t)((c >> 3) * ROWS * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4));
 }

@@ -6,7 +6,9 @@ flash_attention.py::flash_attention_pallas`` (body ``_flash_kernel``)
 with a CUDA C++ kernel for Hopper, ``csrc/flash_attention.cu``.  Every
 self-attention call of the lockstep slab engine goes through it: the
 whole-prompt prefill (S == T) and each decode step (S = 1 against the
-valid prefix of the slab cache, a strided view that is not copied).
+valid prefix of the slab cache, a strided view that is not copied); so
+does every training forward, and the train and prefill branch of MLA,
+whose q and k are 192 wide (nope 128 + rope 64) and v 128.
 
 Bound.  Memory, at the slab path's shapes: a call must read q, k and v
 once and write the output once, ``(2 B S h + 2 B T hk) hd sizeof``
@@ -32,6 +34,12 @@ fp32 keeps the first version's FMA kernel (16 or 64 rows a block, fp32
 tiles in shared memory), and never TF32: the card-vs-CPU greedy parity
 of the fp32 serving runs rests on it.
 
+Widths.  Both kernels are built for (q/k width, v width) in
+``KERNEL_WIDTHS``: (64, 64), (128, 128) and MLA's (192, 128).  The K
+tile and the score product run over the first, the V tile, the
+accumulator and the output over the second.  Any other pair raises; it
+is never padded or split.
+
 The wrapper takes the plain version ONLY for CPU tensors.  A CUDA
 tensor launches the kernel or raises.
 """
@@ -46,18 +54,19 @@ from repro_torch.kernels import gqa_split
 from repro_torch.kernels.build import count_launch, load_library
 
 __all__ = ["flash_attention", "flash_attention_ref", "flash_attention_bwd_ref",
-           "KERNEL_HEAD_DIMS"]
+           "KERNEL_WIDTHS"]
 
 NEG_INF = -1e30
-KERNEL_HEAD_DIMS = (64, 128)   # head widths the kernel is built for
+# (q and k width, v width) pairs the kernel is built for
+KERNEL_WIDTHS = ((64, 64), (128, 128), (192, 128))
 SMALL_ROWS = 64                # below this many rows a kv head: 16-row blocks
 SMEM_LIMIT = 227 * 1024        # dynamic shared memory one Hopper block may use
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 3
              + [ctypes.c_float, ctypes.c_void_p])
 # bf16: (warps, splits) in place of rows_per_thread
-_BF16_ARGTYPES = _ARGTYPES[:16] + [ctypes.c_int] * 2 + _ARGTYPES[17:]
+_BF16_ARGTYPES = _ARGTYPES[:17] + [ctypes.c_int] * 2 + _ARGTYPES[18:]
 
 
 def _lib():
@@ -69,7 +78,7 @@ def _lib():
             fn.restype = ctypes.c_int
         for fn in (lib.flash_attention_smem_bytes,
                    lib.flash_attention_bf16_smem_bytes):
-            fn.argtypes = [ctypes.c_int] * 2
+            fn.argtypes = [ctypes.c_int] * 3
             fn.restype = ctypes.c_ulonglong
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -79,8 +88,9 @@ def _lib():
 
 def _attend(q, k, v, q_pos0, causal, window):
     """Rows of q at positions q_pos0, q_pos0 + 1, ... against all T keys:
-    kv heads repeated over their group, one masked fp32 softmax, the
-    probabilities cast to v's dtype for the value product."""
+    kv heads repeated over their group, one masked fp32 softmax (scale
+    1/sqrt of q's width), the probabilities cast to v's dtype for the
+    value product, over v's own width."""
     S, h, hd = q.shape[1:]
     T, hk = k.shape[1], k.shape[2]
     if h != hk:
@@ -150,9 +160,9 @@ def _check(q, k, v, causal):
     T, hk = k.shape[1], k.shape[2]
     if k.shape[0] != B or k.shape[3] != hd:
         raise ValueError(f"k {tuple(k.shape)} does not match q {tuple(q.shape)}")
-    if tuple(v.shape) != tuple(k.shape):
-        raise ValueError(f"v {tuple(v.shape)} must have k's shape "
-                         f"{tuple(k.shape)} (the value width is q's)")
+    if v.dim() != 4 or tuple(v.shape[:3]) != tuple(k.shape[:3]):
+        raise ValueError(f"v has shape {tuple(v.shape)}; it must have k's "
+                         f"batch, length and heads {tuple(k.shape[:3])}")
     if h % hk:
         raise ValueError(f"num_heads={h} is not a multiple of kv_heads={hk}")
     if S < 1 or T < 1:
@@ -166,11 +176,12 @@ def _check(q, k, v, causal):
 
 
 def flash_attention(q, k, v, *, causal=True, window=0):
-    """q: (B, S, h, hd); k, v: (B, T, hk, hd) with h % hk == 0 ->
-    (B, S, h, hd) in q's dtype.  Query i sits at position i + T - S;
-    key t is visible to it iff t <= i + T - S (when ``causal``) and
-    t > i + T - S - window (when ``window`` > 0).  Scores and softmax in
-    fp32, scale 1/sqrt(hd).
+    """q: (B, S, h, hd); k: (B, T, hk, hd); v: (B, T, hk, hdv) with
+    h % hk == 0 -> (B, S, h, hdv) in q's dtype.  Query i sits at
+    position i + T - S; key t is visible to it iff t <= i + T - S (when
+    ``causal``) and t > i + T - S - window (when ``window`` > 0).
+    Scores and softmax in fp32, scale 1/sqrt(hd).  The kernel takes the
+    (hd, hdv) pairs of ``KERNEL_WIDTHS``.
 
     CPU tensors take the plain version (its autograd is the gradient's
     oracle); CUDA tensors launch the kernel, which reads k and v through
@@ -219,17 +230,17 @@ def _launch(q, k, v, causal, window):
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention: k and v must have q's dtype")
     B, S, h, hd = q.shape
-    T, hk = k.shape[1], k.shape[2]
-    if hd not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {hd} not built "
-                         f"(kernel head widths {KERNEL_HEAD_DIMS})")
+    T, hk, hdv = k.shape[1], k.shape[2], v.shape[3]
+    if (hd, hdv) not in KERNEL_WIDTHS:
+        raise ValueError(f"flash_attention: head_dim {hd} with v width {hdv} "
+                         f"not built (kernel widths {KERNEL_WIDTHS})")
     if not q.is_contiguous():
         raise ValueError("flash_attention: q must be contiguous")
     vec = 16 // q.element_size()
-    for name, t in (("k", k), ("v", v)):
-        if t.stride(3) != 1 or t.stride(2) != hd:
+    for name, t, width in (("k", k, hd), ("v", v, hdv)):
+        if t.stride(3) != 1 or t.stride(2) != width:
             raise ValueError(f"flash_attention: {name} must have unit dim "
-                             f"stride and head stride hd; got strides "
+                             f"stride and head stride {width}; got strides "
                              f"{t.stride()}")
         if t.stride(0) % vec or t.stride(1) % vec or t.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name}'s rows must be "
@@ -240,18 +251,18 @@ def _launch(q, k, v, causal, window):
     if q.dtype == torch.float32:
         fn = lib.flash_attention_f32
         layout = (4 if (h // hk) * S >= SMALL_ROWS else 1,)   # rows a thread
-        smem = lib.flash_attention_smem_bytes(hd, *layout)
+        smem = lib.flash_attention_smem_bytes(hd, hdv, *layout)
     else:
         fn = lib.flash_attention_bf16
         layout = gqa_split.plan(B * hk, (h // hk) * S, T)     # warps, splits
-        smem = lib.flash_attention_bf16_smem_bytes(hd, layout[0])
+        smem = lib.flash_attention_bf16_smem_bytes(hd, hdv, layout[0])
     if smem > SMEM_LIMIT:
-        raise ValueError(f"flash_attention: head_dim={hd} needs {smem} B of "
-                         "shared memory")
-    out = torch.empty_like(q)
+        raise ValueError(f"flash_attention: widths ({hd}, {hdv}) need {smem} "
+                         "B of shared memory")
+    out = q.new_empty((B, S, h, hdv))
     scale = float(np.float32(1.0 / np.sqrt(hd)))
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, S, T, h, hk, hd, k.stride(0), k.stride(1), v.stride(0),
+            B, S, T, h, hk, hd, hdv, k.stride(0), k.stride(1), v.stride(0),
             v.stride(1), int(bool(causal)), int(window), *layout, scale,
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:

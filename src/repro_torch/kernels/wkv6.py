@@ -3,7 +3,8 @@
 Replaces the TPU kernel ``repro/kernels/rwkv6_scan.py::wkv6_pallas``
 (body ``_wkv6_kernel``) with a CUDA C++ kernel for Hopper,
 ``csrc/wkv6.cu``.  Every prefill chunk of two or more tokens of an
-RWKV-6 stack goes through it, in every layer; a one-token step takes
+RWKV-6 stack goes through it, in every layer, and so does every slab
+prefill and every training forward; a one-token decode step takes
 ``wkv6_step``, which the reference also leaves to plain array code.
 
     y_t[v]  = sum_k r_t[k] * (S_t[k, v] + u[k] * k_t[k] * v_t[v])
@@ -18,6 +19,12 @@ key channels and their state rows; the pairwise decay factors at a
 cores with split operands (bf16 hi + lo, or 3xTF32 for fp32); see the
 source's note.
 
+Gradient.  The TPU kernel has none: the reference trains through its
+chunked XLA form with each chunk under ``jax.checkpoint``.  ``WKV6``
+is the kernel's ``autograd.Function``: its forward is the kernel, its
+backward ``wkv6_chunked_bwd``, plain PyTorch that recomputes the chunks
+(the gradient of that checkpointed scan).
+
 ``wkv6`` takes the plain version ONLY for CPU tensors.  A CUDA tensor
 launches the kernel or raises.
 """
@@ -29,10 +36,12 @@ import torch
 
 from repro_torch.kernels.build import count_launch, load_library
 
-__all__ = ["wkv6", "wkv6_chunked", "wkv6_ref", "wkv6_step"]
+__all__ = ["wkv6", "wkv6_chunked", "wkv6_chunked_bwd", "wkv6_ref",
+           "wkv6_step", "WKV6"]
 
 EXP_CLIP = -60.0
 CHUNK = 32                 # time steps per chunk (the reference's default)
+BWD_GROUP = 16             # chunks whose gradients one autograd call takes
 MAX_CHUNK = 32             # the kernel's chunk tile: two 16-row sub-chunks
 HEAD_SIZES = tuple(range(16, 129, 16))   # K: clusters of 1 to 8 ranks of 16
 
@@ -93,27 +102,99 @@ def _wkv6_chunk(S, r, k, v, wl, u):
     return S_new, y
 
 
+def padded_chunks(chunk, *tensors):
+    """(B, T, ...) tensors -> fp32 (B, nc, chunk, ...), the ragged tail
+    zero-padded (a zero step: no input, and decay 1 for a zero log-decay
+    or a zero dt)."""
+    T = tensors[0].shape[1]
+    pad = (-T) % chunk
+    out = []
+    for a in tensors:
+        a = a.float()
+        if pad:
+            a = torch.nn.functional.pad(a, (0, 0) * (a.dim() - 2) + (0, pad))
+        out.append(a.unflatten(1, (-1, chunk)))
+    return out
+
+
 def wkv6_chunked(r, k, v, w_log, u, state, *, chunk=CHUNK):
     """The kernel's plain version (``repro.kernels.ops.wkv6_chunked``):
     chunks of ``min(chunk, T)`` steps, a ragged tail zero-padded, fp32
     inside; y is returned in r's dtype, the final state in fp32."""
-    B, T, H, K = r.shape
-    chunk = min(chunk, T)
-    pad = (-T) % chunk
-    args = [a.float() for a in (r, k, v, w_log)]
-    if pad:
-        args = [torch.nn.functional.pad(a, (0, 0, 0, 0, 0, pad))
-                for a in args]
-    nc = args[0].shape[1] // chunk
+    T = r.shape[1]
+    args = padded_chunks(min(chunk, T), r, k, v, w_log)
     S = state.float()
     uf = u.float()
     ys = []
-    for c in range(nc):
-        sl = slice(c * chunk, (c + 1) * chunk)
-        S, y = _wkv6_chunk(S, *(a[:, sl] for a in args), uf)
+    for c in range(args[0].shape[1]):
+        S, y = _wkv6_chunk(S, *(a[:, c] for a in args), uf)
         ys.append(y)
     y = torch.cat(ys, dim=1)[:, :T]
     return y.to(r.dtype), S
+
+
+def wkv6_chunked_bwd(r, k, v, w_log, u, state, dy, dstate, *, chunk=CHUNK):
+    """Gradients (dr, dk, dv, dw_log, du, dstate0) of ``wkv6_chunked``'s
+    (y, final state) for the cotangents ``dy`` (B, T, H, K) and
+    ``dstate`` (B, H, K, K, or None for zero), in the inputs' dtypes.
+
+    The gradient of the reference's scan with each chunk checkpointed:
+    the chunk-boundary states are recomputed (fp32, in order); the
+    state's gradient is carried back across the chunks in reverse
+    (``dS_c = exp(L_last) dS_{c+1} + (r e^{L_prev})^T dy_c``, exactly the
+    two ways a chunk reads its incoming state); then each chunk's
+    gradients are taken by ``torch.autograd.grad`` through
+    ``_wkv6_chunk`` given its incoming state and the cotangents of its
+    y and outgoing state -- ``BWD_GROUP`` chunks in one call, folded
+    into the batch, so the host issues a few dozen calls a layer rather
+    than a few thousand.  Plain PyTorch on any device: ``WKV6``'s
+    backward, which no TPU kernel had."""
+    B, T, H, K = r.shape
+    chunk = min(chunk, T)
+    rc, kc, vc, wc, dyc = padded_chunks(chunk, r, k, v, w_log, dy)
+    nc = rc.shape[1]
+    uf = u.detach().float()
+    with torch.no_grad():
+        L = torch.cumsum(wc, dim=2)                     # (B, nc, C, H, K)
+        Llast = L[:, :, -1]                             # (B, nc, H, K)
+        # incoming state of every chunk, in order
+        k_sc = kc * torch.exp(Llast[:, :, None] - L)
+        kv = torch.einsum("bnchk,bnchv->bnhkv", k_sc, vc)
+        decay = torch.exp(Llast)[..., None]             # (B, nc, H, K, 1)
+        states = [state.detach().float()]
+        for c in range(nc - 1):
+            states.append(decay[:, c] * states[-1] + kv[:, c])
+        del k_sc, kv
+        # the state's gradient, carried back: dS_in[c] reaches chunk c
+        g = torch.einsum("bnchk,bnchv->bnhkv", rc * torch.exp(L - wc), dyc)
+        d_out = [None] * nc                             # cotangent of S_new
+        d_out[nc - 1] = (torch.zeros_like(states[0]) if dstate is None
+                         else dstate.float())
+        for c in range(nc - 1, 0, -1):
+            d_out[c - 1] = decay[:, c] * d_out[c] + g[:, c]
+        dstate0 = decay[:, 0] * d_out[0] + g[:, 0]
+        del L, g
+    grads = [torch.empty_like(rc), torch.empty_like(kc),
+             torch.empty_like(vc), torch.empty_like(wc)]
+    du = torch.zeros_like(uf)
+    for c0 in range(0, nc, BWD_GROUP):
+        c1 = min(nc, c0 + BWD_GROUP)
+        n = c1 - c0
+        fold = lambda a: a[:, c0:c1].flatten(0, 1)      # (B * n, ...)
+        with torch.enable_grad():
+            ins = [fold(a).detach().requires_grad_() for a in (rc, kc, vc, wc)]
+            ug = uf.clone().requires_grad_()
+            s_in = torch.stack(states[c0:c1], dim=1).flatten(0, 1)
+            s_new, y = _wkv6_chunk(s_in, *ins[:3], ins[3], ug)
+            cot = (torch.stack(d_out[c0:c1], dim=1).flatten(0, 1),
+                   fold(dyc))
+            got = torch.autograd.grad((s_new, y), (*ins, ug), cot)
+        for buf, gi in zip(grads, got[:4]):
+            buf[:, c0:c1] = gi.unflatten(0, (B, n))
+        du += got[4]
+    dr, dk, dv, dw = (gi.flatten(1, 2)[:, :T] for gi in grads)
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype),
+            dw.to(w_log.dtype), du.to(u.dtype), dstate0.to(state.dtype))
 
 
 def wkv6_step(r, k, v, w_log, u, state):
@@ -157,13 +238,45 @@ def wkv6(r, k, v, w_log, u, state, *, chunk=CHUNK):
     K) fp32 log-decays (<= 0); u: (H, K) fp32; state: (B, H, K, K) fp32.
     Returns y (B, T, H, K) in r's dtype and the final state (B, H, K, K)
     fp32; the inputs are not modified.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel, whose chunk tile holds at
-    most 32 steps: a longer ``chunk`` runs as chunks of 32, which the
-    plain version's longer chunk matches but for its clip (at most
-    e^-60 |r k| a term)."""
+    version (its autograd is the gradient's oracle); CUDA tensors launch
+    the kernel, whose chunk tile holds at most 32 steps: a longer
+    ``chunk`` runs as chunks of 32, which the plain version's longer
+    chunk matches but for its clip (at most e^-60 |r k| a term).  When
+    grad mode is on and an input requires grad, the launch goes through
+    ``WKV6``, whose backward is ``wkv6_chunked_bwd``."""
     _check(r, k, v, w_log, u, state)
     if r.device.type == "cpu":
         return wkv6_chunked(r, k, v, w_log, u, state, chunk=chunk)
+    tensors = (r, k, v, w_log, u, state)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return WKV6.apply(r, k, v, w_log, u, state, chunk)
+    return _launch(r, k, v, w_log, u, state, chunk)
+
+
+class WKV6(torch.autograd.Function):
+    """The kernel's forward with a gradient: the forward launches
+    ``csrc/wkv6.cu`` and saves the inputs; the backward is the plain
+    ``wkv6_chunked_bwd`` (the gradient of the reference's checkpointed
+    chunk scan), for r, k, v, w_log, u and the initial state."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w_log, u, state, chunk):
+        ctx.save_for_backward(r, k, v, w_log, u, state)
+        ctx.chunk = chunk
+        return _launch(r, k, v, w_log, u, state, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        r, k, v, w_log, u, state = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(r)
+        grads = wkv6_chunked_bwd(r, k, v, w_log, u, state, dy, dstate,
+                                 chunk=ctx.chunk)
+        return (*grads, None)
+
+
+def _launch(r, k, v, w_log, u, state, chunk):
+    """One launch of the kernel on CUDA tensors, checked."""
     if r.device.type != "cuda":
         raise ValueError(f"wkv6: unsupported device {r.device}")
     tensors = (r, k, v, w_log, u, state)

@@ -18,7 +18,8 @@ slab engine, ``--engine legacy``) on the card.
         --reduced --device cpu --batch 2 --prompt-len 40 --new-tokens 8
 
     # the lockstep slab engine (whole-prompt prefill, then one decode
-    # step per token, every attention call through the flash kernel)
+    # step per token, every attention call through the flash kernel;
+    # any --arch: RWKV-6's and Mamba's prefill through their scans)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
         --reduced --device cpu --engine legacy --batch 2 --prompt-len 40 \\
         --new-tokens 12
@@ -64,7 +65,7 @@ def main(argv=None):
     ap.add_argument("--engine", default="continuous",
                     choices=["continuous", "legacy"],
                     help="continuous batching over the paged pool, or the "
-                         "lockstep slab engine (GQA stacks with an MLP)")
+                         "lockstep slab engine")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--batch", type=int, default=4,
                     help="serving slots (decode batch width)")

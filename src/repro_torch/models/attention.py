@@ -1,5 +1,5 @@
 """Attention for the serving and training paths: GQA (qk-norm, RoPE)
-and MLA (serving only).
+and MLA.
 
 Port of ``repro.models.attention``.  Two cache forms:
 - the paged pool of the continuous engine: K/V in a shared token-major
@@ -13,15 +13,17 @@ Port of ``repro.models.attention``.  Two cache forms:
   module owns the read and write paths.  Page 0 is the trash page:
   never allocated, the write sink of idle slots and out-of-range
   positions.
-- the slab cache of the lockstep engine (GQA only): k and v of
-  ``(B, max_len, kv_heads, head_dim)``, all slots at the same depth (a
+- the slab cache of the lockstep engine: k and v of ``(B, max_len,
+  kv_heads, head_dim)`` (MLA: ``{"ckv": (B, max_len, kv_lora),
+  "krope": (B, max_len, rope)}``), all slots at the same depth (a
   scalar ``cache_pos``).  Its attention is ``chunked_attention``, which
-  on the card runs the flash-attention kernel.
+  on the card runs the flash-attention kernel; MLA's slab decode is the
+  absorbed form in plain ops, as in the reference.
 
-GQA's train branch has no cache: the queries attend causally over their
-own keys through ``chunked_attention``.  Cross-attention and MLA's slab
-and train branches are not ported here; they join with the slices that
-need them.
+The train branches have no cache: the queries attend causally over
+their own keys through ``chunked_attention`` (MLA: the latent expanded
+to per-head keys of nope + rope and values of ``v_head_dim``).
+Cross-attention is not ported.
 """
 from __future__ import annotations
 
@@ -388,15 +390,21 @@ def init_mla(cfg, *, generator, device="cpu", dtype):
     }
 
 
-def make_mla_cache(cfg, dtype, *, pool, device="cpu"):
-    """One MLA layer's paged pool: token-major latent ``ckv`` (N,
-    kv_lora) and the shared rope key ``krope`` (N, rope)."""
-    num_pages, page_size = pool
-    n = num_pages * page_size
+def make_mla_cache(cfg, dtype, *, pool=None, batch=None, max_len=None,
+                   device="cpu"):
+    """One MLA layer's cache: with ``pool`` = (num_pages, page_size) the
+    paged pool, token-major latent ``ckv`` (N, kv_lora) and the shared
+    rope key ``krope`` (N, rope); without it the slab, ``ckv`` (batch,
+    max_len, kv_lora) and ``krope`` (batch, max_len, rope)."""
     m = cfg.mla
-    return {"ckv": torch.zeros((n, m.kv_lora_rank), dtype=dtype,
+    if pool is not None:
+        num_pages, page_size = pool
+        lead = (num_pages * page_size,)
+    else:
+        lead = (batch, max_len)
+    return {"ckv": torch.zeros(lead + (m.kv_lora_rank,), dtype=dtype,
                                device=device),
-            "krope": torch.zeros((n, m.qk_rope_head_dim), dtype=dtype,
+            "krope": torch.zeros(lead + (m.qk_rope_head_dim,), dtype=dtype,
                                  device=device)}
 
 
@@ -404,13 +412,14 @@ def _mla_qkv(cfg, p, x, rope):
     """(q_nope, q_rope, ckv, krope) of x: (B, S, d); q_nope (B, S, H,
     nope), q_rope (B, S, H, rope) and krope (B, S, rope) rotated by
     ``rope`` (the angles of ``rope_freqs(rope_dim)``), ckv (B, S,
-    kv_lora) normalised."""
+    kv_lora) normalised.  Each weight is cast to x's dtype at use."""
     m = cfg.mla
-    ql = rmsnorm(p["q_norm"], x @ p["w_dq"], cfg.norm_eps)
-    q = _proj(ql, p["w_uq"])
+    dt = x.dtype
+    ql = rmsnorm(p["q_norm"], x @ p["w_dq"].to(dt), cfg.norm_eps)
+    q = _proj(ql, p["w_uq"].to(dt))
     q_nope = q[..., :m.qk_nope_head_dim]
     q_rope = apply_rope(q[..., m.qk_nope_head_dim:], rope)
-    dkv = x @ p["w_dkv"]
+    dkv = x @ p["w_dkv"].to(dt)
     ckv = rmsnorm(p["kv_norm"], dkv[..., :m.kv_lora_rank], cfg.norm_eps)
     # one rope key shared by every head: rotated as a single head
     krope = apply_rope(dkv[..., m.kv_lora_rank:][:, :, None, :],
@@ -426,25 +435,82 @@ def mla_scale(cfg) -> float:
                                           + m.qk_rope_head_dim)))
 
 
-def apply_mla(cfg, p, x, *, positions, cache, paged: PagedView, write_idx,
-              rope):
-    """Decode-mode paged MLA (decode steps and prefill chunks), absorbed.
+def apply_mla(cfg, p, x, *, positions, cache, rope, paged=None,
+              write_idx=None, mode="decode", cache_pos=0):
+    """MLA over the serving cache, or without one in training.
 
-    x: (B, S, d); positions: (B, S) per-slot; cache: {"ckv", "krope"}
-    pools, updated in place at ``write_idx``; rope: the angles of
-    ``rope_freqs(qk_rope_head_dim)``.  As in the reference: append the
-    latent and rope key, project q_nope into the latent through w_uk,
-    attend in the latent space (scores q_lat . ckv + q_rope . krope, V
-    = the latent itself), then w_uv and wo."""
+    Paged (``paged`` given; decode steps and prefill chunks), absorbed:
+    x (B, S, d); positions (B, S) per slot; cache {"ckv", "krope"}
+    pools, updated in place at ``write_idx``.  As in the reference:
+    append the latent and rope key, project q_nope into the latent
+    through w_uk, attend in the latent space (scores q_lat . ckv +
+    q_rope . krope, V = the latent itself) through
+    ``paged_flash_decode_mla``, then w_uv and wo.
+
+    Train (``mode="train"``, no cache) and slab ``"prefill"`` (cache
+    {"ckv", "krope"} of (B, max_len, ...), filled from 0): the latent is
+    expanded to per-head keys [k_nope | krope] of nope + rope and values
+    of ``v_head_dim``, and the queries [q_nope | q_rope] attend causally
+    over them through ``chunked_attention`` -- on the card the flash
+    kernel at q/k width 192 and v width 128 (differentiable), scaled by
+    1/sqrt(nope + rope) as q's width gives.
+
+    Slab ``"decode"``: the S new latents are written at the scalar
+    ``cache_pos``, and the queries attend in the latent space over the
+    whole slab, each masked causally by its own position -- the
+    absorbed form in plain ops, as the reference computes it.
+    rope: the angles of ``rope_freqs(qk_rope_head_dim)`` at the call's
+    positions."""
+    m = cfg.mla
+    dt = x.dtype
     q_nope, q_rope, ckv, krope = _mla_qkv(cfg, p, x, rope)
-    ckv_pool = _paged_append(cache["ckv"], write_idx, ckv)
-    krope_pool = _paged_append(cache["krope"], write_idx, krope)
-    q_lat = torch.einsum("bshn,rhn->bshr", q_nope, p["w_uk"])
-    out_lat = paged_flash_decode_mla(
-        q_lat.contiguous(), q_rope.contiguous(), ckv_pool.to(x.dtype),
-        krope_pool.to(x.dtype), paged.page_table, positions,
-        page_size=paged.page_size, scale=mla_scale(cfg),
-        window=cfg.swa_window)
-    out = torch.einsum("bshr,rhv->bshv", out_lat, p["w_uv"])
+    if paged is not None:
+        ckv_pool = _paged_append(cache["ckv"], write_idx, ckv)
+        krope_pool = _paged_append(cache["krope"], write_idx, krope)
+        q_lat = torch.einsum("bshn,rhn->bshr", q_nope, p["w_uk"].to(dt))
+        out_lat = paged_flash_decode_mla(
+            q_lat.contiguous(), q_rope.contiguous(), ckv_pool.to(dt),
+            krope_pool.to(dt), paged.page_table, positions,
+            page_size=paged.page_size, scale=mla_scale(cfg),
+            window=cfg.swa_window)
+        out = torch.einsum("bshr,rhv->bshv", out_lat, p["w_uv"].to(dt))
+    elif mode in ("train", "prefill"):
+        S = x.shape[1]
+        if mode == "prefill":
+            if S > cache["ckv"].shape[1]:
+                raise ValueError(f"slab MLA: {S} latents overrun a "
+                                 f"{cache['ckv'].shape[1]}-long cache")
+            cache["ckv"][:, :S] = ckv
+            cache["krope"][:, :S] = krope
+        k_nope = torch.einsum("bsr,rhk->bshk", ckv, p["w_uk"].to(dt))
+        v = torch.einsum("bsr,rhv->bshv", ckv, p["w_uv"].to(dt))
+        k = torch.cat([k_nope, krope[:, :, None, :].expand(
+            -1, -1, k_nope.shape[2], -1)], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        out = chunked_attention(q, k, v.contiguous(), q_positions=range(S),
+                                kv_positions=range(S), window=cfg.swa_window)
+    else:
+        S, max_len = x.shape[1], cache["ckv"].shape[1]
+        start = int(cache_pos)
+        if start + S > max_len:
+            raise ValueError(f"slab MLA: {S} latents at {start} overrun a "
+                             f"{max_len}-long cache")
+        cache["ckv"][:, start:start + S] = ckv
+        cache["krope"][:, start:start + S] = krope
+        ckv_c, krope_c = cache["ckv"].to(dt), cache["krope"].to(dt)
+        q_lat = torch.einsum("bshn,rhn->bshr", q_nope, p["w_uk"].to(dt))
+        scores = (torch.einsum("bshr,btr->bhst", q_lat.float(), ckv_c.float())
+                  + torch.einsum("bshk,btk->bhst", q_rope.float(),
+                                 krope_c.float()))
+        scores = scores / np.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+        kv_pos = torch.arange(max_len, device=x.device)
+        qpos = torch.arange(start, start + S, device=x.device)
+        mask = kv_pos[None, :] <= qpos[:, None]
+        if cfg.swa_window:
+            mask &= kv_pos[None, :] > qpos[:, None] - cfg.swa_window
+        scores = torch.where(mask[None, None], scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        out_lat = torch.einsum("bhst,btr->bshr", probs.to(dt), ckv_c)
+        out = torch.einsum("bshr,rhv->bshv", out_lat, p["w_uv"].to(dt))
     B, S, H, v = out.shape
-    return out.reshape(B, S, H * v) @ p["wo"].reshape(H * v, -1)
+    return out.reshape(B, S, H * v) @ p["wo"].to(dt).reshape(H * v, -1)

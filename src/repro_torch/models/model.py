@@ -4,10 +4,10 @@ Port of ``repro.models.model`` for decoder-only stacks of GQA or MLA
 attention and Mamba layers (each with an MLP or MoE ffn) and RWKV-6
 blocks, in the modes the serving paths use: the continuous engine's
 paged decode mode (decode steps and chunked-prefill chunks), and the
-lockstep engine's slab ``prefill`` and ``decode`` (GQA stacks with an
-MLP only, ``check_slab_ported``); and in the training mode ``"train"``
-(GQA stacks with an MLP, ``check_train_ported``), on a ``Model`` of
-trainable fp32 masters.  ``apply_model`` returns ``{"logits",
+lockstep engine's slab ``prefill`` and ``decode``; and in the training
+mode ``"train"``, on a ``Model`` of trainable fp32 masters (every
+architecture but a multi-token-prediction head, ``check_train_ported``).
+``apply_model`` returns ``{"logits",
 "hidden", "aux"}``; the caches and the per-slot recurrent states are
 updated in place.  The paper's Table-1 networks (``PaperNet``,
 ``init_paper_net``, ``apply_paper_net``) close the module, as in the
@@ -111,42 +111,23 @@ def check_ported(cfg):
                          "(MLP or MoE) and RWKV-6 stacks")
 
 
-def _not_gqa_mlp(cfg) -> list:
-    """The parts of ``cfg`` other than GQA attention layers with an MLP,
-    by name (the whole-sequence branches the port has only for those)."""
-    pattern = cfg.layer_pattern()
-    missing = []
-    if cfg.attention == "mla":
-        missing.append("MLA attention")
-    names = {"mamba": "Mamba", "rwkv6": "RWKV-6"}
-    missing += [f"{names.get(k, k)} layers"
-                for k in sorted({m for m, _ in pattern} - {"attn"})]
-    if any(f == "moe" for _, f in pattern):
-        missing.append("MoE ffn")
-    return missing
-
-
 def check_slab_ported(cfg):
     """Raise, naming the part, unless the slab (lockstep) path of
-    ``cfg`` is ported: GQA attention layers with an MLP."""
-    missing = _not_gqa_mlp(cfg)
-    if missing:
-        raise ValueError(f"{cfg.name}: the slab path of {', '.join(missing)} "
-                         "is not ported; the lockstep slab engine serves GQA "
-                         "attention with an MLP (use engine='continuous')")
+    ``cfg`` is ported: it is for every layer kind the port has (GQA or
+    MLA attention and Mamba layers with an MLP or MoE, RWKV-6 blocks)."""
+    check_ported(cfg)
 
 
 def check_train_ported(cfg):
-    """Raise, naming the part, unless training ``cfg`` is ported: GQA
-    attention layers with an MLP and no multi-token-prediction head.
-    MLA, Mamba, RWKV-6 and MoE wait for their whole-sequence train
-    branches (ROADMAP A.5), MTP for its head (A.8)."""
-    missing = _not_gqa_mlp(cfg)
+    """Raise, naming the part, unless training ``cfg`` is ported: every
+    layer kind the port has, without a multi-token-prediction head
+    (which waits for ROADMAP A.8; DeepSeek-V3 trains with
+    ``with_overrides(mtp_depth=0)``, as the reference builds it)."""
+    check_ported(cfg)
     if cfg.mtp_depth > 0:
-        missing.append("the MTP head")
-    if missing:
-        raise ValueError(f"{cfg.name}: training {', '.join(missing)} is not "
-                         "ported; the port trains GQA attention with an MLP")
+        raise ValueError(f"{cfg.name}: training the MTP head is not ported "
+                         f"(mtp_depth={cfg.mtp_depth}); train it with "
+                         "mtp_depth=0")
 
 
 def _to_device(tree, device):
@@ -198,7 +179,9 @@ def init_cache(cfg, dtype, *, pool=None, slots=None, batch=None,
     page_size, kv_lora | rope)``); a Mamba layer's {"ssm", "conv"} or an
     RWKV layer's {"state", "shift_tm", "shift_cm"} with ``slots`` rows.
     Without a pool, the lockstep engine's slab: {"k", "v"} of (batch,
-    max_len, hk, hd) per layer (GQA stacks only)."""
+    max_len, hk, hd) per attention layer ({"ckv", "krope"} of (batch,
+    max_len, ...) for MLA), the recurrent state with ``batch`` rows per
+    Mamba or RWKV layer."""
     dev = resolve_device(device)
     kinds = [kind for kind, _ in cfg.layer_pattern()]
     if pool is None:
@@ -226,17 +209,18 @@ def apply_model(cfg, model: Model, tokens, *, cache=None, cache_pos=None,
 
     Train (``mode="train"``, no cache): tokens (B, S) at positions
     0..S-1, causal attention through ``chunked_attention`` (the flash
-    kernel on the card); ``remat`` checkpoints each layer
-    (``tfm.apply_stack``).  GQA stacks with an MLP only
-    (``check_train_ported``).
+    kernel on the card) and the recurrent scans from a zero state (their
+    kernels on the card); ``remat`` checkpoints each layer
+    (``tfm.apply_stack``).  No MTP head (``check_train_ported``).
 
     tokens: (B, S) int.  Paged (``paged``: a PagedView): cache_pos (B,)
     int32, the per-slot position of the first token; cache: per-layer
     entries whose recurrent rows match the B slots of this call
     (``PagedKVCache.slot_cache`` for a one-slot prefill); S is 1 for a
-    decode step or a prefill chunk's length.  Slab (``paged`` None, GQA
-    stacks): cache from ``init_cache(..., batch=, max_len=)`` (or rows
-    of it); ``mode="prefill"`` with cache_pos 0 fills positions 0..S-1,
+    decode step or a prefill chunk's length.  Slab (``paged`` None):
+    cache from ``init_cache(..., batch=, max_len=)`` (or rows of it);
+    ``mode="prefill"`` with cache_pos 0 fills positions 0..S-1 (and
+    runs the recurrent layers from the state their rows hold),
     ``mode="decode"`` with an int cache_pos appends at cache_pos for
     every slot.  ``last_only`` slices the last position before the
     unembedding.  Returns {"logits": (B, S', V) fp32, "hidden": (B, S',

@@ -1,15 +1,20 @@
 """Fine-grained mixture-of-experts (DeepSeekMoE / Jamba style), one device.
 
 Port of ``repro.models.moe`` without a mesh: ``apply_moe`` is the
-reference's capacity-based dense dispatch (``apply_moe_dense``).  The
-expert-parallel path (``apply_moe_ep``) and the trainer's router-bias
-update join with the multi-card slices.
+reference's capacity-based dense dispatch (``apply_moe_dense``), for
+serving and training, and ``update_router_bias`` the trainer's
+aux-free balancing step.  The expert-parallel path (``apply_moe_ep``)
+joins with the multi-card slices.
 
 Router: softmax over experts, top-k, weights renormalised over the
 selection (or DeepSeek-V3's sigmoid scores, selected with a balance
 bias that carries no weight), plus the Switch-style load-balance
 auxiliary loss.  The router reads in fp32, so its weight (and bias)
-stay fp32 in a bf16 model (``FP32_WEIGHTS``).
+stay fp32 in a bf16 model (``FP32_WEIGHTS``).  Gradients reach the
+router through the selected weights and the aux loss, and the experts
+through their products; the selection carries none, and the balance
+bias none at all (the reference's ``stop_gradient``): its trainable
+master gets no ``.grad``, which the train step reads as zero.
 
 Dispatch: each (token, slot) pair takes the next free row of its
 expert's (C, d) buffer in token-major order (a cumulative count); pairs
@@ -62,7 +67,8 @@ def _routing(cfg, p, xf):
         # DeepSeek-V3: select by score + balance bias, weight by the
         # bias-free scores renormalised over the selection
         scores = torch.sigmoid(logits)                         # (N, E)
-        _, top_idx = torch.topk(scores + p["router_bias"][None, :], m.top_k)
+        bias = p["router_bias"].detach()                       # no gradient
+        _, top_idx = torch.topk(scores + bias[None, :], m.top_k)
         top_w = scores.gather(1, top_idx)
         top_w = top_w / (top_w.sum(-1, keepdim=True) + 1e-20)
         probs = scores / (scores.sum(-1, keepdim=True) + 1e-20)
@@ -77,13 +83,15 @@ def _routing(cfg, p, xf):
 
 
 def _expert_ffn(experts, buf):
-    """Dense batched FFN over an (E, C, d) expert buffer."""
-    up = torch.bmm(buf, experts["w_up"])
+    """Dense batched FFN over an (E, C, d) expert buffer; each weight is
+    cast to the buffer's dtype at use."""
+    dt = buf.dtype
+    up = torch.bmm(buf, experts["w_up"].to(dt))
     if "w_gate" in experts:
-        h = F.silu(torch.bmm(buf, experts["w_gate"])) * up
+        h = F.silu(torch.bmm(buf, experts["w_gate"].to(dt))) * up
     else:
         h = F.gelu(up, approximate="tanh")
-    return torch.bmm(h, experts["w_down"])
+    return torch.bmm(h, experts["w_down"].to(dt))
 
 
 def capacity(cfg, n_tokens, capacity_factor) -> int:
@@ -132,3 +140,18 @@ def apply_moe(cfg, p, x):
     """x: (B, S, d) -> (y, aux) with the config's capacity factor."""
     return apply_moe_dense(cfg, p, x,
                            capacity_factor=cfg.moe.capacity_factor)
+
+
+def update_router_bias(cfg, p, counts, *, gamma=1e-3):
+    """DeepSeek-V3's aux-free balancing step (the reference's
+    ``update_router_bias``): the bias of an expert routed fewer tokens
+    than the mean rises by ``gamma``, of one routed more falls by it.
+    counts: (E,) tokens routed to each expert this step.  Accumulates in
+    fp32 whatever the bias's and the counts' dtypes (a bf16 bias near 8
+    cannot resolve a 1e-3 step), and returns the new bias in the bias's
+    dtype; ``p`` is not modified."""
+    bias = p["router_bias"]
+    counts = torch.as_tensor(counts, device=bias.device).float()
+    step = torch.sign(counts.mean() - counts) * torch.tensor(
+        gamma, dtype=torch.float32)
+    return (bias.detach().float() + step.to(bias.device)).to(bias.dtype)

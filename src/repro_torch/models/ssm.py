@@ -1,6 +1,11 @@
-"""RWKV-6 (Finch) and Mamba-1 mixers for the serving path.
+"""RWKV-6 (Finch) and Mamba-1 mixers for serving and training.
 
-Port of ``repro.models.ssm``.  A layer's recurrent cache is, for RWKV-6,
+Port of ``repro.models.ssm``, in the reference's modes: ``"decode"``
+with one token takes the one-step update, every other call (a decode
+call of several tokens, a slab ``"prefill"``, a ``"train"`` forward)
+the whole-segment scan, which on the card is the CUDA kernel
+(differentiable through its ``autograd.Function``).  Training has no
+cache and starts from a zero state.  A layer's recurrent cache is, for RWKV-6,
 ``{"state": (B, H, K, K) fp32, "shift_tm": (B, d), "shift_cm": (B, d)}``
 (shifts in the compute dtype) and, for Mamba, ``{"ssm": (B, dI, dS)
 fp32, "conv": (B, d_conv - 1, dI)}`` (the conv tail in the compute
@@ -13,8 +18,9 @@ Weights keep the reference's layouts: RWKV mu (5, d), mix_A (5, d, r),
 mix_B (5, r, d), decay_A (d, r), decay_B (r, d), u (H, K); Mamba
 conv_w (d_conv, dI), A_log (dI, dS); projections (d_in, d_out).  What
 the reference reads in fp32 (``FP32_WEIGHTS``: RWKV's ``u`` and
-``w_base``, Mamba's ``A_log`` and ``D``) stays fp32; the rest arrive in
-the compute dtype.
+``w_base``, Mamba's ``A_log`` and ``D``) stays fp32; the rest is cast
+to the compute dtype at use, as the reference's ``.astype(dt)`` (a
+no-op for a serving model's weights, cast once at load).
 """
 from __future__ import annotations
 
@@ -82,24 +88,25 @@ def _token_shift(x, prev):
 def _ddlerp(p, x, x_prev):
     """Finch data-dependent token shift: one mix per (w, k, v, r, g)."""
     B, S, d = x.shape
+    dt = x.dtype
     xx = x_prev - x
-    base = x + xx * p["mu_base"]                                   # (B,S,d)
+    base = x + xx * p["mu_base"].to(dt)                            # (B,S,d)
     n, _, r = p["mix_A"].shape
     # einsum("bsd,ndr->bsnr") as one matmul over the flattened LoRAs
-    a = p["mix_A"].permute(1, 0, 2).reshape(d, n * r)
+    a = p["mix_A"].to(dt).permute(1, 0, 2).reshape(d, n * r)
     t = torch.tanh(base @ a).reshape(B * S, n, r).transpose(0, 1)  # (n,BS,r)
-    lora = torch.bmm(t, p["mix_B"]).reshape(n, B, S, d)            # nrd
-    mixed = x[None] + xx[None] * (p["mu"][:, None, None, :] + lora)
+    lora = torch.bmm(t, p["mix_B"].to(dt)).reshape(n, B, S, d)     # nrd
+    mixed = x[None] + xx[None] * (p["mu"].to(dt)[:, None, None, :] + lora)
     return tuple(mixed[i] for i in range(n))                       # (B,S,d)
 
 
-def apply_rwkv6_time_mix(cfg, p, x, *, cache=None):
-    """x: (B, S, d) -> (B, S, d), in the reference's decode mode: a
-    one-token call (S == 1) takes the one-step update ``wkv6_step``, a
-    longer one the chunked ``wkv6`` (the CUDA kernel on the card).
-    ``cache`` (or zeros when None) supplies the carried state and token
-    shift; a given cache receives the new ``state`` and ``shift_tm`` in
-    place."""
+def apply_rwkv6_time_mix(cfg, p, x, *, mode="decode", cache=None):
+    """x: (B, S, d) -> (B, S, d).  A one-token ``"decode"`` call takes
+    the one-step update ``wkv6_step``; every other call (``"prefill"``,
+    ``"train"``, a longer decode call) the chunked ``wkv6`` (the CUDA
+    kernel on the card).  ``cache`` (or zeros when None, as in training)
+    supplies the carried state and token shift; a given cache receives
+    the new ``state`` and ``shift_tm`` in place."""
     rc = cfg.rwkv
     B, S, d = x.shape
     dt = x.dtype
@@ -108,18 +115,19 @@ def apply_rwkv6_time_mix(cfg, p, x, *, cache=None):
             else torch.zeros((B, d), dtype=dt, device=x.device))
     xw, xk, xv, xr, xg = _ddlerp(p, x, _token_shift(x, prev))
 
-    r = (xr @ p["wr"]).reshape(B, S, H, K)
-    k = (xk @ p["wk"]).reshape(B, S, H, K)
-    v = (xv @ p["wv"]).reshape(B, S, H, K)
-    g = F.silu(xg @ p["wg"])
+    r = (xr @ p["wr"].to(dt)).reshape(B, S, H, K)
+    k = (xk @ p["wk"].to(dt)).reshape(B, S, H, K)
+    v = (xv @ p["wv"].to(dt)).reshape(B, S, H, K)
+    g = F.silu(xg @ p["wg"].to(dt))
     w_log = -torch.exp(
-        p["w_base"] + (torch.tanh(xw @ p["decay_A"]) @ p["decay_B"]).float()
+        p["w_base"].float() + (torch.tanh(xw @ p["decay_A"].to(dt))
+                               @ p["decay_B"].to(dt)).float()
     ).reshape(B, S, H, K)
 
     state0 = (cache["state"] if cache is not None
               else torch.zeros((B, H, K, K), dtype=torch.float32,
                                device=x.device))
-    if S == 1:
+    if mode == "decode" and S == 1:
         y, state = wkv6_step(r[:, 0], k[:, 0], v[:, 0], w_log[:, 0],
                              p["u"], state0)
         y = y[:, None]
@@ -127,7 +135,7 @@ def apply_rwkv6_time_mix(cfg, p, x, *, cache=None):
         y, state = wkv6(r, k, v, w_log, p["u"], state0)
 
     y = rmsnorm(p["ln_x"], y.to(dt).reshape(B, S, H, K), cfg.norm_eps)
-    out = (y.reshape(B, S, d) * g) @ p["wo"]
+    out = (y.reshape(B, S, d) * g) @ p["wo"].to(dt)
     if cache is not None:
         cache["state"].copy_(state)
         cache["shift_tm"].copy_(x[:, -1, :])
@@ -142,10 +150,10 @@ def apply_rwkv6_channel_mix(cfg, p, x, *, cache=None):
     prev = (cache["shift_cm"].to(dt) if cache is not None
             else torch.zeros((B, x.shape[-1]), dtype=dt, device=x.device))
     xx = _token_shift(x, prev) - x
-    xk = x + xx * p["cm_mu_k"]
-    xr = x + xx * p["cm_mu_r"]
-    kk = torch.square(torch.relu(xk @ p["cm_wk"]))
-    out = torch.sigmoid(xr @ p["cm_wr"]) * (kk @ p["cm_wv"])
+    xk = x + xx * p["cm_mu_k"].to(dt)
+    xr = x + xx * p["cm_mu_r"].to(dt)
+    kk = torch.square(torch.relu(xk @ p["cm_wk"].to(dt)))
+    out = torch.sigmoid(xr @ p["cm_wr"].to(dt)) * (kk @ p["cm_wv"].to(dt))
     if cache is not None:
         cache["shift_cm"].copy_(x[:, -1, :])
     return out
@@ -205,49 +213,50 @@ def _causal_conv(p, x, cache, mc):
             else torch.zeros((B, mc.d_conv - 1, dI), dtype=dt,
                              device=x.device))
     xp = torch.cat([prev, x], dim=1)                     # (B, S+dc-1, dI)
-    w = p["conv_w"]                                      # (dc, dI)
+    w = p["conv_w"].to(dt)                               # (dc, dI)
     out = xp[:, 0:S] * w[0]
     for i in range(1, mc.d_conv):
         out = out + xp[:, i:i + S] * w[i]
-    out = out + p["conv_b"]
+    out = out + p["conv_b"].to(dt)
     return F.silu(out), xp[:, -(mc.d_conv - 1):]
 
 
-def apply_mamba(cfg, p, x, *, cache=None):
-    """x: (B, S, d) -> (B, S, d), in the reference's decode mode: a
-    one-token call (S == 1) takes the one-step update ``mamba_step``, a
-    longer one the selective scan ``mamba_scan`` (the CUDA kernel on
-    the card).  ``cache`` (or zeros when None) supplies the carried
-    state and conv tail; a given cache receives the new ``ssm`` and
-    ``conv`` in place."""
+def apply_mamba(cfg, p, x, *, mode="decode", cache=None):
+    """x: (B, S, d) -> (B, S, d).  A one-token ``"decode"`` call takes
+    the one-step update ``mamba_step``; every other call (``"prefill"``,
+    ``"train"``, a longer decode call) the selective scan ``mamba_scan``
+    (the CUDA kernel on the card).  ``cache`` (or zeros when None, as in
+    training) supplies the carried state and conv tail; a given cache
+    receives the new ``ssm`` and ``conv`` in place."""
     mc = cfg.mamba
     B, S, d = x.shape
     dt_ = x.dtype
     dI = mc.expand * d
     dt_rank = p["dt_proj"].shape[0]
 
-    xs = x @ p["in_x"]
-    z = x @ p["in_z"]
+    xs = x @ p["in_x"].to(dt_)
+    z = x @ p["in_z"].to(dt_)
     xs, new_conv = _causal_conv(p, xs, cache, mc)
 
-    proj = xs @ p["x_proj"]
+    proj = xs @ p["x_proj"].to(dt_)
     dt_low = proj[..., :dt_rank]
     Bm = proj[..., dt_rank:dt_rank + mc.d_state]
     Cm = proj[..., dt_rank + mc.d_state:]
-    dt_full = F.softplus(dt_low @ p["dt_proj"] + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
+    dt_full = F.softplus(dt_low @ p["dt_proj"].to(dt_)
+                         + p["dt_bias"].to(dt_))
+    A = -torch.exp(p["A_log"].float())
 
     state0 = (cache["ssm"] if cache is not None
               else torch.zeros((B, dI, mc.d_state), dtype=torch.float32,
                                device=x.device))
-    if S == 1:
+    if mode == "decode" and S == 1:
         y, state = mamba_step(xs[:, 0], dt_full[:, 0], A, Bm[:, 0],
                               Cm[:, 0], p["D"], state0)
         y = y[:, None]
     else:
         y, state = mamba_scan(xs, dt_full, A, Bm, Cm, p["D"], state0)
 
-    out = (y.to(dt_) * F.silu(z)) @ p["out_proj"]
+    out = (y.to(dt_) * F.silu(z)) @ p["out_proj"].to(dt_)
     if cache is not None:
         cache["ssm"].copy_(state)
         cache["conv"].copy_(new_conv)

@@ -8,10 +8,11 @@ takes each layer's (mixer, ffn) kinds from ``cfg.layer_pattern()``.
 An attention layer's paged KV pool is its own ``{"k", "v"}`` pair of
 ``(N, hk, hd)`` tensors (MLA: ``{"ckv": (N, kv_lora), "krope": (N,
 rope)}``), or for the lockstep slab path a ``{"k", "v"}`` pair of
-``(B, max_len, hk, hd)`` (GQA only); a Mamba or RWKV layer's cache is
-its per-slot recurrent state (``ssm.make_mamba_cache``,
+``(B, max_len, hk, hd)`` (MLA: ``{"ckv", "krope"}`` of ``(B, max_len,
+...)``); a Mamba or RWKV layer's cache is its per-slot (or, on the slab
+path, per-batch-row) recurrent state (``ssm.make_mamba_cache``,
 ``ssm.make_rwkv6_cache``).  All are updated in place.  The training
-forward (``mode="train"``, GQA with an MLP) has no cache.
+forward (``mode="train"``) has no cache.
 
 Weights keep the reference's layouts (wq (d, h, hd), wk/wv (d, hk, hd),
 wo (h, hd, d), MLA as in ``attention.init_mla``, MLP (d_in, d_out), MoE
@@ -131,40 +132,44 @@ def init_layer_cache(cfg, kind, dtype, *, pool=None, slots=None, batch=None,
                      max_len=None, device="cpu"):
     """An attention layer's paged pool (token-major, no batch axis; or,
     with ``pool`` None, its (batch, max_len) slab), or a Mamba or RWKV
-    layer's recurrent state with one row per serving slot."""
-    if pool is None:
-        return attn_lib.make_cache(cfg, dtype, batch=batch, max_len=max_len,
-                                   device=device)
+    layer's recurrent state with one row per serving slot (with ``pool``
+    None, per batch row)."""
+    rows = slots if pool is not None else batch
     if kind == "rwkv6":
-        return ssm_lib.make_rwkv6_cache(cfg, slots, dtype, device=device)
+        return ssm_lib.make_rwkv6_cache(cfg, rows, dtype, device=device)
     if kind == "mamba":
-        return ssm_lib.make_mamba_cache(cfg, slots, dtype, device=device)
+        return ssm_lib.make_mamba_cache(cfg, rows, dtype, device=device)
+    kw = dict(pool=pool, device=device) if pool is not None else dict(
+        batch=batch, max_len=max_len, device=device)
     if cfg.attention == "mla":
-        return attn_lib.make_mla_cache(cfg, dtype, pool=pool, device=device)
-    return attn_lib.make_cache(cfg, dtype, pool=pool, device=device)
+        return attn_lib.make_mla_cache(cfg, dtype, **kw)
+    return attn_lib.make_cache(cfg, dtype, **kw)
 
 
 def apply_layer(cfg, layer: Layer, x, *, positions, cache, paged,
                 write_idx, rope, mode="decode", cache_pos=0):
     """Pre-norm residual block: attention or Mamba then an MLP or MoE,
     or RWKV time mix then channel mix.  Returns (x, aux), aux being the
-    MoE load-balance loss or None.  ``paged`` None is the slab path
-    (GQA attention only): ``mode`` and the scalar ``cache_pos`` say
-    where the new keys go, and ``mode="train"`` (cache None) is the
-    training forward."""
+    MoE load-balance loss or None.  ``paged`` None is the slab path:
+    ``mode`` and the scalar ``cache_pos`` say where the new keys go (a
+    recurrent mixer takes its one-step update only in a one-token
+    decode call), and ``mode="train"`` (cache None) is the training
+    forward."""
     h = rmsnorm(layer.norm1, x, cfg.norm_eps)
     if layer.kind == "rwkv6":
-        x = x + ssm_lib.apply_rwkv6_time_mix(cfg, layer.mixer, h,
+        x = x + ssm_lib.apply_rwkv6_time_mix(cfg, layer.mixer, h, mode=mode,
                                              cache=cache)
         h = rmsnorm(layer.norm2, x, cfg.norm_eps)
         return x + ssm_lib.apply_rwkv6_channel_mix(cfg, layer.mixer, h,
                                                    cache=cache), None
     if layer.kind == "mamba":
-        x = x + ssm_lib.apply_mamba(cfg, layer.mixer, h, cache=cache)
+        x = x + ssm_lib.apply_mamba(cfg, layer.mixer, h, mode=mode,
+                                    cache=cache)
     elif cfg.attention == "mla":
         x = x + attn_lib.apply_mla(cfg, layer.mixer, h, positions=positions,
                                    cache=cache, paged=paged,
-                                   write_idx=write_idx, rope=rope)
+                                   write_idx=write_idx, rope=rope, mode=mode,
+                                   cache_pos=cache_pos)
     else:
         x = x + attn_lib.apply_attention(cfg, layer.mixer, h,
                                          positions=positions, cache=cache,

@@ -7,8 +7,16 @@ whole-prompt prefill, then one decode step per token for every slot at
 once, greedy or sampled, with ONE blocking host round-trip per token
 when an EOS is set (``bool(done.all())``).  It is the equivalence
 reference for the continuous engine (``serve.scheduler``) and the
-baseline of the host-sync story.  Every attention call of it runs
-through ``chunked_attention``, the flash-attention kernel on the card.
+baseline of the host-sync story.  It serves every architecture the
+port has: each attention call but MLA's slab decode (plain ops, as in
+the reference) runs through ``chunked_attention``, the flash-attention
+kernel on the card; each whole-prompt prefill of a Mamba or RWKV-6
+layer runs its scan kernel, each decode step its one-step update.
+
+Each ``generate()`` starts its recurrent layers from a zero state, so
+it gives what a fresh engine gives.  The reference's engine keeps its
+cache across calls and its recurrent prefill reads the state, shifts
+and conv tail the previous batch left; the port does not carry them.
 """
 from __future__ import annotations
 
@@ -51,7 +59,9 @@ class ServeEngine:
     cannot start until every slot retires, and every token costs a
     blocking host sync when ``eos_id`` is set (``host_syncs`` counts
     them); ``dispatches`` counts the model calls and the samples.  The
-    slab cache is in the model's compute dtype on its device."""
+    slab cache is in the model's compute dtype on its device; the rows
+    a batch uses are zeroed before its prefill (every batch starts from
+    a zero recurrent state, the K/V slabs are overwritten)."""
 
     def __init__(self, cfg, model: Model, *, batch_size, max_len,
                  eos_id: Optional[int] = None,
@@ -90,6 +100,10 @@ class ServeEngine:
                              f"overrun max_len={self.max_len}")
         cache = [{name: t[:B] for name, t in layer.items()}
                  for layer in self.cache]
+        for layer, (kind, _) in zip(cache, self.cfg.layer_pattern()):
+            if kind != "attn":              # the recurrent rows start at 0
+                for t in layer.values():
+                    t.zero_()
         logits = self._prefill(self.model, tokens, cache)
         self.dispatches += 1
         pos = S0

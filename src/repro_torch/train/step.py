@@ -138,7 +138,10 @@ def accumulate_grads(loss_fn, model, params, batch, n):
     gradients then scaled by ``1 / n`` (the reference's ``lax.scan``).
     ``loss_fn(model, batch)`` returns ``(loss, metrics)``; the metrics
     of a single pass are returned detached, none for microbatches.
-    ``batch`` (numpy or tensors) is moved to the masters' device."""
+    ``batch`` (numpy or tensors) is moved to the masters' device.  A
+    master the backward never reaches (DeepSeek-V3's router balance
+    bias, which only selects) gets a zero gradient, as the reference
+    gives such a leaf: the optimizer still applies its weight decay."""
     if not params:
         raise ValueError("the model has no trainable masters; build it "
                          "with train=True")
@@ -149,6 +152,7 @@ def accumulate_grads(loss_fn, model, params, batch, n):
     if n == 1:
         loss, metrics = loss_fn(model, batch)
         loss.backward()
+        _zero_missing_grads(params)
         return loss.detach(), {
             k: v.detach() if isinstance(v, torch.Tensor) else v
             for k, v in metrics.items()}
@@ -158,10 +162,17 @@ def accumulate_grads(loss_fn, model, params, batch, n):
         l, _ = loss_fn(model, {k: v[i] for k, v in micro.items()})
         l.backward()
         loss = loss + l.detach()
+    _zero_missing_grads(params)
     inv = 1.0 / n
     for p in params.values():
         p.grad.mul_(inv)
     return loss * inv, {}
+
+
+def _zero_missing_grads(params):
+    for p in params.values():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
 
 
 def start_state(model, optimizer) -> TrainState:

@@ -178,3 +178,68 @@ def test_plain_version_casts_probabilities_to_v_dtype():
     want = torch.einsum("bhst,bthd->bshd", p, v)
     assert got.dtype == torch.bfloat16
     torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+# MLA's widths, cut down: q and k of nope + rope, v narrower (the
+# reference's chunked_attention scales by q's width and returns v's)
+WIDTH_CASES = [
+    # B, S, T, h, hk, dqk, dv, causal, window
+    (2, 24, 24, 4, 4, 48, 32, True, 0),
+    (1, 9, 30, 4, 2, 48, 32, True, 0),      # right-aligned, GQA
+    (1, 20, 20, 2, 2, 24, 16, True, 7),     # windowed
+]
+
+
+def _qkv_widths(seed, B, S, T, h, hk, dqk, dv):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, S, h, dqk)).astype(np.float32),
+            rng.standard_normal((B, T, hk, dqk)).astype(np.float32),
+            rng.standard_normal((B, T, hk, dv)).astype(np.float32))
+
+
+@pytest.mark.parametrize("case", WIDTH_CASES)
+def test_plain_value_width_matches_reference_chunked(case):
+    """flash_attention_ref and its backward at a v width other than q's,
+    against the reference's chunked_attention (the train and prefill
+    branch MLA runs) and its jax.grad."""
+    import jax
+    B, S, T, h, hk, dqk, dv, causal, window = case
+    q, k, v = _qkv_widths(sum(case), B, S, T, h, hk, dqk, dv)
+    dout = np.random.default_rng(1).standard_normal(
+        (B, S, h, dv)).astype(np.float32)
+
+    def jfwd(q, k, v):
+        return jax_chunked(q, k, v, q_positions=jnp.arange(S) + (T - S),
+                           kv_positions=jnp.arange(T), causal=causal,
+                           window=window, chunk=8)
+
+    want = jfwd(*map(jnp.asarray, (q, k, v)))
+    got = flash_attention(*map(torch.from_numpy, (q, k, v)), causal=causal,
+                          window=window)
+    assert got.shape == (B, S, h, dv)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=ORACLE_TOL,
+                               rtol=ORACLE_TOL)
+    jgrads = jax.grad(lambda *a: jnp.sum(jfwd(*a) * dout), argnums=(0, 1, 2))(
+        *map(jnp.asarray, (q, k, v)))
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_ref
+    grads = flash_attention_bwd_ref(*map(torch.from_numpy, (q, k, v)),
+                                    torch.from_numpy(dout), causal=causal,
+                                    window=window, chunk=8)
+    for name, g, w in zip("qkv", grads, jgrads):
+        w = np.asarray(w)
+        assert g.shape == w.shape, name
+        assert np.abs(g.numpy() - w).max() <= 1e-5 * np.abs(w).max(), name
+
+
+def test_value_width_shapes_are_checked():
+    """v may be narrower than q and k (MLA); it must share k's batch,
+    length and heads.  The kernel is built for the widths of
+    KERNEL_WIDTHS only."""
+    from repro_torch.kernels.flash_attention import KERNEL_WIDTHS
+    assert KERNEL_WIDTHS == ((64, 64), (128, 128), (192, 128))
+    q, k, v = map(torch.from_numpy, _qkv_widths(0, 1, 4, 6, 2, 2, 48, 32))
+    assert flash_attention(q, k, v).shape == (1, 4, 2, 32)
+    with pytest.raises(ValueError, match="shape"):
+        flash_attention(q, k, v[:, :5])
+    with pytest.raises(ValueError, match="shape"):
+        flash_attention(q, k, v[:, :, :1])

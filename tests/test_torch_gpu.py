@@ -1061,3 +1061,163 @@ def test_zero_over_gloo_ranks_sharing_the_card(cuda, tmp_path):
         assert r["rs"] == [8 + 2 * i + 8 * rank for i in range(4)]
         assert r["ag"] == [float(2 * a + 8) for a in range(8)]
         assert max(r["gaps"].values()) <= 1e-5, r["gaps"]
+
+
+# --------------------------------------------------------------------------
+# the whole-sequence branches of RWKV-6, Jamba and DeepSeek-V3: MLA's
+# widths in the flash kernel, the scan kernels' autograd Functions, slab
+# serving and training on the card
+# --------------------------------------------------------------------------
+
+MLA_FLASH_CASES = [
+    # B, S, T, h, hk  (q and k 192 wide, v 128: DeepSeek-V3's MLA)
+    (2, 70, 70, 4, 4),        # prefill-shaped, causal, ragged tiles
+    (1, 9, 130, 8, 2),        # right-aligned, GQA
+    (8, 128, 128, 32, 32),    # rows enough for the warpgroup blocks
+]
+
+
+def _mla_inputs(dev, dtype, seed, B, S, T, h, hk):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn((B, S, h, 192), generator=g).to(dev, dtype),
+            torch.randn((B, T, hk, 192), generator=g).to(dev, dtype),
+            torch.randn((B, T, hk, 128), generator=g).to(dev, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", MLA_FLASH_CASES)
+def test_flash_kernel_mla_widths_match_plain(cuda, case, dtype):
+    """q/k 192, v 128: the kernel against its plain version, and the
+    gradients of FlashAttention against autograd of the plain version."""
+    q, k, v = _mla_inputs(cuda, dtype, sum(case), *case)
+    dout = torch.randn(q.shape[:3] + (128,), device=cuda).to(dtype)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    reset_launch_counts()
+    out = flash_attention(*leaves)
+    out.backward(dout)
+    assert launch_counts()["flash_attention"] == 1
+    assert out.shape == q.shape[:3] + (128,)
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = flash_attention_ref(*ref_leaves)
+    want.backward(dout)
+    torch.testing.assert_close(out.detach().float(), want.detach().float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    for name, a, b in zip("qkv", leaves, ref_leaves):
+        rel = ((a.grad.float() - b.grad.float()).abs().max()
+               / b.grad.float().abs().max()).item()
+        assert rel <= TRAIN_GRAD_TOL[dtype], (name, rel)
+
+
+def test_flash_kernel_refuses_widths_it_is_not_built_for(cuda):
+    q, k, v = _mla_inputs(cuda, torch.bfloat16, 0, 1, 4, 4, 2, 2)
+    with pytest.raises(ValueError, match="not built"):
+        flash_attention(q[..., :160].contiguous(), k[..., :160].contiguous(),
+                        v)
+    with pytest.raises(ValueError, match="not built"):
+        flash_attention(q, k, torch.cat([v, v], -1)[..., :192].contiguous())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_functions_gradients_match_plain(cuda, dtype):
+    """WKV6 and MambaScan (kernel forward, plain chunk-recomputing
+    backward) against autograd of the plain chunked forms, cotangents on
+    y and the final state; each forward launched once."""
+    from repro_torch.kernels import mamba_chunked
+    g = torch.Generator().manual_seed(3)
+    rand = lambda *s: torch.randn(s, generator=g)        # noqa: E731
+    B, T, H, K = 2, 75, 4, 64
+    wkv = [rand(B, T, H, K).to(cuda, dtype) for _ in range(3)] + [
+        -torch.exp(rand(B, T, H, K)).to(cuda), rand(H, K).to(cuda),
+        rand(B, H, K, K).to(cuda)]
+    Bb, Tm, dI, dS = 2, 150, 256, 16
+    proj = rand(Bb, Tm, 8 + 2 * dS).to(cuda, dtype)
+    mamba = [rand(Bb, Tm, dI).to(cuda, dtype),
+             torch.nn.functional.softplus(rand(Bb, Tm, dI)).to(cuda, dtype),
+             -torch.exp(rand(dI, dS)).to(cuda), proj[..., 8:8 + dS],
+             proj[..., 8 + dS:], rand(dI).to(cuda), rand(Bb, dI, dS).to(cuda)]
+    for name, fn, plain, args in (("wkv6", wkv6, wkv6_chunked, wkv),
+                                  ("mamba_scan", mamba_scan, mamba_chunked,
+                                   mamba)):
+        leaves = [a.clone().requires_grad_() for a in args]
+        reset_launch_counts()
+        y, s = fn(*leaves)
+        assert launch_counts()[name] == 1
+        dy, ds = torch.randn_like(y.float()), torch.randn_like(s)
+        ((y.float() * dy).sum() + (s * ds).sum()).backward()
+        ref = [a.clone().requires_grad_() for a in args]
+        y_ref, s_ref = plain(*ref)
+        ((y_ref.float() * dy).sum() + (s_ref * ds).sum()).backward()
+        for i, (a, b) in enumerate(zip(leaves, ref)):
+            rel = ((a.grad.float() - b.grad.float()).abs().max()
+                   / b.grad.float().abs().max()).item()
+            assert rel <= TRAIN_GRAD_TOL[dtype], (name, i, rel)
+
+
+ARCHS = ["rwkv6-1.6b", "jamba-v0.1-52b", "deepseek-v3-671b"]
+
+
+def _card_config(arch, **kw):
+    """The smoke config in fp32; DeepSeek-V3's with MLA's real head
+    widths (nope 128 + rope 64, v 128), the ones the flash kernel is
+    built for (the smoke config's 48 / 32 are not)."""
+    import dataclasses
+    cfg = smoke_config(arch).with_overrides(dtype="float32", **kw)
+    if cfg.attention == "mla":
+        cfg = cfg.with_overrides(head_dim=192, mla=dataclasses.replace(
+            cfg.mla, qk_nope_head_dim=128, qk_rope_head_dim=64,
+            v_head_dim=128))
+    return cfg
+
+
+def _kernel_counts(cfg, calls):
+    """Launches of each kernel when every layer runs ``calls[kind]``
+    times: RWKV-6 and Mamba their scans, attention the flash kernel."""
+    kinds = [m for m, _ in cfg.layer_pattern()]
+    return {"wkv6": kinds.count("rwkv6") * calls["scan"],
+            "mamba_scan": kinds.count("mamba") * calls["scan"],
+            "flash_attention": kinds.count("attn") * calls["attn"]}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_arch_slab_serving_on_card_matches_cpu(cuda, arch):
+    """Each smoke config (``_card_config``) through the lockstep slab engine: greedy
+    tokens on the card equal the CPU's; each whole-prompt scan and every
+    flash call (MLA: its prefill only) launched its kernel."""
+    cfg = _card_config(arch)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 40))
+    new = 8
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        model = init_model(cfg, seed=0, device="cpu").to(dev)
+        reset_launch_counts()
+        outs[dev] = ServeEngine(cfg, model, batch_size=2,
+                                max_len=48).generate(prompts, new).cpu()
+    counts = launch_counts()
+    want = _kernel_counts(cfg, {"scan": 1, "attn": 1 if cfg.attention ==
+                                "mla" else new})
+    assert {k: counts.get(k, 0) for k in want} == want
+    np.testing.assert_array_equal(outs["cpu"].numpy(), outs["cuda"].numpy())
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_arch_train_step_on_card_matches_cpu(cuda, arch):
+    """Each smoke config (DeepSeek-V3 without its MTP head) in fp32, 2
+    AdamW steps from the same masters: the first loss within 1e-5
+    relative, the second within 1e-4; each layer's kernel launched in
+    the forward and the remat recompute."""
+    from repro_torch.train import TrainConfig
+    cfg = _card_config(arch, mtp_depth=0)
+    tc = TrainConfig(lr=3e-4)
+    rng = np.random.default_rng(0)
+    batches = [{"tokens": rng.integers(0, cfg.vocab_size, (2, 80))}
+               for _ in range(2)]
+    got = {}
+    for dev in ("cpu", "cuda"):
+        model = init_model(cfg, seed=0, device="cpu", train=True).to(dev)
+        reset_launch_counts()
+        got[dev] = _train(cfg, model, tc, batches)
+    counts = launch_counts()
+    want = _kernel_counts(cfg, {"scan": 2 * 2, "attn": 2 * 2})
+    assert {k: counts.get(k, 0) for k in want} == want
+    rel = [abs(a - b) / abs(a) for a, b in zip(got["cpu"][0], got["cuda"][0])]
+    assert rel[0] <= 1e-5 and rel[1] <= 1e-4, rel

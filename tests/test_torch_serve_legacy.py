@@ -176,16 +176,29 @@ def test_launcher_runs_legacy_and_refuses_more_requests_than_slots(capsys):
     ("rwkv6-1.6b", "RWKV-6 layers"),
 ])
 def test_slab_path_refuses_unported_kinds(arch, part):
+    """Once refused, now ported: the slab path accepts and runs every
+    architecture -- ``make_engine(engine="legacy")`` generates, the slab
+    cache holds each layer kind's own entry, and a MoE stack's slab
+    prefill runs (``part`` names what the slab path gained)."""
     cfg = smoke_config(arch).with_overrides(dtype="float32")
     model = init_model(cfg, device="cpu")
-    with pytest.raises(ValueError, match=part):
-        make_engine(cfg, model, engine="legacy", device="cpu")
-    with pytest.raises(ValueError, match=part):
-        init_cache(cfg, torch.float32, batch=1, max_len=16, device="cpu")
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 6))
+    eng = make_engine(cfg, model, engine="legacy", batch_size=2, max_len=16,
+                      device="cpu")
+    out = eng.generate(prompts, 4).numpy()
+    assert out.shape == (2, 4) and out.min() >= 0 \
+        and out.max() < cfg.vocab_size, part
+    cache = init_cache(cfg, torch.float32, batch=1, max_len=16, device="cpu")
+    keys = {"attn": {"ckv", "krope"} if cfg.attention == "mla"
+            else {"k", "v"}, "mamba": {"ssm", "conv"},
+            "rwkv6": {"state", "shift_tm", "shift_cm"}}
+    assert [set(c) for c in cache] == [keys[kind]
+                                       for kind, _ in cfg.layer_pattern()]
     if cfg.moe is not None:
-        with pytest.raises(ValueError, match="MoE ffn"):
-            apply_model(cfg, model, torch.zeros((1, 4), dtype=torch.int32),
-                        cache=[], cache_pos=0, mode="prefill")
+        got = apply_model(cfg, model, torch.zeros((1, 4), dtype=torch.int32),
+                          cache=cache, cache_pos=0, mode="prefill")
+        assert got["logits"].shape == (1, 4, cfg.vocab_size)
+        assert torch.isfinite(got["logits"]).all()
 
 
 def test_legacy_entry_points_default_to_the_card(ref):

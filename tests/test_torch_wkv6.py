@@ -166,3 +166,51 @@ def test_chunk_schedule_is_the_references():
     y, s = wkv6_chunked(*args)
     y1, s1 = wkv6_chunked(*args, chunk=20)
     assert torch.equal(y, y1) and torch.equal(s, s1)
+
+
+# the plain backward of WKV6's autograd Function, against jax.grad of the
+# reference's checkpointed chunk scan: max |err| within 1e-5 of max |grad|
+GRAD_REL = 1e-5
+
+
+@pytest.mark.parametrize("case", WKV_CASES)
+def test_plain_backward_matches_reference_grad(case):
+    import jax
+    from repro_torch.kernels import wkv6_chunked_bwd
+    B, T, H, K, chunk = case
+    args = _inputs(sum(case) + 7, B, T, H, K)
+    rng = np.random.default_rng(sum(case))
+    dy = rng.standard_normal((B, T, H, K)).astype(np.float32)
+    ds = rng.standard_normal((B, H, K, K)).astype(np.float32)
+
+    def loss(*a):
+        y, s = ops.wkv6_chunked(*a, chunk=chunk)
+        return jnp.sum(y * dy) + jnp.sum(s * ds)
+
+    want = jax.grad(loss, argnums=tuple(range(6)))(*_jax(*args))
+    got = wkv6_chunked_bwd(*_torch(*args), *_torch(dy, ds), chunk=chunk)
+    for name, g, w in zip(("r", "k", "v", "w_log", "u", "state"), got, want):
+        w = np.asarray(w)
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        assert np.abs(g.numpy() - w).max() <= GRAD_REL * np.abs(w).max(), name
+    # no state cotangent (a training forward reads only y): as a zero one
+    got0 = wkv6_chunked_bwd(*_torch(*args), torch.from_numpy(dy), None,
+                            chunk=chunk)
+    want0 = wkv6_chunked_bwd(*_torch(*args), torch.from_numpy(dy),
+                             torch.zeros(B, H, K, K), chunk=chunk)
+    for g, w in zip(got0, want0):
+        assert torch.equal(g, w)
+
+
+def test_cpu_autograd_is_the_backward_oracle():
+    """CPU tensors differentiate the plain forward; its gradient is what
+    the Function's backward computes (the card's)."""
+    from repro_torch.kernels import wkv6_chunked_bwd
+    args = _torch(*_inputs(3, 1, 45, 2, 16))
+    leaves = [a.clone().requires_grad_() for a in args]
+    y, s = wkv6(*leaves)
+    dy = torch.randn_like(y)
+    want = torch.autograd.grad(y, leaves, dy)
+    got = wkv6_chunked_bwd(*args, dy, None)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max() <= GRAD_REL * w.abs().max()
