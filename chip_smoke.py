@@ -112,10 +112,38 @@ Phases (each fails the run if it goes wrong):
      2 fp32 layers card vs CPU (phase 14's form);
  21. training Jamba cut to 2 layers (3.742 B; SGD, 1 x 2048 tokens, 1 +
      3 steps, 16 mamba_scan launches) and DeepSeek-V3 cut to 1 layer
-     (MLA + dense MLP, no MTP head; AdamW, phase 13's batch, 1 + 3
-     steps, 16 flash_attention launches at (192, 128)); then each at 2
-     fp32 layers card vs CPU, SGD, the routed experts cut (Jamba 16 ->
-     4, DeepSeek 256 -> 16).
+     (MLA + dense MLP, with its MTP head; AdamW, phase 13's batch, 1 + 3
+     steps, 24 = 4 x 2 x (2 + 1) flash_attention launches at (192, 128):
+     the head's block is not rematted; its mtp_ce printed; peak under
+     80 GB); then each at 2 fp32 layers card vs CPU, SGD, the routed
+     experts cut (Jamba 16 -> 4, DeepSeek 256 -> 16; DeepSeek's with the
+     head);
+ 22. the prefix cache and the front door: phase 3's model serves 16
+     requests on 8 slots, 4 templates of 256 tokens each shared by 4
+     requests, each with a unique suffix of 32-256 tokens, without the
+     prefix cache and with it through ``FrontDoor``: the tokens equal
+     bitwise, prefix_hit_tokens exactly 12 x 256 = 3072, the exact
+     paged_flash_decode launches of each run, and only the tree's
+     references left in the pool; then a 2-layer full-width qwen3 in
+     fp32: the card's cached tokens equal the CPU's uncached ones with
+     a copy-on-write fork, and with a pool sized down so that the tree
+     evicts;
+ 23. speculative decoding with the MTP head: (i) phase 9's model
+     (DeepSeek-V3 at its 4-layer cut, with its published MTP head, bf16)
+     serves phase 3's traffic at k = 0, 2 and 4 (max_len 624): exactly
+     4 paged_flash_decode_mla launches a model call (a verify forward is
+     one call; the draft head launches no attention kernel) and one
+     decode host sync a tick; acceptance, tokens a verify step, decode
+     dispatches a token and the share of requests equal to k = 0
+     printed; phase 10's fp32 model (with its head) gives the CPU's k = 0
+     tokens at k = 2 and 4 on the card; (ii) qwen3-1.7b at 2 full-width
+     layers with an MTP head, fp32, trained 40 Adam steps through
+     ``Trainer(model_cfg=...)`` on the alternating [3, 5] stream: k = 4
+     tokens equal k = 0's on the card, acceptance >= 0.6, decode
+     dispatches and host syncs a token down >= 1.8x, and an EOS
+     mid-chunk emits nothing after it.
+Phase 2 also holds both paged kernels at speculative decode's verify
+shape (B 8, S = k = 4, per-slot positions, ~512 tokens a slot).
 The last lines are the kernels' JSON record, the card's name and power
 limit, and the result line.  Without a card, or outside the repository,
 it exits non-zero and prints no result.
@@ -162,6 +190,19 @@ PAGE_SIZE, DECODE_CHUNK, PREFILL_CHUNK = 16, 8, 32
 MAX_LEN = -(-(PROMPT_MAX + NEW_TOKENS + DECODE_CHUNK) // PAGE_SIZE) * PAGE_SIZE
 SERVE_KW = dict(batch_size=SLOTS, max_len=MAX_LEN, page_size=PAGE_SIZE,
                 decode_chunk=DECODE_CHUNK, prefill_chunk=PREFILL_CHUNK)
+# phase 22: templated traffic for the prefix cache -- 4 templates
+# ("system prompts") of 256 tokens, requests 4t..4t+3 sharing template t,
+# each with a unique suffix of 32-256 tokens; every match is 256 tokens, a
+# multiple of the prefill chunk
+PREFIX_TEMPLATES, PREFIX_TEMPLATE_LEN = 4, 256
+PREFIX_SUFFIX_MIN, PREFIX_SUFFIX_MAX = 32, 256
+# phase 23: speculative decode; (i) DeepSeek-V3 serves phase 3's traffic at
+# these k (max_len covers the k = 4 slack, decode_chunk * k + k = 36);
+# (ii) a head trained on the alternating [3, 5] stream
+SPEC_KS, SPEC_MAX_LEN = (0, 2, 4), 624
+SPEC_TRAIN_STEPS = 40
+# phase 2's verify-chunk case (speculative decode at k = 4, B = 8)
+VERIFY_CASE = "verify B=8 S=4, slots ~512 tokens"
 # the lockstep slab run of phase 11: 8 requests of 512 prompt tokens
 LEGACY_BATCH, LEGACY_PROMPT, LEGACY_MAX_LEN = 8, 512, 592
 # the training run of phases 13-14: qwen3-1.7b on 2 x 4096 tokens (the
@@ -298,7 +339,10 @@ def check_paged_decode(dev, flush, h=16, windowed=True, tag=""):
                   ("decode B=8 S=1 hd=64", 8, 1, 0,
                    np.linspace(1, W * ps, 8).astype(int), 64),
                   ("prefill chunk B=1 S=32 hd=32", 1, 32, 0,
-                   np.array([PROMPT_MAX]), 32)]
+                   np.array([PROMPT_MAX]), 32),
+                  # speculative decode's verify chunk: k = 4 query rows a
+                  # slot at per-slot positions
+                  (VERIFY_CASE, 8, 4, 0, rng.integers(480, 545, 8), 128)]
     cases = [(tag + name, *rest) for name, *rest in cases]
     rows = []
     for name, B, S, window, lengths, hd in cases:
@@ -359,17 +403,26 @@ def check_paged_decode(dev, flush, h=16, windowed=True, tag=""):
             ops = 4 * hd * h * vis_pairs
             t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
             t_ops = ops / PEAK_OPS[dtype] * 1e3
+            # bf16: the shared GQA core's plan; fp32: the FMA kernel's
+            # blocks of up to 16 group rows
+            if dtype == torch.bfloat16:
+                warps, splits = gqa_split.plan(B * hk, h // hk * S, W * ps)
+                n_blocks = gqa_split.blocks(B * hk, h // hk * S, warps,
+                                            splits)
+            else:
+                rt = min(16, h // hk * S)
+                warps, splits = None, 1
+                n_blocks = B * hk * -(-(h // hk * S) // rt)
             rows.append({
                 "case": name, "dtype": str(dtype).replace("torch.", ""),
-                "splits": (gqa_split.plan(B * hk, h // hk * S, W * ps)[1]
-                           if dtype == torch.bfloat16 else 1),
+                "warps": warps, "splits": splits, "blocks": n_blocks,
                 "max_abs_err": err, "tol": tol, "ms": ms,
                 "plain_ms": plain_ms, "library_ms": library_ms,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bytes": n_bytes, "ops": ops})
             print(f"  paged_flash_decode {name:40s} {rows[-1]['dtype']:8s} "
-                  f"splits {rows[-1]['splits']}  "
+                  f"splits {splits} blocks {n_blocks}  "
                   f"err {err:.2e} (tol {tol:g})  kernel {ms:.4f} ms  "
                   f"plain {plain_ms:.4f} ms  sdpa-on-slab {library_ms:.4f} ms"
                   f"  bound {rows[-1]['bound_ms']:.4f} ms "
@@ -431,6 +484,8 @@ def check_paged_decode_mla(dev, flush):
         ("prefill chunk B=1 S=32, 544 tokens", 1, 32, 0, np.array([544])),
         ("ragged windowed chunk B=4 S=32 window=100", 4, 32, 100,
          np.array([40, 200, 333, 560])),
+        # speculative decode's verify chunk: k = 4 query positions a slot
+        (VERIFY_CASE, 8, 4, 0, rng.integers(480, 545, 8)),
     ]
     rows = []
     for name, B, S, window, lengths in cases:
@@ -1367,9 +1422,11 @@ def serve_jamba(dev, lens):
 
 def serve_deepseek(dev, lens):
     """Phases 9 and 10: deepseek-v3-671b at full width cut to its first 4
-    layers in bf16 on the phase-3 traffic, then card-vs-CPU fp32 greedy
-    parity at 2 full-width layers with 16 routed experts.  Returns the
-    paged_flash_decode_mla launches of the phase-9 run."""
+    layers (with its MTP head) in bf16 on the phase-3 traffic, then
+    card-vs-CPU fp32 greedy parity at 2 full-width layers with 16 routed
+    experts; phase 23 (i), speculative decode on both models.  Returns
+    the paged_flash_decode_mla launches of the phase-9 run and phase 23's
+    numbers."""
     import copy
     import dataclasses
 
@@ -1446,7 +1503,9 @@ def serve_deepseek(dev, lens):
           f"launches {mla} = {cfg.num_layers} x ({st['prefill_dispatches']} "
           f"prefill calls + {DECODE_CHUNK} x {st['decode_dispatches']} "
           f"decode ticks)")
-    del model, sch
+    del sch
+    spec_out = spec_deepseek(dev, cfg, model, prompts)
+    del model
     torch.cuda.empty_cache()
 
     # phase 10: two full-width layers in fp32, the routed experts cut to
@@ -1484,9 +1543,26 @@ def serve_deepseek(dev, lens):
             fail(f"deepseek fp32 greedy tokens differ card vs CPU: {a} vs {b}")
     print(f"phase 10: 2-layer full-width DeepSeek-V3 fp32 greedy tokens equal "
           f"on card and CPU for {len(prompts10)} requests x 12 tokens")
+    # phase 23 (i), fp32: the same model with its MTP head, spec decode on
+    # the card against the CPU's plain decode
+    kw = dict(slots=SLOTS, max_len=MAX_LEN, page_size=PAGE_SIZE,
+              prefill_chunk=PREFILL_CHUNK, decode_chunk=DECODE_CHUNK)
+    spec_out["fp32"] = {}
+    for k in SPEC_KS[1:]:
+        outs, st, _, _ = spec_serve(small, m_card, prompts10, 12, k, **kw)
+        for a, b in zip(got["cpu"], outs):
+            if not np.array_equal(a, b):
+                fail(f"phase 23: fp32 spec_decode={k} tokens on the card "
+                     f"differ from the CPU's plain decode: {b} vs {a}")
+        spec_out["fp32"][k] = st["spec_decode"]["acceptance"]
+    print(f"phase 23: 2-layer full-width DeepSeek-V3 fp32 with its MTP head "
+          f"(routed experts cut as in phase 10): the card's k = "
+          f"{' and '.join(str(k) for k in SPEC_KS[1:])} tokens equal the "
+          f"CPU's k = 0 tokens for {len(prompts10)} requests x 12 "
+          f"(acceptance {spec_out['fp32']})")
     del m_card, m_cpu, sch
     torch.cuda.empty_cache()
-    return mla
+    return mla, spec_out
 
 
 def serve_legacy(dev):
@@ -2247,20 +2323,27 @@ def _train_run(dev, cfg, tc, batch, steps, tag):
           f"fp32 masters, bf16 compute, {tc.optimizer}) initialised in "
           f"{time.perf_counter() - t0:.1f} s, resident "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    kinds = [m for m, _ in cfg.layer_pattern()]
+    # an MTP head's block runs its attention once a microbatch (the head
+    # is not rematted)
+    kinds = [m for m, _ in cfg.layer_pattern()] + ["mtp"] * cfg.mtp_depth
     launches_want = {
-        kernel: (1 + steps) * tc.microbatches * kinds.count(kind) * 2
+        kernel: (1 + steps) * tc.microbatches * (
+            kinds.count(kind) * 2 + (kinds.count("mtp") if kind == "attn"
+                                     else 0))
         for kernel, kind in (("wkv6", "rwkv6"), ("mamba_scan", "mamba"),
                              ("flash_attention", "attn"))}
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     losses, walls = [], []
+    mtp_ce = []
     for _ in range(1 + steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
         losses.append(float(metrics["loss"]))           # synchronises
         walls.append(time.perf_counter() - t0)
+        if "mtp_ce" in metrics:
+            mtp_ce.append(float(metrics["mtp_ce"]))
     counts = launch_counts()
     got = {k: counts.get(k, 0) for k in launches_want}
     if got != launches_want:
@@ -2278,12 +2361,19 @@ def _train_run(dev, cfg, tc, batch, steps, tag):
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
            "losses": losses, "step_walls_ms": [w * 1e3 for w in walls],
            "launches": got}
+    if mtp_ce:
+        res["mtp_ce"] = mtp_ce
     print(f"{tag}: {1 + steps} steps on {tuple(batch['tokens'].shape)} "
           f"tokens ({tc.microbatches} microbatches, remat per layer): losses "
           f"{', '.join(f'{x:.4f}' for x in losses)}; step wall median "
           f"{res['step_ms']:.1f} ms (first {walls[0] * 1e3:.1f} ms), "
           f"{res['tokens_per_s']:.1f} tokens/s, mfu {res['mfu']:.4f}, peak "
-          f"{res['peak_gib']:.2f} GiB; launches {got}")
+          f"{res['peak_gib']:.2f} GiB; launches {got}"
+          + (f"; mtp_ce {', '.join(f'{x:.4f}' for x in mtp_ce)}"
+             if mtp_ce else ""))
+    if res["peak_gib"] * 2**30 >= 80e9:
+        fail(f"{tag} ({cfg.name}): peak {res['peak_gib']:.2f} GiB does not "
+             "fit the card")
     del state, step
     torch.cuda.empty_cache()
     return res
@@ -2325,8 +2415,9 @@ def _train_parity(dev, tag, small, tc, batch, cut=""):
     kinds = [m for m, _ in small.layer_pattern()]
     for kernel, kind in (("wkv6", "rwkv6"), ("mamba_scan", "mamba"),
                          ("flash_attention", "attn")):
-        if counts.get(kernel, 0) != 3 * tc.microbatches * kinds.count(
-                kind) * (2 if tc.remat else 1):
+        head = small.mtp_depth if kind == "attn" else 0    # not rematted
+        if counts.get(kernel, 0) != 3 * tc.microbatches * (kinds.count(
+                kind) * (2 if tc.remat else 1) + head):
             fail(f"{tag}: the card run launched {kernel} "
                  f"{counts.get(kernel, 0)} times, not in every {kind} layer")
     (cpu_l, cpu_p), (card_l, card_p) = got["cpu"], got["cuda"]
@@ -2353,9 +2444,10 @@ def _train_parity(dev, tag, small, tc, batch, cut=""):
 def train_archs(dev):
     """Phases 20 and 21: full-width training of rwkv6-1.6b (full depth,
     AdamW, phase 13's batch), Jamba cut to 2 layers (SGD, 1 x 2048
-    tokens) and DeepSeek-V3 cut to 1 layer (MLA + dense MLP, no MTP
+    tokens) and DeepSeek-V3 cut to 1 layer (MLA + dense MLP, with its MTP
     head; AdamW, phase 13's batch), each with its exact launches; then
-    card-vs-CPU fp32 parity at 2 layers.  Returns the numbers."""
+    card-vs-CPU fp32 parity at 2 layers (DeepSeek's with the head).
+    Returns the numbers."""
     from repro_torch.configs import get_config
     from repro_torch.data import make_batch
     from repro_torch.train import TrainConfig
@@ -2388,14 +2480,12 @@ def train_archs(dev):
         "only)")
 
     full = get_config("deepseek-v3-671b")
-    cfg = full.with_overrides(num_layers=1, mtp_depth=0)
+    cfg = full.with_overrides(num_layers=1)
     batch = make_batch(cfg, np.random.default_rng(0), TRAIN_BATCH, TRAIN_SEQ)
     res = _train_run(dev, cfg, adamw, batch, ARCH_TRAIN_STEPS, "phase 21")
-    res["reduced"] = (f"num_layers {full.num_layers} -> 1, mtp_depth "
-                      f"{full.mtp_depth} -> 0")
+    res["reduced"] = f"num_layers {full.num_layers} -> 1"
     out["deepseek-v3-671b"] = res
-    small = _cut_moe(full.with_overrides(num_layers=2, mtp_depth=0,
-                                         dtype="float32"), 16)
+    small = _cut_moe(full.with_overrides(num_layers=2, dtype="float32"), 16)
     res["parity"] = _train_parity(
         dev, "phase 21", small, sgd,
         make_batch(small, np.random.default_rng(21), 1, 128),
@@ -2665,6 +2755,332 @@ def checkpoint_qwen(dev, trainer, create, cfg, batch, prompts,
     print(f"phase 17: {json.dumps(out)}")
     return out
 
+# --------------------------------------------------------------------------
+# phase 22: the prefix cache and the front door
+# --------------------------------------------------------------------------
+
+def _tree_only(sch):
+    """Whether only the radix tree holds references in the pool."""
+    return (sorted(sch.kv._refs) == sorted(sch.prefix.pages())
+            and all(r == 1 for r in sch.kv._refs.values()))
+
+
+def prefix_qwen(dev, cfg, model):
+    """Phase 22: phase 3's model (full-width, full-depth qwen3-1.7b, bf16,
+    seed 0) serves 16 templated requests without the prefix cache, then
+    with it through ``FrontDoor``; the tokens must be equal bitwise and
+    the hits exactly 12 x 256.  Then the fp32 2-layer check: the card's
+    cached tokens == the CPU's uncached tokens, with a copy-on-write fork
+    and a pool sized down so that the tree evicts.  Returns the numbers."""
+    import copy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import init_model
+    from repro_torch.serve import ContinuousScheduler, FrontDoor
+
+    rng = np.random.default_rng(0)
+    templates = [rng.integers(0, cfg.vocab_size, PREFIX_TEMPLATE_LEN)
+                 .astype(np.int32) for _ in range(PREFIX_TEMPLATES)]
+    suffixes = rng.integers(PREFIX_SUFFIX_MIN, PREFIX_SUFFIX_MAX + 1,
+                            REQUESTS)
+    per = REQUESTS // PREFIX_TEMPLATES
+    prompts = [np.concatenate([templates[i // per], rng.integers(
+        0, cfg.vocab_size, n).astype(np.int32)])
+        for i, n in enumerate(suffixes)]
+    lens = [len(p) for p in prompts]
+    hit = [i % per != 0 for i in range(REQUESTS)]
+    # the launches the code makes, one a layer a model call: ceil(S / 32)
+    # prefill calls a request (ceil((S - 256) / 32) after a hit), and two
+    # waves of 8 requests, each ceil(63 / 8) ticks of 8 decode steps
+    chunks = lambda n: -(-n // PREFILL_CHUNK)                   # noqa: E731
+    ticks = REQUESTS // SLOTS * -(-(NEW_TOKENS - 1) // DECODE_CHUNK)
+    prefill_calls = {
+        False: sum(chunks(n) for n in lens),
+        True: sum(chunks(n - PREFIX_TEMPLATE_LEN * h)
+                  for n, h in zip(lens, hit))}
+    want = {c: cfg.num_layers * (prefill_calls[c] + DECODE_CHUNK * ticks)
+            for c in (False, True)}
+    outs, res = {}, {}
+    for cached in (False, True):
+        sch = ContinuousScheduler(cfg, model, slots=SLOTS, max_len=MAX_LEN,
+                                  page_size=PAGE_SIZE,
+                                  prefill_chunk=PREFILL_CHUNK,
+                                  decode_chunk=DECODE_CHUNK,
+                                  prefix_cache=cached)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        if cached:
+            fd = FrontDoor(sch)
+            handles = [fd.submit(p, NEW_TOKENS) for p in prompts]
+            fd.drain()
+            outs[cached] = [h.result() for h in handles]
+        else:
+            outs[cached] = sch.generate(prompts, NEW_TOKENS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = sch.stats()
+        launches = launch_counts().get("paged_flash_decode", 0)
+        tag = "cached" if cached else "uncached"
+        if launches != want[cached] or st["decode_dispatches"] != ticks \
+                or st["prefill_dispatches"] != prefill_calls[cached]:
+            fail(f"phase 22 ({tag}): paged_flash_decode launched {launches} "
+                 f"times in {st['prefill_dispatches']} prefill calls and "
+                 f"{st['decode_dispatches']} ticks, expected {want[cached]} "
+                 f"= {cfg.num_layers} x ({prefill_calls[cached]} + "
+                 f"{DECODE_CHUNK} x {ticks})")
+        ttft = sorted(st["ttft_s"])
+        n_tok = sum(len(o) for o in outs[cached])
+        res[tag] = {"wall_s": wall, "tokens_per_s": n_tok / wall,
+                    "ttft_p50_ms": ttft[len(ttft) // 2] * 1e3,
+                    "prefill_calls": st["prefill_dispatches"],
+                    "decode_ticks": st["decode_dispatches"],
+                    "paged_flash_decode_launches": launches,
+                    "prefix_hit_tokens": st["prefix_hit_tokens"],
+                    "prefix_hit_rate": st["prefix_hit_rate"]}
+        if cached:
+            res[tag]["prefix_cache"] = st["prefix_cache"]
+            res[tag]["tree_pages"] = sch.prefix.nodes
+            if not _tree_only(sch):
+                fail("phase 22: after the drain, references other than the "
+                     "tree's remain in the pool")
+        print(f"phase 22 ({tag}): {REQUESTS} requests ({sum(lens)} prompt "
+              f"tokens) x {NEW_TOKENS} in {wall:.3f} s, "
+              f"{n_tok / wall:.1f} tokens/s, TTFT p50 "
+              f"{res[tag]['ttft_p50_ms']:.1f} ms, {st['prefill_dispatches']} "
+              f"prefill calls, {st['decode_dispatches']} ticks, "
+              f"paged_flash_decode launches {launches}, prefix hit tokens "
+              f"{st['prefix_hit_tokens']} (rate "
+              f"{st['prefix_hit_rate']:.4f})"
+              + (f", {sch.prefix.nodes} pages in the tree, evictions "
+                 f"{st['prefix_cache']['evictions']}" if cached else ""))
+        del sch
+    if any(not np.array_equal(a, b) for a, b in zip(outs[False],
+                                                       outs[True])):
+        fail("phase 22: cached and uncached bf16 greedy tokens differ")
+    hits = res["cached"]["prefix_hit_tokens"]
+    if hits != sum(hit) * PREFIX_TEMPLATE_LEN:
+        fail(f"phase 22: prefix_hit_tokens {hits}, expected "
+             f"{sum(hit)} x {PREFIX_TEMPLATE_LEN}")
+    print(f"phase 22: the cached tokens (through FrontDoor) equal the "
+          f"uncached ones bitwise for {REQUESTS} requests; hit tokens {hits} "
+          f"= {sum(hit)} x {PREFIX_TEMPLATE_LEN}")
+
+    # fp32, 2 full-width layers: the card's cached tokens == the CPU's
+    # uncached tokens, on the reference test's shape of traffic (a shared
+    # template, a match of 48 tokens -- not a multiple of the 32-token
+    # chunk --, an exact repeat, and a page-aligned prompt served twice:
+    # the copy-on-write fork), then a pool sized down so that the tree
+    # must evict
+    small = cfg.with_overrides(num_layers=2, dtype="float32")
+    m_cpu = init_model(small, seed=1, device="cpu")
+    m_card = copy.deepcopy(m_cpu).to(dev)
+    rng = np.random.default_rng(22)
+    tmpl = rng.integers(0, cfg.vocab_size, 48).astype(np.int32)
+    sfx = [rng.integers(0, cfg.vocab_size, 3 + i).astype(np.int32)
+           for i in range(3)]
+    runs = {
+        "cow": ([np.concatenate([tmpl, x]) for x in sfx]
+                + [np.concatenate([tmpl, sfx[0]]), tmpl, tmpl],
+                dict(slots=2, max_len=128, num_pages=40)),
+        "evict": ([rng.integers(0, cfg.vocab_size, 32).astype(np.int32)
+                   for _ in range(5)],
+                  dict(slots=1, max_len=64, num_pages=8)),
+    }
+    fp32 = {}
+    for name, (ps_, kw) in runs.items():
+        kw = dict(kw, page_size=PAGE_SIZE, prefill_chunk=PREFILL_CHUNK,
+                  decode_chunk=4)
+        want_t = ContinuousScheduler(small, m_cpu, **kw).generate(ps_, 8)
+        sch = ContinuousScheduler(small, m_card, prefix_cache=True, **kw)
+        forks = []
+        fork = sch.kv.cow_fork
+        sch.kv.cow_fork = lambda *a: forks.append(a) or fork(*a)
+        reset_launch_counts()
+        got_t = sch.generate(ps_, 8)
+        st = sch.stats()
+        calls = st["prefill_dispatches"] + 4 * st["decode_dispatches"]
+        if launch_counts().get("paged_flash_decode", 0) != 2 * calls:
+            fail(f"phase 22 ({name}): the card run did not launch "
+                 "paged_flash_decode in every layer of every model call")
+        for a, b in zip(want_t, got_t):
+            if not np.array_equal(a, b):
+                fail(f"phase 22 ({name}): card cached fp32 tokens differ from "
+                     f"the CPU's uncached: {b} vs {a}")
+        fp32[name] = {"prefix_hit_tokens": st["prefix_hit_tokens"],
+                      "cow_forks": len(forks),
+                      "evictions": st["prefix_cache"]["evictions"]}
+        if name == "cow" and (len(forks) != 2 or st["prefix_hit_tokens"] !=
+                              3 * 48 + 2 * 47):
+            fail(f"phase 22 (cow): {len(forks)} copy-on-write forks and "
+                 f"{st['prefix_hit_tokens']} hit tokens, expected 2 and "
+                 f"{3 * 48 + 2 * 47}")
+        if name == "evict" and st["prefix_cache"]["evictions"] < 1:
+            fail("phase 22 (evict): the sized-down pool never evicted")
+        if not _tree_only(sch):
+            fail(f"phase 22 ({name}): references other than the tree's "
+                 "remain in the pool")
+        print(f"phase 22: 2-layer full-width qwen3 fp32, {name}: the card's "
+              f"cached greedy tokens equal the CPU's uncached ones for "
+              f"{len(ps_)} requests x 8 ({json.dumps(fp32[name])})")
+        del sch
+    del m_card, m_cpu
+    torch.cuda.empty_cache()
+    res["fp32"] = fp32
+    return res
+
+
+# --------------------------------------------------------------------------
+# phase 23: speculative decoding with the MTP head
+# --------------------------------------------------------------------------
+
+def spec_serve(cfg, model, prompts, new_tokens, k, **kw):
+    """Serve ``prompts`` at spec_decode ``k`` (0: plain decode) and check
+    the launches: exactly one attention-kernel launch a layer a model call
+    (a verify forward is one call), none from the draft head, and one
+    decode host sync a tick.  Returns (outputs, stats, wall, launches)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import ContinuousScheduler
+    sch = ContinuousScheduler(cfg, model, spec_decode=k, **kw)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = sch.generate(prompts, new_tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = sch.stats()
+    counts = {n: c for n, c in launch_counts().items() if c}
+    kernel = ("paged_flash_decode_mla" if cfg.attention == "mla"
+              else "paged_flash_decode")
+    calls = st["prefill_dispatches"] + kw["decode_chunk"] * st[
+        "decode_dispatches"]
+    if counts != {kernel: cfg.num_layers * calls}:
+        fail(f"spec_decode={k}: launches {counts}, expected only {kernel} "
+             f"= {cfg.num_layers} x {calls} model calls")
+    if st["decode_host_syncs"] != st["decode_dispatches"]:
+        fail(f"spec_decode={k}: {st['decode_host_syncs']} decode host syncs "
+             f"in {st['decode_dispatches']} ticks")
+    return outs, st, wall, counts[kernel]
+
+
+def _agreement(ref, outs):
+    """Share of requests whose tokens equal ``ref``'s, and the first
+    divergence (request, index) or None."""
+    same = [np.array_equal(a, b) for a, b in zip(ref, outs)]
+    first = None
+    for i, (a, b) in enumerate(zip(ref, outs)):
+        n = min(len(a), len(b))
+        d = np.flatnonzero(a[:n] != b[:n])
+        if d.size or len(a) != len(b):
+            first = (i, int(d[0]) if d.size else n)
+            break
+    return sum(same) / len(same), first
+
+
+def spec_deepseek(dev, cfg, model, prompts):
+    """Phase 23 (i): phase 9's model (DeepSeek-V3 at its 4-layer cut, with
+    its MTP head, bf16) serves phase 3's traffic at k = 0, 2 and 4,
+    max_len 624.  Returns the numbers of each k."""
+    kw = dict(slots=SLOTS, max_len=SPEC_MAX_LEN, page_size=PAGE_SIZE,
+              prefill_chunk=PREFILL_CHUNK, decode_chunk=DECODE_CHUNK)
+    from repro_torch.serve import ContinuousScheduler
+    res, outs = {}, {}
+    for k in SPEC_KS:
+        ContinuousScheduler(cfg, model, spec_decode=k, **kw).generate(
+            prompts[:2], 4)                            # warm-up
+        outs[k], st, wall, mla = spec_serve(cfg, model, prompts, NEW_TOKENS,
+                                            k, **kw)
+        n_tok = sum(len(o) for o in outs[k])
+        if len(outs[k]) != REQUESTS or any(
+                len(o) != NEW_TOKENS or o.min() < 0
+                or o.max() >= cfg.vocab_size for o in outs[k]):
+            fail(f"phase 23 (k={k}): outputs of the wrong length or "
+                 "out-of-vocab tokens")
+        sd = st.get("spec_decode", {})
+        share, first = _agreement(outs[0], outs[k])
+        res[k] = {"wall_s": wall, "tokens_per_s": n_tok / wall,
+                  "decode_dispatches": st["decode_dispatches"],
+                  "decode_dispatches_per_token":
+                      st["decode_dispatches"] / n_tok,
+                  "decode_host_syncs": st["decode_host_syncs"],
+                  "acceptance": sd.get("acceptance"),
+                  "tokens_per_verify_step": sd.get("tokens_per_step"),
+                  "paged_flash_decode_mla_launches": mla,
+                  "share_equal_to_k0": share, "first_divergence": first}
+        print(f"phase 23 (k={k}): {cfg.name} at {cfg.num_layers} layers with "
+              f"its MTP head, bf16, {REQUESTS} requests x {NEW_TOKENS}: "
+              f"{wall:.3f} s, {n_tok / wall:.1f} tokens/s, acceptance "
+              f"{sd.get('acceptance', 0.0):.4f}, "
+              f"{sd.get('tokens_per_step', 1.0):.3f} tokens a verify step, "
+              f"{st['decode_dispatches'] / n_tok:.4f} decode dispatches a "
+              f"token, {st['decode_host_syncs']} host syncs in "
+              f"{st['decode_dispatches']} ticks, paged_flash_decode_mla "
+              f"launches {mla}; requests equal to k=0: {share:.4f}, first "
+              f"divergence {first}")
+    return res
+
+
+def spec_trained(dev):
+    """Phase 23 (ii): qwen3-1.7b at 2 full-width layers with an MTP head,
+    fp32 (TF32 off), trained through ``Trainer(model_cfg=...)`` on the
+    alternating [3, 5] stream; then k = 4 against k = 0 on the card:
+    tokens equal, acceptance >= 0.6, decode dispatches and host syncs a
+    token down >= 1.8x, and an EOS mid-chunk emits nothing after it."""
+    from repro_torch.api import Trainer
+    from repro_torch.bridge import serving_model
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen3-1.7b").with_overrides(num_layers=2,
+                                                  dtype="float32",
+                                                  mtp_depth=1)
+    tok = np.tile(np.asarray([3, 5], np.int32), (8, 16))
+    t0 = time.perf_counter()
+    tr = Trainer.create(cfg, optimizer="adam", lr=TRAIN_LR, seed=0,
+                        device=dev)
+    losses = [float(tr.step({"tokens": tok})["loss"])
+              for _ in range(SPEC_TRAIN_STEPS)]
+    model = serving_model(tr.state.params)
+    train_s = time.perf_counter() - t0
+    del tr
+    kw = dict(slots=4, max_len=128, page_size=PAGE_SIZE, prefill_chunk=8,
+              decode_chunk=8)
+    prompts = [np.tile(np.asarray([3, 5], np.int32), 4) for _ in range(4)]
+    new = 32
+    ref, base, _, l0 = spec_serve(cfg, model, prompts, new, 0, **kw)
+    got, spec, wall, l4 = spec_serve(cfg, model, prompts, new, 4, **kw)
+    if any(not np.array_equal(a, b) for a, b in zip(ref, got)):
+        fail(f"phase 23 (trained): k=4 tokens differ from k=0: {got} vs "
+             f"{ref}")
+    sd = spec["spec_decode"]
+    drop = {c: (base[c] / base["tokens_out"]) / (spec[c] / spec["tokens_out"])
+            for c in ("decode_dispatches", "decode_host_syncs")}
+    if sd["acceptance"] < 0.6 or min(drop.values()) < 1.8:
+        fail(f"phase 23 (trained): acceptance {sd['acceptance']:.4f}, drops "
+             f"{drop} (bars 0.6 and 1.8)")
+    eos_kw = dict(kw, slots=2, decode_chunk=4, eos_id=5)
+    eos_prompt = [np.tile(np.asarray([3, 5], np.int32), 6)]
+    e0, _, _, _ = spec_serve(cfg, model, eos_prompt, 12, 0, **eos_kw)
+    e4, _, _, _ = spec_serve(cfg, model, eos_prompt, 12, 4, **eos_kw)
+    if e4[0].tolist() != [3, 5] or not np.array_equal(e0[0], e4[0]):
+        fail(f"phase 23 (trained): EOS mid-chunk gave {e4[0]} (k=0 "
+             f"{e0[0]}), expected [3, 5]")
+    out = {"train_steps": SPEC_TRAIN_STEPS, "lr": TRAIN_LR,
+           "train_s": train_s, "losses": losses[::10] + losses[-1:],
+           "acceptance": sd["acceptance"],
+           "tokens_per_verify_step": sd["tokens_per_step"],
+           "drop": drop, "spec_wall_s": wall,
+           "launches": {"k0": l0, "k4": l4}}
+    print(f"phase 23 (trained): {cfg.layer_pattern()} + MTP head at full "
+          f"width, fp32, {SPEC_TRAIN_STEPS} Adam steps (lr {TRAIN_LR:g}) on "
+          f"the [3, 5] stream in {train_s:.1f} s (losses {out['losses']}); "
+          f"k=4 tokens == k=0, acceptance {sd['acceptance']:.4f}, "
+          f"{sd['tokens_per_step']:.3f} tokens a verify step, decode "
+          f"dispatches a token down {drop['decode_dispatches']:.2f}x, host "
+          f"syncs {drop['decode_host_syncs']:.2f}x; EOS mid-chunk -> "
+          f"{e4[0].tolist()}")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
 
 def main():
     import argparse
@@ -2817,7 +3233,9 @@ def main():
           f"paged_flash_decode launches {launches} = {cfg.num_layers} x "
           f"({st['prefill_dispatches']} prefill calls + {DECODE_CHUNK} x "
           f"{st['decode_dispatches']} decode ticks)")
-    del model, sch
+    del sch
+    prefix_out = prefix_qwen(dev, cfg, model)
+    del model
     torch.cuda.empty_cache()
 
     # ---- phase 4: card vs CPU greedy parity, fp32 -------------------------
@@ -2838,7 +3256,7 @@ def main():
     torch.cuda.empty_cache()
     wkv_launches = serve_rwkv(dev, lens)
     scan_launches, jamba_paged_launches = serve_jamba(dev, lens)
-    mla_launches = serve_deepseek(dev, lens)
+    mla_launches, spec_out = serve_deepseek(dev, lens)
     flash_launches = serve_legacy(dev)
     train_launches, train_out = train_qwen(dev)
     paper_out = paper_dp(dev)
@@ -2846,11 +3264,14 @@ def main():
                                          launches)
     slab_out = serve_slab_archs(dev)
     arch_train_out = train_archs(dev)
+    spec_trained_out = spec_trained(dev)
 
-    decode_bf16, chunk_bf16 = (
+    decode_bf16, chunk_bf16, verify_bf16 = (
         next(r for r in rows if r["case"] == case and r["dtype"] == "bfloat16")
         for case in ("decode B=8 S=1, slots 1..max_len tokens",
-                     "prefill chunk B=1 S=32"))
+                     "prefill chunk B=1 S=32", VERIFY_CASE))
+    verify_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                   "splits", "blocks", "max_abs_err")
     entry = {
         "name": "paged_flash_decode", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_decode.cu",
@@ -2865,6 +3286,12 @@ def main():
         "library_ms": decode_bf16["library_ms"],
         "chunk": {key: chunk_bf16[key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "verify": {key: verify_bf16[key] for key in verify_keys},
+        "launches_prefix": {k: v["paged_flash_decode_launches"]
+                            for k, v in prefix_out.items() if k != "fp32"},
+        "prefix": prefix_out,
+        "launches_spec_trained": spec_trained_out["launches"],
+        "spec_trained": spec_trained_out,
         "cases": rows + jamba_rows,
     }
     wkv_bf16 = next(r for r in wkv_rows if r["case"].startswith("prefill")
@@ -2904,9 +3331,10 @@ def main():
         "train": scan_grad_rows["mamba_scan"][-1],
         "cases": mamba_rows + scan_grad_rows["mamba_scan"],
     }
-    mla_bf16, mla_chunk = (
+    mla_bf16, mla_chunk, mla_verify = (
         next(r for r in mla_rows if r["case"].startswith(case)
-             and r["dtype"] == "bfloat16") for case in ("decode", "prefill"))
+             and r["dtype"] == "bfloat16")
+        for case in ("decode", "prefill", VERIFY_CASE))
     mla_entry = {
         "name": "paged_flash_decode_mla", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_decode_mla.cu",
@@ -2922,6 +3350,11 @@ def main():
         "chunk": {key: mla_chunk[key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "sdpa_backend", "splits", "blocks")},
+        "verify": {key: mla_verify[key] for key in verify_keys},
+        "launches_spec": {k: v["paged_flash_decode_mla_launches"]
+                          for k, v in spec_out.items()
+                          if isinstance(k, int)},
+        "spec": spec_out,
         "cases": mla_rows,
     }
     timed = {r["case"].split()[0]: r for r in flash_rows

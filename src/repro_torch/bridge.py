@@ -10,7 +10,9 @@ MLP (d_in, d_out), the nested MoE ffn (router, ``experts`` {w_up,
 w_gate (E, d, f), w_down (E, f, d)}, optional router_bias and
 ``shared`` MLP), the Mamba and RWKV mixers as in ``models.ssm`` (an
 RWKV block: norm1, norm2 and a mixer with the nested ``ln_x:
-{"scale"}``, no ffn) -- so the bridge only unstacks.  Weights the
+{"scale"}``, no ffn; DeepSeek-V3's multi-token-prediction head
+``params["mtp"]``: norm_h, norm_e, proj and an ("attn", "mlp") block)
+-- so the bridge only unstacks.  Weights the
 reference reads in fp32 (Mamba's A_log and D, the router) stay fp32
 in a bf16 model, so they round-trip exactly.
 
@@ -39,10 +41,7 @@ from repro_torch.models.model import Model, PaperNet
 # mixer norms the reference nests as {"scale": t}; ``Layer`` flattens them
 NESTED_SCALES = ("q_norm", "k_norm", "kv_norm", "ln_x")
 # top-level keys of the reference's tree the port serves from
-SERVED_KEYS = ("embed", "decoder", "final_norm", "unembed")
-# ... and those it leaves out by name: the multi-token-prediction head is
-# read only by speculative decoding (``model.py::mtp_draft``), not ported
-DROPPED_KEYS = ("mtp",)
+SERVED_KEYS = ("embed", "decoder", "final_norm", "unembed", "mtp")
 
 
 def _tensor(a) -> torch.Tensor:
@@ -74,9 +73,9 @@ def params_from_jax(tree, cfg, *, device="cuda", train=False) -> Model:
     """The reference's params (a tree of numpy arrays) as the port's
     ``Model`` on ``device``, each weight cast once to ``cfg.dtype``; or,
     with ``train``, a training ``Model`` of trainable fp32 masters, one
-    per leaf of the tree.  ``DROPPED_KEYS`` are left out; any other key
-    the port does not serve raises rather than being dropped silently."""
-    unknown = sorted(set(tree) - set(SERVED_KEYS) - set(DROPPED_KEYS))
+    per leaf of the tree.  A key the port does not serve raises rather
+    than being dropped silently."""
+    unknown = sorted(set(tree) - set(SERVED_KEYS))
     if unknown:
         raise ValueError(f"params_from_jax: the port does not serve the "
                          f"reference's {unknown}")
@@ -86,8 +85,9 @@ def params_from_jax(tree, cfg, *, device="cuda", train=False) -> Model:
             "layers": (_map(_tensor, t)
                        for t in layer_trees(cfg, tree["decoder"])),
             "final_norm": _map(_tensor, tree["final_norm"])}
-    if "unembed" in tree:
-        port["unembed"] = _map(_tensor, tree["unembed"])
+    for key in ("unembed", "mtp"):
+        if key in tree:
+            port[key] = _map(_tensor, tree[key])
     return Model(cfg, port, device=dev, train=train)
 
 
@@ -129,7 +129,17 @@ def params_to_numpy(model: Model, cfg) -> dict:
            "final_norm": {"scale": np_(model.final_norm)}}
     if not cfg.tie_embeddings:
         out["unembed"] = {"table": np_(model.unembed_f32)}
+    if model.mtp is not None:
+        out["mtp"] = _mtp_tree(model.mtp, np_)
     return out
+
+
+def _mtp_tree(head, leaf) -> dict:
+    """An ``MTPHead``'s weights in the reference's layout, each through
+    ``leaf``."""
+    return {"norm_h": {"scale": leaf(head.norm_h)},
+            "norm_e": {"scale": leaf(head.norm_e)},
+            "proj": leaf(head.proj), "block": _layer_tree(head.block, leaf)}
 
 
 def paper_net_from_jax(tree, net, *, device="cuda") -> PaperNet:
@@ -177,23 +187,39 @@ def reference_key(model, name) -> tuple:
     ``layers.{i}.*`` -- an unrolled prefix layer, or repetition ``rep``
     of super-block layer ``j``, whose leaf is stacked on ``n_rep``.  Any
     other module (a Table-1 ``PaperNet``: ``layers.0.w`` ->
-    ``layers/0/w``): its dotted name with slashes, unstacked."""
+    ``layers/0/w``): its dotted name with slashes, unstacked.  The MTP
+    head's ``mtp.*`` are ``mtp/*``, its norms and its block's nested as
+    {"scale"}."""
     if not isinstance(model, Model):
         return name.replace(".", "/"), None
     if name in _TOP_KEYS:
         return _TOP_KEYS[name], None
-    layers, i, *rest = name.split(".")
-    if layers != "layers":
+    head, *rest = name.split(".")
+    if head == "mtp":
+        if rest[0] in ("norm_h", "norm_e"):
+            rest.append("scale")
+        elif rest[0] == "block":
+            rest = ["block"] + _nest_scale(rest[1:])
+        return "/".join(["mtp", *rest]), None
+    if head != "layers":
         raise ValueError(f"no reference path for the port's {name!r}")
-    if rest[0] in ("norm1", "norm2") or (rest[0] == "mixer"
-                                         and rest[1] in NESTED_SCALES):
-        rest.append("scale")
+    i, *rest = rest
+    rest = _nest_scale(rest)
     prefix, pattern, _ = model.cfg.block_structure()
     i = int(i)
     if i < len(prefix):
         return "/".join(["decoder", "prefix", f"layer{i}", *rest]), None
     rep, j = divmod(i - len(prefix), len(pattern))
     return "/".join(["decoder", "blocks", f"layer{j}", *rest]), rep
+
+
+def _nest_scale(rest) -> list:
+    """A layer's parameter path, with "scale" appended where the
+    reference nests a norm as {"scale"}."""
+    if rest[0] in ("norm1", "norm2") or (rest[0] == "mixer"
+                                         and rest[1] in NESTED_SCALES):
+        return rest + ["scale"]
+    return rest
 
 
 def reference_order(path: str) -> tuple:
@@ -299,4 +325,6 @@ def serving_model(model: Model) -> Model:
             "final_norm": {"scale": clone(model.final_norm)}}
     if not model.cfg.tie_embeddings:
         tree["unembed"] = {"table": clone(model.unembed_f32)}
+    if model.mtp is not None:
+        tree["mtp"] = _mtp_tree(model.mtp, clone)
     return Model(model.cfg, tree, device=model.embed.device)

@@ -33,6 +33,13 @@ slab engine, ``--engine legacy``) on the card.
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch deepseek-v3-671b --batch 8 --requests 16 --report
 
+    # speculative decode with the MTP head (4-token verify chunks) and
+    # the radix prefix cache, streamed through the front door
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek-v3-671b --reduced --device cpu --batch 2 \\
+        --requests 4 --prompt-len 40 --new-tokens 12 --spec-decode 4 \\
+        --prefix-cache --stream --report
+
 Without --reduced the full-width config serves in bf16 (Jamba cut to
 one 8-layer super-block, DeepSeek-V3 to its 3 dense layers and first
 MoE layer: ``configs.one_card_config``); with it, the smoke config in
@@ -41,6 +48,14 @@ a checkpoint either package's training wrote (the sharded store or the
 legacy npz; --step, default the latest).  Prompts come from
 ``synthetic_tokens`` seeded by --seed.  The default device is the card;
 a machine without one raises unless --device cpu is given.
+
+The continuous engine's options: --prefix-cache (shared prompt
+prefixes alias already-written KV pages instead of re-prefilling;
+attention/MLA stacks), --spec-decode K (K-token verify chunks drafted
+by the MTP head: greedy only, an architecture with ``mtp_depth > 0``;
+the tokens stay those of K = 0) and --stream (serve through
+``FrontDoor``, printing each request's tokens as its decode chunks
+sync).  The lockstep engine refuses all three.
 """
 from __future__ import annotations
 
@@ -54,7 +69,7 @@ from repro_torch.configs import ARCHITECTURES, one_card_config, smoke_config
 from repro_torch.data import synthetic_tokens
 from repro_torch.device import resolve_device
 from repro_torch.models import init_model
-from repro_torch.serve import (SamplingConfig, make_engine,
+from repro_torch.serve import (FrontDoor, SamplingConfig, make_engine,
                                make_engine_from_checkpoint)
 
 
@@ -89,11 +104,30 @@ def main(argv=None):
                          "instead of random weights")
     ap.add_argument("--step", type=int, default=None,
                     help="checkpoint step (default: latest)")
+    ap.add_argument("--spec-decode", type=int, default=0, metavar="K",
+                    help="continuous engine: speculative decode with "
+                         "K-token verify chunks (the carried token + K-1 "
+                         "MTP drafts a step); greedy only, needs an arch "
+                         "with mtp_depth > 0; tokens stay those of K=0")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="continuous engine: radix prefix cache -- shared "
+                         "prompt prefixes alias already-written KV pages "
+                         "instead of re-prefilling")
+    ap.add_argument("--stream", action="store_true",
+                    help="continuous engine: serve through the front "
+                         "door, printing each request's tokens as its "
+                         "decode chunks sync")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     if not args.requests:
         args.requests = args.batch
 
+    if args.engine == "legacy" and (args.prefix_cache or args.stream
+                                    or args.spec_decode):
+        raise SystemExit("--prefix-cache/--stream/--spec-decode are "
+                         "continuous-engine features (the lockstep slab "
+                         "has neither a page table to alias, a queue to "
+                         "stream from, nor a fused loop to widen)")
     if args.engine == "legacy" and args.requests > args.batch:
         raise SystemExit(
             f"--requests {args.requests} > --batch {args.batch}: the "
@@ -108,11 +142,16 @@ def main(argv=None):
     sampling = SamplingConfig(temperature=args.temperature,
                               top_k=args.top_k, top_p=args.top_p)
     decode_chunk = 8
-    max_len = -(-(args.prompt_len + args.new_tokens + decode_chunk)
+    # decode-overshoot slack: one decode chunk; under spec decode each of
+    # its steps may write a K-token verify chunk past the budget
+    k = args.spec_decode
+    slack = decode_chunk * k + k if k else decode_chunk
+    max_len = -(-(args.prompt_len + args.new_tokens + slack)
                 // args.page_size) * args.page_size
     engine_kw = {}
     if args.engine == "continuous":
-        engine_kw = dict(page_size=args.page_size, decode_chunk=decode_chunk)
+        engine_kw = dict(page_size=args.page_size, decode_chunk=decode_chunk,
+                         prefix_cache=args.prefix_cache, spec_decode=k)
     engine_kw.update(engine=args.engine, batch_size=args.batch,
                      max_len=max_len, eos_id=args.eos_id, sampling=sampling,
                      seed=args.seed, device=device)
@@ -142,18 +181,34 @@ def main(argv=None):
                   f"{eng.host_syncs} host syncs ({spt:.3f} syncs/token)")
         print(outs)
         return outs
-    outs = [o.tolist() for o in eng.generate(list(prompts), args.new_tokens)]
+    if args.stream:
+        fd = FrontDoor(eng)
+        handles = [fd.submit(p, args.new_tokens) for p in prompts]
+        outs = []
+        for i, h in enumerate(handles):
+            toks = list(h)           # pumps; tokens arrive as they sync
+            print(f"req {i} (ttft {h.ttft * 1e3:.0f}ms): {toks}")
+            outs.append(toks)
+    else:
+        outs = [o.tolist()
+                for o in eng.generate(list(prompts), args.new_tokens)]
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.time() - t0
     n_tok = sum(len(o) for o in outs)
     st = eng.stats()
+    extra = (f", prefix hit rate {st['prefix_hit_rate']:.0%}"
+             if args.prefix_cache else "")
+    if k:
+        sd = st["spec_decode"]
+        extra += (f", spec k={sd['k']} acceptance {sd['acceptance']:.0%} "
+                  f"({sd['tokens_per_step']:.2f} tok/verify)")
     print(f"{n_req} requests x {args.new_tokens} tokens in "
           f"{dt:.2f}s ({n_tok/dt:.1f} tok/s incl. compile, "
           f"{st['syncs_per_token']:.3f} host syncs/token, "
           f"pool {st['pool_pages_in_use']} pages live, "
           f"{st['pool_bytes']} pool bytes, "
-          f"{st['state_bytes']} recurrent state bytes)")
+          f"{st['state_bytes']} recurrent state bytes{extra})")
     if args.report:
         kernel = "cuda" if device.type == "cuda" else "plain"
         print(f"report: decode_kernel={kernel} "

@@ -10,12 +10,16 @@
         --steps 10 --batch 2 --seq 4096 --microbatches 2
 
     # the other architectures: RWKV-6 (its WKV scan kernel forward, a
-    # plain backward) and Jamba (Mamba scan, attention, MoE), reduced
+    # plain backward), Jamba (Mamba scan, attention, MoE) and DeepSeek-V3
+    # (MLA, MoE and the MTP head), reduced
     PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \\
         --reduced --device cpu --steps 3 --batch 4 --seq 64
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch jamba-v0.1-52b --reduced --device cpu --steps 3 --batch 4 \\
         --seq 64
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch deepseek-v3-671b --reduced --device cpu --steps 3 \\
+        --batch 4 --seq 64
 
     # the reduced config data-parallel over two ranks (the paper's
     # synchronous allreduce through the Trainer facade), under torchrun
@@ -42,8 +46,9 @@
 
 Port of ``repro.launch.train``.  Without --reduced the full config
 trains in its compute dtype (bf16) on fp32 masters; with it, the smoke
-config in fp32.  Every architecture trains but DeepSeek-V3, which
-is refused by name for its multi-token-prediction head (not ported).  The weights are drawn from seed 0; the batch of step
+config in fp32.  Every architecture trains, DeepSeek-V3 with its
+multi-token-prediction head (its CE joins the loss at the train
+config's ``mtp_weight``).  The weights are drawn from seed 0; the batch of step
 i is ``make_batch`` of a generator seeded by (--data-seed, i), so the
 data cursor a checkpoint records is ``(data_seed, next_step)``.  Each
 step prints its loss; the end prints tokens/s over the steps after the

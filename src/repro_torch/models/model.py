@@ -5,13 +5,13 @@ attention and Mamba layers (each with an MLP or MoE ffn) and RWKV-6
 blocks, in the modes the serving paths use: the continuous engine's
 paged decode mode (decode steps and chunked-prefill chunks), and the
 lockstep engine's slab ``prefill`` and ``decode``; and in the training
-mode ``"train"``, on a ``Model`` of trainable fp32 masters (every
-architecture but a multi-token-prediction head, ``check_train_ported``).
-``apply_model`` returns ``{"logits",
-"hidden", "aux"}``; the caches and the per-slot recurrent states are
-updated in place.  The paper's Table-1 networks (``PaperNet``,
-``init_paper_net``, ``apply_paper_net``) close the module, as in the
-reference.
+mode ``"train"``, on a ``Model`` of trainable fp32 masters.
+``apply_model`` returns ``{"logits", "hidden", "aux"}`` (and, in
+training with a multi-token-prediction head, ``"mtp_logits"``); the
+caches and the per-slot recurrent states are updated in place.
+``mtp_draft`` drafts tokens with the MTP head for speculative decoding.
+The paper's Table-1 networks (``PaperNet``, ``init_paper_net``,
+``apply_paper_net``) close the module, as in the reference.
 """
 from __future__ import annotations
 
@@ -20,10 +20,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn_lib
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import (apply_embed, apply_unembed,
-                                       dense_init, rmsnorm, rope_freqs,
-                                       truncated_normal)
+from repro_torch.models.layers import (apply_embed, apply_mlp, apply_unembed,
+                                       dense_init, rmsnorm, rope_angles,
+                                       rope_freqs, truncated_normal)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -36,8 +37,11 @@ class Model(nn.Module):
     """Decoder weights on one device.
 
     tree: {"embed": {"table"}, "layers": iterable of layer trees,
-    "final_norm": {"scale"}, "unembed": {"table"} (untied only)} in
-    fp32 masters or already in the dtype each weight keeps; each weight
+    "final_norm": {"scale"}, "unembed": {"table"} (untied only), "mtp":
+    the MTP head's tree, or a function that draws it (``mtp_depth > 0``
+    only: {"norm_h", "norm_e": {"scale"}, "proj" (2 d, d), "block": an
+    ("attn", "mlp") layer tree})} in fp32 masters or already in the
+    dtype each weight keeps; each weight
     is cast once to the compute dtype here (a no-op for one already
     cast).  The layers are built one at a time, so an iterable that
     draws each tree on demand holds one layer's weights at a time.  The
@@ -81,9 +85,53 @@ class Model(nn.Module):
                                          spec, train=train))
         self.final_norm = (tfm._master if train else tfm._frozen)(
             tree["final_norm"]["scale"].to(device=device, dtype=torch.float32))
+        self.mtp = None
+        if cfg.mtp_depth > 0:
+            if "mtp" not in tree:
+                raise ValueError(f"{cfg.name}: mtp_depth={cfg.mtp_depth} "
+                                 "but the weights hold no MTP head")
+            mtp = tree["mtp"]
+            self.mtp = MTPHead(_to_device(mtp() if callable(mtp) else mtp,
+                                          device), dt, train=train)
         self.register_buffer("rope_freqs", torch.from_numpy(
             rope_freqs(rope_dim(cfg), cfg.rope_theta)).to(device)
             if tfm.has_attention(cfg) else None)
+
+
+class MTPHead(nn.Module):
+    """DeepSeek-V3's multi-token-prediction head (depth 1): the norms
+    ``norm_h`` (of the trunk's hidden) and ``norm_e`` (of the next
+    token's embedding), ``proj`` (2 d, d) back to the model width, and
+    ``block``, an ("attn", "mlp") ``transformer.Layer`` whose MLP is
+    ``moe.dense_d_ff`` wide on an MoE trunk.  It shares the trunk's
+    embedding, final norm and unembedding.  Serving: frozen weights in
+    the compute dtype (norm scales fp32); training: fp32 masters."""
+
+    def __init__(self, tree, dtype, *, train=False):
+        super().__init__()
+        scale = lambda t: (tfm._master if train else tfm._frozen)(t.float())
+        self.norm_h = scale(tree["norm_h"]["scale"])
+        self.norm_e = scale(tree["norm_e"]["scale"])
+        self.proj = (tfm._master(tree["proj"]) if train
+                     else tfm._frozen(tree["proj"].to(dtype)))
+        self.block = tfm.Layer(tree["block"], dtype, ("attn", "mlp"),
+                               train=train)
+
+
+def init_mtp(cfg, *, generator, device="cpu", dtype):
+    """The MTP head's weights in the reference's layout (``norm_h``,
+    ``norm_e``, ``proj`` (2 d, d) and an ("attn", "mlp") ``block`` of
+    width ``moe.dense_d_ff`` on an MoE trunk, else ``d_ff``), drawn in
+    fp32 and cast to ``dtype`` as drawn."""
+    d = cfg.d_model
+    dense_ff = cfg.moe.dense_d_ff if cfg.moe is not None else cfg.d_ff
+    ones = lambda: {"scale": torch.ones((d,), device=device)}
+    return {"norm_h": ones(), "norm_e": ones(),
+            "proj": dense_init(2 * d, d, generator=generator, device=device,
+                               dtype=dtype),
+            "block": tfm.init_layer(cfg, ("attn", "mlp"), generator=generator,
+                                    device=device, dense_ff=dense_ff,
+                                    dtype=dtype)}
 
 
 def rope_dim(cfg) -> int:
@@ -119,15 +167,10 @@ def check_slab_ported(cfg):
 
 
 def check_train_ported(cfg):
-    """Raise, naming the part, unless training ``cfg`` is ported: every
-    layer kind the port has, without a multi-token-prediction head
-    (which waits for ROADMAP A.8; DeepSeek-V3 trains with
-    ``with_overrides(mtp_depth=0)``, as the reference builds it)."""
+    """Raise, naming the part, unless training ``cfg`` is ported: it is
+    for every layer kind the port has, with or without a
+    multi-token-prediction head."""
     check_ported(cfg)
-    if cfg.mtp_depth > 0:
-        raise ValueError(f"{cfg.name}: training the MTP head is not ported "
-                         f"(mtp_depth={cfg.mtp_depth}); train it with "
-                         "mtp_depth=0")
 
 
 def _to_device(tree, device):
@@ -148,7 +191,9 @@ def init_model(cfg, *, seed=0, device="cuda", train=False) -> Model:
     Layers are drawn one at a time as ``Model`` builds them (a dense
     prefix, e.g. DeepSeek's, takes ``moe.dense_d_ff``).  ``train``
     keeps the fp32 draws as trainable masters (``Model``); their values
-    cast to the compute dtype are the serving model's weights."""
+    cast to the compute dtype are the serving model's weights.  An MTP
+    head (``mtp_depth > 0``) is drawn last, after every layer, so the
+    other weights of a seed are those of the same config without it."""
     dev = resolve_device(device)
     dt = torch.float32 if train else compute_dtype(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -167,6 +212,10 @@ def init_model(cfg, *, seed=0, device="cuda", train=False) -> Model:
     if not cfg.tie_embeddings:
         tree["unembed"] = {"table": truncated_normal(
             (cfg.vocab_size, cfg.d_model), 0.02, generator=gen, device=dev)}
+    if cfg.mtp_depth > 0:
+        # drawn by Model after the layers
+        tree["mtp"] = lambda: init_mtp(cfg, generator=gen, device=dev,
+                                       dtype=dt)
     return Model(cfg, tree, device=dev, train=train)
 
 
@@ -211,7 +260,10 @@ def apply_model(cfg, model: Model, tokens, *, cache=None, cache_pos=None,
     0..S-1, causal attention through ``chunked_attention`` (the flash
     kernel on the card) and the recurrent scans from a zero state (their
     kernels on the card); ``remat`` checkpoints each layer
-    (``tfm.apply_stack``).  No MTP head (``check_train_ported``).
+    (``tfm.apply_stack``).  With an MTP head, also ``"mtp_logits"`` (B,
+    S - 1, V): the hidden at position i with the embedding of token i+1
+    through the head's block (train-mode attention over the S - 1
+    positions, not rematted), predicting token i + 2.
 
     tokens: (B, S) int.  Paged (``paged``: a PagedView): cache_pos (B,)
     int32, the per-slot position of the first token; cache: per-layer
@@ -267,7 +319,104 @@ def apply_model(cfg, model: Model, tokens, *, cache=None, cache_pos=None,
     out = {"hidden": x, "aux": 0.0 if aux is None else aux}
     if logits:
         out["logits"] = _logits(cfg, model, x)
+    if mode == "train" and model.mtp is not None:
+        out["mtp_logits"] = _mtp_train(cfg, model, x, tokens)
     return out
+
+
+# --------------------------------------------------------------------------
+# the multi-token-prediction head
+# --------------------------------------------------------------------------
+
+def _mtp_in(cfg, head: MTPHead, h, e):
+    """The head's input: norm_h(hidden) and norm_e(embedding),
+    concatenated and projected back to d."""
+    return torch.cat([rmsnorm(head.norm_h, h, cfg.norm_eps),
+                      rmsnorm(head.norm_e, e, cfg.norm_eps)],
+                     dim=-1) @ head.proj.to(h.dtype)
+
+
+def _mtp_train(cfg, model: Model, x, tokens):
+    """The train-mode head: the hidden at position i (pre-final-norm)
+    with the embedding of token i + 1, through the block at positions
+    0..S-2, read off the shared unembedding."""
+    dt = x.dtype
+    hm = _mtp_in(cfg, model.mtp, x[:, :-1],
+                 apply_embed(model.embed, tokens[:, 1:], dt))
+    pos = torch.arange(hm.shape[1], device=tokens.device)[None]
+    hm, _ = tfm.apply_layer(cfg, model.mtp.block, hm, positions=pos,
+                            cache=None, paged=None, write_idx=None,
+                            rope=rope_angles(pos, model.rope_freqs),
+                            mode="train")
+    return _logits(cfg, model, hm)
+
+
+def _mtp_self_attention(cfg, p, x):
+    """The MTP block's attention for a window-1 (self-only) query.
+
+    Drafting feeds the block one position at a time, and the only key
+    that position sees is itself: the softmax over one key is 1, so the
+    output IS the value at the query's own position -- the q/k
+    projections, qk-norm and RoPE cancel exactly.  So the draft head
+    reads no pool and launches no attention kernel, for GQA and MLA.
+    Draft quality moves only the acceptance rate."""
+    dt = x.dtype
+    if cfg.attention == "mla":
+        m = cfg.mla
+        dkv = x @ p["w_dkv"].to(dt)
+        ckv = rmsnorm(p["kv_norm"], dkv[..., :m.kv_lora_rank], cfg.norm_eps)
+        out = torch.einsum("bsr,rhv->bshv", ckv, p["w_uv"].to(dt))
+    else:
+        hp, head_mask = attn_lib._padded_heads(cfg)
+        hk, hd = cfg.num_kv_heads, cfg.head_dim
+        v = attn_lib._proj(x, p["wv"].to(dt))
+        if "bv" in p:
+            v = v + p["bv"].to(dt)
+        B, S = v.shape[:2]
+        out = v[:, :, :, None, :].expand(B, S, hk, hp // hk, hd).reshape(
+            B, S, hp, hd)
+        if head_mask is not None:
+            out = out * torch.from_numpy(head_mask).to(out)[None, None, :,
+                                                             None]
+    B, S, h, v = out.shape
+    return out.reshape(B, S, h * v) @ p["wo"].to(dt).reshape(h * v, -1)
+
+
+def _mtp_block(cfg, layer, x):
+    """norm1 -> self-only attention -> residual -> norm2 -> MLP ->
+    residual: the decode-time twin of the train-mode block."""
+    h = rmsnorm(layer.norm1, x, cfg.norm_eps)
+    x = x + _mtp_self_attention(cfg, layer.mixer, h)
+    h = rmsnorm(layer.norm2, x, cfg.norm_eps)
+    return x + apply_mlp(layer.ffn, h, gated=cfg.mlp_gated)
+
+
+def mtp_draft(cfg, model: Model, hidden, tokens, k):
+    """Greedy-draft ``k`` tokens from the trunk's last hidden state with
+    the MTP head, chained: each step combines the current hidden with
+    the embedding of the newest token, runs the block (window-1
+    attention, ``_mtp_self_attention``), reads a greedy token off the
+    shared unembedding, and feeds the block's output hidden and the new
+    draft back in.  At depth 1 this is the train-mode head: hidden at
+    position i plus token i + 1 predicts token i + 2.
+
+    hidden: (B, 1, d), the trunk hidden at the last accepted position
+    (``apply_model(...)["hidden"]``, pre-final-norm); tokens: (B, 1)
+    int, the newest token.  Returns (drafts (B, k) int32, last hidden
+    (B, 1, d)).  Everything stays on the device."""
+    if model.mtp is None:
+        raise ValueError("mtp_draft needs cfg.mtp_depth > 0 (no MTP head "
+                         "in this architecture)")
+    dt = compute_dtype(cfg)
+    h, t = hidden.to(dt), tokens
+    drafts = []
+    for _ in range(k):
+        hm = _mtp_in(cfg, model.mtp, h, apply_embed(model.embed, t, dt))
+        hm = _mtp_block(cfg, model.mtp.block, hm)
+        t = torch.argmax(_logits(cfg, model, hm), dim=-1).to(torch.int32)
+        h = hm
+        drafts.append(t[:, 0])
+    return torch.stack(drafts, dim=1), h
 
 
 # ==========================================================================

@@ -146,7 +146,8 @@ def make_engine(cfg, params, *, engine="continuous", batch_size=4,
               parameter tree as numpy arrays (loaded through the bridge).
     engine="continuous" -- the paged ``ContinuousScheduler``; extra kw
               go to it (page_size, num_pages, prefill_chunk,
-              decode_chunk, pad_id, tenant_quota).
+              decode_chunk, pad_id, tenant_quota, prefix_cache,
+              spec_decode).
     engine="legacy" -- the lockstep slab ``ServeEngine``; it takes no
               extra kw.
     """
@@ -179,8 +180,10 @@ def make_engine_from_checkpoint(ckpt_dir, cfg, *, step=None, device="cuda",
     layout of any world size) or the legacy npz -- restored read-only
     on the host (``checkpoint.restore_serve_params``: the ``params/``
     members only, no optimizer state) and cast once to the serving
-    dtypes on ``device`` (the card by default).  The engine's
-    ``restored_step`` is the step served.  ``engine_kw`` go to
+    dtypes on ``device`` (the card by default).  The whole tree is
+    restored, auxiliary heads with the trunk: ``params["mtp"]`` of an
+    ``mtp_depth > 0`` architecture, which ``spec_decode`` drafts from.
+    The engine's ``restored_step`` is the step served.  ``engine_kw`` go to
     :func:`make_engine`."""
     from repro_torch.checkpoint import restore_serve_params
     dev = resolve_device(device)

@@ -19,8 +19,18 @@ reference slices a B=1 cache for a one-slot prefill call
 (``merge_slot_cache``), ``slot_cache`` here returns row VIEWS
 ``t[slot:slot+1]`` of the per-slot leaves beside the whole pools: the
 call's in-place update lands in the slot's rows, so nothing is merged.
-Prefix aliasing, copy-on-write and page refcounts join with the
-prefix-cache slice.
+
+Pages are REFCOUNTED, so that the prefix (radix) cache
+(``serve.prefix``) can alias one physical page into many page tables:
+``alloc`` hands out pages at refcount 1, ``alias`` maps already-written
+pages into another slot's table (+1 each), ``retain`` / ``release`` are
+the raw operations (the radix tree holds one reference on every page it
+indexes), and ``free`` DECREMENTS: a page returns to the free list only
+when its last reference drops.  ``cow_fork`` is the copy-on-write: a
+slot that must write into a page it shares gets a fresh page whose rows
+are copied on the device from the shared one, in every pooled leaf; the
+shared page's bytes are never touched.  Page 0 is never allocated,
+aliased or refcounted.
 """
 from __future__ import annotations
 
@@ -65,6 +75,7 @@ class PagedKVCache:
         self._table = np.zeros((slots, self.table_width), np.int32)
         self._free = list(range(self.num_pages - 1, 0, -1))  # stack, no 0
         self._owned = {s: [] for s in range(slots)}
+        self._refs: dict = {}                # page -> refcount (live only)
 
     # ---- host bookkeeping -----------------------------------------------
     @property
@@ -93,15 +104,89 @@ class PagedKVCache:
                 f"{self.max_len}")
         for _ in range(need):
             p = self._free.pop()
+            self._refs[p] = 1
             self._table[slot, len(self._owned[slot])] = p
             self._owned[slot].append(p)
 
     def free(self, slot: int) -> None:
-        """Return the slot's pages to the free list and point its table
-        row at the trash page, so in-flight writes land harmlessly."""
-        self._free.extend(reversed(self._owned[slot]))
+        """Drop the slot's reference on every page it maps and point its
+        table row at the trash page, so in-flight writes land
+        harmlessly.  Shared (aliased) pages survive under their other
+        references; pages the slot held alone return to the free list."""
+        for p in reversed(self._owned[slot]):
+            self.release(p)
         self._owned[slot] = []
         self._table[slot] = 0
+
+    # ---- refcounts / prefix aliasing ------------------------------------
+    def refcount(self, page: int) -> int:
+        return self._refs.get(page, 0)
+
+    def retain(self, page: int) -> None:
+        """Add a reference to a live page (the radix tree holds one per
+        indexed page; ``alias`` takes one per mapped page)."""
+        if page == 0:
+            raise ValueError("page 0 is the trash sink; never retained")
+        if self._refs.get(page, 0) <= 0:
+            raise ValueError(f"retain of dead page {page} (double-free "
+                             "guard: it is not live)")
+        self._refs[page] += 1
+
+    def release(self, page: int) -> None:
+        """Drop a reference; the page returns to the free list when the
+        last one goes.  Releasing a dead page raises (double free)."""
+        if page == 0:
+            raise ValueError("page 0 is the trash sink; never released")
+        r = self._refs.get(page, 0)
+        if r <= 0:
+            raise ValueError(f"double free of page {page}")
+        if r == 1:
+            del self._refs[page]
+            self._free.append(page)
+        else:
+            self._refs[page] = r - 1
+
+    def alias(self, slot: int, pages) -> None:
+        """Map already-written shared pages into `slot`'s table (the
+        prefix-cache admission path), after the slot's current blocks,
+        one reference taken per page.  No bytes move: the slot reads
+        the pages through its table and must never write into them
+        (``cow_fork`` first if it has to)."""
+        if len(self._owned[slot]) + len(pages) > self.table_width:
+            raise ValueError(
+                f"slot {slot}: aliasing {len(pages)} pages past "
+                f"table_width={self.table_width}")
+        for p in pages:
+            self.retain(p)               # rejects page 0 and dead pages
+            self._table[slot, len(self._owned[slot])] = p
+            self._owned[slot].append(p)
+
+    @torch.no_grad()
+    def cow_fork(self, slot: int, block: int) -> int:
+        """Copy-on-write: give `slot` a PRIVATE copy of its `block`-th
+        page.  Pops a fresh page, copies the shared page's rows into it
+        on the device in every pooled leaf (one copy a leaf, along the
+        token axis; per-slot recurrent leaves are not paged), re-points
+        the table entry and drops the slot's reference on the shared
+        page, whose bytes are never written.  Callers fork exactly when
+        the page is shared.  Returns the new page."""
+        old = self._owned[slot][block]
+        if not self._free:
+            raise MemoryError(f"paged KV pool exhausted: COW fork of "
+                              f"slot {slot} block {block} needs a free "
+                              "page")
+        new = self._free.pop()
+        self._refs[new] = 1
+        ps = self.page_size
+        for layer, per_slot in zip(self.cache, self._per_slot):
+            if not per_slot:
+                for t in layer.values():
+                    t[new * ps:(new + 1) * ps].copy_(
+                        t[old * ps:(old + 1) * ps])
+        self._owned[slot][block] = new
+        self._table[slot, block] = new
+        self.release(old)
+        return new
 
     # ---- device views ----------------------------------------------------
     def table(self, rows=None) -> torch.Tensor:

@@ -65,3 +65,44 @@ def masked_sample(logits, generator, done, pad_id, sc: SamplingConfig):
     on-device EOS masking of the fused decode tick."""
     t = sample(logits, generator, sc)
     return torch.where(done, torch.full_like(t, pad_id), t)
+
+
+def accept_speculative(targets, chunk, done, pad_id, eos_id):
+    """Longest-matching-prefix acceptance for greedy speculative decode,
+    on the device (no host read).
+
+    ``chunk`` (B, k) int32 is what the verify forward scored:
+    ``[carried_token, draft_1, ..., draft_{k-1}]``; ``targets`` (B, k)
+    int32 the greedy argmax of the verify logits at those positions --
+    what the non-speculative engine would emit, so emitting a prefix of
+    ``targets`` is lossless whatever the drafts.  Draft ``i`` is
+    accepted iff drafts ``1..i`` all matched their targets (the
+    cumulative product of ``chunk[:, 1:] == targets[:, :-1]``); the
+    carried token's target always emits.  Done lanes are pinned to
+    ``pad_id``, and an EOS inside the accepted window truncates emission
+    AT the EOS.
+
+    Returns ``(emit, n_emit, n_acc, done_new)``: emit (B, k) int32, the
+    emitted tokens left-packed, ``pad_id`` elsewhere; n_emit (B,) int32,
+    0 for done lanes, else >= 1; n_acc (B,) int32 in [0, k-1], the
+    accepted drafts (the slot's position advances by ``n_acc + 1``);
+    done_new (B,) bool, ``done`` or an EOS emitted this step."""
+    B, k = targets.shape
+    if k > 1:
+        match = (chunk[:, 1:] == targets[:, :-1]).to(torch.int32)
+        n_acc = torch.cumprod(match, dim=1).sum(dim=1)
+    else:
+        n_acc = torch.zeros((B,), dtype=torch.int32, device=targets.device)
+    live = ((torch.arange(k, device=targets.device)[None, :]
+             <= n_acc[:, None]) & ~done[:, None])
+    if eos_id is not None:
+        is_eos = (targets == eos_id) & live
+        done_new = done | is_eos.any(dim=1)
+        eos_before = torch.cumsum(is_eos.to(torch.int32), dim=1) \
+            - is_eos.to(torch.int32)
+        live = live & (eos_before == 0)
+    else:
+        done_new = done
+    emit = torch.where(live, targets, torch.full_like(targets, pad_id))
+    n_emit = live.sum(dim=1).to(torch.int32)
+    return emit, n_emit, n_acc.to(torch.int32), done_new

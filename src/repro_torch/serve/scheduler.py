@@ -1,30 +1,51 @@
 """Continuous-batching scheduler over the paged KV cache.
 
-Port of ``repro.serve.scheduler.ContinuousScheduler`` without the
-prefix cache, speculative decode or a mesh (those join with their own
-slices).  A request queue, slot admission the moment a slot retires,
-chunked prefill, and a fused decode tick: ``decode_chunk`` sample ->
-decode steps queued on the device with EOS masking on the device, then
-ONE host sync (``.cpu()``) for the whole tick.  Nothing inside the
-tick's loop reads a device value on the host.
+Port of ``repro.serve.scheduler.ContinuousScheduler`` without a mesh.
+A request queue, slot admission the moment a slot retires, chunked
+prefill, and a fused decode tick: ``decode_chunk`` sample -> decode
+steps queued on the device with EOS masking on the device, then ONE
+host sync (``.cpu()``) for the whole tick.  Nothing inside the tick's
+loop reads a device value on the host.
 
 Request lifecycle::
 
     QUEUED     submit() enqueued it (priority-ordered; FIFO within a
                priority); waiting for a slot + pages + tenant quota
-    PREFILL    admitted: pages allocated, the slot's recurrent state
-               zeroed, the prompt fed in `prefill_chunk`-token chunks
-               (exact, never padded: a padded lane would corrupt the
-               recurrent state, which integrates every token it sees;
-               B=1 calls that write into the shared pool and the slot's
-               state rows); the LAST chunk's call also samples the
-               first token, whose read-back is prefill's one host sync
+    PREFILL    admitted: cached prefix pages ALIASED into the page
+               table (``prefix_cache=True``: refcount +1 each, zero
+               bytes moved), the remaining pages allocated, the slot's
+               recurrent state zeroed, the UNMATCHED prompt suffix fed
+               in `prefill_chunk`-token chunks (exact, never padded: a
+               padded lane would corrupt the recurrent state, which
+               integrates every token it sees; B=1 calls that write
+               into the shared pool and the slot's state rows); the
+               LAST chunk's call also samples the first token, whose
+               read-back is prefill's one host sync
     DECODE     slot participates in the fused batched decode tick
                (idle and done slots step on pad tokens too; their
                recurrent state is garbage until the next admit resets it)
     RETIRED    EOS emitted (device-detected) or token budget reached
-               (host-detected): pages freed, table row -> trash, the
-               next queued request admits into the slot
+               (host-detected): the slot's page references dropped
+               (shared pages survive under the radix tree's reference),
+               table row -> trash, the next queued request admits into
+               the slot
+
+The ``tick()`` quantum (one admission pass + one fused decode tick) is
+the streaming front door's pump (``serve.frontdoor.FrontDoor``).
+
+Speculative decode (``spec_decode=k``, greedy only, needs
+``cfg.mtp_depth > 0``): each of the tick's ``decode_chunk`` steps
+becomes draft -> verify -> accept.  The MTP head drafts ``k - 1``
+tokens from the last accepted hidden state (``models.mtp_draft``: no
+pool, no attention kernel), ONE verify forward scores the k-token chunk
+through the paged pool at per-slot positions ``pos .. pos + k - 1``,
+the longest matching prefix of the greedy targets is accepted on the
+device (``sampling.accept_speculative``), and rejected positions roll
+back by rewinding the slot's position: their K/V stay in the slot's
+allocated slack, masked by ``kv_position <= q_position``, and the next
+chunk overwrites them before any query can see them.  Still one host
+sync a tick, but each step emits 1..k tokens, every one of them the
+verify argmax.
 
 Counters mirror the reference's ``stats()``: a "dispatch" is one
 prefill chunk call or one fused decode tick, a "host sync" one blocking
@@ -41,9 +62,11 @@ import numpy as np
 import torch
 
 from repro_torch.models.attention import PagedView
-from repro_torch.models.model import apply_model, compute_dtype
+from repro_torch.models.model import apply_model, compute_dtype, mtp_draft
 from repro_torch.serve.kvcache import PagedKVCache
-from repro_torch.serve.sampling import SamplingConfig, masked_sample, sample
+from repro_torch.serve.prefix import PrefixCache
+from repro_torch.serve.sampling import (SamplingConfig, accept_speculative,
+                                        masked_sample, sample)
 
 __all__ = ["ServeRequest", "ContinuousScheduler"]
 
@@ -55,6 +78,9 @@ class ServeRequest:
     max_new_tokens: int
     priority: int = 0                  # higher admits first
     tenant: Optional[str] = None       # per-tenant quota key
+    prefix_tokens: int = 0             # prompt tokens served from cache
+    spec_steps: int = 0                # verify steps this request rode
+    spec_accepted: int = 0             # draft tokens accepted for it
     out: List[int] = dataclasses.field(default_factory=list)
     t_submit: float = 0.0
     t_first: Optional[float] = None    # time-to-first-token timestamp
@@ -80,6 +106,14 @@ class ContinuousScheduler:
                    decoded tokens per fused tick.
     tenant_quota -- max concurrently-active slots per tenant: an int
                    (every tenant) or ``{tenant: n}``; entries >= 1.
+    prefix_cache -- radix-tree prefix reuse (``serve.prefix``): matched
+                   prompt pages are aliased instead of re-prefilled.
+                   Attention/MLA stacks only (a recurrent mixer's state
+                   is not captured by KV pages).
+    spec_decode  -- 0 = off; k >= 2 = speculative decode with k-token
+                   verify chunks (the carried token + k - 1 MTP drafts a
+                   step).  Greedy only, needs ``cfg.mtp_depth > 0`` and
+                   an attention/MLA stack.
     """
 
     def __init__(self, cfg, model, *, slots, max_len,
@@ -87,7 +121,37 @@ class ContinuousScheduler:
                  sampling: SamplingConfig = SamplingConfig(), seed: int = 0,
                  page_size: int = 16, num_pages: Optional[int] = None,
                  prefill_chunk: int = 32, decode_chunk: int = 8,
-                 tenant_quota=None):
+                 tenant_quota=None, prefix_cache: bool = False,
+                 spec_decode: int = 0):
+        recurrent = any(mix != "attn" for mix, _ in cfg.layer_pattern())
+        if prefix_cache and recurrent:
+            raise ValueError(
+                "prefix_cache=True needs an attention/MLA-only stack: a "
+                "recurrent (SSM) mixer's state at the suffix boundary is "
+                "not captured by KV pages, so aliased prefixes would "
+                "serve with a zeroed recurrent state")
+        spec_decode = int(spec_decode or 0)
+        if spec_decode:
+            if spec_decode < 2:
+                raise ValueError(
+                    "spec_decode counts the whole verify chunk (the "
+                    "carried token + the drafts); k=1 is plain decode -- "
+                    "pass spec_decode >= 2 or 0")
+            if cfg.mtp_depth <= 0:
+                raise ValueError(
+                    "spec_decode needs an architecture with MTP heads "
+                    "(cfg.mtp_depth > 0) to draft from; this config has "
+                    "none")
+            if sampling.temperature > 0:
+                raise ValueError(
+                    "speculative decode is greedy-only: lossless "
+                    "acceptance emits the verify argmax, which only "
+                    "equals the engine's output at temperature=0")
+            if recurrent:
+                raise ValueError(
+                    "spec_decode needs an attention/MLA-only stack: a "
+                    "rejected draft cannot be rolled back out of a "
+                    "recurrent (SSM) state")
         if tenant_quota is not None:
             vals = (tenant_quota.values()
                     if isinstance(tenant_quota, dict) else [tenant_quota])
@@ -105,23 +169,32 @@ class ContinuousScheduler:
         self.sampling = sampling
         self.prefill_chunk = prefill_chunk
         self.decode_chunk = decode_chunk
+        self.spec_decode = spec_decode
         # the fused tick may overrun a request's budget by up to one
-        # chunk (host truncation happens after the sync); those writes
-        # must still land in the slot's own pages
-        self._chunk_slack = decode_chunk
+        # chunk (host truncation happens after the sync), and a rejected
+        # draft writes up to spec_decode - 1 positions past the last
+        # accepted one: all of it must land in the slot's own pages
+        self._chunk_slack = (decode_chunk * spec_decode + spec_decode
+                             if spec_decode else decode_chunk)
         self.kv = PagedKVCache(
             cfg, slots=slots, max_len=max_len, page_size=page_size,
             num_pages=num_pages, dtype=compute_dtype(cfg), device=self.device)
+        self.prefix = PrefixCache(self.kv) if prefix_cache else None
         self.tenant_quota = tenant_quota
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         dev = self.device
         self._tok = torch.zeros((slots, 1), dtype=torch.int32, device=dev)
         self._pos = torch.zeros((slots,), dtype=torch.int32, device=dev)
+        # trunk hidden at each slot's last accepted position: the MTP
+        # draft head's input (speculative decode only)
+        self._hid = torch.zeros((slots, cfg.d_model),
+                                dtype=compute_dtype(cfg), device=dev)
         self._done_host = np.ones((slots,), bool)      # idle == done
         self._done = torch.ones((slots,), dtype=torch.bool, device=dev)
         self._pending: List[tuple] = []    # heap: (-priority, uid, req)
         self._active: Dict[int, ServeRequest] = {}
         self._results: Dict[int, ServeRequest] = {}
+        self._byuid: Dict[int, ServeRequest] = {}      # submit -> handoff
         self._uid = 0
         # ---- telemetry ----
         self._ttft: List[float] = []   # window: reset at each run()
@@ -134,7 +207,15 @@ class ContinuousScheduler:
         self.decode_dispatches = 0
         self.decode_host_syncs = 0
         self.tokens_out = 0
+        self.prefix_tokens_saved = 0   # prompt tokens served by aliasing
         self.prompt_tokens = 0
+        # speculative decode: acceptance is accepted / offered drafts
+        # over live verify steps, also per slot
+        self.spec_verify_steps = 0
+        self.spec_draft_tokens = 0     # offered: (k - 1) a live step
+        self.spec_accepted_tokens = 0
+        self._spec_slot_steps = np.zeros((slots,), np.int64)
+        self._spec_slot_accepted = np.zeros((slots,), np.int64)
 
     # ------------------------------------------------------------------
     # public API
@@ -143,20 +224,28 @@ class ContinuousScheduler:
                tenant: Optional[str] = None) -> int:
         """Queue one request; returns its uid.  No device work happens
         until ``run()``/``tick()``."""
-        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        prompt = np.array(prompt, np.int32).reshape(-1)      # own copy
         if len(prompt) == 0:
             raise ValueError("empty prompt (need >= 1 token to prefill)")
         if len(prompt) + max_new_tokens + self._chunk_slack > self.max_len:
             raise ValueError(
                 f"prompt ({len(prompt)}) + max_new ({max_new_tokens}) + "
-                f"decode slack ({self._chunk_slack}) exceeds "
+                f"decode slack ({self._chunk_slack}"
+                f"{', spec_decode' if self.spec_decode else ''}) exceeds "
                 f"max_len={self.max_len}")
         uid = self._uid
         self._uid += 1
         req = ServeRequest(uid, prompt, max_new_tokens, priority=priority,
                            tenant=tenant, t_submit=time.time())
         heapq.heappush(self._pending, (-priority, uid, req))
+        self._byuid[uid] = req
         return uid
+
+    def request(self, uid: int) -> ServeRequest:
+        """Live view of a submitted request (the streaming front door
+        reads ``req.out`` as ticks sync); valid until the request's
+        result is handed off."""
+        return self._byuid[uid]
 
     @torch.inference_mode()
     def tick(self) -> bool:
@@ -175,8 +264,11 @@ class ContinuousScheduler:
         return bool(self._active or self._pending)
 
     def take_results(self) -> Dict[int, ServeRequest]:
-        """Hand off the requests completed so far."""
+        """Hand off the requests completed so far (and drop them from
+        the uid index)."""
         done, self._results = self._results, {}
+        for uid in done:
+            self._byuid.pop(uid, None)
         return done
 
     def run(self) -> Dict[int, np.ndarray]:
@@ -195,7 +287,7 @@ class ContinuousScheduler:
         return [results[u] for u in uids]
 
     def stats(self) -> dict:
-        return {
+        st = {
             "host_syncs": self.host_syncs,
             "dispatches": self.dispatches,
             "prefill_dispatches": self.prefill_dispatches,
@@ -209,10 +301,38 @@ class ContinuousScheduler:
             "ttft_count_cum": self._ttft_n_cum,
             "ttft_sum_cum_s": self._ttft_sum_cum,
             "prompt_tokens": self.prompt_tokens,
+            "prefix_hit_tokens": self.prefix_tokens_saved,
+            "prefix_hit_rate": (self.prefix_tokens_saved / self.prompt_tokens
+                                if self.prompt_tokens else 0.0),
             "pool_pages_in_use": self.kv.pages_in_use,
             "pool_bytes": self.kv.pool_bytes(),
             "state_bytes": self.kv.state_bytes(),
         }
+        if self.prefix is not None:
+            st["prefix_cache"] = self.prefix.stats()
+        if self.spec_decode:
+            steps = self.spec_verify_steps
+            st["spec_decode"] = {
+                "k": self.spec_decode,
+                "verify_steps": steps,
+                "draft_tokens": self.spec_draft_tokens,
+                "accepted_tokens": self.spec_accepted_tokens,
+                # accepted / offered drafts (budget- and EOS-truncated
+                # steps count what the host consumed)
+                "acceptance": (self.spec_accepted_tokens
+                               / self.spec_draft_tokens
+                               if self.spec_draft_tokens else 0.0),
+                # emitted tokens per verify step = 1 + accepted
+                "tokens_per_step": ((self.spec_accepted_tokens + steps)
+                                    / steps if steps else 0.0),
+                "slot_verify_steps": self._spec_slot_steps.tolist(),
+                "slot_accepted_tokens": self._spec_slot_accepted.tolist(),
+                "slot_accepted_len": [
+                    1.0 + (a / n) if n else 0.0
+                    for a, n in zip(self._spec_slot_accepted,
+                                    self._spec_slot_steps)],
+            }
+        return st
 
     # ------------------------------------------------------------------
     # scheduling internals
@@ -273,25 +393,46 @@ class ContinuousScheduler:
         return n
 
     def _try_admit(self, slot: int, req: ServeRequest) -> bool:
-        """Alloc + prefill one request into `slot`; False when the pool
-        lacks pages (the slot is left clean)."""
-        n_tokens = len(req.prompt) + req.max_new_tokens + self._chunk_slack
-        if self.kv.pages_needed(n_tokens) > self.kv.free_pages:
+        """Alias + copy-on-write fork + alloc + prefill one request into
+        `slot`.  False (slot left clean) when the pool lacks pages even
+        after prefix eviction."""
+        S = len(req.prompt)
+        matched, pages = (self.prefix.match(req.prompt)
+                          if self.prefix is not None else (0, []))
+        # always prefill >= 1 token: the last chunk's logits give the
+        # first token
+        start = min(matched, S - 1)
+        # a fully matched page-aligned prompt re-writes its final token
+        # into a page it shares: fork that page first
+        fork = bool(pages) and matched >= S
+        n_tokens = S + req.max_new_tokens + self._chunk_slack
+        fresh = self.kv.pages_needed(n_tokens) - len(pages) + int(fork)
+        # alias FIRST: the matched pages are then referenced by the
+        # slot, so evicting their radix nodes cannot free them under us
+        self.kv.alias(slot, pages)
+        if fresh > self.kv.free_pages and self.prefix is not None:
+            self.prefix.evict(fresh)
+        if fresh > self.kv.free_pages:
+            self.kv.free(slot)              # roll the aliases back
             return False
+        if fork:
+            self.kv.cow_fork(slot, len(pages) - 1)
         self.kv.alloc(slot, n_tokens)
         self.kv.reset_slot_state(slot)
-        self.prompt_tokens += len(req.prompt)
-        self._prefill(slot, req)
+        req.prefix_tokens = start
+        self.prefix_tokens_saved += start
+        self.prompt_tokens += S
+        self._prefill(slot, req, start)
         return True
 
-    def _prefill(self, slot: int, req: ServeRequest):
+    def _prefill(self, slot: int, req: ServeRequest, start: int = 0):
         C = self.prefill_chunk
         S = len(req.prompt)
         dev = self.device
         view = PagedView(self.kv.table([slot]), self.kv.page_size)
         cache = self.kv.slot_cache(slot)
         prompt = torch.from_numpy(req.prompt).to(dev)[None]
-        starts = list(range(0, S, C))
+        starts = list(range(start, S, C))      # non-empty: start <= S - 1
         for s in starts[:-1]:
             apply_model(self.cfg, self.model, prompt[:, s:s + C],
                         cache=cache,
@@ -310,6 +451,12 @@ class ContinuousScheduler:
         first_dev = sample(out["logits"][:, -1], self._gen, self.sampling)
         self.dispatches += 1
         self.prefill_dispatches += 1
+        if self.prefix is not None:
+            # index the prompt's FULL pages (decode never writes them:
+            # its first write position S lies in a later block)
+            full = S // self.kv.page_size
+            if full:
+                self.prefix.insert(req.prompt, self.kv._owned[slot][:full])
         first = int(first_dev[0])              # prefill's ONE host sync
         self.host_syncs += 1
         self.prefill_host_syncs += 1
@@ -323,6 +470,10 @@ class ContinuousScheduler:
         self._active[slot] = req
         self._tok[slot, 0] = first
         self._pos[slot] = S
+        if self.spec_decode:
+            # seed the draft head: the trunk hidden at the last prompt
+            # position pairs with `first` as in the train-mode head
+            self._hid[slot] = out["hidden"][0, -1]
         self._done[slot] = False
         self._done_host[slot] = False
 
@@ -343,6 +494,9 @@ class ContinuousScheduler:
         """``decode_chunk`` sample -> decode steps queued on the device.
         Done (and idle) slots emit `pad_id`, freeze their position and
         -- their table rows being zero -- write into the trash page."""
+        if self.spec_decode:
+            self._spec_decode_tick()
+            return
         view = self.kv.view()
         tok, pos, done = self._tok, self._pos, self._done
         toks = torch.empty((self.slots, self.decode_chunk),
@@ -374,4 +528,67 @@ class ContinuousScheduler:
                     break
         # the device `done` may run ahead of the host's retirements;
         # re-sync it from (a copy of) the host mirror
+        self._done = torch.tensor(self._done_host, device=self.device)
+
+    def _spec_decode_tick(self):
+        """The speculative twin of the fused tick, the same discipline
+        (one dispatch, one host sync): each of the ``decode_chunk`` steps
+        drafts, verifies and accepts on the device and emits 1..k
+        tokens.  The emitted tokens (slots, decode_chunk, k), left-packed,
+        and their counts ride in one int32 buffer, read back in ONE
+        ``.cpu()``."""
+        view = self.kv.view()
+        k, K = self.spec_decode, self.decode_chunk
+        tok, pos, hid, done = self._tok, self._pos, self._hid, self._done
+        lanes = torch.arange(self.slots, device=self.device)
+        buf = torch.empty((self.slots, K, k + 1), dtype=torch.int32,
+                          device=self.device)
+        pad = torch.full_like(tok[:, 0], self.pad_id)
+        for i in range(K):
+            drafts, _ = mtp_draft(self.cfg, self.model, hid[:, None, :], tok,
+                                  k - 1)
+            chunk = torch.cat([tok, drafts], dim=1)            # (B, k)
+            out = apply_model(self.cfg, self.model, chunk,
+                              cache=self.kv.cache, cache_pos=pos, paged=view)
+            tgt = torch.argmax(out["logits"], dim=-1).to(torch.int32)
+            emit, n_emit, n_acc, done_new = accept_speculative(
+                tgt, chunk, done, self.pad_id, self.eos_id)
+            pos = pos + torch.where(done, torch.zeros_like(n_acc), n_acc + 1)
+            nxt = tgt[lanes, (n_emit - 1).clamp_min(0)]
+            tok = torch.where(done_new, pad, nxt)[:, None]
+            hid = torch.where(done_new[:, None], hid,
+                              out["hidden"][lanes, n_acc])
+            done = done_new
+            buf[:, i, :k] = emit
+            buf[:, i, k] = n_emit
+        self._tok, self._pos, self._hid = tok, pos, hid
+        self.dispatches += 1
+        self.decode_dispatches += 1
+        buf_np = buf.cpu().numpy()                     # ONE sync per tick
+        self.host_syncs += 1
+        self.decode_host_syncs += 1
+        for slot, req in list(self._active.items()):
+            finished = False
+            for step in range(K):
+                cnt = int(buf_np[slot, step, k])
+                if cnt <= 0:            # the lane went done in a prior step
+                    break
+                req.spec_steps += 1
+                req.spec_accepted += cnt - 1
+                self.spec_verify_steps += 1
+                self.spec_draft_tokens += k - 1
+                self.spec_accepted_tokens += cnt - 1
+                self._spec_slot_steps[slot] += 1
+                self._spec_slot_accepted[slot] += cnt - 1
+                for t in buf_np[slot, step, :cnt]:
+                    req.out.append(int(t))
+                    self.tokens_out += 1
+                    if (self.eos_id is not None and t == self.eos_id) \
+                            or len(req.out) >= req.max_new_tokens:
+                        finished = True
+                        break
+                if finished:
+                    break
+            if finished:
+                self._retire(slot, req)
         self._done = torch.tensor(self._done_host, device=self.device)

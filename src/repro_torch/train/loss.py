@@ -1,10 +1,9 @@
 """Losses.  Labels use -1 for masked positions (padding).
 
-Port of ``repro.train.loss`` for decoder-only token batches.  The
-vision branch of ``make_labels`` waits with the frontends (which
-``models.check_ported`` refuses, so no model reaches it), and the
-multi-token-prediction term of ``lm_loss`` with the MTP head (ROADMAP
-A.8), which raises by name.
+Port of ``repro.train.loss`` for decoder-only token batches, the
+multi-token-prediction term included.  The vision branch of
+``make_labels`` waits with the frontends (which ``models.check_ported``
+refuses, so no model reaches it).
 """
 from __future__ import annotations
 
@@ -31,10 +30,19 @@ def cross_entropy(logits, labels):
 
 
 def lm_loss(cfg, out, batch, *, mtp_weight=0.1):
-    """Total training loss: CE + MoE aux.  Returns (total, metrics)."""
-    if "mtp_logits" in out:
-        raise ValueError("lm_loss: the multi-token-prediction term is not "
-                         "ported (it joins with the MTP head)")
+    """Total training loss: CE + MoE aux + ``mtp_weight`` x the MTP CE
+    (where ``out`` has ``"mtp_logits"``: the head at position i
+    predicts token i + 2).  Returns (total, metrics)."""
     labels = make_labels(cfg, batch)
     loss = cross_entropy(out["logits"], labels)
-    return loss + out["aux"], {"ce": loss, "aux": out["aux"]}
+    metrics = {"ce": loss, "aux": out["aux"]}
+    total = loss + out["aux"]
+    if "mtp_logits" in out:
+        tokens = batch.get("tgt_tokens", batch.get("tokens"))
+        mtp_labels = torch.cat(
+            [tokens[:, 2:], torch.full_like(tokens[:, :2], IGNORE)],
+            dim=1)[:, :out["mtp_logits"].shape[1]]
+        mtp_ce = cross_entropy(out["mtp_logits"], mtp_labels)
+        total = total + mtp_weight * mtp_ce
+        metrics["mtp_ce"] = mtp_ce
+    return total, metrics

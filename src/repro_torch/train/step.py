@@ -16,8 +16,9 @@ masters.  Features, as in the reference:
 
 One device; ``accumulate_grads`` is shared with the data-parallel step
 (``core.data_parallel``), which averages the gradients it leaves in
-``.grad`` over the ranks.  Pure-bf16 masters and the MTP term wait
-with the configs that need them.
+``.grad`` over the ranks.  A model with a multi-token-prediction head
+adds its CE at ``mtp_weight`` (``train.loss.lm_loss``).  Pure-bf16
+masters wait with the configs that need them.
 """
 from __future__ import annotations
 
@@ -137,7 +138,8 @@ def accumulate_grads(loss_fn, model, params, batch, n):
     -- a loop of them accumulating in ``.grad``, the loss and the
     gradients then scaled by ``1 / n`` (the reference's ``lax.scan``).
     ``loss_fn(model, batch)`` returns ``(loss, metrics)``; the metrics
-    of a single pass are returned detached, none for microbatches.
+    are returned detached, for microbatches their mean (the reference
+    returns none there).
     ``batch`` (numpy or tensors) is moved to the masters' device.  A
     master the backward never reaches (DeepSeek-V3's router balance
     bias, which only selects) gets a zero gradient, as the reference
@@ -158,15 +160,19 @@ def accumulate_grads(loss_fn, model, params, batch, n):
             for k, v in metrics.items()}
     micro = _split_micro(batch, n)
     loss = torch.zeros((), dtype=torch.float32, device=dev)
+    sums = {}
     for i in range(n):
-        l, _ = loss_fn(model, {k: v[i] for k, v in micro.items()})
+        l, metrics = loss_fn(model, {k: v[i] for k, v in micro.items()})
         l.backward()
         loss = loss + l.detach()
+        for k, v in metrics.items():
+            sums[k] = sums.get(k, 0.0) + (
+                v.detach() if isinstance(v, torch.Tensor) else v)
     _zero_missing_grads(params)
     inv = 1.0 / n
     for p in params.values():
         p.grad.mul_(inv)
-    return loss * inv, {}
+    return loss * inv, {k: v * inv for k, v in sums.items()}
 
 
 def _zero_missing_grads(params):

@@ -1,6 +1,7 @@
 """Training RWKV-6, Jamba (Mamba, attention, MoE) and DeepSeek-V3 (MLA,
 sigmoid-router MoE; ``mtp_depth=0``) against the reference, at each
-smoke config in fp32 on the same bridged weights: the train-mode
+smoke config in fp32 on the same bridged weights -- and DeepSeek-V3 and
+qwen3 with an MTP head (``mtp_depth=1``): the train-mode
 forward; five AdamW steps of losses and params against the reference's
 ``make_train_step`` (DeepSeek-V3's router balance bias decaying with no
 gradient); ``update_router_bias``; ``Trainer(model_cfg=...)``; and the
@@ -52,6 +53,11 @@ ILL = 1e-6
 NOISY = 1e-2
 NOISY_SHARE = {"rwkv6-1.6b": 0.15, "jamba-v0.1-52b": 0.02,
                "deepseek-v3-671b": 0.02}
+# with an MTP head: its gradient is scaled by mtp_weight (0.1), so ten
+# times more of its entries fall under ILL -- 2.35% of DeepSeek-V3's and
+# 2.40% of qwen3's entries at the smoke configs, the noisy ones 0.23%
+# and 0.10% -- and the share is held to this
+MTP_SHARE = 0.03
 B, S, STEPS, LR = 4, 32, 5, 3e-4
 _REFS = {}
 
@@ -69,19 +75,25 @@ def _paths(tree, prefix=()):
 def ref(request):
     """(jcfg, params, numpy params, cfg): a nonzero router balance bias,
     so that its weight decay shows."""
-    arch = request.param
-    if arch not in _REFS:
-        jcfg = jax_smoke(arch).with_overrides(dtype="float32", mtp_depth=0)
+    return _ref(request.param, mtp_depth=0)
+
+
+def _ref(arch, mtp_depth):
+    key = (arch, mtp_depth)
+    if key not in _REFS:
+        jcfg = jax_smoke(arch).with_overrides(dtype="float32",
+                                              mtp_depth=mtp_depth)
         params = jax_init(jcfg, jax.random.PRNGKey(11))
         rng = np.random.default_rng(2)
         params = jax.tree_util.tree_map_with_path(
             lambda p, a: jnp.asarray(rng.uniform(-0.5, 0.5, a.shape),
                                      a.dtype)
             if "router_bias" in jax.tree_util.keystr(p) else a, params)
-        cfg = smoke_config(arch).with_overrides(dtype="float32", mtp_depth=0)
-        _REFS[arch] = (jcfg, params,
-                       jax.tree_util.tree_map(np.asarray, params), cfg)
-    return _REFS[arch]
+        cfg = smoke_config(arch).with_overrides(dtype="float32",
+                                                mtp_depth=mtp_depth)
+        _REFS[key] = (jcfg, params,
+                      jax.tree_util.tree_map(np.asarray, params), cfg)
+    return _REFS[key]
 
 
 @pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
@@ -103,7 +115,34 @@ def test_train_forward_matches_reference(ref, remat):
 
 
 def test_five_adamw_steps_match_reference(ref):
-    jcfg, params, np_params, cfg = ref
+    _five_adamw_steps(*ref)
+
+
+@pytest.fixture(params=["qwen3-1.7b", "deepseek-v3-671b"])
+def mtp_ref(request):
+    """(jcfg, params, numpy params, cfg) of a smoke config with its MTP
+    head (``mtp_depth=1``: DeepSeek-V3's own, an override for qwen3)."""
+    return _ref(request.param, mtp_depth=1)
+
+
+def test_five_adamw_steps_with_mtp_match_reference(mtp_ref):
+    """Training with the MTP head: the train-mode ``mtp_logits`` and five
+    AdamW steps of losses, ``mtp_ce`` and params (the head's included)
+    against the reference, as above."""
+    jcfg, params, np_params, cfg = mtp_ref
+    tokens = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 24)).astype(np.int32)
+    want = jax_apply(jcfg, params, {"tokens": jnp.asarray(tokens)},
+                     mode="train")
+    model = params_from_jax(np_params, cfg, device="cpu", train=True)
+    got = apply_model(cfg, model, torch.from_numpy(tokens), mode="train")
+    np.testing.assert_allclose(got["mtp_logits"].detach().numpy(),
+                               np.asarray(want["mtp_logits"]), rtol=0,
+                               atol=TOL)
+    _five_adamw_steps(*mtp_ref, share=MTP_SHARE)
+
+
+def _five_adamw_steps(jcfg, params, np_params, cfg, share=None):
     jtc = JaxTrainConfig(optimizer="adamw", lr=LR)
     jstep, jopt = jax_train_step(jcfg, None, jtc)
     jstep = jax.jit(jstep)
@@ -121,6 +160,9 @@ def test_five_adamw_steps_match_reference(ref):
         jstate, jm = jstep(jstate, {"tokens": jnp.asarray(tokens)})
         state, m = step(state, {"tokens": tokens})
         assert abs(float(m["loss"]) - float(jm["loss"])) <= TOL, i
+        assert ("mtp_ce" in m) == (cfg.mtp_depth > 0) == ("mtp_ce" in jm)
+        if cfg.mtp_depth:
+            assert abs(float(m["mtp_ce"]) - float(jm["mtp_ce"])) <= TOL, i
         # the step leaves this step's gradients in the masters' .grad
         pg = named_to_numpy(model, {k: p.grad for k, p in masters.items()})
         now = {k: ((np.abs(x) < ILL) & (x != 0))
@@ -135,7 +177,8 @@ def test_five_adamw_steps_match_reference(ref):
         n_ill += int(ill[k].sum())
         assert gap[~ill[k]].max(initial=0) <= TOL, (k, gap[~ill[k]].max())
         assert gap.max() <= STEPS * LR, (k, gap.max())
-    assert n_ill < NOISY_SHARE[cfg.name] * sum(w.size for w in want.values())
+    share = NOISY_SHARE[cfg.name] if share is None else share
+    assert n_ill < share * sum(w.size for w in want.values())
     # the balance bias has no gradient on either side: AdamW's decay alone
     # moves it, by (1 - lr wd) a step
     for k, w in want.items():

@@ -7,7 +7,10 @@ step, and its data-parallel ``Trainer`` over a world of one NCCL rank,
 with the replicated strategies and the ZeRO ladder (``-k zero``: zero1
 / zero2 / zero3 bitwise the one-device step at one NCCL rank, and 2
 gloo ranks sharing the card); the Table-1 nets on the card against the
-CPU; checkpoints saved on the card and restored on the CPU, and back.  Marked ``gpu``; each test
+CPU; checkpoints saved on the card and restored on the CPU, and back;
+the paged kernels at speculative decode's verify shape (``-k verify``),
+``cow_fork`` on card pools and the speculative tick's one host sync
+(``-k "cow or spec_tick"``).  Marked ``gpu``; each test
 skips by itself where no card is present.  Imports no jax (the card's
 machine has none).
 
@@ -1221,3 +1224,120 @@ def test_arch_train_step_on_card_matches_cpu(cuda, arch):
     assert {k: counts.get(k, 0) for k in want} == want
     rel = [abs(a - b) / abs(a) for a, b in zip(got["cpu"][0], got["cuda"][0])]
     assert rel[0] <= 1e-5 and rel[1] <= 1e-4, rel
+
+
+# --------------------------------------------------------------------------
+# the prefix cache and speculative decoding on the card
+# --------------------------------------------------------------------------
+
+def _verify_lengths(seed, B=8):
+    return np.random.default_rng(seed).integers(480, 545, B)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["gqa", "mla"])
+def test_verify_chunks_match_plain_and_mask_rolled_back_rows(cuda, kernel,
+                                                             dtype):
+    """Speculative decode's verify forward: B 8, S = k = 4 query rows a
+    slot at per-slot positions (~512 tokens a slot), at qwen3's (h 16 over
+    8 kv heads of 128) and DeepSeek-V3's (h 128, latent 512, rope 64)
+    widths.  Rows past a slot's last query position -- where a rejected
+    draft leaves its K/V -- are masked by position: raising them to 1e8
+    changes no bit."""
+    B, S, ps, W = 8, 4, 16, 37
+    lengths = _verify_lengths(3)
+    if kernel == "gqa":
+        host = paged_case(5, B, S, 16, 8, 128, ps, W, lengths=lengths)
+        args = _on(cuda, dtype, *host)
+        run = lambda a: paged_flash_decode(*a, page_size=ps)     # noqa
+        ref = paged_flash_decode_ref(*args, page_size=ps)
+        pools = (1, 2)
+    else:
+        host = mla_case(5, B, S, 128, 512, 64, ps, W, lengths=lengths)
+        args = _mla_on(cuda, dtype, *host)
+        run = lambda a: paged_flash_decode_mla(                  # noqa
+            *a, page_size=ps, scale=MLA_SCALE)
+        ref = paged_flash_decode_mla_ref(*args, page_size=ps, scale=MLA_SCALE)
+        pools = (2, 3)
+    got = run(args)
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+    stale = list(args)
+    for i in pools:
+        stale[i] = torch.where(torch.from_numpy(host[i] == POISON).to(cuda),
+                               1e8, args[i].float()).to(dtype)
+    assert torch.equal(run(stale), got)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "deepseek-v3-671b"])
+def test_cow_fork_copies_cuda_pool_pages(cuda, arch):
+    """``cow_fork`` on the card: the shared page's rows land in the fresh
+    page of every pooled leaf, and nothing else moves."""
+    from repro_torch.serve import PagedKVCache
+    cfg = smoke_config(arch)
+    kv = PagedKVCache(cfg, slots=2, max_len=64, page_size=16, num_pages=9,
+                      device=cuda)
+    kv.alloc(0, 40)
+    for layer in kv.cache:
+        for t in layer.values():
+            t.copy_(torch.randn(t.shape, device=cuda))
+    before = [{k: t.clone() for k, t in layer.items()} for layer in kv.cache]
+    shared = kv._owned[0][1]
+    kv.retain(shared)
+    new = kv.cow_fork(0, 1)
+    rows = lambda p: slice(p * 16, (p + 1) * 16)                  # noqa
+    for layer, old in zip(kv.cache, before):
+        for k, t in layer.items():
+            assert torch.equal(t[rows(new)], old[k][rows(shared)])
+            keep = torch.ones(t.shape[0], dtype=torch.bool, device=cuda)
+            keep[rows(new)] = False
+            assert torch.equal(t[keep], old[k][keep])
+    assert kv.refcount(shared) == 1 and kv.table()[0, 1] == new
+
+
+def _decode_tick_syncs(sch):
+    """Blocking host syncs that torch's sync debug mode reports during
+    one decode tick of ``sch`` (every slot active, nothing to admit)."""
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            sch._decode_tick()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def test_spec_tick_makes_one_host_sync_on_card(cuda):
+    """qwen3 smoke with an MTP head, fp32 on the card: a speculative tick
+    reads the device back once, whatever its k and length -- as many
+    syncing calls as the plain tick -- and its greedy tokens equal the
+    plain decode's on the CPU."""
+    cfg = smoke_config("qwen3-1.7b").with_overrides(dtype="float32",
+                                                    mtp_depth=1)
+    model = init_model(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (9, 21)]
+    kw = dict(slots=2, max_len=128, page_size=16, prefill_chunk=8)
+    want = ContinuousScheduler(cfg, model, decode_chunk=4, **kw).generate(
+        prompts, 12)
+    card = model.to(cuda)
+    syncs = {}
+    for k, chunk in ((0, 4), (4, 2), (4, 4), (2, 8)):
+        sch = ContinuousScheduler(cfg, card, spec_decode=k,
+                                  decode_chunk=chunk, **kw)
+        for p in prompts:
+            sch.submit(p, 40)
+        sch._admit()
+        syncs[(k, chunk)] = _decode_tick_syncs(sch)
+        st = sch.stats()
+        assert st["decode_host_syncs"] == st["decode_dispatches"] == 1
+    assert len(set(syncs.values())) == 1, syncs
+    for k in (2, 4):
+        got = ContinuousScheduler(cfg, card, spec_decode=k, decode_chunk=4,
+                                  **kw).generate(prompts, 12)
+        for a, b in zip(want, got):
+            np.testing.assert_array_equal(a, b)

@@ -272,6 +272,15 @@ def _allocated(cfg) -> int:
     return total
 
 
+def _mtp_allocated(cfg) -> int:
+    """Elements of the MTP head ``init_model`` adds at ``mtp_depth`` 1:
+    norm_h, norm_e, proj (2 d, d) and an (MLA, dense MLP) block of
+    width dense_d_ff."""
+    d, m = cfg.d_model, cfg.mla
+    return (2 * d + 2 * d * d + cfg.attn_params() + m.q_lora_rank
+            + m.kv_lora_rank + 2 * d + 3 * d * cfg.moe.dense_d_ff)
+
+
 def test_one_card_cut_and_its_param_counts():
     """Four layers: the 3 dense layers and the first MoE layer, every
     width kept.  The reference's formula counts the dense prefix's MLPs
@@ -289,18 +298,25 @@ def test_one_card_cut_and_its_param_counts():
         3 * 3 * d * (cfg.moe.dense_d_ff - cfg.d_ff)
         + 4 * (cfg.mla.q_lora_rank + cfg.mla.kv_lora_rank + 2 * d) + d
         + cfg.moe.num_experts)
+    # the MTP head (mtp_depth 1) rides on the trunk: 0.69 B more
+    assert cfg.mtp_depth == 1 and _mtp_allocated(cfg) == 686_258_176
     small = smoke_config(ARCH)
     m = init_model(small, seed=0, device="cpu")
-    assert sum(p.numel() for p in m.parameters()) == _allocated(small)
+    assert sum(p.numel() for p in m.parameters()) == _allocated(
+        small) + _mtp_allocated(small)
+    assert sum(p.numel() for p in m.mtp.parameters()) == _mtp_allocated(
+        small)
 
 
 def test_bridge_round_trip_drops_mtp_by_name_and_refuses_unknown(ref):
+    """The MTP head, once dropped by name, now crosses the bridge with
+    the trunk: every leaf comes back, ``params["mtp"]`` included; an
+    unknown key still raises."""
     _, _, tree, cfg, model = ref
     assert "mtp" in tree                         # the reference draws it
     back = params_to_numpy(model, cfg)
-    assert "mtp" not in back
-    kept = {k: v for k, v in tree.items() if k != "mtp"}
-    flat_a = jax.tree_util.tree_leaves_with_path(kept)
+    assert set(back["mtp"]) == set(tree["mtp"])
+    flat_a = jax.tree_util.tree_leaves_with_path(tree)
     flat_b = dict(jax.tree_util.tree_leaves_with_path(back))
     assert len(flat_a) == len(flat_b)
     for path, a in flat_a:

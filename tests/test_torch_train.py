@@ -95,11 +95,26 @@ def test_labels_ce_and_lm_loss_match_reference(ref):
 
 
 def test_lm_loss_refuses_the_mtp_term(ref):
-    cfg = ref[3]
-    out = {"logits": torch.zeros(1, 4, 8), "aux": 0.0,
-           "mtp_logits": torch.zeros(1, 3, 8)}
-    with pytest.raises(ValueError, match="multi-token-prediction"):
-        lm_loss(cfg, out, {"tokens": torch.zeros(1, 4, dtype=torch.long)})
+    """The multi-token-prediction term was refused before the MTP head
+    was ported; now ``lm_loss`` adds it as the reference does: labels
+    shifted by 2, weight ``mtp_weight``, ``metrics["mtp_ce"]``."""
+    jcfg, _, _, cfg = ref
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(0, 8, (2, 6)).astype(np.int32)
+    logits = rng.standard_normal((2, 6, 8)).astype(np.float32)
+    mtp = rng.standard_normal((2, 5, 8)).astype(np.float32)
+    out = {"logits": torch.from_numpy(logits), "aux": 0.0,
+           "mtp_logits": torch.from_numpy(mtp)}
+    total, metrics = lm_loss(cfg, out, {"tokens": torch.from_numpy(tokens)},
+                             mtp_weight=0.3)
+    jt, jm = jax_loss.lm_loss(jcfg, {"logits": jnp.asarray(logits),
+                                     "aux": jnp.float32(0.0),
+                                     "mtp_logits": jnp.asarray(mtp)},
+                              {"tokens": jnp.asarray(tokens)},
+                              mtp_weight=0.3)
+    np.testing.assert_allclose(float(total), float(jt), rtol=TOL)
+    np.testing.assert_allclose(float(metrics["mtp_ce"]),
+                               float(jm["mtp_ce"]), rtol=TOL)
 
 
 # --------------------------------------------------------------------------
@@ -301,20 +316,19 @@ def test_bridge_round_trips_the_masters(ref):
     ("deepseek-v3-671b", "the MTP head"),
 ])
 def test_check_train_ported_refuses_by_name(arch, part):
-    """Only the MTP head is still refused, by name; the parts the other
-    cases name (once refused) now train: ``check_train_ported``,
-    ``init_model(train=True)`` and the launcher accept and run them (a
-    DeepSeek-V3 built with ``mtp_depth=0``, as the reference builds it)."""
+    """The parts the cases name were refused, by name, before their
+    slices; they all train now, the MTP head included:
+    ``check_train_ported``, ``init_model(train=True)`` and the launcher
+    accept and run them (DeepSeek-V3 with ``mtp_depth=0`` too, as the
+    reference can build it)."""
     cfg = smoke_config(arch)
     if part == "the MTP head":
-        with pytest.raises(ValueError, match=part):
-            check_train_ported(cfg)
-        with pytest.raises(ValueError, match=part):
-            init_model(cfg, device="cpu", train=True)
-        with pytest.raises(SystemExit, match=part):
-            launch_train.main(["--arch", arch, "--reduced", "--device",
-                               "cpu"])
-        check_train_ported(smoke_config("qwen3-1.7b"))
+        check_train_ported(cfg)
+        model = init_model(cfg, device="cpu", train=True)
+        assert model.mtp is not None and all(
+            p.requires_grad for p in model.mtp.parameters())
+        launch_train.main(["--arch", arch, "--reduced", "--device", "cpu",
+                           "--steps", "2", "--batch", "2", "--seq", "16"])
         return
     if cfg.mtp_depth:
         cfg = cfg.with_overrides(mtp_depth=0)
