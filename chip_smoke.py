@@ -142,8 +142,45 @@ Phases (each fails the run if it goes wrong):
      tokens equal k = 0's on the card, acceptance >= 0.6, decode
      dispatches and host syncs a token down >= 1.8x, and an EOS
      mid-chunk emits nothing after it.
+ 24. the four decoder-only newcomers at full width and depth, bf16, one
+     at a time: granite-20b (MQA, g 48), qwen2.5-32b (g 5, qkv bias),
+     deepseek-coder-33b (g 7) and deepseek-moe-16b (MHA, a dense first
+     layer then MoE of 64 experts + 2 shared) serve phase 3's traffic
+     through the continuous scheduler: exactly layers x 282
+     paged_flash_decode launches (14664, 18048, 17484, 7896); tokens/s,
+     TTFT, peak memory and the device's idle share over one traced decode
+     tick and one prefill chunk; granite also serves phase 11's traffic
+     through the lockstep engine (3328 flash_attention launches at g 48);
+ 25. the two frontends at full width and depth, bf16, through
+     ``apply_model``'s slab prefill and greedy decode (the reference's
+     only serving path for them): seamless-m4t-large-v2 on 8 sources of
+     1024 frame embeddings with 8-token target prompts, 64 new tokens
+     (3096 flash_attention launches: 24 encoder + 48 prefill + 63 x 48
+     decode); llava-next-mistral-7b on 8 requests of 2880 image
+     embeddings + 128 tokens, 64 new (2048 = 32 x 64); then each at 2
+     full-width layers in fp32, batch 1, 8 new tokens, card vs CPU with
+     equal greedy tokens and prefill logits within 1e-4 (llava on 256
+     image rows + 256 tokens, the reference's make_batch rule at seq
+     512);
+ 26. training: seamless-m4t-large-v2 at full size and
+     llava-next-mistral-7b reduced to 8 of its 32 layers (AdamW's state
+     for 7.24 B does not fit), 1 + 5 AdamW steps (lr 3e-4), bf16 on fp32
+     masters, remat, on the reference's train_4k batch of 2 x 4096 (4096
+     frames + 4096 targets; 2048 image rows + 2048 tokens) in 2
+     microbatches: exactly 1728 and 192 flash_attention launches; then
+     each at 2 full-width layers (seamless with 2 encoder layers) in
+     fp32, 2 AdamW steps on one sequence of 128, card vs CPU with phase
+     14's bars.
 Phase 2 also holds both paged kernels at speculative decode's verify
-shape (B 8, S = k = 4, per-slot positions, ~512 tokens a slot).
+shape (B 8, S = k = 4, per-slot positions, ~512 tokens a slot), the
+GQA paged kernel at the newcomers' group sizes ((h, hk) = (48, 1), (40,
+8), (56, 8), (16, 16)) and the flash kernel at the encoder-decoder's and
+the VLM's forms (bidirectional and non-causal cross-attention at (64,
+64), S != T; llava's prefill at S = T = 3008, h 32 / hk 8), at
+granite's lockstep forms (h 48 / hk 1: prefill S = T = 512, decode S 1
+against a 576-key slab slice) and at seamless's training shapes ((64,
+64), h = hk = 16, S = T = 4096, causal and non-causal, forward and
+gradients).
 The last lines are the kernels' JSON record, the card's name and power
 limit, and the result line.  Without a card, or outside the repository,
 it exits non-zero and prints no result.
@@ -314,19 +351,35 @@ def time_ms(fn, flush, iters=20):
     return float(np.median(times))
 
 
-def check_paged_decode(dev, flush, h=16, windowed=True, tag=""):
-    """The paged kernel at h query heads over 8 kv heads of 128 (qwen3-
-    1.7b: h=16; Jamba's attention layer: h=32)."""
+# phase 2, the newcomers' group sizes: (h, hk) of granite-20b (MQA),
+# qwen2.5-32b, deepseek-coder-33b and deepseek-moe-16b (MHA), hd 128
+NEW_GROUPS = ((48, 1), (40, 8), (56, 8), (16, 16))
+
+
+def group_cases(rng):
+    """The newcomers' paged cases: a decode step and a prefill chunk with
+    ~512 tokens a slot."""
+    return [("decode B=8 S=1, slots ~512 tokens", 8, 1, 0,
+             rng.integers(480, 545, 8), 128),
+            ("prefill chunk B=1 S=32", 1, 32, 0, np.array([PROMPT_MAX]),
+             128)]
+
+
+def check_paged_decode(dev, flush, h=16, windowed=True, tag="", hk=8,
+                       cases=None):
+    """The paged kernel at h query heads over hk kv heads of 128 (qwen3-
+    1.7b: h=16, hk=8; Jamba's attention layer: h=32; ``cases`` replaces
+    the default decode and chunk cases)."""
     import torch.nn.functional as F
     from repro_torch.kernels import gqa_split
     from repro_torch.kernels.paged_decode import (
         paged_flash_decode, paged_flash_decode_ref, visible_tokens)
     from repro_torch.models.attention import PagedView, paged_read
 
-    hk, ps = 8, PAGE_SIZE
+    ps = PAGE_SIZE
     W = MAX_LEN // ps
     rng = np.random.default_rng(0)
-    cases = [
+    cases = cases or [
         ("decode B=8 S=1, slots 1..max_len tokens", 8, 1, 0,
          np.linspace(1, W * ps, 8).astype(int), 128),
         ("prefill chunk B=1 S=32", 1, 32, 0, np.array([PROMPT_MAX]), 128),
@@ -708,6 +761,106 @@ def check_flash_attention(dev, flush):
     return rows
 
 
+def check_flash_new_forms(dev, flush):
+    """The flash kernel at the forms the encoder-decoder and the VLM give
+    it: seamless's (64, 64) widths, 16 heads, bidirectional (its
+    encoder, S = T = 1024) and non-causal cross-attention (a decode step,
+    S 1 against 1024 frames; a prefill of 255 targets against 256);
+    llava's slab prefill, (128, 128), 32 q / 8 kv heads, causal, S = T =
+    2880 image rows + 128 tokens; and granite's lockstep slab forms, 48 q
+    heads on one kv head (g = 48), phase 11's prefill (S = T = 512) and
+    its last decode step (S 1 against 576 keys of the 592-row slab, the
+    tail poisoned).  Each against its plain version, timed beside SDPA,
+    with its bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import gqa_split
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+
+    rng = np.random.default_rng(25)
+    cases = [
+        # name, B, S, T, h, hk, hd, causal
+        ("bidirectional B=8 S=T=1024 (64, 64) h=hk=16", 8, 1024, 1024, 16,
+         16, 64, False),
+        ("cross decode B=8 S=1 T=1024 (64, 64) h=hk=16", 8, 1, 1024, 16, 16,
+         64, False),
+        ("cross prefill B=8 S=255 T=256 (64, 64) h=hk=16", 8, 255, 256, 16,
+         16, 64, False),
+        ("llava prefill B=8 S=T=3008 (128, 128) h=32 hk=8", 8, 3008, 3008,
+         32, 8, 128, True),
+        (f"granite prefill B={LEGACY_BATCH} S=T={LEGACY_PROMPT} h=48 hk=1",
+         LEGACY_BATCH, LEGACY_PROMPT, LEGACY_PROMPT, 48, 1, 128, True),
+        (f"granite decode B={LEGACY_BATCH} S=1 T="
+         f"{LEGACY_PROMPT + NEW_TOKENS} h=48 hk=1 (slab slice)", LEGACY_BATCH,
+         1, LEGACY_PROMPT + NEW_TOKENS, 48, 1, 128, True),
+    ]
+    rows = []
+    for name, B, S, T, h, hk, hd, causal in cases:
+        # a slab slice: the keys are the first T rows of the engine's
+        # LEGACY_MAX_LEN-row cache, whose unwritten tail holds POISON
+        L = LEGACY_MAX_LEN if "slab slice" in name else T
+        host = [torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev) for shape in ((B, S, h, hd), (B, L, hk, hd),
+                                               (B, L, hk, hd))]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, kc, vc = (x.to(dtype) for x in host)
+            for t in (kc, vc):
+                t[:, T:] = POISON
+            k, v = kc[:, :T], vc[:, :T]
+            got = flash_attention(q, k, v, causal=causal)
+            want = flash_attention_ref(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            tol = TOL[dtype]
+            if not torch.allclose(got.float(), want.float(), atol=tol,
+                                  rtol=tol):
+                fail(f"flash_attention {name} {dtype}: max |err| {err}")
+            if L > T:
+                for t in (kc, vc):
+                    t[:, T:] = 1e8
+                if not torch.equal(flash_attention(q, k, v, causal=causal),
+                                   got):
+                    fail(f"flash_attention {name} {dtype}: the slab's tail "
+                         "leaked")
+            del got, want
+            # SDPA's is_causal aligns top-left: exact at S == T, and a
+            # decode step (S 1) sees every key without a mask
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            sdpa_causal = causal and S == T
+            sdpa = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=sdpa_causal, enable_gqa=True)
+            backend = sdpa_backend(qt, kt, vt, None, 0.0, sdpa_causal,
+                                   enable_gqa=True)
+            row = {"case": name, "dtype": str(dtype)[6:],
+                   "splits": (gqa_split.plan(B * hk, h // hk * S, T)[1]
+                              if dtype == torch.bfloat16 else 1),
+                   "max_abs_err": err, "tol": tol,
+                   "ms": time_ms(lambda: flash_attention(q, k, v,
+                                                         causal=causal),
+                                 flush),
+                   "plain_ms": time_ms(lambda: flash_attention_ref(
+                       q, k, v, causal=causal), flush, iters=5),
+                   "library_ms": time_ms(sdpa, flush),
+                   "sdpa_backend": backend}
+            n_bytes, ops = flash_bound(B, S, T, h, hk, hd, causal, 0,
+                                       q.element_size())
+            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / PEAK_OPS[dtype] * 1e3
+            row.update(bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       bytes=n_bytes, ops=ops)
+            rows.append(row)
+            print(f"  flash_attention {name:48s} {row['dtype']:8s} splits "
+                  f"{row['splits']}  err {err:.2e} (tol {tol:g})  kernel "
+                  f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  sdpa "
+                  f"{row['library_ms']:.4f} ms ({backend})  bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
+                  f"{n_bytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP)")
+            del q, k, v, kc, vc, qt, kt, vt
+            torch.cuda.empty_cache()
+    return rows
+
+
 def flash_bwd_bound(B, S, T, h, hk, hd, causal, el):
     """Bytes (q, k, v and the output gradient read once; dq, dk, dv
     written once) and operations of the attention backward: 10 hd per
@@ -718,19 +871,22 @@ def flash_bwd_bound(B, S, T, h, hk, hd, causal, el):
     return n_bytes, fwd_ops // 4 * 10
 
 
-def check_flash_train(dev, flush):
-    """The flash kernel at the training shape (B 1, S = T = TRAIN_SEQ,
-    qwen3's 16 q / 8 kv heads of 128, causal): the forward against the
-    plain version, and the gradients of ``FlashAttention`` (the kernel's
-    forward, the plain q-chunked backward) against autograd of the plain
-    version; times beside cuDNN SDPA's forward and forward + backward
-    and beside the bounds."""
+def check_flash_train(dev, flush, case=None, h=16, hk=8, hd=128,
+                      causal=True):
+    """The flash kernel at a training shape (B 1, S = T = TRAIN_SEQ; by
+    default qwen3's 16 q / 8 kv heads of 128, causal; seamless's
+    encoder and decoder give it 16 / 16 heads of 64, non-causal and
+    causal): the forward against the plain version, and the gradients of
+    ``FlashAttention`` (the kernel's forward, the plain q-chunked
+    backward) against autograd of the plain version; times beside SDPA's
+    forward and forward + backward and beside the bounds."""
     import torch.nn.functional as F
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd_ref, flash_attention_ref)
 
-    B, S, h, hk, hd = 1, TRAIN_SEQ, 16, 8, 128
+    B, S = 1, TRAIN_SEQ
+    case = case or f"train B={B} S=T={S} causal"
     rng = np.random.default_rng(13)
     host = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
             for shape in ((B, S, h, hd), (B, S, hk, hd), (B, S, hk, hd),
@@ -738,32 +894,33 @@ def check_flash_train(dev, flush):
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v, dout = (x.to(dev, dtype) for x in host)
-        got = flash_attention(q, k, v)
-        want = flash_attention_ref(q, k, v)
+        got = flash_attention(q, k, v, causal=causal)
+        want = flash_attention_ref(q, k, v, causal=causal)
         err = (got.float() - want.float()).abs().max().item()
         if not torch.allclose(got.float(), want.float(), atol=TOL[dtype],
                               rtol=TOL[dtype]):
-            fail(f"flash_attention train shape {dtype}: max |err| {err}")
+            fail(f"flash_attention {case} {dtype}: max |err| {err}")
         del got, want
         # the Function's gradients against autograd of the plain version
         reset_launch_counts()
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        flash_attention(*leaves).backward(dout)
+        flash_attention(*leaves, causal=causal).backward(dout)
         if launch_counts().get("flash_attention", 0) != 1:
             fail("the autograd Function did not launch the kernel once")
         ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        flash_attention_ref(*ref_leaves).backward(dout)
+        flash_attention_ref(*ref_leaves, causal=causal).backward(dout)
         grad_err = 0.0
         for name, a, b in zip("qkv", leaves, ref_leaves):
             rel = ((a.grad.float() - b.grad.float()).abs().max()
                    / b.grad.float().abs().max()).item()
             grad_err = max(grad_err, rel)
             if not rel <= TRAIN_GRAD_TOL[dtype]:
-                fail(f"flash_attention backward d{name} {dtype}: max |err| "
-                     f"/ max |grad| {rel:.2e} > {TRAIN_GRAD_TOL[dtype]:g}")
+                fail(f"flash_attention {case} backward d{name} {dtype}: max "
+                     f"|err| / max |grad| {rel:.2e} > "
+                     f"{TRAIN_GRAD_TOL[dtype]:g}")
         del leaves, ref_leaves
         torch.cuda.synchronize()
-        row = {"case": f"train B={B} S=T={S} causal", "dtype": str(dtype)[6:],
+        row = {"case": case, "dtype": str(dtype)[6:],
                "max_abs_err": err, "tol": TOL[dtype],
                "grad_rel_err": grad_err,
                "grad_tol": TRAIN_GRAD_TOL[dtype]}
@@ -777,21 +934,23 @@ def check_flash_train(dev, flush):
         qt, kt, vt, dot = (x.transpose(1, 2).contiguous()
                            for x in (q, k, v, dout))
         sdpa = lambda *a: F.scaled_dot_product_attention(
-            *a, is_causal=True, enable_gqa=True)
+            *a, is_causal=causal, enable_gqa=True)
         grads = [t.clone().requires_grad_() for t in (qt, kt, vt)]
-        row["ms"] = time_ms(lambda: flash_attention(q, k, v), flush)
-        row["plain_ms"] = time_ms(lambda: flash_attention_ref(q, k, v), flush)
+        row["ms"] = time_ms(lambda: flash_attention(q, k, v, causal=causal),
+                            flush)
+        row["plain_ms"] = time_ms(
+            lambda: flash_attention_ref(q, k, v, causal=causal), flush)
         row["bwd_plain_ms"] = time_ms(
-            lambda: flash_attention_bwd_ref(q, k, v, dout, causal=True),
+            lambda: flash_attention_bwd_ref(q, k, v, dout, causal=causal),
             flush, iters=5)
         row["library_ms"] = time_ms(lambda: sdpa(qt, kt, vt), flush)
         row["library_fwd_bwd_ms"] = time_ms(
             lambda: torch.autograd.grad(sdpa(*grads), grads, dot), flush)
-        row["sdpa_backend"] = sdpa_backend(qt, kt, vt, None, 0.0, True,
+        row["sdpa_backend"] = sdpa_backend(qt, kt, vt, None, 0.0, causal,
                                            enable_gqa=True)
         for key, (n_bytes, ops) in (
-                ("", flash_bound(B, S, S, h, hk, hd, True, 0, 2)),
-                ("bwd_", flash_bwd_bound(B, S, S, h, hk, hd, True, 2))):
+                ("", flash_bound(B, S, S, h, hk, hd, causal, 0, 2)),
+                ("bwd_", flash_bwd_bound(B, S, S, h, hk, hd, causal, 2))):
             t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
             t_ops = ops / PEAK_OPS[dtype] * 1e3
             row.update({f"{key}bound_ms": max(t_bytes, t_ops),
@@ -2379,13 +2538,14 @@ def _train_run(dev, cfg, tc, batch, steps, tag):
     return res
 
 
-def _train_parity(dev, tag, small, tc, batch, cut=""):
-    """Card vs CPU fp32: 3 steps from the same masters (drawn on the
-    card, copied to the CPU).  Step 1's loss to TRAIN_LOSS_RTOL_FIRST,
+def _train_parity(dev, tag, small, tc, batch, cut="", steps=3):
+    """Card vs CPU fp32: ``steps`` steps from the same masters (drawn on
+    the card, copied to the CPU).  Step 1's loss to TRAIN_LOSS_RTOL_FIRST,
     the later ones to TRAIN_LOSS_RTOL_LATER (phase 14's bars).  Under
-    AdamW each param to 2 x 3 lr: a step moves an entry by at most lr
-    (|m_hat| / sqrt(v_hat) <= 1 for the first steps at beta1^2 < beta2),
-    so two runs from equal masters lie at most 6 lr apart, and an entry
+    AdamW each param to 2 x steps x lr: a step moves an entry by at most
+    lr (|m_hat| / sqrt(v_hat) <= 1 for the first steps at beta1^2 <
+    beta2), so two runs from equal masters lie at most that far apart,
+    and an entry
     whose gradient is within the two devices' rounding of zero can use
     all of it (rwkv6's ln_x magnifies such rounding, PERF.md §6)."""
     import copy
@@ -2403,12 +2563,12 @@ def _train_parity(dev, tag, small, tc, batch, cut=""):
         reset_launch_counts()
         t0 = time.perf_counter()
         losses = []
-        for _ in range(3):
+        for _ in range(steps):
             state, metrics = step(state, batch)
             losses.append(float(metrics["loss"]))
         got[where] = (losses, {k: p.detach().cpu() for k, p in
                                trainable(model).items()})
-        print(f"  {where}: 3 steps in {time.perf_counter() - t0:.1f} s, "
+        print(f"  {where}: {steps} steps in {time.perf_counter() - t0:.1f} s, "
               f"losses {losses}")
         del state, step
     counts = {k: v for k, v in launch_counts().items() if v}
@@ -2416,8 +2576,13 @@ def _train_parity(dev, tag, small, tc, batch, cut=""):
     for kernel, kind in (("wkv6", "rwkv6"), ("mamba_scan", "mamba"),
                          ("flash_attention", "attn")):
         head = small.mtp_depth if kind == "attn" else 0    # not rematted
-        if counts.get(kernel, 0) != 3 * tc.microbatches * (kinds.count(
-                kind) * (2 if tc.remat else 1) + head):
+        calls = kinds.count(kind)
+        if kind == "attn" and small.is_encoder_decoder:
+            # each decoder layer attends twice (self, cross), and each
+            # encoder layer once
+            calls = 2 * calls + small.encoder_layers
+        if counts.get(kernel, 0) != steps * tc.microbatches * (
+                calls * (2 if tc.remat else 1) + head):
             fail(f"{tag}: the card run launched {kernel} "
                  f"{counts.get(kernel, 0)} times, not in every {kind} layer")
     (cpu_l, cpu_p), (card_l, card_p) = got["cpu"], got["cuda"]
@@ -2427,13 +2592,16 @@ def _train_parity(dev, tag, small, tc, batch, cut=""):
     if not rel[0] <= TRAIN_LOSS_RTOL_FIRST or \
             not max(rel[1:]) <= TRAIN_LOSS_RTOL_LATER:
         fail(f"{tag}: card vs CPU losses differ by {rel} relative")
-    if tc.optimizer != "sgd" and not gap <= 2 * 3 * lr:
-        fail(f"{tag}: a param differs card vs CPU by {gap:.2e} > 6 lr")
+    if tc.optimizer != "sgd" and not gap <= 2 * steps * lr:
+        fail(f"{tag}: a param differs card vs CPU by {gap:.2e} > "
+             f"{2 * steps} lr")
+    shape = ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items())
     print(f"{tag}: 2-layer full-width {small.name} fp32 "
-          f"{small.layer_pattern()}{cut}, 3 {tc.optimizer} steps (lr "
-          f"{lr:g}) on {tuple(batch['tokens'].shape)} tokens, card vs CPU: "
+          f"{small.layer_pattern()}{cut}, {steps} {tc.optimizer} steps (lr "
+          f"{lr:g}) on {shape}, card vs CPU: "
           f"step-1 loss {rel[0]:.2e} relative (tol "
-          f"{TRAIN_LOSS_RTOL_FIRST:g}), steps 2-3 {max(rel[1:]):.2e} (tol "
+          f"{TRAIN_LOSS_RTOL_FIRST:g}), steps 2-{steps} {max(rel[1:]):.2e} "
+          f"(tol "
           f"{TRAIN_LOSS_RTOL_LATER:g}), largest param gap {gap:.2e}; card "
           f"launches {json.dumps(counts)}")
     del m_card, m_cpu, got
@@ -3082,6 +3250,458 @@ def spec_trained(dev):
     return out
 
 
+# --------------------------------------------------------------------------
+# phases 24-26: the six newcomers -- four decoder-only stacks, the VLM and
+# the encoder-decoder
+# --------------------------------------------------------------------------
+
+DENSE_MORE = ("granite-20b", "qwen2.5-32b", "deepseek-coder-33b",
+              "deepseek-moe-16b")
+# phase 25: seamless's 8 sources of 1024 frames and 8-token target
+# prompts; llava's 8 requests of 2880 image rows + 128 text tokens
+ENCDEC_BATCH, ENCDEC_FRAMES, ENCDEC_PROMPT = 8, 1024, 8
+VLM_BATCH, VLM_TEXT = 8, 128
+# ... and the fp32 parity runs at 2 full-width layers, batch 1, 8 new
+# tokens: seamless on 128 frames; llava on the reference's make_batch rule
+# at seq 512 (256 image rows, 256 tokens)
+PARITY_NEW, PARITY_FRAMES, PARITY_SEQ = 8, 128, 512
+# ... whose prefill logits may differ card vs CPU by at most this (both
+# fp32 with TF32 off; the two devices' sums differ by ~1e-5 at d 4096)
+PARITY_DLOGIT_TOL = 1e-4
+# phase 26's card-vs-CPU fp32 check at 2 full-width layers (phase 14's
+# form): 2 AdamW steps on one sequence of this length (seamless: 128
+# frames + 128 targets; llava: 64 image rows + 64 tokens); the CPU's
+# AdamW over ~0.6 B params takes most of its ~10 s a step
+PARITY_TRAIN_SEQ = 128
+# phase 26: llava trains at this depth (AdamW's state for 7.24 B does not
+# fit one card)
+VLM_TRAIN_LAYERS = 8
+
+
+def _free():
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_dense_more(dev, lens):
+    """Phase 24: granite-20b, qwen2.5-32b, deepseek-coder-33b and
+    deepseek-moe-16b at full width and depth, bf16, one at a time, serve
+    phase 3's traffic through the continuous scheduler; a decode tick
+    and a prefill chunk traced for the device's idle share; granite also
+    serves phase 11's traffic through the lockstep engine.  Returns
+    {arch: numbers}."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_tokens
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.profile_serve import trace
+    from repro_torch.models import apply_model, init_model
+    from repro_torch.models.attention import PagedView
+    from repro_torch.serve import ContinuousScheduler, ServeEngine
+
+    out = {}
+    for arch in DENSE_MORE:
+        cfg = get_config(arch)
+        rng = np.random.default_rng(0)
+        rng.integers(PROMPT_MIN, PROMPT_MAX + 1, REQUESTS)  # phase 3's lengths
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in lens]
+        torch.cuda.reset_peak_memory_stats()
+        t_phase = t0 = time.perf_counter()
+        model = init_model(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated() / 2**30
+        serve(cfg, model, [prompts[0][:PREFILL_CHUNK]], 2)   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() / 2**30
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        sch, outs = serve(cfg, model, prompts, NEW_TOKENS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        st = sch.stats()
+        calls = st["prefill_dispatches"] + DECODE_CHUNK * st[
+            "decode_dispatches"]
+        launches = counts.get("paged_flash_decode", 0)
+        if launches != cfg.num_layers * calls:
+            fail(f"phase 24 ({arch}): paged_flash_decode launched {launches} "
+                 f"times, expected {cfg.num_layers} x {calls} model calls")
+        for other in ("paged_flash_decode_mla", "wkv6", "mamba_scan",
+                      "flash_attention"):
+            if counts.get(other, 0):
+                fail(f"phase 24 ({arch}): {other} launched on the paged path")
+        if len(outs) != REQUESTS or any(
+                len(o) != NEW_TOKENS or o.min() < 0
+                or o.max() >= cfg.vocab_size for o in outs):
+            fail(f"phase 24 ({arch}): wrong lengths or out-of-vocab tokens")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n_tok = sum(len(o) for o in outs)
+        # the device's idle share: one fused decode tick with every slot
+        # busy, and one 32-token prefill chunk at position 256
+        sch = ContinuousScheduler(cfg, model, slots=SLOTS, max_len=MAX_LEN,
+                                  page_size=PAGE_SIZE,
+                                  decode_chunk=DECODE_CHUNK,
+                                  prefill_chunk=PREFILL_CHUNK)
+        for p in prompts[:SLOTS]:
+            sch.submit(p, NEW_TOKENS)
+        sch._admit()
+        with torch.inference_mode():
+            tick = trace(sch._decode_tick, dev, top=4)
+            kv = sch.kv
+            kv.free(0)
+            kv.alloc(0, 256 + PREFILL_CHUNK)
+            view = PagedView(kv.table([0]), PAGE_SIZE)
+            toks = torch.from_numpy(prompts[0][:PREFILL_CHUNK]).to(dev)[None]
+            pos = torch.full((1,), 256, dtype=torch.int32, device=dev)
+            chunk = trace(lambda: apply_model(
+                cfg, model, toks, cache=kv.slot_cache(0), cache_pos=pos,
+                paged=view, logits=False), dev, top=4)
+        del sch, kv
+        trace_s = time.perf_counter() - t0 - wall
+        rec = {"params": cfg.param_count(), "layers": cfg.num_layers,
+               "group": cfg.num_heads // cfg.num_kv_heads,
+               "init_s": init_s, "init_peak_gib": init_peak,
+               "resident_gib": resident, "peak_gib": peak, "wall_s": wall,
+               "tokens_per_s": n_tok / wall,
+               "ttft_p50_ms": float(np.median(st["ttft_s"])) * 1e3,
+               "model_calls": calls, "paged_launches": launches,
+               "decode_tick": {k: tick[k] for k in (
+                   "wall_ms", "device_busy_ms", "device_idle_share",
+                   "kernel_launches", "top_kernels")},
+               "prefill_chunk": {k: chunk[k] for k in (
+                   "wall_ms", "device_busy_ms", "device_idle_share",
+                   "kernel_launches", "top_kernels")}}
+        print(f"phase 24: {arch} ({rec['params'] / 1e9:.3f} B params, "
+              f"{cfg.num_layers} layers, {cfg.num_heads} q / "
+              f"{cfg.num_kv_heads} kv heads x {cfg.head_dim} (g = "
+              f"{rec['group']}), bf16; initialised in {init_s:.1f} s, init "
+              f"peak {init_peak:.2f} GiB): {REQUESTS} requests "
+              f"({int(lens.sum())} prompt tokens) x {NEW_TOKENS} new on "
+              f"{SLOTS} slots in {wall:.3f} s: {rec['tokens_per_s']:.1f} "
+              f"tokens/s, TTFT p50 {rec['ttft_p50_ms']:.1f} ms, peak memory "
+              f"{peak:.2f} GiB ({resident:.2f} GiB resident); "
+              f"paged_flash_decode launches {launches} = {cfg.num_layers} x "
+              f"{calls}; idle share: decode tick "
+              f"{tick['device_idle_share']:.3f} ({tick['device_busy_ms']:.2f} "
+              f"of {tick['wall_ms']:.2f} ms), prefill chunk "
+              f"{chunk['device_idle_share']:.3f} "
+              f"({chunk['device_busy_ms']:.2f} of {chunk['wall_ms']:.2f} ms; "
+              f"the traces took {trace_s:.1f} s)")
+        if arch == "granite-20b":
+            # phase 11's traffic through the lockstep engine: every
+            # attention call through the flash kernel at g = 48
+            legacy = synthetic_tokens(np.random.default_rng(0), LEGACY_BATCH,
+                                      LEGACY_PROMPT, cfg.vocab_size)
+            ServeEngine(cfg, model, batch_size=2,
+                        max_len=LEGACY_MAX_LEN).generate(legacy[:2, :64], 4)
+            eng = ServeEngine(cfg, model, batch_size=LEGACY_BATCH,
+                              max_len=LEGACY_MAX_LEN)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            toks = eng.generate(legacy, NEW_TOKENS).cpu().numpy()
+            lwall = time.perf_counter() - t0
+            flash = launch_counts().get("flash_attention", 0)
+            if flash != cfg.num_layers * NEW_TOKENS:
+                fail(f"phase 24 (granite lockstep): flash_attention launched "
+                     f"{flash} times, expected {cfg.num_layers} x "
+                     f"{NEW_TOKENS}")
+            if toks.shape != (LEGACY_BATCH, NEW_TOKENS) or toks.min() < 0 \
+                    or toks.max() >= cfg.vocab_size:
+                fail("phase 24 (granite lockstep): bad outputs")
+            rec["lockstep"] = {"wall_s": lwall, "flash_launches": flash,
+                               "tokens_per_s": toks.size / lwall}
+            print(f"phase 24: {arch} through ServeEngine, {LEGACY_BATCH} x "
+                  f"{LEGACY_PROMPT} prompt tokens x {NEW_TOKENS} new in "
+                  f"{lwall:.3f} s: {toks.size / lwall:.1f} tokens/s; "
+                  f"flash_attention launches {flash} = {cfg.num_layers} x "
+                  f"(1 prefill + {NEW_TOKENS - 1} decode calls) at g = 48")
+            del eng
+        del model
+        _free()
+        rec["phase_s"] = time.perf_counter() - t_phase
+        print(f"phase 24: {arch} took {rec['phase_s']:.1f} s in all")
+        out[arch] = rec
+    return out
+
+
+def slab_generate(cfg, model, tokens, new, max_len, cross_len=0, **fronts):
+    """Greedy generation through ``apply_model``'s slab prefill and decode
+    (the reference's only serving path for a VLM or an encoder-decoder):
+    (tokens (B, new) on the host, prefill seconds, wall seconds, the
+    prefill's last logits).  One host sync, at the end."""
+    from repro_torch.models import apply_model, compute_dtype, init_cache
+    dev = tokens.device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    cache = init_cache(cfg, compute_dtype(cfg), batch=tokens.shape[0],
+                       max_len=max_len, cross_len=cross_len, device=dev)
+    sync()
+    t0 = time.perf_counter()
+    first = apply_model(cfg, model, tokens, cache=cache, cache_pos=0,
+                        mode="prefill", last_only=True,
+                        **fronts)["logits"][:, -1]
+    sync()
+    prefill_s = time.perf_counter() - t0
+    # the image rows come first: the decode positions follow them
+    pos = tokens.shape[1] + (fronts["vision_embeds"].shape[1]
+                             if "vision_embeds" in fronts else 0)
+    nxt = first.argmax(-1)[:, None]
+    toks = [nxt]
+    for i in range(new - 1):
+        logits = apply_model(cfg, model, nxt, cache=cache, cache_pos=pos + i,
+                             mode="decode")["logits"][:, -1]
+        nxt = logits.argmax(-1)[:, None]
+        toks.append(nxt)
+    toks = torch.cat(toks, dim=1).cpu().numpy()
+    return toks, prefill_s, time.perf_counter() - t0, first.float().cpu()
+
+
+def _frontend_parity(dev, cfg):
+    """Phase 25's check: ``cfg`` at 2 full-width layers (and 2 encoder
+    layers) in fp32, batch 1, through slab prefill + PARITY_NEW greedy
+    steps on the card and on the CPU from equal weights: equal tokens,
+    prefill logits within PARITY_DLOGIT_TOL, the flash kernel in every
+    attention call of the card's run."""
+    import copy
+    from repro_torch.data import make_batch, synthetic_tokens
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import batch_inputs, init_model
+
+    arch = cfg.name
+    small = cfg.with_overrides(num_layers=2, dtype="float32",
+                               encoder_layers=min(cfg.encoder_layers, 2))
+    rng = np.random.default_rng(1)
+    if cfg.is_encoder_decoder:
+        pb = {"src_embeds": rng.standard_normal(
+            (1, PARITY_FRAMES, cfg.d_model), dtype=np.float32),
+            "tgt_tokens": synthetic_tokens(rng, 1, ENCDEC_PROMPT,
+                                           cfg.vocab_size)}
+        cut = (f"{PARITY_FRAMES} frames, {ENCDEC_PROMPT} target prompt "
+               "tokens")
+    else:
+        pb = make_batch(small, rng, 1, PARITY_SEQ)
+        cut = (f"reduced: {pb['vision_embeds'].shape[1]} image rows (of "
+               f"{cfg.num_frontend_tokens}) + {pb['tokens'].shape[1]} "
+               f"tokens, the reference's make_batch rule at seq "
+               f"{PARITY_SEQ}")
+    m_card = init_model(small, seed=1, device=dev)
+    m_cpu = copy.deepcopy(m_card.cpu())
+    m_card.to(dev)
+    got = {}
+    for where, m in (("cpu", m_cpu), ("cuda", m_card)):
+        on = torch.device("cpu") if where == "cpu" else dev
+        tk, fr = batch_inputs({k: torch.from_numpy(v).to(on)
+                               for k, v in pb.items()})
+        rows = tk.shape[1] + (fr["vision_embeds"].shape[1]
+                              if "vision_embeds" in fr else 0)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        got[where] = slab_generate(
+            small, m, tk, PARITY_NEW, rows + PARITY_NEW,
+            PARITY_FRAMES if cfg.is_encoder_decoder else 0, **fr)
+        print(f"  {where}: {time.perf_counter() - t0:.1f} s")
+    card_flash = launch_counts().get("flash_attention", 0)
+    want = (small.encoder_layers + 2 * small.num_layers * PARITY_NEW
+            if cfg.is_encoder_decoder else small.num_layers * PARITY_NEW)
+    if card_flash != want:
+        fail(f"phase 25 ({arch} fp32): the card launched flash_attention "
+             f"{card_flash} times, expected {want}")
+    dlogit = (got["cpu"][3] - got["cuda"][3]).abs().max().item()
+    if not np.array_equal(got["cpu"][0], got["cuda"][0]):
+        fail(f"phase 25 ({arch} fp32): greedy tokens differ card vs CPU: "
+             f"{got['cpu'][0]} vs {got['cuda'][0]}")
+    if not dlogit <= PARITY_DLOGIT_TOL:
+        fail(f"phase 25 ({arch} fp32): the prefill's logits differ card vs "
+             f"CPU by {dlogit:.2e} > {PARITY_DLOGIT_TOL:g}")
+    print(f"phase 25: 2-layer full-width {arch} fp32, batch 1 ({cut}): "
+          f"greedy tokens equal on card and CPU for {PARITY_NEW} tokens; "
+          f"max |d logit| of the prefill {dlogit:.2e} (tol "
+          f"{PARITY_DLOGIT_TOL:g}); card flash_attention launches "
+          f"{card_flash}")
+    del m_card, m_cpu, got
+    _free()
+    return {"max_abs_dlogit": dlogit, "tol": PARITY_DLOGIT_TOL, "cut": cut,
+            "card_flash_launches": card_flash}
+
+
+def serve_frontends(dev):
+    """Phase 25: seamless-m4t-large-v2 and llava-next-mistral-7b at full
+    width and depth, bf16, through slab prefill + greedy decode; then
+    each at 2 full-width layers in fp32, card vs CPU.  Returns
+    {arch: numbers}."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_tokens
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import init_model
+
+    out = {}
+    for arch in ("seamless-m4t-large-v2", "llava-next-mistral-7b"):
+        cfg = get_config(arch)
+        rng = np.random.default_rng(0)
+        if cfg.is_encoder_decoder:
+            B, n_tok = ENCDEC_BATCH, ENCDEC_PROMPT
+            fronts = {"src_embeds": rng.standard_normal(
+                (B, ENCDEC_FRAMES, cfg.d_model), dtype=np.float32)}
+            cross, rows = ENCDEC_FRAMES, n_tok
+            want = cfg.encoder_layers + 2 * cfg.num_layers * NEW_TOKENS
+            how = (f"{cfg.encoder_layers} (encoder) + {2 * cfg.num_layers} "
+                   f"(prefill) + {NEW_TOKENS - 1} x {2 * cfg.num_layers} "
+                   "(decode)")
+            what = (f"{B} sources of {ENCDEC_FRAMES} frame embeddings, "
+                    f"{n_tok}-token target prompts, cross_len {cross}")
+        else:
+            B, n_tok = VLM_BATCH, VLM_TEXT
+            fronts = {"vision_embeds": rng.standard_normal(
+                (B, cfg.num_frontend_tokens, 1024), dtype=np.float32)}
+            cross, rows = 0, cfg.num_frontend_tokens + n_tok
+            want = cfg.num_layers * NEW_TOKENS
+            how = (f"{cfg.num_layers} x (1 prefill + {NEW_TOKENS - 1} "
+                   "decode calls)")
+            what = (f"{B} requests of {cfg.num_frontend_tokens} image "
+                    f"embeddings + {n_tok} text tokens")
+        tokens = torch.from_numpy(synthetic_tokens(rng, B, n_tok,
+                                                   cfg.vocab_size)).to(dev)
+        fronts = {k: torch.from_numpy(v).to(dev) for k, v in fronts.items()}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = init_model(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        max_len = rows + NEW_TOKENS
+        slab_generate(cfg, model, tokens[:2, :4], 4, max_len, cross,
+                      **{k: v[:2] for k, v in fronts.items()})   # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() / 2**30
+        reset_launch_counts()
+        toks, prefill_s, wall, _ = slab_generate(cfg, model, tokens,
+                                                 NEW_TOKENS, max_len, cross,
+                                                 **fronts)
+        counts = launch_counts()
+        flash = counts.get("flash_attention", 0)
+        if flash != want:
+            fail(f"phase 25 ({arch}): flash_attention launched {flash} times, "
+                 f"expected {want} = {how}")
+        for other in ("paged_flash_decode", "paged_flash_decode_mla", "wkv6",
+                      "mamba_scan"):
+            if counts.get(other, 0):
+                fail(f"phase 25 ({arch}): {other} launched on the slab path")
+        if toks.shape != (B, NEW_TOKENS) or toks.min() < 0 \
+                or toks.max() >= cfg.vocab_size:
+            fail(f"phase 25 ({arch}): outputs {toks.shape} or out of vocab")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        rec = {"params": cfg.param_count(), "init_s": init_s,
+               "resident_gib": resident, "peak_gib": peak,
+               "prefill_ms": prefill_s * 1e3, "wall_s": wall,
+               "tokens_per_s": toks.size / wall, "flash_launches": flash}
+        print(f"phase 25: {arch} ({rec['params'] / 1e9:.3f} B params by the "
+              f"reference's formula, {cfg.num_layers} layers"
+              + (f" + {cfg.encoder_layers} encoder layers"
+                 if cfg.is_encoder_decoder else "")
+              + f", bf16; initialised in {init_s:.1f} s): {what}, "
+              f"{NEW_TOKENS} greedy new tokens through apply_model's slab "
+              f"prefill + decode in {wall:.3f} s: {rec['tokens_per_s']:.1f} "
+              f"tokens/s, prefill {prefill_s * 1e3:.1f} ms, peak memory "
+              f"{peak:.2f} GiB ({resident:.2f} GiB resident); flash_attention "
+              f"launches {flash} = {how}")
+        del model, fronts, tokens
+        _free()
+
+        rec["fp32_parity"] = _frontend_parity(dev, cfg)
+        out[arch] = rec
+    return out
+
+
+def train_frontends(dev):
+    """Phase 26: seamless-m4t-large-v2 at full size and
+    llava-next-mistral-7b cut to 8 layers, 1 + 5 AdamW steps, bf16 on
+    fp32 masters, remat, on 2 x 4096 in 2 microbatches; then each at 2
+    full-width layers in fp32, 2 AdamW steps card vs CPU.  Returns
+    {arch: numbers}."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step, trainable)
+
+    out = {}
+    for arch, cut in (("seamless-m4t-large-v2", None),
+                      ("llava-next-mistral-7b", VLM_TRAIN_LAYERS)):
+        cfg = get_config(arch)
+        if cut:
+            cfg = cfg.with_overrides(num_layers=cut)
+        tc = TrainConfig(optimizer="adamw", lr=TRAIN_LR,
+                         microbatches=TRAIN_MICRO, remat=True)
+        batch = make_batch(cfg, np.random.default_rng(0), TRAIN_BATCH,
+                           TRAIN_SEQ)
+        t0 = time.perf_counter()
+        state = init_train_state(cfg, tc, seed=0, device=dev)
+        step, _ = make_train_step(cfg, tc)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in trainable(state.params).values())
+        init_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        losses, walls = [], []
+        for _ in range(1 + TRAIN_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            walls.append(time.perf_counter() - t0)
+        flash = launch_counts().get("flash_attention", 0)
+        per_micro = (cfg.encoder_layers + 2 * cfg.num_layers
+                     if cfg.is_encoder_decoder else cfg.num_layers)
+        want = (1 + TRAIN_TIMED) * TRAIN_MICRO * per_micro * 2
+        if flash != want:
+            fail(f"phase 26 ({arch}): flash_attention launched {flash} times, "
+                 f"expected {want} = {1 + TRAIN_TIMED} steps x {TRAIN_MICRO} "
+                 f"microbatches x {per_micro} attention calls x 2 (forward + "
+                 "remat recompute)")
+        if not all(np.isfinite(losses)):
+            fail(f"phase 26 ({arch}): losses {losses} are not finite")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        wall = float(np.median(walls[1:]))
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        mfu = 6 * n_params * tokens / wall / PEAK_OPS[torch.bfloat16]
+        rec = {"params": n_params, "layers": cfg.num_layers,
+               "cut": f"num_layers {get_config(arch).num_layers} -> {cut}"
+               if cut else None, "init_s": init_s, "losses": losses,
+               "step_ms": wall * 1e3,
+               "step_walls_ms": [w * 1e3 for w in walls],
+               "tokens_per_s": tokens / wall, "mfu": mfu, "peak_gib": peak,
+               "flash_launches": flash}
+        shape = ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items())
+        print(f"phase 26: {arch}"
+              + (f" reduced: num_layers {get_config(arch).num_layers} -> "
+                 f"{cut}" if cut else " at full size")
+              + f" ({n_params / 1e9:.3f} B fp32 masters, bf16 compute, "
+              f"AdamW lr {TRAIN_LR:g}, remat) on {shape} in {TRAIN_MICRO} "
+              f"microbatches: losses {', '.join(f'{x:.4f}' for x in losses)}; "
+              f"step wall median {wall * 1e3:.1f} ms (first "
+              f"{walls[0] * 1e3:.1f} ms), {tokens / wall:.1f} tokens/s, mfu "
+              f"{mfu:.4f} (6 N tokens, {tokens} tokens a step), peak "
+              f"{peak:.2f} GiB; flash_attention launches {flash} = "
+              f"{1 + TRAIN_TIMED} x {TRAIN_MICRO} x {per_micro} x 2")
+        del state, step, batch
+        _free()
+        # card vs CPU in fp32 at 2 full-width layers (phase 14's form)
+        full = get_config(arch)
+        small = full.with_overrides(num_layers=2, dtype="float32",
+                                    encoder_layers=min(full.encoder_layers,
+                                                       2))
+        rec["parity"] = _train_parity(
+            dev, "phase 26", small, TrainConfig(optimizer="adamw",
+                                                lr=TRAIN_LR),
+            make_batch(small, np.random.default_rng(26), 1, PARITY_TRAIN_SEQ),
+            f", reduced: encoder_layers {full.encoder_layers} -> 2"
+            if full.is_encoder_decoder else "", steps=2)
+        out[arch] = rec
+    return out
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3136,6 +3756,14 @@ def main():
     rows = check_paged_decode(dev, flush)
     jamba_rows = check_paged_decode(dev, flush, h=32, windowed=False,
                                     tag="jamba h=32: ")
+    print("  paged_flash_decode at the newcomers' group sizes (granite g 48 "
+          "over 1 kv head, qwen2.5-32b g 5, deepseek-coder-33b g 7, "
+          "deepseek-moe-16b g 1): tolerances as above")
+    group_rows = []
+    for h, hk in NEW_GROUPS:
+        group_rows += check_paged_decode(
+            dev, flush, h=h, hk=hk, windowed=False, tag=f"h={h} hk={hk}: ",
+            cases=group_cases(np.random.default_rng(h)))
     print(f"  wkv6 tolerance: atol {WKV_ATOL:g} in fp32, the reference's own "
           "WKV bar (the chunked form re-associates the time sums); bf16 y "
           f"also rtol {WKV_BF16_RTOL:g}, one bf16 step, since both sides "
@@ -3167,6 +3795,20 @@ def main():
     print(f"  flash_attention at MLA's widths (q, k 192, v 128; DeepSeek-V3's "
           f"train and prefill branch): tolerances as above")
     flash_mla_rows = check_flash_mla(dev, flush)
+    print("  flash_attention at the encoder-decoder's and the VLM's forms "
+          "(bidirectional and non-causal cross at (64, 64); llava's prefill "
+          "at 2880 + 128 rows) and at granite's lockstep forms (g = 48): "
+          "tolerances as above")
+    flash_new_rows = check_flash_new_forms(dev, flush)
+    print(f"  flash_attention at seamless's training shapes ((64, 64), 16 q "
+          f"/ 16 kv heads, B 1, S = T = {TRAIN_SEQ}: the encoder's and the "
+          "cross-attention's non-causal form, the decoder's causal "
+          "self-attention): tolerances as at qwen3's training shape")
+    for causal in (False, True):
+        flash_new_rows += check_flash_train(
+            dev, flush, f"seamless train B=1 S=T={TRAIN_SEQ} (64, 64) "
+            f"h=hk=16 {'causal' if causal else 'non-causal'}", h=16, hk=16,
+            hd=64, causal=causal)
     print(f"  WKV6 and MambaScan gradients (kernel forward, plain backward) "
           f"against autograd of the plain chunked forms: max |err| / max "
           f"|grad| fp32 {TRAIN_GRAD_TOL[torch.float32]:g}, bf16 "
@@ -3177,11 +3819,12 @@ def main():
         print(json.dumps({"phase2": {
             "max_splits": gqa_split.MAX_SPLITS,
             "mla_max_splits": mla_split.MAX_SPLITS,
-            "paged_flash_decode": rows + jamba_rows,
+            "paged_flash_decode": rows + jamba_rows + group_rows,
             "wkv6": wkv_rows + scan_grad_rows["wkv6"],
             "mamba_scan": mamba_rows + scan_grad_rows["mamba_scan"],
             "paged_flash_decode_mla": mla_rows,
-            "flash_attention": flash_rows + train_rows + flash_mla_rows}}))
+            "flash_attention": flash_rows + train_rows + flash_mla_rows
+            + flash_new_rows}}))
         print(card_line())
         return
 
@@ -3265,6 +3908,9 @@ def main():
     slab_out = serve_slab_archs(dev)
     arch_train_out = train_archs(dev)
     spec_trained_out = spec_trained(dev)
+    dense_out = serve_dense_more(dev, lens)
+    front_out = serve_frontends(dev)
+    front_train_out = train_frontends(dev)
 
     decode_bf16, chunk_bf16, verify_bf16 = (
         next(r for r in rows if r["case"] == case and r["dtype"] == "bfloat16")
@@ -3279,7 +3925,7 @@ def main():
         "launches": launches, "launches_jamba": jamba_paged_launches,
         "launches_from_checkpoint": ckpt_out["paged_flash_decode_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows + jamba_rows
-                           if r["dtype"] == "bfloat16"),
+                           + group_rows if r["dtype"] == "bfloat16"),
         "ms": decode_bf16["ms"], "plain_ms": decode_bf16["plain_ms"],
         "bound_ms": decode_bf16["bound_ms"],
         "bound_by": decode_bf16["bound_by"],
@@ -3292,7 +3938,14 @@ def main():
         "prefix": prefix_out,
         "launches_spec_trained": spec_trained_out["launches"],
         "spec_trained": spec_trained_out,
-        "cases": rows + jamba_rows,
+        "launches_dense_more": {a: r["paged_launches"]
+                                for a, r in dense_out.items()},
+        "dense_more": dense_out,
+        "group_sizes": {r["case"]: {key: r[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "splits",
+            "blocks", "max_abs_err")} for r in group_rows
+            if r["dtype"] == "bfloat16"},
+        "cases": rows + jamba_rows + group_rows,
     }
     wkv_bf16 = next(r for r in wkv_rows if r["case"].startswith("prefill")
                     and r["dtype"] == "bfloat16")
@@ -3366,7 +4019,7 @@ def main():
         "replaces": "src/repro/kernels/flash_attention.py:33",
         "launches": flash_launches,
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows + train_rows
-                           if r["dtype"] == "bfloat16"),
+                           + flash_new_rows if r["dtype"] == "bfloat16"),
         "ms": timed["decode"]["ms"], "plain_ms": timed["decode"]["plain_ms"],
         "bound_ms": timed["decode"]["bound_ms"],
         "bound_by": timed["decode"]["bound_by"],
@@ -3394,7 +4047,16 @@ def main():
             "sdpa_backend", "bwd_plain_ms", "library_fwd_bwd_ms",
             "bwd_bound_ms", "bwd_bound_by", "grad_rel_err")},
             "step": train_out},
-        "cases": flash_rows + train_rows + flash_mla_rows,
+        "launches_granite_lockstep": dense_out["granite-20b"]["lockstep"][
+            "flash_launches"],
+        "launches_frontends": {a: r["flash_launches"]
+                               for a, r in front_out.items()},
+        "launches_frontend_train": {a: r["flash_launches"]
+                                    for a, r in front_train_out.items()},
+        "frontends": front_out, "frontend_train": front_train_out,
+        "new_forms": {r["case"]: {key: r[key] for key in r if key != "case"}
+                      for r in flash_new_rows if r["dtype"] == "bfloat16"},
+        "cases": flash_rows + train_rows + flash_mla_rows + flash_new_rows,
     }
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [entry, wkv_entry, mamba_entry,

@@ -11,7 +11,10 @@ w_gate (E, d, f), w_down (E, f, d)}, optional router_bias and
 ``shared`` MLP), the Mamba and RWKV mixers as in ``models.ssm`` (an
 RWKV block: norm1, norm2 and a mixer with the nested ``ln_x:
 {"scale"}``, no ffn; DeepSeek-V3's multi-token-prediction head
-``params["mtp"]``: norm_h, norm_e, proj and an ("attn", "mlp") block)
+``params["mtp"]``: norm_h, norm_e, proj and an ("attn", "mlp") block;
+an encoder-decoder's ``params["encoder"]`` stacked on the encoder's own
+``n_rep``, ``enc_norm`` and, in each decoder layer, ``norm_cross`` and
+``cross``; a VLM's ``vision_proj`` {w1, b1, w2, b2})
 -- so the bridge only unstacks.  Weights the
 reference reads in fp32 (Mamba's A_log and D, the router) stay fp32
 in a bf16 model, so they round-trip exactly.
@@ -36,12 +39,13 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.model import Model, PaperNet
+from repro_torch.models.model import Model, PaperNet, encoder_cfg
 
 # mixer norms the reference nests as {"scale": t}; ``Layer`` flattens them
 NESTED_SCALES = ("q_norm", "k_norm", "kv_norm", "ln_x")
 # top-level keys of the reference's tree the port serves from
-SERVED_KEYS = ("embed", "decoder", "final_norm", "unembed", "mtp")
+SERVED_KEYS = ("embed", "decoder", "final_norm", "unembed", "mtp",
+               "encoder", "enc_norm", "vision_proj")
 
 
 def _tensor(a) -> torch.Tensor:
@@ -73,9 +77,16 @@ def params_from_jax(tree, cfg, *, device="cuda", train=False) -> Model:
     """The reference's params (a tree of numpy arrays) as the port's
     ``Model`` on ``device``, each weight cast once to ``cfg.dtype``; or,
     with ``train``, a training ``Model`` of trainable fp32 masters, one
-    per leaf of the tree.  A key the port does not serve raises rather
-    than being dropped silently."""
-    unknown = sorted(set(tree) - set(SERVED_KEYS))
+    per leaf of the tree.  A key the port does not serve, or one that
+    ``cfg`` has no place for (an encoder without ``is_encoder_decoder``, a
+    projector without the vision frontend), raises rather than being
+    dropped silently."""
+    served = set(SERVED_KEYS)
+    if not cfg.is_encoder_decoder:
+        served -= {"encoder", "enc_norm"}
+    if cfg.frontend != "vision":
+        served.discard("vision_proj")
+    unknown = sorted(set(tree) - served)
     if unknown:
         raise ValueError(f"params_from_jax: the port does not serve the "
                          f"reference's {unknown}")
@@ -85,7 +96,10 @@ def params_from_jax(tree, cfg, *, device="cuda", train=False) -> Model:
             "layers": (_map(_tensor, t)
                        for t in layer_trees(cfg, tree["decoder"])),
             "final_norm": _map(_tensor, tree["final_norm"])}
-    for key in ("unembed", "mtp"):
+    if "encoder" in tree:
+        port["encoder"] = (_map(_tensor, t) for t in layer_trees(
+            encoder_cfg(cfg), tree["encoder"]))
+    for key in ("unembed", "mtp", "enc_norm", "vision_proj"):
         if key in tree:
             port[key] = _map(_tensor, tree[key])
     return Model(cfg, port, device=dev, train=train)
@@ -98,12 +112,15 @@ def _layer_tree(layer, leaf) -> dict:
         return {k: leaf(v) if isinstance(v, torch.Tensor) else ffn_tree(v)
                 for k, v in node.items()}
 
-    mixer = {k: ({"scale": leaf(v)} if k in NESTED_SCALES else leaf(v))
-             for k, v in layer.mixer.items()}
-    tree = {"norm1": {"scale": leaf(layer.norm1)}, "mixer": mixer,
+    nest = lambda d: {k: ({"scale": leaf(v)} if k in NESTED_SCALES
+                          else leaf(v)) for k, v in d.items()}
+    tree = {"norm1": {"scale": leaf(layer.norm1)}, "mixer": nest(layer.mixer),
             "norm2": {"scale": leaf(layer.norm2)}}
     if layer.ffn is not None:
         tree["ffn"] = ffn_tree(layer.ffn)
+    if layer.cross is not None:
+        tree["norm_cross"] = {"scale": leaf(layer.norm_cross)}
+        tree["cross"] = nest(layer.cross)
     return tree
 
 
@@ -112,26 +129,35 @@ def params_to_numpy(model: Model, cfg) -> dict:
     (layers restacked on ``n_rep``) as numpy arrays of the port's
     weights -- bitwise the input when the compute dtype is fp32 or the
     model holds fp32 masters (``train``)."""
-    prefix, pattern, n_rep = cfg.block_structure()
     np_ = lambda t: t.detach().float().cpu().numpy() \
         if t.dtype == torch.bfloat16 else t.detach().cpu().numpy()
-    trees = [_layer_tree(layer, np_) for layer in model.layers]
-    n_pre, P = len(prefix), len(pattern)
-    blocks = {}
-    for j in range(P):
-        reps = [trees[n_pre + rep * P + j] for rep in range(n_rep)]
-        blocks[f"layer{j}"] = _stack(reps)
     out = {"embed": {"table": np_(model.unembed_f32) if cfg.tie_embeddings
                      else np_(model.embed)},
-           "decoder": {"prefix": {f"layer{i}": trees[i]
-                                  for i in range(n_pre)},
-                       "blocks": blocks},
+           "decoder": _stack_layers(cfg, model.layers, np_),
            "final_norm": {"scale": np_(model.final_norm)}}
     if not cfg.tie_embeddings:
         out["unembed"] = {"table": np_(model.unembed_f32)}
     if model.mtp is not None:
         out["mtp"] = _mtp_tree(model.mtp, np_)
+    if model.encoder is not None:
+        out["encoder"] = _stack_layers(encoder_cfg(cfg), model.encoder, np_)
+        out["enc_norm"] = {"scale": np_(model.enc_norm)}
+    if model.vision_proj is not None:
+        out["vision_proj"] = {k: np_(v) for k, v in
+                              model.vision_proj.items()}
     return out
+
+
+def _stack_layers(cfg, layers, leaf) -> dict:
+    """A stack's layers in the reference's layout: {"prefix": {layer{i}},
+    "blocks": {layer{j}: stacked on n_rep}}."""
+    prefix, pattern, n_rep = cfg.block_structure()
+    trees = [_layer_tree(layer, leaf) for layer in layers]
+    n_pre, P = len(prefix), len(pattern)
+    return {"prefix": {f"layer{i}": trees[i] for i in range(n_pre)},
+            "blocks": {f"layer{j}": _stack([trees[n_pre + rep * P + j]
+                                            for rep in range(n_rep)])
+                       for j in range(P)}}
 
 
 def _mtp_tree(head, leaf) -> dict:
@@ -177,7 +203,7 @@ def _stack(trees):
 # --------------------------------------------------------------------------
 
 _TOP_KEYS = {"embed": "embed/table", "unembed_f32": "unembed/table",
-             "final_norm": "final_norm/scale"}
+             "final_norm": "final_norm/scale", "enc_norm": "enc_norm/scale"}
 
 
 def reference_key(model, name) -> tuple:
@@ -189,7 +215,9 @@ def reference_key(model, name) -> tuple:
     other module (a Table-1 ``PaperNet``: ``layers.0.w`` ->
     ``layers/0/w``): its dotted name with slashes, unstacked.  The MTP
     head's ``mtp.*`` are ``mtp/*``, its norms and its block's nested as
-    {"scale"}."""
+    {"scale"}.  An encoder-decoder's ``encoder.{i}.*`` are the
+    encoder's layers, stacked on its own ``n_rep``; a VLM's
+    ``vision_proj.*`` are ``vision_proj/*``."""
     if not isinstance(model, Model):
         return name.replace(".", "/"), None
     if name in _TOP_KEYS:
@@ -201,23 +229,28 @@ def reference_key(model, name) -> tuple:
         elif rest[0] == "block":
             rest = ["block"] + _nest_scale(rest[1:])
         return "/".join(["mtp", *rest]), None
-    if head != "layers":
+    if head == "vision_proj":
+        return "/".join([head, *rest]), None
+    stacks = {"layers": ("decoder", model.cfg),
+              "encoder": ("encoder", encoder_cfg(model.cfg))}
+    if head not in stacks:
         raise ValueError(f"no reference path for the port's {name!r}")
+    top, cfg = stacks[head]
     i, *rest = rest
     rest = _nest_scale(rest)
-    prefix, pattern, _ = model.cfg.block_structure()
+    prefix, pattern, _ = cfg.block_structure()
     i = int(i)
     if i < len(prefix):
-        return "/".join(["decoder", "prefix", f"layer{i}", *rest]), None
+        return "/".join([top, "prefix", f"layer{i}", *rest]), None
     rep, j = divmod(i - len(prefix), len(pattern))
-    return "/".join(["decoder", "blocks", f"layer{j}", *rest]), rep
+    return "/".join([top, "blocks", f"layer{j}", *rest]), rep
 
 
 def _nest_scale(rest) -> list:
     """A layer's parameter path, with "scale" appended where the
     reference nests a norm as {"scale"}."""
-    if rest[0] in ("norm1", "norm2") or (rest[0] == "mixer"
-                                         and rest[1] in NESTED_SCALES):
+    if rest[0] in ("norm1", "norm2", "norm_cross") or (
+            rest[0] in ("mixer", "cross") and rest[1] in NESTED_SCALES):
         return rest + ["scale"]
     return rest
 
@@ -246,12 +279,17 @@ def reference_shapes(cfg) -> dict:
     """{reference path: shape} of ``cfg``'s trainable params (a stacked
     leaf with ``n_rep`` in front), in the reference's flatten order --
     what a flat master vector of ``cfg`` unflattens into.  Read from a
-    training model of one repetition and an 8-row table, drawn on the
-    CPU (a full-width layer is held for the call)."""
+    training model of one repetition of each stack (an encoder-decoder's
+    encoder too) and an 8-row table, drawn on the CPU (a full-width
+    layer is held for the call)."""
     from repro_torch.models.model import init_model
     prefix, pattern, n_rep = cfg.block_structure()
     small = cfg.with_overrides(num_layers=len(prefix) + len(pattern),
                                vocab_size=8)
+    reps = {"decoder": n_rep}
+    if cfg.is_encoder_decoder:
+        e_pre, e_pat, reps["encoder"] = encoder_cfg(cfg).block_structure()
+        small = small.with_overrides(encoder_layers=len(e_pre) + len(e_pat))
     model = init_model(small, device="cpu", train=True)
     masters = dict(model.named_parameters())
     shapes = {}
@@ -259,7 +297,8 @@ def reference_shapes(cfg) -> dict:
         shp = tuple(masters[names[0]].shape)
         if path in ("embed/table", "unembed/table"):
             shp = (cfg.vocab_size,) + shp[1:]
-        shapes[path] = ((n_rep,) + shp) if stacked else shp
+        shapes[path] = ((reps[path.split("/")[0]],) + shp) if stacked \
+            else shp
     return {k: shapes[k] for k in sorted(shapes, key=reference_order)}
 
 
@@ -323,6 +362,13 @@ def serving_model(model: Model) -> Model:
     tree = {"embed": {"table": clone(model.embed)},
             "layers": (_layer_tree(layer, clone) for layer in model.layers),
             "final_norm": {"scale": clone(model.final_norm)}}
+    if model.encoder is not None:
+        tree["encoder"] = (_layer_tree(layer, clone)
+                           for layer in model.encoder)
+        tree["enc_norm"] = {"scale": clone(model.enc_norm)}
+    if model.vision_proj is not None:
+        tree["vision_proj"] = {k: clone(v)
+                               for k, v in model.vision_proj.items()}
     if not model.cfg.tie_embeddings:
         tree["unembed"] = {"table": clone(model.unembed_f32)}
     if model.mtp is not None:

@@ -1,22 +1,40 @@
 """Config registry: ``get_config(arch_id)`` + reduced smoke variants.
 
-Only the architectures the port serves are registered; others join
-with the slices that port their layers.
+All ten of the reference's architectures: decoder-only stacks of GQA,
+MLA, Mamba and RWKV-6 layers with MLP or MoE ffns, the VLM
+(``llava-next-mistral-7b``, vision frontend stub) and the
+encoder-decoder (``seamless-m4t-large-v2``, audio frontend stub); and
+the input shapes with ``config_for_shape``'s long-context variants.
 """
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.configs.base import (
+    DECODE_32K, INPUT_SHAPES, LONG_500K, PREFILL_32K, TRAIN_4K, InputShape,
     MLAConfig, MambaConfig, ModelConfig, MoEConfig, PaperNetConfig,
     RWKVConfig)
-from repro_torch.configs import (deepseek_v3_671b, jamba_v0p1_52b,
-                                 qwen3_1p7b, rwkv6_1p6b)
+from repro_torch.configs import (
+    deepseek_coder_33b, deepseek_moe_16b, deepseek_v3_671b, granite_20b,
+    jamba_v0p1_52b, llava_next_mistral_7b, qwen2p5_32b, qwen3_1p7b,
+    rwkv6_1p6b, seamless_m4t_large_v2)
 from repro_torch.configs.paper_nets import PAPER_NETS
 
 ARCHITECTURES = {m.CONFIG.name: m.CONFIG
                  for m in (qwen3_1p7b, rwkv6_1p6b, jamba_v0p1_52b,
-                           deepseek_v3_671b)}
+                           deepseek_v3_671b, granite_20b, qwen2p5_32b,
+                           deepseek_coder_33b, deepseek_moe_16b,
+                           llava_next_mistral_7b, seamless_m4t_large_v2)}
+
+# archs that do not take long_500k at all: a 524k-frame source is outside
+# the encoder-decoder speech family's range
+LONG_500K_SKIPS = {"seamless-m4t-large-v2"}
+# full-attention archs that take the sliding-window variant for long_500k
+SWA_FOR_LONG = {
+    "deepseek-coder-33b", "granite-20b", "qwen2.5-32b", "qwen3-1.7b",
+    "deepseek-moe-16b", "deepseek-v3-671b", "llava-next-mistral-7b",
+}
+SWA_WINDOW = 8192
 
 
 # depth cuts of the configs whose bf16 weights do not fit one 80 GB card;
@@ -34,6 +52,19 @@ def get_config(arch: str) -> ModelConfig:
     return ARCHITECTURES[arch]
 
 
+def config_for_shape(arch: str, shape_name: str) -> ModelConfig:
+    """The arch's config for an input shape: long_500k raises for
+    ``LONG_500K_SKIPS`` and takes ``swa_window=SWA_WINDOW`` for
+    ``SWA_FOR_LONG``; every other pair is the config itself."""
+    cfg = get_config(arch)
+    if shape_name == "long_500k":
+        if arch in LONG_500K_SKIPS:
+            raise ValueError(f"{arch} skips long_500k")
+        if arch in SWA_FOR_LONG:
+            cfg = cfg.with_overrides(swa_window=SWA_WINDOW)
+    return cfg
+
+
 def one_card_config(arch: str) -> ModelConfig:
     """The full-width config, its depth cut where ``ONE_CARD_LAYERS``
     says so."""
@@ -49,8 +80,8 @@ def smoke_config(arch: str) -> ModelConfig:
     generous capacity (8.0); RWKV stacks get 8 heads of 32 and LoRA
     ranks 16 / 8; Mamba stacks d_state 8 with attention at layer 1 of
     every 2; MLA q_lora 64, kv_lora 32, nope 32, rope 16, v 32 with
-    head_dim 48 -- the reference's ``smoke_config`` for the archs
-    registered here."""
+    head_dim 48; an encoder-decoder 2 encoder layers, a vision stack 16
+    frontend tokens -- the reference's ``smoke_config``."""
     cfg = get_config(arch)
     ratio = max(1, cfg.num_heads // max(cfg.num_kv_heads, 1))
     kw = dict(num_layers=2, d_model=256, num_heads=4,
@@ -74,9 +105,16 @@ def smoke_config(arch: str) -> ModelConfig:
     if cfg.ssm_kind == "mamba":
         kw.update(mamba=MambaConfig(d_state=8, d_conv=4, expand=2),
                   attn_layer_period=2, attn_layer_offset=1)
+    if cfg.is_encoder_decoder:
+        kw["encoder_layers"] = 2
+    if cfg.frontend == "vision":
+        kw["num_frontend_tokens"] = 16
     return cfg.with_overrides(**kw)
 
 
 __all__ = ["ModelConfig", "MoEConfig", "MambaConfig", "RWKVConfig",
-           "MLAConfig", "PaperNetConfig", "PAPER_NETS", "ARCHITECTURES",
-           "ONE_CARD_LAYERS", "get_config", "one_card_config", "smoke_config"]
+           "MLAConfig", "PaperNetConfig", "InputShape", "INPUT_SHAPES",
+           "TRAIN_4K", "PREFILL_32K", "DECODE_32K", "LONG_500K",
+           "PAPER_NETS", "ARCHITECTURES", "ONE_CARD_LAYERS",
+           "LONG_500K_SKIPS", "SWA_FOR_LONG", "SWA_WINDOW", "get_config",
+           "config_for_shape", "one_card_config", "smoke_config"]

@@ -2,7 +2,7 @@
 
 Frozen dataclasses, field for field the reference's ``ModelConfig`` and
 its sub-configs, so a config built here describes the same network as
-the reference's.  The reference's ``decode_kernel`` switch has no
+the reference's; and the reference's four input shapes.  The reference's ``decode_kernel`` switch has no
 counterpart: the port picks the paged-decode kernel from the tensor's
 device (CUDA kernel on the card, plain PyTorch on the CPU).
 """
@@ -221,13 +221,20 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Total parameter count by the reference's formula, walking the
-        layer pattern (an RWKV block carries its own channel mix)."""
+        layer pattern (an RWKV block carries its own channel mix); an
+        encoder-decoder adds its encoder's attention + MLP layers and a
+        cross-attention a decoder layer.  The vision projector is not
+        counted, as there."""
         total = self.vocab_size * self.d_model * (1 if self.tie_embeddings
                                                   else 2)
         for mixer, ffn in self.layer_pattern():
             total += self._mixer_params(mixer)
             if mixer != "rwkv6":
                 total += self.ffn_params(ffn)
+        if self.is_encoder_decoder:
+            total += self.encoder_layers * (self.attn_params()
+                                            + self.ffn_params("mlp"))
+            total += self.num_layers * self.attn_params()
         return total
 
     def with_overrides(self, **kw) -> "ModelConfig":
@@ -251,3 +258,24 @@ class PaperNetConfig:
     fc_size: int = 0
     num_classes: int = 0
     dataset: str = ""
+
+
+# --------------------------------------------------------------------------
+# Input shapes (the reference's four)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                        # train | prefill | decode
+
+
+TRAIN_4K = InputShape("train_4k", 4_096, 256, "train")
+PREFILL_32K = InputShape("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = InputShape("decode_32k", 32_768, 128, "decode")
+LONG_500K = InputShape("long_500k", 524_288, 1, "decode")
+
+INPUT_SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K,
+                                    LONG_500K)}

@@ -74,7 +74,19 @@ def synthetic_tokens(rng: np.random.Generator, batch, seq_len, vocab):
 
 
 def make_batch(cfg, rng: np.random.Generator, batch, seq):
-    """A decoder-only training batch ``{"tokens": (batch, seq) int32}``
-    drawn from ``rng``.  The reference's encoder-decoder and vision
-    batches wait with those frontends (``models.check_ported``)."""
-    return {"tokens": synthetic_tokens(rng, batch, seq, cfg.vocab_size)}
+    """A training batch drawn from ``rng``, by the reference's rules:
+    ``{"tokens": (batch, seq) int32}``; an encoder-decoder's
+    ``{"src_embeds": (batch, seq, d) fp32 N(0, 1), "tgt_tokens"}``; a
+    VLM's ``nv = min(num_frontend_tokens, seq // 2)`` image rows
+    ``"vision_embeds": (batch, nv, 1024)`` fp32 N(0, 1) and ``seq -
+    nv`` tokens."""
+    toks = synthetic_tokens(rng, batch, seq, cfg.vocab_size)
+    if cfg.is_encoder_decoder:
+        return {"src_embeds": rng.standard_normal(
+            (batch, seq, cfg.d_model), dtype=np.float32), "tgt_tokens": toks}
+    if cfg.frontend == "vision":
+        nv = min(cfg.num_frontend_tokens, seq // 2)
+        return {"tokens": toks[:, :seq - nv],
+                "vision_embeds": rng.standard_normal((batch, nv, 1024),
+                                                     dtype=np.float32)}
+    return {"tokens": toks}

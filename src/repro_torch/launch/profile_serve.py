@@ -51,8 +51,9 @@ def trace(fn, device, top=8, by_kind=()):
     the device ms of each kind (the first that matches; "other" for the
     rest)."""
     torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: the host's op events are not read, and at a
+    # 64-layer decode tick their processing took ~20 s
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize(device)

@@ -43,9 +43,13 @@ slab engine, ``--engine legacy``) on the card.
 Without --reduced the full-width config serves in bf16 (Jamba cut to
 one 8-layer super-block, DeepSeek-V3 to its 3 dense layers and first
 MoE layer: ``configs.one_card_config``); with it, the smoke config in
-fp32.  The weights are drawn from --seed, or with --restore read from
-a checkpoint either package's training wrote (the sharded store or the
-legacy npz; --step, default the latest).  Prompts come from
+fp32.  Every decoder-only text architecture serves (granite-20b,
+qwen2.5-32b, deepseek-coder-33b and deepseek-moe-16b at full depth);
+the VLM and the encoder-decoder are refused, as the reference's
+launcher refuses them: they serve through ``apply_model``'s slab
+prefill and decode.  The weights are drawn from --seed, or with
+--restore read from a checkpoint either package's training wrote (the
+sharded store or the legacy npz; --step, default the latest).  Prompts come from
 ``synthetic_tokens`` seeded by --seed.  The default device is the card;
 a machine without one raises unless --device cpu is given.
 
@@ -68,7 +72,7 @@ import torch
 from repro_torch.configs import ARCHITECTURES, one_card_config, smoke_config
 from repro_torch.data import synthetic_tokens
 from repro_torch.device import resolve_device
-from repro_torch.models import init_model
+from repro_torch.models import check_token_serving, init_model
 from repro_torch.serve import (FrontDoor, SamplingConfig, make_engine,
                                make_engine_from_checkpoint)
 
@@ -139,6 +143,10 @@ def main(argv=None):
         cfg = smoke_config(args.arch).with_overrides(dtype="float32")
     else:
         cfg = one_card_config(args.arch)
+    try:
+        check_token_serving(cfg)
+    except ValueError as e:
+        raise SystemExit(f"serve launcher drives decoder-only archs: {e}")
     sampling = SamplingConfig(temperature=args.temperature,
                               top_k=args.top_k, top_p=args.top_p)
     decode_chunk = 8

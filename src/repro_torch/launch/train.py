@@ -21,6 +21,15 @@
         --arch deepseek-v3-671b --reduced --device cpu --steps 3 \\
         --batch 4 --seq 64
 
+    # the encoder-decoder (src_embeds frames + tgt_tokens) and the VLM
+    # (image rows + tokens): the reference's make_batch forms
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch seamless-m4t-large-v2 --reduced --device cpu --steps 3 \\
+        --batch 4 --seq 64
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch llava-next-mistral-7b --reduced --device cpu --steps 3 \\
+        --batch 4 --seq 64
+
     # the reduced config data-parallel over two ranks (the paper's
     # synchronous allreduce through the Trainer facade), under torchrun
     PYTHONPATH=src python -m torch.distributed.run --standalone \\
@@ -48,7 +57,9 @@ Port of ``repro.launch.train``.  Without --reduced the full config
 trains in its compute dtype (bf16) on fp32 masters; with it, the smoke
 config in fp32.  Every architecture trains, DeepSeek-V3 with its
 multi-token-prediction head (its CE joins the loss at the train
-config's ``mtp_weight``).  The weights are drawn from seed 0; the batch of step
+config's ``mtp_weight``), seamless-m4t-large-v2 on ``src_embeds`` frames
+and target tokens, llava-next-mistral-7b on image rows and tokens
+(``data.make_batch``).  The weights are drawn from seed 0; the batch of step
 i is ``make_batch`` of a generator seeded by (--data-seed, i), so the
 data cursor a checkpoint records is ``(data_seed, next_step)``.  Each
 step prints its loss; the end prints tokens/s over the steps after the

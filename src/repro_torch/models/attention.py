@@ -22,8 +22,15 @@ Port of ``repro.models.attention``.  Two cache forms:
 
 The train branches have no cache: the queries attend causally over
 their own keys through ``chunked_attention`` (MLA: the latent expanded
-to per-head keys of nope + rope and values of ``v_head_dim``).
-Cross-attention is not ported.
+to per-head keys of nope + rope and values of ``v_head_dim``); an
+encoder's, bidirectionally.
+
+Cross-attention (``apply_cross_attention``, an encoder-decoder's
+decoder layers): queries from the decoder, keys and values projected
+from the encoder's output, no RoPE and no mask; its cache (``{"k",
+"v"}`` of (B, cross_len, hk, hd)) holds the encoder's K/V, written by
+the prefill and read whole by every decode step.  The paged pool has no
+cross form.
 """
 from __future__ import annotations
 
@@ -99,15 +106,18 @@ def chunked_attention(q, k, v, *, q_positions, kv_positions, causal=True,
     scores, one masked softmax over all T keys per chunk, the
     probabilities cast to v's dtype for the value product.
 
-    CUDA tensors run the flash-attention kernel, for the one form the
-    slab path gives: ``kv_positions = range(T)`` and ``q_positions =
-    range(off, off + S)`` with ``off + S == kv_valid_len`` (or ``== T``
-    without one), given as ``range``s and an int.  The keys are sliced
-    to the valid length (a strided view, not a copy) and the queries are
-    then right-aligned against them, which is the kernel's masking.  Any
-    other form raises (positions on the card cannot be checked without
-    a host sync in every layer).  ``chunk`` is the CPU loop's; the
-    kernel tiles itself."""
+    CUDA tensors run the flash-attention kernel, for the two forms the
+    slab and train paths give, with ``kv_positions = range(T)`` and the
+    valid length ``kv_valid_len`` (or T) as a ``range`` and an int:
+    causal (or windowed), ``q_positions = range(off, off + S)`` with
+    ``off + S`` the valid length -- the queries right-aligned against
+    the valid keys, which is the kernel's masking; and non-causal
+    without a window (an encoder, cross-attention), with any query
+    positions, which that mask does not read.  The keys are sliced to
+    the valid length (a strided view, not a copy).  Any other form
+    raises (positions on the card cannot be checked without a host
+    sync in every layer).  ``chunk`` is the CPU loop's; the kernel
+    tiles itself."""
     if q.device.type == "cuda":
         return _flash_slab(q, k, v, q_positions=q_positions,
                            kv_positions=kv_positions, causal=causal,
@@ -149,21 +159,26 @@ def chunked_attention(q, k, v, *, q_positions, kv_positions, causal=True,
 
 def _flash_slab(q, k, v, *, q_positions, kv_positions, causal, window,
                 kv_valid_len):
-    """``chunked_attention`` on the card: the slab form, checked on the
-    host, as one flash-attention call on the valid keys."""
+    """``chunked_attention`` on the card: the slab form (causal or
+    windowed) or the non-causal form, checked on the host, as one
+    flash-attention call on the valid keys."""
     S, T = q.shape[1], k.shape[1]
     valid = T if kv_valid_len is None else kv_valid_len
-    if not (isinstance(q_positions, range) and isinstance(kv_positions, range)
-            and isinstance(valid, int) and kv_positions == range(T)
-            and 0 < valid <= T and q_positions == range(valid - S, valid)):
+    keys_ok = (isinstance(kv_positions, range) and isinstance(valid, int)
+               and kv_positions == range(T) and 0 < valid <= T)
+    if keys_ok and not causal and not window:
+        return flash_attention(q, k[:, :valid], v[:, :valid], causal=False)
+    if not (keys_ok and causal and isinstance(q_positions, range)
+            and q_positions == range(valid - S, valid)):
         raise ValueError(
-            "chunked_attention on the card takes the slab form only: "
+            "chunked_attention on the card takes the slab form: "
             "kv_positions == range(T) and q_positions == range(off, off + "
-            "S) with off + S == kv_valid_len (or T), as ranges and an int; "
-            f"got q_positions={q_positions!r}, kv_positions="
-            f"{kv_positions!r}, kv_valid_len={kv_valid_len!r} (S={S}, "
-            f"T={T})")
-    return flash_attention(q, k[:, :valid], v[:, :valid], causal=causal,
+            "S) with off + S == kv_valid_len (or T), as ranges and an int, "
+            "causal; or non-causal with no window over kv_positions == "
+            f"range(T); got causal={causal}, window={window}, q_positions="
+            f"{q_positions!r}, kv_positions={kv_positions!r}, kv_valid_len="
+            f"{kv_valid_len!r} (S={S}, T={T})")
+    return flash_attention(q, k[:, :valid], v[:, :valid], causal=True,
                            window=window)
 
 
@@ -235,10 +250,11 @@ def _padded_heads(cfg):
     return hp, mask
 
 
-def init_attention(cfg, *, generator, device="cpu", dtype):
+def init_attention(cfg, *, generator, device="cpu", dtype, cross=False):
     """Weights in the reference's layout, projections cast to ``dtype``
-    as drawn: wq (d, h, hd), wk/wv (d, hk, hd), wo (h, hd, d), qk-norm
-    scales (hd,) in fp32."""
+    as drawn: wq (d, h, hd), wk/wv (d, hk, hd), wo (h, hd, d), the qkv
+    biases (``qkv_bias``; never for ``cross``-attention, as in the
+    reference), qk-norm scales (hd,) in fp32."""
     d, hk, hd = cfg.d_model, cfg.num_kv_heads, cfg.head_dim
     h, mask = _padded_heads(cfg)
     kw = dict(generator=generator, device=device, dtype=dtype)
@@ -251,7 +267,7 @@ def init_attention(cfg, *, generator, device="cpu", dtype):
         wq = wq * m[None, :, None]
         wo = wo * m[:, None, None]
     p = {"wq": wq, "wk": wk, "wv": wv, "wo": wo}
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = torch.zeros((h, hd), device=device, dtype=dtype)
         p["bk"] = torch.zeros((hk, hd), device=device, dtype=dtype)
         p["bv"] = torch.zeros((hk, hd), device=device, dtype=dtype)
@@ -281,26 +297,50 @@ def _proj(x, w):
     return (x @ w.reshape(d, nh * hd)).unflatten(-1, (nh, hd))
 
 
+def _q(cfg, p, x):
+    """q (B, S, h, hd) of x: projection, bias, qk-norm (no RoPE)."""
+    q = _proj(x, p["wq"].to(x.dtype))
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+    return q
+
+
+def _kv(cfg, p, src):
+    """k and v (B, T, hk, hd) of src: projections, bias, qk-norm on k
+    (no RoPE)."""
+    dt = src.dtype
+    k = _proj(src, p["wk"].to(dt))
+    v = _proj(src, p["wv"].to(dt))
+    if "bk" in p:
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    if cfg.qk_norm:
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    return k, v
+
+
 def _qkv(cfg, p, x, rope):
     """q (B, S, h, hd), k and v (B, S, hk, hd) of x: projections, bias,
     qk-norm, then RoPE on q and k by ``rope`` (``rope_angles``).  Each
     weight is cast to x's dtype at use (a no-op for a serving model)."""
-    dt = x.dtype
-    q = _proj(x, p["wq"].to(dt))
-    k = _proj(x, p["wk"].to(dt))
-    v = _proj(x, p["wv"].to(dt))
-    if "bq" in p:
-        q = q + p["bq"].to(dt)
-        k = k + p["bk"].to(dt)
-        v = v + p["bv"].to(dt)
-    if cfg.qk_norm:
-        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
-        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
-    return apply_rope(q, rope), apply_rope(k, rope), v
+    k, v = _kv(cfg, p, x)
+    return apply_rope(_q(cfg, p, x), rope), apply_rope(k, rope), v
+
+
+def _out(cfg, p, out):
+    """The padded-head mask, then wo."""
+    _, head_mask = _padded_heads(cfg)
+    if head_mask is not None:
+        out = out * torch.from_numpy(head_mask).to(out)[None, None, :, None]
+    B, S, h, hd = out.shape
+    return out.reshape(B, S, h * hd) @ p["wo"].to(out.dtype).reshape(h * hd,
+                                                                      -1)
 
 
 def apply_attention(cfg, p, x, *, positions, cache, rope, paged=None,
-                    write_idx=None, mode="decode", cache_pos=0):
+                    write_idx=None, mode="decode", cache_pos=0, causal=True):
     """Self-attention over the serving cache, or without one in training.
     Order as in the reference: qk-norm on q and k, RoPE, cache write,
     attention, the padded-head mask, wo.
@@ -308,7 +348,8 @@ def apply_attention(cfg, p, x, *, positions, cache, rope, paged=None,
     Train (``mode="train"``, no cache, ``paged`` None): x (B, S, d) at
     positions 0..S-1, causal attention of the S queries over their own
     S keys through ``chunked_attention`` (the flash kernel on the card,
-    differentiable).
+    differentiable); with ``causal`` False (an encoder), every query
+    sees every key and the sliding window does not apply.
 
     Paged (``paged`` given; decode steps and prefill chunks): x (B, S,
     d), positions (B, S) per slot; cache {"k", "v"} pools, updated in
@@ -325,7 +366,8 @@ def apply_attention(cfg, p, x, *, positions, cache, rope, paged=None,
     if mode == "train":
         S = x.shape[1]
         out = chunked_attention(q, k, v, q_positions=range(S),
-                                kv_positions=range(S), window=cfg.swa_window)
+                                kv_positions=range(S), causal=causal,
+                                window=cfg.swa_window if causal else 0)
     elif paged is not None:
         k_pool = _paged_append(cache["k"], write_idx, k)
         v_pool = _paged_append(cache["v"], write_idx, v)
@@ -351,12 +393,40 @@ def apply_attention(cfg, p, x, *, positions, cache, rope, paged=None,
                 q_positions=range(start, start + S),
                 kv_positions=range(max_len), window=cfg.swa_window,
                 kv_valid_len=start + S)
-    _, head_mask = _padded_heads(cfg)
-    if head_mask is not None:
-        out = out * torch.from_numpy(head_mask).to(out)[None, None, :, None]
-    B, S, h, hd = out.shape
-    return out.reshape(B, S, h * hd) @ p["wo"].to(out.dtype).reshape(h * hd,
-                                                                      -1)
+    return _out(cfg, p, out)
+
+
+def apply_cross_attention(cfg, p, x, *, enc_out, cache):
+    """An encoder-decoder layer's cross-attention (the reference's
+    ``apply_attention(kv_src=...)``, whose ``rope`` follows ``causal``:
+    none here).  q from x (B, S, d); k and v projected from ``enc_out``
+    (B, S_src, d) when it is given -- train and prefill, the latter
+    also writing them at rows 0..S_src-1 of ``cache`` -- else (decode)
+    read from the whole of ``cache``, {"k", "v"} of (B, cross_len, hk,
+    hd): every one of its cross_len rows is visible, the zero rows past
+    a shorter source too, as in the reference.  No mask and no window;
+    through ``chunked_attention`` (the flash kernel's non-causal form
+    on the card), whose queries' positions mask nothing."""
+    q = _q(cfg, p, x)
+    if enc_out is not None:
+        k, v = _kv(cfg, p, enc_out.to(x.dtype))
+        if cache is not None:
+            n = k.shape[1]
+            if n > cache["k"].shape[1]:
+                raise ValueError(f"cross-attention: a {n}-frame source "
+                                 f"overruns a {cache['k'].shape[1]}-long "
+                                 "cross cache")
+            cache["k"][:, :n] = k
+            cache["v"][:, :n] = v
+    elif cache is not None:
+        k, v = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
+    else:
+        raise ValueError("cross-attention needs the encoder's output or a "
+                         "filled cross cache")
+    out = chunked_attention(q, k, v, q_positions=range(x.shape[1]),
+                            kv_positions=range(k.shape[1]), causal=False,
+                            window=0)
+    return _out(cfg, p, out)
 
 
 # --------------------------------------------------------------------------

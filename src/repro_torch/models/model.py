@@ -1,17 +1,22 @@
-"""Top-level decoder: init, serving caches, forward, logits.
+"""Top-level models: init, serving caches, forward, logits.
 
-Port of ``repro.models.model`` for decoder-only stacks of GQA or MLA
+Port of ``repro.models.model``: decoder-only stacks of GQA or MLA
 attention and Mamba layers (each with an MLP or MoE ffn) and RWKV-6
-blocks, in the modes the serving paths use: the continuous engine's
-paged decode mode (decode steps and chunked-prefill chunks), and the
-lockstep engine's slab ``prefill`` and ``decode``; and in the training
-mode ``"train"``, on a ``Model`` of trainable fp32 masters.
-``apply_model`` returns ``{"logits", "hidden", "aux"}`` (and, in
-training with a multi-token-prediction head, ``"mtp_logits"``); the
-caches and the per-slot recurrent states are updated in place.
-``mtp_draft`` drafts tokens with the MTP head for speculative decoding.
-The paper's Table-1 networks (``PaperNet``, ``init_paper_net``,
-``apply_paper_net``) close the module, as in the reference.
+blocks; the VLM, whose stubbed vision frontend's patch embeddings pass
+through a 2-layer projector and are prepended to the text; and the
+encoder-decoder, whose stubbed audio frontend's frame embeddings run
+through a bidirectional encoder that feeds every decoder layer's
+cross-attention.  In the modes the serving paths use: the continuous
+engine's paged decode mode (decode steps and chunked-prefill chunks;
+decoder-only text stacks), and the slab ``prefill`` and ``decode``;
+and in the training mode ``"train"``, on a ``Model`` of trainable fp32
+masters.  ``apply_model`` returns ``{"logits", "hidden", "aux"}``
+(and, in training with a multi-token-prediction head,
+``"mtp_logits"``); the caches and the per-slot recurrent states are
+updated in place.  ``mtp_draft`` drafts tokens with the MTP head for
+speculative decoding.  The paper's Table-1 networks (``PaperNet``,
+``init_paper_net``, ``apply_paper_net``) close the module, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -27,17 +32,39 @@ from repro_torch.models.layers import (apply_embed, apply_mlp, apply_unembed,
                                        rope_freqs, truncated_normal)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+VISION_EMBED_DIM = 1024      # CLIP ViT-L/14-336 output width (stubbed)
+# the keyword tensors of ``apply_model``: the reference's batch keys
+FRONTEND_KEYS = ("vision_embeds", "src_embeds")
 
 
 def compute_dtype(cfg) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
+def encoder_cfg(cfg):
+    """An encoder-decoder's encoder: ``encoder_layers`` attention + MLP
+    layers (no MoE, no SSM, no cross-attention)."""
+    return cfg.with_overrides(num_layers=cfg.encoder_layers,
+                              is_encoder_decoder=False, attn_layer_period=1,
+                              ssm_kind="none", moe=None)
+
+
+def batch_inputs(batch):
+    """(tokens, frontends) of a reference-form batch dict: the decoder's
+    tokens (``"tgt_tokens"`` of an encoder-decoder, else ``"tokens"``)
+    and the frontend tensors it holds, as ``apply_model``'s keywords."""
+    tokens = batch["tgt_tokens"] if "tgt_tokens" in batch else batch["tokens"]
+    return tokens, {k: batch[k] for k in FRONTEND_KEYS if k in batch}
+
+
 class Model(nn.Module):
-    """Decoder weights on one device.
+    """A model's weights on one device.
 
     tree: {"embed": {"table"}, "layers": iterable of layer trees,
-    "final_norm": {"scale"}, "unembed": {"table"} (untied only), "mtp":
+    "final_norm": {"scale"}, "unembed": {"table"} (untied only),
+    "vision_proj": {"w1" (1024, d), "b1", "w2" (d, d), "b2"} (a vision
+    frontend only), "encoder": iterable of layer trees and "enc_norm":
+    {"scale"} (an encoder-decoder only), "mtp":
     the MTP head's tree, or a function that draws it (``mtp_depth > 0``
     only: {"norm_h", "norm_e": {"scale"}, "proj" (2 d, d), "block": an
     ("attn", "mlp") layer tree})} in fp32 masters or already in the
@@ -76,15 +103,20 @@ class Model(nn.Module):
             self.unembed_f32 = tfm._frozen(out.to(device=device,
                                                   dtype=torch.float32))
         del table, out
-        # no name (and no zip/enumerate tuple) may hold a layer's tree
-        # while the next one is drawn
-        trees = iter(tree["layers"])
-        self.layers = nn.ModuleList()
-        for spec in cfg.layer_pattern():
-            self.layers.append(tfm.Layer(_to_device(next(trees), device), dt,
-                                         spec, train=train))
-        self.final_norm = (tfm._master if train else tfm._frozen)(
-            tree["final_norm"]["scale"].to(device=device, dtype=torch.float32))
+        scale = lambda t: (tfm._master if train else tfm._frozen)(
+            t.to(device=device, dtype=torch.float32))
+        self.vision_proj = self.encoder = self.enc_norm = None
+        if cfg.frontend == "vision":
+            self.vision_proj = nn.ParameterDict({
+                k: tfm._master(v.to(device)) if train
+                else tfm._frozen(v.to(device, dt))
+                for k, v in tree["vision_proj"].items()})
+        if cfg.is_encoder_decoder:
+            self.encoder = _layers(encoder_cfg(cfg), tree["encoder"], device,
+                                   dt, train)
+            self.enc_norm = scale(tree["enc_norm"]["scale"])
+        self.layers = _layers(cfg, tree["layers"], device, dt, train)
+        self.final_norm = scale(tree["final_norm"]["scale"])
         self.mtp = None
         if cfg.mtp_depth > 0:
             if "mtp" not in tree:
@@ -96,6 +128,18 @@ class Model(nn.Module):
         self.register_buffer("rope_freqs", torch.from_numpy(
             rope_freqs(rope_dim(cfg), cfg.rope_theta)).to(device)
             if tfm.has_attention(cfg) else None)
+
+
+def _layers(cfg, trees, device, dt, train) -> nn.ModuleList:
+    """``cfg``'s layers, built one at a time from the iterable ``trees``:
+    no name (and no zip/enumerate tuple) may hold a layer's tree while
+    the next one is drawn."""
+    trees = iter(trees)
+    layers = nn.ModuleList()
+    for spec in cfg.layer_pattern():
+        layers.append(tfm.Layer(_to_device(next(trees), device), dt, spec,
+                                train=train))
+    return layers
 
 
 class MTPHead(nn.Module):
@@ -143,34 +187,58 @@ def rope_dim(cfg) -> int:
 
 
 def check_ported(cfg):
-    """Raise, naming the part, unless every layer of ``cfg`` is one the
-    port has: a GQA or MLA attention or Mamba mixer with an MLP or MoE
-    ffn, or an RWKV-6 block."""
-    missing = []
-    kinds = {mixer for mixer, _ in cfg.layer_pattern()}
-    missing += sorted(kinds - {"attn", "mamba", "rwkv6"})
-    if cfg.is_encoder_decoder:
-        missing.append("encoder-decoder")
-    if cfg.frontend != "none":
+    """Raise, naming the part, unless ``cfg`` is one the port has: every
+    layer a GQA or MLA attention or Mamba mixer with an MLP or MoE ffn,
+    or an RWKV-6 block; a frontend of none, the vision stub or the audio
+    stub (an encoder-decoder's)."""
+    missing = sorted({mixer for mixer, _ in cfg.layer_pattern()}
+                     - {"attn", "mamba", "rwkv6"})
+    if cfg.frontend not in ("none", "vision", "audio"):
         missing.append(f"{cfg.frontend} frontend")
+    if cfg.frontend == "audio" and not cfg.is_encoder_decoder:
+        missing.append("audio frontend without an encoder")
     if missing:
-        raise ValueError(f"{cfg.name}: {', '.join(missing)} not ported; the "
-                         "port serves GQA or MLA attention and Mamba layers "
-                         "(MLP or MoE) and RWKV-6 stacks")
+        raise ValueError(
+            f"{cfg.name}: {', '.join(missing)} not ported; the port has GQA "
+            "and MLA attention and Mamba layers (with an MLP or MoE ffn), "
+            "RWKV-6 blocks, the encoder-decoder stack with the audio "
+            "frontend stub, and the vision frontend stub")
 
 
 def check_slab_ported(cfg):
     """Raise, naming the part, unless the slab (lockstep) path of
-    ``cfg`` is ported: it is for every layer kind the port has (GQA or
-    MLA attention and Mamba layers with an MLP or MoE, RWKV-6 blocks)."""
+    ``cfg`` is ported: it is for everything ``check_ported`` accepts."""
     check_ported(cfg)
 
 
 def check_train_ported(cfg):
     """Raise, naming the part, unless training ``cfg`` is ported: it is
-    for every layer kind the port has, with or without a
+    for everything ``check_ported`` accepts, with or without a
     multi-token-prediction head."""
     check_ported(cfg)
+
+
+def check_token_serving(cfg):
+    """Raise unless ``cfg`` is a decoder-only text stack: the serving
+    engines (continuous and lockstep), the paged pool and the serve
+    launcher take token prompts only, as the reference's do.  A VLM or an
+    encoder-decoder serves through ``apply_model``'s slab prefill and
+    decode."""
+    parts = (["encoder-decoder"] if cfg.is_encoder_decoder else []) + (
+        [f"{cfg.frontend} frontend"] if cfg.frontend != "none" else [])
+    if parts:
+        raise ValueError(f"{cfg.name}: {', '.join(parts)}: the serving "
+                         "engines and the paged pool take token prompts to "
+                         "decoder-only text architectures; a VLM or an "
+                         "encoder-decoder serves through apply_model's slab "
+                         "prefill and decode")
+
+
+def check_paged_ported(cfg):
+    """Raise unless ``cfg`` runs on the paged pool (the continuous
+    scheduler): a ported decoder-only text stack."""
+    check_ported(cfg)
+    check_token_serving(cfg)
 
 
 def _to_device(tree, device):
@@ -193,15 +261,17 @@ def init_model(cfg, *, seed=0, device="cuda", train=False) -> Model:
     keeps the fp32 draws as trainable masters (``Model``); their values
     cast to the compute dtype are the serving model's weights.  An MTP
     head (``mtp_depth > 0``) is drawn last, after every layer, so the
-    other weights of a seed are those of the same config without it."""
+    other weights of a seed are those of the same config without it.
+    A vision projector is drawn after the unembedding (biases zero), an
+    encoder's layers after that and before the decoder's."""
     dev = resolve_device(device)
     dt = torch.float32 if train else compute_dtype(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
     n_prefix = len(cfg.block_structure()[0])
     dense_ff = cfg.moe.dense_d_ff if cfg.moe is not None else 0
-    layers = (tfm.init_layer(cfg, spec, generator=gen, device=dev,
-                             dense_ff=dense_ff if i < n_prefix else 0,
-                             dtype=dt)
+    kw = dict(generator=gen, device=dev, dtype=dt)
+    layers = (tfm.init_layer(cfg, spec, dense_ff=dense_ff if i < n_prefix
+                             else 0, cross=cfg.is_encoder_decoder, **kw)
               for i, spec in enumerate(cfg.layer_pattern()))
     # a tied table is also the fp32 unembedding: it stays fp32
     tree = {"embed": {"table": truncated_normal(
@@ -212,6 +282,17 @@ def init_model(cfg, *, seed=0, device="cuda", train=False) -> Model:
     if not cfg.tie_embeddings:
         tree["unembed"] = {"table": truncated_normal(
             (cfg.vocab_size, cfg.d_model), 0.02, generator=gen, device=dev)}
+    d = cfg.d_model
+    if cfg.frontend == "vision":
+        zeros = lambda: torch.zeros((d,), device=dev, dtype=dt)
+        tree["vision_proj"] = {
+            "w1": dense_init(VISION_EMBED_DIM, d, **kw), "b1": zeros(),
+            "w2": dense_init(d, d, **kw), "b2": zeros()}
+    if cfg.is_encoder_decoder:
+        ecfg = encoder_cfg(cfg)
+        tree["encoder"] = (tfm.init_layer(ecfg, spec, **kw)
+                           for spec in ecfg.layer_pattern())
+        tree["enc_norm"] = {"scale": torch.ones((d,), device=dev)}
     if cfg.mtp_depth > 0:
         # drawn by Model after the layers
         tree["mtp"] = lambda: init_mtp(cfg, generator=gen, device=dev,
@@ -220,7 +301,7 @@ def init_model(cfg, *, seed=0, device="cuda", train=False) -> Model:
 
 
 def init_cache(cfg, dtype, *, pool=None, slots=None, batch=None,
-               max_len=None, device="cuda"):
+               max_len=None, cross_len=0, device="cuda"):
     """The serving cache, one entry per layer.  With pool =
     (num_pages, page_size), the continuous engine's: an attention
     layer's {"k", "v"} pool, each ``(num_pages * page_size, hk, hd)``
@@ -230,16 +311,24 @@ def init_cache(cfg, dtype, *, pool=None, slots=None, batch=None,
     Without a pool, the lockstep engine's slab: {"k", "v"} of (batch,
     max_len, hk, hd) per attention layer ({"ckv", "krope"} of (batch,
     max_len, ...) for MLA), the recurrent state with ``batch`` rows per
-    Mamba or RWKV layer."""
+    Mamba or RWKV layer; an encoder-decoder's layer holds {"self": that,
+    "cross": {"k", "v"} of (batch, cross_len, hk, hd)}, which a prefill
+    fills with the encoder's K/V and every decode step reads whole.
+    The pool is for decoder-only text stacks (``check_paged_ported``)."""
     dev = resolve_device(device)
     kinds = [kind for kind, _ in cfg.layer_pattern()]
     if pool is None:
         check_slab_ported(cfg)
         if batch is None or max_len is None:
             raise ValueError("the slab cache needs batch= and max_len=")
+        if cfg.is_encoder_decoder and cross_len < 1:
+            raise ValueError(f"{cfg.name}: the cross cache needs cross_len=")
         return [tfm.init_layer_cache(cfg, kind, dtype, batch=batch,
-                                     max_len=max_len, device=dev)
+                                     max_len=max_len, device=dev,
+                                     cross=cfg.is_encoder_decoder,
+                                     cross_len=cross_len)
                 for kind in kinds]
+    check_paged_ported(cfg)
     if slots is None and any(kind != "attn" for kind in kinds):
         raise ValueError(f"{cfg.name}: recurrent layers need slots=")
     return [tfm.init_layer_cache(cfg, kind, dtype, pool=pool, slots=slots,
@@ -251,10 +340,32 @@ def _logits(cfg, model: Model, x):
                          rmsnorm(model.final_norm, x, cfg.norm_eps))
 
 
+def _vision_proj(model: Model, v, dt):
+    """The projector: gelu (tanh form, as ``jax.nn.gelu``) between two
+    affine maps, 1024 -> d -> d."""
+    p = model.vision_proj
+    h = v.to(dt) @ p["w1"].to(dt) + p["b1"].to(dt)
+    return F.gelu(h, approximate="tanh") @ p["w2"].to(dt) + p["b2"].to(dt)
+
+
 def apply_model(cfg, model: Model, tokens, *, cache=None, cache_pos=None,
                 paged=None, mode="decode", last_only=False, logits=True,
-                remat=False):
+                remat=False, vision_embeds=None, src_embeds=None):
     """Forward over a serving cache, or the training forward.
+
+    The frontends are keyword tensors, the reference's batch keys
+    (``batch_inputs`` splits a batch dict so): ``vision_embeds`` (B,
+    N_img, 1024) of a vision stack are projected (``_vision_proj``) and
+    prepended to the tokens' embeddings, and positions run over the
+    whole N_img + S sequence (the logits too); an encoder-decoder's
+    ``src_embeds`` (B, S_src, d) run through the encoder (train mode,
+    bidirectional, RoPE at 0..S_src-1, then ``enc_norm``), whose output
+    feeds every decoder layer's cross-attention, and ``tokens`` are the
+    target tokens.  A train or slab-prefill call of an encoder-decoder
+    needs ``src_embeds`` (the prefill writes the encoder's K/V into the
+    cross cache, ``init_cache(..., cross_len=)``); a slab decode step
+    passes none and reads that cache.  Neither frontend runs on the
+    paged pool.
 
     Train (``mode="train"``, no cache): tokens (B, S) at positions
     0..S-1, causal attention through ``chunked_attention`` (the flash
@@ -279,7 +390,6 @@ def apply_model(cfg, model: Model, tokens, *, cache=None, cache_pos=None,
     d), "aux": the MoE load-balance loss (0 without MoE)} with S' = 1
     under ``last_only``; a call whose logits nobody reads passes
     ``logits=False`` and skips the unembedding."""
-    S = tokens.shape[1]
     if mode == "train":
         check_train_ported(cfg)
         if cache is not None or paged is not None:
@@ -287,6 +397,7 @@ def apply_model(cfg, model: Model, tokens, *, cache=None, cache_pos=None,
     elif cache is None:
         raise ValueError(f"mode {mode!r} reads a serving cache; pass cache=")
     elif paged is not None:
+        check_paged_ported(cfg)
         if mode != "decode" or not isinstance(cache_pos, torch.Tensor) \
                 or cache_pos.dim() != 1:
             raise ValueError("the paged cache is decode-mode with per-slot "
@@ -298,7 +409,20 @@ def apply_model(cfg, model: Model, tokens, *, cache=None, cache_pos=None,
         cache_pos = int(cache_pos)
         if mode == "prefill" and cache_pos != 0:
             raise ValueError("a slab prefill fills the cache from 0")
-    x = apply_embed(model.embed, tokens, compute_dtype(cfg))
+    dt = compute_dtype(cfg)
+    enc_out = None
+    if cfg.is_encoder_decoder and src_embeds is not None:
+        enc_out = _encode(cfg, model, torch.as_tensor(
+            src_embeds, device=tokens.device), remat)
+    elif cfg.is_encoder_decoder and mode != "decode":
+        raise ValueError(f"{cfg.name}: a {mode} call of an encoder-decoder "
+                         "needs src_embeds")
+    x = apply_embed(model.embed, tokens, dt)
+    if cfg.frontend == "vision" and vision_embeds is not None:
+        vis = _vision_proj(model, torch.as_tensor(vision_embeds,
+                                                  device=tokens.device), dt)
+        x = torch.cat([vis, x], dim=1)
+    S = x.shape[1]
     positions = None
     if tfm.has_attention(cfg):
         if mode == "train":
@@ -313,7 +437,8 @@ def apply_model(cfg, model: Model, tokens, *, cache=None, cache_pos=None,
     x, aux = tfm.apply_stack(cfg, model.layers, x, positions=positions,
                              cache=cache, paged=paged,
                              rope_freqs=model.rope_freqs, mode=mode,
-                             cache_pos=cache_pos, remat=remat)
+                             cache_pos=cache_pos, remat=remat,
+                             enc_out=enc_out)
     if last_only:
         x = x[:, -1:]
     out = {"hidden": x, "aux": 0.0 if aux is None else aux}
@@ -322,6 +447,18 @@ def apply_model(cfg, model: Model, tokens, *, cache=None, cache_pos=None,
     if mode == "train" and model.mtp is not None:
         out["mtp_logits"] = _mtp_train(cfg, model, x, tokens)
     return out
+
+
+def _encode(cfg, model: Model, src, remat):
+    """The encoder over frame embeddings (B, S_src, d): bidirectional
+    attention with RoPE at 0..S_src-1, then ``enc_norm``."""
+    pos = torch.arange(src.shape[1], device=src.device)[None]
+    enc, _ = tfm.apply_stack(encoder_cfg(cfg), model.encoder,
+                             src.to(compute_dtype(cfg)), positions=pos,
+                             cache=None, paged=None,
+                             rope_freqs=model.rope_freqs, mode="train",
+                             remat=remat, causal=False)
+    return rmsnorm(model.enc_norm, enc, cfg.norm_eps)
 
 
 # --------------------------------------------------------------------------

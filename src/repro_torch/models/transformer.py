@@ -14,6 +14,12 @@ path, per-batch-row) recurrent state (``ssm.make_mamba_cache``,
 ``ssm.make_rwkv6_cache``).  All are updated in place.  The training
 forward (``mode="train"``) has no cache.
 
+An encoder-decoder's decoder layers also hold ``norm_cross`` and a
+``cross``-attention (after the self-attention, before the ffn), and
+their slab cache is ``{"self": the layer's own, "cross": {"k", "v"}
+of (B, cross_len, hk, hd)}``; the paged pool refuses them.  The
+encoder is a stack of the same layers run with ``causal=False``.
+
 Weights keep the reference's layouts (wq (d, h, hd), wk/wv (d, hk, hd),
 wo (h, hd, d), MLA as in ``attention.init_mla``, MLP (d_in, d_out), MoE
 experts (E, d_in, d_out), Mamba and RWKV as in ``models.ssm``) and are
@@ -72,14 +78,17 @@ class ParamTree(nn.Module):
         return [(k, self[k]) for k in self._names]
 
 
-def init_layer(cfg, spec, *, generator, device="cpu", dense_ff=0, dtype):
+def init_layer(cfg, spec, *, generator, device="cpu", dense_ff=0, dtype,
+               cross=False):
     """Weights of one layer of kinds ``spec`` = (mixer, ffn): an "attn"
     (GQA, or MLA when ``cfg.attention == "mla"``) or "mamba" mixer with
     an "mlp" (of width ``dense_ff`` when given, else ``d_ff``) or "moe"
     ffn, or an "rwkv6" block, whose channel mix lives in its mixer; as a
-    tree in the reference's layout.  Drawn in fp32, each weight cast to
-    ``dtype`` as it is drawn (norm scales and the weights read in fp32
-    stay fp32), so a bf16 draw never holds two fp32 masters at once."""
+    tree in the reference's layout.  ``cross`` adds ``norm_cross`` and a
+    bias-free ``cross``-attention (drawn after the mixer).  Drawn in
+    fp32, each weight cast to ``dtype`` as it is drawn (norm scales and
+    the weights read in fp32 stay fp32), so a bf16 draw never holds two
+    fp32 masters at once."""
     mixer, ffn = spec
     d = cfg.d_model
     kw = dict(generator=generator, device=device, dtype=dtype)
@@ -94,6 +103,9 @@ def init_layer(cfg, spec, *, generator, device="cpu", dense_ff=0, dtype):
     else:
         mix = attn_lib.init_attention(cfg, **kw)
     p = {"norm1": ones(), "mixer": mix, "norm2": ones()}
+    if cross:
+        p["norm_cross"] = ones()
+        p["cross"] = attn_lib.init_attention(cfg, cross=True, **kw)
     p["ffn"] = (moe_lib.init_moe(cfg, **kw) if ffn == "moe" else
                 init_mlp(d, dense_ff or cfg.d_ff, gated=cfg.mlp_gated, **kw))
     return p
@@ -104,6 +116,8 @@ class Layer(nn.Module):
     reference-layout tree.  Nested mixer norm scales ({"q_norm":
     {"scale": t}}, {"ln_x": ...}) are flattened to their name; the ffn
     keeps its nesting (``ParamTree``).  An RWKV block has no ``ffn``.
+    A decoder layer of an encoder-decoder also has ``norm_cross`` and
+    ``cross`` (flattened like the mixer); other layers have None.
 
     Serving (``train`` False): frozen weights, each cast once to
     ``dtype`` (norm scales and ``FP32_WEIGHTS`` in fp32).  Training:
@@ -122,18 +136,32 @@ class Layer(nn.Module):
         scale = lambda t: (_master if train else _frozen)(t.float())
         self.norm1 = scale(tree["norm1"]["scale"])
         self.norm2 = scale(tree["norm2"]["scale"])
-        self.mixer = nn.ParameterDict({
+        flat = lambda t: nn.ParameterDict({
             k: scale(v["scale"]) if isinstance(v, dict) else param(k, v)
-            for k, v in tree["mixer"].items()})
+            for k, v in t.items()})
+        self.mixer = flat(tree["mixer"])
         self.ffn = ParamTree(tree["ffn"], param) if "ffn" in tree else None
+        self.norm_cross = self.cross = None
+        if "cross" in tree:
+            self.norm_cross = scale(tree["norm_cross"]["scale"])
+            self.cross = flat(tree["cross"])
 
 
 def init_layer_cache(cfg, kind, dtype, *, pool=None, slots=None, batch=None,
-                     max_len=None, device="cpu"):
+                     max_len=None, device="cpu", cross=False, cross_len=0):
     """An attention layer's paged pool (token-major, no batch axis; or,
     with ``pool`` None, its (batch, max_len) slab), or a Mamba or RWKV
     layer's recurrent state with one row per serving slot (with ``pool``
-    None, per batch row)."""
+    None, per batch row).  ``cross``: {"self": that, "cross": a (batch,
+    cross_len) slab of the encoder's K/V}; the paged pool raises."""
+    if cross:
+        if pool is not None:
+            raise ValueError("paged cache does not support cross-attention")
+        return {"self": init_layer_cache(cfg, kind, dtype, batch=batch,
+                                         max_len=max_len, device=device),
+                "cross": attn_lib.make_cache(cfg, dtype, batch=batch,
+                                             max_len=cross_len,
+                                             device=device)}
     rows = slots if pool is not None else batch
     if kind == "rwkv6":
         return ssm_lib.make_rwkv6_cache(cfg, rows, dtype, device=device)
@@ -147,14 +175,20 @@ def init_layer_cache(cfg, kind, dtype, *, pool=None, slots=None, batch=None,
 
 
 def apply_layer(cfg, layer: Layer, x, *, positions, cache, paged,
-                write_idx, rope, mode="decode", cache_pos=0):
+                write_idx, rope, mode="decode", cache_pos=0, enc_out=None,
+                causal=True):
     """Pre-norm residual block: attention or Mamba then an MLP or MoE,
     or RWKV time mix then channel mix.  Returns (x, aux), aux being the
     MoE load-balance loss or None.  ``paged`` None is the slab path:
     ``mode`` and the scalar ``cache_pos`` say where the new keys go (a
     recurrent mixer takes its one-step update only in a one-token
     decode call), and ``mode="train"`` (cache None) is the training
-    forward."""
+    forward.  ``causal`` False: an encoder layer.  A layer with a
+    ``cross``-attention runs it after the mixer, over ``enc_out`` (train
+    and prefill) or its cross cache (decode)."""
+    cross_cache = None
+    if isinstance(cache, dict) and "cross" in cache:
+        cache, cross_cache = cache["self"], cache["cross"]
     h = rmsnorm(layer.norm1, x, cfg.norm_eps)
     if layer.kind == "rwkv6":
         x = x + ssm_lib.apply_rwkv6_time_mix(cfg, layer.mixer, h, mode=mode,
@@ -175,7 +209,11 @@ def apply_layer(cfg, layer: Layer, x, *, positions, cache, paged,
                                          positions=positions, cache=cache,
                                          paged=paged, write_idx=write_idx,
                                          rope=rope, mode=mode,
-                                         cache_pos=cache_pos)
+                                         cache_pos=cache_pos, causal=causal)
+    if layer.cross is not None:
+        h = rmsnorm(layer.norm_cross, x, cfg.norm_eps)
+        x = x + attn_lib.apply_cross_attention(
+            cfg, layer.cross, h, enc_out=enc_out, cache=cross_cache)
     h = rmsnorm(layer.norm2, x, cfg.norm_eps)
     if layer.ffn_kind == "moe":
         h, aux = moe_lib.apply_moe(cfg, layer.ffn, h)
@@ -188,7 +226,8 @@ def has_attention(cfg) -> bool:
 
 
 def apply_stack(cfg, layers, x, *, positions, cache, paged, rope_freqs,
-                mode="decode", cache_pos=0, remat=False):
+                mode="decode", cache_pos=0, remat=False, enc_out=None,
+                causal=True):
     """The layers in order; returns (x, the summed MoE aux loss or
     None).  What every attention layer derives alike from the positions
     -- pool write rows (paged) and RoPE angles -- is computed once, and
@@ -197,7 +236,8 @@ def apply_stack(cfg, layers, x, *, positions, cache, paged, rope_freqs,
     positions (1, S), shared by every slot.  ``remat`` runs each layer
     under ``torch.utils.checkpoint`` (per-layer rematerialisation, as
     the reference's ``jax.checkpoint`` of one layer): its activations
-    are recomputed in the backward instead of kept."""
+    are recomputed in the backward instead of kept.  ``enc_out`` feeds
+    every cross-attention; ``causal`` False runs an encoder stack."""
     write_idx = rope = None
     if has_attention(cfg):
         if paged is not None:
@@ -208,7 +248,8 @@ def apply_stack(cfg, layers, x, *, positions, cache, paged, rope_freqs,
                          else cache):
         fn = functools.partial(apply_layer, cfg, layer, positions=positions,
                                cache=c, paged=paged, write_idx=write_idx,
-                               rope=rope, mode=mode, cache_pos=cache_pos)
+                               rope=rope, mode=mode, cache_pos=cache_pos,
+                               enc_out=enc_out, causal=causal)
         x, a = (checkpoint(fn, x, use_reentrant=False) if remat else fn(x))
         if a is not None:
             aux = a if aux is None else aux + a

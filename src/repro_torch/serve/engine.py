@@ -7,8 +7,10 @@ whole-prompt prefill, then one decode step per token for every slot at
 once, greedy or sampled, with ONE blocking host round-trip per token
 when an EOS is set (``bool(done.all())``).  It is the equivalence
 reference for the continuous engine (``serve.scheduler``) and the
-baseline of the host-sync story.  It serves every architecture the
-port has: each attention call but MLA's slab decode (plain ops, as in
+baseline of the host-sync story.  It serves every decoder-only text
+architecture the port has (a VLM or an encoder-decoder takes
+``apply_model``'s slab prefill and decode instead, as in the
+reference, whose engine takes token prompts only): each attention call but MLA's slab decode (plain ops, as in
 the reference) runs through ``chunked_attention``, the flash-attention
 kernel on the card; each whole-prompt prefill of a Mamba or RWKV-6
 layer runs its scan kernel, each decode step its one-step update.
@@ -27,7 +29,8 @@ import torch
 from repro_torch.bridge import params_from_jax
 from repro_torch.device import resolve_device
 from repro_torch.models.model import (Model, apply_model, check_slab_ported,
-                                      compute_dtype, init_cache)
+                                      check_token_serving, compute_dtype,
+                                      init_cache)
 from repro_torch.serve.sampling import SamplingConfig, sample
 from repro_torch.serve.scheduler import ContinuousScheduler
 
@@ -67,6 +70,7 @@ class ServeEngine:
                  eos_id: Optional[int] = None,
                  sampling: SamplingConfig = SamplingConfig(), seed: int = 0):
         check_slab_ported(cfg)
+        check_token_serving(cfg)
         self.cfg = cfg
         self.model = model
         self.device = model.embed.device

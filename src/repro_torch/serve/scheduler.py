@@ -62,7 +62,8 @@ import numpy as np
 import torch
 
 from repro_torch.models.attention import PagedView
-from repro_torch.models.model import apply_model, compute_dtype, mtp_draft
+from repro_torch.models.model import (apply_model, check_paged_ported,
+                                      compute_dtype, mtp_draft)
 from repro_torch.serve.kvcache import PagedKVCache
 from repro_torch.serve.prefix import PrefixCache
 from repro_torch.serve.sampling import (SamplingConfig, accept_speculative,
@@ -123,6 +124,7 @@ class ContinuousScheduler:
                  prefill_chunk: int = 32, decode_chunk: int = 8,
                  tenant_quota=None, prefix_cache: bool = False,
                  spec_decode: int = 0):
+        check_paged_ported(cfg)
         recurrent = any(mix != "attn" for mix, _ in cfg.layer_pattern())
         if prefix_cache and recurrent:
             raise ValueError(

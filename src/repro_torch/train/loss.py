@@ -1,9 +1,8 @@
-"""Losses.  Labels use -1 for masked positions (padding).
+"""Losses.  Labels use -1 for masked positions (padding, image tokens).
 
-Port of ``repro.train.loss`` for decoder-only token batches, the
-multi-token-prediction term included.  The vision branch of
-``make_labels`` waits with the frontends (which ``models.check_ported``
-refuses, so no model reaches it).
+Port of ``repro.train.loss``: token batches, an encoder-decoder's
+target tokens, a VLM's image rows (IGNORE labels in front of the text),
+and the multi-token-prediction term.
 """
 from __future__ import annotations
 
@@ -15,8 +14,13 @@ IGNORE = -1
 def make_labels(cfg, batch):
     """Next-token labels aligned with the model's logit sequence."""
     tokens = batch.get("tgt_tokens", batch.get("tokens"))
-    return torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], IGNORE)],
-                     dim=1)
+    labels = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1],
+                                                       IGNORE)], dim=1)
+    if cfg.frontend == "vision" and "vision_embeds" in batch:
+        n_img = batch["vision_embeds"].shape[1]
+        labels = torch.cat([labels.new_full((tokens.shape[0], n_img),
+                                            IGNORE), labels], dim=1)
+    return labels
 
 
 def cross_entropy(logits, labels):

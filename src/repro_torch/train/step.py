@@ -28,7 +28,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch import optim as optim_lib
-from repro_torch.models import apply_model, init_model
+from repro_torch.models import apply_model, batch_inputs, init_model
 from repro_torch.train.loss import lm_loss
 
 
@@ -95,8 +95,9 @@ def _split_micro(batch, n):
 
 def make_loss_fn(cfg, tc: TrainConfig):
     def loss_fn(model, batch):
-        out = apply_model(cfg, model, batch["tokens"], mode="train",
-                          remat=tc.remat)
+        tokens, frontends = batch_inputs(batch)
+        out = apply_model(cfg, model, tokens, mode="train", remat=tc.remat,
+                          **frontends)
         return lm_loss(cfg, out, batch, mtp_weight=tc.mtp_weight)
     return loss_fn
 
@@ -104,7 +105,9 @@ def make_loss_fn(cfg, tc: TrainConfig):
 def make_train_step(cfg, tc: TrainConfig):
     """Returns (step_fn, optimizer) -- ``step(state, batch) -> (state,
     metrics)`` on the ``TrainState`` contract; ``batch`` is ``{"tokens":
-    (B, S)}`` (numpy or a tensor), moved to the masters' device.  The
+    (B, S)}``, with ``"vision_embeds"`` for a VLM, or an
+    encoder-decoder's ``{"src_embeds", "tgt_tokens"}`` (numpy or
+    tensors), moved to the masters' device.  The
     masters and the optimizer state are updated in place, and the
     returned state holds the same objects."""
     if (tc.param_dtype, tc.grad_dtype) != ("float32", "float32"):

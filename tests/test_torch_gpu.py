@@ -1341,3 +1341,110 @@ def test_spec_tick_makes_one_host_sync_on_card(cuda):
                                   **kw).generate(prompts, 12)
         for a, b in zip(want, got):
             np.testing.assert_array_equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# the six newcomers: the paged kernel at their group sizes, the flash
+# kernel's non-causal forms, the encoder-decoder and the VLM on the card
+# --------------------------------------------------------------------------
+
+NEW_GROUP_CASES = [
+    # B, S, h, hk, hd, page_size, W, window: granite (g 48 over one kv
+    # head), qwen2.5-32b (g 5), deepseek-coder-33b (g 7), deepseek-moe-16b
+    # (g 1): a 16-row tile holds parts of several positions at g 5 and 7
+    (8, 1, 48, 1, 128, 16, 37, 0), (1, 32, 48, 1, 128, 16, 37, 0),
+    (8, 1, 40, 8, 128, 16, 37, 0), (1, 32, 40, 8, 128, 16, 37, 0),
+    (8, 1, 56, 8, 128, 16, 37, 0), (1, 32, 56, 8, 128, 16, 37, 0),
+    (8, 1, 16, 16, 128, 16, 37, 0), (1, 32, 16, 16, 128, 16, 37, 0),
+    # windowed chunks: the tile skip reads the tile's lowest and highest
+    # positions
+    (4, 32, 40, 8, 128, 16, 37, 100), (4, 32, 56, 8, 128, 16, 37, 70),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", NEW_GROUP_CASES)
+def test_kernel_new_group_sizes_match_plain(cuda, case, dtype):
+    B, S, h, hk, hd, ps, W, window = case
+    lengths = (np.random.default_rng(sum(case)).integers(480, 545, B)
+               if S == 1 else None)
+    args = _on(cuda, dtype, *paged_case(sum(case), B, S, h, hk, hd, ps, W,
+                                        lengths=lengths))
+    got = paged_flash_decode(*args, page_size=ps, window=window)
+    want = paged_flash_decode_ref(*args, page_size=ps, window=window)
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+CROSS_FLASH_CASES = [
+    # B, S, T, h, hk, hd: non-causal, no window (an encoder, cross-
+    # attention); seamless's (64, 64) widths
+    (2, 1, 96, 4, 4, 64),          # a decode step against the source
+    (2, 15, 16, 4, 4, 64),         # seq - 1 targets against seq frames
+    (2, 255, 256, 16, 16, 64),     # ... at 16 heads
+    (1, 300, 70, 4, 4, 64),        # more targets than frames
+    (2, 128, 128, 16, 16, 64),     # the bidirectional encoder
+    (8, 1024, 1024, 16, 16, 64),   # ... at phase 25's length (bf16: wgmma)
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CROSS_FLASH_CASES)
+def test_flash_kernel_noncausal_forms_match_plain(cuda, case, dtype):
+    from repro_torch.models.attention import chunked_attention
+    B, S, T, h, hk, hd = case
+    q, k, v = _flash_inputs(cuda, dtype, sum(case), B, S, T, h, hk, hd)
+    want = flash_attention_ref(q, k, v, causal=False)
+    # through the slab entry point, as the cross layers call it: any query
+    # positions, all T keys
+    reset_launch_counts()
+    got = chunked_attention(q, k, v, q_positions=torch.arange(7, 7 + S),
+                            kv_positions=range(T), causal=False, window=0)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == 1
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2",
+                                  "llava-next-mistral-7b"])
+def test_frontend_greedy_on_card_matches_cpu(cuda, arch):
+    """The smoke config in fp32 through ``apply_model``'s slab prefill and
+    8 greedy decode steps: the card's tokens equal the CPU's, and every
+    attention call (encoder, self, cross) launched the flash kernel."""
+    from repro_torch.models import apply_model, batch_inputs, init_cache
+    cfg = smoke_config(arch).with_overrides(dtype="float32")
+    rng = np.random.default_rng(2)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 12))}
+    if cfg.is_encoder_decoder:
+        batch = {"tgt_tokens": batch["tokens"], "src_embeds":
+                 rng.standard_normal((2, 40, cfg.d_model), dtype=np.float32)}
+    else:
+        batch["vision_embeds"] = rng.standard_normal(
+            (2, cfg.num_frontend_tokens, 1024), dtype=np.float32)
+    new = 8
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        model = init_model(cfg, seed=0, device="cpu").to(dev)
+        tokens, fronts = batch_inputs({k: torch.from_numpy(v).to(dev)
+                                       for k, v in batch.items()})
+        rows = tokens.shape[1] + sum(v.shape[1] for k, v in fronts.items()
+                                     if k == "vision_embeds")
+        cache = init_cache(cfg, torch.float32, batch=2, max_len=rows + new,
+                           cross_len=40 if cfg.is_encoder_decoder else 0,
+                           device=dev)
+        reset_launch_counts()
+        logits = apply_model(cfg, model, tokens, cache=cache, cache_pos=0,
+                             mode="prefill", last_only=True, **fronts)["logits"]
+        toks = [logits[:, -1].argmax(-1)[:, None]]
+        for i in range(new - 1):
+            logits = apply_model(cfg, model, toks[-1], cache=cache,
+                                 cache_pos=rows + i, mode="decode")["logits"]
+            toks.append(logits[:, -1].argmax(-1)[:, None])
+        outs[dev] = torch.cat(toks, 1).cpu().numpy()
+    per_call = (2 * cfg.num_layers if cfg.is_encoder_decoder
+                else cfg.num_layers)
+    assert launch_counts()["flash_attention"] == cfg.encoder_layers \
+        + per_call * new
+    np.testing.assert_array_equal(outs["cpu"], outs["cuda"])

@@ -214,9 +214,17 @@ def test_bf16_model_keeps_fp32_where_the_reference_reads_fp32():
     (dict(frontend="vision", num_frontend_tokens=16), "vision frontend"),
 ])
 def test_unported_stacks_are_refused_by_name(overrides, part):
-    from repro_torch.models.model import check_ported
+    """The encoder-decoder and the vision frontend run on the slab and
+    train paths but not on the paged pool, whose refusal names the part;
+    an audio frontend without an encoder is refused everywhere."""
+    from repro_torch.models.model import check_paged_ported, check_ported
     cfg = get_config("qwen3-1.7b").with_overrides(**overrides)
     with pytest.raises(ValueError, match=part):
+        check_paged_ported(cfg)
+    if "audio" in part:
+        with pytest.raises(ValueError, match=part):
+            check_ported(cfg)
+    else:
         check_ported(cfg)
     check_ported(get_config(ARCH))
     check_ported(get_config("deepseek-v3-671b"))       # MLA is ported
