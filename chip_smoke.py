@@ -89,12 +89,13 @@ Phases (each fails the run if it goes wrong):
      all-gather ms (SyncTimer) and the memory between steps printed.
      (b) 2 gloo ranks sharing the card (torchrun of this script), full
      width at depth 4 (reduced: num_layers 28 -> 4), each rank 1 x 4096
-     tokens of phase 13's batch, dp = flat, zero1, zero2, zero3, 3 steps
-     each: the losses within 1e-5 of flat's, zero3's memory between
-     steps at most 0.55 x flat's, zero1's moments 1/2; zero3 saves at
-     step 3 with save_async (every rank its own worker file) and takes
-     step 4; a one-rank bucketed trainer restores that checkpoint, its
-     step 4 gives zero3's step-4 loss within 1e-5, and Trainer.serve()
+     tokens of phase 13's batch, dp = flat, zero1, zero2, zero3, 2 steps
+     each (3 until phase 27 needed the time): the losses within 1e-5 of
+     flat's, zero3's memory between steps at most 0.55 x flat's, zero1's
+     moments 1/2; zero3 saves at step 2 with save_async (every rank its
+     own worker file) and takes step 3; a one-rank bucketed trainer
+     restores that checkpoint, its step 3 gives zero3's step-3 loss
+     within 1e-5, and Trainer.serve()
      of both serves phase 3's traffic at depth 4 with equal greedy
      tokens and 4 x 282 paged_flash_decode launches each.  The
      checkpoint is deleted at the phase's end.
@@ -117,7 +118,7 @@ Phases (each fails the run if it goes wrong):
      the head's block is not rematted; its mtp_ce printed; peak under
      80 GB); then each at 2 fp32 layers card vs CPU, SGD, the routed
      experts cut (Jamba 16 -> 4, DeepSeek 256 -> 16; DeepSeek's with the
-     head);
+     head, 2 steps: its CPU half takes ~16 s a step);
  22. the prefix cache and the front door: phase 3's model serves 16
      requests on 8 slots, 4 templates of 256 tokens each shared by 4
      requests, each with a unique suffix of 32-256 tokens, without the
@@ -142,15 +143,18 @@ Phases (each fails the run if it goes wrong):
      tokens equal k = 0's on the card, acceptance >= 0.6, decode
      dispatches and host syncs a token down >= 1.8x, and an EOS
      mid-chunk emits nothing after it.
- 24. the four decoder-only newcomers at full width and depth, bf16, one
-     at a time: granite-20b (MQA, g 48), qwen2.5-32b (g 5, qkv bias),
-     deepseek-coder-33b (g 7) and deepseek-moe-16b (MHA, a dense first
-     layer then MoE of 64 experts + 2 shared) serve phase 3's traffic
-     through the continuous scheduler: exactly layers x 282
-     paged_flash_decode launches (14664, 18048, 17484, 7896); tokens/s,
+ 24. the four decoder-only newcomers at full width, bf16, one at a
+     time, each reduced to 16 layers for the script's time limit (each
+     stack repeats one layer: granite-20b (MQA, g 48) 52 -> 16,
+     qwen2.5-32b (g 5, qkv bias) 64 -> 16, deepseek-coder-33b (g 7) 62
+     -> 16, deepseek-moe-16b (MHA, a dense first layer then MoE of 64
+     experts + 2 shared) 28 -> 16) serve phase 3's traffic through the
+     continuous scheduler: exactly 16 x 282 = 4512 paged_flash_decode
+     launches each; tokens/s,
      TTFT, peak memory and the device's idle share over one traced decode
      tick and one prefill chunk; granite also serves phase 11's traffic
-     through the lockstep engine (3328 flash_attention launches at g 48);
+     through the lockstep engine (1024 = 16 x 64 flash_attention
+     launches at g 48);
  25. the two frontends at full width and depth, bf16, through
      ``apply_model``'s slab prefill and greedy decode (the reference's
      only serving path for them): seamless-m4t-large-v2 on 8 sources of
@@ -170,7 +174,24 @@ Phases (each fails the run if it goes wrong):
      microbatches: exactly 1728 and 192 flash_attention launches; then
      each at 2 full-width layers (seamless with 2 encoder layers) in
      fp32, 2 AdamW steps on one sequence of 128, card vs CPU with phase
-     14's bars.
+     14's bars;
+ 27. bf16 masters and gradients: (a) llava-next-mistral-7b at full
+     width and depth (32 layers, 7.24 B) with the reference's pairing
+     for a model that does not fit otherwise -- bf16 masters and
+     gradients, SGD at lr 1e-3 -- 1 + 3 steps on phase 26's batch in 2
+     microbatches with remat: exactly 512 flash_attention launches,
+     finite losses, masters and gradients bf16, its bytes between steps
+     beside perf_model.dp_memory_report's; (b) 2 of its layers at full
+     width, fp32 compute on bf16 masters, 2 SGD steps card vs CPU within
+     one bf16 ulp a step; (c) zero3 with bf16 masters against flat over
+     one NCCL rank at phase 18b's 4-layer qwen3, 3 AdamW steps; (d) the
+     asynchronous parameter server on MNIST-DNN, 8 workers, 64 ticks,
+     beside the synchronous steps on the same stream.
+Phases 3, 16 and 17 also print the cost model's predictions
+(``repro_torch.core.perf_model`` with H100 presets) beside what the
+card measured: a decode step, the gradient all-reduce at p = 2, 4, 8
+(no cross-card number can be measured) and a checkpoint's copy and
+write.  Each group of phases prints its wall seconds.
 Phase 2 also holds both paged kernels at speculative decode's verify
 shape (B 8, S = k = 4, per-slot positions, ~512 tokens a slot), the
 GQA paged kernel at the newcomers' group sizes ((h, hk) = (48, 1), (40,
@@ -274,6 +295,9 @@ CKPT_DIR = os.path.join(ROOT, "build", "ckpt_phase17")
 ZERO_STRATEGIES = (("zero1", False), ("zero2", False), ("zero3", False),
                    ("zero1", True))
 ZERO_LAYERS, ZERO_RANKS = 4, 2
+# (b)'s steps a strategy before the checkpoint (3 until phase 27 needed
+# the time)
+ZERO_GLOO_STEPS = 2
 ZERO_LOSS_TOL = 1e-5          # the reference's fp32 training bar
 ZERO3_MEM_RATIO = 0.55        # zero3's bytes between steps / flat's
 ZERO_DIR = os.path.join(ROOT, "build", "zero_phase18")
@@ -294,6 +318,19 @@ FLASH_CASES = [
 def fail(msg):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+# each group of phases' wall seconds, in the order they ran
+PHASE_S = {}
+
+
+def run_phase(label, fn, *args):
+    """``fn(*args)``, its wall seconds printed and kept under ``label``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_S[label] = time.perf_counter() - t0
+    print(f"{label}: {PHASE_S[label]:.1f} s")
+    return out
 
 
 def card_line():
@@ -1382,6 +1419,57 @@ def serve(cfg, model, prompts, new_tokens, **kw):
     return sch, sch.generate(prompts, new_tokens)
 
 
+DECODE_TIMED_TICKS = 4
+
+
+def decode_tick_model(cfg, model, prompts):
+    """Phase 3, the cost model beside the card: the first SLOTS requests
+    admitted (prefilled), then DECODE_TIMED_TICKS fused decode ticks of
+    DECODE_CHUNK steps, timed on the host clock ending in a synchronize;
+    beside ``perf_model.decode_step_time`` with the H100 presets (HBM3
+    3.35 TB/s, bf16 989 TFLOP/s) for the bytes a step streams -- every
+    weight but the gathered embedding, the fp32 unembedding included --
+    and the slots' KV at their mean context.  Returns the numbers."""
+    from repro_torch.core import perf_model as pm
+    from repro_torch.serve import ContinuousScheduler
+    sch = ContinuousScheduler(cfg, model, slots=SLOTS, max_len=MAX_LEN,
+                              page_size=PAGE_SIZE, decode_chunk=DECODE_CHUNK,
+                              prefill_chunk=PREFILL_CHUNK)
+    for p in prompts[:SLOTS]:
+        sch.submit(p, NEW_TOKENS)
+    sch._admit()
+    sch._decode_tick()                                  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DECODE_TIMED_TICKS):
+        sch._decode_tick()
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / (DECODE_TIMED_TICKS * DECODE_CHUNK)
+    # context mid-run: the prompt plus the warm-up and half the timed steps
+    ctx = float(np.mean([len(p) for p in prompts[:SLOTS]])) + DECODE_CHUNK * (
+        1 + DECODE_TIMED_TICKS / 2)
+    param_bytes = sum(p.numel() * p.element_size()
+                      for k, p in model.named_parameters() if k != "embed")
+    n_active = cfg.param_count() - cfg.vocab_size * cfg.d_model
+    kv = pm.kv_bytes_per_token(cfg) * ctx
+    model_s = pm.decode_step_time(param_bytes, kv, batch=SLOTS,
+                                  flops_per_token=2.0 * n_active,
+                                  hbm_bw=pm.H100_HBM_BW,
+                                  flops_rate=pm.H100_BF16_FLOPS)
+    del sch
+    out = {"measured_step_ms": step_s * 1e3, "model_step_ms": model_s * 1e3,
+           "param_bytes": param_bytes, "kv_bytes_per_seq": kv,
+           "mean_context": ctx}
+    print(f"phase 3: a decode step measured {step_s * 1e3:.3f} ms (mean of "
+          f"{DECODE_TIMED_TICKS} fused ticks of {DECODE_CHUNK} steps, "
+          f"{SLOTS} slots at ~{ctx:.0f} tokens, host clock); perf_model."
+          f"decode_step_time predicts {model_s * 1e3:.3f} ms (H100 presets: "
+          f"{param_bytes / 1e9:.3f} GB of weights + {SLOTS} x "
+          f"{kv / 1e6:.2f} MB of KV at 3.35 TB/s) -- a prediction, "
+          f"{step_s / model_s:.1f}x below the measured step")
+    return out
+
+
 def serve_rwkv(dev, lens):
     """Phases 5 and 6: full-width full-depth rwkv6-1.6b in bf16 on the
     phase-3 traffic, then card-vs-CPU fp32 greedy parity at 2 layers.
@@ -2150,6 +2238,10 @@ def dp_qwen(dev, phase13_losses, prompts, serve_launches):
               f"{', '.join(f'{m:.2f}' for m in sync)} ms (CUDA events); "
               f"{desc['allreduce_bytes_per_sync'] / 2**30:.3f} GiB handed to "
               f"the collectives a step; peak memory {peak:.2f} GiB")
+        out[strategy]["comm_time_s"] = desc["comm_time_s"]
+        if strategy == "flat":
+            out[strategy]["predicted_ms"] = comm_predictions(
+                4.0 * desc["params"], desc["comm_time_s"], sync)
         if strategy == "flat":
             del trainer
     ckpt_out = checkpoint_qwen(dev, trainer, lambda: create("bucketed"),
@@ -2162,6 +2254,26 @@ def dp_qwen(dev, phase13_losses, prompts, serve_launches):
     dist.destroy_process_group()
     torch.cuda.empty_cache()
     return out, ckpt_out, zero_out
+
+
+def comm_predictions(v_bytes, comm_time_s, sync_ms):
+    """Phase 16, the cost model: ``allreduce_comm_time`` of a step's fp32
+    gradients on NVLink 4 at p = 2, 4 and 8 -- predictions, since one
+    card measures no wire -- beside the one-rank grad_sync."""
+    from repro_torch.core import perf_model as pm
+    pred = {p: pm.allreduce_comm_time(v_bytes, p=p, fabric=pm.H100_NVLINK4)
+            * 1e3 for p in (1, 2, 4, 8)}
+    print(f"phase 16 (flat): perf_model.allreduce_comm_time of "
+          f"{v_bytes / 1e9:.3f} GB of fp32 gradients over NVLink 4 (450 GB/s "
+          f"a direction, NVIDIA's H100 SXM datasheet; latency assumed "
+          f"{pm.H100_NVLINK4.alpha * 1e6:g} us) -- predictions, no "
+          f"cross-card number can be measured here: p = 2 {pred[2]:.2f} ms, "
+          f"p = 4 {pred[4]:.2f} ms, p = 8 {pred[8]:.2f} ms; the model gives "
+          f"{pred[1]:g} at p = 1, where the measured one-rank grad_sync "
+          f"{', '.join(f'{m:.2f}' for m in sync_ms)} ms is the collective's "
+          f"own overhead; Trainer.describe()['comm_time_s'] = "
+          f"{comm_time_s!r} (p = 1, the reference's fabric)")
+    return pred
 
 
 # --------------------------------------------------------------------------
@@ -2249,7 +2361,8 @@ def zero_qwen(dev, cfg, batch, mesh, flat_losses):
 def zero_gloo(dev, cfg, batch, mesh, prompts, model_calls):
     """Phase 18b: torchrun of this script over 2 gloo ranks sharing the
     card (``zero_rank``), then, here, a one-rank bucketed trainer that
-    restores the ranks' zero3 checkpoint, takes step 4 and serves."""
+    restores the ranks' zero3 checkpoint, takes the step after it and
+    serves."""
     import gc
     import shutil
     from repro_torch.api import Trainer
@@ -2279,7 +2392,7 @@ def zero_gloo(dev, cfg, batch, mesh, prompts, model_calls):
         t0 = time.perf_counter()
         at = trainer.restore(os.path.join(ZERO_DIR, "ckpt"))
         restore_s = time.perf_counter() - t0
-        loss4 = float(trainer.step(batch)["loss"])
+        loss_next = float(trainer.step(batch)["loss"])
         eng = trainer.serve(**SERVE_KW)
         reset_launch_counts()
         toks = eng.generate(prompts, NEW_TOKENS)
@@ -2288,9 +2401,11 @@ def zero_gloo(dev, cfg, batch, mesh, prompts, model_calls):
     finally:
         shutil.rmtree(ZERO_DIR, ignore_errors=True)
     z3 = ranks["zero3"]
-    if at != DP_STEPS or abs(loss4 - z3["loss4"]) > ZERO_LOSS_TOL:
-        fail(f"phase 18b: the bucketed trainer restored step {at}, its step "
-             f"4 gave loss {loss4!r}, zero3's own {z3['loss4']!r}")
+    if at != ZERO_GLOO_STEPS or abs(loss_next - z3["loss_next"]) > \
+            ZERO_LOSS_TOL:
+        fail(f"phase 18b: the bucketed trainer restored step {at}, its next "
+             f"step gave loss {loss_next!r}, zero3's own "
+             f"{z3['loss_next']!r}")
     want = ZERO_LAYERS * model_calls
     if paged != want or z3["paged_launches"] != want:
         fail(f"phase 18b: paged_flash_decode launched {paged} (restored "
@@ -2300,12 +2415,14 @@ def zero_gloo(dev, cfg, batch, mesh, prompts, model_calls):
             not np.array_equal(a, b) for a, b in zip(toks, rank_tokens)):
         fail("phase 18b: Trainer.serve() of the zero3 ranks and of the "
              "restored bucketed trainer gave different greedy tokens")
-    ranks["restored"] = {"step": at, "loss4": loss4, "restore_s": restore_s,
+    ranks["restored"] = {"step": at, "loss_next": loss_next,
+                         "restore_s": restore_s,
                          "paged_launches": paged}
     ranks["torchrun_wall_s"] = wall
     print(f"phase 18b: the zero3 checkpoint (2 ranks) restored into a "
-          f"one-rank bucketed trainer in {restore_s:.1f} s; its step 4 gave "
-          f"{loss4!r}, zero3's own {z3['loss4']!r}; Trainer.serve() of both "
+          f"one-rank bucketed trainer in {restore_s:.1f} s; its step "
+          f"{at + 1} gave {loss_next!r}, zero3's own {z3['loss_next']!r}; "
+          f"Trainer.serve() of both "
           f"gave equal greedy tokens for {len(prompts)} requests x "
           f"{NEW_TOKENS}, paged_flash_decode launches {paged} and "
           f"{z3['paged_launches']}; torchrun {wall:.1f} s")
@@ -2479,7 +2596,8 @@ def _train_run(dev, cfg, tc, batch, steps, tag):
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in trainable(state.params).values())
     print(f"{tag}: {cfg.name} {cfg.layer_pattern()} ({n_params / 1e9:.3f} B "
-          f"fp32 masters, bf16 compute, {tc.optimizer}) initialised in "
+          f"{tc.param_dtype} masters, bf16 compute, {tc.optimizer}) "
+          f"initialised in "
           f"{time.perf_counter() - t0:.1f} s, resident "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     # an MTP head's block runs its attention once a microbatch (the head
@@ -2658,15 +2776,15 @@ def train_archs(dev):
         dev, "phase 21", small, sgd,
         make_batch(small, np.random.default_rng(21), 1, 128),
         f", reduced: routed experts {full.moe.num_experts} -> 16 (this "
-        "check only)")
+        "check only)", steps=2)
     return out
 
 
 def zero_rank(outdir):
     """One of phase 18b's gloo ranks (run by torchrun): full-width qwen3
-    at depth 4 under flat, zero1, zero2 and zero3, 3 steps each on this
-    rank's 1 x 4096 tokens of phase 13's batch; zero3 saves, steps and
-    serves.  Rank 0 writes the numbers."""
+    at depth 4 under flat, zero1, zero2 and zero3, ZERO_GLOO_STEPS steps
+    each on this rank's 1 x 4096 tokens of phase 13's batch; zero3
+    saves, steps and serves.  Rank 0 writes the numbers."""
     import gc
     sys.path.insert(0, SRC)
     import torch.distributed as dist
@@ -2699,7 +2817,7 @@ def zero_rank(outdir):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         losses, walls, between, flash, spans = _steps(trainer, batch,
-                                                      DP_STEPS, dev)
+                                                      ZERO_GLOO_STEPS, dev)
         if any(f != want_flash for f in flash):
             raise SystemExit(f"rank {rank} ({strategy}): flash launched "
                              f"{flash} times a step, expected {want_flash}")
@@ -2717,7 +2835,7 @@ def zero_rank(outdir):
             rec = trainer.save_async(ck)
             r["save_blocking_s"] = time.perf_counter() - t0
             r["save_bytes_this_rank"] = rec["bytes"]
-            r["loss4"] = float(trainer.step(batch)["loss"])
+            r["loss_next"] = float(trainer.step(batch)["loss"])
             stats = trainer.finish_saves()
             r["write_s"] = stats["last_write_s"]
             eng = trainer.serve(**SERVE_KW)
@@ -2754,7 +2872,7 @@ def zero_rank(outdir):
               f"{full.num_layers} -> {ZERO_LAYERS} "
               f"({res['flat']['params'] / 1e9:.3f} B params by "
               f"Trainer.describe), {ZERO_RANKS} gloo ranks on one card, "
-              f"1 x {TRAIN_SEQ} tokens a rank, {DP_STEPS} AdamW steps:",
+              f"1 x {TRAIN_SEQ} tokens a rank, {ZERO_GLOO_STEPS} AdamW steps:",
               flush=True)
         for name, r in res.items():
             print(f"phase 18b ({name}): losses {r['losses']} (gap to flat "
@@ -2920,6 +3038,17 @@ def checkpoint_qwen(dev, trainer, create, cfg, batch, prompts,
           f"Trainer.serve() == make_engine_from_checkpoint greedy tokens "
           f"for {len(prompts)} requests x {NEW_TOKENS}, paged_flash_decode "
           f"launches {launches['trainer']} and {launches['checkpoint']}")
+    from repro_torch.core import perf_model as pm
+    model = pm.ckpt_overhead(rec["bytes"], step_time_s=step4_wall,
+                             d2h=pm.H100_PCIE5_D2H, disk=pm.CKPT_DISK)
+    out["ckpt_overhead_model"] = model
+    print(f"phase 17: perf_model.ckpt_overhead of {rec['bytes'] / 1e9:.3f} "
+          f"GB (device->host on PCIe Gen5 x16, 64 GB/s a direction, the "
+          f"H100 SXM datasheet; the disk at the reference's assumed 2 GB/s) "
+          f"predicts save_async blocking {model['async_s']:.2f} s (measured "
+          f"{rec['blocking_s']:.2f} s) and a write of "
+          f"{model['publish_lag_s']:.2f} s (measured "
+          f"{stats['last_write_s']:.2f} s)")
     print(f"phase 17: {json.dumps(out)}")
     return out
 
@@ -3257,6 +3386,10 @@ def spec_trained(dev):
 
 DENSE_MORE = ("granite-20b", "qwen2.5-32b", "deepseek-coder-33b",
               "deepseek-moe-16b")
+# phase 24's depth cut, so that phase 27 fits the script's time limit:
+# each stack repeats one layer (deepseek-moe-16b after its dense first
+# one), and 16 of them drive the same kernel at the same group size
+DENSE_MORE_LAYERS = {arch: 16 for arch in DENSE_MORE}
 # phase 25: seamless's 8 sources of 1024 frames and 8-token target
 # prompts; llava's 8 requests of 2880 image rows + 128 text tokens
 ENCDEC_BATCH, ENCDEC_FRAMES, ENCDEC_PROMPT = 8, 1024, 8
@@ -3286,7 +3419,8 @@ def _free():
 
 def serve_dense_more(dev, lens):
     """Phase 24: granite-20b, qwen2.5-32b, deepseek-coder-33b and
-    deepseek-moe-16b at full width and depth, bf16, one at a time, serve
+    deepseek-moe-16b at full width, each cut to DENSE_MORE_LAYERS
+    layers, bf16, one at a time, serve
     phase 3's traffic through the continuous scheduler; a decode tick
     and a prefill chunk traced for the device's idle share; granite also
     serves phase 11's traffic through the lockstep engine.  Returns
@@ -3302,6 +3436,8 @@ def serve_dense_more(dev, lens):
     out = {}
     for arch in DENSE_MORE:
         cfg = get_config(arch)
+        if arch in DENSE_MORE_LAYERS:
+            cfg = cfg.with_overrides(num_layers=DENSE_MORE_LAYERS[arch])
         rng = np.random.default_rng(0)
         rng.integers(PROMPT_MIN, PROMPT_MAX + 1, REQUESTS)  # phase 3's lengths
         prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
@@ -3362,6 +3498,9 @@ def serve_dense_more(dev, lens):
         del sch, kv
         trace_s = time.perf_counter() - t0 - wall
         rec = {"params": cfg.param_count(), "layers": cfg.num_layers,
+               "reduced": (f"num_layers {get_config(arch).num_layers} -> "
+                           f"{cfg.num_layers}" if arch in DENSE_MORE_LAYERS
+                           else None),
                "group": cfg.num_heads // cfg.num_kv_heads,
                "init_s": init_s, "init_peak_gib": init_peak,
                "resident_gib": resident, "peak_gib": peak, "wall_s": wall,
@@ -3375,7 +3514,9 @@ def serve_dense_more(dev, lens):
                    "wall_ms", "device_busy_ms", "device_idle_share",
                    "kernel_launches", "top_kernels")}}
         print(f"phase 24: {arch} ({rec['params'] / 1e9:.3f} B params, "
-              f"{cfg.num_layers} layers, {cfg.num_heads} q / "
+              f"{cfg.num_layers} layers"
+              + (f" (reduced: {rec['reduced']})" if rec["reduced"] else "")
+              + f", {cfg.num_heads} q / "
               f"{cfg.num_kv_heads} kv heads x {cfg.head_dim} (g = "
               f"{rec['group']}), bf16; initialised in {init_s:.1f} s, init "
               f"peak {init_peak:.2f} GiB): {REQUESTS} requests "
@@ -3677,7 +3818,8 @@ def train_frontends(dev):
         print(f"phase 26: {arch}"
               + (f" reduced: num_layers {get_config(arch).num_layers} -> "
                  f"{cut}" if cut else " at full size")
-              + f" ({n_params / 1e9:.3f} B fp32 masters, bf16 compute, "
+              + f" ({n_params / 1e9:.3f} B {tc.param_dtype} masters, bf16 "
+              f"compute, "
               f"AdamW lr {TRAIN_LR:g}, remat) on {shape} in {TRAIN_MICRO} "
               f"microbatches: losses {', '.join(f'{x:.4f}' for x in losses)}; "
               f"step wall median {wall * 1e3:.1f} ms (first "
@@ -3700,6 +3842,338 @@ def train_frontends(dev):
             if full.is_encoder_decoder else "", steps=2)
         out[arch] = rec
     return out
+
+
+# --------------------------------------------------------------------------
+# phase 27: bf16 masters and gradients, the cost model, the parameter server
+# --------------------------------------------------------------------------
+
+# phase 27: llava at full depth with the reference's bf16 pairing
+# (launch/dryrun.py: bf16 masters and gradients with SGD at lr 1e-3), 1 + 3
+# steps; (b) 2 full-width layers card vs CPU, 2 SGD steps; (d) the
+# parameter server over MNIST-DNN
+BF16_TRAIN_STEPS, BF16_LR, BF16_PARITY_STEPS = 3, 1e-3, 2
+PS_WORKERS, PS_TICKS = 8, 64
+
+
+def _ulps(a, b, start):
+    """|a - b| in bf16 ulps (8 significant bits), the ulp at the largest
+    of |a|, |b|, the entry's |start| and its tensor's largest move in
+    ``b`` -- the bar of tests/test_torch_bf16_masters.py."""
+    a, b, start = (t.detach().double().cpu() for t in (a, b, start))
+    m = torch.maximum(torch.maximum(a.abs(), b.abs()), start.abs())
+    m = torch.clamp(torch.maximum(m, (b - start).abs().max()), min=1e-38)
+    return ((a - b).abs() / torch.exp2(torch.floor(torch.log2(m)) - 7))
+
+
+def _one_rank_world():
+    """A world of one NCCL rank (the machine has one card) and its
+    ("data",) mesh."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_dp_mesh
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    return make_dp_mesh(1)
+
+
+def train_bf16_masters(dev):
+    """Phase 27: (a) llava-next-mistral-7b at full width and depth with
+    bf16 masters and gradients and SGD, 1 + 3 steps on phase 26's batch;
+    (b) 2 of its layers at full width, fp32 compute on bf16 masters,
+    card vs CPU; (c) zero3 with bf16 masters against flat over one NCCL
+    rank at phase 18b's 4-layer qwen3; (d) the asynchronous parameter
+    server on MNIST-DNN beside the synchronous step.  Each part is a
+    function of its own, so nothing of one stays on the card in the
+    next.  Returns the numbers."""
+    from repro_torch.configs import get_config
+    cfg = get_config("llava-next-mistral-7b")
+    out = {"llava": _bf16_llava(dev, cfg)}
+    _free()
+    out["parity"] = _bf16_parity(dev, cfg)
+    _free()
+    out["zero3"] = _bf16_zero3(dev)
+    _free()
+    out["param_server"] = _param_server(dev)
+    return out
+
+
+def _bf16_llava(dev, cfg):
+    """Phase 27a: ``cfg`` at full width and depth, bf16 masters and
+    gradients, SGD, 1 + 3 steps on phase 26's batch."""
+    from repro_torch.core import perf_model as pm
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step, trainable)
+
+    tc = TrainConfig(optimizer="sgd", lr=BF16_LR, microbatches=TRAIN_MICRO,
+                     grad_dtype="bfloat16", param_dtype="bfloat16",
+                     remat=True)
+    batch = make_batch(cfg, np.random.default_rng(0), TRAIN_BATCH, TRAIN_SEQ)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, tc, seed=0, device=dev)
+    step, _ = make_train_step(cfg, tc)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    masters = trainable(state.params)
+    n_params = sum(p.numel() for p in masters.values())
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, walls, between = [], [], []
+    for _ in range(1 + BF16_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        walls.append(time.perf_counter() - t0)
+        between.append(torch.cuda.memory_allocated())
+    flash = launch_counts().get("flash_attention", 0)
+    peak = torch.cuda.max_memory_allocated()
+    want = (1 + BF16_TRAIN_STEPS) * TRAIN_MICRO * cfg.num_layers * 2
+    if flash != want:
+        fail(f"phase 27a: flash_attention launched {flash} times, expected "
+             f"{want} = {1 + BF16_TRAIN_STEPS} x {TRAIN_MICRO} x "
+             f"{cfg.num_layers} x 2 (forward + remat recompute)")
+    if not all(np.isfinite(losses)):
+        fail(f"phase 27a: losses {losses} are not finite")
+    bad = [k for k, p in masters.items() if p.dtype != torch.bfloat16
+           or p.grad is None or p.grad.dtype != torch.bfloat16]
+    if bad:
+        fail(f"phase 27a: masters or gradients not bf16 after a step: "
+             f"{bad[:4]}")
+    wall = float(np.median(walls[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    model_rep = pm.dp_memory_report(n_params, 0, 1, param_bytes=2,
+                                    grad_bytes=2)
+    rec = {
+        "params": n_params, "layers": cfg.num_layers, "losses": losses,
+        "init_s": init_s, "init_peak_gib": init_peak / 2**30,
+        "step_ms": wall * 1e3, "step_walls_ms": [w * 1e3 for w in walls],
+        "tokens_per_s": tokens / wall,
+        "mfu": 6 * n_params * tokens / wall / PEAK_OPS[torch.bfloat16],
+        "peak_gib": peak / 2**30, "between_steps_bytes": between,
+        "model_bytes": model_rep["total_replicated"],
+        "flash_launches": flash}
+    print(f"phase 27a: {cfg.name} at full width and depth ({cfg.num_layers} "
+          f"layers, {n_params / 1e9:.3f} B bf16 masters and gradients, SGD "
+          f"lr {BF16_LR:g}, remat, initialised in {init_s:.1f} s, init peak "
+          f"{rec['init_peak_gib']:.2f} GiB) on {tuple(batch['tokens'].shape)} "
+          f"tokens + vision rows {tuple(batch['vision_embeds'].shape)} in "
+          f"{TRAIN_MICRO} microbatches: losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; step wall median "
+          f"{wall * 1e3:.1f} ms (first {walls[0] * 1e3:.1f} ms), "
+          f"{rec['tokens_per_s']:.1f} tokens/s, mfu {rec['mfu']:.4f} (6 N "
+          f"tokens / 989 TFLOP/s), peak {rec['peak_gib']:.2f} GiB; "
+          f"flash_attention launches {flash} = {want}")
+    print(f"phase 27a: bytes between steps {between[-1] / 1e9:.3f} GB "
+          f"(memory_allocated) beside perf_model.dp_memory_report(N, 0, 1, "
+          f"param_bytes=2, grad_bytes=2)'s replicated row "
+          f"{rec['model_bytes'] / 1e9:.3f} GB (the model counts params "
+          "and gradients only)")
+    if peak >= 80e9:
+        fail(f"phase 27a: peak {peak / 1e9:.1f} GB does not fit the card")
+    return rec
+
+
+
+def _bf16_parity(dev, cfg):
+    """Phase 27b: 2 of ``cfg``'s layers at full width, fp32 compute on
+    bf16 masters, SGD, card vs CPU within one bf16 ulp a step."""
+    import copy
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import init_model
+    from repro_torch.train import (TrainConfig, make_train_step, start_state,
+                                   trainable)
+
+    small = cfg.with_overrides(num_layers=2, dtype="float32")
+    ptc = TrainConfig(optimizer="sgd", lr=BF16_LR, param_dtype="bfloat16")
+    pbatch = make_batch(small, np.random.default_rng(27), 1, PARITY_TRAIN_SEQ)
+    m_card = init_model(small, seed=1, device=dev, train=True,
+                        param_dtype=torch.bfloat16)
+    start = {k: p.detach().cpu().clone()
+             for k, p in trainable(m_card).items()}
+    m_cpu = copy.deepcopy(m_card).cpu()
+    got = {}
+    for where, model in (("cpu", m_cpu), ("cuda", m_card)):
+        pstep, popt = make_train_step(small, ptc)
+        pstate = start_state(model, popt)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        ls = []
+        for _ in range(BF16_PARITY_STEPS):
+            pstate, metrics = pstep(pstate, pbatch)
+            ls.append(float(metrics["loss"]))
+        got[where] = (ls, {k: p.detach().cpu()
+                           for k, p in trainable(model).items()})
+        print(f"  {where}: {BF16_PARITY_STEPS} steps in "
+              f"{time.perf_counter() - t0:.1f} s, losses {ls}")
+    pflash = launch_counts().get("flash_attention", 0)
+    if pflash != BF16_PARITY_STEPS * small.num_layers * 2:
+        fail(f"phase 27b: the card run launched flash_attention {pflash} "
+             "times, not in every layer")
+    (cpu_l, cpu_p), (card_l, card_p) = got["cpu"], got["cuda"]
+    loss_gap = max(abs(a - b) for a, b in zip(cpu_l, card_l))
+    worst = max(float(_ulps(card_p[k], cpu_p[k], start[k]).max())
+                for k in cpu_p)
+    equal = sum(int((card_p[k] == cpu_p[k]).sum()) for k in cpu_p)
+    total = sum(v.numel() for v in cpu_p.values())
+    if not loss_gap <= 1e-5:
+        fail(f"phase 27b: card vs CPU losses differ by {loss_gap:.2e}")
+    if not worst <= BF16_PARITY_STEPS:
+        fail(f"phase 27b: a master differs card vs CPU by {worst:g} bf16 "
+             f"ulps after {BF16_PARITY_STEPS} steps")
+    print(f"phase 27b: 2-layer full-width {small.name} {small.layer_pattern()}"
+          f", fp32 compute on bf16 masters, {BF16_PARITY_STEPS} SGD steps "
+          f"(lr {BF16_LR:g}) on one sequence of {PARITY_TRAIN_SEQ} "
+          f"positions, card vs CPU: losses within {loss_gap:.2e} (tol "
+          f"1e-5), worst master {worst:g} bf16 ulps (tol "
+          f"{BF16_PARITY_STEPS}, one a step), {equal / total:.6f} of "
+          f"{total} masters bitwise equal; flash_attention {pflash}")
+    return {"loss_gap": loss_gap, "worst_ulps": worst,
+            "bitwise_share": equal / total, "launches": pflash}
+
+
+
+def _bf16_zero3(dev):
+    """Phase 27c: zero3 with bf16 masters against flat over one NCCL
+    rank, phase 18b's 4-layer qwen3, AdamW."""
+    import copy
+    import torch.distributed as dist
+    from repro_torch.api import Trainer
+    from repro_torch.configs import get_config
+    from repro_torch.core import DPConfig, get_strategy
+    from repro_torch.core.train_state import host_params
+    from repro_torch.data import make_batch
+    from repro_torch.models import init_model
+    from repro_torch.train import TrainConfig, trainable
+
+    qcfg = get_config("qwen3-1.7b").with_overrides(num_layers=ZERO_LAYERS)
+    qbatch = make_batch(qcfg, np.random.default_rng(0), TRAIN_BATCH,
+                        TRAIN_SEQ)
+    mesh = _one_rank_world()
+    try:
+        # drawn on the card, kept on the host: between steps the card
+        # holds only the run's own state
+        base = init_model(qcfg, seed=0, device=dev, train=True,
+                          param_dtype=torch.bfloat16).cpu()
+        qstart = {k: p.detach().clone() for k, p in trainable(base).items()}
+        runs = {}
+        for strategy in ("flat", "zero3"):
+            t = Trainer.create(
+                qcfg, params=copy.deepcopy(base), optimizer="adamw",
+                lr=TRAIN_LR, dp=DPConfig(strategy=strategy,
+                                         microbatches=TRAIN_MICRO),
+                mesh=mesh, train_cfg=TrainConfig(remat=True), device=dev)
+            ls, _, between, _, _ = _steps(t, qbatch, DP_STEPS, dev)
+            n = t.describe()["params"]
+            entry = get_strategy(strategy).memory_entry(
+                n, t.optimizer.state_factor, 1, param_bytes=2, grad_bytes=2)
+            runs[strategy] = {"losses": ls, "between_steps_bytes": between,
+                              "memory_entry": entry,
+                              "params": host_params(t.state, mesh)}
+            del t
+            _free()
+        del base
+    finally:
+        dist.destroy_process_group()
+    fl, z3 = runs["flat"], runs["zero3"]
+    same = fl["losses"] == z3["losses"] and all(
+        np.array_equal(fl["params"][k], z3["params"][k]) for k in fl["params"])
+    worst = 0.0 if same else max(float(_ulps(
+        torch.from_numpy(z3["params"][k]), torch.from_numpy(fl["params"][k]),
+        qstart[k]).max()) for k in fl["params"])
+    if not same and (worst > DP_STEPS or max(abs(a - b) for a, b in zip(
+            fl["losses"], z3["losses"])) > ZERO_LOSS_TOL):
+        fail(f"phase 27c: zero3 with bf16 masters differs from flat: losses "
+             f"{z3['losses']} vs {fl['losses']}, worst {worst:g} ulps")
+    for r in runs.values():
+        del r["params"]
+    for name, r in runs.items():
+        e = r["memory_entry"]
+        print(f"phase 27c ({name}): {qcfg.name} reduced: num_layers 28 -> "
+              f"{ZERO_LAYERS}, bf16 masters, AdamW, {DP_STEPS} steps over one "
+              f"NCCL rank: losses {r['losses']}; between steps "
+              f"{r['between_steps_bytes'][-1] / 1e9:.3f} GB "
+              f"(memory_allocated) beside memory_entry(param_bytes=2, "
+              f"grad_bytes=2) params {e['params'] / 1e9:.3f} + grads "
+              f"{e['grads'] / 1e9:.3f} + opt_state {e['opt_state'] / 1e9:.3f}"
+              f" = {sum(e.values()) / 1e9:.3f} GB")
+    print(f"phase 27c: zero3 vs flat with bf16 masters: "
+          + ("losses and masters bitwise equal" if same else
+             f"worst master {worst:g} bf16 ulps"))
+    return {"bitwise": same, "worst_ulps": worst, **runs}
+
+
+def _param_server(dev):
+    """Phase 27d: the asynchronous parameter server on MNIST-DNN, 8
+    workers over 64 ticks, and the synchronous steps (one worker) on the
+    same stream."""
+    from repro_torch import optim
+    from repro_torch.configs.paper_nets import MNIST_DNN
+    from repro_torch.core import make_ps_trainer
+    from repro_torch.data import make_dataset
+    from repro_torch.models import init_paper_net
+    from repro_torch.train import cross_entropy
+
+    ds = make_dataset(MNIST_DNN.dataset, n=PAPER_SAMPLES, as_images=True)
+    x = torch.as_tensor(ds.x.reshape(PAPER_SAMPLES, -1), device=dev)
+    y = torch.as_tensor(ds.y, device=dev)
+    per = PAPER_SAMPLES // PS_TICKS
+    ticks = (x.reshape(PS_TICKS, per, -1), y.reshape(PS_TICKS, per))
+    net = init_paper_net(MNIST_DNN, seed=0, device=dev)
+    names = [k for k, _ in net.named_parameters()]
+
+    def ps_loss(p, b):
+        return cross_entropy(torch.func.functional_call(
+            _PaperLogits(MNIST_DNN, net), {f"net.{k}": p[k] for k in names},
+            (b[0],)), b[1])
+
+    res = {}
+    for label, workers in (("async", PS_WORKERS), ("sync", 1)):
+        opt = optim.sgd(0.1)
+        params = {k: v.detach().clone() for k, v in net.named_parameters()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, _, tick_losses = make_ps_trainer(ps_loss, opt, workers)(
+            params, opt.init(params), ticks)
+        final = float(ps_loss(params, (x, y)))
+        res[label] = {"workers": workers, "first_tick_loss":
+                      float(tick_losses[0]), "final_loss": final,
+                      "wall_s": time.perf_counter() - t0}
+    a, sq = res["async"], res["sync"]
+    if not a["final_loss"] < a["first_tick_loss"]:
+        fail(f"phase 27d: the async parameter server did not learn: final "
+             f"loss {a['final_loss']:.4f}, first tick "
+             f"{a['first_tick_loss']:.4f}")
+    print(f"phase 27d: MNIST-DNN (Table-1 width) on phase 15's data, "
+          f"{PS_TICKS} ticks of {per} samples, SGD lr 0.1 on the card: async "
+          f"parameter server over {PS_WORKERS} workers final loss "
+          f"{a['final_loss']:.4f} (first tick {a['first_tick_loss']:.4f}, "
+          f"{a['wall_s']:.2f} s); synchronous sequential steps on the same "
+          f"stream {sq['final_loss']:.4f} ({sq['wall_s']:.2f} s)")
+    return res
+
+
+
+
+class _PaperLogits(torch.nn.Module):
+    """A Table-1 net's logits as a module, for ``functional_call``."""
+
+    def __init__(self, spec, net):
+        super().__init__()
+        self.spec, self.net = spec, net
+
+    def forward(self, x):
+        from repro_torch.models import apply_paper_net
+        return apply_paper_net(self.spec, self.net, x)
 
 
 def main():
@@ -3736,8 +4210,9 @@ def main():
     stems = ("paged_decode", "paged_decode_mla", "wkv6", "mamba_scan",
              "flash_attention")
     build.load_libraries(stems)
+    PHASE_S["phase 1"] = time.perf_counter() - t0
     print(f"phase 1: built {len(stems)} kernels in parallel in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{PHASE_S['phase 1']:.1f} s")
     for stem in stems:
         info = build.build_info[stem]
         ptxas = [ln.strip() for ln in info["ptxas"].splitlines()
@@ -3747,6 +4222,7 @@ def main():
               f"{ptxas}")
 
     # ---- phase 2: kernels vs plain versions -------------------------------
+    t_phase = time.perf_counter()
     if args.max_splits is not None:
         gqa_split.MAX_SPLITS = mla_split.MAX_SPLITS = args.max_splits
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
@@ -3815,6 +4291,8 @@ def main():
           f"{TRAIN_GRAD_TOL[torch.bfloat16]:g}")
     scan_grad_rows = check_scan_grads(dev, flush)
     del flush
+    PHASE_S["phase 2"] = time.perf_counter() - t_phase
+    print(f"phase 2: {PHASE_S['phase 2']:.1f} s")
     if args.kernels_only:
         print(json.dumps({"phase2": {
             "max_splits": gqa_split.MAX_SPLITS,
@@ -3829,6 +4307,7 @@ def main():
         return
 
     # ---- phase 3: the main path, full width, bf16 -------------------------
+    t_phase = time.perf_counter()
     cfg = get_config("qwen3-1.7b")
     rng = np.random.default_rng(0)
     lens = rng.integers(PROMPT_MIN, PROMPT_MAX + 1, REQUESTS)
@@ -3877,9 +4356,13 @@ def main():
           f"({st['prefill_dispatches']} prefill calls + {DECODE_CHUNK} x "
           f"{st['decode_dispatches']} decode ticks)")
     del sch
-    prefix_out = prefix_qwen(dev, cfg, model)
+    decode_model = decode_tick_model(cfg, model, prompts)
+    PHASE_S["phase 3"] = time.perf_counter() - t_phase
+    print(f"phase 3: {PHASE_S['phase 3']:.1f} s")
+    prefix_out = run_phase("phase 22", prefix_qwen, dev, cfg, model)
     del model
     torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
 
     # ---- phase 4: card vs CPU greedy parity, fp32 -------------------------
     small = cfg.with_overrides(num_layers=2, dtype="float32")
@@ -3897,20 +4380,25 @@ def main():
           f"CPU for {len(prompts4)} requests x 12 tokens")
     del m
     torch.cuda.empty_cache()
-    wkv_launches = serve_rwkv(dev, lens)
-    scan_launches, jamba_paged_launches = serve_jamba(dev, lens)
-    mla_launches, spec_out = serve_deepseek(dev, lens)
-    flash_launches = serve_legacy(dev)
-    train_launches, train_out = train_qwen(dev)
-    paper_out = paper_dp(dev)
-    dp_out, ckpt_out, zero_out = dp_qwen(dev, train_out["losses"], prompts,
-                                         launches)
-    slab_out = serve_slab_archs(dev)
-    arch_train_out = train_archs(dev)
-    spec_trained_out = spec_trained(dev)
-    dense_out = serve_dense_more(dev, lens)
-    front_out = serve_frontends(dev)
-    front_train_out = train_frontends(dev)
+    PHASE_S["phase 4"] = time.perf_counter() - t_phase
+    print(f"phase 4: {PHASE_S['phase 4']:.1f} s")
+    wkv_launches = run_phase("phases 5-6", serve_rwkv, dev, lens)
+    scan_launches, jamba_paged_launches = run_phase("phases 7-8", serve_jamba,
+                                                dev, lens)
+    mla_launches, spec_out = run_phase("phases 9-10, 23 (i)", serve_deepseek,
+                                   dev, lens)
+    flash_launches = run_phase("phases 11-12", serve_legacy, dev)
+    train_launches, train_out = run_phase("phases 13-14", train_qwen, dev)
+    paper_out = run_phase("phase 15", paper_dp, dev)
+    dp_out, ckpt_out, zero_out = run_phase(
+        "phases 16-18", dp_qwen, dev, train_out["losses"], prompts, launches)
+    slab_out = run_phase("phase 19", serve_slab_archs, dev)
+    arch_train_out = run_phase("phases 20-21", train_archs, dev)
+    spec_trained_out = run_phase("phase 23 (trained)", spec_trained, dev)
+    dense_out = run_phase("phase 24", serve_dense_more, dev, lens)
+    front_out = run_phase("phase 25", serve_frontends, dev)
+    front_train_out = run_phase("phase 26", train_frontends, dev)
+    bf16_out = run_phase("phase 27", train_bf16_masters, dev)
 
     decode_bf16, chunk_bf16, verify_bf16 = (
         next(r for r in rows if r["case"] == case and r["dtype"] == "bfloat16")
@@ -4054,10 +4542,14 @@ def main():
         "launches_frontend_train": {a: r["flash_launches"]
                                     for a, r in front_train_out.items()},
         "frontends": front_out, "frontend_train": front_train_out,
+        "launches_bf16_train": bf16_out["llava"]["flash_launches"],
+        "bf16_train": bf16_out, "phase_3_decode_model": decode_model,
         "new_forms": {r["case"]: {key: r[key] for key in r if key != "case"}
                       for r in flash_new_rows if r["dtype"] == "bfloat16"},
         "cases": flash_rows + train_rows + flash_mla_rows + flash_new_rows,
     }
+    print("phase seconds: "
+          + json.dumps({k: round(v, 1) for k, v in PHASE_S.items()}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [entry, wkv_entry, mamba_entry,
                                   mla_entry, flash_entry]}))

@@ -12,7 +12,7 @@ an API (port of ``repro.api`` on ``torch.distributed``).
     ...
     trainer = Trainer.create(...same...)
     trainer.restore(ckpt_dir)         # any replicated world size
-    engine = trainer.serve()          # cast once from the fp32 masters
+    engine = trainer.serve()          # cast once from the masters
     print(trainer.describe())
 
 Every strategy the registry holds runs here: the replicated ones and the
@@ -92,7 +92,7 @@ class Trainer:
         loss_fn   -- alternatively ``loss_fn(model, batch) -> scalar``;
                      requires ``params``.
         params    -- an ``nn.Module`` whose trainable parameters are the
-                     fp32 masters (moved to ``device``).
+                     masters, fp32 or bf16 (moved to ``device``).
         optimizer -- a ``repro_torch.optim`` Optimizer, or a name
                      ("adam", "adamw", "sgd", "momentum", ...) with `lr`.
         dp        -- DPConfig; ``dp.strategy`` any registered name.
@@ -240,7 +240,7 @@ class Trainer:
         """Serve THIS trainer's current parameters -- the in-memory half
         of the train-and-serve loop (``serve.make_engine_from_checkpoint``
         is the on-disk half).  The serving model is cast once from the
-        fp32 masters (``bridge.serving_model``, copies on the masters'
+        masters (``bridge.serving_model``, copies on the masters'
         device), so its tokens equal those of a model cast from the same
         masters' checkpoint; ``engine`` and ``engine_kw`` go to
         ``serve.make_engine``.  Requires the trainer to have been
@@ -269,8 +269,14 @@ class Trainer:
         """What this trainer physically runs: strategy, sync mode, layout
         kind, world size, parameter count, per-rank persistent memory
         (the strategy's ``memory_entry``: params, grads and optimizer
-        state, each 1/p where the strategy shards it), and the bytes one
-        rank hands its collectives in one sync."""
+        state, each 1/p where the strategy shards it), and, on a mesh,
+        the bytes one rank hands its collectives in one sync and the
+        strategy's modeled wire time of a step (``comm_time_s``: its
+        ``comm_time`` for fp32 gradients of every param, 4 bytes each,
+        with the mesh's pod and data sizes, on the perf model's default
+        fabrics -- the reference's, a TPU pod's).  The memory entry
+        counts 4-byte params and gradients whatever the masters' dtype,
+        as the reference's does."""
         strategy = get_strategy(self.dp.strategy)
         masters = list(trainable(self.state.params).values())
         n_params = sum(p.numel() for p in masters)
@@ -286,6 +292,12 @@ class Trainer:
             names = self.mesh.mesh_dim_names
             n_intra = (self.mesh.size(names.index("data"))
                        if "pod" in names else 1)
+            n_pods = (self.mesh.size(names.index("pod"))
+                      if "pod" in names else 1)
+            d["comm_time_s"] = float(strategy.comm_time(
+                4.0 * n_params, p=world,
+                n_intra=self.mesh.size(names.index("data")),
+                n_pods=n_pods, microbatches=self.dp.microbatches))
             d["allreduce_bytes_per_sync"] = wire_bytes(
                 masters, strategy=getattr(strategy, "collective",
                                           strategy.name),

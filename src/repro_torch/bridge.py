@@ -73,14 +73,16 @@ def layer_trees(cfg, decoder):
     return layers
 
 
-def params_from_jax(tree, cfg, *, device="cuda", train=False) -> Model:
+def params_from_jax(tree, cfg, *, device="cuda", train=False,
+                    param_dtype=torch.float32) -> Model:
     """The reference's params (a tree of numpy arrays) as the port's
     ``Model`` on ``device``, each weight cast once to ``cfg.dtype``; or,
-    with ``train``, a training ``Model`` of trainable fp32 masters, one
-    per leaf of the tree.  A key the port does not serve, or one that
-    ``cfg`` has no place for (an encoder without ``is_encoder_decoder``, a
-    projector without the vision frontend), raises rather than being
-    dropped silently."""
+    with ``train``, a training ``Model`` of trainable masters of
+    ``param_dtype``, one per leaf of the tree (reference bf16 arrays
+    carry over bitwise into bf16 masters).  A key the port does not
+    serve, or one that ``cfg`` has no place for (an encoder without
+    ``is_encoder_decoder``, a projector without the vision frontend),
+    raises rather than being dropped silently."""
     served = set(SERVED_KEYS)
     if not cfg.is_encoder_decoder:
         served -= {"encoder", "enc_norm"}
@@ -102,7 +104,8 @@ def params_from_jax(tree, cfg, *, device="cuda", train=False) -> Model:
     for key in ("unembed", "mtp", "enc_norm", "vision_proj"):
         if key in tree:
             port[key] = _map(_tensor, tree[key])
-    return Model(cfg, port, device=dev, train=train)
+    return Model(cfg, port, device=dev, train=train,
+                 param_dtype=param_dtype)
 
 
 def _layer_tree(layer, leaf) -> dict:
@@ -355,7 +358,7 @@ def copy_sources(sources):
 
 def serving_model(model: Model) -> Model:
     """A serving ``Model`` on ``model``'s device, each weight cast once
-    from the training model's fp32 masters to the dtype it keeps -- the
+    from the training model's masters to the dtype it keeps -- the
     same weights ``params_from_jax`` builds from those masters' values.
     The weights are copies: later steps do not reach them."""
     clone = lambda t: t.detach().clone()                     # noqa: E731

@@ -34,6 +34,13 @@ manifest order and splits them in its template's), so another order
 would restore scrambled weights there without an error.  The port
 itself reads every leaf by key.
 
+bf16 masters are written as the fp32 arrays of their values
+(``bridge.host_copy``; ``meta.json`` records float32) and restored
+into any template by a cast, bitwise, since bf16 -> fp32 -> bf16 is
+exact.  The reference writes its bf16 arrays as they are, which numpy
+stores as the void dtype ``|V2``; the port reads such members back as
+the fp32 values they encode.
+
 All writers are atomic: everything lands under a ``tmp-`` prefix first
 and is published with one ``os.replace``, and ``latest_step`` refuses
 to match anything but a fully-published name -- a killed worker can
@@ -91,7 +98,8 @@ def _load_npz(path, prefix: str = "") -> dict:
     path = pathlib.Path(path)
     try:
         with np.load(path) as npz:
-            return {k: npz[k] for k in npz.files if k.startswith(prefix)}
+            return {k: _from_bf16_bits(npz[k]) for k in npz.files
+                    if k.startswith(prefix)}
     except FileNotFoundError:
         raise
     except Exception as e:
@@ -100,6 +108,19 @@ def _load_npz(path, prefix: str = "") -> dict:
             f"corrupt or truncated ({type(e).__name__}: {e}); the step "
             "was published but its data is unreadable -- restore an "
             "earlier published step") from e
+
+
+def _from_bf16_bits(a: np.ndarray) -> np.ndarray:
+    """A member the reference wrote from a bf16 array: numpy has no
+    bf16, so ``np.savez`` stored its 2-byte elements as the void dtype
+    ``|V2`` -- read back here as the fp32 values they encode (exactly:
+    the bf16 bits are the top half of the fp32 word).  Any other array
+    is returned as it is.  The port itself writes bf16 masters as fp32
+    (``bridge.host_copy``)."""
+    if a.dtype.kind != "V" or a.dtype.itemsize != 2 or a.dtype.names:
+        return a
+    bits = np.ascontiguousarray(a).view(np.uint16).astype(np.uint32)
+    return (bits << 16).view(np.float32)
 
 
 def _write_latest(ckpt_dir: pathlib.Path, step: int):

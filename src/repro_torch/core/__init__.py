@@ -2,8 +2,11 @@
 data-parallel training with MPI-style all-to-all reduction (port of
 ``repro.core``): the replicated strategies, the ZeRO ladder (zero1 /
 zero2 / zero3 and the two-level zero1_hier / zero3_hier), the
-bucket-level overlap scheduler and the train-state contract.  The perf
-model waits for ROADMAP A.10."""
+bucket-level overlap scheduler and the train-state contract; plus the
+paper's rejected alternative, the asynchronous parameter server
+(``make_ps_trainer``), and its §3.3.2 performance model
+(``perf_model``), which every strategy's ``comm_time`` /
+``bucket_comm_time`` / ``memory_entry`` reads."""
 from repro_torch.core.collectives import (
     all_gather_tree, allreduce_bucketed, allreduce_flat,
     allreduce_hierarchical, allreduce_mean, dp_batch_axes, dp_world_size,
@@ -25,6 +28,8 @@ from repro_torch.core.train_state import (
     Layout, assemble_full_flat, check_layout, host_params, init_train_state,
     split_flat_shards,
 )
+from repro_torch.core.param_server import make_ps_trainer
+from repro_torch.core import perf_model
 
 batch_axes = dp_batch_axes
 
@@ -42,4 +47,5 @@ __all__ = [
     "assemble_full_flat", "split_flat_shards",
     "Strategy", "ReplicatedStrategy", "ShardedStrategy",
     "available_strategies", "get_strategy", "register_strategy",
+    "make_ps_trainer", "perf_model",
 ]

@@ -31,8 +31,9 @@ A plain (global) batch is scattered from rank 0
 (``data.pipeline.rank0_scatter``, the paper's MPI_Scatter); a batch
 ``rank0_scatter`` already returned is taken as it is.  The per-rank forward and backward, with its microbatch loop, is
 ``train.step.accumulate_grads``, shared with the one-device step; the
-all-reduce then works in place on the masters' ``.grad`` (a tied table
-is one master, so it is reduced once).
+all-reduce then works in place on the gradients it returns (the
+masters' ``.grad``, or fp32 buffers where bf16 masters sum
+microbatches; a tied table is one master, so it is reduced once).
 """
 from __future__ import annotations
 
@@ -187,9 +188,10 @@ def make_dp_train_step(loss_fn: Callable, optimizer, mesh,
             batch = pipeline.rank0_scatter(mesh, batch, device=dev)
         if state.layout.sharded:
             return sharded_step(state, batch, dev)
-        loss, _ = accumulate_grads(pair_loss, model, params, batch,
-                                   dp.microbatches)
-        grads = {k: p.grad for k, p in params.items()}
+        # microbatches sum in fp32, as the reference's strategies sum
+        # them whatever the masters' dtype
+        loss, _, grads = accumulate_grads(pair_loss, model, params, batch,
+                                          dp.microbatches)
         gnorm_local = gnorm = global_norm(grads)
         if dp.sync == "grads":
             with timed(dev):
@@ -222,9 +224,9 @@ def make_sequential_step(loss_fn: Callable, optimizer):
     def step(state: TrainState, batch):
         model = state.params
         params = trainable(model)
-        loss, _ = accumulate_grads(pair_loss, model, params, batch, 1)
-        optimizer.update({k: p.grad for k, p in params.items()},
-                         state.opt_state, params)
+        loss, _, grads = accumulate_grads(pair_loss, model, params, batch,
+                                          1)
+        optimizer.update(grads, state.opt_state, params)
         return (state._replace(step=state.step + 1),
                 {"loss": loss})
 

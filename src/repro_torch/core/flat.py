@@ -1,4 +1,4 @@
-"""The flat fp32 master vector of a sharded train state.
+"""The flat master vector of a sharded train state.
 
 A ZeRO state shards ONE flat vector: every trainable master
 concatenated in the reference's flatten order -- JAX's ``tree_leaves``
@@ -15,7 +15,8 @@ contiguous slice, so every master can be a VIEW of the vector
 (``bind_grads``; autograd then accumulates into it in place, as DDP's
 ``gradient_as_bucket_view`` does).  A tied table is one master, once.
 The vector is padded to a multiple of the worker count; the padding
-stays zero.
+stays zero.  Its dtype is the masters' (fp32, or bf16 for bf16
+masters): the masters are views of it, so they share one dtype.
 
 zero3 frees the vector's storage between steps (``free``,
 ``untyped_storage().resize_(0)``, as FSDP does) and re-grows it for
@@ -67,6 +68,19 @@ def flat_spec(model, masters) -> FlatSpec:
     return FlatSpec(tuple(names), tuple(offsets), tuple(shapes), off)
 
 
+def flat_dtype(masters) -> torch.dtype:
+    """The flat vector's dtype: the masters' one dtype.  The reference
+    takes the result type of the leaves and casts each leaf back; here
+    the masters are views of the vector, which cannot differ in dtype,
+    so masters of mixed dtypes raise."""
+    dtypes = {p.dtype for p in masters.values()}
+    if len(dtypes) != 1:
+        raise ValueError("a sharded state's masters are views of one flat "
+                         "vector and must share one dtype; got "
+                         f"{sorted(str(d) for d in dtypes)}")
+    return dtypes.pop()
+
+
 def views(spec: FlatSpec, flat) -> dict:
     """{name: view of ``flat``} in the masters' shapes."""
     return {name: flat[a:b].view(shp) for name, a, b, shp in spec.slices()}
@@ -102,8 +116,9 @@ def unbind_grads(masters):
 
 @dataclasses.dataclass
 class FlatMasters:
-    """A sharded state's master vector: ``full`` (``padded_total`` fp32
-    elements, the masters views of its first ``spec.total``), this
+    """A sharded state's master vector: ``full`` (``padded_total``
+    elements of the masters' dtype, the masters views of its first
+    ``spec.total``), this
     rank's ``worker`` number over the layout's axes and, for a
     params-sharded layout (zero3), ``shard``: this worker's slice, the
     only copy of the masters that persists between steps (``full``'s

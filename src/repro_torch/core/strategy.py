@@ -12,7 +12,10 @@ A gradient-sync strategy is one pluggable object.  Each
     local-SGD mode); for a sharded one ``grad_sync`` (the loss and this
     worker's shard of the averaged gradient) and ``step_transform``
     (the optimizer update on the shard, and the params' resync);
-  * its **memory entry** (``memory_entry``: per-rank persistent bytes);
+  * its **perf-model entries** -- ``comm_time`` (the modeled wire time
+    of a step), ``bucket_comm_time`` (of one overlap bucket) and
+    ``memory_entry`` (per-rank persistent bytes; the rows
+    ``perf_model.dp_memory_report`` assembles by ``memory_key``);
   * its **checkpoint identity** (``checkpoint_layout``, the meta.json
     record a restore resolves back through the registry).
 
@@ -36,8 +39,10 @@ views of it), reduce-scatters it -- bucket-pipelined through
 ``core.overlap`` under ``overlap=True`` / ``"serial"`` -- updates the
 owned shard, and all-gathers the params back (zero1/zero2) or keeps
 only the shard (zero3, which gathers the params per microbatch and
-frees them after its backward).  The modeled wire time (the
-reference's ``comm_time``) waits for the perf model (ROADMAP A.10).
+frees them after its backward).  The flat vector, and so each
+gradient buffer bound to it, has the masters' dtype (bf16 masters: a
+bf16 vector); gradients accumulate across microbatches in fp32, as the
+reference's strategies accumulate them whatever ``grad_dtype`` says.
 """
 from __future__ import annotations
 
@@ -53,6 +58,13 @@ from repro_torch.core.collectives import (allreduce_mean, dp_batch_axes,
 from repro_torch.core.overlap import (all_gather_flat, overlapped_allreduce,
                                       plan_local_shard, reduce_scatter_flat,
                                       whole_plan)
+from repro_torch.core.perf_model import (TPU_DCN, TPU_V5E_ICI,
+                                         allreduce_comm_time,
+                                         hierarchical_comm_time,
+                                         zero1_comm_time,
+                                         zero1_hier_comm_time,
+                                         zero2_comm_time, zero3_comm_time,
+                                         zero3_hier_comm_time)
 from repro_torch.core.train_state import (Layout, register_layout_kind,
                                           replicated_layout)
 from repro_torch.train.step import TrainState, _split_micro, trainable
@@ -74,6 +86,7 @@ class Strategy:
     kind: str = "replicated"        # Layout kind of the persistent state
     sharded: bool = False           # opt state (at least) sharded 1/p?
     params_sharded: bool = False    # params a flat 1/p shard (zero3)?
+    memory_key: str = "replicated"  # row key in dp_memory_report
 
     # ---- layout / state construction ------------------------------------
     def dp_axes(self, mesh) -> tuple:
@@ -118,7 +131,25 @@ class Strategy:
     def validate(self, dp, mesh):
         """Reject DPConfig / mesh combinations this strategy cannot run."""
 
-    # ---- memory ------------------------------------------------------------
+    # ---- perf model --------------------------------------------------------
+    @staticmethod
+    def _ring_fabric(n_pods, fabric, inter):
+        """A one-level ring spanning pods is bottlenecked by its slowest
+        link: on a multi-pod mesh the whole volume crosses the pod link
+        (the pod-aware strategies override ``comm_time``)."""
+        return inter if (n_pods or 1) > 1 else fabric
+
+    def comm_time(self, v_bytes, *, p=None, n_intra=None, n_pods=None,
+                  microbatches=1, fabric=TPU_V5E_ICI, inter=TPU_DCN):
+        """Modeled per-step wire time for ``v_bytes`` of gradients."""
+        p = p if p is not None else (n_intra or 1) * (n_pods or 1)
+        return allreduce_comm_time(
+            v_bytes, p=p, fabric=self._ring_fabric(n_pods, fabric, inter))
+
+    def bucket_comm_time(self, v_bytes, *, p, fabric=TPU_V5E_ICI):
+        """Wire time for ONE overlap-scheduler bucket of ``v_bytes``."""
+        return allreduce_comm_time(v_bytes, p=p, fabric=fabric)
+
     def memory_entry(self, n_params, state_factor, n_workers, *,
                      param_bytes=4, grad_bytes=4) -> dict:
         """Per-rank persistent bytes: params / grads / opt_state."""
@@ -187,6 +218,20 @@ class HierarchicalStrategy(ReplicatedStrategy):
     name = "hierarchical"
     collective = "hierarchical"
 
+    def bucket_comm_time(self, v_bytes, *, p, fabric=TPU_V5E_ICI):
+        raise ValueError(
+            "hierarchical per-bucket wire time needs the pod split -- "
+            "model it with perf_model.hierarchical_comm_time, not the "
+            "single-fabric bucket scheduler formula")
+
+    def comm_time(self, v_bytes, *, p=None, n_intra=None, n_pods=None,
+                  microbatches=1, fabric=TPU_V5E_ICI, inter=TPU_DCN):
+        if n_intra is None:
+            return allreduce_comm_time(v_bytes, p=p or 1, fabric=fabric)
+        return hierarchical_comm_time(v_bytes, n_intra=n_intra,
+                                      n_pods=n_pods or 1, intra=fabric,
+                                      inter=inter)
+
 
 # --------------------------------------------------------------------------
 # sharded strategies: the ZeRO ladder (+ the two-level pod x data pair)
@@ -228,24 +273,25 @@ class ShardedStrategy(Strategy):
         return dp.bucket_bytes if dp.overlap else None
 
     def _init_sharded(self, optimizer, model, mesh, dp, layout):
-        """The masters become views of a new flat fp32 vector in the
-        reference's order; the optimizer state is built over this
-        worker's shard only.  zero3 keeps the shard and frees the
-        vector's storage, so after ``init`` no tensor of the state is
-        larger than the shard."""
+        """The masters become views of a new flat vector in the
+        reference's order, of the masters' dtype (the reference's
+        ``result_type`` of the leaves: fp32, or bf16 for bf16 masters);
+        the optimizer state (fp32) is built over this worker's shard
+        only.  zero3 keeps the shard and frees the vector's storage, so
+        after ``init`` no tensor of the state is larger than the
+        shard."""
         masters = trainable(model)
         if not masters:
             raise ValueError("init_train_state: empty param tree")
-        if any(p.dtype != torch.float32 for p in masters.values()):
-            raise ValueError("a sharded state keeps fp32 masters")
+        dtype = flat_lib.flat_dtype(masters)
         spec = flat_lib.flat_spec(model, masters)
         if self.params_sharded:
             layout = dataclasses.replace(
-                layout, param_spec=spec,
-                param_dtypes=("float32",) * len(spec.names))
+                layout, param_spec=spec, param_dtypes=tuple(
+                    str(masters[n].dtype).removeprefix("torch.")
+                    for n in spec.names))
         dev = next(iter(masters.values())).device
-        full = torch.zeros(layout.padded_total, dtype=torch.float32,
-                           device=dev)
+        full = torch.zeros(layout.padded_total, dtype=dtype, device=dev)
         flat_lib.gather_into(spec, masters, full)
         flat_lib.bind_masters(spec, masters, full)
         fm = flat_lib.FlatMasters(spec, full, worker_index(mesh, layout.axes))
@@ -291,15 +337,23 @@ class ShardedStrategy(Strategy):
     def _accumulate_flat(self, loss_fn, state, batch, n, gbuf):
         """The loss of ``batch`` and its gradient accumulated into
         ``gbuf`` over ``n`` microbatches, then scaled by 1/n (the
-        reference's ``_accumulate``)."""
+        reference's ``_accumulate``).  A ``gbuf`` of the masters' dtype
+        takes the backward in place; a wider one (fp32 under bf16
+        masters) sums each microbatch's gradient, taken into a buffer of
+        the masters' dtype."""
         masters = trainable(state.params)
-        flat_lib.bind_grads(state.flat.spec, masters, gbuf)
-        if n == 1:
-            loss = _backward(loss_fn, state.params, batch)
-        else:
-            loss = torch.zeros((), dtype=torch.float32, device=gbuf.device)
-            for mb in _micro(batch, n):
-                loss = loss + _backward(loss_fn, state.params, mb)
+        direct = gbuf.dtype == state.flat.full.dtype
+        mbuf = gbuf if direct else torch.zeros_like(
+            gbuf, dtype=state.flat.full.dtype)
+        flat_lib.bind_grads(state.flat.spec, masters, mbuf)
+        for i, mb in enumerate(_micro(batch, n)):
+            if i and not direct:
+                mbuf.zero_()
+            lm = _backward(loss_fn, state.params, mb)
+            loss = lm if i == 0 else loss + lm
+            if not direct:
+                gbuf.add_(mbuf)
+        if n > 1:
             gbuf.mul_(1.0 / n)
             loss = loss * (1.0 / n)
         flat_lib.unbind_grads(masters)
@@ -308,10 +362,13 @@ class ShardedStrategy(Strategy):
     def _accumulate_then_scatter(self, loss_fn, state, batch, mesh, dp,
                                  timed):
         """Classic ZeRO-1 (and the single-microbatch zero2): accumulate
-        the full gradient, reduce-scatter it ONCE."""
-        layout = state.layout
-        g = torch.zeros(layout.padded_total, dtype=torch.float32,
-                        device=state.flat.full.device)
+        the full gradient, reduce-scatter it ONCE.  One microbatch's
+        gradient keeps the masters' dtype; microbatches sum in fp32 (the
+        reference's ``_accumulate``)."""
+        layout, full = state.layout, state.flat.full
+        g = torch.zeros(layout.padded_total, device=full.device,
+                        dtype=full.dtype if dp.microbatches == 1
+                        else torch.float32)
         loss = self._accumulate_flat(loss_fn, state, batch,
                                      dp.microbatches, g)
         with timed("reduce_scatter"):
@@ -328,10 +385,20 @@ class Zero1Strategy(ShardedStrategy):
     allreduce; optimizer memory drops to 1/p."""
     name = "zero1"
     kind = "zero1"
+    memory_key = "zero1"
 
     def grad_sync(self, loss_fn, state, batch, mesh, dp, timed):
         return self._accumulate_then_scatter(loss_fn, state, batch, mesh,
                                              dp, timed)
+
+    def comm_time(self, v_bytes, *, p=None, n_intra=None, n_pods=None,
+                  microbatches=1, fabric=TPU_V5E_ICI, inter=TPU_DCN):
+        p = p if p is not None else (n_intra or 1) * (n_pods or 1)
+        return zero1_comm_time(
+            v_bytes, p=p, fabric=self._ring_fabric(n_pods, fabric, inter))
+
+    def bucket_comm_time(self, v_bytes, *, p, fabric=TPU_V5E_ICI):
+        return zero1_comm_time(v_bytes, p=p, fabric=fabric)
 
     def _persistent_elems(self, n_params, shard):
         return n_params, n_params, shard
@@ -345,6 +412,7 @@ class Zero2Strategy(Zero1Strategy):
     runs while microbatch k+1's backward fills a second buffer."""
     name = "zero2"
     kind = "zero2"
+    memory_key = "zero2"
 
     def bucket_layout(self, dp) -> Optional[int]:
         # the per-microbatch reduce-scatters stay contiguous; only the
@@ -361,7 +429,7 @@ class Zero2Strategy(Zero1Strategy):
         masters = trainable(state.params)
         plan, dev = self._plan(layout), fm.full.device
         overlap = dp.overlap is True
-        bufs = [torch.zeros(layout.padded_total, dtype=torch.float32,
+        bufs = [torch.zeros(layout.padded_total, dtype=fm.full.dtype,
                             device=dev) for _ in range(2 if overlap else 1)]
         acc = torch.zeros(layout.shard_len, dtype=torch.float32, device=dev)
         loss = torch.zeros((), dtype=torch.float32, device=dev)
@@ -392,6 +460,13 @@ class Zero2Strategy(Zero1Strategy):
         inv = 1.0 / dp.microbatches
         return loss * inv, acc.mul_(inv)
 
+    def comm_time(self, v_bytes, *, p=None, n_intra=None, n_pods=None,
+                  microbatches=1, fabric=TPU_V5E_ICI, inter=TPU_DCN):
+        p = p if p is not None else (n_intra or 1) * (n_pods or 1)
+        return zero2_comm_time(
+            v_bytes, p=p, microbatches=microbatches,
+            fabric=self._ring_fabric(n_pods, fabric, inter))
+
     def _persistent_elems(self, n_params, shard):
         return n_params, shard, shard
 
@@ -405,6 +480,7 @@ class Zero3Strategy(ShardedStrategy):
     rank between steps."""
     name = "zero3"
     kind = "zero3"
+    memory_key = "zero3"
     params_sharded = True
 
     def gather_params(self, state, mesh, dp, timed=None):
@@ -426,7 +502,7 @@ class Zero3Strategy(ShardedStrategy):
         acc = None
         for mb in _micro(batch, n_micro):
             self.gather_params(state, mesh, dp, timed)
-            g = torch.zeros(layout.padded_total, dtype=torch.float32,
+            g = torch.zeros(layout.padded_total, dtype=fm.shard.dtype,
                             device=fm.shard.device)
             flat_lib.bind_grads(fm.spec, masters, g)
             lm = _backward(loss_fn, state.params, mb)
@@ -438,7 +514,9 @@ class Zero3Strategy(ShardedStrategy):
                     g, mesh, layout.axes, self._plan(layout), mean=False,
                     compress=dp.compress, serialize=dp.overlap == "serial")
             del g
-            acc = sh if acc is None else acc.add_(sh)
+            # the shard's sum sits in the masters' dtype; it accumulates
+            # in fp32, as the reference's cotangent does
+            acc = sh.float() if acc is None else acc.add_(sh)
         n = layout.num_shards
         if n_micro == 1:
             return loss, acc.div_(n)
@@ -448,6 +526,16 @@ class Zero3Strategy(ShardedStrategy):
     def step_transform(self, optimizer, gshard, state, mesh, dp, timed):
         optimizer.update({"flat": gshard}, state.opt_state,
                          {"flat": state.flat.shard})
+
+    def comm_time(self, v_bytes, *, p=None, n_intra=None, n_pods=None,
+                  microbatches=1, fabric=TPU_V5E_ICI, inter=TPU_DCN):
+        p = p if p is not None else (n_intra or 1) * (n_pods or 1)
+        return zero3_comm_time(
+            v_bytes, p=p, microbatches=microbatches,
+            fabric=self._ring_fabric(n_pods, fabric, inter))
+
+    def bucket_comm_time(self, v_bytes, *, p, fabric=TPU_V5E_ICI):
+        return zero3_comm_time(v_bytes, p=p, fabric=fabric)
 
     def _persistent_elems(self, n_params, shard):
         return shard, shard, shard
@@ -470,9 +558,26 @@ class Zero1HierStrategy(Zero1Strategy):
     special casing; on a one-axis mesh it is plain zero1."""
     name = "zero1_hier"
     kind = "zero1_hier"
+    memory_key = "zero1_hier"
 
     def dp_axes(self, mesh) -> tuple:
         return _hier_axes(mesh)
+
+    def bucket_comm_time(self, v_bytes, *, p=None, fabric=TPU_V5E_ICI,
+                         n_intra=None, n_pods=None, inter=TPU_DCN):
+        if n_intra is None:
+            return zero1_comm_time(v_bytes, p=p or 1, fabric=fabric)
+        return zero1_hier_comm_time(v_bytes, n_intra=n_intra,
+                                    n_pods=n_pods or 1, intra=fabric,
+                                    inter=inter)
+
+    def comm_time(self, v_bytes, *, p=None, n_intra=None, n_pods=None,
+                  microbatches=1, fabric=TPU_V5E_ICI, inter=TPU_DCN):
+        if n_intra is None:
+            return zero1_comm_time(v_bytes, p=p or 1, fabric=fabric)
+        return zero1_hier_comm_time(v_bytes, n_intra=n_intra,
+                                    n_pods=n_pods or 1, intra=fabric,
+                                    inter=inter)
 
 
 class Zero3HierStrategy(Zero3Strategy):
@@ -483,9 +588,28 @@ class Zero3HierStrategy(Zero3Strategy):
     numbering; on a one-axis mesh it is plain zero3."""
     name = "zero3_hier"
     kind = "zero3_hier"
+    memory_key = "zero3"                    # zero3's 1/p residency
 
     def dp_axes(self, mesh) -> tuple:
         return _hier_axes(mesh)
+
+    def comm_time(self, v_bytes, *, p=None, n_intra=None, n_pods=None,
+                  microbatches=1, fabric=TPU_V5E_ICI, inter=TPU_DCN):
+        if n_intra is None:
+            return zero3_comm_time(v_bytes, p=p or 1,
+                                   microbatches=microbatches, fabric=fabric)
+        return zero3_hier_comm_time(v_bytes, n_intra=n_intra,
+                                    n_pods=n_pods or 1,
+                                    microbatches=microbatches,
+                                    intra=fabric, inter=inter)
+
+    def bucket_comm_time(self, v_bytes, *, p=None, fabric=TPU_V5E_ICI,
+                         n_intra=None, n_pods=None, inter=TPU_DCN):
+        if n_intra is None:
+            return zero3_comm_time(v_bytes, p=p or 1, fabric=fabric)
+        return zero3_hier_comm_time(v_bytes, n_intra=n_intra,
+                                    n_pods=n_pods or 1, intra=fabric,
+                                    inter=inter)
 
 
 # --------------------------------------------------------------------------
@@ -531,6 +655,24 @@ def get_strategy(name) -> Strategy:
         f"unknown strategy {name!r}; registered strategies: "
         f"{list(available_strategies())}.  Register custom strategies via "
         "repro_torch.core.strategy.register_strategy(...)")
+
+
+def memory_rows(n_params, state_factor, n_workers, *, param_bytes=4,
+                grad_bytes=4):
+    """(memory_key, entry) rows for ``perf_model.dp_memory_report`` --
+    one row per distinct ``memory_key`` across the registry (the
+    replicated strategies share one row), registration order."""
+    seen = set()
+    rows = []
+    for strategy in _REGISTRY.values():
+        key = strategy.memory_key
+        if key in seen:
+            continue
+        seen.add(key)
+        rows.append((key, strategy.memory_entry(
+            n_params, state_factor, n_workers, param_bytes=param_bytes,
+            grad_bytes=grad_bytes)))
+    return rows
 
 
 register_strategy(FlatStrategy())

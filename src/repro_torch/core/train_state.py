@@ -33,6 +33,7 @@ import dataclasses
 from typing import Any, Optional
 
 import numpy as np
+import torch
 import torch.distributed as dist
 
 from repro_torch.core.collectives import (_all_gather, dp_batch_axes,
@@ -81,7 +82,9 @@ class Layout:
     param_spec    -- params-sharded layouts (zero3) only: the
                      ``core.flat.FlatSpec`` that rebuilds the masters
                      from the flat vector.
-    param_dtypes  -- params-sharded layouts only: each master's dtype.
+    param_dtypes  -- params-sharded layouts only: each master's dtype
+                     ("float32" or "bfloat16"), in ``param_spec``'s
+                     order.
     strategy      -- registry name of the strategy that built the state
                      (None for the sequential state).
     """
@@ -115,7 +118,9 @@ class Layout:
 
     def plan(self) -> Optional[BucketPlan]:
         """The bucket plan generating the shard permutation, or None for
-        the contiguous layout (itemsize 4: the master vector is fp32)."""
+        the contiguous layout.  Itemsize 4 whatever the masters' dtype,
+        as in the reference, so a bf16 state's buckets are the fp32
+        state's and the permutation depends on the layout alone."""
         if self.bucket_bytes is None:
             return None
         return plan_buckets(self.padded_total, bucket_bytes=self.bucket_bytes,
@@ -220,12 +225,13 @@ def rank_workers(mesh, axes) -> list:
 
 def gather_shards(shard, mesh, axes) -> list:
     """Every worker's shard of a flat sharded leaf, on the host in
-    worker order: an all-gather over the default group (a collective,
-    so every rank calls it), then ordered by ``rank_workers``."""
+    worker order (a bf16 leaf as fp32, exactly): an all-gather over the
+    default group (a collective, so every rank calls it), then ordered
+    by ``rank_workers``."""
     world = dist.get_world_size()
     buf = shard.new_empty(world * shard.numel())
     _all_gather(buf, shard.contiguous(), None)
-    host = buf.to("cpu").numpy().reshape(world, -1)
+    host = buf.to("cpu").float().numpy().reshape(world, -1)
     shards = [None] * world
     for r, w in enumerate(rank_workers(mesh, axes)):
         shards[w] = host[r].copy()
@@ -234,18 +240,23 @@ def gather_shards(shard, mesh, axes) -> list:
 
 def host_params(state, mesh=None) -> dict:
     """Host copy of the FULL masters, ``{name: numpy array}``, whatever
-    the layout -- always a copy.  For a params-flat layout (zero3) the
-    shards are gathered to every rank's host and reassembled there
-    (``gather_shards`` + ``assemble_full_flat``; a collective, so every
-    rank of ``mesh`` calls it)."""
+    the layout -- always a copy; numpy has no bf16, so bf16 masters come
+    back as fp32 arrays of the same values.  For a params-flat layout
+    (zero3) the shards are gathered to every rank's host and
+    reassembled there (``gather_shards`` + ``assemble_full_flat``; a
+    collective, so every rank of ``mesh`` calls it), and each leaf is
+    cast to its ``param_dtypes`` entry (bf16 leaves to fp32)."""
     from repro_torch.train.step import trainable
     layout = state.layout
     if not layout.params_flat:
-        return {k: p.detach().to("cpu", copy=True).numpy()
+        return {k: p.detach().to("cpu", torch.float32 if p.dtype ==
+                                 torch.bfloat16 else p.dtype,
+                                 copy=True).numpy()
                 for k, p in trainable(state.params).items()}
     shards = gather_shards(state.flat.shard, mesh, layout.axes)
     flat = assemble_full_flat(shards, layout)
-    return {name: flat[a:b].reshape(shp).astype(dt, copy=True)
+    return {name: flat[a:b].reshape(shp).astype(
+        np.float32 if dt == "bfloat16" else dt, copy=True)
             for (name, a, b, shp), dt in zip(layout.param_spec.slices(),
                                              layout.param_dtypes)}
 

@@ -9,9 +9,9 @@ through a bidirectional encoder that feeds every decoder layer's
 cross-attention.  In the modes the serving paths use: the continuous
 engine's paged decode mode (decode steps and chunked-prefill chunks;
 decoder-only text stacks), and the slab ``prefill`` and ``decode``;
-and in the training mode ``"train"``, on a ``Model`` of trainable fp32
-masters.  ``apply_model`` returns ``{"logits", "hidden", "aux"}``
-(and, in training with a multi-token-prediction head,
+and in the training mode ``"train"``, on a ``Model`` of trainable
+masters (fp32, or bf16).  ``apply_model`` returns ``{"logits",
+"hidden", "aux"}`` (and, in training with a multi-token-prediction head,
 ``"mtp_logits"``); the caches and the per-slot recurrent states are
 updated in place.  ``mtp_draft`` drafts tokens with the MTP head for
 speculative decoding.  The paper's Table-1 networks (``PaperNet``,
@@ -77,45 +77,49 @@ class Model(nn.Module):
     fp32; an untied embedding may arrive in the compute dtype).
 
     ``train=True`` builds a model for training instead: every weight a
-    trainable fp32 master (``requires_grad``), one per reference leaf,
-    cast to the compute dtype at each use.  A tied table is ONE master,
+    trainable master (``requires_grad``) of ``param_dtype`` (fp32, or
+    bf16 as the reference's ``TrainConfig(param_dtype="bfloat16")``
+    casts every leaf), one per reference leaf, cast to the compute
+    dtype at each use.  A tied table is ONE master,
     registered as both ``embed`` and ``unembed_f32`` (so
     ``named_parameters`` lists it once): the embedding reads it cast to
     the compute dtype, the unembedding in fp32, and its gradient sums
     both uses.
     """
 
-    def __init__(self, cfg, tree, *, device, train=False):
+    def __init__(self, cfg, tree, *, device, train=False,
+                 param_dtype=torch.float32):
         super().__init__()
         check_ported(cfg)
         if train:
             check_train_ported(cfg)
         self.cfg = cfg
         dt = compute_dtype(cfg)
+        master = lambda t: tfm._master(t.to(device), param_dtype)
         table = tree["embed"]["table"].to(device=device)
         out = table if cfg.tie_embeddings else tree["unembed"]["table"]
         if train:
-            self.embed = tfm._master(table)
+            self.embed = master(table)
             self.unembed_f32 = (self.embed if cfg.tie_embeddings
-                                else tfm._master(out.to(device)))
+                                else master(out))
         else:
             self.embed = tfm._frozen(table.to(dt))
             self.unembed_f32 = tfm._frozen(out.to(device=device,
                                                   dtype=torch.float32))
         del table, out
-        scale = lambda t: (tfm._master if train else tfm._frozen)(
-            t.to(device=device, dtype=torch.float32))
+        scale = master if train else (lambda t: tfm._frozen(
+            t.to(device=device, dtype=torch.float32)))
+        layers = lambda c, trees: _layers(c, trees, device, dt, train,
+                                          param_dtype)
         self.vision_proj = self.encoder = self.enc_norm = None
         if cfg.frontend == "vision":
             self.vision_proj = nn.ParameterDict({
-                k: tfm._master(v.to(device)) if train
-                else tfm._frozen(v.to(device, dt))
+                k: master(v) if train else tfm._frozen(v.to(device, dt))
                 for k, v in tree["vision_proj"].items()})
         if cfg.is_encoder_decoder:
-            self.encoder = _layers(encoder_cfg(cfg), tree["encoder"], device,
-                                   dt, train)
+            self.encoder = layers(encoder_cfg(cfg), tree["encoder"])
             self.enc_norm = scale(tree["enc_norm"]["scale"])
-        self.layers = _layers(cfg, tree["layers"], device, dt, train)
+        self.layers = layers(cfg, tree["layers"])
         self.final_norm = scale(tree["final_norm"]["scale"])
         self.mtp = None
         if cfg.mtp_depth > 0:
@@ -124,13 +128,14 @@ class Model(nn.Module):
                                  "but the weights hold no MTP head")
             mtp = tree["mtp"]
             self.mtp = MTPHead(_to_device(mtp() if callable(mtp) else mtp,
-                                          device), dt, train=train)
+                                          device), dt, train=train,
+                               param_dtype=param_dtype)
         self.register_buffer("rope_freqs", torch.from_numpy(
             rope_freqs(rope_dim(cfg), cfg.rope_theta)).to(device)
             if tfm.has_attention(cfg) else None)
 
 
-def _layers(cfg, trees, device, dt, train) -> nn.ModuleList:
+def _layers(cfg, trees, device, dt, train, param_dtype) -> nn.ModuleList:
     """``cfg``'s layers, built one at a time from the iterable ``trees``:
     no name (and no zip/enumerate tuple) may hold a layer's tree while
     the next one is drawn."""
@@ -138,7 +143,7 @@ def _layers(cfg, trees, device, dt, train) -> nn.ModuleList:
     layers = nn.ModuleList()
     for spec in cfg.layer_pattern():
         layers.append(tfm.Layer(_to_device(next(trees), device), dt, spec,
-                                train=train))
+                                train=train, param_dtype=param_dtype))
     return layers
 
 
@@ -149,17 +154,20 @@ class MTPHead(nn.Module):
     ``block``, an ("attn", "mlp") ``transformer.Layer`` whose MLP is
     ``moe.dense_d_ff`` wide on an MoE trunk.  It shares the trunk's
     embedding, final norm and unembedding.  Serving: frozen weights in
-    the compute dtype (norm scales fp32); training: fp32 masters."""
+    the compute dtype (norm scales fp32); training: masters of
+    ``param_dtype``."""
 
-    def __init__(self, tree, dtype, *, train=False):
+    def __init__(self, tree, dtype, *, train=False,
+                 param_dtype=torch.float32):
         super().__init__()
-        scale = lambda t: (tfm._master if train else tfm._frozen)(t.float())
+        master = lambda t: tfm._master(t, param_dtype)
+        scale = master if train else (lambda t: tfm._frozen(t.float()))
         self.norm_h = scale(tree["norm_h"]["scale"])
         self.norm_e = scale(tree["norm_e"]["scale"])
-        self.proj = (tfm._master(tree["proj"]) if train
+        self.proj = (master(tree["proj"]) if train
                      else tfm._frozen(tree["proj"].to(dtype)))
         self.block = tfm.Layer(tree["block"], dtype, ("attn", "mlp"),
-                               train=train)
+                               train=train, param_dtype=param_dtype)
 
 
 def init_mtp(cfg, *, generator, device="cpu", dtype):
@@ -247,7 +255,8 @@ def _to_device(tree, device):
     return tree.to(device)
 
 
-def init_model(cfg, *, seed=0, device="cuda", train=False) -> Model:
+def init_model(cfg, *, seed=0, device="cuda", train=False,
+               param_dtype=torch.float32) -> Model:
     """Random weights from a seed: truncated normal, std 1/sqrt(d_in)
     for projections and 0.02 for the embedding, drawn in fp32 with an
     explicit ``torch.Generator`` on ``device``, in the order embedding,
@@ -258,14 +267,16 @@ def init_model(cfg, *, seed=0, device="cuda", train=False) -> Model:
     casting layer by layer held a whole MoE layer's 45 GB of masters.
     Layers are drawn one at a time as ``Model`` builds them (a dense
     prefix, e.g. DeepSeek's, takes ``moe.dense_d_ff``).  ``train``
-    keeps the fp32 draws as trainable masters (``Model``); their values
-    cast to the compute dtype are the serving model's weights.  An MTP
+    keeps the draws as trainable masters (``Model``) of ``param_dtype``
+    -- fp32, whose values cast to the compute dtype are the serving
+    model's weights, or bf16, each weight cast as it is drawn (so a
+    bf16-master model never holds its fp32 draws beside it).  An MTP
     head (``mtp_depth > 0``) is drawn last, after every layer, so the
     other weights of a seed are those of the same config without it.
     A vision projector is drawn after the unembedding (biases zero), an
     encoder's layers after that and before the decoder's."""
     dev = resolve_device(device)
-    dt = torch.float32 if train else compute_dtype(cfg)
+    dt = param_dtype if train else compute_dtype(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
     n_prefix = len(cfg.block_structure()[0])
     dense_ff = cfg.moe.dense_d_ff if cfg.moe is not None else 0
@@ -297,7 +308,7 @@ def init_model(cfg, *, seed=0, device="cuda", train=False) -> Model:
         # drawn by Model after the layers
         tree["mtp"] = lambda: init_mtp(cfg, generator=gen, device=dev,
                                        dtype=dt)
-    return Model(cfg, tree, device=dev, train=train)
+    return Model(cfg, tree, device=dev, train=train, param_dtype=param_dtype)
 
 
 def init_cache(cfg, dtype, *, pool=None, slots=None, batch=None,

@@ -28,7 +28,8 @@ cast ONCE to the compute dtype in a serving model: as they are drawn
 the reference casts at every use to the same values.  Norm scales and
 the weights it reads in fp32 (``ssm.FP32_WEIGHTS``,
 ``moe.FP32_WEIGHTS``) stay fp32.  A training model keeps every weight
-as a trainable fp32 master and casts it at use.
+as a trainable master of one dtype (fp32, or bf16 under
+``TrainConfig(param_dtype="bfloat16")``) and casts it at use.
 """
 from __future__ import annotations
 
@@ -48,9 +49,9 @@ def _frozen(t):
     return nn.Parameter(t, requires_grad=False)
 
 
-def _master(t):
-    """A trainable fp32 master weight."""
-    return nn.Parameter(t.float(), requires_grad=True)
+def _master(t, dtype=torch.float32):
+    """A trainable master weight of ``dtype``."""
+    return nn.Parameter(t.to(dtype), requires_grad=True)
 
 
 class ParamTree(nn.Module):
@@ -121,29 +122,31 @@ class Layer(nn.Module):
 
     Serving (``train`` False): frozen weights, each cast once to
     ``dtype`` (norm scales and ``FP32_WEIGHTS`` in fp32).  Training:
-    every weight a trainable fp32 master, cast to the compute dtype at
-    use."""
+    every weight a trainable master of ``param_dtype``, cast to the
+    compute dtype at use."""
 
-    def __init__(self, tree, dtype, spec, *, train=False):
+    def __init__(self, tree, dtype, spec, *, train=False,
+                 param_dtype=torch.float32):
         super().__init__()
         self.kind, self.ffn_kind = spec
         if train:
-            param = lambda k, v: _master(v)
+            param = lambda k, v: _master(v, param_dtype)
+            scale = param
         else:
             param = lambda k, v: _frozen(
                 v.float() if k in ssm_lib.FP32_WEIGHTS + moe_lib.FP32_WEIGHTS
                 else v.to(dtype))
-        scale = lambda t: (_master if train else _frozen)(t.float())
-        self.norm1 = scale(tree["norm1"]["scale"])
-        self.norm2 = scale(tree["norm2"]["scale"])
+            scale = lambda k, t: _frozen(t.float())
+        self.norm1 = scale("norm1", tree["norm1"]["scale"])
+        self.norm2 = scale("norm2", tree["norm2"]["scale"])
         flat = lambda t: nn.ParameterDict({
-            k: scale(v["scale"]) if isinstance(v, dict) else param(k, v)
+            k: scale(k, v["scale"]) if isinstance(v, dict) else param(k, v)
             for k, v in t.items()})
         self.mixer = flat(tree["mixer"])
         self.ffn = ParamTree(tree["ffn"], param) if "ffn" in tree else None
         self.norm_cross = self.cross = None
         if "cross" in tree:
-            self.norm_cross = scale(tree["norm_cross"]["scale"])
+            self.norm_cross = scale("norm_cross", tree["norm_cross"]["scale"])
             self.cross = flat(tree["cross"])
 
 

@@ -20,7 +20,11 @@ It returns the same ``(params, state)``.
 ``momentum`` and ``adagrad`` read the rate at the step BEFORE the
 increment and ``adam`` at ``step + 1``, so under ``cosine_schedule``
 SGD's first update has lr 0.  Optimizer state is fp32 whatever the
-gradient's dtype.
+gradient's dtype.  Masters of any dtype update in place in their own
+dtype; where the reference multiplies a master-dtype tensor by a Python
+rate (``sgd``, ``momentum``), JAX rounds the rate to that dtype first
+(a weakly typed scalar), and so does ``_weak`` here: bf16 masters take
+the step the reference's bf16 masters take.
 """
 from __future__ import annotations
 
@@ -45,6 +49,15 @@ def _lr_at(lr: Schedule, step: int):
     return lr(step) if callable(lr) else lr
 
 
+def _weak(eta, like):
+    """A Python rate as JAX's weakly typed scalar meets ``like``: rounded
+    to ``like``'s dtype (a tensor rate, a schedule's, is left as it
+    is)."""
+    if isinstance(eta, torch.Tensor):
+        return eta
+    return torch.tensor(eta, dtype=like.dtype)
+
+
 def _zeros(params):
     return {k: torch.zeros_like(p, dtype=torch.float32)
             for k, p in params.items()}
@@ -58,7 +71,8 @@ def sgd(lr: Schedule = 1e-2) -> Optimizer:
     def update(grads, state, params):
         eta = _lr_at(lr, state["step"])
         for k, p in params.items():
-            p.sub_(eta * grads[k].to(p.dtype))
+            g = grads[k].to(p.dtype)
+            p.sub_(_weak(eta, g) * g)
         state["step"] += 1
         return params, state
 
@@ -74,7 +88,8 @@ def momentum(lr: Schedule = 1e-2, beta: float = 0.9) -> Optimizer:
         eta = _lr_at(lr, state["step"])
         for k, p in params.items():
             m = state["m"][k].mul_(beta).add_(grads[k].float())
-            p.sub_(eta * m.to(p.dtype))
+            mp = m.to(p.dtype)
+            p.sub_(_weak(eta, mp) * mp)
         state["step"] += 1
         return params, state
 

@@ -1,24 +1,28 @@
 """The train step on one device.
 
 Port of ``repro.train.step``: the loss is the mean over the batch, its
-gradient is taken by autograd, and the optimizer updates the fp32
-masters.  Features, as in the reference:
+gradient is taken by autograd, and the optimizer updates the masters.
+Features, as in the reference:
 
   * microbatch gradient accumulation -- a Python loop of forward and
-    backward passes whose fp32 gradients accumulate in the masters'
-    ``.grad`` (the reference's ``lax.scan``), the loss and the
-    gradients then scaled by ``1 / microbatches``;
+    backward passes whose gradients accumulate in ``grad_dtype`` (the
+    reference's ``lax.scan``), the loss and the gradients then scaled by
+    ``1 / microbatches``; one microbatch's gradient keeps the masters'
+    dtype, as the reference's ``value_and_grad`` does;
   * per-layer rematerialisation (``remat``: ``torch.utils.checkpoint``
     around each layer, ``models.transformer.apply_stack``);
-  * fp32 master weights (trainable ``nn.Parameter``s of ``Model(...,
-    train=True)``) with compute in ``cfg.dtype``;
-  * global-norm gradient clipping and the cosine lr schedule.
+  * master weights (trainable ``nn.Parameter``s of ``Model(...,
+    train=True)``) in ``param_dtype`` -- fp32, or bf16, each cast as it
+    is drawn -- with compute in ``cfg.dtype``;
+  * global-norm gradient clipping (the norm and the scaling in fp32,
+    each gradient cast back to its dtype) and the cosine lr schedule.
 
 One device; ``accumulate_grads`` is shared with the data-parallel step
-(``core.data_parallel``), which averages the gradients it leaves in
-``.grad`` over the ranks.  A model with a multi-token-prediction head
-adds its CE at ``mtp_weight`` (``train.loss.lm_loss``).  Pure-bf16
-masters wait with the configs that need them.
+(``core.data_parallel``), which averages the gradients it returns over
+the ranks; its microbatches accumulate in fp32 whatever ``grad_dtype``
+says, as the reference's strategies do.  A model with a
+multi-token-prediction head adds its CE at ``mtp_weight``
+(``train.loss.lm_loss``).
 """
 from __future__ import annotations
 
@@ -50,7 +54,7 @@ class TrainConfig:
 
 class TrainState(NamedTuple):
     """The train-step contract: ``step(state, batch) -> (state,
-    metrics)``.  ``params`` is the ``Model`` holding the fp32 masters,
+    metrics)``.  ``params`` is the ``Model`` holding the masters,
     ``opt_state`` the optimizer's dict, ``step`` a host int, ``layout``
     the ``core.train_state.Layout`` the checkpoint store records
     (``start_state`` builds the one of a state without a mesh), and
@@ -73,13 +77,18 @@ def global_norm(grads):
 
 
 def clip_by_global_norm(grads, max_norm):
-    """Scale every (fp32) gradient by min(1, max_norm / global norm), IN
-    PLACE (the step's own gradient buffers; a copy would cost another
-    set of fp32 gradients).  Returns (grads, norm)."""
+    """Scale every gradient by min(1, max_norm / global norm), IN PLACE
+    (the step's own gradient buffers; a copy would cost another set of
+    gradients).  The norm and each product are fp32, the product cast
+    back to the gradient's dtype, as the reference does.  Returns
+    (grads, norm)."""
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for g in grads.values():
-        g.mul_(scale)
+        if g.dtype == torch.float32:
+            g.mul_(scale)
+        else:
+            g.copy_(g.float() * scale)
     return grads, norm
 
 
@@ -109,11 +118,10 @@ def make_train_step(cfg, tc: TrainConfig):
     encoder-decoder's ``{"src_embeds", "tgt_tokens"}`` (numpy or
     tensors), moved to the masters' device.  The
     masters and the optimizer state are updated in place, and the
-    returned state holds the same objects."""
-    if (tc.param_dtype, tc.grad_dtype) != ("float32", "float32"):
-        raise ValueError("the port trains fp32 masters with fp32 gradients; "
-                         f"got param_dtype={tc.param_dtype!r}, "
-                         f"grad_dtype={tc.grad_dtype!r}")
+    returned state holds the same objects.  The masters' dtype is the
+    model's (``init_train_state`` draws them in ``tc.param_dtype``);
+    microbatches accumulate in ``tc.grad_dtype``."""
+    gdt = getattr(torch, tc.grad_dtype)
     lr = (optim_lib.cosine_schedule(tc.lr, tc.warmup_steps, tc.total_steps)
           if tc.schedule == "cosine" else tc.lr)
     optimizer = optim_lib.get_optimizer(tc.optimizer, lr)
@@ -123,8 +131,8 @@ def make_train_step(cfg, tc: TrainConfig):
     def step(state: TrainState, batch):
         model = state.params
         params = trainable(model)
-        loss, metrics = accumulate_grads(loss_fn, model, params, batch, n)
-        grads = {k: p.grad for k, p in params.items()}
+        loss, metrics, grads = accumulate_grads(loss_fn, model, params,
+                                                batch, n, grad_dtype=gdt)
         if tc.grad_clip > 0:
             grads, gnorm = clip_by_global_norm(grads, tc.grad_clip)
             metrics["grad_norm"] = gnorm
@@ -135,14 +143,19 @@ def make_train_step(cfg, tc: TrainConfig):
     return step, optimizer
 
 
-def accumulate_grads(loss_fn, model, params, batch, n):
-    """The loss of ``batch`` and its fp32 gradient, left in the masters'
-    ``.grad``: one forward and backward, or -- with ``n`` microbatches
-    -- a loop of them accumulating in ``.grad``, the loss and the
-    gradients then scaled by ``1 / n`` (the reference's ``lax.scan``).
-    ``loss_fn(model, batch)`` returns ``(loss, metrics)``; the metrics
-    are returned detached, for microbatches their mean (the reference
-    returns none there).
+def accumulate_grads(loss_fn, model, params, batch, n,
+                     grad_dtype=torch.float32):
+    """``(loss, metrics, grads)`` of ``batch``: one forward and backward,
+    its gradient in the masters' dtype (the reference's
+    ``value_and_grad``, whatever ``grad_dtype`` says); or -- with ``n``
+    microbatches -- a loop of them whose gradients accumulate in
+    ``grad_dtype``, the loss and the gradients then scaled by ``1 / n``
+    in that dtype (the reference's ``lax.scan``).  ``grads`` is
+    ``{name: tensor}``: the masters' ``.grad`` where the accumulation
+    dtype is theirs, else buffers of ``grad_dtype`` (``.grad`` is then
+    cleared after each microbatch).  ``loss_fn(model, batch)`` returns
+    ``(loss, metrics)``; the metrics are returned detached, for
+    microbatches their mean (the reference returns none there).
     ``batch`` (numpy or tensors) is moved to the masters' device.  A
     master the backward never reaches (DeepSeek-V3's router balance
     bias, which only selects) gets a zero gradient, as the reference
@@ -160,7 +173,13 @@ def accumulate_grads(loss_fn, model, params, batch, n):
         _zero_missing_grads(params)
         return loss.detach(), {
             k: v.detach() if isinstance(v, torch.Tensor) else v
-            for k, v in metrics.items()}
+            for k, v in metrics.items()}, {
+            k: p.grad for k, p in params.items()}
+    # accumulate in .grad where it has the accumulation dtype, else in
+    # buffers of grad_dtype beside it
+    direct = all(p.dtype == grad_dtype for p in params.values())
+    acc = None if direct else {
+        k: torch.zeros_like(p, dtype=grad_dtype) for k, p in params.items()}
     micro = _split_micro(batch, n)
     loss = torch.zeros((), dtype=torch.float32, device=dev)
     sums = {}
@@ -171,11 +190,19 @@ def accumulate_grads(loss_fn, model, params, batch, n):
         for k, v in metrics.items():
             sums[k] = sums.get(k, 0.0) + (
                 v.detach() if isinstance(v, torch.Tensor) else v)
-    _zero_missing_grads(params)
+        if not direct:
+            for k, p in params.items():
+                if p.grad is not None:
+                    acc[k].add_(p.grad.to(grad_dtype))
+                p.grad = None
+    if direct:
+        _zero_missing_grads(params)
+        acc = {k: p.grad for k, p in params.items()}
     inv = 1.0 / n
-    for p in params.values():
-        p.grad.mul_(inv)
-    return loss * inv, {k: v * inv for k, v in sums.items()}
+    for g in acc.values():
+        # the reference scales by a weakly typed 1/n: in g's dtype
+        g.mul_(torch.tensor(inv, dtype=g.dtype))
+    return loss * inv, {k: v * inv for k, v in sums.items()}, acc
 
 
 def _zero_missing_grads(params):
@@ -194,9 +221,12 @@ def start_state(model, optimizer) -> TrainState:
 
 
 def init_train_state(cfg, tc: TrainConfig, *, seed=0, device="cuda"):
-    """A ``TrainState`` at step 0: a training ``Model`` of fp32 masters
-    drawn from ``seed`` on ``device`` (``models.init_model(...,
-    train=True)``) and the optimizer's zero state."""
+    """A ``TrainState`` at step 0: a training ``Model`` of masters in
+    ``tc.param_dtype`` drawn from ``seed`` on ``device``
+    (``models.init_model(..., train=True)``; the reference draws fp32
+    and casts every leaf, the port casts each as it is drawn) and the
+    optimizer's zero state."""
     optimizer = optim_lib.get_optimizer(tc.optimizer, tc.lr)
-    return start_state(init_model(cfg, seed=seed, device=device,
-                                  train=True), optimizer)
+    return start_state(init_model(cfg, seed=seed, device=device, train=True,
+                                  param_dtype=getattr(torch, tc.param_dtype)),
+                       optimizer)

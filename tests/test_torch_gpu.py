@@ -822,6 +822,43 @@ def test_train_step_launch_counts(cuda, remat, micro):
     assert sum(counts.values()) == counts["flash_attention"]
 
 
+def test_bf16_master_step_on_card_matches_cpu(cuda):
+    """bf16 masters with fp32 compute, 2 SGD steps of 2 microbatches
+    summed in bf16, from the same masters on the card and the CPU: the
+    losses within 1e-5; every master within one bf16 ulp a step (the ulp
+    at the largest of the entry's magnitudes and its tensor's largest
+    move, the bar of tests/test_torch_bf16_masters.py); the masters and
+    their gradients stay bf16; every layer launched the kernel twice a
+    microbatch (remat)."""
+    from repro_torch.train import TrainConfig
+    cfg = smoke_config("qwen3-1.7b").with_overrides(dtype="float32")
+    tc = TrainConfig(optimizer="sgd", lr=1e-3, microbatches=2,
+                     param_dtype="bfloat16", grad_dtype="bfloat16")
+    rng = np.random.default_rng(2)
+    batches = [{"tokens": rng.integers(0, cfg.vocab_size, (4, 64))}
+               for _ in range(2)]
+    start = init_model(cfg, seed=0, device="cpu", train=True,
+                       param_dtype=torch.bfloat16)
+    p0 = {k: p.detach().clone() for k, p in start.named_parameters()}
+    got = {}
+    for dev in ("cpu", "cuda"):
+        model = init_model(cfg, seed=0, device="cpu", train=True,
+                           param_dtype=torch.bfloat16).to(dev)
+        reset_launch_counts()
+        got[dev] = _train(cfg, model, tc, batches)
+        assert all(p.dtype == torch.bfloat16 and p.grad.dtype ==
+                   torch.bfloat16 for p in model.parameters())
+    assert launch_counts()["flash_attention"] == 2 * 2 * cfg.num_layers * 2
+    (cl, cp), (gl, gp) = got["cpu"], got["cuda"]
+    assert max(abs(a - b) for a, b in zip(cl, gl)) <= 1e-5, (cl, gl)
+    for k in cp:
+        a, b, s0 = gp[k].double(), cp[k].double(), p0[k].double()
+        m = torch.maximum(torch.maximum(a.abs(), b.abs()), s0.abs())
+        m = torch.clamp(torch.maximum(m, (b - s0).abs().max()), min=1e-38)
+        ulps = (a - b).abs() / torch.exp2(torch.floor(torch.log2(m)) - 7)
+        assert ulps.max().item() <= 2, k
+
+
 # --------------------------------------------------------------------------
 # the paper's data parallelism on the card
 # --------------------------------------------------------------------------
