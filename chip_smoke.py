@@ -69,16 +69,17 @@ Phases (each fails the run if it goes wrong):
      world of one NCCL rank, dp=flat then dp=bucketed, 3 steps on phase
      13's batch: the losses equal phase 13's first 3 bit for bit, with
      exactly 3 x 2 x 28 x 2 = 336 flash_attention launches a run;
- 17. checkpoints: phase 16's bucketed trainer (full-width, full-depth
-     qwen3-1.7b after 3 steps) saves asynchronously with its data cursor
-     (20.6 GB of fp32 masters, m and v) and takes step 4 while the
-     writer publishes; a fresh trainer restores the checkpoint to
-     masters, m and v equal to a host copy taken at the save, bit for
-     bit; it serves phase 3's traffic, and so does
+ 17. checkpoints: a bucketed trainer over the same rank (full-width
+     qwen3-1.7b cut to 4 layers, after 3 steps) saves asynchronously
+     with its data cursor (6.15 GB of fp32 masters, m and v) and takes
+     step 4 while the writer publishes; a fresh trainer restores the
+     checkpoint to masters, m and v equal to a host copy taken at the
+     save, bit for bit; it serves phase 3's traffic, and so does
      ``make_engine_from_checkpoint``, with bitwise-equal greedy tokens
-     and exactly 28 x 282 = 7896 paged_flash_decode launches each; then
-     its step gives step 4's loss bit for bit (112 flash_attention
-     launches).  The checkpoint is deleted at the phase's end.
+     and exactly 4 x 282 = 1128 paged_flash_decode launches each; then
+     its step gives step 4's loss bit for bit (16 = 2 x 4 x 2
+     flash_attention launches).  The checkpoint is deleted at the
+     phase's end; the full-depth 20.6 GB one was cut for phase 28's time.
  18. the ZeRO ladder.  (a) full-width, full-depth qwen3-1.7b through
      ``Trainer(model_cfg=...)`` over phase 16's world of one NCCL rank,
      dp = zero1, zero2, zero3 and zero1 with overlap=True, 3 steps each
@@ -186,7 +187,18 @@ Phases (each fails the run if it goes wrong):
      one bf16 ulp a step; (c) zero3 with bf16 masters against flat over
      one NCCL rank at phase 18b's 4-layer qwen3, 3 AdamW steps; (d) the
      asynchronous parameter server on MNIST-DNN, 8 workers, 64 ticks,
-     beside the synchronous steps on the same stream.
+     beside the synchronous steps on the same stream;
+ 28. the full config on a mesh: torchrun of ``chip_smoke.py --mesh-rank``
+     over 4 gloo ranks sharing the card, a (data 2, model 2) mesh: (a)
+     qwen3-1.7b and (b) deepseek-moe-16b (its MoE expert-parallel, the
+     all_to_all over "data") at full width cut to 2 layers, fp32 with
+     TF32 off, every master and moment placed by the sharding rules,
+     3 momentum / 2 SGD steps of 4 x 512 tokens, held to the one-device
+     step within 1e-5 (the MoE's in one microbatch a data shard, whose
+     aux is the mesh's), each rank's flash launches exactly steps x
+     layers x 2 on its own heads, its bytes between steps and step
+     walls printed; (a') qwen3 over one NCCL rank on a (1, 1) mesh,
+     bitwise the one-device step.
 Phases 3, 16 and 17 also print the cost model's predictions
 (``repro_torch.core.perf_model`` with H100 presets) beside what the
 card measured: a decode step, the gradient all-reduce at p = 2, 4, 8
@@ -201,7 +213,8 @@ the VLM's forms (bidirectional and non-causal cross-attention at (64,
 granite's lockstep forms (h 48 / hk 1: prefill S = T = 512, decode S 1
 against a 576-key slab slice) and at seamless's training shapes ((64,
 64), h = hk = 16, S = T = 4096, causal and non-causal, forward and
-gradients).
+gradients) and at phase 28's per-rank training form (B 2, S = T = 512,
+8 q / 4 kv heads of 128).
 The last lines are the kernels' JSON record, the card's name and power
 limit, and the result line.  Without a card, or outside the repository,
 it exits non-zero and prints no result.
@@ -291,6 +304,8 @@ CNN_LATER_TOL = 1e-4
 DP_STEPS = 3
 # phase 17: where the checkpoint goes (gitignored; deleted at the end)
 CKPT_DIR = os.path.join(ROOT, "build", "ckpt_phase17")
+# phase 17's depth (full depth, 20.6 GB, until phase 28 needed the time)
+CKPT_LAYERS = 4
 # phase 18: the ZeRO runs; (b)'s depth, its ranks' files and checkpoint
 ZERO_STRATEGIES = (("zero1", False), ("zero2", False), ("zero3", False),
                    ("zero1", True))
@@ -304,6 +319,16 @@ ZERO_DIR = os.path.join(ROOT, "build", "zero_phase18")
 # phases 20-21: Jamba (cut to 2 layers) trains on 1 x 2048 tokens; Jamba
 # and DeepSeek-V3 (cut to 1 layer) take 1 + 3 steps
 JAMBA_TRAIN_SEQ, ARCH_TRAIN_STEPS = 2048, 3
+# phase 28: full-width configs cut to 2 layers on a (data 2, model 2) mesh
+# of 4 gloo ranks sharing the card, fp32 with TF32 off, held to the
+# one-device step (the reference's fp32 training bar); (b)'s capacity
+# factor drops no token (>= E / k = 64 / 6)
+MESH_SHAPE, MESH_LAYERS = (2, 2), 2
+MESH_INIT_SLACK = 16 * 2 ** 20   # allocator rounding, generator state
+MESH_BATCH, MESH_SEQ, MESH_LR = 4, 512, 1e-2
+MESH_CASES = {"qwen3-1.7b": ("momentum", 3), "deepseek-moe-16b": ("sgd", 2)}
+MESH_CF, MESH_TOL = 16.0, 1e-5
+MESH_DIR = os.path.join(ROOT, "build", "mesh_phase28")
 # the reference's FLASH_CASES (tests/test_kernels.py)
 FLASH_CASES = [
     # B, S, T, h, hk, hd, causal, window
@@ -909,11 +934,12 @@ def flash_bwd_bound(B, S, T, h, hk, hd, causal, el):
 
 
 def check_flash_train(dev, flush, case=None, h=16, hk=8, hd=128,
-                      causal=True):
+                      causal=True, B=1, S=TRAIN_SEQ):
     """The flash kernel at a training shape (B 1, S = T = TRAIN_SEQ; by
     default qwen3's 16 q / 8 kv heads of 128, causal; seamless's
     encoder and decoder give it 16 / 16 heads of 64, non-causal and
-    causal): the forward against the plain version, and the gradients of
+    causal; phase 28's ranks B 2, S = T = 512, 8 / 4 heads of 128): the
+    forward against the plain version, and the gradients of
     ``FlashAttention`` (the kernel's forward, the plain q-chunked
     backward) against autograd of the plain version; times beside SDPA's
     forward and forward + backward and beside the bounds."""
@@ -922,7 +948,6 @@ def check_flash_train(dev, flush, case=None, h=16, hk=8, hd=128,
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd_ref, flash_attention_ref)
 
-    B, S = 1, TRAIN_SEQ
     case = case or f"train B={B} S=T={S} causal"
     rng = np.random.default_rng(13)
     host = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
@@ -2242,10 +2267,24 @@ def dp_qwen(dev, phase13_losses, prompts, serve_launches):
         if strategy == "flat":
             out[strategy]["predicted_ms"] = comm_predictions(
                 4.0 * desc["params"], desc["comm_time_s"], sync)
-        if strategy == "flat":
-            del trainer
-    ckpt_out = checkpoint_qwen(dev, trainer, lambda: create("bucketed"),
-                               cfg, batch, prompts, serve_launches)
+        del trainer
+    # phase 17 on a CKPT_LAYERS-deep bucketed trainer after DP_STEPS steps
+    torch.cuda.empty_cache()
+    ckpt_cfg = cfg.with_overrides(num_layers=CKPT_LAYERS)
+
+    def create_ckpt():
+        return Trainer.create(
+            ckpt_cfg, optimizer="adamw", lr=TRAIN_LR,
+            dp=DPConfig(strategy="bucketed", microbatches=TRAIN_MICRO),
+            mesh=mesh, train_cfg=TrainConfig(remat=True), seed=0,
+            device=dev)
+
+    trainer = create_ckpt()
+    for _ in range(DP_STEPS):
+        trainer.step(batch)
+    ckpt_out = checkpoint_qwen(
+        dev, trainer, create_ckpt, ckpt_cfg, batch, prompts,
+        serve_launches // cfg.num_layers * CKPT_LAYERS)
     del trainer
     zero_out = {"nccl": zero_qwen(dev, cfg, batch, mesh,
                                   out["flat"]["losses"])}
@@ -3030,7 +3069,8 @@ def checkpoint_qwen(dev, trainer, create, cfg, batch, prompts,
            "loss4": loss4, "paged_flash_decode_launches": launches,
            "flash_attention_launches_a_step": flash,
            "peak_device_gib": peak, "requests": len(prompts)}
-    print(f"phase 17: {cfg.name} full width and depth, step {at} saved "
+    print(f"phase 17: {cfg.name} full width, reduced: num_layers 28 -> "
+          f"{cfg.num_layers}, step {at} saved "
           f"asynchronously ({rec['bytes'] / 1e9:.3f} GB of fp32 masters, m "
           f"and v) while step 4 ran (loss {loss4!r}); restored masters, m "
           f"and v == the host copy taken at the save, bit for bit; the "
@@ -4175,6 +4215,247 @@ class _PaperLogits(torch.nn.Module):
         from repro_torch.models import apply_paper_net
         return apply_paper_net(self.spec, self.net, x)
 
+# --------------------------------------------------------------------------
+# phase 28: the full-width configs on a (data, model) mesh
+# --------------------------------------------------------------------------
+
+def mesh_cfg(arch):
+    """Phase 28's config: full width, MESH_LAYERS layers, fp32; the MoE
+    at MESH_CF."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).with_overrides(num_layers=MESH_LAYERS,
+                                          dtype="float32")
+    if cfg.moe is not None:
+        cfg = cfg.with_overrides(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=MESH_CF))
+    return cfg
+
+
+def one_device_tc(cfg, tc):
+    """The one-device step phase 28 holds the mesh to: an MoE's aux is
+    each data shard's own routing statistics on the mesh (the reference's
+    expert-parallel aux), so the one device takes the batch as one
+    microbatch a data shard, whose mean is the same objective."""
+    import dataclasses
+    return (tc if cfg.moe is None
+            else dataclasses.replace(tc, microbatches=MESH_SHAPE[0]))
+
+
+def mesh_steps(cfg, tc, mesh, dev, batch, steps):
+    """``steps`` steps of ``cfg`` from seed 0 (on ``mesh``, or one device
+    with ``mesh`` None): per step the loss, its ce and aux, the wall (the
+    card synchronised), the flash launches and the bytes allocated after
+    it; and the final masters, gathered whole."""
+    import gc
+    from repro_torch import bridge
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.train import (init_train_state, make_train_step,
+                                   trainable)
+    from repro_torch.models.layers import truncated_normal
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = init_train_state(cfg, tc, mesh=mesh, seed=0, device=dev)
+    rec = {"init_peak_bytes": torch.cuda.max_memory_allocated(dev) - before,
+           "init_bytes": torch.cuda.memory_allocated(dev) - before}
+    # what drawing the largest leaf alone takes (the draw's temporaries)
+    largest = max(p.numel() for p in trainable(state.params).values())
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    leaf = truncated_normal((largest,), 0.02, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    del leaf
+    rec["draw_peak_bytes"] = torch.cuda.max_memory_allocated(dev) - base
+    step, _ = make_train_step(cfg, tc, mesh=mesh)
+    rec.update({"losses": [], "ce": [], "aux": [], "walls_ms": [],
+                "flash": [], "between_bytes": []})
+    for _ in range(steps):
+        torch.cuda.synchronize(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize(dev)
+        rec["walls_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["flash"].append(launch_counts().get("flash_attention", 0))
+        rec["between_bytes"].append(torch.cuda.memory_allocated(dev) - before)
+        for key in ("loss", "ce", "aux"):
+            rec[key if key != "loss" else "losses"].append(float(m[key]))
+    mixer = state.params.layers[0].mixer
+    rec["heads"] = [int(getattr(mixer[k], "to_local", lambda: mixer[k])()
+                        .shape[1]) for k in ("wq", "wk")]
+    masters = bridge.gather_named(trainable(state.params))
+    del state
+    return rec, masters
+
+
+def mesh_rank(outdir):
+    """One of phase 28's gloo ranks (run by torchrun): each config of
+    MESH_CASES on the (data 2, model 2) mesh; rank 0 then takes the same
+    steps on one device and compares.  Rank 0 writes the numbers."""
+    import torch.distributed as dist
+    sys.path.insert(0, SRC)
+    from repro_torch.data import make_batch
+    from repro_torch.launch.mesh import init_from_env, make_serve_mesh
+    from repro_torch.train import TrainConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh, dev = init_from_env("gloo", "cuda", mesh=lambda dt: make_serve_mesh(
+        *MESH_SHAPE, device_type=dt))
+    rank = dist.get_rank()
+    res = {}
+    for arch, (opt, steps) in MESH_CASES.items():
+        cfg = mesh_cfg(arch)
+        tc = TrainConfig(optimizer=opt, lr=MESH_LR, remat=True)
+        batch = make_batch(cfg, np.random.default_rng(28), MESH_BATCH,
+                           MESH_SEQ)
+        got, full = mesh_steps(cfg, tc, mesh, dev, batch, steps)
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, {k: got[k] for k in (
+            "flash", "between_bytes", "walls_ms", "heads", "init_peak_bytes",
+            "init_bytes", "draw_peak_bytes")})
+        if rank == 0:
+            one, ref = mesh_steps(cfg, one_device_tc(cfg, tc), None, dev,
+                                  batch, steps)
+            gap = max(float((full[k] - ref[k]).abs().max()) for k in ref)
+            res[arch] = {"mesh": got, "one_device": one, "ranks": every,
+                         "param_gap": gap, "n_params": sum(
+                             int(t.numel()) for t in ref.values())}
+            del ref
+        del full
+        dist.barrier()
+    if rank == 0:
+        with open(os.path.join(outdir, "ranks.json"), "w") as f:
+            json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def train_mesh(dev):
+    """Phase 28: (a) qwen3-1.7b and (b) deepseek-moe-16b (its layer 1 the
+    expert-parallel MoE, all_to_all over "data") at full width on a
+    (data 2, model 2) mesh of 4 gloo ranks sharing the card, held to the
+    one-device step; (a') qwen3 over one NCCL rank on a (1, 1) mesh,
+    bitwise the one-device step."""
+    import shutil
+    import socket
+    import torch.distributed as dist
+    from repro_torch.data import make_batch
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.train import TrainConfig
+    out = {}
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    try:
+        wall = run_ranks([os.path.abspath(__file__), "--mesh-rank", MESH_DIR],
+                         MESH_SHAPE[0] * MESH_SHAPE[1], timeout=600,
+                         module=False)
+        with open(os.path.join(MESH_DIR, "ranks.json")) as f:
+            ranks = json.load(f)
+    finally:
+        shutil.rmtree(MESH_DIR, ignore_errors=True)
+    for arch, r in ranks.items():
+        cfg = mesh_cfg(arch)
+        mesh, one = r["mesh"], r["one_device"]
+        steps = len(one["losses"])
+        want = steps * cfg.num_layers * 2
+        flash = [sum(rk["flash"]) for rk in r["ranks"]]
+        if any(f != want for f in flash):
+            fail(f"phase 28 ({arch}): flash_attention launched {flash} times "
+                 f"on the ranks, expected {want} = {steps} steps x "
+                 f"{cfg.num_layers} layers x 2 (remat)")
+        # each rank cut every leaf as it drew it: its peak while drawing
+        # is its blocks (and moments) plus one whole leaf's draw
+        peaks = [(rk["init_peak_bytes"], rk["init_bytes"]
+                  + rk["draw_peak_bytes"] + MESH_INIT_SLACK)
+                 for rk in r["ranks"]]
+        if any(p > bound for p, bound in peaks):
+            fail(f"phase 28 ({arch}): a rank's peak while drawing its mesh "
+                 f"state exceeds its blocks plus one leaf's draw: {peaks}")
+        gap = max(abs(a - b) for a, b in zip(mesh["losses"], one["losses"]))
+        if gap > MESH_TOL or r["param_gap"] > MESH_TOL:
+            fail(f"phase 28 ({arch}): mesh vs one device: losses "
+                 f"{mesh['losses']} vs {one['losses']} ({gap:.2e}), params "
+                 f"{r['param_gap']:.2e} (bar {MESH_TOL:g})")
+        out[arch] = {"losses": mesh["losses"], "one_device_losses":
+                     one["losses"], "loss_gap": gap, "aux": mesh["aux"],
+                     "one_device_aux": one["aux"],
+                     "param_gap": r["param_gap"], "flash_launches": flash,
+                     "rank_heads": r["ranks"][0]["heads"],
+                     "between_bytes": [rk["between_bytes"][-1]
+                                       for rk in r["ranks"]],
+                     "one_device_between_bytes": one["between_bytes"][-1],
+                     "init_peak_bytes": [p for p, _ in peaks],
+                     "init_peak_bound_bytes": [b for _, b in peaks],
+                     "one_device_init_peak_bytes": one["init_peak_bytes"],
+                     "walls_ms": [rk["walls_ms"] for rk in r["ranks"]],
+                     "one_device_walls_ms": one["walls_ms"],
+                     "n_params": r["n_params"]}
+        h, hk = r["ranks"][0]["heads"]
+        print(f"phase 28 ({arch}): full width, reduced: num_layers "
+              f"{cfg.num_layers}, fp32, {steps} {MESH_CASES[arch][0]} steps "
+              f"of {MESH_BATCH} x {MESH_SEQ} tokens on a (data "
+              f"{MESH_SHAPE[0]}, model {MESH_SHAPE[1]}) mesh of 4 gloo ranks "
+              f"sharing the card: losses {mesh['losses']} (one device "
+              f"{one['losses']}{' in one microbatch a data shard' if cfg.moe else ''}"
+              f"): gap {gap:.2e}, params {r['param_gap']:.2e} (bar "
+              f"{MESH_TOL:g}); aux {mesh['aux']}; "
+              f"flash_attention launches a rank {flash} on {h} q / {hk} kv "
+              f"heads a rank")
+        print(f"phase 28 ({arch}): bytes allocated between steps a rank "
+              f"{', '.join(f'{b / 2**30:.2f}' for b in out[arch]['between_bytes'])}"
+              f" GiB, the one-device state "
+              f"{one['between_bytes'][-1] / 2**30:.2f} GiB; step walls a rank "
+              f"{', '.join(f'{w:.0f}' for w in r['ranks'][0]['walls_ms'])} ms "
+              "(gloo staged through host memory on one card, not a "
+              "cross-card number), one device "
+              f"{', '.join(f'{w:.0f}' for w in one['walls_ms'])} ms")
+        print(f"phase 28 ({arch}): peak while drawing the mesh state a rank "
+              f"{', '.join(f'{p / 2**30:.2f}' for p, _ in peaks)} GiB (bound: "
+              f"its blocks and moments plus one leaf's draw, "
+              f"{', '.join(f'{b / 2**30:.2f}' for _, b in peaks)} GiB); the "
+              f"one-device state's {one['init_peak_bytes'] / 2**30:.2f} GiB")
+    print(f"phase 28: torchrun {wall:.1f} s")
+
+    # (a') one NCCL rank on a (1, 1) mesh: bitwise the one-device step
+    arch = "qwen3-1.7b"
+    cfg = mesh_cfg(arch)
+    opt, steps = MESH_CASES[arch]
+    tc = TrainConfig(optimizer=opt, lr=MESH_LR, remat=True)
+    batch = make_batch(cfg, np.random.default_rng(28), MESH_BATCH, MESH_SEQ)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_serve_mesh(1, 1, device_type="cuda")
+        got, full = mesh_steps(cfg, tc, mesh, dev, batch, steps)
+        one, ref = mesh_steps(cfg, tc, None, dev, batch, steps)
+    finally:
+        dist.destroy_process_group()
+    want = cfg.num_layers * 2
+    if got["flash"] != [want] * steps:
+        fail(f"phase 28 (a'): flash_attention launched {got['flash']} times "
+             f"a step on the NCCL rank, expected {want} = {cfg.num_layers} "
+             "layers x 2 (remat)")
+    same = got["losses"] == one["losses"] and all(
+        torch.equal(full[k], ref[k]) for k in ref)
+    if not same:
+        fail(f"phase 28 (a'): one NCCL rank on a (1, 1) mesh: losses "
+             f"{got['losses']} vs one device {one['losses']}, not bitwise")
+    del full, ref
+    torch.cuda.empty_cache()
+    out["nccl_1x1"] = {"losses": got["losses"], "flash_launches": got["flash"],
+                       "walls_ms": got["walls_ms"]}
+    print(f"phase 28 (a'): {arch} over one NCCL rank on a (1, 1) mesh, "
+          f"{steps} {opt} steps: losses {got['losses']} == the one-device "
+          f"step's, masters bitwise; flash_attention launches {got['flash']}")
+    return out
+
+
 
 def main():
     import argparse
@@ -4285,6 +4566,15 @@ def main():
             dev, flush, f"seamless train B=1 S=T={TRAIN_SEQ} (64, 64) "
             f"h=hk=16 {'causal' if causal else 'non-causal'}", h=16, hk=16,
             hd=64, causal=causal)
+    print(f"  flash_attention at phase 28's per-rank training form (qwen3's "
+          f"16 q / 8 kv heads over model 2: 8 / 4 heads of 128, B "
+          f"{MESH_BATCH // MESH_SHAPE[0]}, S = T = {MESH_SEQ}, causal): "
+          "tolerances as at qwen3's training shape")
+    mesh_rows = check_flash_train(
+        dev, flush, f"mesh rank B={MESH_BATCH // MESH_SHAPE[0]} "
+        f"S=T={MESH_SEQ} h=8 hk=4", h=8, hk=4, B=MESH_BATCH // MESH_SHAPE[0],
+        S=MESH_SEQ)
+    flash_new_rows += mesh_rows
     print(f"  WKV6 and MambaScan gradients (kernel forward, plain backward) "
           f"against autograd of the plain chunked forms: max |err| / max "
           f"|grad| fp32 {TRAIN_GRAD_TOL[torch.float32]:g}, bf16 "
@@ -4399,6 +4689,7 @@ def main():
     front_out = run_phase("phase 25", serve_frontends, dev)
     front_train_out = run_phase("phase 26", train_frontends, dev)
     bf16_out = run_phase("phase 27", train_bf16_masters, dev)
+    mesh_out = run_phase("phase 28", train_mesh, dev)
 
     decode_bf16, chunk_bf16, verify_bf16 = (
         next(r for r in rows if r["case"] == case and r["dtype"] == "bfloat16")
@@ -4543,6 +4834,12 @@ def main():
                                     for a, r in front_train_out.items()},
         "frontends": front_out, "frontend_train": front_train_out,
         "launches_bf16_train": bf16_out["llava"]["flash_launches"],
+        "launches_mesh_train": {a: r["flash_launches"]
+                                for a, r in mesh_out.items()},
+        "mesh_train": mesh_out,
+        "mesh_rank_form": {key: mesh_rows[-1][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "sdpa_backend", "max_abs_err", "grad_rel_err")},
         "bf16_train": bf16_out, "phase_3_decode_model": decode_model,
         "new_forms": {r["case"]: {key: r[key] for key in r if key != "case"}
                       for r in flash_new_rows if r["dtype"] == "bfloat16"},
@@ -4562,5 +4859,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--zero-rank"]:
         zero_rank(sys.argv[2])
+    elif sys.argv[1:2] == ["--mesh-rank"]:
+        mesh_rank(sys.argv[2])
     else:
         main()

@@ -30,6 +30,16 @@ mixer/wq`` stacked on ``n_rep``, or ``layers/0/w`` for a Table-1 net).
 ``serving_model`` casts a training model's masters into a serving
 ``Model``.
 
+On a mesh, each master of a training ``Model`` -- drawn
+(``mesh_placer``, cut as it is drawn), or carried from the reference by
+``params_from_jax`` (``place_on_mesh``) -- becomes a DTensor holding
+this rank's block as the reference's rules place it
+(``sharding.rules.param_spec`` of its reference path, train mode); the
+tied table stays one master.  ``gather_named`` is the way back: every
+master (or moment) gathered whole, which ``named_to_numpy`` and
+``params_to_numpy`` then read; ``copy_sources`` writes a DTensor's
+block of each array.
+
 The caller turns the reference's arrays into numpy first; this module
 imports neither ``jax`` nor the reference package.
 """
@@ -39,7 +49,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.model import Model, PaperNet, encoder_cfg
+from repro_torch.models.model import (Model, PaperNet, encoder_cfg,
+                                      layer_path)
 
 # mixer norms the reference nests as {"scale": t}; ``Layer`` flattens them
 NESTED_SCALES = ("q_norm", "k_norm", "kv_norm", "ln_x")
@@ -240,13 +251,10 @@ def reference_key(model, name) -> tuple:
         raise ValueError(f"no reference path for the port's {name!r}")
     top, cfg = stacks[head]
     i, *rest = rest
-    rest = _nest_scale(rest)
-    prefix, pattern, _ = cfg.block_structure()
     i = int(i)
-    if i < len(prefix):
-        return "/".join([top, "prefix", f"layer{i}", *rest]), None
-    rep, j = divmod(i - len(prefix), len(pattern))
-    return "/".join([top, "blocks", f"layer{j}", *rest]), rep
+    prefix, pattern, _ = cfg.block_structure()
+    rep = None if i < len(prefix) else (i - len(prefix)) // len(pattern)
+    return "/".join([layer_path(top, cfg, i), *_nest_scale(rest)]), rep
 
 
 def _nest_scale(rest) -> list:
@@ -350,10 +358,154 @@ def named_sources(model, named, get) -> list:
 @torch.no_grad()
 def copy_sources(sources):
     """Copy each array of ``named_sources`` into its tensors in place,
-    unstacking ``n_rep``."""
+    unstacking ``n_rep``; a DTensor takes its block of the array."""
     for ts, a in sources:
         for t, s in zip(ts, torch.from_numpy(a)):
-            t.copy_(s)
+            if _is_dtensor(t):
+                t.to_local().copy_(s[_block(t)])
+            else:
+                t.copy_(s)
+
+
+# --------------------------------------------------------------------------
+# a training Model on a mesh
+# --------------------------------------------------------------------------
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _block(t) -> tuple:
+    """The slices of a DTensor's local block into its whole tensor."""
+    from repro_torch.sharding.comm import MeshComm
+    from repro_torch.sharding.rules import local_slices
+    comm = MeshComm(t.device_mesh)
+    return local_slices(tuple(t.shape), spec_of(t), dict(comm.sizes),
+                        comm.coord)
+
+
+def spec_of(t) -> tuple:
+    """The rules' spec (axes per tensor dim) of a DTensor's placements."""
+    from torch.distributed.tensor import Shard
+    axes = [[] for _ in t.shape]
+    for name, pl in zip(t.device_mesh.mesh_dim_names, t.placements):
+        if isinstance(pl, Shard):
+            axes[pl.dim].append(name)
+    return tuple(None if not a else a[0] if len(a) == 1 else tuple(a)
+                 for a in axes)
+
+
+@torch.no_grad()
+def _placed(cfg, comm, path, t):
+    """A DTensor master of ``t`` (the whole leaf at reference ``path``)
+    holding this rank's block, placed by the train-mode rules."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.sharding.rules import (ShardingConfig, local_slices,
+                                            param_spec, placements)
+    spec = param_spec(cfg, comm.sizes, path, tuple(t.shape),
+                      ShardingConfig.for_mode("train"))
+    block = t.detach()[local_slices(tuple(t.shape), spec, comm.sizes,
+                                    comm.coord)]
+    return DTensor.from_local(block.clone(), comm.mesh,
+                              placements(spec, comm.names), run_check=False)
+
+
+def _leaves(tree, path):
+    """(reference path, leaf) of every tensor of a unit's tree."""
+    if not isinstance(tree, dict):
+        yield path, tree
+        return
+    for k, v in tree.items():
+        yield from _leaves(v, f"{path}/{k}")
+
+
+def _map_leaves(tree, path, fn):
+    if not isinstance(tree, dict):
+        return fn(path, tree)
+    return {k: _map_leaves(v, f"{path}/{k}", fn) for k, v in tree.items()}
+
+
+def mesh_placer(cfg, mesh):
+    """``models.init_model``'s ``place=`` on ``mesh``: every leaf a
+    DTensor holding this rank's block, placed by the train-mode rules of
+    its reference path, cut as soon as it is drawn.  Each unit is drawn
+    twice: on the meta device first, which draws nothing and tells
+    which leaf (path and shape) each draw becomes; then for real, in the
+    same order from the same generator, each draw cut to its block and
+    the whole tensor dropped before the next is drawn.  The weights are
+    those of drawing the whole model and cutting it, and the peak is
+    the blocks plus one whole leaf (its fp32 draw and its cast)."""
+    from repro_torch.models.layers import on_draw
+    from repro_torch.sharding.comm import MeshComm
+    comm = MeshComm(mesh)
+
+    def place(prefix, draw, device, generator):
+        drawn = []
+        with on_draw(lambda t: drawn.append(t) or t):
+            ghost = draw(torch.device("meta"), None)
+        where = {id(leaf if leaf._base is None else leaf._base):
+                 (path, tuple(leaf.shape)) for path, leaf in
+                 _leaves(ghost, prefix)}
+        if any(id(t) not in where for t in drawn):
+            raise ValueError(f"{prefix}: a draw is not a leaf (or a view "
+                             "of one) of its tree; it cannot be placed "
+                             "as drawn")
+        plan = iter([where[id(t)] for t in drawn])
+        blocks = {}
+
+        def cut(t):
+            path, shape = next(plan)
+            blocks[path] = _placed(cfg, comm, path, t.reshape(shape))
+            return torch.empty(t.shape, dtype=t.dtype, device="meta")
+
+        with on_draw(cut):
+            tree = draw(device, generator)
+        return _map_leaves(tree, prefix, lambda path, leaf: blocks.pop(
+            path) if path in blocks else _placed(cfg, comm, path, leaf))
+
+    return place
+
+
+def place_on_mesh(model, mesh):
+    """Every master of a training ``model`` (one whole copy on each rank,
+    carried from the reference) replaced IN PLACE by a DTensor master
+    holding this rank's block, placed by the train-mode rules of its
+    reference path; a tied table stays one master.  Returns ``model``.
+    A model drawn from a seed is placed as it is drawn
+    (``mesh_placer``)."""
+    from repro_torch.sharding.comm import MeshComm
+    comm = MeshComm(mesh)
+    names = {id(p): n for n, p in model.named_parameters()}
+    placed = {}
+    for mod in model.modules():
+        for key, p in list(mod._parameters.items()):
+            if p is None:
+                continue
+            if id(p) not in placed:
+                path, _ = reference_key(model, names[id(p)])
+                placed[id(p)] = torch.nn.Parameter(
+                    _placed(model.cfg, comm, path, p),
+                    requires_grad=p.requires_grad)
+            mod._parameters[key] = placed[id(p)]
+    return model
+
+
+def gather_named(named) -> dict:
+    """{name: the whole tensor} of ``named`` ({name: tensor}), each
+    DTensor gathered from its blocks -- a collective: every rank of the
+    mesh calls it.  Other tensors pass as they are."""
+    from repro_torch.sharding.comm import MeshComm, full_tensor
+    comms = {}
+    out = {}
+    for k, t in named.items():
+        if _is_dtensor(t):
+            mesh = t.device_mesh
+            comm = comms.setdefault(id(mesh), MeshComm(mesh))
+            out[k] = full_tensor(t, comm)
+        else:
+            out[k] = t
+    return out
 
 
 def serving_model(model: Model) -> Model:

@@ -337,20 +337,23 @@ def state_tree(state, *, replicated: bool = True) -> dict:
     sharded state's flat leaves are this worker's shards, as the
     reference's tree over ``{"flat": shard}`` names them: ``opt_state/
     m/flat``, and ``params`` itself for zero3.  ``replicated=False``
-    leaves a zero1 / zero2 state's (replicated) params out.  The only
-    part of a save that reads the device."""
+    leaves a zero1 / zero2 state's (replicated) params out.  A mesh
+    state's DTensor masters and moments are gathered whole first (a
+    collective: every rank calls this; the launcher's rank 0 writes).
+    The only part of a save that reads the device."""
     model = state.params
     opt = {}
     for k, v in state.opt_state.items():
         opt[k] = (np.asarray(v, np.int32) if k == "step"
                   else {"flat": bridge.host_copy([v["flat"]])}
                   if state.layout.sharded
-                  else bridge.named_to_numpy(model, v))
+                  else bridge.named_to_numpy(model, bridge.gather_named(v)))
     tree = {"opt_state": opt, "step": np.asarray(state.step, np.int32)}
     if state.layout.params_flat:
         tree["params"] = bridge.host_copy([state.flat.shard])
     elif replicated:
-        tree["params"] = bridge.named_to_numpy(model, trainable(model))
+        tree["params"] = bridge.named_to_numpy(
+            model, bridge.gather_named(trainable(model)))
     return tree
 
 

@@ -9,12 +9,13 @@ def resolve_device(device="cuda") -> torch.device:
 
     The default is the card; a machine without one raises instead of
     falling back to the CPU, which only an explicit ``device="cpu"``
-    selects."""
+    selects.  ``"meta"`` builds shapes without storage (a production
+    mesh's state, laid out in one process)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "device='cuda' requested but torch.cuda.is_available() is "
             "False; pass device='cpu' to run the plain PyTorch path")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev

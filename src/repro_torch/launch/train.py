@@ -44,6 +44,14 @@
         --reduced --device cpu --backend gloo --dp-strategy zero3 \
         --overlap on --bucket-bytes 65536 --steps 3 --batch 4 --seq 64
 
+    # the full config on the production mesh: (data 16, model 16) over
+    # 256 ranks, or (pod 2, data 16, model 16) over 512 with --multi-pod,
+    # one rank a card (torchrun on every host, e.g. 32 hosts of 8 cards)
+    PYTHONPATH=src python -m torch.distributed.run --nnodes 32 \
+        --nproc-per-node 8 --rdzv-backend c10d --rdzv-endpoint HOST:PORT \
+        -m repro_torch.launch.train --arch qwen3-1.7b --steps 10 \
+        --batch 256 --seq 4096
+
     # checkpoint every 2 steps, hard-kill at step 4, then resume: the
     # rerun restores step 4 and its data cursor and takes steps 4 and 5
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
@@ -55,7 +63,13 @@
 
 Port of ``repro.launch.train``.  Without --reduced the full config
 trains in its compute dtype (bf16) on fp32 masters; with it, the smoke
-config in fp32.  Every architecture trains, DeepSeek-V3 with its
+config in fp32.  The full config under torchrun (or with --multi-pod)
+trains on the production mesh (``launch.mesh.make_production_mesh``,
+the reference's ``launch/train.py:130-157``): every master and moment
+placed by the sharding rules, the batch split over pod x data, the work
+over "model" (``train.step.make_train_step(..., mesh=)``); any world but
+256 ranks (512 with --multi-pod) exits with the mesh's message.  On one
+process without --multi-pod it trains on the one device.  Every architecture trains, DeepSeek-V3 with its
 multi-token-prediction head (its CE joins the loss at the train
 config's ``mtp_weight``), seamless-m4t-large-v2 on ``src_embeds`` frames
 and target tokens, llava-next-mistral-7b on image rows and tokens
@@ -90,6 +104,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
@@ -192,14 +207,17 @@ def main(argv=None):
                          "bucket issued before the last one is finished "
                          "(on), or one after another (serial)")
     ap.add_argument("--backend", default="nccl", choices=BACKENDS)
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="full config: the (pod 2, data 16, model 16) mesh "
+                         "over 512 ranks instead of (data 16, model 16)")
     args = ap.parse_args(argv)
     if args.dp_strategy and args.sync != "grads" and \
             get_strategy(args.dp_strategy).sharded:
         ap.error(f"--dp-strategy {args.dp_strategy} shards the optimizer "
                  "state and needs --sync grads")
     if args.dp_strategy and not args.reduced:
-        ap.error("--dp-strategy requires --reduced (as in the reference: "
-                 "the full config trains on the one-device step)")
+        ap.error("--dp-strategy requires --reduced (the full-mesh path "
+                 "gets its sharding from the mesh rules, not DPConfig)")
     if args.dp_strategy and (args.grad_clip or args.schedule != "constant"):
         ap.error("--grad-clip and --schedule cosine are options of the "
                  "one-device step; the data-parallel step has neither, as "
@@ -217,8 +235,13 @@ def main(argv=None):
     if args.ckpt_async and not args.reduced:
         ap.error("--ckpt-async requires --reduced (the full config saves "
                  "the legacy npz, as in the reference)")
+    if args.multi_pod and args.reduced:
+        ap.error("--multi-pod is the full config's production mesh; "
+                 "--reduced trains data-parallel with --pods")
     if args.dp_strategy:
         return run_dp(args, cfg, tc)
+    if not args.reduced and (args.multi_pod or "WORLD_SIZE" in os.environ):
+        return run_mesh(args, cfg, tc)
     dev = resolve_device(args.device)
     state = init_train_state(cfg, tc, seed=0, device=dev)
     step, _ = make_train_step(cfg, tc)
@@ -311,6 +334,50 @@ def _finish_saves(save):
         ck.wait()
         _print_ckpt_stats(ck.stats())
         ck.close()
+
+
+def run_mesh(args, cfg, tc):
+    """The full config on the production mesh over every rank torchrun
+    started; rank 0 reports and writes the legacy npz."""
+    from repro_torch.launch.mesh import (check_production_world,
+                                         make_production_mesh)
+    try:
+        check_production_world(args.multi_pod,
+                               int(os.environ.get("WORLD_SIZE", 1)))
+    except RuntimeError as e:
+        raise SystemExit(str(e)) from None
+    mesh, dev = init_from_env(
+        args.backend, args.device, mesh=lambda dt: make_production_mesh(
+            multi_pod=args.multi_pod, device_type=dt))
+    rank0 = dist.get_rank() == 0
+    say = print if rank0 else (lambda *a, **k: None)
+    state = init_train_state(cfg, tc, mesh=mesh, seed=0, device=dev)
+    step, _ = make_train_step(cfg, tc, mesh=mesh)
+    say(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} over "
+        f"{dist.get_world_size()} ranks ({args.backend}, {dev.type})",
+        flush=True)
+    start, data_seed = 0, args.data_seed
+    if args.ckpt and latest_step(args.ckpt) is not None:
+        state, start = restore_train_state(args.ckpt, state)
+        data_seed, start = restore_cursor(args.ckpt, start, data_seed)
+        say(f"resumed from step {start}", flush=True)
+    injector = _make_injector(args)
+    losses = []
+    for i in range(start, start + args.steps):
+        state, metrics = step(state, step_batch(cfg, data_seed, i,
+                                                args.batch, args.seq))
+        losses.append(float(metrics["loss"]))
+        say(f"step {i:4d}  loss {losses[-1]:.4f}", flush=True)
+        if args.ckpt and (i + 1) % args.ckpt_every == 0:
+            tree = state_tree(state)          # every rank gathers
+            if rank0:
+                save_checkpoint(args.ckpt, i + 1, (tree["params"],
+                                                   tree["opt_state"]))
+            dist.barrier()
+        if injector is not None:
+            injector.after_step(i + 1)
+    dist.destroy_process_group()
+    return losses
 
 
 def run_dp(args, cfg, tc):

@@ -31,6 +31,16 @@ from the encoder's output, no RoPE and no mask; its cache (``{"k",
 "v"}`` of (B, cross_len, hk, hd)) holds the encoder's K/V, written by
 the prefill and read whole by every decode step.  The paged pool has no
 cross form.
+
+On a mesh (``apply_attention_mesh``, the train forward of DTensor
+masters): when the rule splits the query heads over ``"model"``, each
+rank projects its own heads (``wq`` column-parallel, and ``wk`` / ``wv``
+too when the kv heads divide; else every kv head is projected,
+replicated, and each rank keeps those its q heads read), runs the
+attention core -- the flash kernel on the card -- on its local heads,
+and ``wo`` is row-parallel, its partial sums all-reduced over
+``"model"``.  Otherwise (the head_dim fallback) the weights are
+gathered and the layer runs replicated.
 """
 from __future__ import annotations
 
@@ -43,6 +53,9 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_decode import (paged_flash_decode,
                                               paged_flash_decode_mla)
 from repro_torch.models.layers import apply_rope, dense_init, rmsnorm
+from repro_torch.sharding.comm import copy_to, reduce_from, shard_dims, use
+
+MODEL = ("model",)
 
 NEG_INF = -1e30
 
@@ -427,6 +440,59 @@ def apply_cross_attention(cfg, p, x, *, enc_out, cache):
                             kv_positions=range(k.shape[1]), causal=False,
                             window=0)
     return _out(cfg, p, out)
+
+
+def _local_kv_heads(h_loc, first, group):
+    """The kv heads that q heads ``first .. first + h_loc - 1`` read (q
+    head i reads kv head i // group), as (slice, local group) when they
+    read a contiguous run evenly, else (per-q-head index list, 1)."""
+    idx = [(first + j) // group for j in range(h_loc)]
+    lo, n = idx[0], idx[-1] - idx[0] + 1
+    if h_loc % n == 0 and idx == [lo + j // (h_loc // n)
+                                  for j in range(h_loc)]:
+        return slice(lo, lo + n), h_loc // n
+    return idx, 1
+
+
+def apply_attention_mesh(cfg, p, x, comm, *, rope, causal=True):
+    """The train-mode ``apply_attention`` of DTensor masters ``p`` on x
+    (B, S, d) replicated over ``"model"`` (module docstring).  The
+    replicated-kv form projects k and v outside the tensor-parallel
+    region, so their weights' gradients stay replicated; the q / k norm
+    scales used inside it sum their gradients over ``"model"``."""
+    if shard_dims(p["wq"], comm).get("model") != 1:
+        w = {k: use(v, comm) for k, v in p.items()}
+        return apply_attention(cfg, w, x, positions=None, cache=None,
+                               rope=rope, mode="train", causal=causal)
+    kv_split = shard_dims(p["wk"], comm).get("model") == 1
+    tp = {"wq", "bq", "wo"} | ({"wk", "wv", "bk", "bv"} if kv_split
+                               else set())
+    in_tp = {"q_norm"} | ({"k_norm"} if kv_split else set())
+    w = {k: use(v, comm, keep=MODEL) if k in tp else
+         use(v, comm, tp_axes=MODEL) if k in in_tp else use(v, comm)
+         for k, v in p.items()}
+    xin = copy_to(x, comm, MODEL)
+    q = apply_rope(_q(cfg, w, xin), rope)
+    h_loc = q.shape[2]
+    first = comm.index("model") * h_loc
+    if kv_split:
+        k, v = _kv(cfg, w, xin)
+    else:
+        hp, _ = _padded_heads(cfg)
+        k, v = (copy_to(t, comm, MODEL) for t in _kv(cfg, w, x))
+        heads, _ = _local_kv_heads(h_loc, first, hp // cfg.num_kv_heads)
+        k, v = k[:, :, heads], v[:, :, heads].contiguous()
+    S = x.shape[1]
+    out = chunked_attention(q, apply_rope(k, rope), v, q_positions=range(S),
+                            kv_positions=range(S), causal=causal,
+                            window=cfg.swa_window if causal else 0)
+    _, head_mask = _padded_heads(cfg)
+    if head_mask is not None:
+        out = out * torch.from_numpy(head_mask[first:first + h_loc]).to(
+            out)[None, None, :, None]
+    B, S, h, hd = out.shape
+    y = out.reshape(B, S, h * hd) @ w["wo"].to(out.dtype).reshape(h * hd, -1)
+    return reduce_from(y, comm, MODEL)
 
 
 # --------------------------------------------------------------------------

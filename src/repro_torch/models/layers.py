@@ -7,27 +7,61 @@ cast on every call (and their gradients flow back through the cast),
 while a serving model's weights, cast once at load, pass through
 ``Tensor.to`` untouched (no copy, no launch).  Norm scales stay fp32,
 as the reference multiplies them in fp32.
+
+The mesh forms (``apply_mlp_mesh``, ``apply_embed_mesh``,
+``apply_unembed_mesh``) take DTensor masters and activations replicated
+over ``"model"`` (``sharding.comm``): the MLP is column-parallel in
+``w_up`` / ``w_gate`` and row-parallel in ``w_down`` when the rule
+splits the ffn over ``"model"``, and the table vocab-parallel when the
+rule splits the vocabulary; otherwise the weight is gathered and the
+work replicated.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding.comm import copy_to, reduce_from, shard_dims, use
+
+MODEL = ("model",)
 
 
 # --------------------------------------------------------------------------
 # init helpers (fp32 draws from an explicit generator, cast as drawn)
 # --------------------------------------------------------------------------
 
+_ON_DRAW = None      # what every draw passes through (``on_draw``)
+
+
+@contextlib.contextmanager
+def on_draw(fn):
+    """Scope ``fn``: every ``truncated_normal`` draw in the body returns
+    ``fn(draw)`` instead of the draw (``bridge.mesh_placer`` records the
+    draws, or cuts each to this rank's block as it is drawn)."""
+    global _ON_DRAW
+    prev, _ON_DRAW = _ON_DRAW, fn
+    try:
+        yield
+    finally:
+        _ON_DRAW = prev
+
+
 def truncated_normal(shape, std, *, generator, device="cpu",
-                     dtype=torch.float32):
-    """Normal(0, std) truncated at +-3 std, drawn in fp32 and cast to
-    ``dtype`` at once, so a bf16 model never holds more than the one
-    fp32 master being drawn (the values are those of casting later)."""
+                     dtype=torch.float32, shift=0.0):
+    """Normal(0, std) truncated at +-3 std, plus ``shift``, drawn in fp32
+    and cast to ``dtype`` at once, so a bf16 model never holds more than
+    the one fp32 master being drawn (the values are those of casting
+    later)."""
     t = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, std, -3.0 * std, 3.0 * std,
                                 generator=generator)
-    return t.to(dtype)
+    if shift:
+        t.add_(shift)
+    t = t.to(dtype)
+    return t if _ON_DRAW is None else _ON_DRAW(t)
 
 
 def dense_init(d_in, d_out, *, generator, device="cpu", std=None,
@@ -116,3 +150,62 @@ def apply_rope(x, angles):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# mesh forms (DTensor masters; activations replicated over "model")
+# --------------------------------------------------------------------------
+
+def apply_mlp_mesh(p, x, comm, gated=True):
+    """``apply_mlp`` of DTensor masters: column-parallel ``w_up`` /
+    ``w_gate`` and row-parallel ``w_down`` over ``"model"`` when the
+    rule split the ffn so, the partial sums all-reduced; else every
+    weight gathered and the MLP replicated."""
+    if shard_dims(p["w_up"], comm).get("model") != 1:
+        return apply_mlp({k: use(v, comm) for k, v in p.items()}, x, gated)
+    w = {k: use(v, comm, keep=MODEL) for k, v in p.items()}
+    return reduce_from(apply_mlp(w, copy_to(x, comm, MODEL), gated), comm,
+                       MODEL)
+
+
+def vocab_shard(table, comm):
+    """(first row, rows) of this rank's block of a vocab-parallel table,
+    or None when the table is not split over ``"model"``."""
+    if shard_dims(table, comm).get("model") != 0:
+        return None
+    rows = table.shape[0] // comm.size("model")
+    return comm.index("model") * rows, rows
+
+
+def vocab_start(table, comm):
+    """The first vocabulary row of this rank's logits against ``table``
+    (``apply_unembed_mesh``), or None when they are the whole
+    vocabulary."""
+    shard = vocab_shard(table, comm)
+    return None if shard is None else shard[0]
+
+
+def apply_embed_mesh(table, tokens, dtype, comm):
+    """``apply_embed`` of a DTensor table.  Vocab-parallel: each rank
+    looks up the tokens its rows hold (zeros elsewhere) and the rows are
+    summed over ``"model"`` -- one rank adds each row to zeros, so the
+    values are the one-device lookup's."""
+    shard = vocab_shard(table, comm)
+    if shard is None:
+        return apply_embed(use(table, comm), tokens, dtype)
+    start, rows = shard
+    t = use(table, comm, keep=MODEL)
+    local = tokens - start
+    mine = (local >= 0) & (local < rows)
+    hit = t[local.clamp(0, rows - 1)] * mine[..., None].to(t.dtype)
+    return reduce_from(hit, comm, MODEL).to(dtype)
+
+
+def apply_unembed_mesh(table, x, comm):
+    """fp32 logits against a DTensor table: this rank's vocab block (B,
+    S, V / |model|) from row ``vocab_start`` when the table is
+    vocab-parallel, else all of them."""
+    if vocab_shard(table, comm) is None:
+        return apply_unembed(use(table, comm), x)
+    return apply_unembed(use(table, comm, keep=MODEL),
+                         copy_to(x, comm, MODEL))

@@ -17,6 +17,15 @@ updated in place.  ``mtp_draft`` drafts tokens with the MTP head for
 speculative decoding.  The paper's Table-1 networks (``PaperNet``,
 ``init_paper_net``, ``apply_paper_net``) close the module, as in the
 reference.
+
+A training ``Model`` whose masters are DTensors (``train.step``'s mesh
+state) runs ``apply_model``'s train mode under the activation mesh the
+mesh step registers: each rank's batch rows, the layers' mesh forms
+(``transformer``), the embedding and the unembedding vocab-parallel
+over ``"model"`` -- its logits are then this rank's vocabulary block,
+``out["vocab_start"]`` its first row (``train.loss`` reduces the
+log-sum-exp over the blocks) -- and the vision projector, the final
+norms and the MTP head's own weights gathered at use.
 """
 from __future__ import annotations
 
@@ -27,9 +36,13 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import (apply_embed, apply_mlp, apply_unembed,
-                                       dense_init, rmsnorm, rope_angles,
-                                       rope_freqs, truncated_normal)
+from repro_torch.models.layers import (apply_embed, apply_embed_mesh,
+                                       apply_mlp, apply_unembed,
+                                       apply_unembed_mesh, dense_init,
+                                       rmsnorm, rope_angles, rope_freqs,
+                                       truncated_normal, vocab_start)
+from repro_torch.sharding import ctx as shctx
+from repro_torch.sharding.comm import use
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 VISION_EMBED_DIM = 1024      # CLIP ViT-L/14-336 output width (stubbed)
@@ -256,7 +269,7 @@ def _to_device(tree, device):
 
 
 def init_model(cfg, *, seed=0, device="cuda", train=False,
-               param_dtype=torch.float32) -> Model:
+               param_dtype=torch.float32, place=None) -> Model:
     """Random weights from a seed: truncated normal, std 1/sqrt(d_in)
     for projections and 0.02 for the embedding, drawn in fp32 with an
     explicit ``torch.Generator`` on ``device``, in the order embedding,
@@ -274,41 +287,73 @@ def init_model(cfg, *, seed=0, device="cuda", train=False,
     head (``mtp_depth > 0``) is drawn last, after every layer, so the
     other weights of a seed are those of the same config without it.
     A vision projector is drawn after the unembedding (biases zero), an
-    encoder's layers after that and before the decoder's."""
+    encoder's layers after that and before the decoder's.
+
+    ``place(path, draw, device, generator)``, when given, draws each
+    unit of weights -- a top-level table or norm, the projector, a
+    layer, the MTP head -- as ``draw(device, generator)`` does and
+    returns its tree, each leaf in the form the model keeps
+    (``bridge.mesh_placer``: this rank's block); ``path`` is the unit's
+    reference path (``embed``, ``decoder/blocks/layer0``, ...).  The
+    meta device draws nothing: shapes only."""
     dev = resolve_device(device)
     dt = param_dtype if train else compute_dtype(cfg)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = (None if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
+    unit = lambda path, draw: (draw(dev, gen) if place is None  # noqa: E731
+                               else place(path, draw, dev, gen))
     n_prefix = len(cfg.block_structure()[0])
     dense_ff = cfg.moe.dense_d_ff if cfg.moe is not None else 0
-    kw = dict(generator=gen, device=dev, dtype=dt)
-    layers = (tfm.init_layer(cfg, spec, dense_ff=dense_ff if i < n_prefix
-                             else 0, cross=cfg.is_encoder_decoder, **kw)
-              for i, spec in enumerate(cfg.layer_pattern()))
-    # a tied table is also the fp32 unembedding: it stays fp32
-    tree = {"embed": {"table": truncated_normal(
-        (cfg.vocab_size, cfg.d_model), 0.02, generator=gen, device=dev,
-        dtype=torch.float32 if cfg.tie_embeddings else dt)},
-        "layers": layers,
-        "final_norm": {"scale": torch.ones((cfg.d_model,), device=dev)}}
-    if not cfg.tie_embeddings:
-        tree["unembed"] = {"table": truncated_normal(
-            (cfg.vocab_size, cfg.d_model), 0.02, generator=gen, device=dev)}
     d = cfg.d_model
+    ones = lambda dv, g: {"scale": torch.ones((d,), device=dv)}  # noqa: E731
+
+    def table(dtype):
+        return lambda dv, g: {"table": truncated_normal(
+            (cfg.vocab_size, d), 0.02, generator=g, device=dv, dtype=dtype)}
+
+    def layer(c, spec, **extra):
+        return lambda dv, g: tfm.init_layer(c, spec, generator=g, device=dv,
+                                            dtype=dt, **extra)
+
+    layers = (unit(layer_path("decoder", cfg, i), layer(
+        cfg, spec, dense_ff=dense_ff if i < n_prefix else 0,
+        cross=cfg.is_encoder_decoder))
+        for i, spec in enumerate(cfg.layer_pattern()))
+    # a tied table is also the fp32 unembedding: it stays fp32
+    tree = {"embed": unit("embed", table(
+        torch.float32 if cfg.tie_embeddings else dt)),
+        "layers": layers, "final_norm": unit("final_norm", ones)}
+    if not cfg.tie_embeddings:
+        tree["unembed"] = unit("unembed", table(torch.float32))
     if cfg.frontend == "vision":
-        zeros = lambda: torch.zeros((d,), device=dev, dtype=dt)
-        tree["vision_proj"] = {
-            "w1": dense_init(VISION_EMBED_DIM, d, **kw), "b1": zeros(),
-            "w2": dense_init(d, d, **kw), "b2": zeros()}
+        def proj(dv, g):
+            kw = dict(generator=g, device=dv, dtype=dt)
+            zeros = lambda: torch.zeros((d,), device=dv, dtype=dt)  # noqa
+            return {"w1": dense_init(VISION_EMBED_DIM, d, **kw),
+                    "b1": zeros(), "w2": dense_init(d, d, **kw),
+                    "b2": zeros()}
+        tree["vision_proj"] = unit("vision_proj", proj)
     if cfg.is_encoder_decoder:
         ecfg = encoder_cfg(cfg)
-        tree["encoder"] = (tfm.init_layer(ecfg, spec, **kw)
-                           for spec in ecfg.layer_pattern())
-        tree["enc_norm"] = {"scale": torch.ones((d,), device=dev)}
+        tree["encoder"] = (unit(layer_path("encoder", ecfg, i),
+                                layer(ecfg, spec))
+                           for i, spec in enumerate(ecfg.layer_pattern()))
+        tree["enc_norm"] = unit("enc_norm", ones)
     if cfg.mtp_depth > 0:
         # drawn by Model after the layers
-        tree["mtp"] = lambda: init_mtp(cfg, generator=gen, device=dev,
-                                       dtype=dt)
+        tree["mtp"] = lambda: unit("mtp", lambda dv, g: init_mtp(
+            cfg, generator=g, device=dv, dtype=dt))
     return Model(cfg, tree, device=dev, train=train, param_dtype=param_dtype)
+
+
+def layer_path(top, cfg, i) -> str:
+    """The reference path of layer ``i`` of the ``top`` stack
+    ("decoder" or "encoder") of ``cfg``: an unrolled prefix layer, or
+    the super-block layer repetition ``i`` stacks on."""
+    prefix, pattern, _ = cfg.block_structure()
+    if i < len(prefix):
+        return f"{top}/prefix/layer{i}"
+    return f"{top}/blocks/layer{(i - len(prefix)) % len(pattern)}"
 
 
 def init_cache(cfg, dtype, *, pool=None, slots=None, batch=None,
@@ -346,17 +391,27 @@ def init_cache(cfg, dtype, *, pool=None, slots=None, batch=None,
                                  device=dev) for kind in kinds]
 
 
-def _logits(cfg, model: Model, x):
-    return apply_unembed(model.unembed_f32,
-                         rmsnorm(model.final_norm, x, cfg.norm_eps))
+def _embed(model: Model, tokens, dt, comm=None):
+    if comm is None:
+        return apply_embed(model.embed, tokens, dt)
+    return apply_embed_mesh(model.embed, tokens, dt, comm)
 
 
-def _vision_proj(model: Model, v, dt):
-    """The projector: gelu (tanh form, as ``jax.nn.gelu``) between two
-    affine maps, 1024 -> d -> d."""
-    p = model.vision_proj
-    h = v.to(dt) @ p["w1"].to(dt) + p["b1"].to(dt)
-    return F.gelu(h, approximate="tanh") @ p["w2"].to(dt) + p["b2"].to(dt)
+def _logits(cfg, model: Model, x, comm=None):
+    """fp32 logits of the final norm of ``x``: on a mesh (``comm``) this
+    rank's vocabulary block (``layers.vocab_start``)."""
+    h = rmsnorm(use(model.final_norm, comm), x, cfg.norm_eps)
+    if comm is None:
+        return apply_unembed(model.unembed_f32, h)
+    return apply_unembed_mesh(model.unembed_f32, h, comm)
+
+
+def _vision_proj(p, v, dt, comm=None):
+    """The projector ``p``: gelu (tanh form, as ``jax.nn.gelu``) between
+    two affine maps, 1024 -> d -> d."""
+    w = {k: use(t, comm).to(dt) for k, t in p.items()}
+    h = v.to(dt) @ w["w1"] + w["b1"]
+    return F.gelu(h, approximate="tanh") @ w["w2"] + w["b2"]
 
 
 def apply_model(cfg, model: Model, tokens, *, cache=None, cache_pos=None,
@@ -421,17 +476,19 @@ def apply_model(cfg, model: Model, tokens, *, cache=None, cache_pos=None,
         if mode == "prefill" and cache_pos != 0:
             raise ValueError("a slab prefill fills the cache from 0")
     dt = compute_dtype(cfg)
+    # a mesh step's activation mesh (module docstring)
+    comm = shctx.get_comm() if mode == "train" else None
     enc_out = None
     if cfg.is_encoder_decoder and src_embeds is not None:
         enc_out = _encode(cfg, model, torch.as_tensor(
-            src_embeds, device=tokens.device), remat)
+            src_embeds, device=tokens.device), remat, comm)
     elif cfg.is_encoder_decoder and mode != "decode":
         raise ValueError(f"{cfg.name}: a {mode} call of an encoder-decoder "
                          "needs src_embeds")
-    x = apply_embed(model.embed, tokens, dt)
+    x = _embed(model, tokens, dt, comm)
     if cfg.frontend == "vision" and vision_embeds is not None:
-        vis = _vision_proj(model, torch.as_tensor(vision_embeds,
-                                                  device=tokens.device), dt)
+        vis = _vision_proj(model.vision_proj, torch.as_tensor(
+            vision_embeds, device=tokens.device), dt, comm)
         x = torch.cat([vis, x], dim=1)
     S = x.shape[1]
     positions = None
@@ -454,13 +511,15 @@ def apply_model(cfg, model: Model, tokens, *, cache=None, cache_pos=None,
         x = x[:, -1:]
     out = {"hidden": x, "aux": 0.0 if aux is None else aux}
     if logits:
-        out["logits"] = _logits(cfg, model, x)
+        out["logits"] = _logits(cfg, model, x, comm)
+        if comm is not None:
+            out["vocab_start"] = vocab_start(model.unembed_f32, comm)
     if mode == "train" and model.mtp is not None:
-        out["mtp_logits"] = _mtp_train(cfg, model, x, tokens)
+        out["mtp_logits"] = _mtp_train(cfg, model, x, tokens, comm)
     return out
 
 
-def _encode(cfg, model: Model, src, remat):
+def _encode(cfg, model: Model, src, remat, comm=None):
     """The encoder over frame embeddings (B, S_src, d): bidirectional
     attention with RoPE at 0..S_src-1, then ``enc_norm``."""
     pos = torch.arange(src.shape[1], device=src.device)[None]
@@ -469,34 +528,34 @@ def _encode(cfg, model: Model, src, remat):
                              cache=None, paged=None,
                              rope_freqs=model.rope_freqs, mode="train",
                              remat=remat, causal=False)
-    return rmsnorm(model.enc_norm, enc, cfg.norm_eps)
+    return rmsnorm(use(model.enc_norm, comm), enc, cfg.norm_eps)
 
 
 # --------------------------------------------------------------------------
 # the multi-token-prediction head
 # --------------------------------------------------------------------------
 
-def _mtp_in(cfg, head: MTPHead, h, e):
+def _mtp_in(cfg, head: MTPHead, h, e, comm=None):
     """The head's input: norm_h(hidden) and norm_e(embedding),
     concatenated and projected back to d."""
-    return torch.cat([rmsnorm(head.norm_h, h, cfg.norm_eps),
-                      rmsnorm(head.norm_e, e, cfg.norm_eps)],
-                     dim=-1) @ head.proj.to(h.dtype)
+    return torch.cat([rmsnorm(use(head.norm_h, comm), h, cfg.norm_eps),
+                      rmsnorm(use(head.norm_e, comm), e, cfg.norm_eps)],
+                     dim=-1) @ use(head.proj, comm).to(h.dtype)
 
 
-def _mtp_train(cfg, model: Model, x, tokens):
+def _mtp_train(cfg, model: Model, x, tokens, comm=None):
     """The train-mode head: the hidden at position i (pre-final-norm)
     with the embedding of token i + 1, through the block at positions
     0..S-2, read off the shared unembedding."""
     dt = x.dtype
     hm = _mtp_in(cfg, model.mtp, x[:, :-1],
-                 apply_embed(model.embed, tokens[:, 1:], dt))
+                 _embed(model, tokens[:, 1:], dt, comm), comm)
     pos = torch.arange(hm.shape[1], device=tokens.device)[None]
     hm, _ = tfm.apply_layer(cfg, model.mtp.block, hm, positions=pos,
                             cache=None, paged=None, write_idx=None,
                             rope=rope_angles(pos, model.rope_freqs),
                             mode="train")
-    return _logits(cfg, model, hm)
+    return _logits(cfg, model, hm, comm)
 
 
 def _mtp_self_attention(cfg, p, x):

@@ -1,10 +1,11 @@
-"""Fine-grained mixture-of-experts (DeepSeekMoE / Jamba style), one device.
+"""Fine-grained mixture-of-experts (DeepSeekMoE / Jamba style).
 
-Port of ``repro.models.moe`` without a mesh: ``apply_moe`` is the
-reference's capacity-based dense dispatch (``apply_moe_dense``), for
-serving and training, and ``update_router_bias`` the trainer's
-aux-free balancing step.  The expert-parallel path (``apply_moe_ep``)
-joins with the multi-card slices.
+Port of ``repro.models.moe``.  ``apply_moe`` dispatches as the
+reference does: without an activation mesh, the capacity-based dense
+dispatch (``apply_moe_dense``), for serving and training; with one
+registered (``sharding.ctx``, the mesh train step), the expert-parallel
+``apply_moe_ep`` over DTensor masters.  ``update_router_bias`` is the
+trainer's aux-free balancing step.
 
 Router: softmax over experts, top-k, weights renormalised over the
 selection (or DeepSeek-V3's sigmoid scores, selected with a balance
@@ -28,7 +29,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import apply_mlp, init_mlp, truncated_normal
+from repro_torch.models.layers import (apply_mlp, apply_mlp_mesh, init_mlp,
+                                       truncated_normal)
+from repro_torch.sharding import ctx as shctx
+from repro_torch.sharding.comm import (all_to_all, copy_to, pmean,
+                                       reduce_from, shard_dims, use)
 
 # weights the reference reads in fp32 whatever the compute dtype
 FP32_WEIGHTS = ("router", "router_bias")
@@ -136,10 +141,166 @@ def apply_moe_dense(cfg, p, x, *, capacity_factor):
     return y, aux
 
 
-def apply_moe(cfg, p, x):
-    """x: (B, S, d) -> (y, aux) with the config's capacity factor."""
-    return apply_moe_dense(cfg, p, x,
-                           capacity_factor=cfg.moe.capacity_factor)
+def apply_moe(cfg, p, x, *, capacity_factor=None):
+    """x: (B, S, d) -> (y, aux), at the config's capacity factor unless
+    one is given: expert-parallel when an activation mesh is registered,
+    else the dense dispatch."""
+    if capacity_factor is None:
+        capacity_factor = cfg.moe.capacity_factor
+    if shctx.get_activation_mesh() is not None:
+        return apply_moe_ep(cfg, p, x, capacity_factor=capacity_factor)
+    return apply_moe_dense(cfg, p, x, capacity_factor=capacity_factor)
+
+
+# ==========================================================================
+# expert parallelism over the mesh
+# ==========================================================================
+
+def _ep_factors(cfg, comm):
+    """(ep_data, ep_model): E splits over ``"model"`` when it divides,
+    and over ``"data"`` too when E / |model| divides by |data| (the
+    experts' rule then reads ("data", "model")); otherwise the experts
+    stay model-split and their FFN dim splits over ``"data"``."""
+    E = cfg.moe.num_experts
+    msz, dsz = comm.size("model"), comm.size("data")
+    ep_model = msz if (msz > 1 and E % msz == 0) else 1
+    ep_data = dsz if (ep_model == msz and dsz > 1
+                      and (E // ep_model) % dsz == 0) else 1
+    return ep_data, ep_model
+
+
+def _route_local(cfg, p, xf, capacity_factor):
+    """Routing of this rank's tokens xf (N, d), its capacity counted on
+    them: (flat_e, safe_pos, keep, flat_w, aux, C)."""
+    m = cfg.moe
+    N = xf.shape[0]
+    k, E = m.top_k, m.num_experts
+    top_w, top_idx, aux = _routing(cfg, p, xf)
+    C = max(1, int(capacity_factor * N * k / E))
+    C = min(max(N, 8), -(-C // 8) * 8)
+    flat_e = top_idx.reshape(N * k)
+    pos = F.one_hot(flat_e, E).cumsum(0) - 1
+    flat_pos = pos.gather(1, flat_e[:, None])[:, 0]
+    keep = flat_pos < C
+    flat_w = top_w.reshape(N * k) * keep
+    safe_pos = torch.where(keep, flat_pos, torch.zeros_like(flat_pos))
+    return flat_e, safe_pos, keep, flat_w, aux, C
+
+
+def _pack(xf, flat_e, safe_pos, keep, C, rows, *, start=0, k=1):
+    """Tokens into expert rows [start, start + rows): (buf (rows, C, d),
+    the mask of the N * k slots that landed), one scatter per top-k
+    slot."""
+    N, d = xf.shape
+    sel = keep & (flat_e >= start) & (flat_e < start + rows)
+    le = torch.where(sel, flat_e - start, torch.zeros_like(flat_e))
+    le, pos, selk = le.reshape(N, k), safe_pos.reshape(N, k), sel.reshape(N, k)
+    buf = xf.new_zeros((rows, C, d))
+    for j in range(k):
+        buf = buf.index_put((le[:, j], pos[:, j]),
+                            xf * selk[:, j, None].to(xf.dtype),
+                            accumulate=True)
+    return buf, sel
+
+
+def _combine(out, flat_e, safe_pos, flat_w, sel, k, dt, *, start=0,
+             local_rows=None):
+    """Each slot's expert output gathered back from ``out`` (rows, C, d)
+    and weight-summed over the k slots; ``local_rows`` maps an expert id
+    to its row (default ``flat_e - start``)."""
+    N = flat_e.shape[0] // k
+    rows = local_rows if local_rows is not None else flat_e - start
+    le = torch.where(sel, rows, torch.zeros_like(rows)).reshape(N, k)
+    pos = safe_pos.reshape(N, k)
+    w = (flat_w * sel).reshape(N, k)
+    y = None
+    for j in range(k):
+        yj = out[le[:, j], pos[:, j]] * w[:, j, None].to(dt)
+        y = yj if y is None else y + yj
+    return y
+
+
+def apply_moe_ep(cfg, p, x, *, capacity_factor):
+    """Expert-parallel MoE of DTensor masters ``p`` under the registered
+    mesh; x (B, S, d) is this rank's rows (its pod x data share of the
+    batch, or all of it when the batch does not split), replicated over
+    ``"model"``.  Routing and capacity are per rank (``_route_local``),
+    as in the reference, so at a capacity that drops tokens the result
+    differs from the dense dispatch.  Three branches:
+
+      * full expert-parallel (E over data x model, batch split): pack
+        every expert's rows locally, ``all_to_all`` over ``"data"``,
+        run this model rank's slice, and send only that slice back;
+      * expert-FSDP (E over model, the FFN dim over data): gather the
+        f-shards over ``"data"``; tokens stay;
+      * replicated tokens (the batch does not split, or the experts
+        split over model only): every rank runs its expert slice on
+        its tokens and the partial sums add over the expert axes.
+
+    The slot weights and the tokens enter the expert path through "f"
+    over the expert axes (each rank's experts see part of them), the
+    output leaves through "g"; the router stays replicated.  The shared
+    experts run densely outside (tensor-parallel).  ``aux`` is the mean
+    over the batch axes."""
+    comm = shctx.get_comm()
+    m = cfg.moe
+    E, k = m.num_experts, m.top_k
+    d = x.shape[-1]
+    dt = x.dtype
+    ep_data, ep_model = _ep_factors(cfg, comm)
+    dsz, msz = comm.size("data"), comm.size("model")
+    split = shctx.is_batch_split() and bool(comm.dp_axes)
+    f_tp = (ep_data == 1 and dsz > 1 and m.d_expert % dsz == 0
+            and msz > 1 and E % msz == 0)
+    rp = {"router": use(p["router"], comm)}
+    if "router_bias" in p:
+        rp["router_bias"] = use(p["router_bias"], comm)
+    xf = x.reshape(-1, d)
+    flat_e, safe_pos, keep, flat_w, aux, C = _route_local(
+        cfg, rp, xf, capacity_factor)
+    mi = comm.index("model")
+    experts = p["experts"]
+    if ep_data > 1 and split:
+        # full expert-parallel: the data axis is inside the exchange,
+        # so only pods sum the experts' gradients
+        ew = {n: use(w, comm, keep=("data", "model"),
+                     sums=tuple(a for a in comm.dp_axes if a != "data"))
+              for n, w in experts.items()}
+        red = ("model",)
+        xe, we = copy_to(xf, comm, red), copy_to(flat_w, comm, red)
+        buf, _ = _pack(xe, flat_e, safe_pos, keep, C, E, k=k)
+        buf = all_to_all(buf, comm, "data", 0, 1)     # (E / D, D * C, d)
+        e_loc = E // (ep_data * ep_model)
+        out = _expert_ffn(ew, buf[mi * e_loc:(mi + 1) * e_loc])
+        # the model-local slice only goes back: row di * e_loc + r is
+        # expert (di * M + mi) * e_loc + r of this rank's tokens
+        out_back = all_to_all(out, comm, "data", 1, 0)
+        mi_of_e = (flat_e // e_loc) % ep_model
+        row = (flat_e // (e_loc * ep_model)) * e_loc + flat_e % e_loc
+        y = _combine(out_back, flat_e, safe_pos, we, keep & (mi_of_e == mi),
+                     k, dt, local_rows=row)
+    else:
+        # expert-FSDP (f-shards gathered over data) or replicated tokens
+        red = ("model", "data") if ep_data > 1 else ("model",)
+        # an expert axis that does not split a weight (experts
+        # replicated over "model") sums its partial gradients
+        ew = {n: use(w, comm, keep=red, tp_axes=tuple(
+            a for a in red if a not in shard_dims(w, comm)))
+            for n, w in experts.items()}
+        e_loc = E // (ep_data * ep_model)
+        start = mi * e_loc
+        if ep_data > 1:
+            start = (comm.index("data") * ep_model + mi) * e_loc
+        xe, we = copy_to(xf, comm, red), copy_to(flat_w, comm, red)
+        buf, sel = _pack(xe, flat_e, safe_pos, keep, C, e_loc, start=start,
+                         k=k)
+        y = _combine(_expert_ffn(ew, buf), flat_e, safe_pos, we, sel, k, dt,
+                     start=start)
+    y = reduce_from(y, comm, red).reshape(x.shape)
+    aux = pmean(aux, comm, shctx.batch_axes(comm))
+    if m.num_shared_experts:
+        y = y + apply_mlp_mesh(p["shared"], x, comm, gated=cfg.mlp_gated)
+    return y, aux
 
 
 def update_router_bias(cfg, p, counts, *, gamma=1e-3):

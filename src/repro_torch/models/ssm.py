@@ -50,7 +50,7 @@ def init_rwkv6(cfg, *, generator, device="cpu", dtype):
         "mu": truncated_normal((5, d), 0.02, **kw),
         "mix_A": truncated_normal((5, d, rc.mix_lora), 0.02, **kw),
         "mix_B": truncated_normal((5, rc.mix_lora, d), 0.02, **kw),
-        "w_base": truncated_normal((d,), 0.02, **f32) - 6.0,
+        "w_base": truncated_normal((d,), 0.02, shift=-6.0, **f32),
         "decay_A": truncated_normal((d, rc.decay_lora), 0.02, **kw),
         "decay_B": truncated_normal((rc.decay_lora, d), 0.02, **kw),
         "u": truncated_normal((H, K), 0.02, **f32),

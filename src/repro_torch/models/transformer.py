@@ -30,6 +30,15 @@ the weights it reads in fp32 (``ssm.FP32_WEIGHTS``,
 ``moe.FP32_WEIGHTS``) stay fp32.  A training model keeps every weight
 as a trainable master of one dtype (fp32, or bf16 under
 ``TrainConfig(param_dtype="bfloat16")``) and casts it at use.
+
+On a mesh (an activation mesh registered, ``sharding.ctx``; the masters
+DTensors) a train-mode layer takes its mesh forms: GQA attention and the
+MLP tensor-parallel over ``"model"`` where the rules split heads or the
+ffn (``attention.apply_attention_mesh``, ``layers.apply_mlp_mesh``), the
+MoE expert-parallel (``moe.apply_moe_ep``), and everything else -- MLA,
+Mamba, RWKV-6, cross-attention, the norms -- gathered at use
+(``sharding.comm.use``) and run replicated.  The gathers run inside the
+layer, so under remat they are redone in the recomputation.
 """
 from __future__ import annotations
 
@@ -42,7 +51,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import apply_mlp, init_mlp, rmsnorm, rope_angles
+from repro_torch.models.layers import (apply_mlp, apply_mlp_mesh, init_mlp,
+                                       rmsnorm, rope_angles)
+from repro_torch.sharding import ctx as shctx
+from repro_torch.sharding.comm import use
 
 
 def _frozen(t):
@@ -189,24 +201,34 @@ def apply_layer(cfg, layer: Layer, x, *, positions, cache, paged,
     forward.  ``causal`` False: an encoder layer.  A layer with a
     ``cross``-attention runs it after the mixer, over ``enc_out`` (train
     and prefill) or its cross cache (decode)."""
+    # a mesh step's activation mesh (module docstring): the weights
+    # read through ``use`` are gathered, the tensor-parallel forms
+    # selected; without one ``use`` is the identity
+    comm = shctx.get_comm() if mode == "train" else None
+    gather = (lambda p: p) if comm is None else (           # noqa: E731
+        lambda p: {k: use(v, comm) for k, v in p.items()})
+    norm = lambda w, t: rmsnorm(use(w, comm), t, cfg.norm_eps)  # noqa: E731
     cross_cache = None
     if isinstance(cache, dict) and "cross" in cache:
         cache, cross_cache = cache["self"], cache["cross"]
-    h = rmsnorm(layer.norm1, x, cfg.norm_eps)
+    h = norm(layer.norm1, x)
     if layer.kind == "rwkv6":
-        x = x + ssm_lib.apply_rwkv6_time_mix(cfg, layer.mixer, h, mode=mode,
+        mixer = gather(layer.mixer)
+        x = x + ssm_lib.apply_rwkv6_time_mix(cfg, mixer, h, mode=mode,
                                              cache=cache)
-        h = rmsnorm(layer.norm2, x, cfg.norm_eps)
-        return x + ssm_lib.apply_rwkv6_channel_mix(cfg, layer.mixer, h,
-                                                   cache=cache), None
+        return x + ssm_lib.apply_rwkv6_channel_mix(
+            cfg, mixer, norm(layer.norm2, x), cache=cache), None
     if layer.kind == "mamba":
-        x = x + ssm_lib.apply_mamba(cfg, layer.mixer, h, mode=mode,
+        x = x + ssm_lib.apply_mamba(cfg, gather(layer.mixer), h, mode=mode,
                                     cache=cache)
     elif cfg.attention == "mla":
-        x = x + attn_lib.apply_mla(cfg, layer.mixer, h, positions=positions,
-                                   cache=cache, paged=paged,
-                                   write_idx=write_idx, rope=rope, mode=mode,
-                                   cache_pos=cache_pos)
+        x = x + attn_lib.apply_mla(cfg, gather(layer.mixer), h,
+                                   positions=positions, cache=cache,
+                                   paged=paged, write_idx=write_idx,
+                                   rope=rope, mode=mode, cache_pos=cache_pos)
+    elif comm is not None:
+        x = x + attn_lib.apply_attention_mesh(cfg, layer.mixer, h, comm,
+                                              rope=rope, causal=causal)
     else:
         x = x + attn_lib.apply_attention(cfg, layer.mixer, h,
                                          positions=positions, cache=cache,
@@ -214,13 +236,16 @@ def apply_layer(cfg, layer: Layer, x, *, positions, cache, paged,
                                          rope=rope, mode=mode,
                                          cache_pos=cache_pos, causal=causal)
     if layer.cross is not None:
-        h = rmsnorm(layer.norm_cross, x, cfg.norm_eps)
         x = x + attn_lib.apply_cross_attention(
-            cfg, layer.cross, h, enc_out=enc_out, cache=cross_cache)
-    h = rmsnorm(layer.norm2, x, cfg.norm_eps)
+            cfg, gather(layer.cross), norm(layer.norm_cross, x),
+            enc_out=enc_out, cache=cross_cache)
+    h = norm(layer.norm2, x)
     if layer.ffn_kind == "moe":
         h, aux = moe_lib.apply_moe(cfg, layer.ffn, h)
         return x + h, aux
+    if comm is not None:
+        return x + apply_mlp_mesh(layer.ffn, h, comm,
+                                  gated=cfg.mlp_gated), None
     return x + apply_mlp(layer.ffn, h, gated=cfg.mlp_gated), None
 
 

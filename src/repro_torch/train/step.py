@@ -17,23 +17,42 @@ Features, as in the reference:
   * global-norm gradient clipping (the norm and the scaling in fp32,
     each gradient cast back to its dtype) and the cosine lr schedule.
 
-One device; ``accumulate_grads`` is shared with the data-parallel step
+``accumulate_grads`` is shared with the data-parallel step
 (``core.data_parallel``), which averages the gradients it returns over
 the ranks; its microbatches accumulate in fp32 whatever ``grad_dtype``
 says, as the reference's strategies do.  A model with a
 multi-token-prediction head adds its CE at ``mtp_weight``
 (``train.loss.lm_loss``).
+
+With ``mesh=`` (a ``DeviceMesh`` of ``("data", "model")`` or ``("pod",
+"data", "model")``; the reference's full-config GSPMD step): every
+master is a DTensor placed by ``sharding.rules.param_specs`` in train
+mode (each cut as it is drawn, ``bridge.mesh_placer``), each optimizer
+moment mirrors its master's placements and the step counter is a host
+int, as ``opt_state_shardings`` replicates it.  Each microbatch of the
+global batch is cut over pod x data by ``batch_spec`` (replicated where
+it does not divide), the forward and backward run the layers' mesh forms under
+the registered activation mesh (``sharding.ctx``), and the loss is the
+mean over the global batch (``train.loss.lm_loss_mesh``).  The gradients
+arrive already summed over the batch axes, each as its master's block
+(``sharding.comm.use``); the clip's norm sums the blocks over the mesh
+and the optimizer updates every block in place.  ``mesh=None`` is the
+one-device step, unchanged.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, NamedTuple
 
 import torch
 
 from repro_torch import optim as optim_lib
 from repro_torch.models import apply_model, batch_inputs, init_model
-from repro_torch.train.loss import lm_loss
+from repro_torch.sharding import ctx as shctx
+from repro_torch.sharding.comm import MeshComm, all_reduce, shard_dims
+from repro_torch.sharding.rules import batch_spec
+from repro_torch.train.loss import lm_loss, lm_loss_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,7 +130,7 @@ def make_loss_fn(cfg, tc: TrainConfig):
     return loss_fn
 
 
-def make_train_step(cfg, tc: TrainConfig):
+def make_train_step(cfg, tc: TrainConfig, *, mesh=None):
     """Returns (step_fn, optimizer) -- ``step(state, batch) -> (state,
     metrics)`` on the ``TrainState`` contract; ``batch`` is ``{"tokens":
     (B, S)}``, with ``"vision_embeds"`` for a VLM, or an
@@ -120,27 +139,111 @@ def make_train_step(cfg, tc: TrainConfig):
     masters and the optimizer state are updated in place, and the
     returned state holds the same objects.  The masters' dtype is the
     model's (``init_train_state`` draws them in ``tc.param_dtype``);
-    microbatches accumulate in ``tc.grad_dtype``."""
+    microbatches accumulate in ``tc.grad_dtype``.  With ``mesh``, the
+    step of a mesh state (module docstring): every rank passes the same
+    global batch and gets the same metrics."""
     gdt = getattr(torch, tc.grad_dtype)
     lr = (optim_lib.cosine_schedule(tc.lr, tc.warmup_steps, tc.total_steps)
           if tc.schedule == "cosine" else tc.lr)
     optimizer = optim_lib.get_optimizer(tc.optimizer, lr)
-    loss_fn = make_loss_fn(cfg, tc)
+    loss_fn = (make_loss_fn(cfg, tc) if mesh is None
+               else _mesh_loss_fn(cfg, tc, mesh))
     n = tc.microbatches
 
     def step(state: TrainState, batch):
         model = state.params
         params = trainable(model)
-        loss, metrics, grads = accumulate_grads(loss_fn, model, params,
-                                                batch, n, grad_dtype=gdt)
+        if mesh is None:
+            loss, metrics, grads = accumulate_grads(loss_fn, model, params,
+                                                    batch, n, grad_dtype=gdt)
+            clip, opt = clip_by_global_norm, state.opt_state
+        else:
+            # the scope spans the backward: remat recomputes the layers'
+            # mesh forms there
+            with shctx.activation_mesh(mesh), shctx.batch_split(
+                    _splits(batch, n, mesh)):
+                loss, metrics, grads = accumulate_grads(
+                    loss_fn, model, params, batch, n, grad_dtype=gdt)
+            # each rank's loss is its share: the metric is the global loss
+            loss = metrics.pop("loss")
+            clip = functools.partial(_clip_mesh, masters=params)
+            params, grads, opt = (_local(params), _local(grads),
+                                  _local(state.opt_state))
         if tc.grad_clip > 0:
-            grads, gnorm = clip_by_global_norm(grads, tc.grad_clip)
+            grads, gnorm = clip(grads, tc.grad_clip)
             metrics["grad_norm"] = gnorm
-        optimizer.update(grads, state.opt_state, params)
+        optimizer.update(grads, opt, params)
+        if opt is not state.opt_state:
+            state.opt_state["step"] = opt["step"]
         return (state._replace(step=state.step + 1),
                 {"loss": loss, **metrics})
 
     return step, optimizer
+
+
+# --------------------------------------------------------------------------
+# on a mesh
+# --------------------------------------------------------------------------
+
+def _splits(batch, n, mesh) -> bool:
+    """Whether each of the ``n`` microbatches of ``batch`` is cut over
+    pod x data (``batch_spec``)."""
+    B = next(iter(batch.values())).shape[0]
+    return batch_spec(mesh, B // n) != (None,)
+
+
+def _mesh_loss_fn(cfg, tc, mesh):
+    """``loss_fn(model, global microbatch) -> (this rank's share of the
+    objective, global metrics)``, under the activation mesh and the
+    batch split the step registers: this rank's pod x data block of the
+    rows, or all of them when the batch does not divide."""
+    def loss_fn(model, batch):
+        comm = shctx.get_comm()
+        if shctx.is_batch_split():
+            rows = next(iter(batch.values())).shape[0] // comm.dp_size()
+            lo = comm.dp_index() * rows
+            batch = {k: v[lo:lo + rows] for k, v in batch.items()}
+        tokens, frontends = batch_inputs(batch)
+        out = apply_model(cfg, model, tokens, mode="train", remat=tc.remat,
+                          **frontends)
+        return lm_loss_mesh(cfg, out, batch, comm, mtp_weight=tc.mtp_weight)
+    return loss_fn
+
+
+@torch.no_grad()
+def _local(tree):
+    """A dict (of dicts) of DTensors as their local blocks, which share
+    the DTensors' storage; other leaves as they are."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree, dict):
+        return {k: _local(v) for k, v in tree.items()}
+    return tree.to_local() if isinstance(tree, DTensor) else tree
+
+
+def _clip_mesh(grads, max_norm, *, masters):
+    """``clip_by_global_norm`` of local gradient blocks: each block's sum
+    of squares over the ranks holding a copy of it (the mesh axes that
+    do not split it), summed over every rank -- the norm of the whole
+    gradients."""
+    total = None
+    comm = None
+    for k, g in grads.items():
+        comm = comm or MeshComm(masters[k].device_mesh)
+        dims = shard_dims(masters[k], comm)
+        copies = 1
+        for a in comm.names:
+            if a not in dims:
+                copies *= comm.size(a)
+        part = g.float().square().sum() / copies
+        total = part if total is None else total + part
+    norm = torch.sqrt(all_reduce(total, comm, comm.names))
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    for g in grads.values():
+        if g.dtype == torch.float32:
+            g.mul_(scale)
+        else:
+            g.copy_(g.float() * scale)
+    return grads, norm
 
 
 def accumulate_grads(loss_fn, model, params, batch, n,
@@ -220,13 +323,20 @@ def start_state(model, optimizer) -> TrainState:
                       replicated_layout(masters))
 
 
-def init_train_state(cfg, tc: TrainConfig, *, seed=0, device="cuda"):
+def init_train_state(cfg, tc: TrainConfig, *, mesh=None, seed=0,
+                     device="cuda"):
     """A ``TrainState`` at step 0: a training ``Model`` of masters in
     ``tc.param_dtype`` drawn from ``seed`` on ``device``
     (``models.init_model(..., train=True)``; the reference draws fp32
     and casts every leaf, the port casts each as it is drawn) and the
-    optimizer's zero state."""
+    optimizer's zero state.  With ``mesh``, every rank draws the same
+    weights and keeps its block of each as it is drawn
+    (``bridge.mesh_placer``): the masters and the moments are DTensors
+    placed by the rules, and no rank holds more than its blocks and one
+    whole leaf; ``device="meta"`` lays out a state without storage."""
+    from repro_torch.bridge import mesh_placer
     optimizer = optim_lib.get_optimizer(tc.optimizer, tc.lr)
-    return start_state(init_model(cfg, seed=seed, device=device, train=True,
-                                  param_dtype=getattr(torch, tc.param_dtype)),
-                       optimizer)
+    model = init_model(cfg, seed=seed, device=device, train=True,
+                       param_dtype=getattr(torch, tc.param_dtype),
+                       place=None if mesh is None else mesh_placer(cfg, mesh))
+    return start_state(model, optimizer)

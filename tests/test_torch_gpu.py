@@ -1485,3 +1485,61 @@ def test_frontend_greedy_on_card_matches_cpu(cuda, arch):
     assert launch_counts()["flash_attention"] == cfg.encoder_layers \
         + per_call * new
     np.testing.assert_array_equal(outs["cpu"], outs["cuda"])
+
+
+# --------------------------------------------------------------------------
+# the mesh step over one NCCL rank
+# --------------------------------------------------------------------------
+
+# qwen3's mesh forms are the one-device ops at size 1; the MoE's
+# expert-parallel combine sums the k slots one by one where the dense
+# dispatch sums them in one reduction, so deepseek-moe-16b is held to
+# the fp32 training bar
+MESH_ONE_TOL = {"qwen3-1.7b": 0.0, "deepseek-moe-16b": 1e-5}
+
+
+@pytest.mark.parametrize("arch", sorted(MESH_ONE_TOL))
+def test_mesh_step_over_one_nccl_rank_equals_train_step(cuda, arch):
+    """A 2-layer full-width model in fp32 (TF32 off) on a (data 1, model
+    1) mesh of one NCCL rank: every master and moment a DTensor placed by
+    the rules (all replicated at size 1), the layers' mesh forms, the
+    flash kernel on every attention call -- 3 momentum steps equal to the
+    one-device step's losses and masters: qwen3 bitwise,
+    deepseek-moe-16b (its MoE through ``apply_moe_ep``) within 1e-5."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.bridge import gather_named
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step, trainable)
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(arch).with_overrides(num_layers=2, dtype="float32")
+    tc = TrainConfig(optimizer="momentum", lr=1e-2, remat=True)
+    rng = np.random.default_rng(28)
+    batches = [{"tokens": rng.integers(0, cfg.vocab_size, (2, 256))
+                .astype(np.int32)} for _ in range(3)]
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_serve_mesh(1, 1, device_type="cuda")
+        got = {}
+        for where in ("mesh", "one"):
+            m = mesh if where == "mesh" else None
+            state = init_train_state(cfg, tc, mesh=m, seed=0, device=cuda)
+            step, _ = make_train_step(cfg, tc, mesh=m)
+            reset_launch_counts()
+            losses = [float(step(state, b)[1]["loss"]) for b in batches]
+            assert launch_counts()["flash_attention"] == 3 * 2 * 2
+            got[where] = (losses, {k: v.cpu() for k, v in gather_named(
+                trainable(state.params)).items()})
+            del state
+    finally:
+        dist.destroy_process_group()
+    tol = MESH_ONE_TOL[arch]
+    assert np.abs(np.subtract(got["mesh"][0], got["one"][0])).max() <= tol
+    for k, v in got["one"][1].items():
+        assert (got["mesh"][1][k] - v).abs().max() <= tol, k
