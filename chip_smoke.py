@@ -52,7 +52,7 @@ Phases (each fails the run if it goes wrong):
      greedy tokens through the lockstep engine on the card (kernel) as
      on the CPU (plain version);
  13. the training path: full-width, full-depth qwen3-1.7b, bf16 compute
-     on fp32 masters, AdamW, takes 1 + 5 steps on one batch of 2 x 4096
+     on fp32 masters, AdamW, takes 1 + 3 steps on one batch of 2 x 4096
      tokens in 2 microbatches with per-layer remat, every attention
      forward (and its recompute) launched through the flash kernel;
  14. parity: a 2-layer full-width qwen3-1.7b in fp32 takes 3 AdamW steps
@@ -109,7 +109,7 @@ Phases (each fails the run if it goes wrong):
      fp32 gives the same greedy tokens on the card as on the CPU
      (DeepSeek's routed experts cut 256 -> 16 there);
  20. training full-width, full-depth rwkv6-1.6b on phase 13's batch, 1 +
-     5 AdamW steps, bf16 on fp32 masters, remat: exactly 576 wkv6
+     3 AdamW steps, bf16 on fp32 masters, remat: exactly 384 wkv6
      launches (the WKV6 Function: kernel forward, plain backward); then
      2 fp32 layers card vs CPU (phase 14's form);
  21. training Jamba cut to 2 layers (3.742 B; SGD, 1 x 2048 tokens, 1 +
@@ -145,16 +145,16 @@ Phases (each fails the run if it goes wrong):
      dispatches and host syncs a token down >= 1.8x, and an EOS
      mid-chunk emits nothing after it.
  24. the four decoder-only newcomers at full width, bf16, one at a
-     time, each reduced to 16 layers for the script's time limit (each
-     stack repeats one layer: granite-20b (MQA, g 48) 52 -> 16,
-     qwen2.5-32b (g 5, qkv bias) 64 -> 16, deepseek-coder-33b (g 7) 62
-     -> 16, deepseek-moe-16b (MHA, a dense first layer then MoE of 64
-     experts + 2 shared) 28 -> 16) serve phase 3's traffic through the
-     continuous scheduler: exactly 16 x 282 = 4512 paged_flash_decode
+     time, each reduced to 8 layers for the script's time limit (each
+     stack repeats one layer: granite-20b (MQA, g 48) 52 -> 8,
+     qwen2.5-32b (g 5, qkv bias) 64 -> 8, deepseek-coder-33b (g 7) 62
+     -> 8, deepseek-moe-16b (MHA, a dense first layer then MoE of 64
+     experts + 2 shared) 28 -> 8) serve phase 3's traffic through the
+     continuous scheduler: exactly 8 x 282 = 2256 paged_flash_decode
      launches each; tokens/s,
      TTFT, peak memory and the device's idle share over one traced decode
      tick and one prefill chunk; granite also serves phase 11's traffic
-     through the lockstep engine (1024 = 16 x 64 flash_attention
+     through the lockstep engine (512 = 8 x 64 flash_attention
      launches at g 48);
  25. the two frontends at full width and depth, bf16, through
      ``apply_model``'s slab prefill and greedy decode (the reference's
@@ -169,10 +169,10 @@ Phases (each fails the run if it goes wrong):
      512);
  26. training: seamless-m4t-large-v2 at full size and
      llava-next-mistral-7b reduced to 8 of its 32 layers (AdamW's state
-     for 7.24 B does not fit), 1 + 5 AdamW steps (lr 3e-4), bf16 on fp32
+     for 7.24 B does not fit), 1 + 3 AdamW steps (lr 3e-4), bf16 on fp32
      masters, remat, on the reference's train_4k batch of 2 x 4096 (4096
      frames + 4096 targets; 2048 image rows + 2048 tokens) in 2
-     microbatches: exactly 1728 and 192 flash_attention launches; then
+     microbatches: exactly 1152 and 128 flash_attention launches; then
      each at 2 full-width layers (seamless with 2 encoder layers) in
      fp32, 2 AdamW steps on one sequence of 128, card vs CPU with phase
      14's bars;
@@ -199,6 +199,26 @@ Phases (each fails the run if it goes wrong):
      layers x 2 on its own heads, its bytes between steps and step
      walls printed; (a') qwen3 over one NCCL rank on a (1, 1) mesh,
      bitwise the one-device step.
+ 29. serving on a mesh: phase 28's torchrun goes on, on the same 4 gloo
+     ranks and (data 2, model 2) mesh, fp32 with TF32 off: (a)
+     qwen3-1.7b at full width and depth, deepseek-moe-16b at full width
+     cut to 4 layers (its MoE decode expert-parallel over data x model)
+     and granite-20b cut to 2 (its one kv head does not divide model 2:
+     the pool cut on head_dim, the slots' pages gathered before the
+     kernel), weights drawn straight to each rank's blocks by the
+     serve-mode rules, serve 4 prompts of 13-97 tokens x 16 greedy
+     tokens through the continuous scheduler: tokens equal to the
+     one-device engine's on the same weights, every sample's logits
+     within 1e-5 (granite's within 1e-5 of its largest |logit|), each
+     rank's pool half the pool, each rank's paged_flash_decode launches
+     exactly layers x model calls on its own 8 q / 4 kv (deepseek: 8 /
+     8; granite: 24 / 1) heads; then qwen3 at 2 layers through the
+     lockstep ServeEngine, 4 x 64 prompt tokens, 2 rows a data replica:
+     tokens equal, logits within 1e-5, each rank's flash_attention
+     launches exactly layers x 16 model calls; (b) qwen3 at 4 layers
+     over one NCCL rank on a (1, 1) mesh: logits and tokens bitwise the
+     one-device engine's.  Phase 2 holds the paged kernel at each of
+     (a)'s per-rank forms and the flash kernel at the lockstep one.
 Phases 3, 16 and 17 also print the cost model's predictions
 (``repro_torch.core.perf_model`` with H100 presets) beside what the
 card measured: a decode step, the gradient all-reduce at p = 2, 4, 8
@@ -221,6 +241,7 @@ it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -278,7 +299,9 @@ VERIFY_CASE = "verify B=8 S=4, slots ~512 tokens"
 LEGACY_BATCH, LEGACY_PROMPT, LEGACY_MAX_LEN = 8, 512, 592
 # the training run of phases 13-14: qwen3-1.7b on 2 x 4096 tokens (the
 # reference's train_4k length, repro/configs/base.py:315) in 2 microbatches
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_TIMED = 2, 4096, 2, 5
+# the training phases (13, 20, 26) take 1 + TRAIN_TIMED steps: 1 + 5
+# until phase 29 needed the time
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_TIMED = 2, 4096, 2, 3
 TRAIN_LR = 3e-4
 # the flash backward (plain, q-chunked) against autograd of the plain
 # forward, as max |err| / max |grad| over dq, dk, dv: fp32 re-associates
@@ -329,6 +352,26 @@ MESH_BATCH, MESH_SEQ, MESH_LR = 4, 512, 1e-2
 MESH_CASES = {"qwen3-1.7b": ("momentum", 3), "deepseek-moe-16b": ("sgd", 2)}
 MESH_CF, MESH_TOL = 16.0, 1e-5
 MESH_DIR = os.path.join(ROOT, "build", "mesh_phase28")
+# phase 29: serving on the (data 2, model 2) mesh of phase 28, fp32 with
+# TF32 off: qwen3-1.7b at full depth, deepseek-moe-16b cut to 4 layers
+# (rank 0's one-device reference of all 28 would not fit beside the
+# ranks' blocks), granite-20b cut to 2 (its one kv head does not divide
+# model 2: the pool is cut on head_dim and gathered before the kernel);
+# 4 prompts of different lengths, 16 greedy tokens each
+SERVE_MESH_LAYERS = {"qwen3-1.7b": 28, "deepseek-moe-16b": 4,
+                     "granite-20b": 2}
+SERVE_MESH_LENS, SERVE_MESH_NEW, SERVE_MESH_TOL = (40, 97, 13, 64), 16, 1e-5
+# ... granite's bar is relative to its largest logit: its sums run over
+# rows of 6144 and 24576 (3x and 4x qwen3's), and its first run read
+# 1.06e-05 absolute against SERVE_MESH_TOL with equal tokens
+SERVE_MESH_FALLBACK_RTOL = 1e-5
+SERVE_MESH_MAX_LEN = -(-(max(SERVE_MESH_LENS) + SERVE_MESH_NEW + DECODE_CHUNK)
+                       // PAGE_SIZE) * PAGE_SIZE
+# ... the lockstep slab engine: qwen3-1.7b at 2 layers, 4 prompts of 64
+# tokens, 2 rows a data replica
+SERVE_MESH_SLAB_LAYERS, SERVE_MESH_SLAB_BATCH = 2, 4
+SERVE_MESH_SLAB_PROMPT = 64
+SERVE_MESH_NCCL_LAYERS = 4
 # the reference's FLASH_CASES (tests/test_kernels.py)
 FLASH_CASES = [
     # B, S, T, h, hk, hd, causal, window
@@ -428,10 +471,11 @@ def group_cases(rng):
 
 
 def check_paged_decode(dev, flush, h=16, windowed=True, tag="", hk=8,
-                       cases=None):
+                       cases=None, max_len=MAX_LEN):
     """The paged kernel at h query heads over hk kv heads of 128 (qwen3-
     1.7b: h=16, hk=8; Jamba's attention layer: h=32; ``cases`` replaces
-    the default decode and chunk cases)."""
+    the default decode and chunk cases), page tables of ``max_len``
+    tokens a slot."""
     import torch.nn.functional as F
     from repro_torch.kernels import gqa_split
     from repro_torch.kernels.paged_decode import (
@@ -439,7 +483,7 @@ def check_paged_decode(dev, flush, h=16, windowed=True, tag="", hk=8,
     from repro_torch.models.attention import PagedView, paged_read
 
     ps = PAGE_SIZE
-    W = MAX_LEN // ps
+    W = max_len // ps
     rng = np.random.default_rng(0)
     cases = cases or [
         ("decode B=8 S=1, slots 1..max_len tokens", 8, 1, 0,
@@ -712,17 +756,20 @@ def flash_bound(B, S, T, h, hk, hd, causal, window, el):
     return n_bytes, 4 * hd * h * B * int(vis.sum())
 
 
-def check_flash_attention(dev, flush):
+def check_flash_attention(dev, flush, h=16, hk=8, full=None):
     """The flash kernel against its plain version: the reference's own
     FLASH_CASES, a strided slab slice with a poisoned tail, and the two
-    full-width shapes of the slab path (timed beside SDPA)."""
+    full-width shapes of the slab path (timed beside SDPA), at h query
+    heads over hk kv heads of 128 (qwen3-1.7b's 16 / 8).  ``full``: only
+    these slab cases (name, B, S, T, slab length; a name starting
+    "strided" is not timed), without FLASH_CASES."""
     import torch.nn.functional as F
     from repro_torch.kernels import gqa_split
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref)
 
     rng = np.random.default_rng(4)
-    hk, hd = 8, 128                                     # qwen3-1.7b widths
+    hd = 128
 
     def normal(*shape):
         return torch.from_numpy(
@@ -745,9 +792,9 @@ def check_flash_attention(dev, flush):
         return got, err
 
     rows = []
-    for case in FLASH_CASES:
-        B, S, T, h, hk_, hd_, causal, window = case
-        host = (normal(B, S, h, hd_), normal(B, T, hk_, hd_),
+    for case in FLASH_CASES if full is None else ():
+        B, S, T, h_, hk_, hd_, causal, window = case
+        host = (normal(B, S, h_, hd_), normal(B, T, hk_, hd_),
                 normal(B, T, hk_, hd_))
         for dtype in (torch.float32, torch.bfloat16):
             name = f"FLASH_CASES {case}"
@@ -759,8 +806,8 @@ def check_flash_attention(dev, flush):
             print(f"  flash_attention {name:44s} {rows[-1]['dtype']:8s} "
                   f"splits {rows[-1]['splits']}  err {err:.2e} "
                   f"(tol {TOL[dtype]:g})")
-    full = [
-        # name, B, S, T (valid keys), slab length, causal
+    full = full or [
+        # name, B, S, T (valid keys), slab length
         (f"prefill B={LEGACY_BATCH} S=T={LEGACY_PROMPT}", LEGACY_BATCH,
          LEGACY_PROMPT, LEGACY_PROMPT, LEGACY_PROMPT),
         (f"decode B={LEGACY_BATCH} S=1 T={LEGACY_PROMPT + NEW_TOKENS} (slab "
@@ -770,7 +817,7 @@ def check_flash_attention(dev, flush):
          LEGACY_MAX_LEN),
     ]
     for name, B, S, T, L, in full:
-        host = (normal(B, S, 16, hd), normal(B, L, hk, hd),
+        host = (normal(B, S, h, hd), normal(B, L, hk, hd),
                 normal(B, L, hk, hd))
         for dtype in (torch.float32, torch.bfloat16):
             q, kc, vc = (x.to(dtype) for x in host)
@@ -806,7 +853,7 @@ def check_flash_attention(dev, flush):
                                       flush)
             row["library_ms"] = time_ms(sdpa, flush)
             row["sdpa_backend"] = backend
-            n_bytes, ops = flash_bound(B, S, T, 16, hk, hd, True, 0,
+            n_bytes, ops = flash_bound(B, S, T, h, hk, hd, True, 0,
                                        q.element_size())
             t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
             t_ops = ops / PEAK_OPS[dtype] * 1e3
@@ -3426,10 +3473,11 @@ def spec_trained(dev):
 
 DENSE_MORE = ("granite-20b", "qwen2.5-32b", "deepseek-coder-33b",
               "deepseek-moe-16b")
-# phase 24's depth cut, so that phase 27 fits the script's time limit:
-# each stack repeats one layer (deepseek-moe-16b after its dense first
-# one), and 16 of them drive the same kernel at the same group size
-DENSE_MORE_LAYERS = {arch: 16 for arch in DENSE_MORE}
+# phase 24's depth cut, so that phases 27 and 29 fit the script's time
+# limit (16 until phase 29's lockstep and head_dim-fallback runs): each
+# stack repeats one layer (deepseek-moe-16b after its dense first one),
+# and 8 of them drive the same kernel at the same group size
+DENSE_MORE_LAYERS = {arch: 8 for arch in DENSE_MORE}
 # phase 25: seamless's 8 sources of 1024 frames and 8-token target
 # prompts; llava's 8 requests of 2880 image rows + 128 text tokens
 ENCDEC_BATCH, ENCDEC_FRAMES, ENCDEC_PROMPT = 8, 1024, 8
@@ -3797,7 +3845,7 @@ def serve_frontends(dev):
 
 def train_frontends(dev):
     """Phase 26: seamless-m4t-large-v2 at full size and
-    llava-next-mistral-7b cut to 8 layers, 1 + 5 AdamW steps, bf16 on
+    llava-next-mistral-7b cut to 8 layers, 1 + 3 AdamW steps, bf16 on
     fp32 masters, remat, on 2 x 4096 in 2 microbatches; then each at 2
     full-width layers in fp32, 2 AdamW steps card vs CPU.  Returns
     {arch: numbers}."""
@@ -4329,33 +4377,46 @@ def mesh_rank(outdir):
     if rank == 0:
         with open(os.path.join(outdir, "ranks.json"), "w") as f:
             json.dump(res, f)
+    serve_mesh_rank(mesh, dev, outdir)
     dist.barrier()
     dist.destroy_process_group()
 
 
-def train_mesh(dev):
+def mesh_phases(dev):
+    """Phases 28 and 29 (a) in one torchrun of this script over 4 gloo
+    ranks sharing the card (``--mesh-rank``: training, then serving, on
+    one (data 2, model 2) mesh), then each phase's checks and its one
+    NCCL rank on a (1, 1) mesh."""
+    import shutil
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    try:
+        wall = run_ranks([os.path.abspath(__file__), "--mesh-rank", MESH_DIR],
+                         MESH_SHAPE[0] * MESH_SHAPE[1], timeout=900,
+                         module=False)
+        got = {}
+        for name in ("ranks", "serve_ranks"):
+            with open(os.path.join(MESH_DIR, f"{name}.json")) as f:
+                got[name] = json.load(f)
+    finally:
+        shutil.rmtree(MESH_DIR, ignore_errors=True)
+    print(f"phases 28-29: torchrun {wall:.1f} s")
+    return (train_mesh(dev, got["ranks"]),
+            serve_mesh(dev, got["serve_ranks"]))
+
+
+def train_mesh(dev, ranks):
     """Phase 28: (a) qwen3-1.7b and (b) deepseek-moe-16b (its layer 1 the
     expert-parallel MoE, all_to_all over "data") at full width on a
     (data 2, model 2) mesh of 4 gloo ranks sharing the card, held to the
-    one-device step; (a') qwen3 over one NCCL rank on a (1, 1) mesh,
-    bitwise the one-device step."""
-    import shutil
+    one-device step (``ranks``: what the ranks wrote); (a') qwen3 over
+    one NCCL rank on a (1, 1) mesh, bitwise the one-device step."""
     import socket
     import torch.distributed as dist
     from repro_torch.data import make_batch
     from repro_torch.launch.mesh import make_serve_mesh
     from repro_torch.train import TrainConfig
     out = {}
-    shutil.rmtree(MESH_DIR, ignore_errors=True)
-    os.makedirs(MESH_DIR)
-    try:
-        wall = run_ranks([os.path.abspath(__file__), "--mesh-rank", MESH_DIR],
-                         MESH_SHAPE[0] * MESH_SHAPE[1], timeout=600,
-                         module=False)
-        with open(os.path.join(MESH_DIR, "ranks.json")) as f:
-            ranks = json.load(f)
-    finally:
-        shutil.rmtree(MESH_DIR, ignore_errors=True)
     for arch, r in ranks.items():
         cfg = mesh_cfg(arch)
         mesh, one = r["mesh"], r["one_device"]
@@ -4417,7 +4478,6 @@ def train_mesh(dev):
               f"its blocks and moments plus one leaf's draw, "
               f"{', '.join(f'{b / 2**30:.2f}' for _, b in peaks)} GiB); the "
               f"one-device state's {one['init_peak_bytes'] / 2**30:.2f} GiB")
-    print(f"phase 28: torchrun {wall:.1f} s")
 
     # (a') one NCCL rank on a (1, 1) mesh: bitwise the one-device step
     arch = "qwen3-1.7b"
@@ -4455,6 +4515,353 @@ def train_mesh(dev):
           f"step's, masters bitwise; flash_attention launches {got['flash']}")
     return out
 
+
+
+# --------------------------------------------------------------------------
+# phase 29: serving on a (data, model) mesh
+# --------------------------------------------------------------------------
+
+def serve_mesh_cfg(arch, layers=None):
+    from repro_torch.configs import get_config
+    return get_config(arch).with_overrides(
+        num_layers=layers or SERVE_MESH_LAYERS[arch], dtype="float32")
+
+
+def serve_mesh_prompts(cfg):
+    rng = np.random.default_rng(29)
+    return [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+            for n in SERVE_MESH_LENS]
+
+
+def serve_mesh_rank_heads(cfg, model=MESH_SHAPE[1]):
+    """(q heads, kv heads) a rank's attention kernel sees on a mesh of
+    ``model``: both cut over "model", or every kv head where they do not
+    divide (the pool cut on head_dim, gathered before the kernel)."""
+    hk = cfg.num_kv_heads
+    return cfg.num_heads // model, hk // model if hk % model == 0 else hk
+
+
+def serve_mesh_rank_cases():
+    """Phase 2's paged cases at phase 29's per-rank forms: a decode step
+    of its slots mid-generation and a prefill chunk."""
+    lens = np.array(SERVE_MESH_LENS)
+    return [(f"decode B={len(lens)} S=1, phase 29's slots", len(lens), 1, 0,
+             lens + SERVE_MESH_NEW // 2, 128),
+            (f"prefill chunk B=1 S={PREFILL_CHUNK}", 1, PREFILL_CHUNK, 0,
+             np.array([3 * PREFILL_CHUNK]), 128)]
+
+
+def serve_mesh_slab_cases():
+    """Phase 2's flash cases at phase 29's lockstep per-rank form."""
+    B = SERVE_MESH_SLAB_BATCH // MESH_SHAPE[0]
+    S, L = SERVE_MESH_SLAB_PROMPT, SERVE_MESH_SLAB_PROMPT + SERVE_MESH_NEW
+    return [(f"mesh rank prefill B={B} S=T={S}", B, S, S, S),
+            (f"mesh rank decode B={B} S=1 T={S + SERVE_MESH_NEW // 2} (slab "
+             "slice)", B, 1, S + SERVE_MESH_NEW // 2, L)]
+
+
+@contextlib.contextmanager
+def recorded_logits(module, *names):
+    """Every logits tensor handed to ``module``'s samplers ``names`` while
+    the block runs, copied, in call order."""
+    logits = []
+    plain = [getattr(module, n) for n in names]
+
+    def keep(fn):
+        def rec(lg, *a, **k):
+            logits.append(lg.detach().clone())
+            return fn(lg, *a, **k)
+        return rec
+
+    for n, fn in zip(names, plain):
+        setattr(module, n, keep(fn))
+    try:
+        yield logits
+    finally:
+        for n, fn in zip(names, plain):
+            setattr(module, n, fn)
+
+
+def serve_recorded(cfg, model, prompts, mesh=None):
+    """The continuous scheduler over ``prompts`` (on ``mesh``, or one
+    device), greedy; returns (scheduler, tokens, the logits of every
+    sample in call order, the paged_flash_decode launches, wall ms)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import ContinuousScheduler
+    from repro_torch.serve import scheduler as sched_lib
+    with recorded_logits(sched_lib, "sample", "masked_sample") as logits:
+        sch = ContinuousScheduler(
+            cfg, model, slots=len(prompts), max_len=SERVE_MESH_MAX_LEN,
+            page_size=PAGE_SIZE, decode_chunk=DECODE_CHUNK,
+            prefill_chunk=PREFILL_CHUNK, mesh=mesh)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = sch.generate(prompts, SERVE_MESH_NEW)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = launch_counts().get("paged_flash_decode", 0)
+    return sch, outs, logits, launches, wall
+
+
+def slab_recorded(cfg, model, prompts, mesh=None):
+    """The lockstep ``ServeEngine`` over the (B, S) ``prompts`` (on
+    ``mesh``, or one device), greedy; returns (tokens, the logits of
+    every sample, the flash_attention launches, wall ms)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve import engine as engine_lib
+    with recorded_logits(engine_lib, "sample") as logits:
+        eng = ServeEngine(cfg, model, batch_size=len(prompts),
+                          max_len=prompts.shape[1] + SERVE_MESH_NEW,
+                          mesh=mesh)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = eng.generate(prompts, SERVE_MESH_NEW)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = launch_counts().get("flash_attention", 0)
+    return outs.tolist(), logits, launches, wall
+
+
+def logit_gap(logits, ref_logits):
+    return max(float((a - b).abs().max()) for a, b in zip(logits, ref_logits))
+
+
+def serve_mesh_rank(mesh, dev, outdir):
+    """Phase 29 (a) on one of the ranks of ``mesh_rank``: each config of
+    SERVE_MESH_LAYERS served on the (data 2, model 2) mesh by the
+    continuous scheduler, then qwen3 by the lockstep engine, the weights
+    drawn straight to the rank's blocks; rank 0 then serves the same
+    weights drawn whole on one device and compares.  Rank 0 writes the
+    numbers."""
+    import torch.distributed as dist
+    from repro_torch.bridge import mesh_placer
+    from repro_torch.models import init_model
+    rank = dist.get_rank()
+    res = {}
+    for arch in SERVE_MESH_LAYERS:
+        cfg = serve_mesh_cfg(arch)
+        prompts = serve_mesh_prompts(cfg)
+        model = init_model(cfg, seed=0, device=dev,
+                           place=mesh_placer(cfg, mesh, mode="serve"))
+        sch, outs, logits, launches, wall = serve_recorded(cfg, model,
+                                                           prompts, mesh)
+        st = sch.stats()
+        mine = {"launches": launches, "wall_ms": wall,
+                "model_calls": st["prefill_dispatches"] + DECODE_CHUNK
+                * st["decode_dispatches"],
+                "heads": [int(model.layers[0].mixer[k].to_local().shape[1])
+                          for k in ("wq", "wk")],
+                "split": dict(sch.kv.cache[0].split),
+                "tokens": [o.tolist() for o in outs]}
+        per = sch.kv.pool_bytes_by_device()
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, mine)
+        if rank == 0:
+            del sch, model
+            torch.cuda.empty_cache()
+            one = init_model(cfg, seed=0, device=dev)
+            sch1, ref, ref_logits, ref_launches, ref_wall = serve_recorded(
+                cfg, one, prompts)
+            res[arch] = {"ranks": every, "pool_bytes": st["pool_bytes"],
+                         "pool_bytes_by_rank": list(per.values()),
+                         "one_device_tokens": [o.tolist() for o in ref],
+                         "one_device_launches": ref_launches,
+                         "one_device_wall_ms": ref_wall,
+                         "samples": len(logits),
+                         "one_device_samples": len(ref_logits),
+                         "logit_gap": logit_gap(logits, ref_logits),
+                         "logit_max": max(float(lg.abs().max())
+                                          for lg in ref_logits),
+                         "top2_margin_min": min(float(
+                             (lg.topk(2, dim=-1).values[..., 0]
+                              - lg.topk(2, dim=-1).values[..., 1]).min())
+                             for lg in ref_logits)}
+            del sch1, one, ref_logits
+        del logits
+        torch.cuda.empty_cache()
+        dist.barrier()
+    # the lockstep slab engine: each data replica its rows, the slab
+    # gathered over "model" a layer, the flash kernel on the rank's heads
+    cfg = serve_mesh_cfg("qwen3-1.7b", SERVE_MESH_SLAB_LAYERS)
+    prompts = np.random.default_rng(29).integers(
+        0, cfg.vocab_size, (SERVE_MESH_SLAB_BATCH, SERVE_MESH_SLAB_PROMPT)
+    ).astype(np.int32)
+    model = init_model(cfg, seed=0, device=dev,
+                       place=mesh_placer(cfg, mesh, mode="serve"))
+    outs, logits, launches, wall = slab_recorded(cfg, model, prompts, mesh)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, {"tokens": outs, "launches": launches,
+                                   "wall_ms": wall})
+    del model
+    torch.cuda.empty_cache()
+    if rank == 0:
+        ref, ref_logits, ref_launches, ref_wall = slab_recorded(
+            cfg, init_model(cfg, seed=0, device=dev), prompts)
+        res["lockstep"] = {"ranks": every, "one_device_tokens": ref,
+                           "one_device_launches": ref_launches,
+                           "one_device_wall_ms": ref_wall,
+                           "samples": len(logits),
+                           "one_device_samples": len(ref_logits),
+                           "logit_gap": logit_gap(logits, ref_logits)}
+        del ref_logits
+    del logits
+    torch.cuda.empty_cache()
+    if rank == 0:
+        with open(os.path.join(outdir, "serve_ranks.json"), "w") as f:
+            json.dump(res, f)
+
+
+def serve_mesh(dev, ranks):
+    """Phase 29: (a) qwen3-1.7b, deepseek-moe-16b and granite-20b (the
+    head_dim fallback) served at full width by the continuous scheduler
+    on a (data 2, model 2) mesh of 4 gloo ranks sharing the card, tokens
+    equal to the one-device engine's and logits within 1e-5 (granite's
+    within 1e-5 of its largest |logit|), each rank's
+    pool half the pool, each rank's paged_flash_decode launches exactly
+    layers x model calls on its own heads; then qwen3 by the lockstep
+    engine, each rank's flash_attention launches exactly layers x
+    samples; (b) qwen3 over one NCCL rank on a (1, 1) mesh, logits and
+    tokens bitwise the one-device engine's.  ``ranks``: what (a)'s ranks
+    wrote.  Returns {arch: the numbers}."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.bridge import mesh_placer
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.models import init_model
+    card = card_line()
+    out = {}
+
+    def same_as_one_device(tag, r, bar=SERVE_MESH_TOL):
+        ref = r["one_device_tokens"]
+        toks = [rk["tokens"] for rk in r["ranks"]]
+        if any(t != ref for t in toks):
+            fail(f"phase 29 ({tag}): mesh tokens {toks} differ from the "
+                 f"one-device engine's {ref}")
+        if r["samples"] != r["one_device_samples"] or r["logit_gap"] > bar:
+            fail(f"phase 29 ({tag}): mesh vs one-device logits differ by "
+                 f"{r['logit_gap']:.2e} over {r['samples']} / "
+                 f"{r['one_device_samples']} samples (bar {bar:.2e})")
+
+    for arch in SERVE_MESH_LAYERS:
+        r = ranks[arch]
+        cfg = serve_mesh_cfg(arch)
+        fallback = cfg.num_kv_heads % MESH_SHAPE[1] != 0
+        bar = (SERVE_MESH_FALLBACK_RTOL * max(1.0, r["logit_max"])
+               if fallback else SERVE_MESH_TOL)
+        same_as_one_device(arch, r, bar)
+        half = r["pool_bytes"] // MESH_SHAPE[1]
+        if r["pool_bytes_by_rank"] != [half] * len(r["ranks"]):
+            fail(f"phase 29 ({arch}): pool bytes a rank "
+                 f"{r['pool_bytes_by_rank']}, expected {half} = the "
+                 f"{r['pool_bytes']}-byte pool / {MESH_SHAPE[1]}")
+        launches = [rk["launches"] for rk in r["ranks"]]
+        want = [cfg.num_layers * rk["model_calls"] for rk in r["ranks"]]
+        if launches != want or r["one_device_launches"] != want[0]:
+            fail(f"phase 29 ({arch}): paged_flash_decode launched "
+                 f"{launches} times on the ranks ({r['one_device_launches']}"
+                 f" on one device), expected layers x model calls {want}")
+        h, hk = r["ranks"][0]["heads"]
+        if (h, hk) != serve_mesh_rank_heads(cfg):
+            fail(f"phase 29 ({arch}): a rank holds {h} q / {hk} kv heads")
+        split = {"k": 2, "v": 2} if fallback else {"k": 1, "v": 1}
+        if any(rk["split"] != split for rk in r["ranks"]):
+            fail(f"phase 29 ({arch}): the pool is cut on dims "
+                 f"{[rk['split'] for rk in r['ranks']]}, expected {split}")
+        out[arch] = {"layers": cfg.num_layers, "launches": launches,
+                     "model_calls": r["ranks"][0]["model_calls"],
+                     "rank_heads": [h, hk], "pool_split": split,
+                     "logit_gap": r["logit_gap"], "logit_bar": bar,
+                     "logit_max": r["logit_max"],
+                     "top2_margin_min": r["top2_margin_min"],
+                     "pool_bytes": r["pool_bytes"],
+                     "pool_bytes_by_rank": r["pool_bytes_by_rank"],
+                     "walls_ms": [rk["wall_ms"] for rk in r["ranks"]],
+                     "one_device_wall_ms": r["one_device_wall_ms"],
+                     "card": card}
+        cut = ("the pool cut on head_dim (1 kv head does not divide model "
+               f"{MESH_SHAPE[1]}), the slots' pages gathered before the "
+               "kernel" if fallback else "the pool cut on kv heads")
+        print(f"phase 29 ({arch}) [{card}]: full width, {cfg.num_layers} "
+              f"layers, fp32, {len(SERVE_MESH_LENS)} prompts of "
+              f"{SERVE_MESH_LENS} tokens x {SERVE_MESH_NEW} greedy tokens on "
+              f"a (data {MESH_SHAPE[0]}, model {MESH_SHAPE[1]}) mesh of 4 "
+              f"gloo ranks sharing the card, {cut}: tokens == the "
+              f"one-device engine's, logits within {r['logit_gap']:.2e} (bar "
+              f"{bar:.2e}{', relative' if fallback else ''}; largest "
+              f"|logit| {r['logit_max']:.3f}; smallest top-2 margin "
+              f"{r['top2_margin_min']:.2e}); paged_flash_decode launches a "
+              f"rank {launches} = {cfg.num_layers} layers x "
+              f"{r['ranks'][0]['model_calls']} model calls on {h} q / {hk} "
+              f"kv heads a rank; pool bytes a rank "
+              f"{r['pool_bytes_by_rank']} of {r['pool_bytes']}; serve walls "
+              f"a rank {[round(w) for w in out[arch]['walls_ms']]} ms (gloo "
+              f"staged through host memory on one card, not a cross-card "
+              f"number), one device {r['one_device_wall_ms']:.0f} ms")
+
+    # (a) the lockstep slab engine
+    r = ranks["lockstep"]
+    same_as_one_device("lockstep", r)
+    launches = [rk["launches"] for rk in r["ranks"]]
+    want = SERVE_MESH_SLAB_LAYERS * SERVE_MESH_NEW
+    if launches != [want] * len(launches) or r["one_device_launches"] != want:
+        fail(f"phase 29 (lockstep): flash_attention launched {launches} times "
+             f"on the ranks ({r['one_device_launches']} on one device), "
+             f"expected layers x samples {want}")
+    out["lockstep"] = {"layers": SERVE_MESH_SLAB_LAYERS, "launches": launches,
+                       "logit_gap": r["logit_gap"],
+                       "walls_ms": [rk["wall_ms"] for rk in r["ranks"]],
+                       "one_device_wall_ms": r["one_device_wall_ms"],
+                       "card": card}
+    print(f"phase 29 (lockstep) [{card}]: qwen3-1.7b at "
+          f"{SERVE_MESH_SLAB_LAYERS} full-width fp32 layers through "
+          f"ServeEngine(mesh=), {SERVE_MESH_SLAB_BATCH} prompts of "
+          f"{SERVE_MESH_SLAB_PROMPT} tokens x {SERVE_MESH_NEW} greedy tokens, "
+          f"{SERVE_MESH_SLAB_BATCH // MESH_SHAPE[0]} rows a data replica, the "
+          f"slab gathered over model a layer: tokens == the one-device "
+          f"engine's, logits within {r['logit_gap']:.2e}; flash_attention "
+          f"launches a rank {launches} = {SERVE_MESH_SLAB_LAYERS} layers x "
+          f"{SERVE_MESH_NEW} model calls on "
+          f"{serve_mesh_rank_heads(serve_mesh_cfg('qwen3-1.7b', 1))} heads; "
+          f"walls a rank {[round(w) for w in out['lockstep']['walls_ms']]} "
+          f"ms, one device {r['one_device_wall_ms']:.0f} ms")
+
+    # (b) one NCCL rank on a (1, 1) mesh: bitwise the one-device engine
+    arch = "qwen3-1.7b"
+    cfg = serve_mesh_cfg(arch, SERVE_MESH_NCCL_LAYERS)
+    prompts = serve_mesh_prompts(cfg)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_serve_mesh(1, 1, device_type="cuda")
+        _, ref, ref_logits, ref_launches, _ = serve_recorded(
+            cfg, init_model(cfg, seed=0, device=dev), prompts)
+        _, got, logits, launches, _ = serve_recorded(
+            cfg, init_model(cfg, seed=0, device=dev, place=mesh_placer(
+                cfg, mesh, mode="serve")), prompts, mesh)
+    finally:
+        dist.destroy_process_group()
+    same = (len(logits) == len(ref_logits)
+            and all(torch.equal(a, b) for a, b in zip(logits, ref_logits))
+            and all(np.array_equal(a, b) for a, b in zip(got, ref)))
+    if not same or launches != ref_launches:
+        fail(f"phase 29 (b): one NCCL rank on a (1, 1) mesh: tokens {got} "
+             f"vs {ref}, logits bitwise {same}, launches {launches} vs "
+             f"{ref_launches}")
+    del logits, ref_logits
+    torch.cuda.empty_cache()
+    out["nccl_1x1"] = {"layers": cfg.num_layers, "launches": launches,
+                       "samples": len(ref), "card": card}
+    print(f"phase 29 (b) [{card}]: {arch} at {cfg.num_layers} full-width "
+          f"fp32 layers over one NCCL rank on a (1, 1) mesh: logits and "
+          f"tokens bitwise the one-device engine's; paged_flash_decode "
+          f"launches {launches} (one device {ref_launches})")
+    return out
 
 
 def main():
@@ -4521,6 +4928,18 @@ def main():
         group_rows += check_paged_decode(
             dev, flush, h=h, hk=hk, windowed=False, tag=f"h={h} hk={hk}: ",
             cases=group_cases(np.random.default_rng(h)))
+    print(f"  paged_flash_decode at phase 29's per-rank forms on a (data "
+          f"{MESH_SHAPE[0]}, model {MESH_SHAPE[1]}) mesh (qwen3-1.7b 8 q / 4 "
+          "kv heads, deepseek-moe-16b 8 / 8, granite-20b 24 q over its one kv "
+          "head gathered whole on head_dim), tables of "
+          f"{SERVE_MESH_MAX_LEN} tokens: tolerances as above")
+    mesh_paged_rows = []
+    for arch in SERVE_MESH_LAYERS:
+        h, hk = serve_mesh_rank_heads(get_config(arch))
+        mesh_paged_rows += check_paged_decode(
+            dev, flush, h=h, hk=hk, windowed=False,
+            tag=f"mesh rank {arch} h={h} hk={hk}: ",
+            cases=serve_mesh_rank_cases(), max_len=SERVE_MESH_MAX_LEN)
     print(f"  wkv6 tolerance: atol {WKV_ATOL:g} in fp32, the reference's own "
           "WKV bar (the chunked form re-associates the time sums); bf16 y "
           f"also rtol {WKV_BF16_RTOL:g}, one bf16 step, since both sides "
@@ -4575,6 +4994,12 @@ def main():
         f"S=T={MESH_SEQ} h=8 hk=4", h=8, hk=4, B=MESH_BATCH // MESH_SHAPE[0],
         S=MESH_SEQ)
     flash_new_rows += mesh_rows
+    h, hk = serve_mesh_rank_heads(get_config("qwen3-1.7b"))
+    print(f"  flash_attention at phase 29's lockstep per-rank form (qwen3's "
+          f"{h} q / {hk} kv heads a rank, the slab gathered over model): "
+          "tolerances as above")
+    mesh_slab_rows = check_flash_attention(dev, flush, h=h, hk=hk,
+                                           full=serve_mesh_slab_cases())
     print(f"  WKV6 and MambaScan gradients (kernel forward, plain backward) "
           f"against autograd of the plain chunked forms: max |err| / max "
           f"|grad| fp32 {TRAIN_GRAD_TOL[torch.float32]:g}, bf16 "
@@ -4689,7 +5114,7 @@ def main():
     front_out = run_phase("phase 25", serve_frontends, dev)
     front_train_out = run_phase("phase 26", train_frontends, dev)
     bf16_out = run_phase("phase 27", train_bf16_masters, dev)
-    mesh_out = run_phase("phase 28", train_mesh, dev)
+    mesh_out, serve_mesh_out = run_phase("phases 28-29", mesh_phases, dev)
 
     decode_bf16, chunk_bf16, verify_bf16 = (
         next(r for r in rows if r["case"] == case and r["dtype"] == "bfloat16")
@@ -4704,7 +5129,8 @@ def main():
         "launches": launches, "launches_jamba": jamba_paged_launches,
         "launches_from_checkpoint": ckpt_out["paged_flash_decode_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows + jamba_rows
-                           + group_rows if r["dtype"] == "bfloat16"),
+                           + group_rows + mesh_paged_rows
+                           if r["dtype"] == "bfloat16"),
         "ms": decode_bf16["ms"], "plain_ms": decode_bf16["plain_ms"],
         "bound_ms": decode_bf16["bound_ms"],
         "bound_by": decode_bf16["bound_by"],
@@ -4719,12 +5145,20 @@ def main():
         "spec_trained": spec_trained_out,
         "launches_dense_more": {a: r["paged_launches"]
                                 for a, r in dense_out.items()},
+        "launches_serve_mesh_a_rank": {a: r["launches"]
+                                       for a, r in serve_mesh_out.items()
+                                       if a != "lockstep"},
+        "serve_mesh": serve_mesh_out,
+        "serve_mesh_rank_forms": {r["case"]: {key: r[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "splits",
+            "blocks", "max_abs_err")} for r in mesh_paged_rows
+            if r["dtype"] == "bfloat16"},
         "dense_more": dense_out,
         "group_sizes": {r["case"]: {key: r[key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "splits",
             "blocks", "max_abs_err")} for r in group_rows
             if r["dtype"] == "bfloat16"},
-        "cases": rows + jamba_rows + group_rows,
+        "cases": rows + jamba_rows + group_rows + mesh_paged_rows,
     }
     wkv_bf16 = next(r for r in wkv_rows if r["case"].startswith("prefill")
                     and r["dtype"] == "bfloat16")
@@ -4798,7 +5232,8 @@ def main():
         "replaces": "src/repro/kernels/flash_attention.py:33",
         "launches": flash_launches,
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows + train_rows
-                           + flash_new_rows if r["dtype"] == "bfloat16"),
+                           + flash_new_rows + mesh_slab_rows
+                           if r["dtype"] == "bfloat16"),
         "ms": timed["decode"]["ms"], "plain_ms": timed["decode"]["plain_ms"],
         "bound_ms": timed["decode"]["bound_ms"],
         "bound_by": timed["decode"]["bound_by"],
@@ -4837,13 +5272,20 @@ def main():
         "launches_mesh_train": {a: r["flash_launches"]
                                 for a, r in mesh_out.items()},
         "mesh_train": mesh_out,
+        "launches_serve_mesh_lockstep_a_rank": serve_mesh_out["lockstep"][
+            "launches"],
+        "serve_mesh_rank_forms": {r["case"]: {key: r[key] for key in r
+                                              if key != "case"}
+                                  for r in mesh_slab_rows
+                                  if r["dtype"] == "bfloat16"},
         "mesh_rank_form": {key: mesh_rows[-1][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "sdpa_backend", "max_abs_err", "grad_rel_err")},
         "bf16_train": bf16_out, "phase_3_decode_model": decode_model,
         "new_forms": {r["case"]: {key: r[key] for key in r if key != "case"}
                       for r in flash_new_rows if r["dtype"] == "bfloat16"},
-        "cases": flash_rows + train_rows + flash_mla_rows + flash_new_rows,
+        "cases": (flash_rows + train_rows + flash_mla_rows + flash_new_rows
+                  + mesh_slab_rows),
     }
     print("phase seconds: "
           + json.dumps({k: round(v, 1) for k, v in PHASE_S.items()}))

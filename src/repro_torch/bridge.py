@@ -30,15 +30,19 @@ mixer/wq`` stacked on ``n_rep``, or ``layers/0/w`` for a Table-1 net).
 ``serving_model`` casts a training model's masters into a serving
 ``Model``.
 
-On a mesh, each master of a training ``Model`` -- drawn
-(``mesh_placer``, cut as it is drawn), or carried from the reference by
-``params_from_jax`` (``place_on_mesh``) -- becomes a DTensor holding
+On a mesh, each weight of a ``Model`` -- drawn (``mesh_placer``, cut as
+it is drawn), loaded from the reference's arrays (``params_from_jax(...,
+mesh=)``, each array cut before it becomes a tensor), or carried whole
+into a training model (``place_on_mesh``) -- becomes a DTensor holding
 this rank's block as the reference's rules place it
-(``sharding.rules.param_spec`` of its reference path, train mode); the
-tied table stays one master.  ``gather_named`` is the way back: every
-master (or moment) gathered whole, which ``named_to_numpy`` and
-``params_to_numpy`` then read; ``copy_sources`` writes a DTensor's
-block of each array.
+(``sharding.rules.param_spec`` of its reference path, in the mode's
+``ShardingConfig``: train mode FSDP-cuts dense weights over ``"data"``,
+serve mode keeps them whole there); the tied table stays one master.
+A serving engine on a mesh takes only a model placed so
+(``check_serve_placed``).
+``gather_named`` is the way back: every master (or moment) gathered
+whole, which ``named_to_numpy`` and ``params_to_numpy`` then read;
+``copy_sources`` writes a DTensor's block of each array.
 
 The caller turns the reference's arrays into numpy first; this module
 imports neither ``jax`` nor the reference package.
@@ -85,15 +89,17 @@ def layer_trees(cfg, decoder):
 
 
 def params_from_jax(tree, cfg, *, device="cuda", train=False,
-                    param_dtype=torch.float32) -> Model:
+                    param_dtype=torch.float32, mesh=None) -> Model:
     """The reference's params (a tree of numpy arrays) as the port's
     ``Model`` on ``device``, each weight cast once to ``cfg.dtype``; or,
     with ``train``, a training ``Model`` of trainable masters of
     ``param_dtype``, one per leaf of the tree (reference bf16 arrays
-    carry over bitwise into bf16 masters).  A key the port does not
-    serve, or one that ``cfg`` has no place for (an encoder without
-    ``is_encoder_decoder``, a projector without the vision frontend),
-    raises rather than being dropped silently."""
+    carry over bitwise into bf16 masters).  With ``mesh``, each array
+    is cut to this rank's block before it becomes a tensor (the rules
+    of the train or serve mode) and the weights are DTensors.  A key the
+    port does not serve, or one that ``cfg`` has no place for (an
+    encoder without ``is_encoder_decoder``, a projector without the
+    vision frontend), raises rather than being dropped silently."""
     served = set(SERVED_KEYS)
     if not cfg.is_encoder_decoder:
         served -= {"encoder", "enc_norm"}
@@ -104,17 +110,26 @@ def params_from_jax(tree, cfg, *, device="cuda", train=False,
         raise ValueError(f"params_from_jax: the port does not serve the "
                          f"reference's {unknown}")
     dev = resolve_device(device)
+    if mesh is None:
+        conv = lambda t, path: _map(_tensor, t)              # noqa: E731
+    else:
+        from repro_torch.sharding.comm import MeshComm
+        comm, mode = MeshComm(mesh), "train" if train else "serve"
+        conv = lambda t, path: _map_leaves(                  # noqa: E731
+            t, path, lambda p, a: _placed(cfg, comm, p, a, mode))
+    ecfg = encoder_cfg(cfg)
     # a generator: Model draws one layer's tensors at a time
-    port = {"embed": _map(_tensor, tree["embed"]),
-            "layers": (_map(_tensor, t)
-                       for t in layer_trees(cfg, tree["decoder"])),
-            "final_norm": _map(_tensor, tree["final_norm"])}
+    port = {"embed": conv(tree["embed"], "embed"),
+            "layers": (conv(t, layer_path("decoder", cfg, i)) for i, t in
+                       enumerate(layer_trees(cfg, tree["decoder"]))),
+            "final_norm": conv(tree["final_norm"], "final_norm")}
     if "encoder" in tree:
-        port["encoder"] = (_map(_tensor, t) for t in layer_trees(
-            encoder_cfg(cfg), tree["encoder"]))
+        port["encoder"] = (conv(t, layer_path("encoder", ecfg, i))
+                           for i, t in enumerate(layer_trees(
+                               ecfg, tree["encoder"])))
     for key in ("unembed", "mtp", "enc_norm", "vision_proj"):
         if key in tree:
-            port[key] = _map(_tensor, tree[key])
+            port[key] = conv(tree[key], key)
     return Model(cfg, port, device=dev, train=train,
                  param_dtype=param_dtype)
 
@@ -397,18 +412,41 @@ def spec_of(t) -> tuple:
 
 
 @torch.no_grad()
-def _placed(cfg, comm, path, t):
-    """A DTensor master of ``t`` (the whole leaf at reference ``path``)
-    holding this rank's block, placed by the train-mode rules."""
+def _placed(cfg, comm, path, t, mode="train"):
+    """A DTensor of ``t`` (the whole leaf at reference ``path``, a tensor
+    or a numpy array) holding this rank's block, placed by the rules of
+    ``mode`` ("train" or "serve")."""
     from torch.distributed.tensor import DTensor
     from repro_torch.sharding.rules import (ShardingConfig, local_slices,
                                             param_spec, placements)
     spec = param_spec(cfg, comm.sizes, path, tuple(t.shape),
-                      ShardingConfig.for_mode("train"))
-    block = t.detach()[local_slices(tuple(t.shape), spec, comm.sizes,
-                                    comm.coord)]
-    return DTensor.from_local(block.clone(), comm.mesh,
-                              placements(spec, comm.names), run_check=False)
+                      ShardingConfig.for_mode(mode))
+    cut = local_slices(tuple(t.shape), spec, comm.sizes, comm.coord)
+    block = (_tensor(np.asarray(t)[cut]) if isinstance(t, np.ndarray)
+             else t.detach()[cut].clone())
+    return DTensor.from_local(block, comm.mesh, placements(spec, comm.names),
+                              run_check=False)
+
+
+def check_serve_placed(model, mesh):
+    """Raise unless every weight of ``model`` is a DTensor on ``mesh``
+    placed by the serve-mode rules -- drawn so (``init_model(...,
+    place=mesh_placer(cfg, mesh, mode="serve"))``) or loaded so
+    (``params_from_jax(..., mesh=)``).  A whole model is not cut here:
+    serving weights never exist whole on a rank of a mesh."""
+    from repro_torch.sharding.comm import MeshComm
+    from repro_torch.sharding.rules import ShardingConfig, param_spec
+    comm, sh = MeshComm(mesh), ShardingConfig.for_mode("serve")
+    for name, p in model.named_parameters():
+        path, _ = reference_key(model, name)
+        want = param_spec(model.cfg, comm.sizes, path, tuple(p.shape), sh)
+        if (not _is_dtensor(p) or p.device_mesh != mesh
+                or spec_of(p) != want):
+            raise ValueError(
+                f"{name} is not placed on the serve mesh by the serve-mode "
+                f"rules (want {want}); draw the model with init_model(..., "
+                "place=bridge.mesh_placer(cfg, mesh, mode='serve')) or load "
+                "it with params_from_jax(..., mesh=mesh)")
 
 
 def _leaves(tree, path):
@@ -426,10 +464,11 @@ def _map_leaves(tree, path, fn):
     return {k: _map_leaves(v, f"{path}/{k}", fn) for k, v in tree.items()}
 
 
-def mesh_placer(cfg, mesh):
+def mesh_placer(cfg, mesh, mode="train"):
     """``models.init_model``'s ``place=`` on ``mesh``: every leaf a
-    DTensor holding this rank's block, placed by the train-mode rules of
-    its reference path, cut as soon as it is drawn.  Each unit is drawn
+    DTensor holding this rank's block, placed by the rules of ``mode``
+    ("train", or "serve" for a serving model) on its reference path, cut
+    as soon as it is drawn.  Each unit is drawn
     twice: on the meta device first, which draws nothing and tells
     which leaf (path and shape) each draw becomes; then for real, in the
     same order from the same generator, each draw cut to its block and
@@ -456,13 +495,14 @@ def mesh_placer(cfg, mesh):
 
         def cut(t):
             path, shape = next(plan)
-            blocks[path] = _placed(cfg, comm, path, t.reshape(shape))
+            blocks[path] = _placed(cfg, comm, path, t.reshape(shape), mode)
             return torch.empty(t.shape, dtype=t.dtype, device="meta")
 
         with on_draw(cut):
             tree = draw(device, generator)
         return _map_leaves(tree, prefix, lambda path, leaf: blocks.pop(
-            path) if path in blocks else _placed(cfg, comm, path, leaf))
+            path) if path in blocks else _placed(cfg, comm, path, leaf,
+                                                 mode))
 
     return place
 
@@ -473,7 +513,8 @@ def place_on_mesh(model, mesh):
     holding this rank's block, placed by the train-mode rules of its
     reference path; a tied table stays one master.  Returns ``model``.
     A model drawn from a seed is placed as it is drawn
-    (``mesh_placer``)."""
+    (``mesh_placer``), one loaded from the reference's arrays as they
+    are read (``params_from_jax(..., mesh=)``)."""
     from repro_torch.sharding.comm import MeshComm
     comm = MeshComm(mesh)
     names = {id(p): n for n, p in model.named_parameters()}

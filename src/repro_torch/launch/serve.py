@@ -33,6 +33,17 @@ slab engine, ``--engine legacy``) on the card.
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch deepseek-v3-671b --batch 8 --requests 16 --report
 
+    # on a (data 2, model 2) serve mesh of 4 gloo ranks on the CPU
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 4 -m repro_torch.launch.serve --arch qwen3-1.7b \
+        --reduced --device cpu --backend gloo --mesh-shape 2x2 \
+        --batch 2 --requests 4 --prompt-len 16 --new-tokens 8
+
+    # full-width qwen3-1.7b on (2, 2): 4 gloo ranks sharing one card
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 4 -m repro_torch.launch.serve --arch qwen3-1.7b \
+        --backend gloo --mesh-shape 2x2 --batch 4 --new-tokens 16
+
     # speculative decode with the MTP head (4-token verify chunks) and
     # the radix prefix cache, streamed through the front door
     PYTHONPATH=src python -m repro_torch.launch.serve \\
@@ -53,6 +64,22 @@ sharded store or the legacy npz; --step, default the latest).  Prompts come from
 ``synthetic_tokens`` seeded by --seed.  The default device is the card;
 a machine without one raises unless --device cpu is given.
 
+--mesh-shape DxM serves on a (data D, model M) mesh over the D x M
+ranks torchrun started (``launch.mesh.make_serve_mesh``): the weights
+drawn (or restored) straight to each rank's blocks by the serve-mode
+rules, the paged pool placed by ``rules.pool_spec``, the heads, ffn,
+experts and vocabulary split over "model" (``serve.scheduler``).
+--backend nccl puts one rank on each card, gloo runs on the CPU or
+lets ranks share a card.  Without --reduced under torchrun and without
+--mesh-shape, the full config serves on the production mesh (data 16,
+model 16; ``make_production_mesh``), which needs 256 ranks.  One
+process without --mesh-shape serves on one device.  Rank 0 prints;
+every rank returns the outputs.  A caller that has already joined a
+process group (a test's ranks) keeps it; otherwise the launcher joins
+torchrun's and leaves it at the end.  The engines scope the activation
+mesh and the serve topology to their own calls, so nothing is left set
+for an in-process caller.
+
 The continuous engine's options: --prefix-cache (shared prompt
 prefixes alias already-written KV pages instead of re-prefilling;
 attention/MLA stacks), --spec-decode K (K-token verify chunks drafted
@@ -64,14 +91,20 @@ sync).  The lockstep engine refuses all three.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.configs import ARCHITECTURES, one_card_config, smoke_config
+from repro_torch.configs import (ARCHITECTURES, get_config, one_card_config,
+                                 smoke_config)
 from repro_torch.data import synthetic_tokens
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import (BACKENDS, check_production_world,
+                                     init_from_env, make_production_mesh,
+                                     make_serve_mesh)
 from repro_torch.models import check_token_serving, init_model
 from repro_torch.serve import (FrontDoor, SamplingConfig, make_engine,
                                make_engine_from_checkpoint)
@@ -121,10 +154,32 @@ def main(argv=None):
                     help="continuous engine: serve through the front "
                          "door, printing each request's tokens as its "
                          "decode chunks sync")
+    ap.add_argument("--mesh-shape", default=None, metavar="DxM",
+                    help="serve on a (data D, model M) mesh over the D x M "
+                         "ranks torchrun started (default: the production "
+                         "16x16 mesh for the full config under torchrun, "
+                         "else one device)")
+    ap.add_argument("--backend", default="nccl", choices=BACKENDS,
+                    help="the mesh's process group: nccl (one rank a "
+                         "card) or gloo (the CPU, or ranks sharing a card)")
     args = ap.parse_args(argv)
-    device = resolve_device(args.device)
     if not args.requests:
         args.requests = args.batch
+    shape = None
+    if args.mesh_shape:
+        try:
+            shape = tuple(int(v) for v in args.mesh_shape.lower().split("x"))
+            if len(shape) != 2 or min(shape) < 1:
+                raise ValueError
+        except ValueError:
+            raise SystemExit(f"--mesh-shape {args.mesh_shape!r}: expected "
+                             "DxM, e.g. 2x4") from None
+    elif not args.reduced and "WORLD_SIZE" in os.environ:
+        try:
+            check_production_world(False, int(os.environ["WORLD_SIZE"]))
+        except RuntimeError as e:
+            raise SystemExit(str(e)) from None
+        shape = "production"
 
     if args.engine == "legacy" and (args.prefix_cache or args.stream
                                     or args.spec_decode):
@@ -141,6 +196,8 @@ def main(argv=None):
 
     if args.reduced:
         cfg = smoke_config(args.arch).with_overrides(dtype="float32")
+    elif shape == "production":
+        cfg = get_config(args.arch)
     else:
         cfg = one_card_config(args.arch)
     try:
@@ -160,17 +217,58 @@ def main(argv=None):
     if args.engine == "continuous":
         engine_kw = dict(page_size=args.page_size, decode_chunk=decode_chunk,
                          prefix_cache=args.prefix_cache, spec_decode=k)
+    mesh, device, own_group = None, resolve_device(args.device), False
+    if shape is not None:
+        mesh, device, own_group = _join_mesh(args, shape)
+    say = print if mesh is None or dist.get_rank() == 0 else (
+        lambda *a, **k: None)
     engine_kw.update(engine=args.engine, batch_size=args.batch,
                      max_len=max_len, eos_id=args.eos_id, sampling=sampling,
-                     seed=args.seed, device=device)
+                     seed=args.seed, device=device, mesh=mesh)
+    try:
+        return _serve(args, cfg, engine_kw, say)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _join_mesh(args, shape):
+    """(mesh, this rank's device, whether the group was joined here):
+    a caller's process group is kept, else torchrun's is joined."""
+    def build(dev_type):
+        if shape == "production":
+            return make_production_mesh(device_type=dev_type)
+        return make_serve_mesh(*shape, device_type=dev_type)
+
+    try:
+        if dist.is_initialized():
+            device = resolve_device(args.device)
+            if device.type == "cuda":
+                device = torch.device("cuda", torch.cuda.current_device())
+            return build(device.type), device, False
+        mesh, device = init_from_env(args.backend, args.device, mesh=build)
+        return mesh, device, True
+    except RuntimeError as e:
+        raise SystemExit(str(e)) from None
+
+
+def _serve(args, cfg, engine_kw, say):
+    device, mesh = engine_kw["device"], engine_kw["mesh"]
+    k = args.spec_decode
     if args.restore:
         eng = make_engine_from_checkpoint(args.restore, cfg, step=args.step,
                                           **engine_kw)
-        print(f"serving checkpoint step {eng.restored_step} from "
-              f"{args.restore}")
+        say(f"serving checkpoint step {eng.restored_step} from "
+            f"{args.restore}")
     else:
-        eng = make_engine(cfg, init_model(cfg, seed=args.seed,
-                                          device=device), **engine_kw)
+        place = None
+        if mesh is not None:
+            from repro_torch.bridge import mesh_placer
+            place = mesh_placer(cfg, mesh, mode="serve")
+            say(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} "
+                f"over {dist.get_world_size()} ranks ({device.type})")
+        eng = make_engine(cfg, init_model(cfg, seed=args.seed, device=device,
+                                          place=place), **engine_kw)
     n_req = args.requests
     prompts = synthetic_tokens(np.random.default_rng(args.seed), n_req,
                                args.prompt_len, cfg.vocab_size)
@@ -179,15 +277,15 @@ def main(argv=None):
         outs = eng.generate(prompts, args.new_tokens).cpu().tolist()
         dt = time.time() - t0
         n_tok = sum(len(o) for o in outs)
-        print(f"{n_req} seqs x {args.new_tokens} tokens in {dt:.2f}s "
-              f"({n_tok/dt:.1f} tok/s incl. compile)")
+        say(f"{n_req} seqs x {args.new_tokens} tokens in {dt:.2f}s "
+            f"({n_tok/dt:.1f} tok/s incl. compile)")
         if args.report:
             # the lockstep slab has no phase split: one prefill
             # dispatch, then a blocking round-trip per token
             spt = eng.host_syncs / max(1, n_tok)
-            print(f"report: legacy {eng.dispatches} dispatches / "
-                  f"{eng.host_syncs} host syncs ({spt:.3f} syncs/token)")
-        print(outs)
+            say(f"report: legacy {eng.dispatches} dispatches / "
+                f"{eng.host_syncs} host syncs ({spt:.3f} syncs/token)")
+        say(outs)
         return outs
     if args.stream:
         fd = FrontDoor(eng)
@@ -195,7 +293,7 @@ def main(argv=None):
         outs = []
         for i, h in enumerate(handles):
             toks = list(h)           # pumps; tokens arrive as they sync
-            print(f"req {i} (ttft {h.ttft * 1e3:.0f}ms): {toks}")
+            say(f"req {i} (ttft {h.ttft * 1e3:.0f}ms): {toks}")
             outs.append(toks)
     else:
         outs = [o.tolist()
@@ -211,24 +309,24 @@ def main(argv=None):
         sd = st["spec_decode"]
         extra += (f", spec k={sd['k']} acceptance {sd['acceptance']:.0%} "
                   f"({sd['tokens_per_step']:.2f} tok/verify)")
-    print(f"{n_req} requests x {args.new_tokens} tokens in "
-          f"{dt:.2f}s ({n_tok/dt:.1f} tok/s incl. compile, "
-          f"{st['syncs_per_token']:.3f} host syncs/token, "
-          f"pool {st['pool_pages_in_use']} pages live, "
-          f"{st['pool_bytes']} pool bytes, "
-          f"{st['state_bytes']} recurrent state bytes{extra})")
+    say(f"{n_req} requests x {args.new_tokens} tokens in "
+        f"{dt:.2f}s ({n_tok/dt:.1f} tok/s incl. compile, "
+        f"{st['syncs_per_token']:.3f} host syncs/token, "
+        f"pool {st['pool_pages_in_use']} pages live, "
+        f"{st['pool_bytes']} pool bytes, "
+        f"{st['state_bytes']} recurrent state bytes{extra})")
     if args.report:
         kernel = "cuda" if device.type == "cuda" else "plain"
-        print(f"report: decode_kernel={kernel} "
-              f"prefill {st['prefill_dispatches']} dispatches / "
-              f"{st['prefill_host_syncs']} host syncs "
-              f"({st['prefill_host_syncs'] / n_req:.2f} "
-              f"syncs/request), "
-              f"decode {st['decode_dispatches']} dispatches / "
-              f"{st['decode_host_syncs']} host syncs "
-              f"({st['decode_host_syncs'] / max(1, n_tok):.3f} "
-              f"syncs/token)")
-    print(outs)
+        say(f"report: decode_kernel={kernel} "
+            f"prefill {st['prefill_dispatches']} dispatches / "
+            f"{st['prefill_host_syncs']} host syncs "
+            f"({st['prefill_host_syncs'] / n_req:.2f} "
+            f"syncs/request), "
+            f"decode {st['decode_dispatches']} dispatches / "
+            f"{st['decode_host_syncs']} host syncs "
+            f"({st['decode_host_syncs'] / max(1, n_tok):.3f} "
+            f"syncs/token)")
+    say(outs)
     return outs
 
 

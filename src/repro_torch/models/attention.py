@@ -41,6 +41,20 @@ attention core -- the flash kernel on the card -- on its local heads,
 and ``wo`` is row-parallel, its partial sums all-reduced over
 ``"model"``.  Otherwise (the head_dim fallback) the weights are
 gathered and the layer runs replicated.
+
+Serving on a mesh (a serve topology registered, ``sharding.ctx``) takes
+the same form in the paged and slab branches.  Paged: the pool holds
+this rank's block of each leaf (``ctx.Placed``); where the kv heads are
+cut, k / v are projected column-parallel and the paged kernel runs on
+the rank's own heads against its own shard; where the pool is cut on
+head_dim (fewer kv heads than ``"model"``), every rank projects every
+kv head, writes its head_dim block of the new k / v, and the pages of
+the call's slots are gathered over ``"model"`` before the kernel
+(``ctx.gather_pages``).  MLA's latent and rope pools are cut on their
+widths: ``apply_mla`` writes its block and reads the slots' pages
+gathered, with its weights gathered and the kernel replicated.  Slab:
+the layer reads its cache gathered over ``"model"`` (``transformer``),
+projects every kv head and attends on its own q heads.
 """
 from __future__ import annotations
 
@@ -53,6 +67,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_decode import (paged_flash_decode,
                                               paged_flash_decode_mla)
 from repro_torch.models.layers import apply_rope, dense_init, rmsnorm
+from repro_torch.sharding import ctx as shctx
 from repro_torch.sharding.comm import copy_to, reduce_from, shard_dims, use
 
 MODEL = ("model",)
@@ -241,6 +256,32 @@ def _paged_append(pool_leaf, write_idx, new):
     return pool_leaf.index_copy_(0, write_idx.reshape(-1), flat)
 
 
+def _paged_update(cache, new, write_idx, paged, comm=None):
+    """Write the new entries {name: (B, S, ...)} into their pooled
+    leaves and return (the pools to read, in ``new``'s order, and their
+    ``PagedView``).  On a mesh (``cache`` a ``ctx.Placed``), an entry
+    computed whole on every rank of the model group is cut to this
+    rank's block of its leaf before the write, and the pages the call's
+    slots map are then gathered whole for the read; an entry already at
+    the block's width (column-parallel k / v of a heads-cut pool) is
+    written and read as the rank's own."""
+    split = getattr(cache, "split", {})
+    cut = False
+    for name, t in new.items():
+        dim = split.get(name)
+        if dim is not None and t.shape[dim + 1] != cache[name].shape[dim]:
+            t = shctx.own_update(t, comm, dim + 1)
+            cut = True
+        _paged_append(cache[name], write_idx, t)
+    pools = [cache[name] for name in new]
+    if not cut:
+        return pools, paged
+    pools, table = shctx.gather_pages(pools, paged.page_table,
+                                      paged.page_size, comm,
+                                      [split.get(n) for n in new])
+    return pools, PagedView(table, paged.page_size)
+
+
 # --------------------------------------------------------------------------
 # GQA attention layer
 # --------------------------------------------------------------------------
@@ -376,37 +417,51 @@ def apply_attention(cfg, p, x, *, positions, cache, rope, paged=None,
     Both through ``chunked_attention`` (the flash kernel on the card).
     rope: ``rope_angles`` of the call's positions."""
     q, k, v = _qkv(cfg, p, x, rope)
+    return _out(cfg, p, _attend(cfg, q, k, v, positions=positions,
+                                cache=cache, paged=paged,
+                                write_idx=write_idx, mode=mode,
+                                cache_pos=cache_pos, causal=causal))
+
+
+def _attend(cfg, q, k, v, *, positions, cache, paged, write_idx, mode,
+            cache_pos, causal, heads=None, comm=None):
+    """``apply_attention``'s core on q (B, S, h, hd) and the new k, v (B,
+    S, hk, hd) after RoPE: the cache write and the attention, by mode.
+    ``heads`` (a slice or an index list) picks the kv heads the q heads
+    read out of k / v / the pools (a mesh form's local q heads), after
+    the write; ``comm`` places a pool's write and read on a mesh
+    (``_paged_update``)."""
+    pick = (lambda t, dim: t) if heads is None else (    # noqa: E731
+        lambda t, dim: t[(slice(None),) * dim + (heads,)].contiguous())
+    dt = q.dtype
     if mode == "train":
-        S = x.shape[1]
-        out = chunked_attention(q, k, v, q_positions=range(S),
-                                kv_positions=range(S), causal=causal,
-                                window=cfg.swa_window if causal else 0)
-    elif paged is not None:
-        k_pool = _paged_append(cache["k"], write_idx, k)
-        v_pool = _paged_append(cache["v"], write_idx, v)
-        out = paged_flash_decode(q, k_pool.to(x.dtype), v_pool.to(x.dtype),
-                                 paged.page_table, positions,
-                                 page_size=paged.page_size,
+        S = q.shape[1]
+        return chunked_attention(q, pick(k, 2), pick(v, 2),
+                                 q_positions=range(S), kv_positions=range(S),
+                                 causal=causal,
+                                 window=cfg.swa_window if causal else 0)
+    if paged is not None:
+        (k_pool, v_pool), view = _paged_update(cache, {"k": k, "v": v},
+                                               write_idx, paged, comm)
+        return paged_flash_decode(q, pick(k_pool, 1).to(dt),
+                                  pick(v_pool, 1).to(dt), view.page_table,
+                                  positions, page_size=view.page_size,
+                                  window=cfg.swa_window)
+    S, max_len = q.shape[1], cache["k"].shape[1]
+    start = 0 if mode == "prefill" else int(cache_pos)
+    if start + S > max_len:
+        raise ValueError(f"slab attention: {S} keys at {start} overrun "
+                         f"a {max_len}-long cache")
+    cache["k"][:, start:start + S] = k
+    cache["v"][:, start:start + S] = v
+    if mode == "prefill":
+        return chunked_attention(q, pick(k, 2), pick(v, 2),
+                                 q_positions=range(S), kv_positions=range(S),
                                  window=cfg.swa_window)
-    else:
-        S, max_len = x.shape[1], cache["k"].shape[1]
-        start = 0 if mode == "prefill" else int(cache_pos)
-        if start + S > max_len:
-            raise ValueError(f"slab attention: {S} keys at {start} overrun "
-                             f"a {max_len}-long cache")
-        cache["k"][:, start:start + S] = k
-        cache["v"][:, start:start + S] = v
-        if mode == "prefill":
-            out = chunked_attention(q, k, v, q_positions=range(S),
-                                    kv_positions=range(S),
-                                    window=cfg.swa_window)
-        else:
-            out = chunked_attention(
-                q, cache["k"].to(x.dtype), cache["v"].to(x.dtype),
-                q_positions=range(start, start + S),
-                kv_positions=range(max_len), window=cfg.swa_window,
-                kv_valid_len=start + S)
-    return _out(cfg, p, out)
+    return chunked_attention(
+        q, pick(cache["k"], 2).to(dt), pick(cache["v"], 2).to(dt),
+        q_positions=range(start, start + S), kv_positions=range(max_len),
+        window=cfg.swa_window, kv_valid_len=start + S)
 
 
 def apply_cross_attention(cfg, p, x, *, enc_out, cache):
@@ -454,17 +509,25 @@ def _local_kv_heads(h_loc, first, group):
     return idx, 1
 
 
-def apply_attention_mesh(cfg, p, x, comm, *, rope, causal=True):
-    """The train-mode ``apply_attention`` of DTensor masters ``p`` on x
-    (B, S, d) replicated over ``"model"`` (module docstring).  The
-    replicated-kv form projects k and v outside the tensor-parallel
+def apply_attention_mesh(cfg, p, x, comm, *, rope, causal=True,
+                         positions=None, cache=None, paged=None,
+                         write_idx=None, mode="train", cache_pos=0):
+    """``apply_attention`` of DTensor weights ``p`` on x (B, S, d)
+    replicated over ``"model"`` (module docstring), in any of its modes.
+    The replicated-kv form projects k and v outside the tensor-parallel
     region, so their weights' gradients stay replicated; the q / k norm
-    scales used inside it sum their gradients over ``"model"``."""
+    scales used inside it sum their gradients over ``"model"``.  A slab
+    cache (read whole over ``"model"``) takes every kv head, so its kv
+    form is the replicated one."""
+    core = dict(positions=positions, cache=cache, paged=paged,
+                write_idx=write_idx, mode=mode, cache_pos=cache_pos,
+                causal=causal, comm=comm)
     if shard_dims(p["wq"], comm).get("model") != 1:
         w = {k: use(v, comm) for k, v in p.items()}
-        return apply_attention(cfg, w, x, positions=None, cache=None,
-                               rope=rope, mode="train", causal=causal)
-    kv_split = shard_dims(p["wk"], comm).get("model") == 1
+        q, k, v = _qkv(cfg, w, x, rope)
+        return _out(cfg, w, _attend(cfg, q, k, v, **core))
+    kv_split = (shard_dims(p["wk"], comm).get("model") == 1
+                and (mode == "train" or paged is not None))
     tp = {"wq", "bq", "wo"} | ({"wk", "wv", "bk", "bv"} if kv_split
                                else set())
     in_tp = {"q_norm"} | ({"k_norm"} if kv_split else set())
@@ -475,17 +538,14 @@ def apply_attention_mesh(cfg, p, x, comm, *, rope, causal=True):
     q = apply_rope(_q(cfg, w, xin), rope)
     h_loc = q.shape[2]
     first = comm.index("model") * h_loc
+    heads = None
     if kv_split:
         k, v = _kv(cfg, w, xin)
     else:
         hp, _ = _padded_heads(cfg)
         k, v = (copy_to(t, comm, MODEL) for t in _kv(cfg, w, x))
         heads, _ = _local_kv_heads(h_loc, first, hp // cfg.num_kv_heads)
-        k, v = k[:, :, heads], v[:, :, heads].contiguous()
-    S = x.shape[1]
-    out = chunked_attention(q, apply_rope(k, rope), v, q_positions=range(S),
-                            kv_positions=range(S), causal=causal,
-                            window=cfg.swa_window if causal else 0)
+    out = _attend(cfg, q, apply_rope(k, rope), v, heads=heads, **core)
     _, head_mask = _padded_heads(cfg)
     if head_mask is not None:
         out = out * torch.from_numpy(head_mask[first:first + h_loc]).to(
@@ -572,7 +632,7 @@ def mla_scale(cfg) -> float:
 
 
 def apply_mla(cfg, p, x, *, positions, cache, rope, paged=None,
-              write_idx=None, mode="decode", cache_pos=0):
+              write_idx=None, mode="decode", cache_pos=0, comm=None):
     """MLA over the serving cache, or without one in training.
 
     Paged (``paged`` given; decode steps and prefill chunks), absorbed:
@@ -596,18 +656,20 @@ def apply_mla(cfg, p, x, *, positions, cache, rope, paged=None,
     whole slab, each masked causally by its own position -- the
     absorbed form in plain ops, as the reference computes it.
     rope: the angles of ``rope_freqs(qk_rope_head_dim)`` at the call's
-    positions."""
+    positions.  ``comm``: a paged pool cut over a mesh's ``"model"``
+    (this rank writes its block, the slots' pages are read gathered;
+    ``_paged_update``)."""
     m = cfg.mla
     dt = x.dtype
     q_nope, q_rope, ckv, krope = _mla_qkv(cfg, p, x, rope)
     if paged is not None:
-        ckv_pool = _paged_append(cache["ckv"], write_idx, ckv)
-        krope_pool = _paged_append(cache["krope"], write_idx, krope)
+        (ckv_pool, krope_pool), view = _paged_update(
+            cache, {"ckv": ckv, "krope": krope}, write_idx, paged, comm)
         q_lat = torch.einsum("bshn,rhn->bshr", q_nope, p["w_uk"].to(dt))
         out_lat = paged_flash_decode_mla(
             q_lat.contiguous(), q_rope.contiguous(), ckv_pool.to(dt),
-            krope_pool.to(dt), paged.page_table, positions,
-            page_size=paged.page_size, scale=mla_scale(cfg),
+            krope_pool.to(dt), view.page_table, positions,
+            page_size=view.page_size, scale=mla_scale(cfg),
             window=cfg.swa_window)
         out = torch.einsum("bshr,rhv->bshv", out_lat, p["w_uv"].to(dt))
     elif mode in ("train", "prefill"):

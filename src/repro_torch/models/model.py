@@ -25,7 +25,12 @@ mesh step registers: each rank's batch rows, the layers' mesh forms
 over ``"model"`` -- its logits are then this rank's vocabulary block,
 ``out["vocab_start"]`` its first row (``train.loss`` reduces the
 log-sum-exp over the blocks) -- and the vision projector, the final
-norms and the MTP head's own weights gathered at use.
+norms and the MTP head's own weights gathered at use.  A serving
+``Model`` of DTensor weights (placed by the serve-mode rules) runs the
+serving modes under a serve topology (``sharding.ctx.serve_topology``)
+the same way, and its logits are gathered whole over ``"model"`` for
+the argmax and the sampling; ``mtp_draft`` gathers the head's weights
+at use and runs it replicated.
 """
 from __future__ import annotations
 
@@ -42,7 +47,7 @@ from repro_torch.models.layers import (apply_embed, apply_embed_mesh,
                                        rmsnorm, rope_angles, rope_freqs,
                                        truncated_normal, vocab_start)
 from repro_torch.sharding import ctx as shctx
-from repro_torch.sharding.comm import use
+from repro_torch.sharding.comm import all_gather, use
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 VISION_EMBED_DIM = 1024      # CLIP ViT-L/14-336 output width (stubbed)
@@ -406,6 +411,16 @@ def _logits(cfg, model: Model, x, comm=None):
     return apply_unembed_mesh(model.unembed_f32, h, comm)
 
 
+def _whole_logits(cfg, model: Model, x, comm=None):
+    """``_logits`` over the whole vocabulary: a vocab-parallel block is
+    gathered over ``"model"`` (the argmax and the sampling read every
+    row)."""
+    lg = _logits(cfg, model, x, comm)
+    if comm is not None and vocab_start(model.unembed_f32, comm) is not None:
+        lg = all_gather(lg, comm, "model", lg.dim() - 1)
+    return lg
+
+
 def _vision_proj(p, v, dt, comm=None):
     """The projector ``p``: gelu (tanh form, as ``jax.nn.gelu``) between
     two affine maps, 1024 -> d -> d."""
@@ -476,8 +491,8 @@ def apply_model(cfg, model: Model, tokens, *, cache=None, cache_pos=None,
         if mode == "prefill" and cache_pos != 0:
             raise ValueError("a slab prefill fills the cache from 0")
     dt = compute_dtype(cfg)
-    # a mesh step's activation mesh (module docstring)
-    comm = shctx.get_comm() if mode == "train" else None
+    # a mesh step's activation mesh, or a serve topology (module docstring)
+    comm = shctx.layer_comm(mode)
     enc_out = None
     if cfg.is_encoder_decoder and src_embeds is not None:
         enc_out = _encode(cfg, model, torch.as_tensor(
@@ -511,9 +526,12 @@ def apply_model(cfg, model: Model, tokens, *, cache=None, cache_pos=None,
         x = x[:, -1:]
     out = {"hidden": x, "aux": 0.0 if aux is None else aux}
     if logits:
-        out["logits"] = _logits(cfg, model, x, comm)
-        if comm is not None:
-            out["vocab_start"] = vocab_start(model.unembed_f32, comm)
+        if mode == "train":
+            out["logits"] = _logits(cfg, model, x, comm)
+            if comm is not None:
+                out["vocab_start"] = vocab_start(model.unembed_f32, comm)
+        else:
+            out["logits"] = _whole_logits(cfg, model, x, comm)
     if mode == "train" and model.mtp is not None:
         out["mtp_logits"] = _mtp_train(cfg, model, x, tokens, comm)
     return out
@@ -589,13 +607,15 @@ def _mtp_self_attention(cfg, p, x):
     return out.reshape(B, S, h * v) @ p["wo"].to(dt).reshape(h * v, -1)
 
 
-def _mtp_block(cfg, layer, x):
+def _mtp_block(cfg, layer, x, comm=None):
     """norm1 -> self-only attention -> residual -> norm2 -> MLP ->
-    residual: the decode-time twin of the train-mode block."""
-    h = rmsnorm(layer.norm1, x, cfg.norm_eps)
-    x = x + _mtp_self_attention(cfg, layer.mixer, h)
-    h = rmsnorm(layer.norm2, x, cfg.norm_eps)
-    return x + apply_mlp(layer.ffn, h, gated=cfg.mlp_gated)
+    residual: the decode-time twin of the train-mode block; on a mesh
+    (``comm``) its weights are gathered at use."""
+    w = lambda p: {k: use(v, comm) for k, v in p.items()}   # noqa: E731
+    h = rmsnorm(use(layer.norm1, comm), x, cfg.norm_eps)
+    x = x + _mtp_self_attention(cfg, w(layer.mixer), h)
+    h = rmsnorm(use(layer.norm2, comm), x, cfg.norm_eps)
+    return x + apply_mlp(w(layer.ffn), h, gated=cfg.mlp_gated)
 
 
 def mtp_draft(cfg, model: Model, hidden, tokens, k):
@@ -615,12 +635,14 @@ def mtp_draft(cfg, model: Model, hidden, tokens, k):
         raise ValueError("mtp_draft needs cfg.mtp_depth > 0 (no MTP head "
                          "in this architecture)")
     dt = compute_dtype(cfg)
+    comm = shctx.layer_comm("decode")
     h, t = hidden.to(dt), tokens
     drafts = []
     for _ in range(k):
-        hm = _mtp_in(cfg, model.mtp, h, apply_embed(model.embed, t, dt))
-        hm = _mtp_block(cfg, model.mtp.block, hm)
-        t = torch.argmax(_logits(cfg, model, hm), dim=-1).to(torch.int32)
+        hm = _mtp_in(cfg, model.mtp, h, _embed(model, t, dt, comm), comm)
+        hm = _mtp_block(cfg, model.mtp.block, hm, comm)
+        t = torch.argmax(_whole_logits(cfg, model, hm, comm),
+                         dim=-1).to(torch.int32)
         h = hm
         drafts.append(t[:, 0])
     return torch.stack(drafts, dim=1), h

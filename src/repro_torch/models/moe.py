@@ -3,8 +3,11 @@
 Port of ``repro.models.moe``.  ``apply_moe`` dispatches as the
 reference does: without an activation mesh, the capacity-based dense
 dispatch (``apply_moe_dense``), for serving and training; with one
-registered (``sharding.ctx``, the mesh train step), the expert-parallel
-``apply_moe_ep`` over DTensor masters.  ``update_router_bias`` is the
+registered (``sharding.ctx``: the mesh train step, or a serve
+topology), the expert-parallel ``apply_moe_ep`` over DTensor weights.
+A serving call's batch (a decode step of every slot, a prefill chunk of
+one) is replicated over the replicas (``ctx.batch_split(False)``), so
+it takes the replicated-tokens branch: each rank its experts' share.  ``update_router_bias`` is the
 trainer's aux-free balancing step.
 
 Router: softmax over experts, top-k, weights renormalised over the

@@ -38,7 +38,12 @@ ffn (``attention.apply_attention_mesh``, ``layers.apply_mlp_mesh``), the
 MoE expert-parallel (``moe.apply_moe_ep``), and everything else -- MLA,
 Mamba, RWKV-6, cross-attention, the norms -- gathered at use
 (``sharding.comm.use``) and run replicated.  The gathers run inside the
-layer, so under remat they are redone in the recomputation.
+layer, so under remat they are redone in the recomputation.  Under a
+serve topology the serving modes take the same forms (``ctx.layer_comm``)
+over the weights placed by the serve-mode rules: the paged pool is read
+as ``attention`` sets out, and a slab cache cut over ``"model"``
+(``ctx.Placed``) is gathered for the layer and its block written back
+after it.
 """
 from __future__ import annotations
 
@@ -201,10 +206,19 @@ def apply_layer(cfg, layer: Layer, x, *, positions, cache, paged,
     forward.  ``causal`` False: an encoder layer.  A layer with a
     ``cross``-attention runs it after the mixer, over ``enc_out`` (train
     and prefill) or its cross cache (decode)."""
-    # a mesh step's activation mesh (module docstring): the weights
-    # read through ``use`` are gathered, the tensor-parallel forms
-    # selected; without one ``use`` is the identity
-    comm = shctx.get_comm() if mode == "train" else None
+    # a mesh step's activation mesh or a serve topology (module
+    # docstring): the weights read through ``use`` are gathered, the
+    # tensor-parallel forms selected; without one ``use`` is the identity
+    comm = shctx.layer_comm(mode)
+    if comm is not None and paged is None and isinstance(cache,
+                                                         shctx.Placed):
+        full = shctx.gather_placed(cache, comm)
+        out = apply_layer(cfg, layer, x, positions=positions, cache=full,
+                          paged=paged, write_idx=write_idx, rope=rope,
+                          mode=mode, cache_pos=cache_pos, enc_out=enc_out,
+                          causal=causal)
+        shctx.scatter_placed(cache, full, comm)
+        return out
     gather = (lambda p: p) if comm is None else (           # noqa: E731
         lambda p: {k: use(v, comm) for k, v in p.items()})
     norm = lambda w, t: rmsnorm(use(w, comm), t, cfg.norm_eps)  # noqa: E731
@@ -225,10 +239,13 @@ def apply_layer(cfg, layer: Layer, x, *, positions, cache, paged,
         x = x + attn_lib.apply_mla(cfg, gather(layer.mixer), h,
                                    positions=positions, cache=cache,
                                    paged=paged, write_idx=write_idx,
-                                   rope=rope, mode=mode, cache_pos=cache_pos)
+                                   rope=rope, mode=mode, cache_pos=cache_pos,
+                                   comm=comm)
     elif comm is not None:
-        x = x + attn_lib.apply_attention_mesh(cfg, layer.mixer, h, comm,
-                                              rope=rope, causal=causal)
+        x = x + attn_lib.apply_attention_mesh(
+            cfg, layer.mixer, h, comm, rope=rope, causal=causal,
+            positions=positions, cache=cache, paged=paged,
+            write_idx=write_idx, mode=mode, cache_pos=cache_pos)
     else:
         x = x + attn_lib.apply_attention(cfg, layer.mixer, h,
                                          positions=positions, cache=cache,

@@ -31,6 +31,18 @@ slot that must write into a page it shares gets a fresh page whose rows
 are copied on the device from the shared one, in every pooled leaf; the
 shared page's bytes are never touched.  Page 0 is never allocated,
 aliased or refcounted.
+
+On a serve mesh (``mesh=``), each rank allocates only its block of
+each pooled leaf, placed by ``sharding.rules.pool_spec``: k / v cut
+over ``"model"`` on the kv heads where they divide, else on head_dim;
+MLA's latent and rope widths over ``"model"``; the token axis whole,
+so the pool is replicated over pod x data; per-slot leaves whole on
+every rank.  A pooled layer's cache is then a ``sharding.ctx.Placed``
+whose ``split`` names each leaf's cut dim.  Allocation stays host
+bookkeeping run alike on every rank; ``cow_fork`` copies a page within
+each rank's blocks.  ``pool_bytes()`` is the whole pool's size,
+``pool_bytes_by_device()`` each rank's resident bytes (an all-gather
+over the ranks, keyed by rank; on one device, that device's).
 """
 from __future__ import annotations
 
@@ -38,10 +50,12 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import PagedView
 from repro_torch.models.model import init_cache
+from repro_torch.sharding.ctx import place_cache
 
 __all__ = ["PagedView", "PagedKVCache"]
 
@@ -51,7 +65,7 @@ class PagedKVCache:
 
     def __init__(self, cfg, *, slots: int, max_len: int, page_size: int = 16,
                  num_pages: Optional[int] = None, dtype=torch.float32,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         if max_len % page_size:
             raise ValueError(
                 f"max_len={max_len} must be a multiple of "
@@ -68,14 +82,32 @@ class PagedKVCache:
             raise ValueError("need at least one real page beyond the "
                              "reserved trash page 0")
         self.device = resolve_device(device)
-        self.cache = init_cache(cfg, dtype, pool=(self.num_pages, page_size),
-                                slots=slots, device=self.device)
+        self.mesh = mesh
         # which layers hold per-slot (recurrent) leaves, not pooled ones
         self._per_slot = [kind != "attn" for kind, _ in cfg.layer_pattern()]
+        pool = (self.num_pages, page_size)
+        shapes = init_cache(cfg, dtype, pool=pool, slots=slots,
+                            device="meta")
+        self._pool_bytes = sum(t.numel() * t.element_size()
+                               for layer, p in zip(shapes, self._per_slot)
+                               if not p for t in layer.values())
+        self.cache = (init_cache(cfg, dtype, pool=pool, slots=slots,
+                                 device=self.device) if mesh is None
+                      else self._placed(shapes))
         self._table = np.zeros((slots, self.table_width), np.int32)
         self._free = list(range(self.num_pages - 1, 0, -1))  # stack, no 0
         self._owned = {s: [] for s in range(slots)}
         self._refs: dict = {}                # page -> refcount (live only)
+
+    def _placed(self, shapes) -> list:
+        """This rank's blocks of the pool (``rules.pool_spec``; a
+        per-slot leaf's slot axis is 0), zeros."""
+        from repro_torch.sharding.comm import MeshComm
+        from repro_torch.sharding.rules import pool_spec
+        comm = MeshComm(self.mesh)
+        return place_cache(shapes, lambda i, name, shape: pool_spec(
+            self.cfg, comm.sizes, f"layers/{i}/{name}", shape,
+            0 if self._per_slot[i] else -1), comm, self.device)
 
     # ---- host bookkeeping -----------------------------------------------
     @property
@@ -220,8 +252,25 @@ class PagedKVCache:
                    if p == per_slot for t in layer.values())
 
     def pool_bytes(self) -> int:
-        """Resident bytes of the pooled (paged) leaves."""
-        return self._bytes(False)
+        """Bytes of the whole pool (the pooled, paged leaves), however
+        it is placed."""
+        return self._pool_bytes
+
+    def pool_bytes_by_device(self) -> dict:
+        """Resident pooled bytes of each device holding a block: on a
+        mesh {rank: its blocks' bytes}, gathered from every rank (a
+        collective); on one device {device: the whole pool}."""
+        local = self._bytes(False)
+        if self.mesh is None:
+            return {str(self.device): local}
+        got = [None] * dist.get_world_size()
+        dist.all_gather_object(got, local)
+        return dict(enumerate(got))
+
+    def pool_bytes_per_device(self) -> int:
+        """The most pooled bytes any one device holds: ``pool_bytes()``
+        on one device, its share under ``pool_spec`` on a mesh."""
+        return max(self.pool_bytes_by_device().values())
 
     def state_bytes(self) -> int:
         """Resident bytes of the per-slot recurrent leaves, all slots."""

@@ -1,10 +1,11 @@
 """Continuous-batching scheduler over the paged KV cache.
 
-Port of ``repro.serve.scheduler.ContinuousScheduler`` without a mesh.
-A request queue, slot admission the moment a slot retires, chunked
-prefill, and a fused decode tick: ``decode_chunk`` sample -> decode
-steps queued on the device with EOS masking on the device, then ONE
-host sync (``.cpu()``) for the whole tick.  Nothing inside the tick's
+Port of ``repro.serve.scheduler.ContinuousScheduler``, on one device
+or on a ``(data, model)`` serve mesh (``mesh=``).  A request queue,
+slot admission the moment a slot retires, chunked prefill, and a fused
+decode tick: ``decode_chunk`` sample -> decode steps queued on the
+device with EOS masking on the device, then ONE host sync (``.cpu()``)
+for the whole tick.  Nothing inside the tick's
 loop reads a device value on the host.
 
 Request lifecycle::
@@ -50,6 +51,21 @@ verify argmax.
 Counters mirror the reference's ``stats()``: a "dispatch" is one
 prefill chunk call or one fused decode tick, a "host sync" one blocking
 device-to-host read.
+
+On a serve mesh every rank runs this same scheduler: the same host
+bookkeeping (admission, page tables, prefix tree, EOS) on the same
+requests.  The weights come placed by the serve-mode rules (drawn with
+``bridge.mesh_placer(cfg, mesh, mode="serve")`` or loaded with
+``params_from_jax(..., mesh=)``; ``bridge.check_serve_placed`` refuses
+a whole model), the pool by ``rules.pool_spec`` (``PagedKVCache(mesh=)``),
+and each tick runs under the scoped serve topology
+(``sharding.ctx.serve_topology``).  Every slot is computed on every
+rank: the per-slot recurrent leaves are whole on every rank, so the pod
+x data replicas compute the same slots, and a decode step or prefill
+chunk is a batch replicated over them (``ctx.batch_split(False)``);
+``"model"`` splits the heads, the ffn, the experts (with ``"data"``)
+and the vocabulary.  The logits come back whole, so each rank samples
+the same tokens and reads them in its tick's one host sync.
 """
 from __future__ import annotations
 
@@ -68,6 +84,7 @@ from repro_torch.serve.kvcache import PagedKVCache
 from repro_torch.serve.prefix import PrefixCache
 from repro_torch.serve.sampling import (SamplingConfig, accept_speculative,
                                         masked_sample, sample)
+from repro_torch.sharding import ctx as shctx
 
 __all__ = ["ServeRequest", "ContinuousScheduler"]
 
@@ -115,6 +132,9 @@ class ContinuousScheduler:
                    verify chunks (the carried token + k - 1 MTP drafts a
                    step).  Greedy only, needs ``cfg.mtp_depth > 0`` and
                    an attention/MLA stack.
+    mesh         -- a ``(data, model)`` (or ``(pod, data, model)``)
+                   ``DeviceMesh`` to serve on (module docstring); None:
+                   one device.
     """
 
     def __init__(self, cfg, model, *, slots, max_len,
@@ -123,7 +143,7 @@ class ContinuousScheduler:
                  page_size: int = 16, num_pages: Optional[int] = None,
                  prefill_chunk: int = 32, decode_chunk: int = 8,
                  tenant_quota=None, prefix_cache: bool = False,
-                 spec_decode: int = 0):
+                 spec_decode: int = 0, mesh=None):
         check_paged_ported(cfg)
         recurrent = any(mix != "attn" for mix, _ in cfg.layer_pattern())
         if prefix_cache and recurrent:
@@ -161,6 +181,12 @@ class ContinuousScheduler:
                 raise ValueError("tenant_quota entries must be >= 1 (a "
                                  "0 quota deadlocks admission)")
         self.cfg = cfg
+        self.mesh = mesh
+        self._topo = None
+        if mesh is not None:
+            from repro_torch.bridge import check_serve_placed
+            check_serve_placed(model, mesh)
+            self._topo = shctx.ServeTopology.from_mesh(mesh)
         self.model = model
         self.device = model.embed.device
         self.slots = slots
@@ -180,7 +206,8 @@ class ContinuousScheduler:
                              if spec_decode else decode_chunk)
         self.kv = PagedKVCache(
             cfg, slots=slots, max_len=max_len, page_size=page_size,
-            num_pages=num_pages, dtype=compute_dtype(cfg), device=self.device)
+            num_pages=num_pages, dtype=compute_dtype(cfg), device=self.device,
+            mesh=mesh)
         self.prefix = PrefixCache(self.kv) if prefix_cache else None
         self.tenant_quota = tenant_quota
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -253,7 +280,12 @@ class ContinuousScheduler:
     def tick(self) -> bool:
         """One scheduling quantum: an admission pass, then -- if any slot
         is active -- ONE fused decode tick.  Returns whether work
-        remains."""
+        remains.  On a mesh, under the serve topology, every call's batch
+        replicated over the replicas."""
+        with shctx.serving(self._topo):
+            return self._tick()
+
+    def _tick(self) -> bool:
         admitted = self._admit()
         if self._active:
             self._decode_tick()

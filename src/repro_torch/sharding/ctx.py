@@ -1,12 +1,12 @@
-"""The activation mesh.
+"""The activation mesh and the serve topology.
 
-Port of the training half of ``repro.sharding.ctx``.  The reference
-registers a mesh before tracing and pins activations to it with
-``with_sharding_constraint``; model code asks ``get_activation_mesh()``
-whether a mesh is set (``apply_moe`` then takes the expert-parallel
-path).  Here the mesh step registers its ``DeviceMesh`` for the length
-of a forward and backward, and the layer code reads the same question
-to take its mesh forms (``models.transformer.apply_layer``).  Nothing
+Port of ``repro.sharding.ctx``, its training and serving halves.  The
+reference registers a mesh before tracing and pins activations to it
+with ``with_sharding_constraint``; model code asks
+``get_activation_mesh()`` whether a mesh is set (``apply_moe`` then
+takes the expert-parallel path).  Here the mesh step registers its
+``DeviceMesh`` for the length of a forward and backward, and the layer
+code reads the same question to take its mesh forms (``models.transformer.apply_layer``).  Nothing
 is handed to a compiler: the layouts the reference's constraints pin
 are the ones the mesh forms compute in --
 
@@ -24,18 +24,45 @@ are the ones the mesh forms compute in --
 mesh on exit, even when the body raises; ``batch_split(flag)`` records,
 for the same scope, whether the batch was cut over pod x data (a batch
 that does not divide is replicated, and then no gradient is summed over
-the batch axes).  ``ServeTopology`` and the paged-pool constraints wait
-for mesh serving.
+the batch axes).
+
+Serving registers a ``ServeTopology`` as well (``serve_topology(topo)``,
+which scopes its mesh as the activation mesh too): replica groups over
+pod x data and tensor-parallel decode over ``"model"``.  The layer code
+then takes its mesh forms in the serving modes as well
+(``layer_comm``).  The reference's paged-pool constraints become the
+code that computes those layouts --
+
+  * ``constrain_paged_kv`` / ``constrain_paged_latent``: a pooled leaf is
+    cut over ``"model"`` on the dim ``rules.pool_spec`` names (k / v:
+    kv heads where they divide, else head_dim; MLA's latent and rope
+    widths), and a rank holds that block only (``Placed``, whose
+    ``split`` records the dim of each leaf);
+  * ``replicate_update``: a rank writes exactly its block of each new
+    entry (``own_update``);
+  * ``replicate_for_kernel``: where the kernel needs the whole feature
+    axis (the head_dim fallback, MLA's latent), the pages the call's
+    slots map are gathered over ``"model"`` into a compact pool
+    (``gather_pages``) and the kernel runs on it, replicated.
+
+A lockstep slab cache on a mesh is ``Placed`` too (``rules.cache_spec``:
+its rows this rank's pod x data share, its sequence or state dim over
+``"model"``); a layer reads it gathered over ``"model"`` and writes its
+block back (``gather_placed`` / ``scatter_placed``).
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 
-from repro_torch.sharding.comm import MeshComm
+import torch
+
+from repro_torch.sharding.comm import MeshComm, all_gather, own_block
 
 _MESH = None          # the registered DeviceMesh
 _COMM = None          # its MeshComm
 _SPLIT = True         # the batch is cut over pod x data
+_TOPO = None          # the registered ServeTopology
 
 
 def set_activation_mesh(mesh) -> None:
@@ -93,3 +120,150 @@ def dp_share(comm) -> int:
     """How many ranks share the batch's rows: |pod x data| when the
     batch is split, else 1."""
     return comm.dp_size() if _SPLIT else 1
+
+
+# --------------------------------------------------------------------------
+# serving on a mesh
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ServeTopology:
+    """How a serving engine maps onto a mesh.
+
+    replica_axes -- the data-parallel replica groups (pod, data): each
+                    holds a whole copy of the paged pool;
+    model_axis   -- tensor-parallel decode: pool leaves, attention heads,
+                    the ffn and the vocabulary split here (None: a mesh
+                    without one)."""
+    mesh: object
+    replica_axes: tuple
+    model_axis: object
+
+    @classmethod
+    def from_mesh(cls, mesh) -> "ServeTopology":
+        names = tuple(mesh.mesh_dim_names)
+        return cls(mesh=mesh,
+                   replica_axes=tuple(a for a in ("pod", "data")
+                                      if a in names),
+                   model_axis="model" if "model" in names else None)
+
+    def _size(self, axis) -> int:
+        names = tuple(self.mesh.mesh_dim_names)
+        return int(self.mesh.mesh.shape[names.index(axis)])
+
+    @property
+    def replicas(self) -> int:
+        n = 1
+        for a in self.replica_axes:
+            n *= self._size(a)
+        return n
+
+    @property
+    def model_parallel(self) -> int:
+        return self._size(self.model_axis) if self.model_axis else 1
+
+
+def get_serve_topology():
+    return _TOPO
+
+
+@contextlib.contextmanager
+def serve_topology(topo):
+    """Scope a serve topology and its mesh as the activation mesh
+    (``None`` clears both); the previous values are restored on exit,
+    even when the body raises."""
+    global _TOPO
+    prev_mesh, prev_topo = _MESH, _TOPO
+    set_activation_mesh(None if topo is None else topo.mesh)
+    _TOPO = topo
+    try:
+        yield topo
+    finally:
+        set_activation_mesh(prev_mesh)
+        _TOPO = prev_topo
+
+
+@contextlib.contextmanager
+def serving(topo, split=False):
+    """An engine's scope for its model calls: ``serve_topology(topo)``
+    with ``batch_split(split)``; nothing on one device (``topo`` None)."""
+    if topo is None:
+        yield
+        return
+    with serve_topology(topo), batch_split(split):
+        yield
+
+
+def layer_comm(mode):
+    """The ``MeshComm`` a layer call runs its mesh forms over: the
+    activation mesh's in training, and in the serving modes when a serve
+    topology is registered; else None."""
+    return _COMM if (mode == "train" or _TOPO is not None) else None
+
+
+class Placed(dict):
+    """A layer's cache leaves as this rank's blocks: ``split[name]`` is
+    the dim of leaf ``name`` cut over ``"model"`` (a leaf not in it is
+    whole on every rank of the model group)."""
+
+    def __init__(self, leaves, split):
+        super().__init__(leaves)
+        self.split = dict(split)
+
+
+def place_cache(shapes, spec, comm, device) -> list:
+    """Zeros of this rank's blocks of a serving cache: ``shapes`` the
+    whole cache's leaves (one dict a layer, e.g. on the meta device),
+    ``spec(i, name, shape)`` a leaf's rule (``rules.pool_spec``,
+    ``rules.cache_spec``); each layer a ``Placed``."""
+    from repro_torch.sharding.rules import local_slices
+    out = []
+    for i, layer in enumerate(shapes):
+        leaves, split = {}, {}
+        for name, t in layer.items():
+            sp = spec(i, name, tuple(t.shape))
+            if "model" in sp:
+                split[name] = sp.index("model")
+            block = t[local_slices(tuple(t.shape), sp, comm.sizes,
+                                   comm.coord)]
+            leaves[name] = torch.zeros(block.shape, dtype=t.dtype,
+                                       device=device)
+        out.append(Placed(leaves, split))
+    return out
+
+
+def own_update(t, comm, dim):
+    """This rank's block along ``dim`` of a new entry every rank of the
+    model group computed whole -- what the rank writes into its block of
+    a pooled leaf."""
+    return own_block(t, comm, "model", dim)
+
+
+def gather_pages(pools, page_table, page_size, comm, dims):
+    """The pages ``page_table`` (B, W) maps, of each pooled leaf block in
+    ``pools`` (token-major), gathered whole over ``"model"`` along its
+    split dim in ``dims`` (None: a leaf already whole): a compact pool
+    of B * W pages each, page b * W + j holding slot b's block j, and
+    its (B, W) table."""
+    B, W = page_table.shape
+    dev = page_table.device
+    rows = (page_table.long()[..., None] * page_size
+            + torch.arange(page_size, device=dev)).reshape(-1)
+    out = [p.index_select(0, rows) if d is None else
+           all_gather(p.index_select(0, rows), comm, "model", d)
+           for p, d in zip(pools, dims)]
+    table = torch.arange(B * W, dtype=torch.int32, device=dev).view(B, W)
+    return out, table
+
+
+def gather_placed(cache, comm) -> dict:
+    """A slab layer's leaves gathered over ``"model"`` (new tensors)."""
+    return {k: all_gather(t, comm, "model", cache.split[k])
+            if k in cache.split else t for k, t in cache.items()}
+
+
+def scatter_placed(cache, full, comm):
+    """Write this rank's block of each gathered leaf of ``full`` back
+    into ``cache``."""
+    for k, dim in cache.split.items():
+        cache[k].copy_(own_block(full[k], comm, "model", dim))

@@ -1543,3 +1543,63 @@ def test_mesh_step_over_one_nccl_rank_equals_train_step(cuda, arch):
     assert np.abs(np.subtract(got["mesh"][0], got["one"][0])).max() <= tol
     for k, v in got["one"][1].items():
         assert (got["mesh"][1][k] - v).abs().max() <= tol, k
+
+
+def test_serve_mesh_over_one_nccl_rank_equals_engine(cuda):
+    """A 2-layer full-width qwen3-1.7b in fp32 (TF32 off) served by the
+    continuous scheduler on a (data 1, model 1) mesh of one NCCL rank --
+    the weights DTensors placed by the serve-mode rules, the pool by
+    ``pool_spec`` (all whole at size 1), each tick under the serve
+    topology -- gives every sample's logits and the greedy tokens of the
+    one-device engine bit for bit, with the paged kernel on every
+    attention call."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.bridge import mesh_placer
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.serve import scheduler as sched_lib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("qwen3-1.7b").with_overrides(num_layers=2,
+                                                  dtype="float32")
+    rng = np.random.default_rng(29)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (40, 97, 13, 64)]
+    plain = sched_lib.sample, sched_lib.masked_sample
+
+    def serve(model, mesh):
+        logits = []
+
+        def keep(fn):
+            def rec(lg, *a, **k):
+                logits.append(lg.clone())
+                return fn(lg, *a, **k)
+            return rec
+        sched_lib.sample, sched_lib.masked_sample = map(keep, plain)
+        try:
+            sch = ContinuousScheduler(cfg, model, slots=4, max_len=128,
+                                      mesh=mesh)
+            reset_launch_counts()
+            outs = sch.generate(prompts, 16)
+            st = sch.stats()
+        finally:
+            sched_lib.sample, sched_lib.masked_sample = plain
+        calls = st["prefill_dispatches"] + 8 * st["decode_dispatches"]
+        assert launch_counts()["paged_flash_decode"] == 2 * calls
+        return outs, logits
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        ref, ref_logits = serve(init_model(cfg, seed=0, device=cuda), None)
+        mesh = make_serve_mesh(1, 1, device_type="cuda")
+        got, logits = serve(init_model(cfg, seed=0, device=cuda, place=(
+            mesh_placer(cfg, mesh, mode="serve"))), mesh)
+    finally:
+        dist.destroy_process_group()
+    assert all(np.array_equal(a, b) for a, b in zip(got, ref))
+    assert len(logits) == len(ref_logits)
+    assert all(torch.equal(a, b) for a, b in zip(logits, ref_logits))

@@ -26,7 +26,9 @@ while it draws a mesh state (8 layers of 16 MiB MLP leaves) rises no
 higher than its blocks plus what drawing one whole leaf takes, far
 under the whole model.  Large allocations are mapped and unmapped one
 by one (``MALLOC_MMAP_THRESHOLD_``), so the resident set follows the
-live tensors."""
+live tensors; the high mark read is the rank's own (``VmHWM``), since
+``ru_maxrss`` starts at the resident set of the process that spawned
+the rank."""
 import functools
 import json
 import os
@@ -324,7 +326,6 @@ def test_launcher_full_path_refusals(capsys):
 
 
 DRAWN = """
-import resource
 from torch.distributed.device_mesh import init_device_mesh
 from repro_torch import bridge
 from repro_torch.configs import smoke_config
@@ -340,7 +341,12 @@ def rss():
         return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
 
 def high():
-    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    # this image's own high mark: ru_maxrss carries the spawning
+    # process's resident set across fork and exec, VmHWM starts anew
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmHWM:"):
+                return int(line.split()[1]) * 1024
 
 # the peak while a mesh state is drawn, first: the resident set's high
 # mark cannot be reset, so nothing larger may be drawn before; a small
