@@ -197,8 +197,14 @@ Phases (each fails the run if it goes wrong):
      step within 1e-5 (the MoE's in one microbatch a data shard, whose
      aux is the mesh's), each rank's flash launches exactly steps x
      layers x 2 on its own heads, its bytes between steps and step
-     walls printed; (a') qwen3 over one NCCL rank on a (1, 1) mesh,
-     bitwise the one-device step.
+     walls printed; (c) qwen3 again on 2 x 512 tokens in two one-row
+     microbatches, whose rows do not divide data 2: each row's sequence
+     is cut over "data" (the sequence split, attention over the keys
+     gathered up to the rank's block), 3 momentum steps held to the
+     one-device step in the same microbatches within 1e-5, each rank's
+     flash launches exactly steps x microbatches x layers x 2; (a')
+     qwen3 over one NCCL rank on a (1, 1) mesh, bitwise the one-device
+     step.
  29. serving on a mesh: phase 28's torchrun goes on, on the same 4 gloo
      ranks and (data 2, model 2) mesh, fp32 with TF32 off: (a)
      qwen3-1.7b at full width and depth, deepseek-moe-16b at full width
@@ -219,6 +225,12 @@ Phases (each fails the run if it goes wrong):
      over one NCCL rank on a (1, 1) mesh: logits and tokens bitwise the
      one-device engine's.  Phase 2 holds the paged kernel at each of
      (a)'s per-rank forms and the flash kernel at the lockstep one.
+ 30. the dry run (``repro_torch.launch.dryrun``) counts phase 13's own
+     step on the meta device, on a one-rank mesh of PyTorch's fake
+     process group in this process: its predicted peak within 0.85-1.15x
+     phase 13's measured peak, its FLOPs against 6 N tokens (the useful
+     ratio), its roofline on ``H100_SXM`` beside phase 13's step wall,
+     and ``H100_SXM``'s memory within 2 % of the card's.
 Phases 3, 16 and 17 also print the cost model's predictions
 (``repro_torch.core.perf_model`` with H100 presets) beside what the
 card measured: a decode step, the gradient all-reduce at p = 2, 4, 8
@@ -349,8 +361,15 @@ JAMBA_TRAIN_SEQ, ARCH_TRAIN_STEPS = 2048, 3
 MESH_SHAPE, MESH_LAYERS = (2, 2), 2
 MESH_INIT_SLACK = 16 * 2 ** 20   # allocator rounding, generator state
 MESH_BATCH, MESH_SEQ, MESH_LR = 4, 512, 1e-2
-MESH_CASES = {"qwen3-1.7b": ("momentum", 3), "deepseek-moe-16b": ("sgd", 2)}
+# case: (optimizer, steps, microbatches, rows); "arch/seq" takes 2 x 512
+# tokens in one-row microbatches, the sequence split over "data"
+MESH_CASES = {"qwen3-1.7b": ("momentum", 3, 1, MESH_BATCH),
+              "deepseek-moe-16b": ("sgd", 2, 1, MESH_BATCH),
+              "qwen3-1.7b/seq": ("momentum", 3, 2, 2)}
 MESH_CF, MESH_TOL = 16.0, 1e-5
+# phase 30: the dry run's count of phase 13's step against phase 13's
+# measured peak; H100_SXM's memory against the card's
+DRYRUN_PEAK_BAND, DRYRUN_MEM_TOL = (0.85, 1.15), 0.02
 MESH_DIR = os.path.join(ROOT, "build", "mesh_phase28")
 # phase 29: serving on the (data 2, model 2) mesh of phase 28, fp32 with
 # TF32 off: qwen3-1.7b at full depth, deepseek-moe-16b cut to 4 layers
@@ -4268,11 +4287,12 @@ class _PaperLogits(torch.nn.Module):
 # --------------------------------------------------------------------------
 
 def mesh_cfg(arch):
-    """Phase 28's config: full width, MESH_LAYERS layers, fp32; the MoE
-    at MESH_CF."""
+    """Phase 28's config of case ``arch`` ("arch" or "arch/seq"): full
+    width, MESH_LAYERS layers, fp32; the MoE at MESH_CF."""
     import dataclasses
     from repro_torch.configs import get_config
-    cfg = get_config(arch).with_overrides(num_layers=MESH_LAYERS,
+    cfg = get_config(arch.split("/")[0]).with_overrides(
+        num_layers=MESH_LAYERS,
                                           dtype="float32")
     if cfg.moe is not None:
         cfg = cfg.with_overrides(moe=dataclasses.replace(
@@ -4354,11 +4374,11 @@ def mesh_rank(outdir):
         *MESH_SHAPE, device_type=dt))
     rank = dist.get_rank()
     res = {}
-    for arch, (opt, steps) in MESH_CASES.items():
+    for arch, (opt, steps, micro, rows) in MESH_CASES.items():
         cfg = mesh_cfg(arch)
-        tc = TrainConfig(optimizer=opt, lr=MESH_LR, remat=True)
-        batch = make_batch(cfg, np.random.default_rng(28), MESH_BATCH,
-                           MESH_SEQ)
+        tc = TrainConfig(optimizer=opt, lr=MESH_LR, remat=True,
+                         microbatches=micro)
+        batch = make_batch(cfg, np.random.default_rng(28), rows, MESH_SEQ)
         got, full = mesh_steps(cfg, tc, mesh, dev, batch, steps)
         every = [None] * dist.get_world_size()
         dist.all_gather_object(every, {k: got[k] for k in (
@@ -4421,12 +4441,13 @@ def train_mesh(dev, ranks):
         cfg = mesh_cfg(arch)
         mesh, one = r["mesh"], r["one_device"]
         steps = len(one["losses"])
-        want = steps * cfg.num_layers * 2
+        micro = MESH_CASES[arch][2]
+        want = steps * micro * cfg.num_layers * 2
         flash = [sum(rk["flash"]) for rk in r["ranks"]]
         if any(f != want for f in flash):
             fail(f"phase 28 ({arch}): flash_attention launched {flash} times "
-                 f"on the ranks, expected {want} = {steps} steps x "
-                 f"{cfg.num_layers} layers x 2 (remat)")
+                 f"on the ranks, expected {want} = {steps} steps x {micro} "
+                 f"microbatches x {cfg.num_layers} layers x 2 (remat)")
         # each rank cut every leaf as it drew it: its peak while drawing
         # is its blocks (and moments) plus one whole leaf's draw
         peaks = [(rk["init_peak_bytes"], rk["init_bytes"]
@@ -4457,7 +4478,10 @@ def train_mesh(dev, ranks):
         h, hk = r["ranks"][0]["heads"]
         print(f"phase 28 ({arch}): full width, reduced: num_layers "
               f"{cfg.num_layers}, fp32, {steps} {MESH_CASES[arch][0]} steps "
-              f"of {MESH_BATCH} x {MESH_SEQ} tokens on a (data "
+              f"of {MESH_CASES[arch][3]} x {MESH_SEQ} tokens in {micro} "
+              f"microbatch(es)"
+              f"{', each row cut over data by sequence' if micro > 1 else ''}"
+              f" on a (data "
               f"{MESH_SHAPE[0]}, model {MESH_SHAPE[1]}) mesh of 4 gloo ranks "
               f"sharing the card: losses {mesh['losses']} (one device "
               f"{one['losses']}{' in one microbatch a data shard' if cfg.moe else ''}"
@@ -4482,7 +4506,7 @@ def train_mesh(dev, ranks):
     # (a') one NCCL rank on a (1, 1) mesh: bitwise the one-device step
     arch = "qwen3-1.7b"
     cfg = mesh_cfg(arch)
-    opt, steps = MESH_CASES[arch]
+    opt, steps, _, _ = MESH_CASES[arch]
     tc = TrainConfig(optimizer=opt, lr=MESH_LR, remat=True)
     batch = make_batch(cfg, np.random.default_rng(28), MESH_BATCH, MESH_SEQ)
     with socket.socket() as sock:
@@ -4864,6 +4888,91 @@ def serve_mesh(dev, ranks):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 30: the dry run's count of phase 13's step, against phase 13
+# --------------------------------------------------------------------------
+
+def dryrun_phase13(train_out):
+    """Phase 30: ``launch.dryrun``'s count of phase 13's own step --
+    full-width, full-depth qwen3-1.7b, TRAIN_BATCH x TRAIN_SEQ tokens in
+    TRAIN_MICRO microbatches, remat, AdamW on fp32 masters -- on the meta
+    device over a one-rank mesh of PyTorch's fake process group, in
+    this process; its predicted peak held to phase 13's measured one
+    within DRYRUN_PEAK_BAND, its FLOPs beside phase 13's 6 N tokens, its
+    roofline on ``H100_SXM`` beside phase 13's step wall, and
+    ``H100_SXM``'s memory held to the card's within DRYRUN_MEM_TOL."""
+    import torch.distributed as dist
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.models import init_model
+    from repro_torch.roofline.analysis import H100_SXM, HW, roofline_terms
+    from repro_torch.roofline.cost import count
+    from repro_torch.train import TrainConfig
+    card = card_line()
+    total = torch.cuda.get_device_properties(0).total_memory
+    mem_gap = abs(H100_SXM.hbm_bytes - total) / total
+    if mem_gap > DRYRUN_MEM_TOL:
+        fail(f"phase 30: H100_SXM's memory {H100_SXM.hbm_bytes} B differs "
+             f"from the card's {total} B by {mem_gap:.2%} > "
+             f"{DRYRUN_MEM_TOL:.0%}")
+    cfg = get_config("qwen3-1.7b")
+    tc = TrainConfig(optimizer="adamw", lr=TRAIN_LR, microbatches=TRAIN_MICRO,
+                     remat=True)
+    shape = InputShape("phase13", TRAIN_SEQ, TRAIN_BATCH, "train")
+    # one rank holds every block: its count is the one-device count too
+    dryrun.fake_world(1)
+    try:
+        t0 = time.perf_counter()
+        fn, args = dryrun.build_step(cfg, tc, shape, make_serve_mesh(
+            1, 1, device_type="cpu"))
+        _, c = count(fn, *args)
+        del fn, args
+        count_s = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    rec = {"peak_bytes": c["peak_bytes"], "flops_global": c["flops"],
+           "dot_bytes_global": c["dot_bytes"],
+           "collective_bytes": c["collective_bytes"],
+           "argument_size_in_bytes": c["argument_bytes"], "count_s": count_s}
+    measured = train_out["peak_gib"] * 2**30
+    ratio = rec["peak_bytes"] / measured
+    n = sum(p.numel() for p in init_model(cfg, device="meta", train=True)
+            .parameters() if p.requires_grad)
+    useful = 6 * n * TRAIN_BATCH * TRAIN_SEQ / rec["flops_global"]
+    terms = roofline_terms(rec, HW(chips=1))
+    dominant = max(("t_compute", "t_memory", "t_collective"),
+                   key=terms.get)[2:]
+    out = {"predicted_peak_gib": rec["peak_bytes"] / 2**30,
+           "measured_peak_gib": train_out["peak_gib"], "peak_ratio": ratio,
+           "flops": rec["flops_global"], "useful_ratio": useful,
+           "t_compute_ms": terms["t_compute"] * 1e3,
+           "t_memory_ms": terms["t_memory"] * 1e3, "dominant": dominant,
+           "step_ms": train_out["step_ms"], "count_s": rec["count_s"],
+           "card_memory_bytes": total, "h100_sxm_bytes": H100_SXM.hbm_bytes,
+           "argument_bytes": rec["argument_size_in_bytes"]}
+    print(f"phase 30: the dry run's count of phase 13's step (meta device, "
+          f"one-rank fake mesh, {rec['count_s']:.1f} s on the host) on "
+          f"{card}: predicted peak {out['predicted_peak_gib']:.2f} GiB "
+          f"(arguments {rec['argument_size_in_bytes'] / 2**30:.2f} GiB) vs "
+          f"phase 13's measured {train_out['peak_gib']:.2f} GiB: ratio "
+          f"{ratio:.4f} (band {DRYRUN_PEAK_BAND})")
+    print(f"phase 30: counted {rec['flops_global']:.4e} FLOP a step vs 6 N "
+          f"tokens = {6 * n * TRAIN_BATCH * TRAIN_SEQ:.4e} (N = {n}): useful "
+          f"ratio {useful:.4f}; on {card}")
+    print(f"phase 30: roofline on H100_SXM (989 TFLOP/s bf16, 3.35 TB/s): "
+          f"t_compute {out['t_compute_ms']:.1f} ms, t_memory "
+          f"{out['t_memory_ms']:.1f} ms, dominant {dominant}, vs phase 13's "
+          f"step wall {train_out['step_ms']:.1f} ms; H100_SXM memory "
+          f"{H100_SXM.hbm_bytes} B vs the card's {total} B ({mem_gap:.2%}); "
+          f"on {card}")
+    if not DRYRUN_PEAK_BAND[0] <= ratio <= DRYRUN_PEAK_BAND[1]:
+        fail(f"phase 30: predicted peak {out['predicted_peak_gib']:.2f} GiB "
+             f"is {ratio:.3f}x phase 13's measured {train_out['peak_gib']:.2f}"
+             f" GiB, outside {DRYRUN_PEAK_BAND}")
+    return out
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -5115,6 +5224,7 @@ def main():
     front_train_out = run_phase("phase 26", train_frontends, dev)
     bf16_out = run_phase("phase 27", train_bf16_masters, dev)
     mesh_out, serve_mesh_out = run_phase("phases 28-29", mesh_phases, dev)
+    dryrun_out = run_phase("phase 30", dryrun_phase13, train_out)
 
     decode_bf16, chunk_bf16, verify_bf16 = (
         next(r for r in rows if r["case"] == case and r["dtype"] == "bfloat16")
@@ -5282,6 +5392,7 @@ def main():
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "sdpa_backend", "max_abs_err", "grad_rel_err")},
         "bf16_train": bf16_out, "phase_3_decode_model": decode_model,
+        "dryrun_phase13": dryrun_out,
         "new_forms": {r["case"]: {key: r[key] for key in r if key != "case"}
                       for r in flash_new_rows if r["dtype"] == "bfloat16"},
         "cases": (flash_rows + train_rows + flash_mla_rows + flash_new_rows

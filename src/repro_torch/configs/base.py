@@ -214,26 +214,39 @@ class ModelConfig:
         return (m.num_experts + m.num_shared_experts) * per_exp \
             + d * m.num_experts
 
+    def ffn_active_params(self, kind: str) -> int:
+        """``ffn_params`` of the experts a token runs: an MoE layer's
+        top-k routed and its shared experts plus the router."""
+        d = self.d_model
+        if kind == "mlp":
+            return self._mlp_mats * d * self.d_ff
+        m = self.moe
+        per_exp = self._mlp_mats * d * m.d_expert
+        return (m.top_k + m.num_shared_experts) * per_exp \
+            + d * m.num_experts
+
     def _mixer_params(self, kind: str) -> int:
         return {"attn": self.attn_params(),
                 "mamba": self.mamba_params(),
                 "rwkv6": self.rwkv_params()}[kind]
 
-    def param_count(self) -> int:
+    def param_count(self, active_only: bool = False) -> int:
         """Total parameter count by the reference's formula, walking the
         layer pattern (an RWKV block carries its own channel mix); an
         encoder-decoder adds its encoder's attention + MLP layers and a
         cross-attention a decoder layer.  The vision projector is not
-        counted, as there."""
+        counted, as there.  ``active_only``: the parameters a token
+        runs (``ffn_active_params``), the N of MODEL_FLOPS = 6 N D."""
+        ffn = self.ffn_active_params if active_only else self.ffn_params
         total = self.vocab_size * self.d_model * (1 if self.tie_embeddings
                                                   else 2)
-        for mixer, ffn in self.layer_pattern():
+        for mixer, kind in self.layer_pattern():
             total += self._mixer_params(mixer)
             if mixer != "rwkv6":
-                total += self.ffn_params(ffn)
+                total += ffn(kind)
         if self.is_encoder_decoder:
             total += self.encoder_layers * (self.attn_params()
-                                            + self.ffn_params("mlp"))
+                                            + ffn("mlp"))
             total += self.num_layers * self.attn_params()
         return total
 

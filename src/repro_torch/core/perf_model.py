@@ -62,6 +62,10 @@ H100_BF16_FLOPS = 989e12
 # the card's host link: PCIe Gen5 x16, 128 GB/s both ways, 64 GB/s a
 # direction (NVIDIA H100 SXM datasheet); the latency is an ASSUMPTION
 H100_PCIE5_D2H = Fabric("h100-pcie-gen5-x16", 64e9, 5e-6)
+# across nodes: one ConnectX-7 InfiniBand NDR port a card, 400 Gb/s = 50
+# GB/s a direction (NVIDIA DGX H100 datasheet: 8 ports for 8 cards); the
+# latency is an ASSUMPTION
+H100_NDR_IB = Fabric("h100-ndr-infiniband", 50e9, 10e-6)
 
 
 def dnn_flops_per_sample(layer_sizes) -> float:

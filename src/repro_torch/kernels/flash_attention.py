@@ -52,6 +52,7 @@ import torch
 
 from repro_torch.kernels import gqa_split
 from repro_torch.kernels.build import count_launch, load_library
+from repro_torch.roofline.cost import add_kernel_cost
 
 __all__ = ["flash_attention", "flash_attention_ref", "flash_attention_bwd_ref",
            "KERNEL_WIDTHS"]
@@ -218,8 +219,29 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def meta_cost(B, S, T, h, hd, hdv, v_bytes):
+    """(FLOPs, dot bytes) the dry run charges a call: the two products
+    of the plain version (``_attend``), the masked half included, as
+    the reference's XLA loop computes them -- fp32 scores of q (B, S,
+    h, hd) against the repeated k (B, T, h, hd), then the probabilities
+    in v's dtype (``v_bytes`` an element) against the repeated v (B, T,
+    h, hdv)."""
+    flops = 2 * B * h * S * T * (hd + hdv)
+    dot = (4 * (B * S * h * hd + B * T * h * hd + B * h * S * T)
+           + v_bytes * (B * h * S * T + B * T * h * hdv + B * S * h * hdv))
+    return flops, dot
+
+
 def _launch(q, k, v, causal, window):
-    """One launch of the kernel on CUDA tensors, checked."""
+    """One launch of the kernel on CUDA tensors, checked.  A meta tensor
+    (the dry run, ``launch.dryrun``) launches nothing: it charges
+    ``meta_cost`` to the running count and returns an empty output of
+    the kernel's shape."""
+    if q.device.type == "meta":
+        B, S, h, hd = q.shape
+        add_kernel_cost(*meta_cost(B, S, k.shape[1], h, hd, v.shape[3],
+                                   v.element_size()))
+        return q.new_empty((B, S, h, v.shape[3]))
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if k.device != q.device or v.device != q.device:

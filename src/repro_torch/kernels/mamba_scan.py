@@ -38,6 +38,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import count_launch, load_library
+from repro_torch.roofline.cost import add_kernel_cost
 from repro_torch.kernels.wkv6 import padded_chunks
 
 __all__ = ["mamba_scan", "mamba_ref", "mamba_chunked", "mamba_chunked_bwd",
@@ -268,8 +269,21 @@ class MambaScan(torch.autograd.Function):
         return mamba_chunked_bwd(x, dt, A, B, C, D, state, dy, dstate)
 
 
+def meta_cost(Bb, T, dI, dS):
+    """(FLOPs, dot bytes) the dry run charges a call: the product of the
+    plain version (``mamba_ref``, fp32), one (Bb, dI, dS) x (dS, 1)
+    read-out of the state a step."""
+    return 2 * Bb * T * dI * dS, 4 * Bb * T * (dI * dS + dS + dI)
+
+
 def _launch(x, dt, A, B, C, D, state):
-    """One launch of the kernel on CUDA tensors, checked."""
+    """One launch of the kernel on CUDA tensors, checked.  A meta tensor
+    (the dry run, ``launch.dryrun``) launches nothing: it charges
+    ``meta_cost`` to the running count and returns empty outputs of the
+    kernel's shapes."""
+    if x.device.type == "meta":
+        add_kernel_cost(*meta_cost(*x.shape, B.shape[-1]))
+        return torch.empty_like(x), torch.empty_like(state)
     if x.device.type != "cuda":
         raise ValueError(f"mamba_scan: unsupported device {x.device}")
     tensors = (x, dt, A, B, C, D, state)

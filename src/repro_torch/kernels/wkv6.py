@@ -35,6 +35,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import count_launch, load_library
+from repro_torch.roofline.cost import add_kernel_cost
 
 __all__ = ["wkv6", "wkv6_chunked", "wkv6_chunked_bwd", "wkv6_ref",
            "wkv6_step", "WKV6"]
@@ -275,8 +276,31 @@ class WKV6(torch.autograd.Function):
         return (*grads, None)
 
 
+def meta_cost(B, T, H, K, chunk=CHUNK):
+    """(FLOPs, dot bytes) the dry run charges a call: the products of
+    the plain version (``wkv6_chunked``, fp32), chunk by chunk of C =
+    min(chunk, T) steps over the padded ceil(T / C) chunks -- the state
+    read (BH, C, K) x (K, K), the intra-chunk scores (B C C H dots of
+    K), the score-value product (BH, C, C) x (C, K), the bonus (B C H
+    dots of K) and the state update (BH, K, C) x (C, K)."""
+    C = min(chunk, T)
+    nc = -(-T // C)
+    BH = B * H
+    flops = 2 * BH * (2 * C * K * K + 2 * C * C * K) + 2 * B * C * H * K
+    dot = 4 * (BH * (C * K + K * K + C * K) + B * C * C * H * (2 * K + 1)
+               + BH * (C * C + 2 * C * K) + B * C * H * (2 * K + 1)
+               + BH * (2 * K * C + K * K))
+    return nc * flops, nc * dot
+
+
 def _launch(r, k, v, w_log, u, state, chunk):
-    """One launch of the kernel on CUDA tensors, checked."""
+    """One launch of the kernel on CUDA tensors, checked.  A meta tensor
+    (the dry run, ``launch.dryrun``) launches nothing: it charges
+    ``meta_cost`` to the running count and returns empty outputs of the
+    kernel's shapes."""
+    if r.device.type == "meta":
+        add_kernel_cost(*meta_cost(*r.shape, chunk=chunk))
+        return torch.empty_like(r), torch.empty_like(state)
     if r.device.type != "cuda":
         raise ValueError(f"wkv6: unsupported device {r.device}")
     tensors = (r, k, v, w_log, u, state)

@@ -142,11 +142,11 @@ def chunked_attention(q, k, v, *, q_positions, kv_positions, causal=True,
     the valid keys, which is the kernel's masking; and non-causal
     without a window (an encoder, cross-attention), with any query
     positions, which that mask does not read.  The keys are sliced to
-    the valid length (a strided view, not a copy).  Any other form
-    raises (positions on the card cannot be checked without a host
-    sync in every layer).  ``chunk`` is the CPU loop's; the kernel
-    tiles itself."""
-    if q.device.type == "cuda":
+    the valid length (a strided view, not a copy); meta tensors (the
+    dry run) take that form too.  Any other form raises (positions on
+    the card cannot be checked without a host sync in every layer).
+    ``chunk`` is the CPU loop's; the kernel tiles itself."""
+    if q.device.type in ("cuda", "meta"):
         return _flash_slab(q, k, v, q_positions=q_positions,
                            kv_positions=kv_positions, causal=causal,
                            window=window, kv_valid_len=kv_valid_len)
@@ -312,14 +312,15 @@ def init_attention(cfg, *, generator, device="cpu", dtype, cross=False):
     d, hk, hd = cfg.d_model, cfg.num_kv_heads, cfg.head_dim
     h, mask = _padded_heads(cfg)
     kw = dict(generator=generator, device=device, dtype=dtype)
-    wq = dense_init(d, h * hd, **kw).reshape(d, h, hd)
+    # the padded heads' zeros are part of the draw (a leaf a mesh places
+    # as it is drawn, ``bridge.mesh_placer``)
+    rows = None if mask is None else np.repeat(mask, hd)
+    wq = dense_init(d, h * hd, scale=None if rows is None else rows[None],
+                    **kw).reshape(d, h, hd)
     wk = dense_init(d, hk * hd, **kw).reshape(d, hk, hd)
     wv = dense_init(d, hk * hd, **kw).reshape(d, hk, hd)
-    wo = dense_init(h * hd, d, **kw).reshape(h, hd, d)
-    if mask is not None:
-        m = torch.from_numpy(mask).to(device, dtype)
-        wq = wq * m[None, :, None]
-        wo = wo * m[:, None, None]
+    wo = dense_init(h * hd, d, scale=None if rows is None else rows[:, None],
+                    **kw).reshape(h, hd, d)
     p = {"wq": wq, "wk": wk, "wv": wv, "wo": wo}
     if cfg.qkv_bias and not cross:
         p["bq"] = torch.zeros((h, hd), device=device, dtype=dtype)
@@ -423,6 +424,15 @@ def apply_attention(cfg, p, x, *, positions, cache, rope, paged=None,
                                 cache_pos=cache_pos, causal=causal))
 
 
+def _seq_keys(k, v, comm):
+    """Under the sequence split (``ctx.seq_cut``) the keys and values of
+    the blocks up to this rank's, gathered over ``"data"``; else as
+    they are.  The block's queries then sit right-aligned against them."""
+    if comm is None or not shctx.is_seq_cut():
+        return k, v
+    return shctx.seq_prefix(k, comm), shctx.seq_prefix(v, comm)
+
+
 def _attend(cfg, q, k, v, *, positions, cache, paged, write_idx, mode,
             cache_pos, causal, heads=None, comm=None):
     """``apply_attention``'s core on q (B, S, h, hd) and the new k, v (B,
@@ -435,10 +445,11 @@ def _attend(cfg, q, k, v, *, positions, cache, paged, write_idx, mode,
         lambda t, dim: t[(slice(None),) * dim + (heads,)].contiguous())
     dt = q.dtype
     if mode == "train":
-        S = q.shape[1]
+        k, v = _seq_keys(k, v, comm)
+        S, T = q.shape[1], k.shape[1]
         return chunked_attention(q, pick(k, 2), pick(v, 2),
-                                 q_positions=range(S), kv_positions=range(S),
-                                 causal=causal,
+                                 q_positions=range(T - S, T),
+                                 kv_positions=range(T), causal=causal,
                                  window=cfg.swa_window if causal else 0)
     if paged is not None:
         (k_pool, v_pool), view = _paged_update(cache, {"k": k, "v": v},
@@ -685,8 +696,10 @@ def apply_mla(cfg, p, x, *, positions, cache, rope, paged=None,
         k = torch.cat([k_nope, krope[:, :, None, :].expand(
             -1, -1, k_nope.shape[2], -1)], dim=-1)
         q = torch.cat([q_nope, q_rope], dim=-1)
-        out = chunked_attention(q, k, v.contiguous(), q_positions=range(S),
-                                kv_positions=range(S), window=cfg.swa_window)
+        k, v = _seq_keys(k, v.contiguous(), comm)
+        T = k.shape[1]
+        out = chunked_attention(q, k, v, q_positions=range(T - S, T),
+                                kv_positions=range(T), window=cfg.swa_window)
     else:
         S, max_len = x.shape[1], cache["ckv"].shape[1]
         start = int(cache_pos)

@@ -50,25 +50,29 @@ def on_draw(fn):
 
 
 def truncated_normal(shape, std, *, generator, device="cpu",
-                     dtype=torch.float32, shift=0.0):
+                     dtype=torch.float32, shift=0.0, scale=None):
     """Normal(0, std) truncated at +-3 std, plus ``shift``, drawn in fp32
     and cast to ``dtype`` at once, so a bf16 model never holds more than
     the one fp32 master being drawn (the values are those of casting
-    later)."""
+    later); ``scale`` (a numpy factor broadcast over the draw, e.g. the
+    padded heads' 0 / 1 mask) multiplies it in ``dtype`` before the
+    ``on_draw`` hook sees it."""
     t = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, std, -3.0 * std, 3.0 * std,
                                 generator=generator)
     if shift:
         t.add_(shift)
     t = t.to(dtype)
+    if scale is not None:
+        t = t * torch.from_numpy(scale).to(device, dtype)
     return t if _ON_DRAW is None else _ON_DRAW(t)
 
 
 def dense_init(d_in, d_out, *, generator, device="cpu", std=None,
-               dtype=torch.float32):
+               dtype=torch.float32, scale=None):
     std = std if std is not None else 1.0 / np.sqrt(d_in)
     return truncated_normal((d_in, d_out), std, generator=generator,
-                            device=device, dtype=dtype)
+                            device=device, dtype=dtype, scale=scale)
 
 
 # --------------------------------------------------------------------------

@@ -506,10 +506,18 @@ def apply_model(cfg, model: Model, tokens, *, cache=None, cache_pos=None,
             vision_embeds, device=tokens.device), dt, comm)
         x = torch.cat([vis, x], dim=1)
     S = x.shape[1]
+    # the sequence split of a train step (``ctx.seq_split``): this rank's
+    # block of the positions; the cotangent outside it is zero
+    cut = comm is not None and mode == "train" and shctx.is_seq_split()
+    start = 0
+    if cut:
+        start, S = shctx.seq_block(comm, S)
+        x = x[:, start:start + S]
     positions = None
     if tfm.has_attention(cfg):
         if mode == "train":
-            positions = torch.arange(S, device=tokens.device)[None]
+            positions = torch.arange(start, start + S,
+                                     device=tokens.device)[None]
         elif paged is not None:
             positions = (cache_pos[:, None]
                          + torch.arange(S, device=tokens.device,
@@ -521,7 +529,7 @@ def apply_model(cfg, model: Model, tokens, *, cache=None, cache_pos=None,
                              cache=cache, paged=paged,
                              rope_freqs=model.rope_freqs, mode=mode,
                              cache_pos=cache_pos, remat=remat,
-                             enc_out=enc_out)
+                             enc_out=enc_out, seq=cut)
     if last_only:
         x = x[:, -1:]
     out = {"hidden": x, "aux": 0.0 if aux is None else aux}
@@ -533,7 +541,8 @@ def apply_model(cfg, model: Model, tokens, *, cache=None, cache_pos=None,
         else:
             out["logits"] = _whole_logits(cfg, model, x, comm)
     if mode == "train" and model.mtp is not None:
-        out["mtp_logits"] = _mtp_train(cfg, model, x, tokens, comm)
+        out["mtp_logits"] = _mtp_train(cfg, model, x, tokens, comm,
+                                       block=(start, S) if cut else None)
     return out
 
 
@@ -561,18 +570,28 @@ def _mtp_in(cfg, head: MTPHead, h, e, comm=None):
                      dim=-1) @ use(head.proj, comm).to(h.dtype)
 
 
-def _mtp_train(cfg, model: Model, x, tokens, comm=None):
+def _mtp_train(cfg, model: Model, x, tokens, comm=None, block=None):
     """The train-mode head: the hidden at position i (pre-final-norm)
     with the embedding of token i + 1, through the block at positions
-    0..S-2, read off the shared unembedding."""
+    0..S-2, read off the shared unembedding.  ``block`` = (start, s)
+    under the sequence split: ``x`` is this rank's block of the hidden,
+    and the head runs on the same positions, the last one (S - 1, whose
+    label is IGNORE and whose key only it sees) fed a stand-in token."""
     dt = x.dtype
-    hm = _mtp_in(cfg, model.mtp, x[:, :-1],
-                 _embed(model, tokens[:, 1:], dt, comm), comm)
-    pos = torch.arange(hm.shape[1], device=tokens.device)[None]
+    if block is None:
+        h, nxt = x[:, :-1], tokens[:, 1:]
+        pos = torch.arange(h.shape[1], device=tokens.device)[None]
+    else:
+        start, s = block
+        h = x
+        nxt = torch.cat([tokens[:, 1:], tokens[:, :1]],
+                        dim=1)[:, start:start + s]
+        pos = torch.arange(start, start + s, device=tokens.device)[None]
+    hm = _mtp_in(cfg, model.mtp, h, _embed(model, nxt, dt, comm), comm)
     hm, _ = tfm.apply_layer(cfg, model.mtp.block, hm, positions=pos,
                             cache=None, paged=None, write_idx=None,
                             rope=rope_angles(pos, model.rope_freqs),
-                            mode="train")
+                            mode="train", seq=block is not None)
     return _logits(cfg, model, hm, comm)
 
 

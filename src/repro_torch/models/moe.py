@@ -35,8 +35,9 @@ import torch.nn.functional as F
 from repro_torch.models.layers import (apply_mlp, apply_mlp_mesh, init_mlp,
                                        truncated_normal)
 from repro_torch.sharding import ctx as shctx
-from repro_torch.sharding.comm import (all_to_all, copy_to, pmean,
-                                       reduce_from, shard_dims, use)
+from repro_torch.sharding.comm import (all_to_all, copy_to,
+                                       gather_replicated, pmean, reduce_from,
+                                       shard_dims, split_replicated, use)
 
 # weights the reference reads in fp32 whatever the compute dtype
 FP32_WEIGHTS = ("router", "router_bias")
@@ -150,6 +151,14 @@ def apply_moe(cfg, p, x, *, capacity_factor=None):
     else the dense dispatch."""
     if capacity_factor is None:
         capacity_factor = cfg.moe.capacity_factor
+    if shctx.get_activation_mesh() is not None and shctx.is_seq_cut():
+        # the sequence split: the reference's replicated-token layer over
+        # every token of the microbatch, this rank's block kept
+        comm = shctx.get_comm()
+        with shctx.seq_split(False):
+            y, aux = apply_moe_ep(cfg, p, gather_replicated(x, comm, 1),
+                                  capacity_factor=capacity_factor)
+        return split_replicated(y, comm, 1), aux
     if shctx.get_activation_mesh() is not None:
         return apply_moe_ep(cfg, p, x, capacity_factor=capacity_factor)
     return apply_moe_dense(cfg, p, x, capacity_factor=capacity_factor)

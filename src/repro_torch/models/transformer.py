@@ -59,7 +59,7 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (apply_mlp, apply_mlp_mesh, init_mlp,
                                        rmsnorm, rope_angles)
 from repro_torch.sharding import ctx as shctx
-from repro_torch.sharding.comm import use
+from repro_torch.sharding.comm import gather_seq, own_block, use
 
 
 def _frozen(t):
@@ -196,7 +196,7 @@ def init_layer_cache(cfg, kind, dtype, *, pool=None, slots=None, batch=None,
 
 def apply_layer(cfg, layer: Layer, x, *, positions, cache, paged,
                 write_idx, rope, mode="decode", cache_pos=0, enc_out=None,
-                causal=True):
+                causal=True, seq=False):
     """Pre-norm residual block: attention or Mamba then an MLP or MoE,
     or RWKV time mix then channel mix.  Returns (x, aux), aux being the
     MoE load-balance loss or None.  ``paged`` None is the slab path:
@@ -205,19 +205,34 @@ def apply_layer(cfg, layer: Layer, x, *, positions, cache, paged,
     decode call), and ``mode="train"`` (cache None) is the training
     forward.  ``causal`` False: an encoder layer.  A layer with a
     ``cross``-attention runs it after the mixer, over ``enc_out`` (train
-    and prefill) or its cross cache (decode)."""
+    and prefill) or its cross cache (decode).  ``seq``: x is this rank's
+    block of a sequence cut over ``"data"`` (``ctx.seq_cut``)."""
+    with shctx.seq_cut(seq):
+        return _apply_layer(cfg, layer, x, positions=positions, cache=cache,
+                            paged=paged, write_idx=write_idx, rope=rope,
+                            mode=mode, cache_pos=cache_pos, enc_out=enc_out,
+                            causal=causal)
+
+
+def _apply_layer(cfg, layer, x, *, positions, cache, paged, write_idx, rope,
+                 mode, cache_pos, enc_out, causal):
     # a mesh step's activation mesh or a serve topology (module
     # docstring): the weights read through ``use`` are gathered, the
     # tensor-parallel forms selected; without one ``use`` is the identity
     comm = shctx.layer_comm(mode)
-    if comm is not None and paged is None and isinstance(cache,
-                                                         shctx.Placed):
-        full = shctx.gather_placed(cache, comm)
-        out = apply_layer(cfg, layer, x, positions=positions, cache=full,
-                          paged=paged, write_idx=write_idx, rope=rope,
-                          mode=mode, cache_pos=cache_pos, enc_out=enc_out,
-                          causal=causal)
-        shctx.scatter_placed(cache, full, comm)
+    # a placed slab layer (an encoder-decoder's: its self and cross parts)
+    parts = ({"": cache} if isinstance(cache, shctx.Placed) else cache
+             if isinstance(cache, dict)
+             and isinstance(cache.get("self"), shctx.Placed) else None)
+    if comm is not None and paged is None and parts is not None:
+        full = {k: shctx.gather_placed(c, comm) for k, c in parts.items()}
+        out = _apply_layer(cfg, layer, x, positions=positions,
+                           cache=full.get("", full), paged=paged,
+                           write_idx=write_idx, rope=rope, mode=mode,
+                           cache_pos=cache_pos, enc_out=enc_out,
+                           causal=causal)
+        for k, c in parts.items():
+            shctx.scatter_placed(c, full[k], comm)
         return out
     gather = (lambda p: p) if comm is None else (           # noqa: E731
         lambda p: {k: use(v, comm) for k, v in p.items()})
@@ -225,16 +240,24 @@ def apply_layer(cfg, layer: Layer, x, *, positions, cache, paged,
     cross_cache = None
     if isinstance(cache, dict) and "cross" in cache:
         cache, cross_cache = cache["self"], cache["cross"]
-    h = norm(layer.norm1, x)
+    # the sequence split: a recurrent layer scans the gathered sequence
+    # whole and keeps this rank's block
+    cut = comm is not None and shctx.is_seq_cut()
+    whole = (lambda t: gather_seq(t, comm, 1)) if cut else (  # noqa: E731
+        lambda t: t)
+    own = (lambda t: own_block(t, comm, "data", 1)) if cut else (  # noqa
+        lambda t: t)
     if layer.kind == "rwkv6":
         mixer = gather(layer.mixer)
-        x = x + ssm_lib.apply_rwkv6_time_mix(cfg, mixer, h, mode=mode,
-                                             cache=cache)
-        return x + ssm_lib.apply_rwkv6_channel_mix(
-            cfg, mixer, norm(layer.norm2, x), cache=cache), None
+        x = whole(x)
+        x = x + ssm_lib.apply_rwkv6_time_mix(cfg, mixer, norm(layer.norm1, x),
+                                             mode=mode, cache=cache)
+        return own(x + ssm_lib.apply_rwkv6_channel_mix(
+            cfg, mixer, norm(layer.norm2, x), cache=cache)), None
+    h = norm(layer.norm1, x)
     if layer.kind == "mamba":
-        x = x + ssm_lib.apply_mamba(cfg, gather(layer.mixer), h, mode=mode,
-                                    cache=cache)
+        x = x + own(ssm_lib.apply_mamba(cfg, gather(layer.mixer), whole(h),
+                                        mode=mode, cache=cache))
     elif cfg.attention == "mla":
         x = x + attn_lib.apply_mla(cfg, gather(layer.mixer), h,
                                    positions=positions, cache=cache,
@@ -272,7 +295,7 @@ def has_attention(cfg) -> bool:
 
 def apply_stack(cfg, layers, x, *, positions, cache, paged, rope_freqs,
                 mode="decode", cache_pos=0, remat=False, enc_out=None,
-                causal=True):
+                causal=True, seq=False):
     """The layers in order; returns (x, the summed MoE aux loss or
     None).  What every attention layer derives alike from the positions
     -- pool write rows (paged) and RoPE angles -- is computed once, and
@@ -282,7 +305,9 @@ def apply_stack(cfg, layers, x, *, positions, cache, paged, rope_freqs,
     under ``torch.utils.checkpoint`` (per-layer rematerialisation, as
     the reference's ``jax.checkpoint`` of one layer): its activations
     are recomputed in the backward instead of kept.  ``enc_out`` feeds
-    every cross-attention; ``causal`` False runs an encoder stack."""
+    every cross-attention; ``causal`` False runs an encoder stack;
+    ``seq``: x is this rank's block of a sequence cut over ``"data"``
+    (bound into each layer's call, so a recompute keeps it)."""
     write_idx = rope = None
     if has_attention(cfg):
         if paged is not None:
@@ -294,7 +319,7 @@ def apply_stack(cfg, layers, x, *, positions, cache, paged, rope_freqs,
         fn = functools.partial(apply_layer, cfg, layer, positions=positions,
                                cache=c, paged=paged, write_idx=write_idx,
                                rope=rope, mode=mode, cache_pos=cache_pos,
-                               enc_out=enc_out, causal=causal)
+                               enc_out=enc_out, causal=causal, seq=seq)
         x, a = (checkpoint(fn, x, use_reentrant=False) if remat else fn(x))
         if a is not None:
             aux = a if aux is None else aux + a

@@ -49,11 +49,13 @@ from repro_torch.sharding.comm import MeshComm, all_gather, own_block
 
 
 def make_prefill_step(cfg):
-    def prefill(model, tokens, cache):
+    def prefill(model, tokens, cache, **frontends):
         """Fill the slab from 0 with (B, S) tokens; the next-token
-        logits (B, V) at each sequence's last position."""
+        logits (B, V) at each sequence's last position.  ``frontends``:
+        a VLM's ``vision_embeds`` or an encoder-decoder's
+        ``src_embeds`` (``models.batch_inputs``)."""
         out = apply_model(cfg, model, tokens, mode="prefill", cache=cache,
-                          cache_pos=0, last_only=True)
+                          cache_pos=0, last_only=True, **frontends)
         return out["logits"][:, -1]
     return prefill
 

@@ -18,6 +18,13 @@ so are their gradients:
   * ``pmean(x, axes)``: mean forward, mean of the gradients backward;
   * ``all_to_all(x, axis, split, concat)``: the tiled exchange, whose
     backward is the reverse exchange;
+  * ``gather_seq(x, axis, dim)``: the blocks of ``axis`` gathered along
+    ``dim``, whose backward reduce-scatters the gradient (each rank
+    holds its own part of it: the sequence split's keys and values);
+  * ``gather_replicated`` / ``split_replicated``: into and out of a
+    region that every rank of ``axis`` computes alike (gradient
+    replicated there): gather forward, own block backward; own block
+    forward, gather backward;
   * ``use(param, ...)``: a DTensor master at its compute layout (gathered
     over ``"data"``, and over ``"model"`` unless the caller keeps the
     model shard), whose backward reduce-scatters (or all-reduces) the
@@ -210,6 +217,57 @@ class _AllToAll(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return tiled_all_to_all(g, *ctx.args), None, None, None, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, axis, dim):
+        ctx.args = (comm, axis, dim)
+        return all_gather(x, comm, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, *ctx.args), None, None, None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, axis, dim):
+        ctx.args = (comm, axis, dim)
+        return all_gather(x, comm, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return own_block(g, *ctx.args).contiguous(), None, None, None
+
+
+class _SplitReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, axis, dim):
+        ctx.args = (comm, axis, dim)
+        return own_block(x, comm, axis, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, *ctx.args), None, None, None
+
+
+def gather_seq(x, comm, dim, axis="data"):
+    if comm.size(axis) == 1:
+        return x
+    return _GatherSeq.apply(x, comm, axis, dim)
+
+
+def gather_replicated(x, comm, dim, axis="data"):
+    if comm.size(axis) == 1:
+        return x
+    return _GatherReplicated.apply(x, comm, axis, dim)
+
+
+def split_replicated(x, comm, dim, axis="data"):
+    if comm.size(axis) == 1:
+        return x
+    return _SplitReplicated.apply(x, comm, axis, dim)
 
 
 def copy_to(x, comm, axes):

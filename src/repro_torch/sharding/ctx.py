@@ -12,9 +12,11 @@ are the ones the mesh forms compute in --
 
   * ``constrain_bsd`` / ``constrain_tokens``: the residual stream and
     token-major tensors hold this rank's rows, the batch cut over pod x
-    data by ``rules.batch_spec`` (replicated where it does not divide),
-    replicated over ``"model"``; the reference's sequence split of a
-    batch of one (``long_500k``) belongs to the dry run and is not taken;
+    data by ``rules.batch_spec``, replicated over ``"model"``; where the
+    rows do not divide pod x data and the sequence divides ``"data"``,
+    the reference's order of tests cuts the SEQUENCE over ``"data"``
+    instead (``seq_split``), replicated over ``"pod"``; else the batch
+    is replicated;
   * ``constrain_ecd``: the MoE buffers' experts over data x model, else
     model (``moe._ep_factors``);
   * ``constrain_logits``: the vocabulary over ``"model"`` when the table
@@ -24,7 +26,27 @@ are the ones the mesh forms compute in --
 mesh on exit, even when the body raises; ``batch_split(flag)`` records,
 for the same scope, whether the batch was cut over pod x data (a batch
 that does not divide is replicated, and then no gradient is summed over
-the batch axes).
+the batch axes), and ``seq_split(flag)`` whether each row's sequence is
+cut over ``"data"`` instead: then the ``"data"`` ranks hold different
+tokens and sum their gradients (``batch_axes``).
+
+The sequence split.  Rank r of ``"data"`` (of D) holds positions [r s,
+(r + 1) s) of every row, s = S / D (``seq_block``); a layer called with
+``seq_cut`` set reads what it needs of the other blocks:
+
+  * attention gathers its keys and values over ``"data"`` (the gather's
+    backward is the reduce-scatter) and keeps the prefix [0, (r + 1) s):
+    the block's queries are then right-aligned causal against it, the
+    flash kernel's own convention (``seq_prefix``);
+  * Mamba and RWKV-6 gather the sequence, scan it whole and keep their
+    block (replicated compute of the scan);
+  * the MoE gathers the tokens into the replicated-token form the
+    reference's expert-parallel layer takes for a batch that does not
+    divide (its routing, capacity and aux over all of the microbatch's
+    tokens, every data rank alike) and keeps its block of the output
+    (``gather_replicated`` / ``split_replicated``);
+  * the loss sums the CE over the block's tokens (the global mean over
+    the count summed over ``"data"``).
 
 Serving registers a ``ServeTopology`` as well (``serve_topology(topo)``,
 which scopes its mesh as the activation mesh too): replica groups over
@@ -57,11 +79,14 @@ import dataclasses
 
 import torch
 
-from repro_torch.sharding.comm import MeshComm, all_gather, own_block
+from repro_torch.sharding.comm import (MeshComm, all_gather, gather_seq,
+                                       own_block)
 
 _MESH = None          # the registered DeviceMesh
 _COMM = None          # its MeshComm
 _SPLIT = True         # the batch is cut over pod x data
+_SEQ = False          # each row's sequence is cut over "data" instead
+_CUT = False          # the activations in this scope are sequence blocks
 _TOPO = None          # the registered ServeTopology
 
 
@@ -110,10 +135,62 @@ def is_batch_split() -> bool:
     return _SPLIT
 
 
+@contextlib.contextmanager
+def seq_split(flag: bool):
+    """Scope whether each row's sequence is cut over ``"data"`` (module
+    docstring): the step of a batch whose rows do not divide."""
+    global _SEQ
+    prev = _SEQ
+    _SEQ = bool(flag)
+    try:
+        yield
+    finally:
+        _SEQ = prev
+
+
+def is_seq_split() -> bool:
+    return _SEQ
+
+
+@contextlib.contextmanager
+def seq_cut(flag: bool):
+    """Scope whether the layer activations are this rank's sequence
+    block (a layer's call; the encoder of a split step runs whole)."""
+    global _CUT
+    prev = _CUT
+    _CUT = bool(flag)
+    try:
+        yield
+    finally:
+        _CUT = prev
+
+
+def is_seq_cut() -> bool:
+    return _CUT
+
+
+def seq_block(comm, n: int) -> tuple:
+    """(start, length) of this rank's block of a sequence of ``n`` cut
+    over ``"data"``."""
+    s = n // comm.size("data")
+    return comm.index("data") * s, s
+
+
+def seq_prefix(t, comm, dim=1):
+    """The sequence blocks of ``t`` gathered over ``"data"`` up to the
+    end of this rank's block, along ``dim``: the keys a block's causal
+    queries can see."""
+    start, s = seq_block(comm, t.shape[dim] * comm.size("data"))
+    return gather_seq(t, comm, dim).narrow(dim, 0, start + s)
+
+
 def batch_axes(comm) -> tuple:
-    """The axes whose ranks hold different rows: pod x data when the
-    batch is split, none when it is replicated."""
-    return comm.dp_axes if _SPLIT else ()
+    """The axes whose ranks hold different tokens: pod x data when the
+    batch is split, ``"data"`` when the sequence is, none when the batch
+    is replicated."""
+    if _SPLIT:
+        return comm.dp_axes
+    return ("data",) if _SEQ and "data" in comm.names else ()
 
 
 def dp_share(comm) -> int:
@@ -215,21 +292,26 @@ def place_cache(shapes, spec, comm, device) -> list:
     """Zeros of this rank's blocks of a serving cache: ``shapes`` the
     whole cache's leaves (one dict a layer, e.g. on the meta device),
     ``spec(i, name, shape)`` a leaf's rule (``rules.pool_spec``,
-    ``rules.cache_spec``); each layer a ``Placed``."""
+    ``rules.cache_spec``); each layer a ``Placed`` -- an
+    encoder-decoder's ``{"self": ..., "cross": ...}`` layer a dict of
+    two, each leaf's ``name`` then ``"self/k"`` and so on."""
     from repro_torch.sharding.rules import local_slices
-    out = []
-    for i, layer in enumerate(shapes):
+
+    def place(i, layer, prefix=""):
         leaves, split = {}, {}
         for name, t in layer.items():
-            sp = spec(i, name, tuple(t.shape))
+            sp = spec(i, prefix + name, tuple(t.shape))
             if "model" in sp:
                 split[name] = sp.index("model")
             block = t[local_slices(tuple(t.shape), sp, comm.sizes,
                                    comm.coord)]
             leaves[name] = torch.zeros(block.shape, dtype=t.dtype,
                                        device=device)
-        out.append(Placed(leaves, split))
-    return out
+        return Placed(leaves, split)
+
+    return [{k: place(i, sub, k + "/") for k, sub in layer.items()}
+            if "cross" in layer else place(i, layer)
+            for i, layer in enumerate(shapes)]
 
 
 def own_update(t, comm, dim):

@@ -103,22 +103,35 @@ def _global_mean(total, count, comm):
     return total / n, all_reduce(total.detach().clone(), comm, axes) / n
 
 
+def _own(labels, comm):
+    """This rank's block of (B, S) labels when the sequence is cut over
+    ``"data"`` (``ctx.seq_split``), else all of them."""
+    if not shctx.is_seq_split():
+        return labels
+    start, s = shctx.seq_block(comm, labels.shape[1])
+    return labels[:, start:start + s]
+
+
 def lm_loss_mesh(cfg, out, batch, comm, *, mtp_weight=0.1):
     """``lm_loss`` on a mesh: (this rank's share of the objective, the
     global metrics).  ``out`` is ``apply_model``'s mesh output; the MoE
-    aux is already the mean over the batch axes (``apply_moe_ep``)."""
+    aux is already the mean over the batch axes (``apply_moe_ep``).
+    Under the sequence split the logits are this rank's block of the
+    positions, and so are the labels read here."""
     start = out.get("vocab_start")
-    share, ce = _global_mean(*ce_sum(out["logits"], make_labels(cfg, batch),
-                                     comm, start), comm)
+    share, ce = _global_mean(*ce_sum(out["logits"], _own(make_labels(
+        cfg, batch), comm), comm, start), comm)
     aux = out["aux"]
     share = share + aux / shctx.dp_share(comm)
     metrics = {"ce": ce, "aux": aux.detach() if isinstance(
         aux, torch.Tensor) else aux}
     total = ce + metrics["aux"]
     if "mtp_logits" in out:
+        n = (batch.get("tgt_tokens", batch.get("tokens")).shape[1]
+             if shctx.is_seq_split() else out["mtp_logits"].shape[1])
         mtp_share, mtp_ce = _global_mean(*ce_sum(
-            out["mtp_logits"], mtp_labels(batch, out["mtp_logits"].shape[1]),
-            comm, start), comm)
+            out["mtp_logits"], _own(mtp_labels(batch, n), comm), comm,
+            start), comm)
         share = share + mtp_weight * mtp_share
         total = total + mtp_weight * mtp_ce
         metrics["mtp_ce"] = mtp_ce

@@ -30,10 +30,13 @@ master is a DTensor placed by ``sharding.rules.param_specs`` in train
 mode (each cut as it is drawn, ``bridge.mesh_placer``), each optimizer
 moment mirrors its master's placements and the step counter is a host
 int, as ``opt_state_shardings`` replicates it.  Each microbatch of the
-global batch is cut over pod x data by ``batch_spec`` (replicated where
-it does not divide), the forward and backward run the layers' mesh forms under
-the registered activation mesh (``sharding.ctx``), and the loss is the
-mean over the global batch (``train.loss.lm_loss_mesh``).  The gradients
+global batch is cut over pod x data by ``batch_spec``; where its rows
+do not divide, each row's sequence is cut over ``"data"`` instead when
+it divides (the reference's residual constraint; ``_splits``), else the
+microbatch is replicated.  The forward and backward run the layers'
+mesh forms under the registered activation mesh (``sharding.ctx``),
+and the loss is the mean over the global batch
+(``train.loss.lm_loss_mesh``).  The gradients
 arrive already summed over the batch axes, each as its master's block
 (``sharding.comm.use``); the clip's norm sums the blocks over the mesh
 and the optimizer updates every block in place.  ``mesh=None`` is the
@@ -160,8 +163,9 @@ def make_train_step(cfg, tc: TrainConfig, *, mesh=None):
         else:
             # the scope spans the backward: remat recomputes the layers'
             # mesh forms there
+            split = _splits(cfg, batch, n, mesh)
             with shctx.activation_mesh(mesh), shctx.batch_split(
-                    _splits(batch, n, mesh)):
+                    split == "batch"), shctx.seq_split(split == "seq"):
                 loss, metrics, grads = accumulate_grads(
                     loss_fn, model, params, batch, n, grad_dtype=gdt)
             # each rank's loss is its share: the metric is the global loss
@@ -185,11 +189,22 @@ def make_train_step(cfg, tc: TrainConfig, *, mesh=None):
 # on a mesh
 # --------------------------------------------------------------------------
 
-def _splits(batch, n, mesh) -> bool:
-    """Whether each of the ``n`` microbatches of ``batch`` is cut over
-    pod x data (``batch_spec``)."""
+def _splits(cfg, batch, n, mesh):
+    """How each of the ``n`` microbatches of ``batch`` is cut, in the
+    reference's order of tests (``ctx.constrain_bsd``): ``"batch"``, its
+    rows over pod x data (``batch_spec``); else ``"seq"``, each row's
+    sequence (the residual stream's: a VLM's image rows and text, an
+    encoder-decoder's targets) over ``"data"`` when it divides; else
+    None, replicated."""
     B = next(iter(batch.values())).shape[0]
-    return batch_spec(mesh, B // n) != (None,)
+    if batch_spec(mesh, B // n) != (None,):
+        return "batch"
+    names = tuple(mesh.mesh_dim_names)
+    D = int(mesh.mesh.shape[names.index("data")]) if "data" in names else 1
+    S = batch.get("tgt_tokens", batch.get("tokens")).shape[1]
+    if cfg.frontend == "vision" and "vision_embeds" in batch:
+        S += batch["vision_embeds"].shape[1]
+    return "seq" if D > 1 and S > 1 and S % D == 0 else None
 
 
 def _mesh_loss_fn(cfg, tc, mesh):

@@ -137,11 +137,27 @@ def test_bf16_in_gives_bf16_out_and_fp32_state():
 
 def test_wrapper_refuses_other_devices_and_bad_shapes():
     """No silent fallback: a tensor that is not on the CPU launches the
-    kernel or raises (here, on the meta device, it raises)."""
+    kernel, is counted (the meta device: the dry run's empty outputs of
+    the kernel's shapes, no op of the plain version run) or raises (the
+    launch of any other device)."""
+    import importlib
+    from repro_torch.roofline.cost import count
+    kernel = importlib.import_module("repro_torch.kernels.mamba_scan")
     args = _torch(*_inputs(0, 1, 4, 32, 8))
     meta = tuple(t.to("meta") for t in args)
+    ops_run = []
+
+    class Ops(torch.utils._python_dispatch.TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, a=(), kw=None):
+            ops_run.append(func._overloadpacket.__name__)
+            return func(*a, **(kw or {}))
+    with Ops():
+        (y, h), c = count(mamba_scan, *meta, track_memory=False)
+    assert set(ops_run) <= {"empty_like"}, ops_run
+    assert y.shape == meta[0].shape and h.shape == meta[-1].shape
+    assert (c["flops"], c["dot_bytes"]) == kernel.meta_cost(1, 4, 32, 8)
     with pytest.raises(ValueError, match="device"):
-        mamba_scan(*meta)
+        kernel._launch(*args)
     x, dt, A, B, C, D, h0 = args
     with pytest.raises(ValueError, match="state"):
         mamba_scan(x, dt, A, B, C, D, h0[:, :, :4])

@@ -6,7 +6,14 @@ Meshes and configs: (data 2, model 2) -- qwen3 (its kv heads split),
 DeepSeek-V3 (MLA, sigmoid router with a balance bias, MTP head, the
 expert-parallel MoE), Jamba (Mamba, attention, MoE), RWKV-6, the
 encoder-decoder (seamless) and the VLM (llava), and qwen3 with two
-microbatches and a global-norm clip; (1, 4) -- qwen3 (2 kv heads on 4:
+microbatches and a global-norm clip, and qwen3, DeepSeek-V3 and Jamba
+in four one-row microbatches, whose rows do not divide data 2: each
+row's sequence is cut over "data" instead (the sequence split:
+attention over the gathered prefix, Mamba on the gathered sequence, the
+MoE in the reference's replicated-token form, whose routing, capacity
+and aux cover every token of the microbatch, so the one-device step
+with the same microbatches is the same objective and is the side these
+compare with); (1, 4) -- qwen3 (2 kv heads on 4:
 replicated kv) and qwen3 at 6 heads (the head_dim fallback); (pod 2,
 data 2, model 2) -- qwen3.  An MoE's aux on the mesh is each data
 shard's own (the reference's expert-parallel aux), so for those configs
@@ -61,6 +68,13 @@ GRAD_REL = 1e-4      # a leaf's gradient: norm of the gap over its norm
 # these steps: against the reference, the mesh is held to that drift +
 # TOL (loss for loss, entry for entry); against the port's own step, TOL
 DRIFTS = {"rwkv6-1.6b"}
+# DeepSeek-V3 in four one-row microbatches: the port's and the
+# reference's one-device steps agree within 4e-6 on every gradient for
+# four steps, then a top-k routing near-tie falls the other way and the
+# fifth loss parts by 9.1e-4 (one-device against one-device, no mesh in
+# it); the mesh is held to the port's one-device step at TOL, and to the
+# reference by that drift + TOL, as for DRIFTS
+DRIFT_CASES = {"dsv3_seq"}
 ILL, NOISY = 1e-6, 1e-2
 # the share of entries the near-eps rule may excuse (as in
 # tests/test_torch_arch_train.py; RWKV-6's ln_x magnifies rounding; the
@@ -78,12 +92,20 @@ CASES = {
     "llava": ("llava-next-mistral-7b", {}, 1, 0.0),
     "qwen3_mb2_clip": ("qwen3-1.7b", {}, 2, 0.5),
     "qwen3_h6": ("qwen3-1.7b", {"num_heads": 6}, 1, 0.0),
+    "qwen3_seq": ("qwen3-1.7b", {}, 4, 0.0),
+    "dsv3_seq": ("deepseek-v3-671b", {"mtp_depth": 1}, 4, 0.0),
+    "jamba_seq": ("jamba-v0.1-52b", {}, 4, 0.0),
 }
 LAUNCHES = {"2x2": ((2, 2), ("data", "model"),
                     ["qwen3", "dsv3", "jamba", "rwkv6", "seamless", "llava",
-                     "qwen3_mb2_clip"]),
+                     "qwen3_mb2_clip", "qwen3_seq", "dsv3_seq",
+                     "jamba_seq"]),
             "1x4": ((1, 4), ("data", "model"), ["qwen3", "qwen3_h6"]),
             "2x2x2": ((2, 2, 2), ("pod", "data", "model"), ["qwen3"])}
+
+
+def _drifts(case):
+    return CASES[case][0] in DRIFTS or case in DRIFT_CASES
 
 
 def _cfgs(case):
@@ -318,7 +340,7 @@ def test_mesh_step_matches_one_device_and_reference(runs, launch, case):
     for i in range(STEPS):
         assert abs(losses[i] - ref["one_losses"][i]) <= TOL, (i, losses)
         drift = (abs(ref["one_losses"][i] - ref["ref_losses"][i])
-                 if CASES[case][0] in DRIFTS else 0.0)
+                 if _drifts(case) else 0.0)
         assert abs(losses[i] - ref["ref_losses"][i]) <= drift + TOL, (
             i, losses)
     with np.load(tmp / f"{case}_{'x'.join(map(str, shape))}.npz") as f:
@@ -342,10 +364,10 @@ def test_mesh_step_matches_one_device_and_reference(runs, launch, case):
         # above, so no fault of the mesh hides in it
         now = {k: ((np.abs(x) < ILL) & (x != 0))
                | ((np.abs(g_one[k] - x) > NOISY * np.abs(x))
-                  & (CASES[case][0] not in DRIFTS))
+                  & (not _drifts(case)))
                | ((np.abs(mesh[f"g{i}/{k}"] - g_one[k])
                    > NOISY * np.abs(g_one[k]))
-                  & (CASES[case][0] in DRIFTS))
+                  & (_drifts(case)))
                for k, x in g_ref.items()}
         ill = now if ill is None else {k: ill[k] | now[k] for k in now}
     n_ill = n = 0
@@ -354,7 +376,7 @@ def test_mesh_step_matches_one_device_and_reference(runs, launch, case):
         n_ill += int(ill[k].sum())
         n += want.size
         drift = (np.abs(ref["one_p"][k] - want)
-                 if CASES[case][0] in DRIFTS else 0.0)
+                 if _drifts(case) else 0.0)
         for other, tol in ((ref["one_p"][k], TOL), (want, drift + TOL)):
             gap = np.abs(got - other)
             assert (gap - tol)[~ill[k]].max(initial=0) <= 0, (k, gap.max())

@@ -152,11 +152,28 @@ def test_wrapper_leaves_inputs_untouched_and_checks_shapes():
 
 def test_wrapper_raises_off_the_cpu_never_falls_back():
     """Only a CPU tensor takes the plain version: any other device
-    launches the kernel (CUDA) or raises -- here a meta tensor, which a
-    fallback would have computed on quietly."""
+    launches the kernel (CUDA), is counted (the meta device: the dry
+    run's empty outputs of the kernel's shapes, no op of the plain
+    version run, which a fallback would have computed on quietly) or
+    raises (the launch of any other device)."""
+    import importlib
+    from repro_torch.roofline.cost import count
+    kernel = importlib.import_module("repro_torch.kernels.wkv6")
     args = _torch(*_inputs(5, 1, 9, 2, 32))
+    ops_run = []
+
+    class Ops(torch.utils._python_dispatch.TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, a=(), kw=None):
+            ops_run.append(func._overloadpacket.__name__)
+            return func(*a, **(kw or {}))
+    meta = [a.to("meta") for a in args]
+    with Ops():
+        (y, s), c = count(wkv6, *meta, track_memory=False)
+    assert set(ops_run) <= {"empty_like"}, ops_run
+    assert y.shape == meta[0].shape and s.shape == meta[-1].shape
+    assert (c["flops"], c["dot_bytes"]) == kernel.meta_cost(1, 9, 2, 32)
     with pytest.raises(ValueError, match="unsupported device"):
-        wkv6(*(a.to("meta") for a in args))
+        kernel._launch(*args, 32)
 
 
 def test_chunk_schedule_is_the_references():
