@@ -89,7 +89,8 @@ Phases (each fails the run if it goes wrong):
      zero3's within 1e-5, peak under 80 GB; the reduce-scatter and
      all-gather ms (SyncTimer) and the memory between steps printed.
      (b) 2 gloo ranks sharing the card (torchrun of this script), full
-     width at depth 4 (reduced: num_layers 28 -> 4), each rank 1 x 4096
+     width at depth 2 (reduced: num_layers 28 -> 2; 4 until phase 31
+     needed the time), each rank 1 x 4096
      tokens of phase 13's batch, dp = flat, zero1, zero2, zero3, 2 steps
      each (3 until phase 27 needed the time): the losses within 1e-5 of
      flat's, zero3's memory between steps at most 0.55 x flat's, zero1's
@@ -97,8 +98,8 @@ Phases (each fails the run if it goes wrong):
      own worker file) and takes step 3; a one-rank bucketed trainer
      restores that checkpoint, its step 3 gives zero3's step-3 loss
      within 1e-5, and Trainer.serve()
-     of both serves phase 3's traffic at depth 4 with equal greedy
-     tokens and 4 x 282 paged_flash_decode launches each.  The
+     of both serves phase 3's traffic at depth 2 with equal greedy
+     tokens and 2 x 282 paged_flash_decode launches each.  The
      checkpoint is deleted at the phase's end.
  19. the lockstep slab path of the other three models, bf16, phase 11's
      traffic: rwkv6-1.6b (nothing cut) with exactly 24 wkv6 launches
@@ -111,7 +112,8 @@ Phases (each fails the run if it goes wrong):
  20. training full-width, full-depth rwkv6-1.6b on phase 13's batch, 1 +
      3 AdamW steps, bf16 on fp32 masters, remat: exactly 384 wkv6
      launches (the WKV6 Function: kernel forward, plain backward); then
-     2 fp32 layers card vs CPU (phase 14's form);
+     2 fp32 layers card vs CPU (phase 14's form), 2 steps (3 until phase
+     31 needed the time);
  21. training Jamba cut to 2 layers (3.742 B; SGD, 1 x 2048 tokens, 1 +
      3 steps, 16 mamba_scan launches) and DeepSeek-V3 cut to 1 layer
      (MLA + dense MLP, with its MTP head; AdamW, phase 13's batch, 1 + 3
@@ -119,7 +121,8 @@ Phases (each fails the run if it goes wrong):
      the head's block is not rematted; its mtp_ce printed; peak under
      80 GB); then each at 2 fp32 layers card vs CPU, SGD, the routed
      experts cut (Jamba 16 -> 4, DeepSeek 256 -> 16; DeepSeek's with the
-     head, 2 steps: its CPU half takes ~16 s a step);
+     head), 2 steps (Jamba's 3 until phase 31 needed the time; the CPU
+     half takes 8-16 s a step);
  22. the prefix cache and the front door: phase 3's model serves 16
      requests on 8 slots, 4 templates of 256 tokens each shared by 4
      requests, each with a unique suffix of 32-256 tokens, without the
@@ -185,7 +188,7 @@ Phases (each fails the run if it goes wrong):
      beside perf_model.dp_memory_report's; (b) 2 of its layers at full
      width, fp32 compute on bf16 masters, 2 SGD steps card vs CPU within
      one bf16 ulp a step; (c) zero3 with bf16 masters against flat over
-     one NCCL rank at phase 18b's 4-layer qwen3, 3 AdamW steps; (d) the
+     one NCCL rank at phase 18b's 2-layer qwen3, 3 AdamW steps; (d) the
      asynchronous parameter server on MNIST-DNN, 8 workers, 64 ticks,
      beside the synchronous steps on the same stream;
  28. the full config on a mesh: torchrun of ``chip_smoke.py --mesh-rank``
@@ -231,6 +234,22 @@ Phases (each fails the run if it goes wrong):
      phase 13's measured peak, its FLOPs against 6 N tokens (the useful
      ratio), its roofline on ``H100_SXM`` beside phase 13's step wall,
      and ``H100_SXM``'s memory within 2 % of the card's.
+ 31. ``kernels/ops.py`` on the card: (a) the flash kernel at every block
+     shape it is built for (``ops.set_flash_blocks``: the plan, 16- and
+     128-row bf16 blocks, 16- and 64-row fp32 blocks, each split count
+     of the 16-row blocks), fp32 and bf16, at qwen3-1.7b's slab prefill
+     (B 8, S = T = 512), slab decode (B 8, S 1, T 576) and training
+     forward (B 1, S = T = 4096): each within phase 2's bars of the
+     plain version and timed as phase 2 times; (b) ``ops.flash_attention``
+     / ``wkv6`` / ``mamba_scan`` on CUDA tensors: "auto" and "cuda"
+     launch the kernel once, "ref" and "chunked" none, all within the
+     bars; (c) ``launch.serve`` at full-width qwen3-1.7b cut to 4 layers,
+     fp32, 4 requests x 16 greedy tokens with --decode-kernel cuda and
+     plain: bitwise equal tokens, layers x model calls paged launches
+     and 0, each report naming its kernel; (d) the three ported examples
+     (``launch/quickstart.py``, ``serve_batched.py``,
+     ``long_context_decode.py``) at their defaults, the last with wkv6
+     launches.
 Phases 3, 16 and 17 also print the cost model's predictions
 (``repro_torch.core.perf_model`` with H100 presets) beside what the
 card measured: a decode step, the gradient all-reduce at p = 2, 4, 8
@@ -344,7 +363,8 @@ CKPT_LAYERS = 4
 # phase 18: the ZeRO runs; (b)'s depth, its ranks' files and checkpoint
 ZERO_STRATEGIES = (("zero1", False), ("zero2", False), ("zero3", False),
                    ("zero1", True))
-ZERO_LAYERS, ZERO_RANKS = 4, 2
+# (b)'s and phase 27 (c)'s depth (4 until phase 31 needed the time)
+ZERO_LAYERS, ZERO_RANKS = 2, 2
 # (b)'s steps a strategy before the checkpoint (3 until phase 27 needed
 # the time)
 ZERO_GLOO_STEPS = 2
@@ -354,6 +374,9 @@ ZERO_DIR = os.path.join(ROOT, "build", "zero_phase18")
 # phases 20-21: Jamba (cut to 2 layers) trains on 1 x 2048 tokens; Jamba
 # and DeepSeek-V3 (cut to 1 layer) take 1 + 3 steps
 JAMBA_TRAIN_SEQ, ARCH_TRAIN_STEPS = 2048, 3
+# their card-vs-CPU checks: steps on the CPU (rwkv6 and Jamba took 3
+# until phase 31 needed the time; step 2 is the later-steps bar's)
+ARCH_PARITY_STEPS = 2
 # phase 28: full-width configs cut to 2 layers on a (data 2, model 2) mesh
 # of 4 gloo ranks sharing the card, fp32 with TF32 off, held to the
 # one-device step (the reference's fp32 training bar); (b)'s capacity
@@ -2853,7 +2876,8 @@ def train_archs(dev):
     small = cfg.with_overrides(num_layers=2, dtype="float32")
     out["rwkv6-1.6b"]["parity"] = _train_parity(
         dev, "phase 20", small, TrainConfig(optimizer="adamw", lr=TRAIN_LR),
-        make_batch(small, np.random.default_rng(14), 2, 256))
+        make_batch(small, np.random.default_rng(14), 2, 256),
+        steps=ARCH_PARITY_STEPS)
 
     sgd = TrainConfig(optimizer="sgd", lr=1e-2, remat=True)
     full = get_config("jamba-v0.1-52b")
@@ -2868,7 +2892,7 @@ def train_archs(dev):
         dev, "phase 21", small, sgd,
         make_batch(small, np.random.default_rng(21), 1, 128),
         f", reduced: routed experts {full.moe.num_experts} -> 4 (this check "
-        "only)")
+        "only)", steps=ARCH_PARITY_STEPS)
 
     full = get_config("deepseek-v3-671b")
     cfg = full.with_overrides(num_layers=1)
@@ -2881,13 +2905,13 @@ def train_archs(dev):
         dev, "phase 21", small, sgd,
         make_batch(small, np.random.default_rng(21), 1, 128),
         f", reduced: routed experts {full.moe.num_experts} -> 16 (this "
-        "check only)", steps=2)
+        "check only)", steps=ARCH_PARITY_STEPS)
     return out
 
 
 def zero_rank(outdir):
     """One of phase 18b's gloo ranks (run by torchrun): full-width qwen3
-    at depth 4 under flat, zero1, zero2 and zero3, ZERO_GLOO_STEPS steps
+    at depth ZERO_LAYERS under flat, zero1, zero2 and zero3, ZERO_GLOO_STEPS steps
     each on this rank's 1 x 4096 tokens of phase 13's batch; zero3
     saves, steps and serves.  Rank 0 writes the numbers."""
     import gc
@@ -4973,6 +4997,258 @@ def dryrun_phase13(train_out):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 31: kernels/ops.py on the card -- the flash block surface, the
+# impl dispatch, --decode-kernel and the examples
+# --------------------------------------------------------------------------
+
+# (a)'s shapes at qwen3-1.7b's 16 q / 8 kv heads of 128: name, B, S, T
+BLOCK_SHAPES = [
+    (f"slab prefill B={LEGACY_BATCH} S=T={LEGACY_PROMPT}", LEGACY_BATCH,
+     LEGACY_PROMPT, LEGACY_PROMPT),
+    (f"slab decode B={LEGACY_BATCH} S=1 T={LEGACY_PROMPT + NEW_TOKENS}",
+     LEGACY_BATCH, 1, LEGACY_PROMPT + NEW_TOKENS),
+    (f"train forward B=1 S=T={TRAIN_SEQ}", 1, TRAIN_SEQ, TRAIN_SEQ),
+]
+# (c): the serve launcher at full width, fp32, cut to this many layers
+CLI_LAYERS, CLI_REQUESTS, CLI_NEW = 4, 4, 16
+
+
+def flash_block_sweep(dev, flush):
+    """(a) The flash kernel at every block shape it is built for
+    (``block_choices``: the plan, each block_q, each split count),
+    set through ``ops.set_flash_blocks`` and read by the launch, in
+    fp32 and bf16 at BLOCK_SHAPES: each held against the plain version
+    at phase 2's bars and timed as phase 2 times (median of 20 after an
+    L2 flush), beside the plan's time, the plain version's, SDPA's and
+    the bound.  A shape slower than the plan's is kept and marked."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (block_choices,
+                                                     flash_attention,
+                                                     flash_attention_ref,
+                                                     launch_layout)
+
+    rng = np.random.default_rng(31)
+    h, hk, hd = 16, 8, 128
+    rows = []
+    for name, B, S, T in BLOCK_SHAPES:
+        host = [torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev) for shape in ((B, S, h, hd), (B, T, hk, hd),
+                                               (B, T, hk, hd))]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (x.to(dtype) for x in host)
+            want = flash_attention_ref(q, k, v).float()
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            causal = S == T
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+            common = {
+                "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v),
+                                    flush),
+                "library_ms": time_ms(sdpa, flush),
+                "sdpa_backend": sdpa_backend(qt, kt, vt, None, 0.0, causal,
+                                             enable_gqa=True),
+                **bound_of(*flash_bound(B, S, T, h, hk, hd, True, 0,
+                                        q.element_size()), dtype)}
+            plan_ms = None
+            for block_q, block_kv in block_choices(dtype, T):
+                prev = ops.set_flash_blocks(block_q, block_kv)
+                try:
+                    layout = launch_layout(dtype, B, S, T, h, hk, block_q,
+                                           block_kv)
+                    got = flash_attention(q, k, v)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want).abs().max().item()
+                    if not torch.allclose(got.float(), want,
+                                          atol=TOL[dtype], rtol=TOL[dtype]):
+                        fail(f"phase 31 (a): flash_attention {name} {dtype} "
+                             f"blocks ({block_q}, {block_kv}): max |err| "
+                             f"{err}")
+                    ms = time_ms(lambda: flash_attention(q, k, v), flush)
+                finally:
+                    ops.set_flash_blocks(*prev)
+                plan_ms = ms if block_q is None and block_kv is None \
+                    else plan_ms
+                row = {"case": name, "dtype": str(dtype)[6:],
+                       "block_q": block_q, "block_kv": block_kv,
+                       "layout": list(layout), "max_abs_err": err,
+                       "tol": TOL[dtype], "ms": ms, "plan_ms": plan_ms,
+                       "slower_than_plan": ms > plan_ms, **common}
+                rows.append(row)
+                slower = "  (slower than the plan)" if ms > plan_ms else ""
+                print(f"  phase 31 (a): {name:28s} {row['dtype']:8s} blocks "
+                      f"({block_q}, {block_kv}) layout {tuple(layout)}: "
+                      f"{ms:.4f} ms, err {err:.2e} (tol {TOL[dtype]:g})"
+                      f"{slower}")
+            print(f"  phase 31 (a): {name} {str(dtype)[6:]}: plain "
+                  f"{common['plain_ms']:.4f} ms, sdpa "
+                  f"{common['library_ms']:.4f} ms ({common['sdpa_backend']})"
+                  f", bound {common['bound_ms']:.4f} ms "
+                  f"({common['bound_by']})")
+    return rows
+
+
+def ops_impls(dev):
+    """(b) ``ops.flash_attention`` / ``wkv6`` / ``mamba_scan`` on CUDA
+    tensors, fp32, at a slab decode step, an RWKV-6 prefill chunk and a
+    Jamba one: "auto" and "cuda" launch the kernel once, "ref" and
+    "chunked" launch nothing; every output within phase 2's bars of the
+    plain version's."""
+    from repro_torch.kernels import launch_counts, ops, reset_launch_counts
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.kernels.mamba_scan import mamba_ref
+    from repro_torch.kernels.wkv6 import wkv6_chunked
+
+    rng = np.random.default_rng(32)
+
+    def on(*xs):
+        return [torch.from_numpy(x).to(dev) for x in xs]
+
+    q, k, v = on(*(rng.standard_normal(s).astype(np.float32) for s in (
+        (LEGACY_BATCH, 1, 16, 128), (LEGACY_BATCH, 300, 8, 128),
+        (LEGACY_BATCH, 300, 8, 128))))
+    wkv = on(*wkv_case(rng, 1, PREFILL_CHUNK, 32, 64, 0))
+    x, dt, A, proj, D, h0 = on(*mamba_case(rng, 1, PREFILL_CHUNK, 8192, 16))
+    Bm, Cm = proj[..., 256:272], proj[..., 272:288]
+    mamba = (x, dt, A, Bm, Cm, D, h0)
+    cases = {
+        "flash_attention": (lambda impl: ops.flash_attention(
+            q, k, v, impl=impl), lambda: flash_attention_ref(q, k, v),
+            TOL[torch.float32]),
+        "wkv6": (lambda impl: ops.wkv6(*wkv, impl=impl),
+                 lambda: wkv6_chunked(*wkv), WKV_ATOL),
+        "mamba_scan": (lambda impl: ops.mamba_scan(*mamba, impl=impl),
+                       lambda: mamba_ref(*mamba), MAMBA_ATOL),
+    }
+    out = {}
+    for name, (run, plain, tol) in cases.items():
+        want = plain()
+        want = want[0] if isinstance(want, tuple) else want
+        out[name] = {}
+        for impl in ("auto", "cuda", "ref", "chunked"):
+            reset_launch_counts()
+            got = run(impl)
+            got = got[0] if isinstance(got, tuple) else got
+            torch.cuda.synchronize()
+            launches = launch_counts().get(name, 0)
+            expect = 1 if impl in ("auto", "cuda") else 0
+            err = (got.float() - want.float()).abs().max().item()
+            if launches != expect or sum(launch_counts().values()) != expect:
+                fail(f"phase 31 (b): ops.{name}(impl={impl!r}) launched "
+                     f"{launch_counts()}, expected {expect} {name}")
+            if not err <= tol:
+                fail(f"phase 31 (b): ops.{name}(impl={impl!r}) differs from "
+                     f"the plain version by {err} (tol {tol:g})")
+            out[name][impl] = {"launches": launches, "max_abs_err": err}
+        print(f"phase 31 (b): ops.{name} on CUDA tensors: launches "
+              + ", ".join(f"{i} {r['launches']}" for i, r in
+                          out[name].items())
+              + "; max |err| vs the plain version "
+              + ", ".join(f"{r['max_abs_err']:.1e}" for r in
+                          out[name].values()) + f" (tol {tol:g})")
+    return out
+
+
+def serve_decode_kernels(dev):
+    """(c) ``launch.serve`` (its ``main``, as ``python -m`` runs it) at
+    full-width qwen3-1.7b cut to CLI_LAYERS layers, fp32 with TF32 off,
+    CLI_REQUESTS requests x CLI_NEW greedy tokens, with --decode-kernel
+    cuda and plain: the tokens bitwise equal, paged launches layers x
+    model calls under cuda and 0 under plain, each report line naming
+    its kernel."""
+    import io
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve as serve_cli
+
+    argv = ["--arch", "qwen3-1.7b", "--dtype", "float32", "--layers",
+            str(CLI_LAYERS), "--batch", str(CLI_REQUESTS), "--requests",
+            str(CLI_REQUESTS), "--new-tokens", str(CLI_NEW), "--report"]
+    outs, res = {}, {}
+    for kernel in ("cuda", "plain"):
+        buf = io.StringIO()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            outs[kernel] = serve_cli.main(argv + ["--decode-kernel", kernel])
+        wall = time.perf_counter() - t0
+        text = buf.getvalue()
+        m = re.search(r"report: decode_kernel=(\w+) prefill (\d+) "
+                      r"dispatches .* decode (\d+) dispatches", text)
+        if m is None or m.group(1) != kernel:
+            fail(f"phase 31 (c): --decode-kernel {kernel}: the report line "
+                 f"does not name it: {text[-400:]}")
+        calls = int(m.group(2)) + 8 * int(m.group(3))  # launcher's chunk 8
+        paged = launch_counts().get("paged_flash_decode", 0)
+        want = CLI_LAYERS * calls if kernel == "cuda" else 0
+        if paged != want:
+            fail(f"phase 31 (c): --decode-kernel {kernel} launched "
+                 f"paged_flash_decode {paged} times, expected {want}")
+        res[kernel] = {"paged_flash_decode_launches": paged,
+                       "model_calls": calls, "wall_s": wall}
+    if outs["cuda"] != outs["plain"] or len(outs["cuda"]) != CLI_REQUESTS \
+            or any(len(o) != CLI_NEW for o in outs["cuda"]):
+        fail(f"phase 31 (c): greedy tokens differ between --decode-kernel "
+             f"cuda and plain: {outs}")
+    print(f"phase 31 (c): python -m repro_torch.launch.serve --arch "
+          f"qwen3-1.7b --dtype float32 --layers {CLI_LAYERS}: "
+          f"{CLI_REQUESTS} x {CLI_NEW} greedy tokens bitwise equal under "
+          f"--decode-kernel cuda and plain; paged_flash_decode launches "
+          f"{res['cuda']['paged_flash_decode_launches']} = {CLI_LAYERS} x "
+          f"{res['cuda']['model_calls']} model calls and "
+          f"{res['plain']['paged_flash_decode_launches']}; walls "
+          f"{res['cuda']['wall_s']:.1f} / {res['plain']['wall_s']:.1f} s")
+    return res
+
+
+def run_examples(dev):
+    """(d) The three ported examples on the card at their defaults
+    (``main([])``): the quickstart trains and generates, serve_batched
+    passes its solo-generation check, long_context_decode prefills
+    through the wkv6 kernel."""
+    import io
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import (long_context_decode, quickstart,
+                                    serve_batched)
+
+    res = {}
+    for name, mod in (("quickstart", quickstart),
+                      ("serve_batched", serve_batched),
+                      ("long_context_decode", long_context_decode)):
+        buf = io.StringIO()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = mod.main([])
+        res[name] = {"wall_s": time.perf_counter() - t0,
+                     "launches": dict(launch_counts()),
+                     "last_line": buf.getvalue().strip().splitlines()[-1]}
+        if name == "quickstart" and not np.isfinite(out["losses"]).all():
+            fail(f"phase 31 (d): quickstart losses {out['losses']}")
+        print(f"phase 31 (d): {name} at its defaults on the card in "
+              f"{res[name]['wall_s']:.1f} s, launches "
+              f"{res[name]['launches']}: {res[name]['last_line'][:160]}")
+    if not res["long_context_decode"]["launches"].get("wkv6", 0):
+        fail("phase 31 (d): long_context_decode launched no wkv6 kernel")
+    return res
+
+
+def ops_phase(dev):
+    """Phase 31: (a)-(d) above."""
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    print(f"phase 31 (a): flash_attention at every block shape it is built "
+          f"for, tolerances fp32 {TOL[torch.float32]:g}, bf16 "
+          f"{TOL[torch.bfloat16]:g}; device ms per call")
+    out = {"blocks": flash_block_sweep(dev, flush)}
+    del flush
+    out["impls"] = ops_impls(dev)
+    out["decode_kernel"] = serve_decode_kernels(dev)
+    torch.cuda.empty_cache()
+    out["examples"] = run_examples(dev)
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -5225,6 +5501,7 @@ def main():
     bf16_out = run_phase("phase 27", train_bf16_masters, dev)
     mesh_out, serve_mesh_out = run_phase("phases 28-29", mesh_phases, dev)
     dryrun_out = run_phase("phase 30", dryrun_phase13, train_out)
+    ops_out = run_phase("phase 31", ops_phase, dev)
 
     decode_bf16, chunk_bf16, verify_bf16 = (
         next(r for r in rows if r["case"] == case and r["dtype"] == "bfloat16")
@@ -5250,6 +5527,10 @@ def main():
         "verify": {key: verify_bf16[key] for key in verify_keys},
         "launches_prefix": {k: v["paged_flash_decode_launches"]
                             for k, v in prefix_out.items() if k != "fp32"},
+        "launches_decode_kernel": {
+            k: v["paged_flash_decode_launches"]
+            for k, v in ops_out["decode_kernel"].items()},
+        "decode_kernel": ops_out["decode_kernel"],
         "prefix": prefix_out,
         "launches_spec_trained": spec_trained_out["launches"],
         "spec_trained": spec_trained_out,
@@ -5285,6 +5566,9 @@ def main():
         "library_ms": None,
         "launches_slab": slab_out["rwkv6-1.6b"]["launches"]["wkv6"],
         "launches_train": arch_train_out["rwkv6-1.6b"]["launches"]["wkv6"],
+        "launches_long_context_decode": ops_out["examples"][
+            "long_context_decode"]["launches"]["wkv6"],
+        "ops_impls": ops_out["impls"]["wkv6"],
         "train": scan_grad_rows["wkv6"][-1],
         "cases": wkv_rows + scan_grad_rows["wkv6"],
     }
@@ -5304,6 +5588,7 @@ def main():
         "launches_slab": slab_out["jamba-v0.1-52b"]["launches"]["mamba_scan"],
         "launches_train": arch_train_out["jamba-v0.1-52b"]["launches"][
             "mamba_scan"],
+        "ops_impls": ops_out["impls"]["mamba_scan"],
         "train": scan_grad_rows["mamba_scan"][-1],
         "cases": mamba_rows + scan_grad_rows["mamba_scan"],
     }
@@ -5392,6 +5677,8 @@ def main():
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "sdpa_backend", "max_abs_err", "grad_rel_err")},
         "bf16_train": bf16_out, "phase_3_decode_model": decode_model,
+        "ops_impls": ops_out["impls"]["flash_attention"],
+        "block_sweep": ops_out["blocks"], "examples": ops_out["examples"],
         "dryrun_phase13": dryrun_out,
         "new_forms": {r["case"]: {key: r[key] for key in r if key != "case"}
                       for r in flash_new_rows if r["dtype"] == "bfloat16"},

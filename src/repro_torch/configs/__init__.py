@@ -11,7 +11,7 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.configs.base import (
-    DECODE_32K, INPUT_SHAPES, LONG_500K, PREFILL_32K, TRAIN_4K, InputShape,
+    DECODE_32K, DECODE_KERNELS, INPUT_SHAPES, LONG_500K, PREFILL_32K, TRAIN_4K, InputShape,
     MLAConfig, MambaConfig, ModelConfig, MoEConfig, PaperNetConfig,
     RWKVConfig)
 from repro_torch.configs import (
@@ -114,6 +114,7 @@ def smoke_config(arch: str) -> ModelConfig:
 
 __all__ = ["ModelConfig", "MoEConfig", "MambaConfig", "RWKVConfig",
            "MLAConfig", "PaperNetConfig", "InputShape", "INPUT_SHAPES",
+           "DECODE_KERNELS",
            "TRAIN_4K", "PREFILL_32K", "DECODE_32K", "LONG_500K",
            "PAPER_NETS", "ARCHITECTURES", "ONE_CARD_LAYERS",
            "LONG_500K_SKIPS", "SWA_FOR_LONG", "SWA_WINDOW", "get_config",

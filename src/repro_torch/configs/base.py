@@ -2,14 +2,22 @@
 
 Frozen dataclasses, field for field the reference's ``ModelConfig`` and
 its sub-configs, so a config built here describes the same network as
-the reference's; and the reference's four input shapes.  The reference's ``decode_kernel`` switch has no
-counterpart: the port picks the paged-decode kernel from the tensor's
-device (CUDA kernel on the card, plain PyTorch on the CPU).
+the reference's; and the reference's four input shapes.  One field
+takes the port's own values: ``decode_kernel``, the paged decode
+attention of the serving path, is "auto" (the default: the device's
+rule, the CUDA kernel on the card and the plain version on the CPU),
+"cuda" (the kernel, the reference's "pallas"; a CPU pool raises) or
+"plain" (``paged_flash_decode_ref`` / ``paged_flash_decode_mla_ref``
+over the gathered pages on the pool's device, the reference's "xla").
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
+
+
+# the paged decode attention a config may name (``decode_kernel``)
+DECODE_KERNELS = ("auto", "cuda", "plain")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +99,10 @@ class ModelConfig:
     frontend: str = "none"
     num_frontend_tokens: int = 0
 
+    # ---- serving -----------------------------------------------------------
+    # paged decode attention: "auto" | "cuda" | "plain" (DECODE_KERNELS)
+    decode_kernel: str = "auto"
+
     # ---- extras ------------------------------------------------------------
     mtp_depth: int = 0
     mlp_gated: bool = True           # SwiGLU (3 mats) vs plain 2-mat MLP
@@ -100,6 +112,10 @@ class ModelConfig:
     param_dtype: str = "float32"     # master weights
 
     def __post_init__(self):
+        if self.decode_kernel not in DECODE_KERNELS:
+            raise ValueError(f"decode_kernel {self.decode_kernel!r} is not "
+                             f"one of {DECODE_KERNELS} (the reference's "
+                             "\"pallas\" is \"cuda\", its \"xla\" \"plain\")")
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
 

@@ -40,6 +40,13 @@ tile and the score product run over the first, the V tile, the
 accumulator and the output over the second.  Any other pair raises; it
 is never padded or split.
 
+Block shapes.  ``launch_layout`` turns the block surface of
+``kernels/ops.py`` (``set_flash_blocks``, or a call's own ``block_q`` /
+``block_kv``) into the launch's layout: None keeps the shape plan, a
+set value must name a shape the kernel was built for (bf16 16 or 128
+query rows a block, fp32 16 or 64; ``block_kv`` only for bf16 16-row
+blocks, which split the keys) or raises; it is never rounded.
+
 The wrapper takes the plain version ONLY for CPU tensors.  A CUDA
 tensor launches the kernel or raises.
 """
@@ -55,12 +62,14 @@ from repro_torch.kernels.build import count_launch, load_library
 from repro_torch.roofline.cost import add_kernel_cost
 
 __all__ = ["flash_attention", "flash_attention_ref", "flash_attention_bwd_ref",
-           "KERNEL_WIDTHS"]
+           "KERNEL_WIDTHS", "block_choices", "launch_layout",
+           "resolve_blocks"]
 
 NEG_INF = -1e30
 # (q and k width, v width) pairs the kernel is built for
 KERNEL_WIDTHS = ((64, 64), (128, 128), (192, 128))
 SMALL_ROWS = 64                # below this many rows a kv head: 16-row blocks
+F32_BLOCK_Q = {16: 1, 64: 4}   # fp32: query rows a block -> rows a thread
 SMEM_LIMIT = 227 * 1024        # dynamic shared memory one Hopper block may use
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
@@ -176,7 +185,8 @@ def _check(q, k, v, causal):
                          f"first {S - T} queries see no key")
 
 
-def flash_attention(q, k, v, *, causal=True, window=0):
+def flash_attention(q, k, v, *, causal=True, window=0, block_q=None,
+                    block_kv=None):
     """q: (B, S, h, hd); k: (B, T, hk, hd); v: (B, T, hk, hdv) with
     h % hk == 0 -> (B, S, h, hdv) in q's dtype.  Query i sits at
     position i + T - S; key t is visible to it iff t <= i + T - S (when
@@ -190,13 +200,16 @@ def flash_attention(q, k, v, *, causal=True, window=0):
     copied).  When grad mode is on and an input requires grad, the
     launch goes through ``FlashAttention``, whose backward is
     ``flash_attention_bwd_ref``.  Raises on a causal call with S > T,
-    whose first rows would see no key."""
+    whose first rows would see no key.  ``block_q`` / ``block_kv``: the
+    launch's block shape (``launch_layout``); None reads the surface of
+    ``ops.set_flash_blocks``.  The plain version takes no blocks."""
     _check(q, k, v, causal)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttention.apply(q, k, v, causal, window)
-    return _launch(q, k, v, causal, window)
+        return FlashAttention.apply(q, k, v, causal, window, block_q,
+                                    block_kv)
+    return _launch(q, k, v, causal, window, block_q, block_kv)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -206,17 +219,17 @@ class FlashAttention(torch.autograd.Function):
     softmax (the gradient of the reference's checkpointed loop)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, block_q=None, block_kv=None):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
-        return _launch(q, k, v, causal, window)
+        return _launch(q, k, v, causal, window, block_q, block_kv)
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd_ref(
             q, k, v, dout, causal=ctx.causal, window=ctx.window)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def meta_cost(B, S, T, h, hd, hdv, v_bytes):
@@ -232,11 +245,59 @@ def meta_cost(B, S, T, h, hd, hdv, v_bytes):
     return flops, dot
 
 
-def _launch(q, k, v, causal, window):
-    """One launch of the kernel on CUDA tensors, checked.  A meta tensor
-    (the dry run, ``launch.dryrun``) launches nothing: it charges
-    ``meta_cost`` to the running count and returns an empty output of
-    the kernel's shape."""
+def resolve_blocks(block_q=None, block_kv=None):
+    """A launch's ``(block_q, block_kv)``: the call's own where given,
+    else the block surface's (``ops.get_flash_blocks``)."""
+    from repro_torch.kernels.ops import get_flash_blocks
+    surface_q, surface_kv = get_flash_blocks()
+    return (surface_q if block_q is None else block_q,
+            surface_kv if block_kv is None else block_kv)
+
+
+def launch_layout(dtype, B, S, T, h, hk, block_q=None, block_kv=None):
+    """The layout argument of a launch: ``(rows a thread,)`` for fp32,
+    ``(warps, splits)`` for bf16 (``gqa_split.plan``).  ``block_q`` /
+    ``block_kv`` None keep the plan; a set value the kernel was not
+    built for raises ``ValueError`` naming the legal set."""
+    if dtype != torch.float32:
+        return gqa_split.plan(B * hk, (h // hk) * S, T, block_q=block_q,
+                              block_kv=block_kv)
+    if block_kv is not None:
+        raise ValueError(f"flash_attention: block_kv={block_kv}, but the "
+                         "fp32 kernel does not split the keys (each block "
+                         "walks all of them); legal: None")
+    if block_q is None:
+        return (4 if (h // hk) * S >= SMALL_ROWS else 1,)
+    if block_q not in F32_BLOCK_Q:
+        raise ValueError(f"flash_attention: fp32 block_q={block_q} is not "
+                         f"built; legal: None or {sorted(F32_BLOCK_Q)}")
+    return (F32_BLOCK_Q[block_q],)
+
+
+def block_choices(dtype, T):
+    """Every block shape the kernel is built for at T keys, as ``(block_q,
+    block_kv)`` pairs: the plan's (None, None), each ``block_q`` with
+    ``block_kv`` None, and for bf16 the 16-row blocks once for each split
+    count a ``block_kv`` can give (the smallest ``block_kv`` giving it)."""
+    if dtype == torch.float32:
+        return [(None, None)] + [(bq, None) for bq in sorted(F32_BLOCK_Q)]
+    out = [(None, None)] + [(bq, None) for bq in sorted(gqa_split.ROWS.values())]
+    tile, seen = gqa_split.KEY_TILE[1], set()
+    least = tile * -(-T // (tile * gqa_split.MAX_SPLITS))
+    for block_kv in range(least, -(-T // tile) * tile + 1, tile):
+        splits = -(-T // block_kv)
+        if splits not in seen:
+            seen.add(splits)
+            out.append((gqa_split.ROWS[1], block_kv))
+    return out
+
+
+def _launch(q, k, v, causal, window, block_q=None, block_kv=None):
+    """One launch of the kernel on CUDA tensors, checked, in the block
+    shape of ``block_q`` / ``block_kv`` (None: the surface's,
+    ``ops.get_flash_blocks``).  A meta tensor (the dry run,
+    ``launch.dryrun``) launches nothing: it charges ``meta_cost`` to the
+    running count and returns an empty output of the kernel's shape."""
     if q.device.type == "meta":
         B, S, h, hd = q.shape
         add_kernel_cost(*meta_cost(B, S, k.shape[1], h, hd, v.shape[3],
@@ -269,14 +330,14 @@ def _launch(q, k, v, causal, window):
                              "16-byte aligned (vector loads)")
     if q.data_ptr() % 16:
         raise ValueError("flash_attention: q must be 16-byte aligned")
+    layout = launch_layout(q.dtype, B, S, T, h, hk,
+                           *resolve_blocks(block_q, block_kv))
     lib = _lib()
     if q.dtype == torch.float32:
         fn = lib.flash_attention_f32
-        layout = (4 if (h // hk) * S >= SMALL_ROWS else 1,)   # rows a thread
         smem = lib.flash_attention_smem_bytes(hd, hdv, *layout)
     else:
         fn = lib.flash_attention_bf16
-        layout = gqa_split.plan(B * hk, (h // hk) * S, T)     # warps, splits
         smem = lib.flash_attention_bf16_smem_bytes(hd, hdv, layout[0])
     if smem > SMEM_LIMIT:
         raise ValueError(f"flash_attention: widths ({hd}, {hdv}) need {smem} "

@@ -227,7 +227,7 @@ def _check(x, dt, A, B, C, D, state):
                          f"got {tuple(state.shape)}")
 
 
-def mamba_scan(x, dt, A, B, C, D, state):
+def mamba_scan(x, dt, A, B, C, D, state, *, chunk=CHUNK):
     """Mamba-1 selective scan over a segment.
 
     x, dt, B, C in bf16 or fp32 (one dtype): x, dt (Bb, T, dI) and B, C
@@ -238,14 +238,18 @@ def mamba_scan(x, dt, A, B, C, D, state):
     modified.  CPU tensors take the plain version (``mamba_ref``; its
     autograd is the gradient's oracle); CUDA tensors launch the kernel.
     When grad mode is on and an input requires grad, the launch goes
-    through ``MambaScan``, whose backward is ``mamba_chunked_bwd``."""
+    through ``MambaScan``, whose backward is ``mamba_chunked_bwd`` in
+    chunks of ``chunk`` steps.  The kernel keeps its own tile (each
+    thread walks the whole segment in 32-step tiles), so ``chunk`` sets
+    only the plain backward's recomputation, as ``wkv6``'s does past
+    its kernel's 32-step tile."""
     _check(x, dt, A, B, C, D, state)
     if x.device.type == "cpu":
         y, h = mamba_ref(x, dt, A, B, C, D, state)
         return y.to(x.dtype), h
     tensors = (x, dt, A, B, C, D, state)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        return MambaScan.apply(*tensors)
+        return MambaScan.apply(*tensors, chunk)
     return _launch(*tensors)
 
 
@@ -257,8 +261,9 @@ class MambaScan(torch.autograd.Function):
     state."""
 
     @staticmethod
-    def forward(ctx, x, dt, A, B, C, D, state):
+    def forward(ctx, x, dt, A, B, C, D, state, chunk=CHUNK):
         ctx.save_for_backward(x, dt, A, B, C, D, state)
+        ctx.chunk = chunk
         return _launch(x, dt, A, B, C, D, state)
 
     @staticmethod
@@ -266,7 +271,8 @@ class MambaScan(torch.autograd.Function):
         x, dt, A, B, C, D, state = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(x)
-        return mamba_chunked_bwd(x, dt, A, B, C, D, state, dy, dstate)
+        return (*mamba_chunked_bwd(x, dt, A, B, C, D, state, dy, dstate,
+                                   chunk=ctx.chunk), None)
 
 
 def meta_cost(Bb, T, dI, dS):

@@ -54,7 +54,8 @@ slab engine, ``--engine legacy``) on the card.
 Without --reduced the full-width config serves in bf16 (Jamba cut to
 one 8-layer super-block, DeepSeek-V3 to its 3 dense layers and first
 MoE layer: ``configs.one_card_config``); with it, the smoke config in
-fp32.  Every decoder-only text architecture serves (granite-20b,
+fp32.  --dtype sets the compute dtype and --layers N cuts the stack to
+its first N layers.  Every decoder-only text architecture serves (granite-20b,
 qwen2.5-32b, deepseek-coder-33b and deepseek-moe-16b at full depth);
 the VLM and the encoder-decoder are refused, as the reference's
 launcher refuses them: they serve through ``apply_model``'s slab
@@ -87,6 +88,13 @@ by the MTP head: greedy only, an architecture with ``mtp_depth > 0``;
 the tokens stay those of K = 0) and --stream (serve through
 ``FrontDoor``, printing each request's tokens as its decode chunks
 sync).  The lockstep engine refuses all three.
+
+--decode-kernel auto|cuda|plain sets the config's ``decode_kernel``: the
+paged decode attention of the continuous engine (the reference's
+--decode-kernel pallas|xla).  auto is the CUDA kernel on the card and
+the plain version on the CPU; cuda is refused on the CPU; plain runs the
+plain version over the gathered pages on any device.  --report names
+the one that ran.
 """
 from __future__ import annotations
 
@@ -98,14 +106,15 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.configs import (ARCHITECTURES, get_config, one_card_config,
-                                 smoke_config)
+from repro_torch.configs import (ARCHITECTURES, DECODE_KERNELS, get_config,
+                                 one_card_config, smoke_config)
 from repro_torch.data import synthetic_tokens
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import (BACKENDS, check_production_world,
                                      init_from_env, make_production_mesh,
                                      make_serve_mesh)
 from repro_torch.models import check_token_serving, init_model
+from repro_torch.models.attention import decode_kernel_for
 from repro_torch.serve import (FrontDoor, SamplingConfig, make_engine,
                                make_engine_from_checkpoint)
 
@@ -119,6 +128,12 @@ def main(argv=None):
                     help="continuous batching over the paged pool, or the "
                          "lockstep slab engine")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--dtype", default=None, choices=["bfloat16", "float32"],
+                    help="compute dtype (default: bfloat16 at full width, "
+                         "float32 with --reduced)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the stack to its first N layers (depth only; "
+                         "widths stay)")
     ap.add_argument("--batch", type=int, default=4,
                     help="serving slots (decode batch width)")
     ap.add_argument("--requests", type=int, default=None,
@@ -133,8 +148,16 @@ def main(argv=None):
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--eos-id", type=int, default=None)
+    ap.add_argument("--decode-kernel", default=None,
+                    choices=list(DECODE_KERNELS),
+                    help="paged decode attention: auto (the CUDA kernel on "
+                         "the card, the plain version on the CPU), cuda "
+                         "(the kernel; refused on the CPU) or plain (the "
+                         "plain version over the gathered pages).  "
+                         "Default: the config's setting (auto)")
     ap.add_argument("--report", action="store_true",
-                    help="print per-phase dispatch and host-sync counters")
+                    help="print per-phase dispatch and host-sync counters "
+                         "and the paged decode attention that ran")
     ap.add_argument("--restore", default="",
                     help="serve the params of this checkpoint dir "
                          "(written by launch/train.py of either package) "
@@ -204,6 +227,15 @@ def main(argv=None):
         check_token_serving(cfg)
     except ValueError as e:
         raise SystemExit(f"serve launcher drives decoder-only archs: {e}")
+    if args.decode_kernel:
+        cfg = cfg.with_overrides(decode_kernel=args.decode_kernel)
+    if args.dtype:
+        cfg = cfg.with_overrides(dtype=args.dtype)
+    if args.layers is not None:
+        if not 1 <= args.layers <= cfg.num_layers:
+            raise SystemExit(f"--layers {args.layers}: {cfg.name} has "
+                             f"{cfg.num_layers} layers")
+        cfg = cfg.with_overrides(num_layers=args.layers)
     sampling = SamplingConfig(temperature=args.temperature,
                               top_k=args.top_k, top_p=args.top_p)
     decode_chunk = 8
@@ -254,6 +286,10 @@ def _join_mesh(args, shape):
 
 def _serve(args, cfg, engine_kw, say):
     device, mesh = engine_kw["device"], engine_kw["mesh"]
+    try:
+        kernel = decode_kernel_for(cfg, device)
+    except ValueError as e:
+        raise SystemExit(f"--decode-kernel: {e}") from None
     k = args.spec_decode
     if args.restore:
         eng = make_engine_from_checkpoint(args.restore, cfg, step=args.step,
@@ -316,7 +352,6 @@ def _serve(args, cfg, engine_kw, say):
         f"{st['pool_bytes']} pool bytes, "
         f"{st['state_bytes']} recurrent state bytes{extra})")
     if args.report:
-        kernel = "cuda" if device.type == "cuda" else "plain"
         say(f"report: decode_kernel={kernel} "
             f"prefill {st['prefill_dispatches']} dispatches / "
             f"{st['prefill_host_syncs']} host syncs "

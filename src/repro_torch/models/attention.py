@@ -65,7 +65,9 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_decode import (paged_flash_decode,
-                                              paged_flash_decode_mla)
+                                              paged_flash_decode_mla,
+                                              paged_flash_decode_mla_ref,
+                                              paged_flash_decode_ref)
 from repro_torch.models.layers import apply_rope, dense_init, rmsnorm
 from repro_torch.sharding import ctx as shctx
 from repro_torch.sharding.comm import copy_to, reduce_from, shard_dims, use
@@ -150,6 +152,21 @@ def chunked_attention(q, k, v, *, q_positions, kv_positions, causal=True,
         return _flash_slab(q, k, v, q_positions=q_positions,
                            kv_positions=kv_positions, causal=causal,
                            window=window, kv_valid_len=kv_valid_len)
+    return chunked_attention_loop(q, k, v, q_positions=q_positions,
+                                  kv_positions=kv_positions, causal=causal,
+                                  window=window, kv_valid_len=kv_valid_len,
+                                  chunk=chunk)
+
+
+def chunked_attention_loop(q, k, v, *, q_positions, kv_positions,
+                           causal=True, window=0, kv_valid_len=None,
+                           chunk=1024):
+    """The reference's ``chunked_attention`` loop in plain PyTorch, on
+    the tensors' own device (what ``chunked_attention`` runs on the CPU,
+    and ``ops.flash_attention(impl="chunked")`` on any device): queries
+    in chunks of ``chunk`` (padded to a multiple of it with position
+    -1), fp32 scores, one masked softmax over all T keys per chunk, the
+    probabilities cast to v's dtype for the value product."""
     B, S, h, hd = q.shape
     T, hk = k.shape[1], k.shape[2]
     g = h // hk
@@ -208,6 +225,33 @@ def _flash_slab(q, k, v, *, q_positions, kv_positions, causal, window,
             f"{kv_valid_len!r} (S={S}, T={T})")
     return flash_attention(q, k[:, :valid], v[:, :valid], causal=True,
                            window=window)
+
+
+# --------------------------------------------------------------------------
+# paged decode attention: the kernel or the plain version
+# --------------------------------------------------------------------------
+
+def decode_kernel_for(cfg, device) -> str:
+    """The paged decode attention a call on ``device`` runs under
+    ``cfg.decode_kernel``: "cuda" (the kernel) or "plain" (the plain
+    version over the gathered pages).  "auto" follows the device (the
+    kernel but on the CPU); "cuda" on the CPU raises."""
+    kind = cfg.decode_kernel
+    on_cpu = torch.device(device).type == "cpu"
+    if kind == "auto":
+        return "plain" if on_cpu else "cuda"
+    if kind == "cuda" and on_cpu:
+        raise ValueError("decode_kernel=\"cuda\" launches the paged-decode "
+                         "kernel and needs a CUDA pool; the pool is on the "
+                         "CPU (use \"auto\" or \"plain\")")
+    return kind
+
+
+def _paged(cfg, kernel, plain, *args, **kw):
+    """``kernel(*args, **kw)`` or ``plain(...)``, by ``decode_kernel_for``
+    on the device of the first argument."""
+    use = decode_kernel_for(cfg, args[0].device) == "cuda"
+    return (kernel if use else plain)(*args, **kw)
 
 
 # --------------------------------------------------------------------------
@@ -409,7 +453,8 @@ def apply_attention(cfg, p, x, *, positions, cache, rope, paged=None,
     Paged (``paged`` given; decode steps and prefill chunks): x (B, S,
     d), positions (B, S) per slot; cache {"k", "v"} pools, updated in
     place at ``write_idx`` (``paged_write_indices``); attention through
-    ``paged_flash_decode``.
+    ``paged_flash_decode``, or its plain version, by ``cfg.decode_kernel``
+    (``decode_kernel_for``).
 
     Slab (``paged`` None): cache {"k", "v"} of (B, max_len, hk, hd),
     updated in place.  ``mode="prefill"`` writes the S new keys at 0 and
@@ -454,10 +499,10 @@ def _attend(cfg, q, k, v, *, positions, cache, paged, write_idx, mode,
     if paged is not None:
         (k_pool, v_pool), view = _paged_update(cache, {"k": k, "v": v},
                                                write_idx, paged, comm)
-        return paged_flash_decode(q, pick(k_pool, 1).to(dt),
-                                  pick(v_pool, 1).to(dt), view.page_table,
-                                  positions, page_size=view.page_size,
-                                  window=cfg.swa_window)
+        return _paged(cfg, paged_flash_decode, paged_flash_decode_ref, q,
+                      pick(k_pool, 1).to(dt), pick(v_pool, 1).to(dt),
+                      view.page_table, positions, page_size=view.page_size,
+                      window=cfg.swa_window)
     S, max_len = q.shape[1], cache["k"].shape[1]
     start = 0 if mode == "prefill" else int(cache_pos)
     if start + S > max_len:
@@ -652,7 +697,8 @@ def apply_mla(cfg, p, x, *, positions, cache, rope, paged=None,
     append the latent and rope key, project q_nope into the latent
     through w_uk, attend in the latent space (scores q_lat . ckv +
     q_rope . krope, V = the latent itself) through
-    ``paged_flash_decode_mla``, then w_uv and wo.
+    ``paged_flash_decode_mla`` (or its plain version, by
+    ``cfg.decode_kernel``), then w_uv and wo.
 
     Train (``mode="train"``, no cache) and slab ``"prefill"`` (cache
     {"ckv", "krope"} of (B, max_len, ...), filled from 0): the latent is
@@ -677,7 +723,8 @@ def apply_mla(cfg, p, x, *, positions, cache, rope, paged=None,
         (ckv_pool, krope_pool), view = _paged_update(
             cache, {"ckv": ckv, "krope": krope}, write_idx, paged, comm)
         q_lat = torch.einsum("bshn,rhn->bshr", q_nope, p["w_uk"].to(dt))
-        out_lat = paged_flash_decode_mla(
+        out_lat = _paged(
+            cfg, paged_flash_decode_mla, paged_flash_decode_mla_ref,
             q_lat.contiguous(), q_rope.contiguous(), ckv_pool.to(dt),
             krope_pool.to(dt), view.page_table, positions,
             page_size=view.page_size, scale=mla_scale(cfg),

@@ -3,8 +3,10 @@
 Port of ``repro.models.ssm``, in the reference's modes: ``"decode"``
 with one token takes the one-step update, every other call (a decode
 call of several tokens, a slab ``"prefill"``, a ``"train"`` forward)
-the whole-segment scan, which on the card is the CUDA kernel
-(differentiable through its ``autograd.Function``).  Training has no
+the whole-segment scan through ``kernels.ops``, as the reference's
+models call theirs, so ``ops.set_default_impl`` steers it; under the
+default "auto" it is the CUDA kernel on the card (differentiable
+through its ``autograd.Function``).  Training has no
 cache and starts from a zero state.  A layer's recurrent cache is, for RWKV-6,
 ``{"state": (B, H, K, K) fp32, "shift_tm": (B, d), "shift_cm": (B, d)}``
 (shifts in the compute dtype) and, for Mamba, ``{"ssm": (B, dI, dS)
@@ -28,8 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.mamba_scan import mamba_scan, mamba_step
-from repro_torch.kernels.wkv6 import wkv6, wkv6_step
+from repro_torch.kernels.ops import mamba_scan, mamba_step, wkv6, wkv6_step
 from repro_torch.models.layers import dense_init, rmsnorm, truncated_normal
 
 # weights the reference reads in fp32 whatever the compute dtype

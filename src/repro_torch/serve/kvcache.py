@@ -272,6 +272,13 @@ class PagedKVCache:
         on one device, its share under ``pool_spec`` on a mesh."""
         return max(self.pool_bytes_by_device().values())
 
+    def slab_bytes(self) -> int:
+        """What the same slots would reserve as a static slab (slots x
+        max_len rows of each pooled leaf), the reference's measure of
+        what paging saves."""
+        rows = self.num_pages * self.page_size
+        return self._pool_bytes * self.slots * self.max_len // rows
+
     def state_bytes(self) -> int:
         """Resident bytes of the per-slot recurrent leaves, all slots."""
         return self._bytes(True)

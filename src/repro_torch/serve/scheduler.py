@@ -340,6 +340,7 @@ class ContinuousScheduler:
                                 if self.prompt_tokens else 0.0),
             "pool_pages_in_use": self.kv.pages_in_use,
             "pool_bytes": self.kv.pool_bytes(),
+            "slab_bytes_equiv": self.kv.slab_bytes(),
             "state_bytes": self.kv.state_bytes(),
         }
         if self.prefix is not None:

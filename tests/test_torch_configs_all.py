@@ -1,7 +1,7 @@
 """The port's config registry against the reference's, for all ten
 architectures: every field of each full and smoke config
-(``dataclasses.asdict``; the reference's ``decode_kernel`` switch has no
-counterpart), the layer pattern and block structure, ``param_count``,
+(``dataclasses.asdict``; ``decode_kernel`` through the value map
+``DECODE_KERNEL_MAP``), the layer pattern and block structure, ``param_count``,
 ``config_for_shape`` for every (arch, shape) pair
 with the long_500k skip and the sliding-window variants, the input
 shapes; ``bridge.reference_shapes`` against the reference's
@@ -25,10 +25,29 @@ NEW = ["granite-20b", "qwen2.5-32b", "deepseek-coder-33b",
        "deepseek-moe-16b", "llava-next-mistral-7b", "seamless-m4t-large-v2"]
 
 
+# the port's decode_kernel values -> the reference's: the kernel
+# ("cuda" / "pallas") and the plain version ("plain" / "xla"); "auto",
+# the port's default, is the device's rule and has no reference name (the
+# reference's default is "xla", which is what "auto" runs on the CPU)
+DECODE_KERNEL_MAP = {"cuda": "pallas", "plain": "xla"}
+DEFAULTS = ("auto", "xla")
+
+
 def _fields(cfg):
     out = dataclasses.asdict(cfg)
-    out.pop("decode_kernel", None)
+    out.pop("decode_kernel")
     return out
+
+
+def _decode_kernel_maps(tcfg, jcfg):
+    """The field's defaults, and each port value beside the reference's
+    value the map gives it; the reference's names are refused."""
+    assert (tcfg.decode_kernel, jcfg.decode_kernel) == DEFAULTS
+    for port, ref in DECODE_KERNEL_MAP.items():
+        assert tcfg.with_overrides(decode_kernel=port).decode_kernel == port
+        assert jcfg.with_overrides(decode_kernel=ref).decode_kernel == ref
+        with pytest.raises(ValueError, match=f'"{port}"'):
+            tcfg.with_overrides(decode_kernel=ref)
 
 
 def test_registry_holds_every_reference_architecture():
@@ -52,6 +71,7 @@ def test_config_fields_equal_reference(arch, which):
            "smoke": (configs.smoke_config, jax_configs.smoke_config)}[which]
     tcfg, jcfg = (f(arch) for f in get)
     assert _fields(tcfg) == _fields(jcfg)
+    _decode_kernel_maps(tcfg, jcfg)
     assert tcfg.layer_pattern() == jcfg.layer_pattern()
     assert tcfg.block_structure() == jcfg.block_structure()
     assert tcfg.param_count() == jcfg.param_count()

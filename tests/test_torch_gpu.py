@@ -1603,3 +1603,125 @@ def test_serve_mesh_over_one_nccl_rank_equals_engine(cuda):
     assert all(np.array_equal(a, b) for a, b in zip(got, ref))
     assert len(logits) == len(ref_logits)
     assert all(torch.equal(a, b) for a, b in zip(logits, ref_logits))
+
+
+# --------------------------------------------------------------------------
+# kernels/ops.py on the card: the impl dispatch, the block surface and
+# --decode-kernel
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("impl,launches", [("auto", 1), ("cuda", 1),
+                                           ("ref", 0), ("chunked", 0)])
+def test_ops_impls_launch_only_when_the_kernel_is_named(cuda, impl,
+                                                        launches):
+    """On CUDA tensors "auto" and "cuda" launch each kernel once, "ref"
+    and "chunked" run the plain forms there and launch nothing; every
+    output within the plain version's bars."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.mamba_scan import mamba_ref as plain_mamba
+    rng = np.random.default_rng(0)
+
+    def on(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda)
+
+    q, k, v = on(2, 40, 4, 64), on(2, 72, 2, 64), on(2, 72, 2, 64)
+    r, kk, vv = on(1, 32, 2, 64), on(1, 32, 2, 64), on(1, 32, 2, 64)
+    wl = -torch.exp(on(1, 32, 2, 64))
+    u, s0 = on(2, 64), on(1, 2, 64, 64)
+    x, dt = on(1, 32, 256), torch.nn.functional.softplus(on(1, 32, 256))
+    A, Bm, Cm = -torch.exp(on(256, 16)), on(1, 32, 16), on(1, 32, 16)
+    D, h0 = on(256), on(1, 256, 16)
+    runs = {
+        "flash_attention": (lambda: ops.flash_attention(q, k, v, impl=impl),
+                            flash_attention_ref(q, k, v), 2e-5),
+        "wkv6": (lambda: ops.wkv6(r, kk, vv, wl, u, s0, impl=impl)[0],
+                 wkv6_chunked(r, kk, vv, wl, u, s0)[0], 5e-4),
+        "mamba_scan": (lambda: ops.mamba_scan(x, dt, A, Bm, Cm, D, h0,
+                                              impl=impl)[0],
+                       plain_mamba(x, dt, A, Bm, Cm, D, h0)[0], 5e-4),
+    }
+    for name, (run, want, tol) in runs.items():
+        reset_launch_counts()
+        got = run()
+        torch.cuda.synchronize()
+        assert launch_counts().get(name, 0) == launches, name
+        assert sum(launch_counts().values()) == launches, name
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 64, 64, 4, 2, 128),
+                                   (3, 1, 300, 16, 8, 128),
+                                   (1, 96, 96, 4, 4, 64),
+                                   (2, 7, 200, 8, 1, 64)])
+def test_flash_every_block_shape_matches_plain(cuda, shape, dtype):
+    """The flash kernel at each block shape it is built for
+    (``block_choices``), set on the surface and passed per call, within
+    the plain version's bars; the surface is restored after."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import block_choices
+    from repro_torch.kernels.flash_attention import \
+        flash_attention as kernel
+    B, S, T, h, hk, hd = shape
+    rng = np.random.default_rng(sum(shape))
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda, dtype) for s in ((B, S, h, hd), (B, T, hk, hd),
+                                          (B, T, hk, hd)))
+    want = flash_attention_ref(q, k, v).float()
+    for block_q, block_kv in block_choices(dtype, T):
+        prev = ops.set_flash_blocks(block_q, block_kv)
+        try:
+            reset_launch_counts()
+            got = kernel(q, k, v)
+        finally:
+            ops.set_flash_blocks(*prev)
+        torch.testing.assert_close(got.float(), want, atol=TOL[dtype],
+                                   rtol=TOL[dtype])
+        assert launch_counts()["flash_attention"] == 1
+        torch.testing.assert_close(
+            kernel(q, k, v, block_q=block_q, block_kv=block_kv), got,
+            atol=0, rtol=0)
+    assert ops.get_flash_blocks() == (None, None)
+
+
+def test_flash_unbuilt_block_shape_raises_on_card(cuda):
+    from repro_torch.kernels.flash_attention import \
+        flash_attention as kernel
+    q = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.bfloat16)
+    for blocks, match in (((64, None), r"\[16, 128\]"),
+                          ((128, 32), "only 16-row"),
+                          ((16, 40), "multiple of 32")):
+        with pytest.raises(ValueError, match=match):
+            kernel(q, k, k, block_q=blocks[0], block_kv=blocks[1])
+    with pytest.raises(ValueError, match="does not split"):
+        kernel(q.float(), k.float(), k.float(), block_kv=32)
+
+
+def test_decode_kernel_cuda_and_plain_equal_on_card(cuda):
+    """The scheduler at decode_kernel "cuda" and "plain" on the card
+    (fp32): equal greedy tokens; paged launches layers x model calls and
+    0; "auto" launches as "cuda" does."""
+    cfg = smoke_config("qwen3-1.7b").with_overrides(dtype="float32")
+    model = init_model(cfg, seed=2, device=cuda)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 40, 19)]
+    kw = dict(slots=2, max_len=96, page_size=8, prefill_chunk=32,
+              decode_chunk=4)
+    outs, launches = {}, {}
+    for kernel in ("cuda", "plain", "auto"):
+        sched = ContinuousScheduler(cfg.with_overrides(decode_kernel=kernel),
+                                    model, **kw)
+        reset_launch_counts()
+        outs[kernel] = sched.generate(prompts, 8)
+        st = sched.stats()
+        launches[kernel] = launch_counts().get("paged_flash_decode", 0)
+        calls = st["prefill_dispatches"] + 4 * st["decode_dispatches"]
+        assert launches[kernel] == (0 if kernel == "plain"
+                                    else cfg.num_layers * calls), kernel
+    for a, b, c in zip(outs["cuda"], outs["plain"], outs["auto"]):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)

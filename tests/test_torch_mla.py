@@ -246,7 +246,11 @@ def test_configs_equal_reference_field_by_field(which):
                   "smoke": (smoke_config(ARCH), jax_smoke(ARCH))}[which]
     for f in dataclasses.fields(tcfg):
         a, b = getattr(tcfg, f.name), getattr(jcfg, f.name)
-        if dataclasses.is_dataclass(a):
+        if f.name == "decode_kernel":
+            # the port's default follows the device; its "plain" is the
+            # reference's default "xla" (tests/test_torch_configs_all.py)
+            assert (a, b) == ("auto", "xla")
+        elif dataclasses.is_dataclass(a):
             assert dataclasses.asdict(a) == dataclasses.asdict(b), f.name
         else:
             assert a == b, f.name
