@@ -11,9 +11,14 @@ Phases (each fails the run if it goes wrong):
      full-width shapes, fp32 and bf16, with its time, the plain
      version's, the one-call PyTorch yardstick's (where there is one)
      and the bound; the flash kernel also at the training shape (B 1,
-     S = T = 4096), forward and the gradients of its autograd Function,
-     and at MLA's widths (q, k 192, v 128; 128 heads) at the slab
-     prefill and training shapes, forward and gradients; the gradients
+     S = T = 4096), forward and the gradients of its autograd Function
+     (the backward kernel, csrc/flash_attention_bwd.cu), and at MLA's
+     widths (q, k 192, v 128; 128 heads) at the slab prefill and
+     training shapes, forward and gradients; at every training form the
+     forward's output bitwise with and without its log-sum-exp (every
+     block shape) and two backward calls bitwise; the backward kernel
+     against its tiled plain version at small forms (every width pair,
+     g 1 to 48, causal, windowed, non-causal S != T); the gradients
      of the WKV6 and MambaScan Functions at the training shapes (B 1,
      T 4096, 32 heads of 64; Bb 1, T 2048, dI 8192, dS 16);
   3. the qwen3 path: full-width qwen3-1.7b in bf16 (weights from a seed)
@@ -54,9 +59,14 @@ Phases (each fails the run if it goes wrong):
  13. the training path: full-width, full-depth qwen3-1.7b, bf16 compute
      on fp32 masters, AdamW, takes 1 + 3 steps on one batch of 2 x 4096
      tokens in 2 microbatches with per-layer remat, every attention
-     forward (and its recompute) launched through the flash kernel;
+     forward (and its recompute) launched through the flash kernel and
+     every attention backward through the flash backward kernel (224 =
+     4 x 2 x 28 flash_attention_bwd launches; a spy sees the plain
+     backward run 0 times); every training phase after it checks its
+     flash_attention_bwd launches too, one a backward;
  14. parity: a 2-layer full-width qwen3-1.7b in fp32 takes 3 AdamW steps
-     on the card (kernel forward) and on the CPU (plain version) with
+     on the card (kernel forward and backward) and on the CPU (plain
+     version) with
      agreeing losses and params;
  15. the paper's claim: MNIST-DNN and CIFAR10-CNN at Table-1 width take
      5 SGD steps on the card equal to the CPU's (fp32, TF32 off; the
@@ -64,7 +74,8 @@ Phases (each fails the run if it goes wrong):
      the MNIST-DNN launcher under torchrun, 2 gloo ranks sharing the
      card, equals the card's sequential run for flat and bucketed, and
      4 ranks (pod 2 x data 2) for hierarchical; weight averaging every
-     2 steps leaves the ranks bitwise equal after steps 2 and 4;
+     2 steps leaves the ranks bitwise equal after steps 2 and 4 (the four
+     launches run side by side, beside the card-vs-CPU steps);
  16. full-width qwen3-1.7b through ``Trainer(model_cfg=...)`` over a
      world of one NCCL rank, dp=flat then dp=bucketed, 3 steps on phase
      13's batch: the losses equal phase 13's first 3 bit for bit, with
@@ -196,14 +207,15 @@ Phases (each fails the run if it goes wrong):
      qwen3-1.7b and (b) deepseek-moe-16b (its MoE expert-parallel, the
      all_to_all over "data") at full width cut to 2 layers, fp32 with
      TF32 off, every master and moment placed by the sharding rules,
-     3 momentum / 2 SGD steps of 4 x 512 tokens, held to the one-device
+     2 momentum / 2 SGD steps of 4 x 512 tokens (momentum cut from 3
+     for the script's time limit), held to the one-device
      step within 1e-5 (the MoE's in one microbatch a data shard, whose
      aux is the mesh's), each rank's flash launches exactly steps x
      layers x 2 on its own heads, its bytes between steps and step
      walls printed; (c) qwen3 again on 2 x 512 tokens in two one-row
      microbatches, whose rows do not divide data 2: each row's sequence
      is cut over "data" (the sequence split, attention over the keys
-     gathered up to the rank's block), 3 momentum steps held to the
+     gathered up to the rank's block), 2 momentum steps held to the
      one-device step in the same microbatches within 1e-5, each rank's
      flash launches exactly steps x microbatches x layers x 2; (a')
      qwen3 over one NCCL rank on a (1, 1) mesh, bitwise the one-device
@@ -272,10 +284,12 @@ it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -334,10 +348,11 @@ LEGACY_BATCH, LEGACY_PROMPT, LEGACY_MAX_LEN = 8, 512, 592
 # until phase 29 needed the time
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_TIMED = 2, 4096, 2, 3
 TRAIN_LR = 3e-4
-# the flash backward (plain, q-chunked) against autograd of the plain
-# forward, as max |err| / max |grad| over dq, dk, dv: fp32 re-associates
-# sums over 4096 rows; bf16 rounds each chunk's products to bf16 where
-# the unchunked version rounds once
+# the flash backward (the kernel, or a plain backward) against autograd
+# of the plain forward, as max |err| / max |grad| over dq, dk, dv: fp32
+# re-associates sums over 4096 rows; bf16 rounds P and dS to bf16 for the
+# products and takes D = rowsum(dO o O) from the bf16 output, where
+# autograd of the plain version rounds P once
 TRAIN_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # phase 14 (card vs CPU, fp32): step 1 runs on equal weights; later
 # steps follow AdamW, whose g / (|g| + eps) moves an entry whose
@@ -386,9 +401,9 @@ MESH_INIT_SLACK = 16 * 2 ** 20   # allocator rounding, generator state
 MESH_BATCH, MESH_SEQ, MESH_LR = 4, 512, 1e-2
 # case: (optimizer, steps, microbatches, rows); "arch/seq" takes 2 x 512
 # tokens in one-row microbatches, the sequence split over "data"
-MESH_CASES = {"qwen3-1.7b": ("momentum", 3, 1, MESH_BATCH),
+MESH_CASES = {"qwen3-1.7b": ("momentum", 2, 1, MESH_BATCH),
               "deepseek-moe-16b": ("sgd", 2, 1, MESH_BATCH),
-              "qwen3-1.7b/seq": ("momentum", 3, 2, 2)}
+              "qwen3-1.7b/seq": ("momentum", 2, 2, 2)}
 MESH_CF, MESH_TOL = 16.0, 1e-5
 # phase 30: the dry run's count of phase 13's step against phase 13's
 # measured peak; H100_SXM's memory against the card's
@@ -428,6 +443,17 @@ FLASH_CASES = [
 def fail(msg):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def check_bwd(tag, counts, want):
+    """The flash backward kernel's launches in a training run: one for
+    each backward of ``FlashAttention`` (a rematted layer's forward
+    launches twice, its backward once).  Returns the count."""
+    got = counts.get("flash_attention_bwd", 0)
+    if got != want:
+        fail(f"{tag}: flash_attention_bwd launched {got} times, expected "
+             f"{want} (one a FlashAttention backward)")
+    return got
 
 
 # each group of phases' wall seconds, in the order they ran
@@ -474,7 +500,7 @@ def paged_case(rng, B, S, h, hk, hd, ps, W, lengths):
     return q, k, v, table, pos
 
 
-def time_ms(fn, flush, iters=20):
+def time_ms(fn, flush, iters=10):
     """Median device time of fn() over iters calls, each timed alone with
     CUDA events after the L2 cache was flushed (the serving path finds a
     layer's pool cold: 28 layers' pools exceed the 50 MB L2).  The card
@@ -1022,6 +1048,126 @@ def flash_bwd_bound(B, S, T, h, hk, hd, causal, el):
     return n_bytes, fwd_ops // 4 * 10
 
 
+def sdpa_bwd_ms(sdpa, qt, kt, vt, dot, flush):
+    """SDPA's forward + backward through autograd, and its backward alone
+    (the forward's graph built once and kept; ``torch.autograd.grad`` of it
+    timed): the backward kernel's like-for-like yardstick."""
+    leaves = [t.clone().requires_grad_() for t in (qt, kt, vt)]
+    fwd_bwd = time_ms(lambda: torch.autograd.grad(sdpa(*leaves), leaves, dot),
+                      flush)
+    out = sdpa(*leaves)
+    bwd = time_ms(lambda: torch.autograd.grad(out, leaves, dot,
+                                              retain_graph=True), flush)
+    return fwd_bwd, bwd
+
+
+def split_bwd_kernels(dev, rows):
+    """The bf16 backward's two kernels apart (``dq_bf16``, ``dkdv_bf16``:
+    device ms a call, torch.profiler over three calls, warm L2) at each
+    training form timed in phase 2 (``bwd_form`` in its row), on inputs
+    drawn anew (the kernels' time depends on the shapes and the mask, not
+    on the values)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention import (_launch,
+                                                     flash_attention_bwd)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for row in rows:
+        B, S, h, hk, hd, hdv, causal = row["bwd_form"]
+        q, k, v, dout = (torch.randn(shape, generator=gen, device=dev,
+                                     dtype=torch.bfloat16)
+                         for shape in ((B, S, h, hd), (B, S, hk, hd),
+                                       (B, S, hk, hdv), (B, S, h, hdv)))
+        out, lse = _launch(q, k, v, causal, 0, with_lse=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+            torch.cuda.synchronize()
+        row["bwd_kernels_ms"] = {
+            m.group(1): ev.device_time_total / ev.count / 1e3
+            for ev in prof.key_averages()
+            if (m := re.search(r"(dq_bf16|dkdv_bf16)<", ev.key))}
+        split = row["bwd_kernels_ms"]
+        print(f"  flash_attention_bwd {row['case']:44s} kernel "
+              f"{row['bwd_ms']:.4f} ms: " + (
+                  f"dq {split['dq_bf16']:.4f} + dk/dv "
+                  f"{split['dkdv_bf16']:.4f} ms (torch.profiler)"
+                  if len(split) == 2 else "not measured (torch.profiler saw "
+                  "no kernel of the two)"))
+        del q, k, v, dout, out, lse
+
+
+def check_lse_and_bwd_repeat(name, q, k, v, dout, causal, window=0):
+    """The forward's output bit for bit the same with and without the
+    log-sum-exp at every block shape it is built for (``block_choices``),
+    and two backward calls bit for bit equal.  Returns the launch's
+    output and log-sum-exp at the plan's block shape."""
+    from repro_torch.kernels.flash_attention import (
+        _launch, block_choices, flash_attention_bwd)
+    for block_q, block_kv in block_choices(q.dtype, k.shape[1]):
+        plain = _launch(q, k, v, causal, window, block_q, block_kv)
+        out, _ = _launch(q, k, v, causal, window, block_q, block_kv,
+                         with_lse=True)
+        if not torch.equal(out, plain):
+            fail(f"flash_attention {name} {q.dtype}: the output changes "
+                 f"when the log-sum-exp is written (blocks {block_q}, "
+                 f"{block_kv})")
+        del plain, out
+    out, lse = _launch(q, k, v, causal, window, with_lse=True)
+    first = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                window=window)
+    second = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                 window=window)
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        fail(f"flash_attention_bwd {name} {q.dtype}: two calls differ")
+    return out, lse
+
+
+LSE_TOL = 1e-4     # |lse - plain lse|: fp32 sums of a row's exponentials
+
+
+def check_flash_bwd_cases(dev):
+    """The backward kernel against ``flash_attention_bwd_tiled`` (the same
+    algorithm and schedule) and the forward's log-sum-exp against
+    ``flash_attention_lse_ref`` at the small forms ``BWD_FORMS`` (every
+    width pair, group sizes 1 to 48, causal, windowed and non-causal with
+    S != T), fp32 and bf16 (gradients as max |err| / max |grad| at
+    ``BWD_TILED_TOL``)."""
+    from repro_torch.kernels.flash_attention import (
+        BWD_FORMS, BWD_TILED_TOL, _launch, flash_attention_bwd,
+        flash_attention_bwd_tiled, flash_attention_lse_ref)
+    rows = []
+    for case in BWD_FORMS:
+        B, S, T, h, hk, hd, hdv, causal, window = case
+        rng = np.random.default_rng(sum(case))
+        host = [torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)) for shape in ((B, S, h, hd), (B, T, hk, hd),
+                                       (B, T, hk, hdv), (B, S, h, hdv))]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, dout = (x.to(dev, dtype) for x in host)
+            out, lse = _launch(q, k, v, causal, window, with_lse=True)
+            lse_err = (lse - flash_attention_lse_ref(
+                q, k, causal=causal, window=window)).abs().max().item()
+            got = flash_attention_bwd(q, k, v, out, lse, dout,
+                                      causal=causal, window=window)
+            want = flash_attention_bwd_tiled(q, k, v, out, lse, dout,
+                                             causal=causal, window=window)
+            err = max(((a.float() - b.float()).abs().max()
+                       / b.float().abs().max()).item()
+                      for a, b in zip(got, want))
+            if not err <= BWD_TILED_TOL[dtype] or not lse_err <= LSE_TOL:
+                fail(f"flash_attention_bwd {case} {dtype}: max |err| / max "
+                     f"|grad| {err:.2e} against the tiled version, lse "
+                     f"|err| {lse_err:.2e}")
+            rows.append({"case": f"bwd {case}", "dtype": str(dtype)[6:],
+                         "grad_rel_err": err, "lse_err": lse_err})
+            print(f"  flash_attention_bwd {str(case):44s} "
+                  f"{str(dtype)[6:]:8s} vs tiled {err:.2e} (tol "
+                  f"{BWD_TILED_TOL[dtype]:g}); lse {lse_err:.1e} (tol "
+                  f"{LSE_TOL:g})")
+    return rows
+
+
 def check_flash_train(dev, flush, case=None, h=16, hk=8, hd=128,
                       causal=True, B=1, S=TRAIN_SEQ):
     """The flash kernel at a training shape (B 1, S = T = TRAIN_SEQ; by
@@ -1029,13 +1175,16 @@ def check_flash_train(dev, flush, case=None, h=16, hk=8, hd=128,
     encoder and decoder give it 16 / 16 heads of 64, non-causal and
     causal; phase 28's ranks B 2, S = T = 512, 8 / 4 heads of 128): the
     forward against the plain version, and the gradients of
-    ``FlashAttention`` (the kernel's forward, the plain q-chunked
-    backward) against autograd of the plain version; times beside SDPA's
-    forward and forward + backward and beside the bounds."""
+    ``FlashAttention`` (the kernel's forward and its backward kernel)
+    against autograd of the plain version; the forward bitwise with and
+    without the log-sum-exp, two backward calls bitwise; times of the
+    backward kernel, the plain backward, SDPA's forward and forward +
+    backward, beside the bounds."""
     import torch.nn.functional as F
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_bwd_ref, flash_attention_ref)
+        flash_attention, flash_attention_bwd, flash_attention_bwd_ref,
+        flash_attention_ref)
 
     case = case or f"train B={B} S=T={S} causal"
     rng = np.random.default_rng(13)
@@ -1056,29 +1205,36 @@ def check_flash_train(dev, flush, case=None, h=16, hk=8, hd=128,
         reset_launch_counts()
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         flash_attention(*leaves, causal=causal).backward(dout)
-        if launch_counts().get("flash_attention", 0) != 1:
-            fail("the autograd Function did not launch the kernel once")
+        counts = launch_counts()
+        if counts.get("flash_attention", 0) != 1 or counts.get(
+                "flash_attention_bwd", 0) != 1:
+            fail("the autograd Function did not launch the forward and the "
+                 f"backward kernel once each: {counts}")
         ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         flash_attention_ref(*ref_leaves, causal=causal).backward(dout)
-        grad_err = 0.0
+        grad_err = grad_abs = 0.0
         for name, a, b in zip("qkv", leaves, ref_leaves):
-            rel = ((a.grad.float() - b.grad.float()).abs().max()
-                   / b.grad.float().abs().max()).item()
-            grad_err = max(grad_err, rel)
+            diff = (a.grad.float() - b.grad.float()).abs().max()
+            rel = (diff / b.grad.float().abs().max()).item()
+            grad_err, grad_abs = max(grad_err, rel), max(grad_abs,
+                                                         diff.item())
             if not rel <= TRAIN_GRAD_TOL[dtype]:
                 fail(f"flash_attention {case} backward d{name} {dtype}: max "
                      f"|err| / max |grad| {rel:.2e} > "
                      f"{TRAIN_GRAD_TOL[dtype]:g}")
         del leaves, ref_leaves
+        out, lse = check_lse_and_bwd_repeat(case, q, k, v, dout, causal)
         torch.cuda.synchronize()
         row = {"case": case, "dtype": str(dtype)[6:],
                "max_abs_err": err, "tol": TOL[dtype],
-               "grad_rel_err": grad_err,
+               "grad_rel_err": grad_err, "grad_max_abs_err": grad_abs,
                "grad_tol": TRAIN_GRAD_TOL[dtype]}
         print(f"  flash_attention {row['case']:44s} {row['dtype']:8s} err "
               f"{err:.2e} (tol {TOL[dtype]:g}); dq, dk, dv max |err| / "
               f"max |grad| {grad_err:.2e} (tol "
-              f"{TRAIN_GRAD_TOL[dtype]:g})")
+              f"{TRAIN_GRAD_TOL[dtype]:g}); forward bitwise with and "
+              "without lse at every block shape, two backward calls "
+              "bitwise")
         if dtype == torch.float32:
             rows.append(row)
             continue
@@ -1086,17 +1242,19 @@ def check_flash_train(dev, flush, case=None, h=16, hk=8, hd=128,
                            for x in (q, k, v, dout))
         sdpa = lambda *a: F.scaled_dot_product_attention(
             *a, is_causal=causal, enable_gqa=True)
-        grads = [t.clone().requires_grad_() for t in (qt, kt, vt)]
         row["ms"] = time_ms(lambda: flash_attention(q, k, v, causal=causal),
                             flush)
         row["plain_ms"] = time_ms(
             lambda: flash_attention_ref(q, k, v, causal=causal), flush)
+        row["bwd_ms"] = time_ms(lambda: flash_attention_bwd(
+            q, k, v, out, lse, dout, causal=causal), flush)
         row["bwd_plain_ms"] = time_ms(
             lambda: flash_attention_bwd_ref(q, k, v, dout, causal=causal),
             flush, iters=5)
+        row["bwd_form"] = (B, S, h, hk, hd, hd, causal)
         row["library_ms"] = time_ms(lambda: sdpa(qt, kt, vt), flush)
-        row["library_fwd_bwd_ms"] = time_ms(
-            lambda: torch.autograd.grad(sdpa(*grads), grads, dot), flush)
+        row["library_fwd_bwd_ms"], row["library_bwd_ms"] = sdpa_bwd_ms(
+            sdpa, qt, kt, vt, dot, flush)
         row["sdpa_backend"] = sdpa_backend(qt, kt, vt, None, 0.0, causal,
                                            enable_gqa=True)
         for key, (n_bytes, ops) in (
@@ -1108,14 +1266,15 @@ def check_flash_train(dev, flush, case=None, h=16, hk=8, hd=128,
                         f"{key}bound_by": "bytes" if t_bytes >= t_ops
                         else "operations",
                         f"{key}bytes": n_bytes, f"{key}ops": ops})
-        del grads
         rows.append(row)
         print(f"  flash_attention {row['case']:44s} bfloat16 forward: kernel "
               f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  sdpa "
               f"{row['library_ms']:.4f} ms ({row['sdpa_backend']})  bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']}); backward: plain "
-              f"{row['bwd_plain_ms']:.4f} ms  sdpa forward + backward "
-              f"{row['library_fwd_bwd_ms']:.4f} ms  bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}); backward: kernel "
+              f"{row['bwd_ms']:.4f} ms  plain "
+              f"{row['bwd_plain_ms']:.4f} ms  sdpa backward "
+              f"{row['library_bwd_ms']:.4f} ms (forward + backward "
+              f"{row['library_fwd_bwd_ms']:.4f})  bound "
               f"{row['bwd_bound_ms']:.4f} ms ({row['bwd_bound_by']}: "
               f"{row['bwd_ops'] / 1e9:.1f} GFLOP)")
     return rows
@@ -1322,14 +1481,17 @@ def check_flash_mla(dev, flush):
     128 + rope 64, v 128, h = hk = 128), causal: the slab prefill (B 8,
     S = T = 512) and the training forward (B 1, S = T = 4096) against
     the plain version, fp32 and bf16, and at the training shape the
-    gradients of ``FlashAttention`` against autograd of the plain
-    version (heads are independent at h = hk: the plain version runs 32
-    at a time, to bound its fp32 scores).  bf16 times beside SDPA with
-    E != Ev and the bounds."""
+    gradients of ``FlashAttention`` (its forward and backward kernels)
+    against autograd of the plain version (heads are independent at h =
+    hk: the plain version runs 32 at a time, to bound its fp32 scores),
+    the forward bitwise with and without the log-sum-exp and two
+    backward calls bitwise.  bf16 times beside SDPA with E != Ev and the
+    bounds."""
     import torch.nn.functional as F
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_bwd_ref, flash_attention_ref)
+        flash_attention, flash_attention_bwd, flash_attention_bwd_ref,
+        flash_attention_ref)
 
     h, dqk, dv, group = 128, 192, 128, 32
     rng = np.random.default_rng(23)
@@ -1363,9 +1525,12 @@ def check_flash_mla(dev, flush):
                 reset_launch_counts()
                 leaves = [t.clone().requires_grad_() for t in (q, k, v)]
                 flash_attention(*leaves).backward(dout)
-                if launch_counts().get("flash_attention", 0) != 1:
-                    fail("the autograd Function did not launch the kernel "
-                         "once at MLA's widths")
+                counts = launch_counts()
+                if counts.get("flash_attention", 0) != 1 or counts.get(
+                        "flash_attention_bwd", 0) != 1:
+                    fail("the autograd Function did not launch the forward "
+                         f"and backward kernels once each at MLA's widths: "
+                         f"{counts}")
                 ref_grads = [torch.empty_like(t) for t in (q, k, v)]
                 for g in range(0, h, group):
                     sl = slice(g, g + group)
@@ -1375,18 +1540,22 @@ def check_flash_mla(dev, flush):
                     for ref_grad, t in zip(ref_grads, part):
                         ref_grad[:, :, sl] = t.grad
                     del part
-                gerr = 0.0
+                gerr = gabs = 0.0
                 for i, (leaf, ref_grad) in enumerate(zip(leaves, ref_grads)):
-                    rel = ((leaf.grad.float() - ref_grad.float()).abs().max()
-                           / ref_grad.float().abs().max()).item()
-                    gerr = max(gerr, rel)
+                    diff = (leaf.grad.float() - ref_grad.float()).abs().max()
+                    rel = (diff / ref_grad.float().abs().max()).item()
+                    gerr, gabs = max(gerr, rel), max(gabs, diff.item())
                     if not rel <= TRAIN_GRAD_TOL[dtype]:
                         fail(f"flash_attention {name} backward d{'qkv'[i]} "
                              f"{dtype}: max |err| / max |grad| {rel:.2e}")
                 del leaves, ref_grads
-                row.update(grad_rel_err=gerr, grad_tol=TRAIN_GRAD_TOL[dtype])
+                out, lse = check_lse_and_bwd_repeat(name, q, k, v, dout,
+                                                    True)
+                row.update(grad_rel_err=gerr, grad_max_abs_err=gabs,
+                           grad_tol=TRAIN_GRAD_TOL[dtype])
                 msg = (f"; dq, dk, dv max |err| / max |grad| {gerr:.2e} (tol "
-                       f"{TRAIN_GRAD_TOL[dtype]:g})")
+                       f"{TRAIN_GRAD_TOL[dtype]:g}); forward bitwise with and "
+                       "without lse, two backward calls bitwise")
             torch.cuda.synchronize()
             if dtype == torch.bfloat16:
                 qt, kt, vt, dot = (x.transpose(1, 2).contiguous()
@@ -1408,21 +1577,23 @@ def check_flash_mla(dev, flush):
                         f"  bound {row['bound_ms']:.4f} ms "
                         f"({row['bound_by']}: {row['ops'] / 1e9:.1f} GFLOP)")
                 if train:
-                    grads = [t.clone().requires_grad_() for t in (qt, kt, vt)]
+                    row["bwd_ms"] = time_ms(lambda: flash_attention_bwd(
+                        q, k, v, out, lse, dout), flush)
+                    row["bwd_form"] = (B, S, h, h, dqk, dv, True)
                     row["bwd_plain_ms"] = time_ms(
                         lambda: flash_attention_bwd_ref(q, k, v, dout),
                         flush, iters=5)
-                    row["library_fwd_bwd_ms"] = time_ms(
-                        lambda: torch.autograd.grad(sdpa(*grads), grads,
-                                                    dot), flush)
+                    row["library_fwd_bwd_ms"], row["library_bwd_ms"] = (
+                        sdpa_bwd_ms(sdpa, qt, kt, vt, dot, flush))
                     b = bound_of(*mla_flash_bound(B, S, S, h, dqk, dv, 2,
                                                   backward=True), dtype)
                     row.update({f"bwd_{key}": val for key, val in b.items()})
-                    msg += (f"; backward: plain {row['bwd_plain_ms']:.4f} ms"
-                            f"  sdpa forward + backward "
-                            f"{row['library_fwd_bwd_ms']:.4f} ms  bound "
-                            f"{row['bwd_bound_ms']:.4f} ms")
-                    del grads
+                    msg += (f"; backward: kernel {row['bwd_ms']:.4f} ms  "
+                            f"plain "
+                            f"{row['bwd_plain_ms']:.4f} ms  sdpa backward "
+                            f"{row['library_bwd_ms']:.4f} ms (forward + "
+                            f"backward {row['library_fwd_bwd_ms']:.4f})  "
+                            f"bound {row['bwd_bound_ms']:.4f} ms")
                 del qt, kt, vt, dot
             rows.append(row)
             print(f"  flash_attention {name:30s} (192, 128) {row['dtype']:8s} "
@@ -2057,15 +2228,32 @@ def train_qwen(dev):
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
+    # a spy on the plain backward: no CUDA tensor may reach it here
+    fa_mod = sys.modules["repro_torch.kernels.flash_attention"]
+    plain_bwd, plain_calls = fa_mod.flash_attention_bwd_ref, []
+
+    def spy(q, *a, **kw):
+        plain_calls.append(q.device.type)
+        return plain_bwd(q, *a, **kw)
+
+    fa_mod.flash_attention_bwd_ref = spy
     losses, walls = [], []
-    for i in range(1 + TRAIN_TIMED):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, metrics = step(state, batch)
-        losses.append(float(metrics["loss"]))           # synchronises
-        walls.append(time.perf_counter() - t0)
+    try:
+        for i in range(1 + TRAIN_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))           # synchronises
+            walls.append(time.perf_counter() - t0)
+    finally:
+        fa_mod.flash_attention_bwd_ref = plain_bwd
+    if plain_calls:
+        fail(f"phase 13: the plain flash backward ran {len(plain_calls)} "
+             f"times on {sorted(set(plain_calls))} tensors")
     counts = launch_counts()
     launches = counts.get("flash_attention", 0)
+    bwd_launches = check_bwd("phase 13", counts, (1 + TRAIN_TIMED)
+                             * TRAIN_MICRO * cfg.num_layers)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     want = (1 + TRAIN_TIMED) * TRAIN_MICRO * cfg.num_layers * 2
     if launches != want:
@@ -2083,13 +2271,16 @@ def train_qwen(dev):
     mfu = 6 * n_params * tokens / wall / PEAK_OPS[torch.bfloat16]
     out = {"step_ms": wall * 1e3, "tokens_per_s": tokens / wall,
            "peak_gib": peak_gib, "mfu": mfu, "losses": losses,
-           "step_walls_ms": [w * 1e3 for w in walls]}
+           "step_walls_ms": [w * 1e3 for w in walls],
+           "bwd_launches": bwd_launches, "plain_bwd_calls": len(plain_calls)}
     print(f"phase 13: {1 + TRAIN_TIMED} AdamW steps (lr {TRAIN_LR:g}) on one "
           f"batch of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in {TRAIN_MICRO} "
           f"microbatches, remat per layer: losses "
           f"{', '.join(f'{x:.4f}' for x in losses)}; flash_attention "
           f"launches {launches} = {1 + TRAIN_TIMED} x {TRAIN_MICRO} x "
-          f"{cfg.num_layers} x 2 (forward + recompute)")
+          f"{cfg.num_layers} x 2 (forward + recompute), flash_attention_bwd "
+          f"{bwd_launches} = {1 + TRAIN_TIMED} x {TRAIN_MICRO} x "
+          f"{cfg.num_layers}; the plain backward ran 0 times")
     print(f"phase 13: step wall median {wall * 1e3:.1f} ms (first, untimed "
           f"{walls[0] * 1e3:.1f} ms)")
     print(f"phase 13: {tokens / wall:.1f} tokens/s")
@@ -2123,6 +2314,7 @@ def train_qwen(dev):
     if launch_counts().get("flash_attention", 0) != 3 * 2 * 2:
         fail("phase 14: the card run did not launch flash_attention in every "
              "layer (3 steps x 2 layers x 2, with the remat recompute)")
+    check_bwd("phase 14", launch_counts(), 3 * 2)
     (cpu_l, cpu_p), (card_l, card_p) = got["cpu"], got["cuda"]
     rel = [abs(a - b) / abs(a) for a, b in zip(cpu_l, card_l)]
     gap = max((cpu_p[k] - card_p[k]).abs().max().item() for k in cpu_p)
@@ -2147,33 +2339,58 @@ def train_qwen(dev):
 # phases 15 / 16: the paper's synchronous data parallelism
 # --------------------------------------------------------------------------
 
-def run_ranks(args, n, timeout=300, module=True):
-    """``python -m torch.distributed.run --standalone --nproc-per-node n``
-    of ``args`` (a module and its flags, or with ``module=False`` a
-    script and its flags), in its own session, killed with every rank
-    it started if it outlasts ``timeout``.  Fails the run if it fails;
-    returns the wall seconds."""
-    import signal
+def start_ranks(args, n, module=True):
+    """Start ``python -m torch.distributed.run --standalone
+    --nproc-per-node n`` of ``args`` (a module and its flags, or with
+    ``module=False`` a script and its flags) in its own session, its
+    output to a file; ``finish_ranks`` waits for it."""
+    import tempfile
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", str(n), *(["-m"] if module else []), *args]
     env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+    log = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
                             stderr=subprocess.STDOUT, text=True,
                             start_new_session=True)
-    try:
-        out, _ = proc.communicate(timeout=timeout)
-    except subprocess.TimeoutExpired:
+    atexit.register(stop_ranks, proc)    # a failed check exits early
+    return proc, log, time.perf_counter(), args, n
+
+
+def stop_ranks(proc):
+    """Kill a ``start_ranks`` launch with every rank it started, if it is
+    still running."""
+    if proc.poll() is None:
         os.killpg(proc.pid, signal.SIGKILL)
-        proc.communicate()
+        proc.wait()
+
+
+def finish_ranks(started, timeout=300):
+    """Wait for a ``start_ranks`` launch, killed with every rank it started
+    if it outlasts ``timeout`` seconds from its start.  Fails the run if it
+    fails; returns its wall seconds."""
+    proc, log, t0, args, n = started
+    try:
+        proc.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        stop_ranks(proc)
         fail(f"{' '.join(args)} over {n} ranks outlasted {timeout} s")
+    wall = time.perf_counter() - t0
+    log.seek(0)
+    out = log.read()
+    log.close()
     if proc.returncode:
         print(out[-6000:])
         fail(f"{' '.join(args)} over {n} ranks exited {proc.returncode}")
     for line in out.splitlines():
         if line.startswith(("trainer:", "epoch", "mesh:", "phase 18")):
             print(f"    {line}")
-    return time.perf_counter() - t0
+    return wall
+
+
+def run_ranks(args, n, timeout=300, module=True):
+    """``start_ranks`` of ``args`` over ``n`` ranks, then
+    ``finish_ranks``: returns the wall seconds."""
+    return finish_ranks(start_ranks(args, n, module), timeout)
 
 
 def load_dump(d, step, rank):
@@ -2199,6 +2416,24 @@ def paper_dp(dev):
     from repro_torch.launch import mnist_dnn_dp
     from repro_torch.models import apply_paper_net, init_paper_net
     from repro_torch.train import cross_entropy
+
+    # the four MNIST-DNN launches run side by side, beside the card-vs-CPU
+    # checks below (each picks its own free rendezvous port)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="dp_", dir=os.path.join(ROOT, "build"))
+    data = ["--samples", str(PAPER_SAMPLES), "--epochs", "1"]
+    common = [*data, "--steps", str(PAPER_STEPS), "--backend", "gloo"]
+    launcher = "repro_torch.launch.mnist_dnn_dp"
+    started = {strategy: start_ranks(
+        [launcher, *common, "--strategy", strategy, "--dump",
+         os.path.join(root, strategy)], 2) for strategy in ("flat", "bucketed")}
+    started["weights"] = start_ranks(
+        [launcher, *data, "--steps", "4", "--backend", "gloo", "--sync",
+         "weights", "--sync-period", "2", "--dump",
+         os.path.join(root, "weights")], 2)
+    started["hier"] = start_ranks(
+        [launcher, *common, "--strategy", "hierarchical", "--pods", "2",
+         "--dump", os.path.join(root, "hier")], 4)
 
     out = {}
     for net in (MNIST_DNN, CIFAR10_CNN):
@@ -2231,18 +2466,13 @@ def paper_dp(dev):
               f"(tol {PAPER_TOL:g}), {last:.2e} after step {PAPER_STEPS} "
               f"(tol {tol:g}); losses {got['cuda'][0]}")
 
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    root = tempfile.mkdtemp(prefix="dp_", dir=os.path.join(ROOT, "build"))
-    data = ["--samples", str(PAPER_SAMPLES), "--epochs", "1"]
-    common = [*data, "--steps", str(PAPER_STEPS), "--backend", "gloo"]
     seq = os.path.join(root, "seq")
     mnist_dnn_dp.main([*data, "--steps", str(PAPER_STEPS), "--sequential",
                        "--device", "cuda", "--dump", seq])
     want = load_dump(seq, PAPER_STEPS, 0)
     for strategy in ("flat", "bucketed"):
         d = os.path.join(root, strategy)
-        wall = run_ranks(["repro_torch.launch.mnist_dnn_dp", *common,
-                          "--strategy", strategy, "--dump", d], 2)
+        wall = finish_ranks(started[strategy])
         gaps = [max_gap(want, load_dump(d, PAPER_STEPS, r)) for r in (0, 1)]
         if not max(gaps) <= PAPER_TOL:
             fail(f"phase 15: {strategy} over 2 gloo ranks differs from the "
@@ -2253,9 +2483,7 @@ def paper_dp(dev):
               f"run within {max(gaps):.2e} (tol {PAPER_TOL:g}); torchrun "
               f"wall {wall:.1f} s")
     d = os.path.join(root, "weights")
-    run_ranks(["repro_torch.launch.mnist_dnn_dp", *data, "--steps", "4",
-               "--backend", "gloo", "--sync", "weights", "--sync-period",
-               "2", "--dump", d], 2)
+    finish_ranks(started["weights"])
     equal = [max_gap(load_dump(d, s, 0), load_dump(d, s, 1)) == 0.0
              for s in (1, 2, 3, 4)]
     if equal != [False, True, False, True]:
@@ -2266,9 +2494,7 @@ def paper_dp(dev):
           "ranks bitwise equal after steps 2 and 4, different after 1 and 3")
     # gloo's reduce-scatter and all-gather take the card's tensors
     d = os.path.join(root, "hier")
-    wall = run_ranks(["repro_torch.launch.mnist_dnn_dp", *common,
-                      "--strategy", "hierarchical", "--pods", "2",
-                      "--dump", d], 4)
+    wall = finish_ranks(started["hier"])
     gaps = [max_gap(want, load_dump(d, PAPER_STEPS, r)) for r in range(4)]
     if not max(gaps) <= PAPER_TOL:
         fail(f"phase 15: hierarchical over 2 x 2 gloo ranks differs from "
@@ -2328,6 +2554,8 @@ def dp_qwen(dev, phase13_losses, prompts, serve_launches):
             losses.append(float(trainer.step(batch)["loss"]))
             walls.append(time.perf_counter() - t0)
         launches = launch_counts().get("flash_attention", 0)
+        bwd = check_bwd(f"phase 16 ({strategy})", launch_counts(),
+                        DP_STEPS * TRAIN_MICRO * cfg.num_layers)
         sync = trainer.sync_ms()
         peak = torch.cuda.max_memory_allocated() / 2**30
         if launches != want:
@@ -2338,7 +2566,8 @@ def dp_qwen(dev, phase13_losses, prompts, serve_launches):
             fail(f"phase 16 ({strategy}): losses {losses} are not phase "
                  f"13's first {DP_STEPS}, {phase13_losses[:DP_STEPS]}, bit "
                  "for bit")
-        out[strategy] = {"launches": launches, "losses": losses,
+        out[strategy] = {"launches": launches, "bwd_launches": bwd,
+                         "losses": losses,
                          "step_walls_ms": [w * 1e3 for w in walls],
                          "grad_sync_ms": sync, "peak_gib": peak,
                          "allreduce_bytes_per_sync":
@@ -2410,8 +2639,9 @@ def comm_predictions(v_bytes, comm_time_s, sync_ms):
 
 def _steps(trainer, batch, n, dev):
     """``n`` steps: losses, walls (s), the memory allocated after each
-    (bytes, the card synchronised), flash launches a step, and the
-    SyncTimer spans by label."""
+    (bytes, the card synchronised), flash launches a step (each step's
+    flash_attention_bwd launches checked: half its forwards, under
+    remat), and the SyncTimer spans by label."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     losses, walls, between, flash = [], [], [], []
     for _ in range(n):
@@ -2422,6 +2652,8 @@ def _steps(trainer, batch, n, dev):
         torch.cuda.synchronize(dev)
         walls.append(time.perf_counter() - t0)
         flash.append(launch_counts().get("flash_attention", 0))
+        # every caller's trainer rematerialises its layers
+        check_bwd("a ZeRO step", launch_counts(), flash[-1] // 2)
         between.append(torch.cuda.memory_allocated(dev))
     return losses, walls, between, flash, trainer.sync_ms_by_label()
 
@@ -2737,6 +2969,9 @@ def _train_run(dev, cfg, tc, batch, steps, tag):
                                      else 0))
         for kernel, kind in (("wkv6", "rwkv6"), ("mamba_scan", "mamba"),
                              ("flash_attention", "attn"))}
+    # one backward a layer a microbatch, the head's included
+    launches_want["flash_attention_bwd"] = (1 + steps) * tc.microbatches * (
+        kinds.count("attn") + kinds.count("mtp"))
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     losses, walls = [], []
@@ -2831,6 +3066,8 @@ def _train_parity(dev, tag, small, tc, batch, cut="", steps=3):
                 calls * (2 if tc.remat else 1) + head):
             fail(f"{tag}: the card run launched {kernel} "
                  f"{counts.get(kernel, 0)} times, not in every {kind} layer")
+        if kind == "attn":
+            check_bwd(tag, counts, steps * tc.microbatches * (calls + head))
     (cpu_l, cpu_p), (card_l, card_p) = got["cpu"], got["cuda"]
     rel = [abs(a - b) / abs(a) for a, b in zip(cpu_l, card_l)]
     gap = max((cpu_p[k] - card_p[k]).abs().max().item() for k in cpu_p)
@@ -3076,6 +3313,8 @@ def checkpoint_qwen(dev, trainer, create, cfg, batch, prompts,
         loss4 = float(trainer.step(batch)["loss"])
         step4_wall = time.perf_counter() - returned
         step4_flash = launch_counts().get("flash_attention", 0)
+        check_bwd("phase 17 (step 4)", launch_counts(),
+                  TRAIN_MICRO * cfg.num_layers)
         stats = trainer.finish_saves()
         published = time.perf_counter() - t0
         trainer.state = None     # free its masters, moments and gradients
@@ -3135,6 +3374,8 @@ def checkpoint_qwen(dev, trainer, create, cfg, batch, prompts,
         reset_launch_counts()
         loss4_again = float(fresh.step(batch)["loss"])
         flash = launch_counts().get("flash_attention", 0)
+        check_bwd("phase 17 (restored step 4)", launch_counts(),
+                  TRAIN_MICRO * cfg.num_layers)
         if loss4_again != loss4:
             fail(f"phase 17: the step after the restore gave loss "
                  f"{loss4_again!r}, the uninterrupted step 4 {loss4!r}")
@@ -3927,6 +4168,8 @@ def train_frontends(dev):
         per_micro = (cfg.encoder_layers + 2 * cfg.num_layers
                      if cfg.is_encoder_decoder else cfg.num_layers)
         want = (1 + TRAIN_TIMED) * TRAIN_MICRO * per_micro * 2
+        bwd = check_bwd(f"phase 26 ({arch})", launch_counts(),
+                        (1 + TRAIN_TIMED) * TRAIN_MICRO * per_micro)
         if flash != want:
             fail(f"phase 26 ({arch}): flash_attention launched {flash} times, "
                  f"expected {want} = {1 + TRAIN_TIMED} steps x {TRAIN_MICRO} "
@@ -3944,7 +4187,7 @@ def train_frontends(dev):
                "step_ms": wall * 1e3,
                "step_walls_ms": [w * 1e3 for w in walls],
                "tokens_per_s": tokens / wall, "mfu": mfu, "peak_gib": peak,
-               "flash_launches": flash}
+               "flash_launches": flash, "bwd_launches": bwd}
         shape = ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items())
         print(f"phase 26: {arch}"
               + (f" reduced: num_layers {get_config(arch).num_layers} -> "
@@ -4066,6 +4309,8 @@ def _bf16_llava(dev, cfg):
         walls.append(time.perf_counter() - t0)
         between.append(torch.cuda.memory_allocated())
     flash = launch_counts().get("flash_attention", 0)
+    bwd = check_bwd("phase 27a", launch_counts(), (1 + BF16_TRAIN_STEPS)
+                    * TRAIN_MICRO * cfg.num_layers)
     peak = torch.cuda.max_memory_allocated()
     want = (1 + BF16_TRAIN_STEPS) * TRAIN_MICRO * cfg.num_layers * 2
     if flash != want:
@@ -4091,7 +4336,7 @@ def _bf16_llava(dev, cfg):
         "mfu": 6 * n_params * tokens / wall / PEAK_OPS[torch.bfloat16],
         "peak_gib": peak / 2**30, "between_steps_bytes": between,
         "model_bytes": model_rep["total_replicated"],
-        "flash_launches": flash}
+        "flash_launches": flash, "bwd_launches": bwd}
     print(f"phase 27a: {cfg.name} at full width and depth ({cfg.num_layers} "
           f"layers, {n_params / 1e9:.3f} B bf16 masters and gradients, SGD "
           f"lr {BF16_LR:g}, remat, initialised in {init_s:.1f} s, init peak "
@@ -4150,6 +4395,8 @@ def _bf16_parity(dev, cfg):
     if pflash != BF16_PARITY_STEPS * small.num_layers * 2:
         fail(f"phase 27b: the card run launched flash_attention {pflash} "
              "times, not in every layer")
+    check_bwd("phase 27b", launch_counts(),
+              BF16_PARITY_STEPS * small.num_layers)
     (cpu_l, cpu_p), (card_l, card_p) = got["cpu"], got["cuda"]
     loss_gap = max(abs(a - b) for a, b in zip(cpu_l, card_l))
     worst = max(float(_ulps(card_p[k], cpu_p[k], start[k]).max())
@@ -4372,6 +4619,8 @@ def mesh_steps(cfg, tc, mesh, dev, batch, steps):
         torch.cuda.synchronize(dev)
         rec["walls_ms"].append((time.perf_counter() - t0) * 1e3)
         rec["flash"].append(launch_counts().get("flash_attention", 0))
+        check_bwd("a mesh step", launch_counts(), rec["flash"][-1] // 2
+                  if tc.remat else rec["flash"][-1])
         rec["between_bytes"].append(torch.cuda.memory_allocated(dev) - before)
         for key in ("loss", "ce", "aux"):
             rec[key if key != "loss" else "losses"].append(float(m[key]))
@@ -5019,7 +5268,7 @@ def flash_block_sweep(dev, flush):
     (``block_choices``: the plan, each block_q, each split count),
     set through ``ops.set_flash_blocks`` and read by the launch, in
     fp32 and bf16 at BLOCK_SHAPES: each held against the plain version
-    at phase 2's bars and timed as phase 2 times (median of 20 after an
+    at phase 2's bars and timed as phase 2 times (median of 10 after an
     L2 flush), beside the plan's time, the plain version's, SDPA's and
     the bound.  A shape slower than the plan's is kept and marked."""
     import torch.nn.functional as F
@@ -5281,7 +5530,7 @@ def main():
     # ---- phase 1: build ---------------------------------------------------
     t0 = time.perf_counter()
     stems = ("paged_decode", "paged_decode_mla", "wkv6", "mamba_scan",
-             "flash_attention")
+             "flash_attention", "flash_attention_bwd")
     build.load_libraries(stems)
     PHASE_S["phase 1"] = time.perf_counter() - t0
     print(f"phase 1: built {len(stems)} kernels in parallel in "
@@ -5346,12 +5595,20 @@ def main():
           "slice's tail holds 1e4, then 1e8, and the output must not change "
           "one bit")
     flash_rows = check_flash_attention(dev, flush)
+    from repro_torch.kernels.flash_attention import BWD_TILED_TOL
+    print(f"  flash_attention_bwd (csrc/flash_attention_bwd.cu) against its "
+          f"tiled plain version (the same algorithm and schedule), max |err| "
+          f"/ max |grad| fp32 {BWD_TILED_TOL[torch.float32]:g}, bf16 "
+          f"{BWD_TILED_TOL[torch.bfloat16]:g}; the forward's log-sum-exp "
+          f"against the plain one, |err| {LSE_TOL:g}")
+    bwd_rows = check_flash_bwd_cases(dev)
     print(f"  flash_attention at the training shape: forward tolerance as "
-          f"above; gradients max |err| / max |grad| fp32 "
+          f"above; the Function's gradients (the backward kernel) against "
+          f"autograd of the plain version, max |err| / max |grad| fp32 "
           f"{TRAIN_GRAD_TOL[torch.float32]:g}, bf16 "
-          f"{TRAIN_GRAD_TOL[torch.bfloat16]:g} (the backward is plain "
-          "PyTorch recomputing 1024-row q-chunks; fp32 re-associates sums "
-          "over 4096 rows, bf16 rounds each chunk's products)")
+          f"{TRAIN_GRAD_TOL[torch.bfloat16]:g} (fp32 re-associates sums "
+          "over 4096 rows; bf16 rounds P and dS to bf16 for the products, "
+          "and D uses the rounded output)")
     train_rows = check_flash_train(dev, flush)
     print(f"  flash_attention at MLA's widths (q, k 192, v 128; DeepSeek-V3's "
           f"train and prefill branch): tolerances as above")
@@ -5391,6 +5648,13 @@ def main():
           f"{TRAIN_GRAD_TOL[torch.bfloat16]:g}")
     scan_grad_rows = check_scan_grads(dev, flush)
     del flush
+    # the backward kernel's rows at the five training forms (bf16), qwen3's
+    # first
+    bwd_timed = [r for r in train_rows + flash_mla_rows + flash_new_rows
+                 if "bwd_form" in r]
+    print("  the flash backward's two kernels apart, at the training forms "
+          "(bf16):")
+    split_bwd_kernels(dev, bwd_timed)
     PHASE_S["phase 2"] = time.perf_counter() - t_phase
     print(f"phase 2: {PHASE_S['phase 2']:.1f} s")
     if args.kernels_only:
@@ -5402,7 +5666,7 @@ def main():
             "mamba_scan": mamba_rows + scan_grad_rows["mamba_scan"],
             "paged_flash_decode_mla": mla_rows,
             "flash_attention": flash_rows + train_rows + flash_mla_rows
-            + flash_new_rows}}))
+            + flash_new_rows, "flash_attention_bwd": bwd_rows}}))
         print(card_line())
         return
 
@@ -5653,8 +5917,9 @@ def main():
         "slab_archs": slab_out, "arch_train": arch_train_out,
         "train": {**{key: train_bf16[key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "sdpa_backend", "bwd_plain_ms", "library_fwd_bwd_ms",
-            "bwd_bound_ms", "bwd_bound_by", "grad_rel_err")},
+            "sdpa_backend", "bwd_ms", "bwd_kernels_ms", "bwd_plain_ms",
+            "library_bwd_ms", "library_fwd_bwd_ms", "bwd_bound_ms",
+            "bwd_bound_by", "grad_rel_err")},
             "step": train_out},
         "launches_granite_lockstep": dense_out["granite-20b"]["lockstep"][
             "flash_launches"],
@@ -5685,11 +5950,44 @@ def main():
         "cases": (flash_rows + train_rows + flash_mla_rows + flash_new_rows
                   + mesh_slab_rows),
     }
+    bwd_entry = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:92",
+        "replaces_note": "flash_attention_pallas has no backward: this is "
+                         "the gradient of the reference's checkpointed "
+                         "chunked_attention loop "
+                         "(src/repro/models/attention.py:106), the backward "
+                         "of the port's FlashAttention",
+        "launches": train_out["bwd_launches"],
+        "max_abs_err": max(r["grad_max_abs_err"] for r in bwd_timed),
+        "ms": train_bf16["bwd_ms"], "plain_ms": train_bf16["bwd_plain_ms"],
+        "bound_ms": train_bf16["bwd_bound_ms"],
+        "bound_by": train_bf16["bwd_bound_by"],
+        "library_ms": train_bf16["library_bwd_ms"],
+        "library_is": "SDPA's backward alone: torch.autograd.grad of a kept "
+                      "forward graph",
+        "library_fwd_bwd_ms": train_bf16["library_fwd_bwd_ms"],
+        "forms": {r["case"]: {key: r[key] for key in (
+            "bwd_ms", "bwd_kernels_ms", "bwd_plain_ms", "library_bwd_ms",
+            "library_fwd_bwd_ms", "bwd_bound_ms", "bwd_bound_by",
+            "grad_rel_err", "grad_max_abs_err")}
+            for r in bwd_timed},
+        "launches_dp_train": {k: v["bwd_launches"] for k, v in dp_out.items()},
+        "launches_arch_train": {a: r["launches"]["flash_attention_bwd"]
+                                for a, r in arch_train_out.items()
+                                if "flash_attention_bwd" in r["launches"]},
+        "launches_frontend_train": {a: r["bwd_launches"]
+                                    for a, r in front_train_out.items()},
+        "launches_bf16_train": bf16_out["llava"]["bwd_launches"],
+        "plain_bwd_calls_phase13": train_out["plain_bwd_calls"],
+        "cases": bwd_rows,
+    }
     print("phase seconds: "
           + json.dumps({k: round(v, 1) for k, v in PHASE_S.items()}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [entry, wkv_entry, mamba_entry,
-                                  mla_entry, flash_entry]}))
+                                  mla_entry, flash_entry, bwd_entry]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

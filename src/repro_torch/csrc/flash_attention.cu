@@ -12,6 +12,11 @@
 //                            dim stride
 //   v    (B, T, hk, hdv) T   as k, head stride hdv
 //   out  (B, S, h, hdv)  T   contiguous
+//   lse  (B, h, S)   fp32    or null: each row's natural-log log-sum-exp of
+//                            its scaled scores over the keys it sees (the
+//                            training forward asks for it; the backward,
+//                            csrc/flash_attention_bwd.cu, recomputes P from
+//                            it); the output is the same bit for bit either way
 // (hd, hdv) is (64, 64), (128, 128) or MLA's (192, 128): nope 128 + rope 64
 // for q and k, 128 for v (its train and prefill branch).
 // Query s sits at position s + T - S.  Key t is visible to it iff t <= pos
@@ -84,7 +89,8 @@ size_t smem_bytes(int hd, int hdv, int rt) {
 template <typename T, int HD, int HDV, int RPT>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int S, int Tk,
+                 const T* __restrict__ v, T* __restrict__ out,
+                 float* __restrict__ lse, int S, int Tk,
                  int h, int hk, long long k_bs, long long k_ss, long long v_bs,
                  long long v_ss, int causal, int window, float scale) {
   constexpr int RT = 16 * RPT;       // query rows a block
@@ -284,6 +290,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (!valid[i]) continue;
     const int row = r0 + ty * RPT + i, s = row / g, head = kvh * g + row % g;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    if (lse != nullptr && tx == 0) lse[((size_t)b * h + head) * S + s] = m[i] + logf(l[i]);
     T* o = out + (((size_t)b * S + s) * h + head) * HDV;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
@@ -294,7 +301,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int HD, int HDV, int RPT>
-int launch_one(const void* q, const void* k, const void* v, void* out, int B, int S,
+int launch_one(const void* q, const void* k, const void* v, void* out, float* lse,
+               int B, int S,
                int Tk, int h, int hk, long long k_bs, long long k_ss, long long v_bs,
                long long v_ss, int causal, int window, float scale,
                cudaStream_t stream) {
@@ -311,20 +319,20 @@ int launch_one(const void* q, const void* k, const void* v, void* out, int B, in
   if (grid.y > 65535) return (int)cudaErrorInvalidConfiguration;
   flash_fwd_kernel<T, HD, HDV, RPT><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), S, Tk, h, hk, k_bs, k_ss, v_bs, v_ss, causal, window,
+      static_cast<T*>(out), lse, S, Tk, h, hk, k_bs, k_ss, v_bs, v_ss, causal, window,
       scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
-           int Tk, int h, int hk, int hd, int hdv, long long k_bs, long long k_ss,
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+           int S, int Tk, int h, int hk, int hd, int hdv, long long k_bs, long long k_ss,
            long long v_bs, long long v_ss, int causal, int window,
            int rows_per_thread, float scale, void* stream_ptr) {
   if (B <= 0 || S <= 0 || Tk <= 0 || hk <= 0 || h % hk)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-#define FLASH_ARGS q, k, v, out, B, S, Tk, h, hk, k_bs, k_ss, v_bs, v_ss, causal, \
+#define FLASH_ARGS q, k, v, out, lse, B, S, Tk, h, hk, k_bs, k_ss, v_bs, v_ss, causal, \
                    window, scale, stream
   if (hd == 64 && hdv == 64 && rows_per_thread == 4) return launch_one<T, 64, 64, 4>(FLASH_ARGS);
   if (hd == 64 && hdv == 64 && rows_per_thread == 1) return launch_one<T, 64, 64, 1>(FLASH_ARGS);
@@ -349,6 +357,7 @@ struct SlabPolicy {
   static constexpr bool kPrepare = false;
   const gqa::bf16* k;
   const gqa::bf16* v;
+  float* lse;                            // (B, h, S) or null
   long long k_bs, k_ss, v_bs, v_ss;
   int Tk, causal, window;
   int off, g, r0, nr;                    // set by begin()
@@ -374,13 +383,14 @@ struct SlabPolicy {
 };
 
 template <int HD, int HDV>
-int launch_bf16_hd(const void* q, const void* k, const void* v, void* out, int B,
+int launch_bf16_hd(const void* q, const void* k, const void* v, void* out, float* lse, int B,
                    int S, int Tk, int h, int hk, long long k_bs, long long k_ss,
                    long long v_bs, long long v_ss, int causal, int window, int warps,
                    int splits, float scale, cudaStream_t stream) {
   SlabPolicy<HD, HDV> pol{};
   pol.k = static_cast<const gqa::bf16*>(k);
   pol.v = static_cast<const gqa::bf16*>(v);
+  pol.lse = lse;
   pol.k_bs = k_bs; pol.k_ss = k_ss; pol.v_bs = v_bs; pol.v_ss = v_ss;
   pol.Tk = Tk; pol.causal = causal; pol.window = window;
   if (warps == 4)
@@ -394,23 +404,23 @@ int launch_bf16_hd(const void* q, const void* k, const void* v, void* out, int B
 
 extern "C" {
 
-int flash_attention_f32(const void* q, const void* k, const void* v, void* out, int B,
-                        int S, int Tk, int h, int hk, int hd, int hdv, long long k_bs,
+int flash_attention_f32(const void* q, const void* k, const void* v, void* out, void* lse,
+                        int B, int S, int Tk, int h, int hk, int hd, int hdv, long long k_bs,
                         long long k_ss, long long v_bs, long long v_ss, int causal,
                         int window, int rows_per_thread, float scale, void* stream) {
-  return launch<float>(q, k, v, out, B, S, Tk, h, hk, hd, hdv, k_bs, k_ss, v_bs, v_ss,
+  return launch<float>(q, k, v, out, static_cast<float*>(lse), B, S, Tk, h, hk, hd, hdv, k_bs, k_ss, v_bs, v_ss,
                        causal, window, rows_per_thread, scale, stream);
 }
 
-int flash_attention_bf16(const void* q, const void* k, const void* v, void* out, int B,
-                         int S, int Tk, int h, int hk, int hd, int hdv, long long k_bs,
+int flash_attention_bf16(const void* q, const void* k, const void* v, void* out, void* lse,
+                         int B, int S, int Tk, int h, int hk, int hd, int hdv, long long k_bs,
                          long long k_ss, long long v_bs, long long v_ss, int causal,
                          int window, int warps, int splits, float scale, void* stream) {
   if (B <= 0 || S <= 0 || Tk <= 0 || hk <= 0 || h % hk)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FLASH_ARGS q, k, v, out, B, S, Tk, h, hk, k_bs, k_ss, v_bs, v_ss, causal, \
-                   window, warps, splits, scale, st
+#define FLASH_ARGS q, k, v, out, static_cast<float*>(lse), B, S, Tk, h, hk, k_bs, k_ss, \
+                   v_bs, v_ss, causal, window, warps, splits, scale, st
   if (hd == 64 && hdv == 64) return launch_bf16_hd<64, 64>(FLASH_ARGS);
   if (hd == 128 && hdv == 128) return launch_bf16_hd<128, 128>(FLASH_ARGS);
   if (hd == 192 && hdv == 128) return launch_bf16_hd<192, 128>(FLASH_ARGS);

@@ -12,7 +12,9 @@
 // masked by causality (key <= query position), an optional sliding window
 // (key > position - window) and a key limit, and an fp32 online softmax.
 // The probabilities are rounded to bf16 for the value product, as the plain
-// versions do.  A row that sees no key outputs 0.
+// versions do.  A row that sees no key outputs 0.  A policy may also carry
+// a pointer for each row's log-sum-exp (HasLse), which the training
+// forward asks for: csrc/flash_attention_bwd.cu recomputes P from it.
 //
 // Design.
 //  * Grid (split, slot * kv head, row tile).  A block's query rows are taken
@@ -70,6 +72,7 @@
 #include <cstddef>
 #include <cstdint>
 #include <type_traits>
+#include <utility>
 
 #include "sm90.cuh"
 
@@ -81,6 +84,7 @@ constexpr int kMaxSplits = 8;          // the portable cluster size
 constexpr int kMaxRowSlots = 128;      // the largest STAGES * KT of a Config
 constexpr float kNegInf = -1e30f;      // running-max floor: exp2(m - m_new) stays finite
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;     // m and l are in the exp2 domain
 
 using namespace sm90;   // the PTX building blocks (sm90.cuh)
 
@@ -113,6 +117,13 @@ struct ValueWidth { static constexpr int value = P::kHD; };
 template <class P>
 struct ValueWidth<P, std::void_t<decltype(P::kHDV)>> { static constexpr int value = P::kHDV; };
 
+// Whether the policy carries a row log-sum-exp output (a member `float*
+// lse`); a policy without one (the paged kernel's) compiles no LSE code
+template <class P, class = void>
+struct HasLse : std::false_type {};
+template <class P>
+struct HasLse<P, std::void_t<decltype(std::declval<P&>().lse)>> : std::true_type {};
+
 // The policy P provides (per block, after begin()):
 //   kHD, kPrepare         q's and K's width; whether prepare() must precede
 //                         staging
@@ -127,6 +138,10 @@ struct ValueWidth<P, std::void_t<decltype(P::kHDV)>> { static constexpr int valu
 //                         addressed (when kPrepare)
 //   k_row(slot, kpos), v_row(slot, kpos)   row kpos (in row slot `slot`) of K
 //                         and V
+//   lse (optional)        float* to (B, h, S) fp32, or null: each valid row's
+//                         natural-log log-sum-exp of its scaled scores over
+//                         the keys it sees, written where its sums are
+//                         reduced (the backward's P = exp(s scale - lse))
 template <int NW, class P>
 __global__ void __launch_bounds__(NW * 32)
 attention_kernel(P pol, const bf16* __restrict__ q, bf16* __restrict__ out, int S,
@@ -470,12 +485,32 @@ attention_kernel(P pol, const bf16* __restrict__ q, bf16* __restrict__ out, int 
         }
         const float inv = ll > 0.f ? 1.f / ll : 0.f;
         const int row = r0 + r;
+        if constexpr (HasLse<P>::value) {
+          if (p.lse != nullptr && c == 0)
+            p.lse[((size_t)b * h + kvh * g + row % g) * S + row / g] = (mm + log2f(ll)) * kLn2;
+        }
         bf16* dst = out + (((size_t)b * S + row / g) * h + kvh * g + row % g) * HDV + c;
         *reinterpret_cast<uint2*>(dst) =
             make_uint2(pack_bf16(o.x * inv, o.y * inv), pack_bf16(o.z * inv, o.w * inv));
       }
       cluster.sync();                           // peers are done reading this block
       return;
+    }
+  }
+  if constexpr (HasLse<P>::value) {
+    if (p.lse != nullptr && (lane & 3) == 0) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = tile_row(mt) + (lane >> 2) + 8 * i;
+          if (r < nr) {
+            const int row = r0 + r;
+            p.lse[((size_t)b * h + kvh * g + row % g) * S + row / g] =
+                (m[mt][i] + log2f(l[mt][i])) * kLn2;
+          }
+        }
+      }
     }
   }
   // the output tile through shared memory (the K/V stages are free), then

@@ -3,7 +3,8 @@
 // csrc/paged_decode_mla.cu (absorbed MLA) and csrc/wkv6.cu (RWKV-6): the
 // 128-byte-swizzled tile layout and its wgmma descriptors, cp.async,
 // ldmatrix, mma.sync (bf16 m16n8k16, tf32 m16n8k8), wgmma (m64 x N x 16,
-// bf16 in, fp32 out) and a few warp reductions.
+// bf16 in, fp32 out) and a few warp reductions.  csrc/flash_attention_bwd.cu
+// uses the wgmma blocks too.
 
 #pragma once
 
@@ -109,6 +110,23 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t da, uint
         "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[4][4], uint64_t da, uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -260,6 +278,14 @@ template <int HD, int ROWS>
 __device__ __forceinline__ uint64_t desc_mn_major(uint32_t tile, int kk) {
   if constexpr (HD == 32) return gmma_desc(tile + kk * 16 * 64, 16, 512, 2);
   return gmma_desc(tile + kk * 16 * 128, ROWS * 128, 1024, 1);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 8][4], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  static_assert(N == 32 || N == 64, "ss products of N 32 or 64");
+  if constexpr (N == 32) wgmma_ss_n32(d, da, db, accumulate);
+  else wgmma_ss_n64(d, da, db, accumulate);
 }
 
 template <int N>

@@ -40,6 +40,22 @@ tile and the score product run over the first, the V tile, the
 accumulator and the output over the second.  Any other pair raises; it
 is never padded or split.
 
+Training.  ``FlashAttention`` (the Function every training step runs on
+the card) launches this forward asking for each row's log-sum-exp and
+its backward kernel, ``csrc/flash_attention_bwd.cu``
+(``flash_attention_bwd``): FlashAttention-2 from the saved output and
+log-sum-exp, in two kernels without atomics -- dq by row tiles, dk and dv
+by key tiles walking the group's g heads -- skipping the 16 x 16 units no
+row sees and masking only the partly visible ones (``bwd_rows``,
+``bwd_keys``, ``bwd_unit_state``).  bf16 runs every product as a
+warpgroup MMA (``wgmma``, 64 rows or keys a block), fp32 on FMAs.  The
+reference's TPU kernel has no backward; the reference trains by
+differentiating its checkpointed ``chunked_attention`` loop, whose
+gradient ``flash_attention_bwd_ref`` is: the oracle, and what meta
+tensors (the dry run) take.  ``flash_attention_bwd_tiled`` is the kernels'
+algorithm in plain PyTorch.  Bound: operations, 10 hd per visible (query
+head row, key) pair at the tensor cores' rate.
+
 Block shapes.  ``launch_layout`` turns the block surface of
 ``kernels/ops.py`` (``set_flash_blocks``, or a call's own ``block_q`` /
 ``block_kv``) into the launch's layout: None keeps the shape plan, a
@@ -62,8 +78,10 @@ from repro_torch.kernels.build import count_launch, load_library
 from repro_torch.roofline.cost import add_kernel_cost
 
 __all__ = ["flash_attention", "flash_attention_ref", "flash_attention_bwd_ref",
-           "KERNEL_WIDTHS", "block_choices", "launch_layout",
-           "resolve_blocks"]
+           "flash_attention_bwd", "flash_attention_bwd_tiled",
+           "flash_attention_lse_ref", "bwd_rows", "bwd_keys",
+           "bwd_unit_state", "bwd_tiles", "KERNEL_WIDTHS", "block_choices",
+           "launch_layout", "resolve_blocks"]
 
 NEG_INF = -1e30
 # (q and k width, v width) pairs the kernel is built for
@@ -72,11 +90,20 @@ SMALL_ROWS = 64                # below this many rows a kv head: 16-row blocks
 F32_BLOCK_Q = {16: 1, 64: 4}   # fp32: query rows a block -> rows a thread
 SMEM_LIMIT = 227 * 1024        # dynamic shared memory one Hopper block may use
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+# q, k, v, out, lse; B, S, T, h, hk, hd, hdv; k's and v's batch and
+# sequence strides; causal, window, rows_per_thread; scale, stream
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 3
              + [ctypes.c_float, ctypes.c_void_p])
 # bf16: (warps, splits) in place of rows_per_thread
-_BF16_ARGTYPES = _ARGTYPES[:17] + [ctypes.c_int] * 2 + _ARGTYPES[18:]
+_BF16_ARGTYPES = _ARGTYPES[:18] + [ctypes.c_int] * 2 + _ARGTYPES[19:]
+# the backward: q, k, v, out, lse, dout, dsum, dq, dk, dv; B, S, T, h, hk,
+# hd, hdv; the strides; causal, window; scale, stream
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 2
+                 + [ctypes.c_float, ctypes.c_void_p])
+# rows and keys of the unit on which both backward kernels skip or mask
+BWD_UNIT = 16
 
 
 def _lib():
@@ -96,26 +123,40 @@ def _lib():
     return lib
 
 
+def _visible(S, T, q_pos0, causal, window, device):
+    """(S, T) bool: key t is visible to the query at position q_pos0 + s."""
+    qpos = torch.arange(S, device=device)[:, None] + q_pos0
+    kpos = torch.arange(T, device=device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def _masked_scores(q, k, q_pos0, causal, window):
+    """(B, h, S, T) fp32 scores of q's rows (positions q_pos0, q_pos0 + 1,
+    ...) against all T keys, kv heads repeated over their group, scaled
+    by 1/sqrt of q's width; keys a row does not see hold NEG_INF."""
+    S, h, hd = q.shape[1:]
+    T, hk = k.shape[1], k.shape[2]
+    if h != hk:
+        k = torch.repeat_interleave(k, h // hk, dim=2)
+    s = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) / np.sqrt(hd)
+    mask = _visible(S, T, q_pos0, causal, window, q.device)
+    return torch.where(mask[None, None], s, NEG_INF)
+
+
 def _attend(q, k, v, q_pos0, causal, window):
     """Rows of q at positions q_pos0, q_pos0 + 1, ... against all T keys:
     kv heads repeated over their group, one masked fp32 softmax (scale
     1/sqrt of q's width), the probabilities cast to v's dtype for the
     value product, over v's own width."""
-    S, h, hd = q.shape[1:]
-    T, hk = k.shape[1], k.shape[2]
+    h, hk = q.shape[2], k.shape[2]
     if h != hk:
-        k = torch.repeat_interleave(k, h // hk, dim=2)
         v = torch.repeat_interleave(v, h // hk, dim=2)
-    s = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) / np.sqrt(hd)
-    qpos = torch.arange(S, device=q.device)[:, None] + q_pos0
-    kpos = torch.arange(T, device=q.device)[None, :]
-    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
-    if window:
-        mask &= kpos > qpos - window
-    s = torch.where(mask[None, None], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    p = torch.softmax(_masked_scores(q, k, q_pos0, causal, window), dim=-1)
     return torch.einsum("bhst,bthd->bshd", p.to(v.dtype), v)
 
 
@@ -127,6 +168,15 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0):
     with no visible key gets the uniform mean over all T keys, as
     there."""
     return _attend(q, k, v, k.shape[1] - q.shape[1], causal, window)
+
+
+def flash_attention_lse_ref(q, k, *, causal=True, window=0):
+    """(B, h, S) fp32: each query row's natural-log log-sum-exp of its
+    scaled scores over the keys it sees (queries right-aligned, as
+    ``flash_attention_ref``) -- what the kernel's forward writes for its
+    backward when asked."""
+    return torch.logsumexp(
+        _masked_scores(q, k, k.shape[1] - q.shape[1], causal, window), dim=-1)
 
 
 def flash_attention_bwd_ref(q, k, v, dout, *, causal=True, window=0,
@@ -142,8 +192,12 @@ def flash_attention_bwd_ref(q, k, v, dout, *, causal=True, window=0,
     takes the chunk's dq and its share of dk and dv by
     ``torch.autograd.grad``; dk and dv are summed over the chunks in
     fp32.  A chunk's (B, h, chunk, T) fp32 scores are the largest
-    temporary.  Plain PyTorch on any device: the backward of the
-    kernel's ``autograd.Function``, which no TPU kernel had."""
+    temporary.  Plain PyTorch on any device: the oracle the backward
+    kernel is held to (the gradient ``ops.flash_attention(impl="ref")``
+    takes by autograd of ``flash_attention_ref``, here q-chunk by
+    q-chunk), and what ``FlashAttention`` runs on meta tensors, so the
+    dry run counts the reference's XLA loop.  No CUDA tensor reaches it
+    on the training path: ``FlashAttention`` launches the kernel."""
     S, T = q.shape[1], k.shape[1]
     q, k, v, dout = (t.detach() for t in (q, k, v, dout))
     dq = torch.empty_like(q)
@@ -160,6 +214,173 @@ def flash_attention_bwd_ref(q, k, v, dout, *, causal=True, window=0,
             dk += gk
             dv += gv
     return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---- the backward's schedule.  Rows are position-major across the g
+# heads of a kv head's group (row r: position r // g + T - S, head
+# r % g of the group), as both kernels take them.  The kernels
+# (csrc/flash_attention_bwd.cu: rows_seeing, keys_seen, unit_state)
+# repeat these three functions' arithmetic line for line.
+
+def bwd_rows(k0, k1, S, T, g, causal, window):
+    """Rows ``[lo, hi)`` that see some key of ``[k0, k1)`` (k1 <= T):
+    the row range a dk/dv block walks."""
+    off = T - S
+    p_lo = k0 if causal else off
+    p_hi = k1 - 1 + window - 1 if window > 0 else off + S - 1
+    s_lo, s_hi = max(0, p_lo - off), min(S - 1, p_hi - off)
+    return (s_lo * g, (s_hi + 1) * g) if s_lo <= s_hi else (0, 0)
+
+
+def bwd_keys(r0, r1, S, T, g, causal, window):
+    """Keys ``[lo, hi)`` that some row of ``[r0, r1)`` (r1 <= g S) sees:
+    the key range a dq block walks."""
+    off = T - S
+    p_lo, p_hi = r0 // g + off, (r1 - 1) // g + off
+    k_hi = min(T - 1, p_hi) if causal else T - 1
+    k_lo = max(0, p_lo - window + 1) if window > 0 else 0
+    return (k_lo, k_hi + 1) if k_lo <= k_hi else (0, 0)
+
+
+def bwd_unit_state(r0, r1, k0, k1, S, T, g, causal, window):
+    """Rows ``[r0, r1)`` against keys ``[k0, k1)`` (both within the valid
+    ones): 0 when no pair is visible (the unit is skipped), 1 when every
+    pair is (it runs unmasked), 2 otherwise (it is masked)."""
+    if r0 >= r1 or k0 >= k1:
+        return 0
+    off = T - S
+    p_lo, p_hi = r0 // g + off, (r1 - 1) // g + off
+    if not ((not causal or k0 <= p_hi)
+            and (window <= 0 or k1 - 1 > p_lo - window)):
+        return 0
+    full = ((not causal or k1 - 1 <= p_lo)
+            and (window <= 0 or k0 > p_hi - window))
+    return 1 if full else 2
+
+
+def bwd_tiles(hd):
+    """The bf16 backward kernels' tiles at q/k width ``hd``: rows a dq
+    block and keys a dk/dv block (64: the M of their warpgroup products),
+    and the other side's staged tile, keys for dq and rows for dk/dv (64;
+    32 at MLA's 192, for the registers)."""
+    other = 32 if hd > 128 else 64
+    return {"dq_rows": 64, "dq_keys": other, "kv_keys": 64, "kv_rows": other}
+
+
+# The forms at which the card checks the backward kernel against
+# ``flash_attention_bwd_tiled`` (the card tests and chip_smoke.py's phase 2
+# read this one list): every width pair, group sizes 1 to 48, causal
+# right-aligned, windowed, non-causal with S > T and S < T, ragged tiles.
+BWD_FORMS = (
+    # B, S, T, h, hk, hd, hdv, causal, window
+    (2, 128, 128, 4, 2, 64, 64, True, 0),
+    (1, 96, 160, 4, 4, 64, 64, True, 0),       # right-aligned, S < T
+    (2, 128, 128, 8, 2, 128, 128, True, 48),   # sliding window
+    (1, 64, 64, 2, 1, 64, 64, False, 0),       # bidirectional, MQA
+    (1, 33, 70, 2, 2, 64, 64, True, 0),        # ragged (padding paths)
+    (1, 100, 37, 6, 2, 64, 64, False, 0),      # non-causal, S > T
+    (1, 77, 77, 6, 2, 192, 128, True, 0),      # MLA's widths, g 3
+    (2, 70, 90, 6, 2, 128, 128, False, 13),    # non-causal windowed, S < T
+    (1, 300, 300, 48, 1, 128, 128, True, 0),   # granite's g 48
+)
+# The kernel against the tiled version, as max |err| / max |grad|.  The
+# two round P and dS to the same dtype and differ only in the order of
+# their fp32 sums, so the bar sits below the one against autograd of the
+# plain version (TRAIN_GRAD_TOL, 2e-2 in bf16): in bf16 it is about one
+# ulp of an output near max |grad| (2^-8 to 2^-7 of it), twice the
+# largest reading on an H100 (2.33e-3, at MLA's widths).
+BWD_TILED_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
+
+
+def _unit_mask(r0, r1, k0, k1, S, T, g, causal, window, device):
+    """(r1 - r0, k1 - k0) visibility of a block of rows against a block of
+    keys, built unit by unit from ``bwd_unit_state``: a skipped unit all
+    False, an unmasked one all True, a masked one by position."""
+    off = T - S
+    pos = torch.arange(r0, r1, device=device) // g + off
+    key = torch.arange(k0, k1, device=device)
+    vis = torch.ones((r1 - r0, k1 - k0), dtype=torch.bool, device=device)
+    if causal:
+        vis &= key[None] <= pos[:, None]
+    if window > 0:
+        vis &= key[None] > pos[:, None] - window
+    out = torch.zeros_like(vis)
+    for u0 in range(r0 - r0 % BWD_UNIT, r1, BWD_UNIT):
+        for w0 in range(k0 - k0 % BWD_UNIT, k1, BWD_UNIT):
+            a, b = max(u0, r0), min(u0 + BWD_UNIT, r1)
+            c, d = max(w0, k0), min(w0 + BWD_UNIT, k1)
+            state = bwd_unit_state(a, b, c, d, S, T, g, causal, window)
+            if state:
+                out[a - r0:b - r0, c - k0:d - k0] = (
+                    True if state == 1 else vis[a - r0:b - r0, c - k0:d - k0])
+    return out
+
+
+def flash_attention_bwd_tiled(q, k, v, out, lse, dout, *, causal=True,
+                              window=0, tiles=None):
+    """(dq, dk, dv) by the backward kernels' algorithm and schedule, in
+    plain PyTorch (the CPU tests hold it to ``jax.grad`` of the reference's
+    ``chunked_attention``; on the card the kernels are held to it).
+
+    FlashAttention-2: D = rowsum(dout * out) in fp32, P = exp(S scale -
+    lse) from the forward's log-sum-exp ``lse`` (B, h, S), dV = P^T dO
+    with P rounded to v's dtype, dP = dO V^T, dS = P (dP - D), dQ = dS K
+    scale and dK = dS^T Q scale with dS rounded to q's dtype; every sum
+    in fp32.  As the kernels: dq by blocks of rows over the keys they see
+    (``bwd_keys``, in whole key tiles), dk and dv by blocks of keys over
+    the rows that see them (``bwd_rows``, in whole row tiles), each
+    16-row x 16-key unit skipped, unmasked or masked by
+    ``bwd_unit_state``.  ``tiles``: ``bwd_tiles``'s keys (by default the
+    kernels' own at q's width)."""
+    B, S, h, hd = q.shape
+    tiles = tiles or bwd_tiles(hd)
+    T, hk, hdv = k.shape[1], k.shape[2], v.shape[3]
+    g, dev = h // hk, q.device
+    scale = float(np.float32(1.0 / np.sqrt(hd)))
+
+    def rows_of(x):                  # (B, S, h, W) -> (B, hk, g S, W)
+        return x.reshape(B, S, hk, g, x.shape[3]).permute(
+            0, 2, 1, 3, 4).reshape(B, hk, S * g, x.shape[3])
+
+    qr, dor = rows_of(q), rows_of(dout)
+    lse_r = lse.reshape(B, hk, g, S).transpose(2, 3).reshape(B, hk, S * g)
+    dsum = (dor.float() * rows_of(out).float()).sum(-1)
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)      # (B, hk, T, W)
+    R = g * S
+
+    def probs(r0, r1, k0, k1):
+        s = qr[:, :, r0:r1].float() @ kh[:, :, k0:k1].float().transpose(2, 3)
+        x = s * scale - lse_r[:, :, r0:r1, None]
+        vis = _unit_mask(r0, r1, k0, k1, S, T, g, causal, window, dev)
+        p = torch.where(vis, torch.exp(x), torch.zeros((), device=dev))
+        dp = dor[:, :, r0:r1].float() @ vh[:, :, k0:k1].float().transpose(2, 3)
+        return p, p * (dp - dsum[:, :, r0:r1, None])
+
+    dq = torch.zeros((B, hk, R, hd), dtype=torch.float32, device=dev)
+    dk = torch.zeros((B, hk, T, hd), dtype=torch.float32, device=dev)
+    dv = torch.zeros((B, hk, T, hdv), dtype=torch.float32, device=dev)
+    rt, kt = tiles["dq_rows"], tiles["dq_keys"]
+    for r0 in range(0, R, rt):
+        r1 = min(r0 + rt, R)
+        lo, hi = bwd_keys(r0, r1, S, T, g, causal, window)
+        if hi > lo:
+            k0, k1 = lo - lo % kt, min(T, -(-hi // kt) * kt)
+            _, ds = probs(r0, r1, k0, k1)
+            dq[:, :, r0:r1] = ds.to(q.dtype).float() @ kh[:, :, k0:k1].float()
+    kb, qt = tiles["kv_keys"], tiles["kv_rows"]
+    for k0 in range(0, T, kb):
+        k1 = min(k0 + kb, T)
+        lo, hi = bwd_rows(k0, k1, S, T, g, causal, window)
+        if hi > lo:
+            r0, r1 = lo - lo % qt, min(R, -(-hi // qt) * qt)
+            p, ds = probs(r0, r1, k0, k1)
+            pt, dst = p.transpose(2, 3), ds.transpose(2, 3)
+            dv[:, :, k0:k1] = pt.to(v.dtype).float() @ dor[:, :, r0:r1].float()
+            dk[:, :, k0:k1] = dst.to(q.dtype).float() @ qr[:, :, r0:r1].float()
+    dq = (dq * scale).reshape(B, hk, S, g, hd).permute(0, 2, 1, 3, 4)
+    return (dq.reshape(B, S, h, hd).to(q.dtype),
+            (dk * scale).transpose(1, 2).to(k.dtype),
+            dv.transpose(1, 2).to(v.dtype))
 
 
 def _check(q, k, v, causal):
@@ -198,9 +419,10 @@ def flash_attention(q, k, v, *, causal=True, window=0, block_q=None,
     oracle); CUDA tensors launch the kernel, which reads k and v through
     their batch and sequence strides (a slice of a larger cache is not
     copied).  When grad mode is on and an input requires grad, the
-    launch goes through ``FlashAttention``, whose backward is
-    ``flash_attention_bwd_ref``.  Raises on a causal call with S > T,
-    whose first rows would see no key.  ``block_q`` / ``block_kv``: the
+    launch goes through ``FlashAttention``, whose backward launches the
+    backward kernel (``flash_attention_bwd``).  Raises on a causal call
+    with S > T, whose first rows would see no key.  ``block_q`` /
+    ``block_kv``: the
     launch's block shape (``launch_layout``); None reads the surface of
     ``ops.set_flash_blocks``.  The plain version takes no blocks."""
     _check(q, k, v, causal)
@@ -214,21 +436,30 @@ def flash_attention(q, k, v, *, causal=True, window=0, block_q=None,
 
 class FlashAttention(torch.autograd.Function):
     """The kernel's forward with a gradient: the forward launches
-    ``csrc/flash_attention.cu`` and saves q, k and v; the backward is the
-    plain ``flash_attention_bwd_ref``, which recomputes each q-chunk's
-    softmax (the gradient of the reference's checkpointed loop)."""
+    ``csrc/flash_attention.cu`` asking for the rows' log-sum-exp and saves
+    q, k, v, the output and the log-sum-exp; the backward launches
+    ``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd``).  On meta
+    tensors (the dry run) the backward is ``flash_attention_bwd_ref``, so
+    the count is the reference's XLA loop's."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, block_q=None, block_kv=None):
-        ctx.save_for_backward(q, k, v)
+        out, lse = _launch(q, k, v, causal, window, block_q, block_kv,
+                           with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
-        return _launch(q, k, v, causal, window, block_q, block_kv)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd_ref(
-            q, k, v, dout, causal=ctx.causal, window=ctx.window)
+        q, k, v, out, lse = ctx.saved_tensors
+        if q.device.type == "meta":
+            dq, dk, dv = flash_attention_bwd_ref(
+                q, k, v, dout, causal=ctx.causal, window=ctx.window)
+        else:
+            dq, dk, dv = flash_attention_bwd(
+                q, k, v, out, lse, dout, causal=ctx.causal,
+                window=ctx.window)
         return dq, dk, dv, None, None, None, None
 
 
@@ -292,44 +523,55 @@ def block_choices(dtype, T):
     return out
 
 
-def _launch(q, k, v, causal, window, block_q=None, block_kv=None):
-    """One launch of the kernel on CUDA tensors, checked, in the block
-    shape of ``block_q`` / ``block_kv`` (None: the surface's,
-    ``ops.get_flash_blocks``).  A meta tensor (the dry run,
-    ``launch.dryrun``) launches nothing: it charges ``meta_cost`` to the
-    running count and returns an empty output of the kernel's shape."""
-    if q.device.type == "meta":
-        B, S, h, hd = q.shape
-        add_kernel_cost(*meta_cost(B, S, k.shape[1], h, hd, v.shape[3],
-                                   v.element_size()))
-        return q.new_empty((B, S, h, v.shape[3]))
+def _check_cuda(q, k, v, name="flash_attention"):
+    """Refuse what the CUDA kernels do not take: another device or dtype,
+    other widths, a non-contiguous q, k or v rows not 16-byte aligned or
+    not unit-strided within a row."""
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+        raise ValueError(f"{name}: unsupported device {q.device}")
     if k.device != q.device or v.device != q.device:
-        raise ValueError("flash_attention: all operands must share a device")
+        raise ValueError(f"{name}: all operands must share a device")
     if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"flash_attention: dtype {q.dtype} not supported "
+        raise TypeError(f"{name}: dtype {q.dtype} not supported "
                         "(float32 or bfloat16)")
     if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("flash_attention: k and v must have q's dtype")
-    B, S, h, hd = q.shape
-    T, hk, hdv = k.shape[1], k.shape[2], v.shape[3]
+        raise TypeError(f"{name}: k and v must have q's dtype")
+    hd, hdv = q.shape[3], v.shape[3]
     if (hd, hdv) not in KERNEL_WIDTHS:
-        raise ValueError(f"flash_attention: head_dim {hd} with v width {hdv} "
+        raise ValueError(f"{name}: head_dim {hd} with v width {hdv} "
                          f"not built (kernel widths {KERNEL_WIDTHS})")
     if not q.is_contiguous():
-        raise ValueError("flash_attention: q must be contiguous")
+        raise ValueError(f"{name}: q must be contiguous")
     vec = 16 // q.element_size()
-    for name, t, width in (("k", k, hd), ("v", v, hdv)):
+    for label, t, width in (("k", k, hd), ("v", v, hdv)):
         if t.stride(3) != 1 or t.stride(2) != width:
-            raise ValueError(f"flash_attention: {name} must have unit dim "
+            raise ValueError(f"{name}: {label} must have unit dim "
                              f"stride and head stride {width}; got strides "
                              f"{t.stride()}")
         if t.stride(0) % vec or t.stride(1) % vec or t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name}'s rows must be "
+            raise ValueError(f"{name}: {label}'s rows must be "
                              "16-byte aligned (vector loads)")
     if q.data_ptr() % 16:
-        raise ValueError("flash_attention: q must be 16-byte aligned")
+        raise ValueError(f"{name}: q must be 16-byte aligned")
+
+
+def _launch(q, k, v, causal, window, block_q=None, block_kv=None,
+            with_lse=False):
+    """One launch of the kernel on CUDA tensors, checked, in the block
+    shape of ``block_q`` / ``block_kv`` (None: the surface's,
+    ``ops.get_flash_blocks``).  ``with_lse``: also return each row's
+    log-sum-exp, (B, h, S) fp32 (the output is the same bit for bit).  A
+    meta tensor (the dry run, ``launch.dryrun``) launches nothing: it
+    charges ``meta_cost`` to the running count and returns empty outputs
+    of the kernel's shapes."""
+    B, S, h, hd = q.shape
+    T, hk, hdv = k.shape[1], k.shape[2], v.shape[3]
+    if q.device.type == "meta":
+        add_kernel_cost(*meta_cost(B, S, T, h, hd, hdv, v.element_size()))
+        out = q.new_empty((B, S, h, hdv))
+        return ((out, q.new_empty((B, h, S), dtype=torch.float32))
+                if with_lse else out)
+    _check_cuda(q, k, v)
     layout = launch_layout(q.dtype, B, S, T, h, hk,
                            *resolve_blocks(block_q, block_kv))
     lib = _lib()
@@ -343,8 +585,11 @@ def _launch(q, k, v, causal, window, block_q=None, block_kv=None):
         raise ValueError(f"flash_attention: widths ({hd}, {hdv}) need {smem} "
                          "B of shared memory")
     out = q.new_empty((B, S, h, hdv))
+    lse = (torch.empty((B, h, S), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     scale = float(np.float32(1.0 / np.sqrt(hd)))
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             B, S, T, h, hk, hd, hdv, k.stride(0), k.stride(1), v.stride(0),
             v.stride(1), int(bool(causal)), int(window), *layout, scale,
             torch.cuda.current_stream(q.device).cuda_stream)
@@ -352,4 +597,86 @@ def _launch(q, k, v, causal, window, block_q=None, block_kv=None):
         raise RuntimeError("flash_attention launch failed: "
                            + lib.flash_attention_error_string(rc).decode())
     count_launch("flash_attention")
-    return out
+    return (out, lse) if with_lse else out
+
+
+def _bwd_lib(device):
+    """The backward's library, its shared-memory sizes set on ``device``
+    (once a device: ``flash_attention_bwd_init`` acts on the current one)."""
+    lib = load_library("flash_attention_bwd")
+    if not getattr(lib, "_typed", False):
+        for fn in (lib.flash_attention_bwd_f32, lib.flash_attention_bwd_bf16):
+            fn.argtypes = _BWD_ARGTYPES
+            fn.restype = ctypes.c_int
+        lib.flash_attention_bwd_init.argtypes = []
+        lib.flash_attention_bwd_init.restype = ctypes.c_int
+        lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+        lib._devices = set()
+        lib._typed = True
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in lib._devices:
+        with torch.cuda.device(index):
+            rc = lib.flash_attention_bwd_init()
+        if rc != 0:
+            raise RuntimeError(
+                "flash_attention_bwd: setting shared memory failed: "
+                + lib.flash_attention_bwd_error_string(rc).decode())
+        lib._devices.add(index)
+    return lib
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0):
+    """(dq, dk, dv) of ``flash_attention`` in q's, k's and v's dtypes, from
+    the forward's output ``out`` and its rows' log-sum-exp ``lse`` (B, h,
+    S) fp32, for the output gradient ``dout``.  Every form the forward
+    takes.  CUDA tensors launch ``csrc/flash_attention_bwd.cu`` (its dq
+    kernel, then its dk/dv kernel: one count) or raise, with the forward's
+    checks; k and v are read through their batch and sequence strides.
+    CPU tensors take ``flash_attention_bwd_tiled``, the same algorithm in
+    plain PyTorch."""
+    _check(q, k, v, causal)
+    B, S, h, hd = q.shape
+    T, hk, hdv = k.shape[1], k.shape[2], v.shape[3]
+    if tuple(out.shape) != (B, S, h, hdv) or tuple(dout.shape) != tuple(
+            out.shape):
+        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} and "
+                         f"dout {tuple(dout.shape)} must be {(B, S, h, hdv)}")
+    if tuple(lse.shape) != (B, h, S) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: lse must be (B, h, S) = "
+                         f"{(B, h, S)} fp32; got {tuple(lse.shape)} "
+                         f"{lse.dtype}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_tiled(q, k, v, out, lse, dout,
+                                         causal=causal, window=window)
+    _check_cuda(q, k, v, "flash_attention_bwd")
+    if out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise TypeError("flash_attention_bwd: out and dout must have q's "
+                        "dtype")
+    out, dout, lse = out.contiguous(), dout.contiguous(), lse.contiguous()
+    for name, t in (("out", out), ("dout", dout), ("lse", lse)):
+        if t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} is on {t.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_bwd: {name} must be 16-byte "
+                             "aligned")
+    lib = _bwd_lib(q.device)
+    fn = (lib.flash_attention_bwd_f32 if q.dtype == torch.float32
+          else lib.flash_attention_bwd_bf16)
+    dq = torch.empty_like(q)
+    dk = torch.empty((B, T, hk, hd), dtype=q.dtype, device=q.device)
+    dv = torch.empty((B, T, hk, hdv), dtype=q.dtype, device=q.device)
+    dsum = torch.empty((B, h, S), dtype=torch.float32, device=q.device)
+    scale = float(np.float32(1.0 / np.sqrt(hd)))
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), dout.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, S, T, h, hk, hd, hdv,
+            k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+            int(bool(causal)), int(window), scale,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("flash_attention_bwd launch failed: "
+                           + lib.flash_attention_bwd_error_string(rc).decode())
+    count_launch("flash_attention_bwd")
+    return dq, dk, dv

@@ -2,7 +2,10 @@
 MLA), WKV6, Mamba selective-scan and flash-attention kernels against
 their plain PyTorch versions, the launch counters, and greedy serving
 (qwen3, RWKV-6, Jamba and DeepSeek-V3 smoke configs; qwen3 also through
-the lockstep slab engine) on the card against the CPU; the training
+the lockstep slab engine) on the card against the CPU; the flash
+backward kernel against its tiled plain version and autograd of the
+plain forward (``-k flash_bwd``), the forward's log-sum-exp bitwise
+harmless at every block shape (``-k flash_lse``); the training
 step, and its data-parallel ``Trainer`` over a world of one NCCL rank,
 with the replicated strategies and the ZeRO ladder (``-k zero``: zero1
 / zero2 / zero3 bitwise the one-device step at one NCCL rank, and 2
@@ -32,6 +35,7 @@ from repro_torch.kernels import (flash_attention, flash_attention_ref,
                                  paged_flash_decode_mla_ref,
                                  paged_flash_decode_ref,
                                  reset_launch_counts, wkv6, wkv6_chunked)
+from repro_torch.kernels.flash_attention import BWD_FORMS, BWD_TILED_TOL
 from repro_torch.kernels.wkv6 import HEAD_SIZES
 from repro_torch.models import init_model
 from repro_torch.serve import ContinuousScheduler, ServeEngine
@@ -752,6 +756,7 @@ def test_flash_function_gradients_match_plain(cuda, case, dtype):
     assert out.grad_fn is not None and "FlashAttention" in out.grad_fn.name()
     out.backward(dout)
     assert launch_counts()["flash_attention"] == 1
+    assert launch_counts()["flash_attention_bwd"] == 1
     ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     want = flash_attention_ref(*ref_leaves, window=window)
     want.backward(dout)
@@ -764,6 +769,112 @@ def test_flash_function_gradients_match_plain(cuda, case, dtype):
         rel = ((a.grad.float() - b.grad.float()).abs().max()
                / b.grad.float().abs().max()).item()
         assert rel <= TRAIN_GRAD_TOL[dtype], (name, rel)
+
+
+# the backward kernel (csrc/flash_attention_bwd.cu) on its own at
+# BWD_FORMS (every form the forward takes; chip_smoke.py's phase 2 reads
+# the same list), against the tiled plain version (its algorithm and
+# schedule) at BWD_TILED_TOL and autograd of the plain forward at
+# TRAIN_GRAD_TOL, as max |err| / max |grad|
+def _bwd_inputs(dev, dtype, case):
+    B, S, T, h, hk, hd, hdv, _, _ = case
+    rng = np.random.default_rng(sum(case))
+    return tuple(torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dev, dtype) for shape in (
+            (B, S, h, hd), (B, T, hk, hd), (B, T, hk, hdv), (B, S, h, hdv)))
+
+
+def _grad_rel(a, b):
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BWD_FORMS)
+def test_flash_bwd_kernel_matches_plain(cuda, case, dtype):
+    """The forward's log-sum-exp against the plain one; the backward
+    kernel's dq, dk, dv against flash_attention_bwd_tiled and autograd of
+    the plain forward (flash_attention_bwd_ref), in the inputs' dtypes;
+    two calls bitwise equal (no atomics)."""
+    from repro_torch.kernels.flash_attention import (
+        _launch, flash_attention_bwd, flash_attention_bwd_ref,
+        flash_attention_bwd_tiled, flash_attention_lse_ref)
+    causal, window = case[7:]
+    q, k, v, dout = _bwd_inputs(cuda, dtype, case)
+    out, lse = _launch(q, k, v, causal, window, with_lse=True)
+    want_lse = flash_attention_lse_ref(q, k, causal=causal, window=window)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    got = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                              window=window)
+    again = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                window=window)
+    tiled = flash_attention_bwd_tiled(q, k, v, out, lse, dout, causal=causal,
+                                      window=window)
+    ref = flash_attention_bwd_ref(q, k, v, dout, causal=causal,
+                                  window=window)
+    torch.cuda.synchronize()
+    for name, a, b, t, r in zip("qkv", got, again, tiled, ref):
+        assert a.dtype == dtype and a.shape == r.shape, name
+        assert torch.equal(a, b), name
+        assert _grad_rel(a, t) <= BWD_TILED_TOL[dtype], (name, "tiled")
+        assert _grad_rel(a, r) <= TRAIN_GRAD_TOL[dtype], (name, "ref")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_lse_leaves_the_forward_bitwise(cuda, dtype):
+    """At every block shape the forward is built for (block_choices), the
+    output is the same bit for bit with and without the log-sum-exp, and
+    the log-sum-exp agrees with the plain one."""
+    from repro_torch.kernels.flash_attention import (
+        _launch, block_choices, flash_attention_lse_ref)
+    for case in ((1, 300, 300, 16, 8, 128, 128, True, 0),
+                 (2, 64, 64, 4, 4, 192, 128, True, 20),
+                 (1, 40, 90, 16, 16, 64, 64, False, 0)):
+        causal, window = case[7:]
+        q, k, v, _ = _bwd_inputs(cuda, dtype, case)
+        want_lse = flash_attention_lse_ref(q, k, causal=causal,
+                                           window=window)
+        for block_q, block_kv in block_choices(dtype, k.shape[1]):
+            plain = _launch(q, k, v, causal, window, block_q, block_kv)
+            out, lse = _launch(q, k, v, causal, window, block_q, block_kv,
+                               with_lse=True)
+            assert torch.equal(out, plain), (case, block_q, block_kv)
+            torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+
+
+def test_flash_bwd_counts_launches_and_rejects_bad_input(cuda):
+    """One count a call (its two kernels); k and v read through their
+    strides (a slab slice gives the contiguous copy's gradients bit for
+    bit); what the kernel does not take raises before any launch."""
+    from repro_torch.kernels.flash_attention import (_launch,
+                                                     flash_attention_bwd)
+    case = (2, 40, 70, 4, 2, 64, 64, True, 0)
+    q, k, v, dout = _bwd_inputs(cuda, torch.bfloat16, case)
+    out, lse = _launch(q, k, v, True, 0, with_lse=True)
+    reset_launch_counts()
+    got = flash_attention_bwd(q, k, v, out, lse, dout)
+    slab_k = torch.zeros((2, 96, 2, 64), dtype=k.dtype, device=cuda)
+    slab_v = torch.zeros_like(slab_k)
+    slab_k[:, :70], slab_v[:, :70] = k, v
+    sliced = flash_attention_bwd(q, slab_k[:, :70], slab_v[:, :70], out, lse,
+                                 dout)
+    assert launch_counts()["flash_attention_bwd"] == 2
+    for a, b in zip(got, sliced):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="see no key"):
+        flash_attention_bwd(q, k[:, :9], v[:, :9], out, lse, dout)
+    with pytest.raises(TypeError):
+        flash_attention_bwd(q, k.float(), v.float(), out, lse, dout)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, k, v, out, lse.bfloat16(), dout)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_bwd(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                            v[..., :32].contiguous(), out[..., :32], lse,
+                            dout[..., :32])
+    with pytest.raises(ValueError, match="stride"):
+        flash_attention_bwd(q, k.transpose(1, 2).contiguous().transpose(1, 2),
+                            v, out, lse, dout)
+    assert launch_counts()["flash_attention_bwd"] == 2
 
 
 def _train(cfg, model, tc, batches):
@@ -819,7 +930,9 @@ def test_train_step_launch_counts(cuda, remat, micro):
     assert np.isfinite(losses[0])
     assert counts["flash_attention"] == micro * cfg.num_layers * (
         2 if remat else 1)
-    assert sum(counts.values()) == counts["flash_attention"]
+    assert counts["flash_attention_bwd"] == micro * cfg.num_layers
+    assert sum(counts.values()) == (counts["flash_attention"]
+                                    + counts["flash_attention_bwd"])
 
 
 def test_bf16_master_step_on_card_matches_cpu(cuda):
@@ -1259,6 +1372,8 @@ def test_arch_train_step_on_card_matches_cpu(cuda, arch):
     counts = launch_counts()
     want = _kernel_counts(cfg, {"scan": 2 * 2, "attn": 2 * 2})
     assert {k: counts.get(k, 0) for k in want} == want
+    # one backward kernel a layer a step (no remat recompute)
+    assert counts.get("flash_attention_bwd", 0) == want["flash_attention"] // 2
     rel = [abs(a - b) / abs(a) for a, b in zip(got["cpu"][0], got["cuda"][0])]
     assert rel[0] <= 1e-5 and rel[1] <= 1e-4, rel
 
