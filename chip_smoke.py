@@ -20,7 +20,12 @@ Phases (each fails the run if it goes wrong):
      against its tiled plain version at small forms (every width pair,
      g 1 to 48, causal, windowed, non-causal S != T); the gradients
      of the WKV6 and MambaScan Functions at the training shapes (B 1,
-     T 4096, 32 heads of 64; Bb 1, T 2048, dI 8192, dS 16);
+     T 4096, 32 heads of 64; Bb 1, T 2048, dI 8192, dS 16), fp32 and
+     bf16, against autograd of the plain chunked forms, and their
+     backward kernels (csrc/wkv6_bwd.cu, csrc/mamba_scan_bwd.cu) against
+     the plain backwards and, in fp32, against the float64 gradient of
+     the sequential recurrence, two calls bitwise equal, timed beside
+     them;
   3. the qwen3 path: full-width qwen3-1.7b in bf16 (weights from a seed)
      serves 16 requests on 8 slots through the continuous scheduler,
      with every attention call launched through the paged-decode kernel;
@@ -122,18 +127,23 @@ Phases (each fails the run if it goes wrong):
      (DeepSeek's routed experts cut 256 -> 16 there);
  20. training full-width, full-depth rwkv6-1.6b on phase 13's batch, 1 +
      3 AdamW steps, bf16 on fp32 masters, remat: exactly 384 wkv6
-     launches (the WKV6 Function: kernel forward, plain backward); then
+     launches and 192 = 4 x 2 x 24 wkv6_bwd launches (the WKV6 Function:
+     kernel forward, backward kernel; one backward a layer a
+     microbatch); then
      2 fp32 layers card vs CPU (phase 14's form), 2 steps (3 until phase
      31 needed the time);
  21. training Jamba cut to 2 layers (3.742 B; SGD, 1 x 2048 tokens, 1 +
-     3 steps, 16 mamba_scan launches) and DeepSeek-V3 cut to 1 layer
+     3 steps, 16 mamba_scan and 8 = 4 x 2 mamba_scan_bwd launches) and
+     DeepSeek-V3 cut to 1 layer
      (MLA + dense MLP, with its MTP head; AdamW, phase 13's batch, 1 + 3
      steps, 24 = 4 x 2 x (2 + 1) flash_attention launches at (192, 128):
      the head's block is not rematted; its mtp_ce printed; peak under
      80 GB); then each at 2 fp32 layers card vs CPU, SGD, the routed
      experts cut (Jamba 16 -> 4, DeepSeek 256 -> 16; DeepSeek's with the
      head), 2 steps (Jamba's 3 until phase 31 needed the time; the CPU
-     half takes 8-16 s a step);
+     half takes 8-16 s a step), the card halves with one scan backward
+     launch a layer a step; a spy sees the scans' plain backwards run 0
+     times on CUDA tensors in phases 20-21;
  22. the prefix cache and the front door: phase 3's model serves 16
      requests on 8 slots, 4 templates of 256 tokens each shared by 4
      requests, each with a unique suffix of 32-256 tokens, without the
@@ -222,8 +232,8 @@ Phases (each fails the run if it goes wrong):
      step.
  29. serving on a mesh: phase 28's torchrun goes on, on the same 4 gloo
      ranks and (data 2, model 2) mesh, fp32 with TF32 off: (a)
-     qwen3-1.7b at full width and depth, deepseek-moe-16b at full width
-     cut to 4 layers (its MoE decode expert-parallel over data x model)
+     qwen3-1.7b at full width cut to 8 layers, deepseek-moe-16b at full
+     width cut to 4 layers (its MoE decode expert-parallel over data x model)
      and granite-20b cut to 2 (its one kv head does not divide model 2:
      the pool cut on head_dim, the slots' pages gathered before the
      kernel), weights drawn straight to each rank's blocks by the
@@ -354,6 +364,16 @@ TRAIN_LR = 3e-4
 # products and takes D = rowsum(dO o O) from the bf16 output, where
 # autograd of the plain version rounds P once
 TRAIN_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# the scan backward kernels against the plain backwards on the same
+# cotangents, max |err| / max |grad|, both tighter than TRAIN_GRAD_TOL.
+# fp32: two fp32 evaluations of one gradient; at the training calls on an
+# H100 each lay within 2.3e-6 of the float64 sequential gradient (WKV6's
+# chunked form loses that much to cancellation in both; Mamba's within
+# 1.1e-6; phase 2 prints both and holds the kernel to this bar against
+# it), so they differ by at most about the sum: 5e-6.  bf16: each
+# gradient is such an fp32 value rounded once to bf16, so the two differ
+# by at most one bf16 step at the largest gradient, 2^-7 of max |grad|
+SCAN_BWD_TOL = {torch.float32: 5e-6, torch.bfloat16: 2.0 ** -7}
 # phase 14 (card vs CPU, fp32): step 1 runs on equal weights; later
 # steps follow AdamW, whose g / (|g| + eps) moves an entry whose
 # gradient is near eps = 1e-8 by up to lr a step on rounding alone
@@ -410,12 +430,13 @@ MESH_CF, MESH_TOL = 16.0, 1e-5
 DRYRUN_PEAK_BAND, DRYRUN_MEM_TOL = (0.85, 1.15), 0.02
 MESH_DIR = os.path.join(ROOT, "build", "mesh_phase28")
 # phase 29: serving on the (data 2, model 2) mesh of phase 28, fp32 with
-# TF32 off: qwen3-1.7b at full depth, deepseek-moe-16b cut to 4 layers
+# TF32 off: qwen3-1.7b cut to 8 layers (28 until the scan backward checks
+# needed the time), deepseek-moe-16b cut to 4 layers
 # (rank 0's one-device reference of all 28 would not fit beside the
 # ranks' blocks), granite-20b cut to 2 (its one kv head does not divide
 # model 2: the pool is cut on head_dim and gathered before the kernel);
 # 4 prompts of different lengths, 16 greedy tokens each
-SERVE_MESH_LAYERS = {"qwen3-1.7b": 28, "deepseek-moe-16b": 4,
+SERVE_MESH_LAYERS = {"qwen3-1.7b": 8, "deepseek-moe-16b": 4,
                      "granite-20b": 2}
 SERVE_MESH_LENS, SERVE_MESH_NEW, SERVE_MESH_TOL = (40, 97, 13, 64), 16, 1e-5
 # ... granite's bar is relative to its largest logit: its sums run over
@@ -1603,18 +1624,66 @@ def check_flash_mla(dev, flush):
     return rows
 
 
+def wkv_bwd_bound(B, T, H, K, el, chunk=32):
+    """Bytes of the backward (r, k, v, dy read and dr, dk, dv written in
+    the compute dtype; w_log, u, the state and its cotangent read and
+    dw_log, du, dstate0 written in fp32) and the fp32 operations of the
+    gradient of the chunked form on these inputs, a ragged last chunk
+    counting its real steps: per chunk the state recurrence, (k e^(Ll -
+    L)) G, S dy, G v and (r e^Lp)^T dy (each C K K multiply-adds), e^Ll
+    S . G, dA = dy v^T and A^T dy over the lower triangle, A's, dr's and
+    dk's decayed pair terms (4 an entry, as the forward's scores count)."""
+    n = B * T * H * K
+    n_bytes = (4 * n * el + n * 4 + H * K * 4 + 2 * B * H * K * K * 4
+               + 3 * n * el + n * 4 + H * K * 4 + B * H * K * K * 4)
+    C = min(chunk, T)
+    ops = 0
+    for t0 in range(0, T, C):
+        c = min(C, T - t0)
+        ops += (5 * 2 * c * K * K + 3 * K * K
+                + 2 * 2 * K * c * (c + 1) // 2
+                + 3 * 4 * K * c * (c - 1) // 2 + 6 * c * K)
+    return n_bytes, B * H * ops
+
+
+def mamba_bwd_bound(Bb, T, dI, dS, el):
+    """Bytes of the backward (x, dt, B, C, dy read and dx, ddt, dB, dC
+    written in the compute dtype; A, D, the state and its cotangent read
+    and dA, dD, dstate0 written in fp32) and its fp32 operations: per
+    (step, channel, state) the recurrence that gives h_{t-1} (4, its
+    exponential included) and the reverse step (14: the decay's
+    exponential, h_t, dC's and dB's products, g's two updates, the dx,
+    ddt and dA terms); per (step, channel) 6."""
+    n_bytes = (5 * Bb * T * dI * el + 4 * Bb * T * dS * el
+               + 2 * (dI * dS + dI) * 4 + 3 * Bb * dI * dS * 4)
+    return n_bytes, Bb * T * dI * (18 * dS + 6)
+
+
 def check_scan_grads(dev, flush):
-    """The gradients of ``WKV6`` and ``MambaScan`` (the kernel's forward,
-    the plain chunk-recomputing backward) at the training shapes --
-    rwkv6-1.6b's B 1, T 4096, H 32, K 64 and Jamba's Bb 1, T 2048, dI
-    8192, dS 16 -- against autograd of the plain chunked forms, with a
-    cotangent on y and on the final state; times of the kernel forward,
-    the plain forward and the plain backward beside the forward's
-    bound."""
+    """The gradients of ``WKV6`` and ``MambaScan`` (the kernel forward
+    and the backward kernels, ``csrc/wkv6_bwd.cu`` and
+    ``csrc/mamba_scan_bwd.cu``) at the training shapes -- rwkv6-1.6b's B
+    1, T 4096, H 32, K 64 and Jamba's Bb 1, T 2048, dI 8192, dS 16 (B
+    and C strided column slices of one projection) -- in fp32 and bf16:
+    the Function's gradients against autograd of the plain chunked
+    forms, with a cotangent on y and on the final state, at
+    TRAIN_GRAD_TOL; the backward kernel against the plain backward
+    (``wkv6_chunked_bwd``, ``mamba_chunked_bwd``) on the same
+    cotangents at SCAN_BWD_TOL, with and without the state's cotangent,
+    and in fp32 against the float64 gradient of the sequential recurrence
+    (``wkv6_ref_bwd``, ``mamba_ref_bwd``) at the same bar, the plain
+    backward's distance printed beside it; two backward calls bitwise
+    equal.  bf16: times of the kernel forward,
+    the plain forward, the backward kernel and the plain backward beside
+    the bounds."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.mamba_scan import (mamba_chunked,
-                                                mamba_chunked_bwd, mamba_scan)
-    from repro_torch.kernels.wkv6 import wkv6, wkv6_chunked, wkv6_chunked_bwd
+                                                mamba_chunked_bwd,
+                                                mamba_ref_bwd, mamba_scan,
+                                                mamba_scan_bwd)
+    from repro_torch.kernels.wkv6 import (wkv6, wkv6_bwd, wkv6_chunked,
+                                          wkv6_chunked_bwd, wkv6_ref_bwd)
+    seq_bwd = {"wkv6": wkv6_ref_bwd, "mamba_scan": mamba_ref_bwd}
 
     rng = np.random.default_rng(29)
     B, T, H, K = 1, TRAIN_SEQ, 32, 64
@@ -1628,31 +1697,38 @@ def check_scan_grads(dev, flush):
              for s in ((Bb, Tm, dI), (Bb, dI, dS))]
     scans = {
         "wkv6": (f"train B={B} T={T} H={H} K={K}", wkv6, wkv6_chunked,
-                 wkv6_chunked_bwd, lambda dtype: [
+                 wkv6_bwd, wkv6_chunked_bwd, lambda dtype: [
                      t.to(dev, dtype if i < 3 else torch.float32)
                      for i, t in enumerate(w_host)], w_cot,
-                 lambda el: wkv_bound(B, T, H, K, el)),
+                 lambda el: wkv_bound(B, T, H, K, el),
+                 lambda el: wkv_bwd_bound(B, T, H, K, el)),
         "mamba_scan": (f"train Bb={Bb} T={Tm} dI={dI} dS={dS}", mamba_scan,
-                       mamba_chunked, mamba_chunked_bwd, lambda dtype: [
+                       mamba_chunked, mamba_scan_bwd, mamba_chunked_bwd,
+                       lambda dtype: [
                            x.to(dev, dtype), dt.to(dev, dtype), A.to(dev),
                            *(t.to(dev, dtype) for t in (
                                proj[..., R:R + dS], proj[..., R + dS:])),
                            D.to(dev), h0.to(dev)], m_cot,
-                       lambda el: mamba_bound(Bb, Tm, dI, dS, el)),
+                       lambda el: mamba_bound(Bb, Tm, dI, dS, el),
+                       lambda el: mamba_bwd_bound(Bb, Tm, dI, dS, el)),
     }
     rows = {}
-    for kname, (case, fn, plain, bwd, inputs, cot, bound) in scans.items():
+    for kname, (case, fn, plain, kbwd, bwd, inputs, cot, bound,
+                bwd_bound) in scans.items():
         rows[kname] = []
         for dtype in (torch.float32, torch.bfloat16):
             args = inputs(dtype)
-            dy, ds = (c.to(dev) for c in cot)
+            ds = cot[1].to(dev)
+            dy = cot[0].to(dev)
             reset_launch_counts()
             leaves = [a.clone().requires_grad_() for a in args]
             y, s = fn(*leaves)
             ((y.float() * dy).sum() + (s * ds).sum()).backward()
-            if launch_counts().get(kname, 0) != 1:
-                fail(f"{kname}: the autograd Function did not launch the "
-                     "kernel once")
+            counts = launch_counts()
+            if counts.get(kname, 0) != 1 or counts.get(f"{kname}_bwd", 0) != 1:
+                fail(f"{kname}: the autograd Function launched the forward "
+                     f"{counts.get(kname, 0)} and the backward "
+                     f"{counts.get(f'{kname}_bwd', 0)} times, not once each")
             ref_leaves = [a.clone().requires_grad_() for a in args]
             y_ref, s_ref = plain(*ref_leaves)
             ((y_ref.float() * dy).sum() + (s_ref * ds).sum()).backward()
@@ -1665,26 +1741,78 @@ def check_scan_grads(dev, flush):
                     fail(f"{kname} backward, input {i}, {dtype}: max |err| / "
                          f"max |grad| {rel:.2e} > {TRAIN_GRAD_TOL[dtype]:g}")
             del leaves, ref_leaves, y, s, y_ref, s_ref
+            # the backward kernel against the plain backward, the same
+            # cotangents (dy in the compute dtype, as autograd passes it)
+            dy = dy.to(dtype)
+            kerr, kabs, f64 = 0.0, 0.0, {}
+            for dstate in (ds, None):
+                got = kbwd(*args, dy, dstate)
+                again = kbwd(*args, dy, dstate)
+                want = bwd(*args, dy, dstate)
+                if dtype == torch.float32 and dstate is not None:
+                    # the yardstick: the sequential recurrence's gradient
+                    # in float64
+                    exact = seq_bwd[kname](*(a.double() for a in args),
+                                           dy.double(), ds.double())
+                    f64 = {side: max(
+                        ((a.double() - e).abs().max()
+                         / e.abs().max()).item() for a, e in zip(grads, exact))
+                        for side, grads in (("kernel", got), ("plain", want))}
+                    del exact
+                    if not f64["kernel"] <= SCAN_BWD_TOL[dtype]:
+                        fail(f"{kname}_bwd {dtype}: max |err| / max |grad| "
+                             f"{f64['kernel']:.2e} against the float64 "
+                             f"gradient > {SCAN_BWD_TOL[dtype]:g}")
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    fail(f"{kname}_bwd {dtype}: two calls on the same inputs "
+                         "differ")
+                for i, (a, b) in enumerate(zip(got, want)):
+                    d = (a.float() - b.float()).abs().max().item()
+                    rel = d / b.float().abs().max().item()
+                    kerr, kabs = max(kerr, rel), max(kabs, d)
+                    if not rel <= SCAN_BWD_TOL[dtype]:
+                        fail(f"{kname}_bwd {dtype}, gradient {i}, dstate "
+                             f"{'given' if dstate is not None else 'None'}: "
+                             f"max |err| / max |grad| {rel:.2e} against the "
+                             f"plain backward > {SCAN_BWD_TOL[dtype]:g}")
+                del got, again, want
             torch.cuda.synchronize()
             row = {"case": case, "dtype": str(dtype)[6:],
-                   "grad_rel_err": gerr, "grad_tol": TRAIN_GRAD_TOL[dtype]}
+                   "grad_rel_err": gerr, "grad_tol": TRAIN_GRAD_TOL[dtype],
+                   "bwd_rel_err": kerr, "bwd_max_abs_err": kabs,
+                   "bwd_tol": SCAN_BWD_TOL[dtype], "bwd_bitwise_repeat": True}
+            if f64:
+                row["bwd_f64_rel_err"] = f64["kernel"]
+                row["plain_bwd_f64_rel_err"] = f64["plain"]
             if dtype == torch.bfloat16:
                 row["ms"] = time_ms(lambda: fn(*args), flush)
                 row["plain_ms"] = time_ms(lambda: plain(*args), flush,
                                           iters=5)
+                row["bwd_ms"] = time_ms(lambda: kbwd(*args, dy, ds), flush)
                 row["bwd_plain_ms"] = time_ms(
                     lambda: bwd(*args, dy, ds), flush, iters=5)
                 row["library_ms"] = None
                 row.update(bound_of(*bound(2), torch.float32))
+                row.update({f"bwd_{k}": v for k, v in bound_of(
+                    *bwd_bound(2), torch.float32).items()})
             rows[kname].append(row)
-            timing = (f"  kernel {row['ms']:.4f} ms  plain forward "
-                      f"{row['plain_ms']:.4f} ms  plain backward "
-                      f"{row['bwd_plain_ms']:.4f} ms  forward bound "
-                      f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
+            timing = (f"  forward: kernel {row['ms']:.4f} ms  plain "
+                      f"{row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f}"
+                      f" ms ({row['bound_by']}); backward: kernel "
+                      f"{row['bwd_ms']:.4f} ms  plain {row['bwd_plain_ms']:.4f}"
+                      f" ms  bound {row['bwd_bound_ms']:.4f} ms "
+                      f"({row['bwd_bound_by']}, "
+                      f"{row['bwd_bytes'] / 1e6:.1f} MB, "
+                      f"{row['bwd_ops'] / 1e9:.2f} GFLOP)"
                       if "ms" in row else "")
-            print(f"  {kname} {case:34s} {row['dtype']:8s} gradients max "
-                  f"|err| / max |grad| {gerr:.2e} (tol "
-                  f"{TRAIN_GRAD_TOL[dtype]:g}){timing}")
+            print(f"  {kname} {case:34s} {row['dtype']:8s} Function gradients "
+                  f"max |err| / max |grad| {gerr:.2e} (tol "
+                  f"{TRAIN_GRAD_TOL[dtype]:g}); backward kernel vs plain "
+                  f"{kerr:.2e} (tol {SCAN_BWD_TOL[dtype]:g}), two calls "
+                  f"bitwise" + (f"; vs float64: kernel {f64['kernel']:.2e} "
+                                f"(tol {SCAN_BWD_TOL[dtype]:g}), plain "
+                                f"{f64['plain']:.2e}" if f64 else "")
+                  + timing)
             del args
             torch.cuda.empty_cache()
     return rows
@@ -2972,6 +3100,9 @@ def _train_run(dev, cfg, tc, batch, steps, tag):
     # one backward a layer a microbatch, the head's included
     launches_want["flash_attention_bwd"] = (1 + steps) * tc.microbatches * (
         kinds.count("attn") + kinds.count("mtp"))
+    for kernel, kind in (("wkv6_bwd", "rwkv6"), ("mamba_scan_bwd", "mamba")):
+        launches_want[kernel] = (1 + steps) * tc.microbatches * kinds.count(
+            kind)
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     losses, walls = [], []
@@ -3068,6 +3199,10 @@ def _train_parity(dev, tag, small, tc, batch, cut="", steps=3):
                  f"{counts.get(kernel, 0)} times, not in every {kind} layer")
         if kind == "attn":
             check_bwd(tag, counts, steps * tc.microbatches * (calls + head))
+        elif counts.get(f"{kernel}_bwd", 0) != steps * tc.microbatches * calls:
+            fail(f"{tag}: the card run launched {kernel}_bwd "
+                 f"{counts.get(f'{kernel}_bwd', 0)} times, not once a {kind} "
+                 "layer's backward")
     (cpu_l, cpu_p), (card_l, card_p) = got["cpu"], got["cuda"]
     rel = [abs(a - b) / abs(a) for a, b in zip(cpu_l, card_l)]
     gap = max((cpu_p[k] - card_p[k]).abs().max().item() for k in cpu_p)
@@ -3092,13 +3227,54 @@ def _train_parity(dev, tag, small, tc, batch, cut="", steps=3):
     return {"loss_rel": rel, "param_gap": gap, "launches": counts}
 
 
+@contextlib.contextmanager
+def spy_plain_scan_bwds(calls):
+    """Record the device of every call of the scans' plain backwards (the
+    chunk-recomputing ``wkv6_chunked_bwd`` / ``mamba_chunked_bwd`` and the
+    tiled versions) into ``calls`` while the block runs."""
+    mods = [sys.modules[f"repro_torch.kernels.{m}"]
+            for m in ("wkv6", "mamba_scan")]
+    names = {mods[0]: ("wkv6_chunked_bwd", "wkv6_bwd_tiled"),
+             mods[1]: ("mamba_chunked_bwd", "mamba_bwd_tiled")}
+    saved = [(mod, name, getattr(mod, name)) for mod in mods
+             for name in names[mod]]
+
+    def spy(name, fn):
+        def wrapped(first, *a, **kw):
+            calls.append((name, first.device.type))
+            return fn(first, *a, **kw)
+        return wrapped
+    for mod, name, fn in saved:
+        setattr(mod, name, spy(name, fn))
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
 def train_archs(dev):
     """Phases 20 and 21: full-width training of rwkv6-1.6b (full depth,
     AdamW, phase 13's batch), Jamba cut to 2 layers (SGD, 1 x 2048
     tokens) and DeepSeek-V3 cut to 1 layer (MLA + dense MLP, with its MTP
-    head; AdamW, phase 13's batch), each with its exact launches; then
-    card-vs-CPU fp32 parity at 2 layers (DeepSeek's with the head).
-    Returns the numbers."""
+    head; AdamW, phase 13's batch), each with its exact launches (the
+    scans' backward kernels included); then card-vs-CPU fp32 parity at 2
+    layers (DeepSeek's with the head).  A spy sees the scans' plain
+    backwards run on no CUDA tensor.  Returns the numbers and the plain
+    backwards' calls on CUDA tensors (0)."""
+    calls = []
+    with spy_plain_scan_bwds(calls):
+        out = _train_archs(dev)
+    on_card = [name for name, where in calls if where == "cuda"]
+    if on_card:
+        fail(f"phases 20-21: a plain scan backward ran {len(on_card)} times "
+             f"on CUDA tensors ({sorted(set(on_card))})")
+    print(f"phases 20-21: the scans' plain backwards ran 0 times on CUDA "
+          f"tensors ({len(calls)} calls in all)")
+    return out, len(on_card)
+
+
+def _train_archs(dev):
     from repro_torch.configs import get_config
     from repro_torch.data import make_batch
     from repro_torch.train import TrainConfig
@@ -5529,8 +5705,9 @@ def main():
 
     # ---- phase 1: build ---------------------------------------------------
     t0 = time.perf_counter()
-    stems = ("paged_decode", "paged_decode_mla", "wkv6", "mamba_scan",
-             "flash_attention", "flash_attention_bwd")
+    stems = ("paged_decode", "paged_decode_mla", "wkv6", "wkv6_bwd",
+             "mamba_scan", "mamba_scan_bwd", "flash_attention",
+             "flash_attention_bwd")
     build.load_libraries(stems)
     PHASE_S["phase 1"] = time.perf_counter() - t0
     print(f"phase 1: built {len(stems)} kernels in parallel in "
@@ -5642,10 +5819,16 @@ def main():
           "tolerances as above")
     mesh_slab_rows = check_flash_attention(dev, flush, h=h, hk=hk,
                                            full=serve_mesh_slab_cases())
-    print(f"  WKV6 and MambaScan gradients (kernel forward, plain backward) "
-          f"against autograd of the plain chunked forms: max |err| / max "
-          f"|grad| fp32 {TRAIN_GRAD_TOL[torch.float32]:g}, bf16 "
-          f"{TRAIN_GRAD_TOL[torch.bfloat16]:g}")
+    print(f"  WKV6 and MambaScan gradients (kernel forward, backward "
+          f"kernels csrc/wkv6_bwd.cu, csrc/mamba_scan_bwd.cu) against "
+          f"autograd of the plain chunked forms: max |err| / max |grad| fp32 "
+          f"{TRAIN_GRAD_TOL[torch.float32]:g}, bf16 "
+          f"{TRAIN_GRAD_TOL[torch.bfloat16]:g}; the backward kernels against "
+          f"the plain backwards on the same cotangents fp32 "
+          f"{SCAN_BWD_TOL[torch.float32]:g} (two fp32 evaluations, each within "
+          f"~2.3e-6 of a float64 gradient), "
+          f"bf16 {SCAN_BWD_TOL[torch.bfloat16]:g} (one bf16 step at the "
+          "largest gradient)")
     scan_grad_rows = check_scan_grads(dev, flush)
     del flush
     # the backward kernel's rows at the five training forms (bf16), qwen3's
@@ -5757,7 +5940,8 @@ def main():
     dp_out, ckpt_out, zero_out = run_phase(
         "phases 16-18", dp_qwen, dev, train_out["losses"], prompts, launches)
     slab_out = run_phase("phase 19", serve_slab_archs, dev)
-    arch_train_out = run_phase("phases 20-21", train_archs, dev)
+    arch_train_out, plain_scan_bwd_calls = run_phase("phases 20-21",
+                                                     train_archs, dev)
     spec_trained_out = run_phase("phase 23 (trained)", spec_trained, dev)
     dense_out = run_phase("phase 24", serve_dense_more, dev, lens)
     front_out = run_phase("phase 25", serve_frontends, dev)
@@ -5983,11 +6167,42 @@ def main():
         "plain_bwd_calls_phase13": train_out["plain_bwd_calls"],
         "cases": bwd_rows,
     }
+    scan_bwd_entries = []
+    for kname, arch, replaces, ref in (
+            ("wkv6", "rwkv6-1.6b", "src/repro/kernels/rwkv6_scan.py:80",
+             "wkv6_chunked (src/repro/kernels/ops.py:91)"),
+            ("mamba_scan", "jamba-v0.1-52b",
+             "src/repro/kernels/mamba_scan.py:61",
+             "mamba_chunked (src/repro/kernels/ops.py:152)")):
+        grad_rows = scan_grad_rows[kname]
+        timed_row = next(r for r in grad_rows if "bwd_ms" in r)
+        scan_bwd_entries.append({
+            "name": f"{kname}_bwd", "route": "cuda",
+            "source": f"src/repro_torch/csrc/{kname}_bwd.cu",
+            "replaces": replaces,
+            "replaces_note": f"the TPU kernel has no backward: this is the "
+                             f"gradient of the reference's checkpointed "
+                             f"{ref}, the backward of the port's "
+                             f"{'WKV6' if kname == 'wkv6' else 'MambaScan'}",
+            "launches": arch_train_out[arch]["launches"][f"{kname}_bwd"],
+            "launches_parity": arch_train_out[arch]["parity"][
+                "launches"].get(f"{kname}_bwd", 0),
+            "plain_bwd_calls_on_cuda": plain_scan_bwd_calls,
+            "max_abs_err": max(r["bwd_max_abs_err"] for r in grad_rows
+                               if r["dtype"] == "bfloat16"),
+            "ms": timed_row["bwd_ms"], "plain_ms": timed_row["bwd_plain_ms"],
+            "bound_ms": timed_row["bwd_bound_ms"],
+            "bound_by": timed_row["bwd_bound_by"],
+            "library_ms": None,
+            "step_ms": arch_train_out[arch]["step_ms"],
+            "cases": grad_rows,
+        })
     print("phase seconds: "
           + json.dumps({k: round(v, 1) for k, v in PHASE_S.items()}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [entry, wkv_entry, mamba_entry,
-                                  mla_entry, flash_entry, bwd_entry]}))
+                                  mla_entry, flash_entry, bwd_entry,
+                                  *scan_bwd_entries]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

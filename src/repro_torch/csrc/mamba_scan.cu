@@ -50,6 +50,7 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "lane_sums.cuh"
 #include "scan_probe.cuh"
 #include "sm90.cuh"
 
@@ -73,35 +74,6 @@ struct Shape {
   static_assert(DS % E == 0 && 32 % LPC == 0, "a channel's lanes share a warp");
   static_assert(kTile % U == 0, "groups divide the tile");
 };
-
-// One level of the transposed cross-lane sum: lanes whose `bit` is set keep
-// the upper HALF of their steps, the others the lower, and each adds its
-// partner's shares of the steps it keeps.  Returns the first kept step.
-template <int HALF, int BIT, int N>
-__device__ __forceinline__ int fold(float (&p)[N], int sub) {
-  const bool upper = (sub & BIT) != 0;
-#pragma unroll
-  for (int i = 0; i < HALF; ++i) {
-    const float send = upper ? p[i] : p[i + HALF];
-    const float keep = upper ? p[i + HALF] : p[i];
-    p[i] = keep + __shfl_xor_sync(0xffffffffu, send, BIT);
-  }
-  return upper ? HALF : 0;
-}
-
-// p[i] (this lane's share of step i of a group of N) summed over the
-// channel's LPC lanes: afterwards p[0 .. N / LPC) hold the sums of steps
-// s0 .. s0 + N / LPC, s0 returned; N (1 - 1 / LPC) shuffles a lane.
-template <int LPC, int N>
-__device__ __forceinline__ int lane_sums(float (&p)[N], int sub) {
-  int s0 = 0;
-  if constexpr (LPC >= 2) s0 += fold<N / 2, LPC / 2>(p, sub);
-  if constexpr (LPC >= 4) s0 += fold<N / 4, LPC / 4>(p, sub);
-  if constexpr (LPC >= 8) s0 += fold<N / 8, LPC / 8>(p, sub);
-  if constexpr (LPC >= 16) s0 += fold<N / 16, LPC / 16>(p, sub);
-  static_assert(LPC <= 16, "at most 16 lanes a channel");
-  return s0;
-}
 
 template <typename T, int DS>
 __global__ void __launch_bounds__(Shape<DS>::NT) mamba_scan_kernel(
@@ -223,7 +195,7 @@ __global__ void __launch_bounds__(Shape<DS>::NT) mamba_scan_kernel(
         }
         p[i] = acc;
       }
-      const int s0 = g0 + lane_sums<LPC>(p, sub);
+      const int s0 = g0 + scan::lane_sums<LPC>(p, sub);
 #pragma unroll
       for (int i = 0; i < U / LPC; ++i)
         y_s[s0 + i][lc] = fmaf(d, to_f32(x_s[buf][s0 + i][lc]), p[i]);

@@ -1,4 +1,4 @@
-// Clock-stamp probe of the scan kernels' phases (csrc/wkv6.cu,
+// Clock-stamp probe of the scan kernels' phases (csrc/wkv6.cu, csrc/wkv6_bwd.cu,
 // csrc/mamba_scan.cu), compiled only with -DSCAN_PROBE: the default build
 // defines nothing here but empty marks, so the shipped kernels carry no
 // probe code.  launch/probe_scans.py builds the probe variant.

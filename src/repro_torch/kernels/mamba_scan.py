@@ -25,11 +25,17 @@ incoming state; inside a chunk the steps run in order, which is what
 the reference's associative scan computes).  Gradient: the TPU kernel
 has none, and the reference trains through ``mamba_chunked`` with each
 chunk under ``jax.checkpoint``.  ``MambaScan`` is the kernel's
-``autograd.Function``: its forward is the kernel, its backward
-``mamba_chunked_bwd``, plain PyTorch that recomputes the chunks.
+``autograd.Function``: its forward is the kernel, its backward the
+backward kernel ``csrc/mamba_scan_bwd.cu`` (``mamba_scan_bwd``).  Its
+plain versions: ``mamba_chunked_bwd`` (recomputes the chunks through
+autograd; the meta tensors' backward, so the dry run counts the
+reference's loop) and ``mamba_bwd_tiled`` (the backward kernel's
+algorithm, what CPU tensors run); ``mamba_ref_bwd`` is the sequential
+oracle's gradient, which ``chip_smoke.py`` runs in float64 as the fp32
+backwards' yardstick.
 
-``mamba_scan`` takes the plain version ONLY for CPU tensors.  A CUDA
-tensor launches the kernel or raises.
+``mamba_scan`` and ``mamba_scan_bwd`` take a plain version ONLY for CPU
+tensors.  A CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -41,25 +47,33 @@ from repro_torch.kernels.build import count_launch, load_library
 from repro_torch.roofline.cost import add_kernel_cost
 from repro_torch.kernels.wkv6 import padded_chunks
 
-__all__ = ["mamba_scan", "mamba_ref", "mamba_chunked", "mamba_chunked_bwd",
+__all__ = ["mamba_scan", "mamba_scan_bwd", "mamba_bwd_tiled", "mamba_ref",
+           "mamba_ref_bwd", "mamba_chunked", "mamba_chunked_bwd",
            "mamba_step", "MambaScan"]
 
 STATE_SIZES = (4, 8, 16, 32)   # d_state values the kernel is built for
 CHUNK = 64                     # the reference's mamba_chunked chunk
 BWD_GROUP = 8                  # chunks whose gradients one autograd call takes
+BWD_TILE = 32                  # the backward kernel's time tile (saved states)
+BWD_CHANNELS = 32              # channels of a backward block (dB, dC partials)
 
-_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
-             + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
+_ARGTYPES = {"mamba_scan": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+             + [ctypes.c_longlong] * 4 + [ctypes.c_void_p],
+             "mamba_scan_bwd": [ctypes.c_void_p] * 21 + [ctypes.c_int] * 4
+             + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]}
 
 
-def _lib():
-    lib = load_library("mamba_scan")
+def _lib(stem="mamba_scan"):
+    """The forward's library, or with ``stem`` "mamba_scan_bwd" the
+    backward's."""
+    lib = load_library(stem)
     if not getattr(lib, "_typed", False):
-        for fn in (lib.mamba_scan_f32, lib.mamba_scan_bf16):
-            fn.argtypes = _ARGTYPES
+        for fn in (getattr(lib, f"{stem}_f32"), getattr(lib, f"{stem}_bf16")):
+            fn.argtypes = _ARGTYPES[stem]
             fn.restype = ctypes.c_int
-        lib.mamba_scan_error_string.argtypes = [ctypes.c_int]
-        lib.mamba_scan_error_string.restype = ctypes.c_char_p
+        err = getattr(lib, f"{stem}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
         lib._typed = True
     return lib
 
@@ -117,6 +131,41 @@ def mamba_chunked(x, dt, A, B, C, D, state, *, chunk=CHUNK):
         h, y = _mamba_chunk(h, xs[:, c], dts[:, c], Bs[:, c], Cs[:, c], A, D)
         ys.append(y)
     return torch.cat(ys, dim=1)[:, :T].to(x.dtype), h
+
+
+def mamba_ref_bwd(x, dt, A, B, C, D, state, dy, dstate):
+    """The gradient of ``mamba_ref``, step by step in reverse, carrying
+    g, the cotangent of h_t: (dx, ddt, dA, dB, dC, dD, dstate0) for the
+    cotangents ``dy`` and ``dstate`` (None for zero), computed in the
+    inputs' dtype or fp32, whichever is wider, and returned in the
+    inputs' dtypes -- float64 inputs give the yardstick the fp32
+    backwards are measured against."""
+    ct = torch.promote_types(x.dtype, torch.float32)
+    x_, dt_, A_, B_, C_, D_, dy_ = (a.to(ct) for a in (x, dt, A, B, C, D,
+                                                        dy))
+    T = x.shape[1]
+    hs = torch.empty((T + 1, *state.shape), dtype=ct, device=x.device)
+    hs[0] = state
+    for t in range(T):
+        hs[t + 1] = (torch.exp(dt_[:, t, :, None] * A_) * hs[t]
+                     + (dt_[:, t] * x_[:, t])[..., None] * B_[:, t, None, :])
+    g = torch.zeros_like(hs[0]) if dstate is None else dstate.to(ct)
+    dx, ddt = torch.empty_like(x_), torch.empty_like(x_)
+    dB, dC = torch.empty_like(B_), torch.empty_like(C_)
+    dA, dD = torch.zeros_like(A_), torch.zeros_like(D_)
+    for t in range(T - 1, -1, -1):
+        a = torch.exp(dt_[:, t, :, None] * A_)
+        Bt, Ct = B_[:, t, None, :], C_[:, t, None, :]
+        g = g + dy_[:, t, :, None] * Ct
+        dx[:, t] = D_ * dy_[:, t] + dt_[:, t] * (g * Bt).sum(-1)
+        ddt[:, t] = (g * (x_[:, t, :, None] * Bt + A_ * a * hs[t])).sum(-1)
+        dA += (g * dt_[:, t, :, None] * a * hs[t]).sum(0)
+        dB[:, t] = (g * (dt_[:, t] * x_[:, t])[..., None]).sum(1)
+        dC[:, t] = (dy_[:, t, :, None] * hs[t + 1]).sum(1)
+        dD += (dy_[:, t] * x_[:, t]).sum(0)
+        g = a * g
+    return (dx.to(x.dtype), ddt.to(dt.dtype), dA.to(A.dtype), dB.to(B.dtype),
+            dC.to(C.dtype), dD.to(D.dtype), g.to(state.dtype))
 
 
 def mamba_chunked_bwd(x, dt, A, B, C, D, state, dy, dstate, *, chunk=CHUNK):
@@ -188,6 +237,73 @@ def mamba_chunked_bwd(x, dt, A, B, C, D, state, dy, dstate, *, chunk=CHUNK):
             dC.to(C.dtype), dD.to(D.dtype), dstate0.to(state.dtype))
 
 
+def mamba_bwd_tiled(x, dt, A, B, C, D, state, dy, dstate):
+    """The backward kernel's algorithm (``csrc/mamba_scan_bwd.cu``) in
+    plain PyTorch: the gradients of the scan as ``mamba_chunked_bwd``
+    returns them.  Pass 1 runs the recurrence and keeps the state at the
+    start of each ``BWD_TILE``-step tile; pass 2 walks the tiles in
+    reverse, recomputes a tile's states from its saved one, and walks its
+    steps backwards carrying g, the gradient of h_t (nothing is divided by
+    a decay).  dB and dC are summed per block of ``BWD_CHANNELS``
+    channels, then the blocks in block order; dA and dD per tile, then
+    the tiles in turn, per batch row, then the rows in order."""
+    Bb, T, dI = x.shape
+    xf, dtf, Bf, Cf, dyf = (a.float() for a in (x, dt, B, C, dy))
+    Af, Df = A.float(), D.float()
+    nblk = -(-dI // BWD_CHANNELS)
+    pad = nblk * BWD_CHANNELS - dI
+
+    def blocks(a):                                  # (Bb, dI, dS) -> (Bb, nblk, dS)
+        a = torch.nn.functional.pad(a, (0, 0, 0, pad))
+        return a.unflatten(1, (nblk, BWD_CHANNELS)).sum(2)
+
+    def step(h, t):
+        return (torch.exp(dtf[:, t, :, None] * Af) * h
+                + (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :])
+
+    saved, h = [], state.float()                    # pass 1
+    for t in range(T):
+        if t % BWD_TILE == 0:
+            saved.append(h)
+        h = step(h, t)
+    g = torch.zeros_like(h) if dstate is None else dstate.float()
+    dx, ddt = torch.empty_like(xf), torch.empty_like(xf)
+    dBp = torch.empty((Bb, nblk, T, Af.shape[1]), device=x.device)
+    dCp = torch.empty_like(dBp)
+    dA_rows = torch.zeros((Bb, *Af.shape), device=x.device)
+    dD_rows = torch.zeros((Bb, dI), device=x.device)
+    for it in range(len(saved) - 1, -1, -1):        # pass 2
+        t0, t1 = it * BWD_TILE, min(T, (it + 1) * BWD_TILE)
+        dA_tile, dD_tile = torch.zeros_like(dA_rows), torch.zeros_like(dD_rows)
+        prev, h = [], saved[it]
+        for t in range(t0, t1):
+            prev.append(h)
+            h = step(h, t)
+        for t in range(t1 - 1, t0 - 1, -1):
+            a = torch.exp(dtf[:, t, :, None] * Af)
+            ah = a * prev[t - t0]
+            dxv = dtf[:, t] * xf[:, t]
+            dyv = dyf[:, t, :, None]
+            Bt, Ct = Bf[:, t, None, :], Cf[:, t, None, :]
+            dCp[:, :, t] = blocks(dyv * (ah + dxv[..., None] * Bt))
+            g = g + dyv * Ct
+            dBp[:, :, t] = blocks(g * dxv[..., None])
+            dx[:, t] = Df * dyf[:, t] + dtf[:, t] * (g * Bt).sum(-1)
+            ddt[:, t] = (g * (xf[:, t, :, None] * Bt + Af * ah)).sum(-1)
+            dA_tile += g * dtf[:, t, :, None] * ah
+            dD_tile += dyf[:, t] * xf[:, t]
+            g = a * g
+        dA_rows += dA_tile                          # a tile's sum, then the tiles'
+        dD_rows += dD_tile
+    dB, dC, dA, dD = dBp[:, 0], dCp[:, 0], dA_rows[0], dD_rows[0]
+    for i in range(1, nblk):                        # block order
+        dB, dC = dB + dBp[:, i], dC + dCp[:, i]
+    for b in range(1, Bb):                          # batch order
+        dA, dD = dA + dA_rows[b], dD + dD_rows[b]
+    return (dx.to(x.dtype), ddt.to(dt.dtype), dA.to(A.dtype), dB.to(B.dtype),
+            dC.to(C.dtype), dD.to(D.dtype), g.to(state.dtype))
+
+
 def mamba_step(x, dt, A, B, C, D, state):
     """One decode step (``repro.kernels.ops.mamba_step``), plain PyTorch
     as in the reference.  x, dt: (Bb, dI); B, C: (Bb, dS); state (Bb,
@@ -238,11 +354,10 @@ def mamba_scan(x, dt, A, B, C, D, state, *, chunk=CHUNK):
     modified.  CPU tensors take the plain version (``mamba_ref``; its
     autograd is the gradient's oracle); CUDA tensors launch the kernel.
     When grad mode is on and an input requires grad, the launch goes
-    through ``MambaScan``, whose backward is ``mamba_chunked_bwd`` in
-    chunks of ``chunk`` steps.  The kernel keeps its own tile (each
-    thread walks the whole segment in 32-step tiles), so ``chunk`` sets
-    only the plain backward's recomputation, as ``wkv6``'s does past
-    its kernel's 32-step tile."""
+    through ``MambaScan``, whose backward is the backward kernel
+    (``mamba_scan_bwd``).  The kernels keep their own tiles (each thread
+    walks the whole segment in 32-step tiles), so ``chunk`` sets only
+    the plain backward's recomputation on meta tensors."""
     _check(x, dt, A, B, C, D, state)
     if x.device.type == "cpu":
         y, h = mamba_ref(x, dt, A, B, C, D, state)
@@ -253,12 +368,35 @@ def mamba_scan(x, dt, A, B, C, D, state, *, chunk=CHUNK):
     return _launch(*tensors)
 
 
+def mamba_scan_bwd(x, dt, A, B, C, D, state, dy, dstate):
+    """Gradients (dx, ddt, dA, dB, dC, dD, dstate0) of ``mamba_scan``'s
+    (y, final state) for the cotangents ``dy`` (Bb, T, dI, in x's dtype)
+    and ``dstate`` (Bb, dI, dS fp32, or None for zero), in the inputs'
+    dtypes; dB and dC contiguous whatever B's and C's strides.  CUDA
+    tensors launch the backward kernel ``csrc/mamba_scan_bwd.cu`` or
+    raise, with the forward's checks; CPU tensors take
+    ``mamba_bwd_tiled``, the same algorithm in plain PyTorch."""
+    _check(x, dt, A, B, C, D, state)
+    if dy.shape != x.shape:
+        raise ValueError(f"mamba_scan_bwd: dy has shape {tuple(dy.shape)}, "
+                         f"x has {tuple(x.shape)}")
+    if dstate is not None and dstate.shape != state.shape:
+        raise ValueError(f"mamba_scan_bwd: dstate has shape "
+                         f"{tuple(dstate.shape)}, state has "
+                         f"{tuple(state.shape)}")
+    if x.device.type == "cpu":
+        return mamba_bwd_tiled(x, dt, A, B, C, D, state, dy, dstate)
+    return _launch_bwd(x, dt, A, B, C, D, state, dy, dstate)
+
+
 class MambaScan(torch.autograd.Function):
     """The kernel's forward with a gradient: the forward launches
-    ``csrc/mamba_scan.cu`` and saves the inputs; the backward is the
-    plain ``mamba_chunked_bwd`` (the gradient of the reference's
-    checkpointed chunk scan), for x, dt, A, B, C, D and the initial
-    state."""
+    ``csrc/mamba_scan.cu`` and saves the inputs; the backward launches
+    the backward kernel ``csrc/mamba_scan_bwd.cu`` (``mamba_scan_bwd``:
+    the gradient of the reference's checkpointed chunk scan) for x, dt,
+    A, B, C, D and the initial state.  On meta tensors (the dry run) the
+    backward is ``mamba_chunked_bwd``, so the count is the reference's
+    loop's."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, D, state, chunk=CHUNK):
@@ -271,8 +409,10 @@ class MambaScan(torch.autograd.Function):
         x, dt, A, B, C, D, state = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(x)
-        return (*mamba_chunked_bwd(x, dt, A, B, C, D, state, dy, dstate,
-                                   chunk=ctx.chunk), None)
+        if x.device.type == "meta":
+            return (*mamba_chunked_bwd(x, dt, A, B, C, D, state, dy, dstate,
+                                       chunk=ctx.chunk), None)
+        return (*mamba_scan_bwd(x, dt, A, B, C, D, state, dy, dstate), None)
 
 
 def meta_cost(Bb, T, dI, dS):
@@ -290,27 +430,9 @@ def _launch(x, dt, A, B, C, D, state):
     if x.device.type == "meta":
         add_kernel_cost(*meta_cost(*x.shape, B.shape[-1]))
         return torch.empty_like(x), torch.empty_like(state)
-    if x.device.type != "cuda":
-        raise ValueError(f"mamba_scan: unsupported device {x.device}")
-    tensors = (x, dt, A, B, C, D, state)
-    if any(t.device != x.device for t in tensors):
-        raise ValueError("mamba_scan: all operands must share a device")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"mamba_scan: dtype {x.dtype} not supported "
-                        "(float32 or bfloat16)")
-    if any(t.dtype != x.dtype for t in (dt, B, C)):
-        raise TypeError("mamba_scan: dt, B and C must have x's dtype")
-    if any(t.dtype != torch.float32 for t in (A, D, state)):
-        raise TypeError("mamba_scan: A, D and state must be float32")
-    if not all(t.is_contiguous() for t in (x, dt, A, D, state)):
-        raise ValueError("mamba_scan: x, dt, A, D and state must be "
-                         "contiguous")
-    if B.stride(2) != 1 or C.stride(2) != 1:
-        raise ValueError("mamba_scan: B and C need a unit stride over dS")
+    _check_cuda("mamba_scan", (x, dt, B, C), (A, D, state))
     Bb, T, dI = x.shape
     dS = A.shape[1]
-    if dS not in STATE_SIZES:
-        raise ValueError(f"mamba_scan: d_state {dS} not in {STATE_SIZES}")
     lib = _lib()
     y = torch.empty_like(x)
     s_out = torch.empty_like(state)
@@ -326,3 +448,71 @@ def _launch(x, dt, A, B, C, D, state):
                            + lib.mamba_scan_error_string(rc).decode())
     count_launch("mamba_scan")
     return y, s_out
+
+
+def _check_cuda(name, low, fp32):
+    """Refuse what the kernels do not take: another device or dtype
+    (``low`` = x, dt, B, C (and dy) in one compute dtype, ``fp32`` = A,
+    D and the states in float32), operands other than B and C not
+    contiguous, B or C strided within a row, another d_state."""
+    x, _, B, C = low[:4]
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if any(t.device != x.device for t in (*low, *fp32)):
+        raise ValueError(f"{name}: all operands must share a device")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: dtype {x.dtype} not supported "
+                        "(float32 or bfloat16)")
+    if any(t.dtype != x.dtype for t in low):
+        raise TypeError(f"{name}: dt, B and C (and dy) must have x's dtype")
+    if any(t.dtype != torch.float32 for t in fp32):
+        raise TypeError(f"{name}: A, D and the states must be float32")
+    if not all(t.is_contiguous() for t in (*low[:2], *low[4:], *fp32)):
+        raise ValueError(f"{name}: x, dt, A, D and the states (and dy) must "
+                         "be contiguous")
+    if B.stride(2) != 1 or C.stride(2) != 1:
+        raise ValueError(f"{name}: B and C need a unit stride over dS")
+    if fp32[0].shape[1] not in STATE_SIZES:
+        raise ValueError(f"{name}: d_state {fp32[0].shape[1]} not in "
+                         f"{STATE_SIZES}")
+
+
+def _launch_bwd(x, dt, A, B, C, D, state, dy, dstate):
+    """One launch of the backward kernel on CUDA tensors, checked: the
+    scan kernel (pass 1 saves the state at each 32-step tile's start,
+    pass 2 the gradients and the blocks' partial dB, dC), then the
+    reduction kernel (the blocks' partials, dA and dD over the batch)."""
+    dy = dy.contiguous()              # autograd's cotangents may be views
+    dstate = None if dstate is None else dstate.contiguous()
+    fp32 = (A, D, state) + (() if dstate is None else (dstate,))
+    _check_cuda("mamba_scan_bwd", (x, dt, B, C, dy), fp32)
+    Bb, T, dI = x.shape
+    dS = A.shape[1]
+    lib = _lib("mamba_scan_bwd")
+    f32 = dict(dtype=torch.float32, device=x.device)
+    nblk = -(-dI // BWD_CHANNELS)
+    hbuf = torch.empty((-(-T // BWD_TILE), Bb, dI, dS), **f32)
+    dBp = torch.empty((Bb, nblk, T, dS), **f32)
+    dCp = torch.empty_like(dBp)
+    dAp = torch.empty((Bb, dI, dS), **f32)
+    dDp = torch.empty((Bb, dI), **f32)
+    dx, ddt = torch.empty_like(x), torch.empty_like(dt)
+    dB = torch.empty((Bb, T, dS), dtype=B.dtype, device=x.device)
+    dC = torch.empty((Bb, T, dS), dtype=C.dtype, device=x.device)
+    dA, dD, ds0 = torch.empty_like(A), torch.empty_like(D), \
+        torch.empty_like(state)
+    fn = lib.mamba_scan_bwd_f32 if x.dtype == torch.float32 else \
+        lib.mamba_scan_bwd_bf16
+    rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), D.data_ptr(), state.data_ptr(), dy.data_ptr(),
+            None if dstate is None else dstate.data_ptr(), hbuf.data_ptr(),
+            dx.data_ptr(), ddt.data_ptr(), dBp.data_ptr(), dCp.data_ptr(),
+            dAp.data_ptr(), dDp.data_ptr(), ds0.data_ptr(), dB.data_ptr(),
+            dC.data_ptr(), dA.data_ptr(), dD.data_ptr(), Bb, T, dI, dS,
+            B.stride(0), B.stride(1), C.stride(0), C.stride(1),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("mamba_scan_bwd launch failed: "
+                           + lib.mamba_scan_bwd_error_string(rc).decode())
+    count_launch("mamba_scan_bwd")
+    return dx, ddt, dA, dB, dC, dD, ds0

@@ -148,8 +148,8 @@ def mamba_scan(x, dt, A, B, C, D, state, *, impl=None, chunk=64):
     """Mamba-1 selective scan over a segment (``kernels.mamba_scan.
     mamba_scan``'s shapes).  "ref" returns y in fp32, as the reference's
     oracle does; the other impls return y in x's dtype.  ``chunk``: the
-    chunked form's and the plain backward's; the kernel keeps its own
-    tile."""
+    chunked form's and, on meta tensors, the plain backward's; the
+    kernels keep their own tiles."""
     impl = _resolve(impl, x, "mamba_scan")
     if impl in ("ref", "chunked"):
         _mamba_check(x, dt, A, B, C, D, state)

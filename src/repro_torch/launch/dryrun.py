@@ -48,7 +48,7 @@ import torch.distributed as dist
 from repro_torch.configs import (ARCHITECTURES, INPUT_SHAPES,
                                  LONG_500K_SKIPS, config_for_shape)
 from repro_torch.data.specs import batch_struct
-from repro_torch.roofline.analysis import H100_SXM, RESULTS_DIR
+from repro_torch.roofline.analysis import H100_SXM, RESULTS_DIR, fits
 from repro_torch.roofline.cost import count
 from repro_torch.train.step import TrainConfig
 
@@ -257,7 +257,7 @@ def analyse(cfg, tc, shape, mesh, hw=H100_SXM) -> dict:
         "output_size_in_bytes": c["output_bytes"],
         "temp_size_in_bytes": c["peak_bytes"] - args_held,
         "peak_bytes": c["peak_bytes"],
-        "fits": c["peak_bytes"] <= hw.hbm_bytes,
+        "fits": fits(c["peak_bytes"], hw),
     }
 
 

@@ -1,15 +1,17 @@
-"""Where the time goes inside the two scan kernels, and their host cost.
+"""Where the time goes inside the scan kernels, and their host cost.
 
     PYTHONPATH=src python -m repro_torch.launch.probe_scans \\
         [--out probe_scans.json]
 
 At the serving path's shapes (a 32-token prefill chunk in bf16: ``wkv6``
 at B 1, H 32, K 64; ``mamba_scan`` at Bb 1, dI 8192, dS 16 with B and C
-strided column slices of one projection; and a multi-chunk call of each):
+strided column slices of one projection; and a multi-chunk call of each),
+and for ``wkv6_bwd`` at rwkv6-1.6b's training call (B 1, T 4096):
 
-1. builds ``csrc/wkv6.cu`` and ``csrc/mamba_scan.cu`` with
-   ``-DSCAN_PROBE`` (``csrc/scan_probe.cuh``: clock64 stamps between the
-   kernels' phases), runs each call, and prints every phase's cycles --
+1. builds ``csrc/wkv6.cu``, ``csrc/mamba_scan.cu`` and
+   ``csrc/wkv6_bwd.cu`` with ``-DSCAN_PROBE`` (``csrc/scan_probe.cuh``:
+   clock64 stamps between the kernels' phases), runs each call, and
+   prints every phase's cycles --
    the mean and the max over the blocks -- and their microseconds at the
    SM clock ``nvidia-smi`` reads just after;
 2. on the default build: the device time of a call (CUDA events, as
@@ -33,7 +35,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.mamba_scan import mamba_ref, mamba_scan
-from repro_torch.kernels.wkv6 import wkv6, wkv6_chunked
+from repro_torch.kernels.wkv6 import (wkv6, wkv6_bwd, wkv6_chunked,
+                                      wkv6_chunked_bwd)
 
 # the phases each kernel's probe marks, by slot (csrc/*.cu PROBE_MARK)
 PHASES = {
@@ -41,6 +44,9 @@ PHASES = {
              "y products + state update", "cluster barrier",
              "rank-ordered sum + y store", "final cluster barrier"],
     "mamba_scan": ["staging", "step loop", "store y", "store state"],
+    "wkv6_bwd": ["pass 1 (states)", "operands in", "cumsum + operands",
+                 "A, dA, dv partials", "cluster barrier",
+                 "rank-ordered sums + dv", "dr, dk", "dw, du, G"],
 }
 
 
@@ -100,6 +106,20 @@ def wkv_call(dev, B, T, H=32, K=64, seed=0):
         return max((y.float() - yw.float()).abs().max().item(),
                    (s - sw).abs().max().item())
     return (lambda: wkv6(*args)), err
+
+
+def wkv_bwd_call(dev, B, T, H=32, K=64, seed=0):
+    rng = np.random.default_rng(seed)
+    f32 = lambda *s: torch.from_numpy(                        # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(dev)
+    r, k, v, dy = (f32(B, T, H, K).bfloat16() for _ in range(4))
+    args = (r, k, v, -torch.exp(f32(B, T, H, K)), f32(H, K), f32(B, H, K, K),
+            dy, f32(B, H, K, K))
+
+    def err():
+        return max((a.float() - b.float()).abs().max().item() for a, b in
+                   zip(wkv6_bwd(*args), wkv6_chunked_bwd(*args)))
+    return (lambda: wkv6_bwd(*args)), err
 
 
 def mamba_call(dev, Bb, T, dI=8192, dS=16, R=256, seed=0):
@@ -180,6 +200,8 @@ def main(argv=None):
          mamba_call(dev, 1, 32)),
         ("mamba_scan", "ragged Bb=2 T=75 dI=8192 dS=16 bf16",
          mamba_call(dev, 2, 75)),
+        ("wkv6_bwd", "train B=1 T=4096 H=32 K=64 bf16",
+         wkv_bwd_call(dev, 1, 4096)),
     ]
     for stem, name, (fn, err) in calls:
         row = {"kernel": stem, "call": name, "probe": probe(stem, fn)}

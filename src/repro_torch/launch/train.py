@@ -9,8 +9,8 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
         --steps 10 --batch 2 --seq 4096 --microbatches 2
 
-    # the other architectures: RWKV-6 (its WKV scan kernel forward, a
-    # plain backward), Jamba (Mamba scan, attention, MoE) and DeepSeek-V3
+    # the other architectures: RWKV-6 (its WKV scan kernel, forward and
+    # backward), Jamba (Mamba scan, attention, MoE) and DeepSeek-V3
     # (MLA, MoE and the MTP head), reduced
     PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \\
         --reduced --device cpu --steps 3 --batch 4 --seq 64

@@ -16,7 +16,9 @@ MODEL_FLOPS_per_dev / FLOPs_per_dev, which shows remat, redundancy and
 dispatch waste.
 
 Hardware: ``H100_SXM``, NVIDIA's H100 SXM5 datasheet -- 989 TFLOP/s
-dense bf16, 3.35 TB/s HBM3, 450 GB/s NVLink a direction, 80 GiB.  The
+dense bf16, 3.35 TB/s HBM3, 450 GB/s NVLink a direction -- and the
+device memory the card reports (``HBM_BYTES``), which ``fits`` holds a
+peak to.  The
 records carry no overlap report (an eager step has no dataflow graph to
 walk), so the collective term is charged whole: the reference's degrade
 of a record without one, hidden = 0.
@@ -33,6 +35,10 @@ from repro_torch.core.perf_model import (H100_BF16_FLOPS, H100_HBM_BW,
 
 RESULTS_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "results"
+# device memory of an "NVIDIA H100 80GB HBM3": its
+# torch.cuda.get_device_properties(0).total_memory (chip_smoke.py phase 30
+# reads it), 79.18 GiB -- the datasheet's "80 GB" is not 80 GiB
+HBM_BYTES = 85017493504
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,10 +47,15 @@ class HW:
     hbm_bw: float = H100_HBM_BW                  # bytes/s per card
     ici_bw: float = H100_NVLINK4.bw_bytes        # bytes/s a direction
     chips: int = 256
-    hbm_bytes: int = 80 * 2 ** 30                # device memory per card
+    hbm_bytes: int = HBM_BYTES                   # device memory per card
 
 
 H100_SXM = HW()
+
+
+def fits(peak_bytes: int, hw: HW = H100_SXM) -> bool:
+    """Whether a rank's peak fits one card's memory."""
+    return peak_bytes <= hw.hbm_bytes
 
 
 def model_flops(arch: str, shape_name: str) -> float:

@@ -242,7 +242,17 @@ def test_roofline_matches_reference_under_v5e_fields():
 def test_h100_fields():
     hw = analysis.H100_SXM
     assert (hw.peak_flops, hw.hbm_bw, hw.ici_bw) == (989e12, 3.35e12, 450e9)
-    assert hw.hbm_bytes == 80 * 2 ** 30
+    assert hw.hbm_bytes == 85017493504      # what the card reports
+
+
+def test_fits_holds_a_peak_to_the_cards_bytes():
+    """A peak between the card's 85017493504 B and 80 GiB (85899345920 B)
+    does not fit; the card's own bytes do."""
+    hw = analysis.H100_SXM
+    between = (hw.hbm_bytes + 80 * 2 ** 30) // 2
+    assert hw.hbm_bytes < between < 80 * 2 ** 30
+    assert analysis.fits(hw.hbm_bytes)
+    assert not analysis.fits(between) and not analysis.fits(80 * 2 ** 30)
 
 
 # --------------------------------------------------------------------------

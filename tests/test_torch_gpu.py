@@ -11,7 +11,8 @@ with the replicated strategies and the ZeRO ladder (``-k zero``: zero1
 / zero2 / zero3 bitwise the one-device step at one NCCL rank, and 2
 gloo ranks sharing the card); the Table-1 nets on the card against the
 CPU; checkpoints saved on the card and restored on the CPU, and back;
-the paged kernels at speculative decode's verify shape (``-k verify``),
+the scan backward kernels against the plain backwards (``-k
+scan_bwd``); the paged kernels at speculative decode's verify shape (``-k verify``),
 ``cow_fork`` on card pools and the speculative tick's one host sync
 (``-k "cow or spec_tick"``).  Marked ``gpu``; each test
 skips by itself where no card is present.  Imports no jax (the card's
@@ -1272,9 +1273,9 @@ def test_flash_kernel_refuses_widths_it_is_not_built_for(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_scan_functions_gradients_match_plain(cuda, dtype):
-    """WKV6 and MambaScan (kernel forward, plain chunk-recomputing
-    backward) against autograd of the plain chunked forms, cotangents on
-    y and the final state; each forward launched once."""
+    """WKV6 and MambaScan (kernel forward, backward kernel) against
+    autograd of the plain chunked forms, cotangents on y and the final
+    state; each forward and each backward launched once."""
     from repro_torch.kernels import mamba_chunked
     g = torch.Generator().manual_seed(3)
     rand = lambda *s: torch.randn(s, generator=g)        # noqa: E731
@@ -1297,6 +1298,7 @@ def test_scan_functions_gradients_match_plain(cuda, dtype):
         assert launch_counts()[name] == 1
         dy, ds = torch.randn_like(y.float()), torch.randn_like(s)
         ((y.float() * dy).sum() + (s * ds).sum()).backward()
+        assert launch_counts()[f"{name}_bwd"] == 1
         ref = [a.clone().requires_grad_() for a in args]
         y_ref, s_ref = plain(*ref)
         ((y_ref.float() * dy).sum() + (s_ref * ds).sum()).backward()
@@ -1304,6 +1306,112 @@ def test_scan_functions_gradients_match_plain(cuda, dtype):
             rel = ((a.grad.float() - b.grad.float()).abs().max()
                    / b.grad.float().abs().max()).item()
             assert rel <= TRAIN_GRAD_TOL[dtype], (name, i, rel)
+
+
+# the scan backward kernels against the plain backwards on the same
+# cotangents, max |err| / max |grad| (chip_smoke's SCAN_BWD_TOL): fp32 two
+# fp32 evaluations of one gradient, each within ~2.3e-6 of a float64 one;
+# bf16 one rounding of each gradient, at most one bf16 step (2^-7) of the
+# largest
+SCAN_BWD_TOL = {torch.float32: 5e-6, torch.bfloat16: 2.0 ** -7}
+# B, T, H, K, chunk, decay: ragged tails, every cluster size's corner
+# (1 rank at K 16, 8 at K 128), a short chunk, decays past the clip
+WKV_BWD_CASES = [(2, 80, 4, 64, 32, 1.0), (1, 45, 2, 16, 16, 1.0),
+                 (1, 70, 2, 128, 32, 1.0), (2, 37, 3, 32, 8, 1.0),
+                 (1, 64, 4, 64, 32, 2.5)]
+# Bb, T, dI, dS: ragged 32-step tiles and 32-channel blocks, every d_state
+MAMBA_BWD_CASES = [(2, 75, 96, 16), (1, 40, 64, 4), (2, 33, 80, 8),
+                   (1, 70, 8176, 32), (1, 1, 64, 16)]
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+def _scan_bwd_case(cuda, kind, case, dtype):
+    """(the kernel's wrapper, the plain backward, its inputs, dy, ds)."""
+    from repro_torch.kernels.mamba_scan import (mamba_chunked_bwd,
+                                                mamba_scan_bwd)
+    from repro_torch.kernels.wkv6 import wkv6_bwd, wkv6_chunked_bwd
+    rng = np.random.default_rng(sum(case[:4]))
+    if kind == "wkv6":
+        B, T, H, K, chunk, decay = case
+        host = _wkv_inputs(sum(case[:4]), B, T, H, K, decay)
+        args = [torch.from_numpy(x).to(cuda) for x in host]
+        args[:3] = [a.to(dtype) for a in args[:3]]
+        dy = torch.from_numpy(rng.standard_normal((B, T, H, K)).astype(
+            np.float32)).to(cuda, dtype)
+        ds = torch.from_numpy(rng.standard_normal((B, H, K, K)).astype(
+            np.float32)).to(cuda)
+        return ((lambda *a: wkv6_bwd(*a, chunk=chunk)),
+                (lambda *a: wkv6_chunked_bwd(*a, chunk=chunk)), args, dy, ds)
+    Bb, T, dI, dS = case
+    args = list(_mamba_on(cuda, dtype, *_mamba_inputs(sum(case), *case),
+                          strided=True))
+    dy = torch.from_numpy(rng.standard_normal((Bb, T, dI)).astype(
+        np.float32)).to(cuda, dtype)
+    ds = torch.from_numpy(rng.standard_normal((Bb, dI, dS)).astype(
+        np.float32)).to(cuda)
+    return mamba_scan_bwd, mamba_chunked_bwd, args, dy, ds
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,case",
+                         [("wkv6", c) for c in WKV_BWD_CASES]
+                         + [("mamba", c) for c in MAMBA_BWD_CASES],
+                         ids=str)
+def test_scan_bwd_kernels_match_plain_backward(cuda, kind, case, dtype):
+    """csrc/wkv6_bwd.cu and csrc/mamba_scan_bwd.cu (Mamba's B and C
+    strided column slices of one projection) against the plain
+    chunk-recomputing backwards on the same cotangents, with and without
+    the final state's, at SCAN_BWD_TOL; the gradients in the inputs'
+    dtypes, dB and dC contiguous; two calls bitwise equal."""
+    kernel, plain, args, dy, ds = _scan_bwd_case(cuda, kind, case, dtype)
+    for dstate in (ds, None):
+        got = kernel(*args, dy, dstate)
+        again = kernel(*args, dy, dstate)
+        want = plain(*args, dy, dstate)
+        torch.cuda.synchronize()
+        for i, (a, b, w) in enumerate(zip(got, again, want)):
+            assert a.dtype == w.dtype and a.shape == w.shape, (i, a.dtype)
+            assert a.is_contiguous(), i
+            assert torch.equal(a, b), i
+            assert _rel(a, w) <= SCAN_BWD_TOL[dtype], (i, _rel(a, w))
+
+
+def test_scan_bwd_kernels_count_launches_and_reject_bad_input(cuda):
+    """One count a call; a cotangent in another dtype than the inputs',
+    a head size or d_state the kernels are not built for raise before
+    any launch."""
+    from repro_torch.kernels.mamba_scan import mamba_scan_bwd
+    from repro_torch.kernels.wkv6 import wkv6_bwd
+    kernel, _, args, dy, ds = _scan_bwd_case(
+        cuda, "wkv6", (1, 20, 2, 32, 32, 1.0), torch.float32)
+    reset_launch_counts()
+    kernel(*args, dy, ds)
+    kernel(*args, dy, None)
+    assert launch_counts()["wkv6_bwd"] == 2
+    with pytest.raises(TypeError):
+        wkv6_bwd(*args, dy.bfloat16(), ds)
+    with pytest.raises(TypeError):
+        wkv6_bwd(*args, dy, ds.double())
+    bad = [torch.from_numpy(x).to(cuda) for x in _wkv_inputs(0, 1, 4, 2, 40,
+                                                             1.0)]
+    with pytest.raises(ValueError, match="head size"):
+        wkv6_bwd(*bad, torch.zeros_like(bad[0]), None)
+    assert launch_counts()["wkv6_bwd"] == 2
+    _, _, args, dy, ds = _scan_bwd_case(cuda, "mamba", (1, 20, 64, 16),
+                                        torch.bfloat16)
+    mamba_scan_bwd(*args, dy, ds)
+    assert launch_counts()["mamba_scan_bwd"] == 1
+    with pytest.raises(TypeError):
+        mamba_scan_bwd(*args, dy.float(), ds)
+    x, dt, A, B, C, D, h0 = args
+    with pytest.raises(ValueError, match="d_state"):
+        mamba_scan_bwd(x, dt, A[:, :2].contiguous(), B[..., :2], C[..., :2],
+                       D, h0[..., :2].contiguous(), dy, None)
+    assert launch_counts()["mamba_scan_bwd"] == 1
 
 
 ARCHS = ["rwkv6-1.6b", "jamba-v0.1-52b", "deepseek-v3-671b"]
@@ -1374,6 +1482,8 @@ def test_arch_train_step_on_card_matches_cpu(cuda, arch):
     assert {k: counts.get(k, 0) for k in want} == want
     # one backward kernel a layer a step (no remat recompute)
     assert counts.get("flash_attention_bwd", 0) == want["flash_attention"] // 2
+    assert counts.get("wkv6_bwd", 0) == want["wkv6"] // 2
+    assert counts.get("mamba_scan_bwd", 0) == want["mamba_scan"] // 2
     rel = [abs(a - b) / abs(a) for a, b in zip(got["cpu"][0], got["cuda"][0])]
     assert rel[0] <= 1e-5 and rel[1] <= 1e-4, rel
 
