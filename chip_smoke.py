@@ -1083,15 +1083,19 @@ def sdpa_bwd_ms(sdpa, qt, kt, vt, dot, flush):
 
 
 def split_bwd_kernels(dev, rows):
-    """The bf16 backward's two kernels apart (``dq_bf16``, ``dkdv_bf16``:
-    device ms a call, torch.profiler over three calls, warm L2) at each
-    training form timed in phase 2 (``bwd_form`` in its row), on inputs
-    drawn anew (the kernels' time depends on the shapes and the mask, not
-    on the values)."""
+    """The bf16 backward's kernels apart (``bwd_rowstats``: D and the
+    rows' lse; ``bwd_ws``: the warp-specialised gradient, with the ordered
+    dQ sums at q/k widths 64 and 128; ``bwd_dq_out``: their scale and
+    rounding; ``bwd_dq_ws``: dQ's own kernel at MLA's widths; device ms a
+    call, torch.profiler over three calls, warm L2) at each training form
+    timed in phase 2 (``bwd_form`` in its row), on inputs drawn anew (the
+    kernels' time depends on the shapes and the mask, not on the
+    values)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels.flash_attention import (_launch,
                                                      flash_attention_bwd)
+    names = ("bwd_rowstats", "bwd_dq_ws", "bwd_ws", "bwd_dq_out")
     gen = torch.Generator(device=dev).manual_seed(0)
     for row in rows:
         B, S, h, hk, hd, hdv, causal = row["bwd_form"]
@@ -1107,14 +1111,14 @@ def split_bwd_kernels(dev, rows):
         row["bwd_kernels_ms"] = {
             m.group(1): ev.device_time_total / ev.count / 1e3
             for ev in prof.key_averages()
-            if (m := re.search(r"(dq_bf16|dkdv_bf16)<", ev.key))}
+            if (m := re.search(r"\b(" + "|".join(names) + ")<", ev.key))}
         split = row["bwd_kernels_ms"]
         print(f"  flash_attention_bwd {row['case']:44s} kernel "
               f"{row['bwd_ms']:.4f} ms: " + (
-                  f"dq {split['dq_bf16']:.4f} + dk/dv "
-                  f"{split['dkdv_bf16']:.4f} ms (torch.profiler)"
-                  if len(split) == 2 else "not measured (torch.profiler saw "
-                  "no kernel of the two)"))
+                  " + ".join(f"{n} {split[n]:.4f}" for n in names
+                             if n in split) + " ms (torch.profiler)"
+                  if "bwd_ws" in split else "not measured (torch.profiler "
+                  f"saw {sorted(split)} of {names})"))
         del q, k, v, dout, out, lse
 
 
@@ -5835,7 +5839,7 @@ def main():
     # first
     bwd_timed = [r for r in train_rows + flash_mla_rows + flash_new_rows
                  if "bwd_form" in r]
-    print("  the flash backward's two kernels apart, at the training forms "
+    print("  the flash backward's kernels apart, at the training forms "
           "(bf16):")
     split_bwd_kernels(dev, bwd_timed)
     PHASE_S["phase 2"] = time.perf_counter() - t_phase

@@ -24,7 +24,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: dict = {}          # source stem -> ctypes.CDLL
 build_info: dict = {}     # source stem -> {"seconds", "ptxas", "path"}
-_probed: set = set()      # source stems built with -DSCAN_PROBE
+_probed: dict = {}        # source stem -> the macro of its probe build
 
 # launches of each kernel, one per wrapper call that launched it
 _launches: dict = {}
@@ -43,17 +43,21 @@ def reset_launch_counts() -> None:
         _launches[name] = 0
 
 
-def set_probe(stem: str, on: bool) -> None:
-    """From its next load on, build ``csrc/<stem>.cu`` with
-    ``-DSCAN_PROBE`` (clock stamps between its phases,
-    ``csrc/scan_probe.cuh``) or, with ``on`` false, as shipped."""
-    (_probed.add if on else _probed.discard)(stem)
+def set_probe(stem: str, on: bool, macro: str = "SCAN_PROBE") -> None:
+    """From its next load on, build ``csrc/<stem>.cu`` with ``-D<macro>``
+    (``SCAN_PROBE``: clock stamps between its phases,
+    ``csrc/scan_probe.cuh``; ``FLASH_BWD_OTHER_DQ``: the flash
+    backward's other dQ design) or, with ``on`` false, as shipped."""
+    if on:
+        _probed[stem] = macro
+    else:
+        _probed.pop(stem, None)
     _libs.pop(stem, None)
     build_info.pop(stem, None)
 
 
 def _flags(stem: str) -> list:
-    return NVCC_FLAGS + (["-DSCAN_PROBE"] if stem in _probed else [])
+    return NVCC_FLAGS + ([f"-D{_probed[stem]}"] if stem in _probed else [])
 
 
 def _nvcc() -> str:

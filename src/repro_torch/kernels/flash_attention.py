@@ -44,11 +44,13 @@ Training.  ``FlashAttention`` (the Function every training step runs on
 the card) launches this forward asking for each row's log-sum-exp and
 its backward kernel, ``csrc/flash_attention_bwd.cu``
 (``flash_attention_bwd``): FlashAttention-2 from the saved output and
-log-sum-exp, in two kernels without atomics -- dq by row tiles, dk and dv
-by key tiles walking the group's g heads -- skipping the 16 x 16 units no
-row sees and masking only the partly visible ones (``bwd_rows``,
-``bwd_keys``, ``bwd_unit_state``).  bf16 runs every product as a
-warpgroup MMA (``wgmma``, 64 rows or keys a block), fp32 on FMAs.  The
+log-sum-exp, by blocks of keys walking the rows of the group's g heads
+that see them, masking only the partly visible 16 x 16 units
+(``bwd_rows``, ``bwd_keys``, ``bwd_unit_state``).  bf16 is
+FlashAttention-3's shape: a producer warp feeding two consumer
+warpgroups of 64 keys through TMA and mbarriers, every product a
+warpgroup MMA (``wgmma``), and dQ not recomputed but summed over the key
+blocks in key order (bitwise repeatable); fp32 runs on FMAs.  The
 reference's TPU kernel has no backward; the reference trains by
 differentiating its checkpointed ``chunked_attention`` loop, whose
 gradient ``flash_attention_bwd_ref`` is: the oracle, and what meta
@@ -97,12 +99,13 @@ _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_void_p])
 # bf16: (warps, splits) in place of rows_per_thread
 _BF16_ARGTYPES = _ARGTYPES[:18] + [ctypes.c_int] * 2 + _ARGTYPES[19:]
-# the backward: q, k, v, out, lse, dout, dsum, dq, dk, dv; B, S, T, h, hk,
-# hd, hdv; the strides; causal, window; scale, stream
+# the backward: q, k, v, out, lse, dout, scratch (fp32: D; bf16: the
+# workspace), dq, dk, dv; B, S, T, h, hk, hd, hdv; the strides; causal,
+# window; scale, stream
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                  + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 2
                  + [ctypes.c_float, ctypes.c_void_p])
-# rows and keys of the unit on which both backward kernels skip or mask
+# rows and keys of the unit on which the backward kernel masks or not
 BWD_UNIT = 16
 
 
@@ -259,12 +262,11 @@ def bwd_unit_state(r0, r1, k0, k1, S, T, g, causal, window):
 
 
 def bwd_tiles(hd):
-    """The bf16 backward kernels' tiles at q/k width ``hd``: rows a dq
-    block and keys a dk/dv block (64: the M of their warpgroup products),
-    and the other side's staged tile, keys for dq and rows for dk/dv (64;
-    32 at MLA's 192, for the registers)."""
-    other = 32 if hd > 128 else 64
-    return {"dq_rows": 64, "dq_keys": other, "kv_keys": 64, "kv_rows": other}
+    """The bf16 backward kernel's tiles at q/k width ``hd``: keys a block
+    (128: 64 for each of its two consumer warpgroups, the M of their
+    products) and rows a staged Q/dO tile (64; 32 at MLA's 192, where dK
+    and dV take most of a consumer thread's registers)."""
+    return {"kv_keys": 128, "kv_rows": 32 if hd > 128 else 64}
 
 
 # The forms at which the card checks the backward kernel against
@@ -282,6 +284,13 @@ BWD_FORMS = (
     (1, 77, 77, 6, 2, 192, 128, True, 0),      # MLA's widths, g 3
     (2, 70, 90, 6, 2, 128, 128, False, 13),    # non-causal windowed, S < T
     (1, 300, 300, 48, 1, 128, 128, True, 0),   # granite's g 48
+    # the key block's and the row tile's edges: T one past a 128-key block
+    # (g S not a multiple of the tile; g 3: rows of a tile span positions),
+    # several key blocks adding to one row tile in turn, MLA one past
+    (1, 130, 130, 6, 2, 128, 128, True, 0),
+    (2, 100, 129, 4, 1, 64, 64, False, 0),
+    (1, 129, 129, 2, 2, 192, 128, True, 0),
+    (1, 200, 520, 6, 2, 64, 64, True, 130),
 )
 # The kernel against the tiled version, as max |err| / max |grad|.  The
 # two round P and dS to the same dtype and differ only in the order of
@@ -318,20 +327,22 @@ def _unit_mask(r0, r1, k0, k1, S, T, g, causal, window, device):
 
 def flash_attention_bwd_tiled(q, k, v, out, lse, dout, *, causal=True,
                               window=0, tiles=None):
-    """(dq, dk, dv) by the backward kernels' algorithm and schedule, in
+    """(dq, dk, dv) by the backward kernel's algorithm and schedule, in
     plain PyTorch (the CPU tests hold it to ``jax.grad`` of the reference's
-    ``chunked_attention``; on the card the kernels are held to it).
+    ``chunked_attention``; on the card the kernel is held to it).
 
     FlashAttention-2: D = rowsum(dout * out) in fp32, P = exp(S scale -
     lse) from the forward's log-sum-exp ``lse`` (B, h, S), dV = P^T dO
     with P rounded to v's dtype, dP = dO V^T, dS = P (dP - D), dQ = dS K
     scale and dK = dS^T Q scale with dS rounded to q's dtype; every sum
-    in fp32.  As the kernels: dq by blocks of rows over the keys they see
-    (``bwd_keys``, in whole key tiles), dk and dv by blocks of keys over
-    the rows that see them (``bwd_rows``, in whole row tiles), each
-    16-row x 16-key unit skipped, unmasked or masked by
-    ``bwd_unit_state``.  ``tiles``: ``bwd_tiles``'s keys (by default the
-    kernels' own at q's width)."""
+    in fp32.  As the kernel: by blocks of keys over the rows that see
+    them (``bwd_rows``, in whole row tiles), each 16-row x 16-key unit
+    unmasked or masked by ``bwd_unit_state``; a block's dQ partial (its
+    keys' dS K, fp32) is added to the fp32 sum of dQ block by block in key
+    order, and the sum is scaled and rounded once (at MLA's widths the
+    kernel's dq kernel sums 64-key tiles in one fp32 accumulator, in the
+    same key order).  ``tiles``: ``bwd_tiles``'s keys (by default the
+    kernel's own at q's width)."""
     B, S, h, hd = q.shape
     tiles = tiles or bwd_tiles(hd)
     T, hk, hdv = k.shape[1], k.shape[2], v.shape[3]
@@ -348,35 +359,26 @@ def flash_attention_bwd_tiled(q, k, v, out, lse, dout, *, causal=True,
     kh, vh = k.transpose(1, 2), v.transpose(1, 2)      # (B, hk, T, W)
     R = g * S
 
-    def probs(r0, r1, k0, k1):
+    dq = torch.zeros((B, hk, R, hd), dtype=torch.float32, device=dev)
+    dk = torch.zeros((B, hk, T, hd), dtype=torch.float32, device=dev)
+    dv = torch.zeros((B, hk, T, hdv), dtype=torch.float32, device=dev)
+    kb, qt = tiles["kv_keys"], tiles["kv_rows"]
+    for k0 in range(0, T, kb):                 # key blocks in key order
+        k1 = min(k0 + kb, T)
+        lo, hi = bwd_rows(k0, k1, S, T, g, causal, window)
+        if hi <= lo:
+            continue
+        r0, r1 = lo - lo % qt, min(R, -(-hi // qt) * qt)
         s = qr[:, :, r0:r1].float() @ kh[:, :, k0:k1].float().transpose(2, 3)
         x = s * scale - lse_r[:, :, r0:r1, None]
         vis = _unit_mask(r0, r1, k0, k1, S, T, g, causal, window, dev)
         p = torch.where(vis, torch.exp(x), torch.zeros((), device=dev))
         dp = dor[:, :, r0:r1].float() @ vh[:, :, k0:k1].float().transpose(2, 3)
-        return p, p * (dp - dsum[:, :, r0:r1, None])
-
-    dq = torch.zeros((B, hk, R, hd), dtype=torch.float32, device=dev)
-    dk = torch.zeros((B, hk, T, hd), dtype=torch.float32, device=dev)
-    dv = torch.zeros((B, hk, T, hdv), dtype=torch.float32, device=dev)
-    rt, kt = tiles["dq_rows"], tiles["dq_keys"]
-    for r0 in range(0, R, rt):
-        r1 = min(r0 + rt, R)
-        lo, hi = bwd_keys(r0, r1, S, T, g, causal, window)
-        if hi > lo:
-            k0, k1 = lo - lo % kt, min(T, -(-hi // kt) * kt)
-            _, ds = probs(r0, r1, k0, k1)
-            dq[:, :, r0:r1] = ds.to(q.dtype).float() @ kh[:, :, k0:k1].float()
-    kb, qt = tiles["kv_keys"], tiles["kv_rows"]
-    for k0 in range(0, T, kb):
-        k1 = min(k0 + kb, T)
-        lo, hi = bwd_rows(k0, k1, S, T, g, causal, window)
-        if hi > lo:
-            r0, r1 = lo - lo % qt, min(R, -(-hi // qt) * qt)
-            p, ds = probs(r0, r1, k0, k1)
-            pt, dst = p.transpose(2, 3), ds.transpose(2, 3)
-            dv[:, :, k0:k1] = pt.to(v.dtype).float() @ dor[:, :, r0:r1].float()
-            dk[:, :, k0:k1] = dst.to(q.dtype).float() @ qr[:, :, r0:r1].float()
+        ds = (p * (dp - dsum[:, :, r0:r1, None])).to(q.dtype).float()
+        dv[:, :, k0:k1] = p.transpose(2, 3).to(v.dtype).float() @ (
+            dor[:, :, r0:r1].float())
+        dk[:, :, k0:k1] = ds.transpose(2, 3) @ qr[:, :, r0:r1].float()
+        dq[:, :, r0:r1] += ds @ kh[:, :, k0:k1].float()
     dq = (dq * scale).reshape(B, hk, S, g, hd).permute(0, 2, 1, 3, 4)
     return (dq.reshape(B, S, h, hd).to(q.dtype),
             (dk * scale).transpose(1, 2).to(k.dtype),
@@ -610,6 +612,8 @@ def _bwd_lib(device):
             fn.restype = ctypes.c_int
         lib.flash_attention_bwd_init.argtypes = []
         lib.flash_attention_bwd_init.restype = ctypes.c_int
+        lib.flash_attention_bwd_bf16_workspace.argtypes = [ctypes.c_int] * 5
+        lib.flash_attention_bwd_bf16_workspace.restype = ctypes.c_ulonglong
         lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
         lib._devices = set()
@@ -631,11 +635,12 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0):
     """(dq, dk, dv) of ``flash_attention`` in q's, k's and v's dtypes, from
     the forward's output ``out`` and its rows' log-sum-exp ``lse`` (B, h,
     S) fp32, for the output gradient ``dout``.  Every form the forward
-    takes.  CUDA tensors launch ``csrc/flash_attention_bwd.cu`` (its dq
-    kernel, then its dk/dv kernel: one count) or raise, with the forward's
-    checks; k and v are read through their batch and sequence strides.
-    CPU tensors take ``flash_attention_bwd_tiled``, the same algorithm in
-    plain PyTorch."""
+    takes.  CUDA tensors launch ``csrc/flash_attention_bwd.cu`` (bf16: the
+    row statistics, the warp-specialised gradient kernel with dQ summed in
+    key-block order in a workspace, dQ's rounding; fp32: dq, then
+    dk/dv; one count) or raise, with the forward's checks; k and v are
+    read through their batch and sequence strides.  CPU tensors take
+    ``flash_attention_bwd_tiled``, the same algorithm in plain PyTorch."""
     _check(q, k, v, causal)
     B, S, h, hd = q.shape
     T, hk, hdv = k.shape[1], k.shape[2], v.shape[3]
@@ -662,15 +667,19 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0):
             raise ValueError(f"flash_attention_bwd: {name} must be 16-byte "
                              "aligned")
     lib = _bwd_lib(q.device)
-    fn = (lib.flash_attention_bwd_f32 if q.dtype == torch.float32
-          else lib.flash_attention_bwd_bf16)
     dq = torch.empty_like(q)
     dk = torch.empty((B, T, hk, hd), dtype=q.dtype, device=q.device)
     dv = torch.empty((B, T, hk, hdv), dtype=q.dtype, device=q.device)
-    dsum = torch.empty((B, h, S), dtype=torch.float32, device=q.device)
+    if q.dtype == torch.float32:
+        fn = lib.flash_attention_bwd_f32
+        scratch = torch.empty((B, h, S), dtype=torch.float32, device=q.device)
+    else:
+        fn = lib.flash_attention_bwd_bf16
+        scratch = torch.empty(lib.flash_attention_bwd_bf16_workspace(
+            B, S, h, hk, hd), dtype=torch.uint8, device=q.device)
     scale = float(np.float32(1.0 / np.sqrt(hd)))
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), dout.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+            lse.data_ptr(), dout.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, S, T, h, hk, hd, hdv,
             k.stride(0), k.stride(1), v.stride(0), v.stride(1),
             int(bool(causal)), int(window), scale,

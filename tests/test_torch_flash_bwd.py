@@ -26,9 +26,9 @@ torch.set_num_threads(2)
 # (tests/test_torch_flash_attention.py's width cases): max |err| within
 # 1e-5 of max |grad|
 GRAD_RTOL = 1e-5
-# tiles small enough that a 64-row call has several, with the kernels'
-# ratios (a dk/dv block's row tile half its key block)
-SMALL_TILES = {"dq_rows": 32, "dq_keys": 32, "kv_keys": 32, "kv_rows": 16}
+# tiles small enough that a 64-row call has several, with the kernel's
+# ratio (a row tile half its key block)
+SMALL_TILES = {"kv_keys": 32, "kv_rows": 16}
 
 FORMS = [
     # name, S, T, causal, window
@@ -85,6 +85,48 @@ def test_tiled_backward_matches_reference_grad(case):
     for name, a, w in zip("qkv", got, want):
         w = np.asarray(w)
         assert a.shape == w.shape and a.dtype == torch.float32, name
+        assert np.abs(a.numpy() - w).max() <= GRAD_RTOL * np.abs(w).max(), name
+
+
+# the kernel's own tiles (128-key blocks, 64-row tiles; 32 at MLA's
+# widths) at their edges: T one past a key block, several key blocks
+# adding to one row tile in turn, g S not a multiple of the row tile and
+# g 3 (a tile's rows span positions), causal, windowed, non-causal
+EDGES = [
+    # hd, hdv, S, T, g, causal, window
+    (64, 64, 129, 129, 3, True, 0),
+    (64, 64, 40, 129, 2, False, 0),
+    (128, 128, 70, 260, 3, True, 150),
+    (192, 128, 50, 129, 1, True, 0),
+    (192, 128, 33, 140, 3, False, 20),
+]
+
+
+@pytest.mark.parametrize("edge", EDGES, ids=str)
+def test_tiled_backward_at_kernel_tile_edges(edge):
+    """flash_attention_bwd_tiled at the kernel's default tiles against
+    jax.grad of the reference's chunked_attention, within 1e-5 x max
+    |grad|, where the key blocks and row tiles end ragged."""
+    hd, hdv, S, T, g, causal, window = edge
+    B, hk = 1, 2
+    q, k, v, dout = _inputs(S + T + g, B, S, T, g * hk, hk, hd, hdv)
+    q_pos = jnp.arange(S) + (T - S if causal or window else 0)
+
+    def jfwd(q, k, v):
+        return jax_chunked(q, k, v, q_positions=q_pos,
+                           kv_positions=jnp.arange(T), causal=causal,
+                           window=window, chunk=32)
+
+    want = jax.grad(lambda *a: jnp.sum(jfwd(*a) * dout), argnums=(0, 1, 2))(
+        *map(jnp.asarray, (q, k, v)))
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, dout))
+    out = flash_attention_ref(tq, tk, tv, causal=causal, window=window)
+    lse = flash_attention_lse_ref(tq, tk, causal=causal, window=window)
+    got = flash_attention_bwd_tiled(tq, tk, tv, out, lse, tdo, causal=causal,
+                                    window=window)
+    for name, a, w in zip("qkv", got, want):
+        w = np.asarray(w)
+        assert a.shape == w.shape, name
         assert np.abs(a.numpy() - w).max() <= GRAD_RTOL * np.abs(w).max(), name
 
 
@@ -183,3 +225,25 @@ def test_schedule_matches_brute_force_mask(sched):
             assert bwd_keys(r0, min(r0 + block, R), S, T, g, causal,
                             window) == want, ("keys", r0)
             assert seen.size == 0 or seen.size == want[1] - want[0]
+
+
+def test_dq_kernel_probe_is_its_own_library_and_needs_the_card(monkeypatch):
+    """The other dQ design's build (``-DFLASH_BWD_OTHER_DQ``, timed by
+    ``launch.probe_flash_bwd``) builds under another name than the
+    shipped backward, switching it off returns to the shipped build, and
+    the probe refuses to run without the card."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import probe_flash_bwd
+    stem = probe_flash_bwd.STEM
+    shipped = build._paths(stem)[1]
+    assert not any("FLASH_BWD_OTHER_DQ" in f for f in build._flags(stem))
+    build.set_probe(stem, True, probe_flash_bwd.MACRO)
+    try:
+        assert "-DFLASH_BWD_OTHER_DQ" in build._flags(stem)
+        assert build._paths(stem)[1] != shipped
+    finally:
+        build.set_probe(stem, False)
+    assert build._paths(stem)[1] == shipped
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="card"):
+        probe_flash_bwd.main([])
